@@ -1,0 +1,149 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source compiles with ``nvcc`` for ``sm_90a`` into its own shared library
+with a plain C interface under ``<repo>/build/kernels/`` on first use, and is
+loaded with :mod:`ctypes`. Nothing here runs at import time: the CPU tests
+import every module of the package on machines without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+SOURCES = ("rdb_ct", "tail_ct")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures (every pointer and the stream as c_void_p, or ctypes truncates
+# them to 32-bit ints); each function returns cudaGetLastError() as an int.
+SIGNATURES = {
+    "rdb_ct": {
+        "esr_dense_conv3x3": [I, I, I, P, I, P, I, I, P, P, P, P, I, P, I, P, I,
+                              F, F, F, I, I, I, P],
+    },
+    "tail_ct": {
+        "esr_upfold": [I, I, I, P, P, P, P, I, I, I, F, P],
+        "esr_conv_hr": [I, I, I, P, P, P, P, P, P, I, I, I, F, P],
+    },
+}
+
+_libs: dict = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on first "
+                       "use and need the CUDA toolkit (set CUDA_HOME)")
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = _lib_path(name)
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in CSRC.glob("*.cu*"))
+    return lib.stat().st_mtime < newest
+
+
+def build(names=SOURCES, force: bool = False) -> dict:
+    """Compile ``names`` (one ``nvcc`` per source, all started together).
+
+    Returns ``{name: compiler output}`` (``-Xptxas -v`` register, shared
+    memory and spill lines) for the sources that were compiled. Raises with
+    the compiler output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in names:
+        if not force and not _stale(name):
+            continue
+        tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT,
+                                             text=True))
+    logs, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode != 0:
+            failed.append(name)
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, _lib_path(name))  # atomic: no process loads a half-written file
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for source ``name``, built first if missing or
+    older than its sources."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            if _stale(name):
+                build((name,))
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            for fn, argtypes in SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {code}")
+
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(f"CUDA kernels take float32 or bfloat16, got {t.dtype}")
+    return DTYPE_CODES[t.dtype]
+
+
+KERNEL_WIDTHS = (8, 16, 32, 64)  # output-channel counts csrc/*.cu instantiate
+
+
+def require_width(n: int, name: str, widths=KERNEL_WIDTHS) -> None:
+    if n not in widths:
+        raise ValueError(f"{name}={n}: the CUDA kernels take {widths}")
+
+
+def require(t, name: str, shape: tuple, dtype, device) -> None:
+    """Validate a tensor handed to a CUDA kernel: device, dtype, shape and
+    contiguity (the kernels index NHWC / HWIO buffers densely)."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
