@@ -9,8 +9,9 @@ final result line:
   1. build   — compile every kernel source (esrganplus_tpu_torch/csrc/*.cu,
                one nvcc per source, in parallel) and print ptxas -v lines;
   2. kernels — each CUDA kernel against its plain PyTorch twin at flagship
-               widths (nf=64, gc=32) on an odd shape (B=2, 37×53 LR) and the
-               main path's shape (B=1, 128×128 LR), fp32 (TF32 off) and bf16;
+               widths (nf=64, gc=32) on an odd shape (B=2, 37×53 LR), the
+               main path's shape (B=1, 128×128 LR) and the training path's
+               (B=16, 32×32 LR), fp32 (TF32 off) and bf16;
                CUDA-event times of the kernel, the twin and a PyTorch
                yardstick (cuDNN convolutions), and the bound for the work;
   3. main    — flagship ESRGAN+ ×4 (nb=23, nf=64, gc=32) with seeded random
@@ -19,7 +20,29 @@ final result line:
                launch counts per image, and the bf16 kernel path against the
                fp32 plain path (and the fp32 kernel path) on the card; then
                the small golden ESRGAN+ checkpoint (tests/golden) through the
-               kernel path against the reference implementation's output.
+               kernel path against the reference implementation's output;
+  4. kernels-train-fwd — rdb_ct's training forward (saved l2|l4, the noise
+               epilogue) at the training shape: its output and both saved
+               buffers against the plain twin's, fp32 and bf16;
+     kernels-bwd — each backward wrapper (rdb_ct_bwd, conv3x3_ct_bwd,
+               upfold_ct_bwd at both stages, conv_hr_ct_bwd) against its plain
+               twin at the training shape (batch 16, 32×32 LR), fp32 and bf16,
+               on the kernel's saved buffers and again with the twin fed its
+               own forward's buffers, with times, bounds and a cuDNN-autograd
+               yardstick;
+  5. train-check — flagship width and depth, one batch: loss and every
+               gradient leaf of the kernel path against autograd of the plain
+               graph on the card, fp32 then bf16, the same noise fed to both;
+  6. train   — a seeded PNG dataset and an options file under build/smoke/,
+               then ``esrganplus_tpu_torch.cli.train`` at the full flagship
+               config (batch 16, HR 128, bf16, noise on) for 16 steps with the
+               debug cadences; checks the logged losses, the launch counts of
+               all eight kernels, the exported checkpoint, and a resume from
+               step 8 that must end bit-equal to the uninterrupted run;
+  7. train-steady — ``SRTrainer.train_step`` on one device-resident batch:
+               median ms/step and crops/s, twice from one seed (bit-equal);
+     with ``--profile`` also a ``torch.profiler`` trace of three steady steps
+     (device time by kernel family, the card's busy share).
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.
@@ -41,7 +64,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # H100 SXM: fp32 CUDA cores, bf16 dense
 PEAK_BYTES = 3.35e12
 NF, GC, OUT_NC = 64, 32, 3
-SHAPES = {"odd": (2, 37, 53), "bench": (1, 128, 128)}  # (B, H, W) of the LR image
+TRAIN_SHAPE = (16, 32, 32)  # batch, LR height, LR width of the reference recipe
+# (B, H, W) of the LR image
+SHAPES = {"odd": (2, 37, 53), "bench": (1, 128, 128), "train": TRAIN_SHAPE}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max|Δ| / max(1, max|ref|)
 MAX_DIFFER_BF16 = 0.01  # share of bf16 outputs that may differ from the twin at all
 REPLACES = {
@@ -55,6 +80,22 @@ SOURCES = {"rdb_ct": "esrganplus_tpu_torch/csrc/rdb_ct.cu",
            "upfold_ct": "esrganplus_tpu_torch/csrc/tail_ct.cu",
            "conv_hr_ct": "esrganplus_tpu_torch/csrc/tail_ct.cu"}
 PER_IMAGE = {"rdb_ct": 69, "conv3x3_ct": 1, "upfold_ct": 2, "conv_hr_ct": 1}
+# the training slice: backward wrappers, per optimizer step
+BWD_PER_STEP = {"rdb_ct_bwd": 69, "conv3x3_ct_bwd": 1, "upfold_ct_bwd": 2, "conv_hr_ct_bwd": 1}
+BWD_REPLACES = {
+    "rdb_ct_bwd": "esrganplus_tpu/kernels/rdb_ct.py:927",
+    "conv3x3_ct_bwd": "esrganplus_tpu/kernels/rdb_ct.py:669",
+    "upfold_ct_bwd": "esrganplus_tpu/kernels/tail_ct.py:749",
+    "conv_hr_ct_bwd": "esrganplus_tpu/kernels/tail_ct.py:830",
+}
+BWD_SOURCE = ("esrganplus_tpu_torch/csrc/dgrad_ct.cu + "
+              "esrganplus_tpu_torch/csrc/wgrad_ct.cu")
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # per gradient, of max|ref|
+# the same, with the twin's backward fed the twin's own forward buffers: where a
+# saved activation is within a summation-order difference of 0 its lrelu mask
+# flips in one of the two, which moves single elements of dz by 0.8·|cotangent|
+BWD_TOL_OWN_BUFFERS = 5e-2
+TRAIN_STEPS, VAL_IMAGES = 16, 2
 
 
 def emit(obj):
@@ -81,7 +122,8 @@ def ptxas_summary(log: str) -> list:
     template arguments, registers, shared memory and spill bytes."""
     out, name, spill = [], None, "0"
     for line in log.splitlines():
-        m = re.search(r"(dense_conv3x3_kernel|upfold_kernel|conv_hr_kernel)I(\w+?)EE", line)
+        m = re.search(r"(dense_conv3x3_kernel|upfold_kernel|conv_hr_kernel|dgrad_kernel|"
+                      r"wgrad_kernel)I(\w+?)EE", line)
         if m:
             args = (m.group(2).replace("13__nv_bfloat16", "bf16").replace("Li", ",")
                     .replace("E", "").lstrip(","))
@@ -377,6 +419,497 @@ def main_path(failures, workdir):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 4: backward kernels against their plain twins (training shape)
+# ---------------------------------------------------------------------------
+
+
+def make_bwd_cases(dtype, gen):
+    """Per backward wrapper: (cuda call, plain call, yardstick call, forward
+    MACs, bytes, plain call on the twin's own forward buffers or None) on the
+    tensors a training step hands it. The yardstick is ``torch.autograd.grad``
+    through a cuDNN ``F.conv2d`` graph built once (the port never calls it).
+    Also returns rdb_ct's training forward from the kernel and from the twin,
+    ``{"out" | "cat" | "lsv": (kernel's, twin's)}``."""
+    import torch
+    import torch.nn.functional as F
+
+    from esrganplus_tpu_torch.kernels import rdb_ct as K
+    from esrganplus_tpu_torch.kernels import tail_ct as T
+    from esrganplus_tpu_torch.models.layers import fp32_exact
+
+    dev = "cuda"
+    B, H, W = TRAIN_SHAPE
+    esz = torch.tensor([], dtype=dtype).element_size()
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    def conv_w(cin, cout):
+        return {"w": rnd(3, 3, cin, cout, scale=(2.0 / (9 * cin)) ** 0.5),
+                "b": rnd(cout, scale=0.1)}
+
+    act = lambda h, w, c=NF: torch.randn((B, h, w, c), generator=gen).to(dev, dtype)
+    nchw = lambda t: t.permute(0, 3, 1, 2).contiguous()
+    oihw = lambda w: w.to(dtype).permute(3, 2, 0, 1).contiguous().requires_grad_()
+    lrelu = lambda t: F.leaky_relu(t, 0.2)
+    fbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts if t is not None)
+    cases = {}
+
+    def lib_grad(build_out, inputs, g):
+        out = build_out()
+        gn = nchw(g)
+        return lambda: torch.autograd.grad(out, inputs, gn, retain_graph=True)
+
+    # rdb_ct_bwd: noise on, scale not detached (the flagship recipe)
+    rdb = {f"conv{k}": conv_w(NF + (k - 1) * GC, NF if k == 5 else GC) for k in range(1, 6)}
+    rdb["conv1x1"] = {"w": rnd(1, 1, NF, GC, scale=(2.0 / NF) ** 0.5)}
+    wr = K.prepare_rdb_ct_weights(rdb, dtype)
+    x, noise, g = act(H, W), act(H, W), act(H, W)
+    with fp32_exact():
+        fwd_k = K._rdb_ct_cuda(x, wr, None, noise, sigma=0.1, save=True)
+        fwd_p = K._rdb_ct_train_plain(x, wr, None, noise, sigma=0.1)
+    (_, cat, lsv), (_, cat_p, lsv_p) = fwd_k, fwd_p
+    train_fwd = dict(zip(("out", "cat", "lsv"), zip(fwd_k, fwd_p)))
+    xn = nchw(x).requires_grad_()
+    ws = [(oihw(rdb[f"conv{k}"]["w"]), rdb[f"conv{k}"]["b"].to(dtype).requires_grad_())
+          for k in range(1, 6)]
+    w11 = oihw(rdb["conv1x1"]["w"])
+
+    def rdb_lib():
+        c = lambda t, k: F.conv2d(t, ws[k][0], ws[k][1], padding=1)
+        x1 = lrelu(c(xn, 0))
+        x2 = lrelu(c(torch.cat([xn, x1], 1), 1)) + F.conv2d(xn, w11)
+        x3 = lrelu(c(torch.cat([xn, x1, x2], 1), 2))
+        x4 = lrelu(c(torch.cat([xn, x1, x2, x3], 1), 3)) + x2
+        out = c(torch.cat([xn, x1, x2, x3, x4], 1), 4) * 0.2 + xn
+        return out * (1 + 0.1 * nchw(noise))
+
+    mac = 9 * sum((NF + (k - 1) * GC) * (NF if k == 5 else GC) for k in range(1, 6)) + NF * GC
+    wcount = sum(t.numel() for k, t in wr.items() if t is not None and k.startswith("w"))
+    args = (x, wr, cat, lsv, g, noise)
+    args_p = (x, wr, cat_p, lsv_p, g, noise)
+    cases["rdb_ct_bwd"] = (
+        lambda: K.rdb_ct_bwd(*args, sigma=0.1), lambda: K.rdb_ct_bwd_plain(*args, sigma=0.1),
+        lib_grad(rdb_lib, [xn, w11] + [t for pair in ws for t in pair], g),
+        B * H * W * mac,
+        fbytes(x, cat, lsv, g, noise, x) + wcount * (esz + 4),  # + dx; weights in, dW fp32 out
+        lambda: K.rdb_ct_bwd_plain(*args_p, sigma=0.1))
+
+    # conv3x3_ct_bwd
+    tc = conv_w(NF, NF)
+    wc, _ = K.prepare_conv_ct_weights(tc["w"], tc["b"], dtype)
+    wco, bco = oihw(tc["w"]), tc["b"].to(dtype).requires_grad_()
+    cases["conv3x3_ct_bwd"] = (
+        lambda: K.conv3x3_ct_bwd(x, wc, g), lambda: K.conv3x3_ct_bwd_plain(x, wc, g),
+        lib_grad(lambda: F.conv2d(xn, wco, bco, padding=1), [xn, wco, bco], g),
+        B * H * W * 9 * NF * NF, fbytes(x, g, x) + wc.numel() * (esz + 4), None)
+
+    # upfold_ct_bwd: both stages of the ×4 tail
+    up = conv_w(NF, NF)
+    wf, bf = T.prepare_upfold_ct(up["w"], up["b"], dtype)
+    wuo, buo = oihw(up["w"]), up["b"].to(dtype).requires_grad_()
+    for tag, mul in (("upfold_ct_bwd", 1), ("upfold_ct_bwd_2nd", 2)):
+        xs = act(mul * H, mul * W)
+        with fp32_exact():
+            out, out_p = T.upfold_ct(xs, wf, bf), T.upfold_ct_plain(xs, wf, bf)
+        gs = act(2 * mul * H, 2 * mul * W)
+        xsn = nchw(xs).requires_grad_()
+        cases[tag] = (
+            lambda xs=xs, out=out, gs=gs: T.upfold_ct_bwd(xs, wf, out, gs),
+            lambda xs=xs, out=out, gs=gs: T.upfold_ct_bwd_plain(xs, wf, out, gs),
+            lib_grad(lambda xsn=xsn: lrelu(F.conv2d(
+                F.interpolate(xsn, scale_factor=2, mode="nearest"), wuo, buo, padding=1)),
+                [xsn, wuo, buo], gs),
+            4 * mul * mul * B * H * W * 4 * NF * NF,
+            fbytes(xs, out, gs, xs) + wf.numel() * (esz + 4),
+            lambda xs=xs, out_p=out_p, gs=gs: T.upfold_ct_bwd_plain(xs, wf, out_p, gs))
+
+    # conv_hr_ct_bwd on the 4×LR image
+    hr0, hr1 = conv_w(NF, NF), conv_w(NF, OUT_NC)
+    w0, b0, w1, _ = T.prepare_conv_hr_ct(hr0, hr1, dtype)
+    xh, gh = act(4 * H, 4 * W), act(4 * H, 4 * W, OUT_NC)
+    xhn = nchw(xh).requires_grad_()
+    w0o, b0o = oihw(hr0["w"]), hr0["b"].to(dtype).requires_grad_()
+    w1o, b1o = oihw(hr1["w"]), hr1["b"].to(dtype).requires_grad_()
+    cases["conv_hr_ct_bwd"] = (
+        lambda: T.conv_hr_ct_bwd(xh, w0, b0, w1, gh),
+        lambda: T.conv_hr_ct_bwd_plain(xh, w0, b0, w1, gh),
+        lib_grad(lambda: F.conv2d(lrelu(F.conv2d(xhn, w0o, b0o, padding=1)), w1o, b1o,
+                                  padding=1), [xhn, w0o, b0o, w1o, b1o], gh),
+        B * 16 * H * W * 9 * NF * (NF + OUT_NC),
+        fbytes(xh, gh, xh) + (w0.numel() + w1.numel()) * (esz + 4), None)
+    return cases, train_fwd
+
+
+def check_bwd_kernels(failures):
+    import torch
+
+    from esrganplus_tpu_torch.models.layers import fp32_exact
+
+    gen = torch.Generator().manual_seed(1)
+    report = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        cases, train_fwd = make_bwd_cases(dtype, gen)
+        # rdb_ct's training forward: what the backward's masks and products read
+        row = {"phase": "kernels-train-fwd", "kernel": "rdb_ct", "dtype": dname,
+               "lr": list(TRAIN_SHAPE), "noise_sigma": 0.1, "tol": TOL[dname], "ok": True}
+        for key, (got, ref) in train_fwd.items():
+            d, rel = rel_err(got, ref)
+            differ = (got != ref).float().mean().item()
+            mask_differ = ((got >= 0) != (ref >= 0)).float().mean().item()
+            row[key] = {"max_abs_err": d, "rel_err": rel, "frac_differ": differ,
+                        "frac_sign_differ": mask_differ}
+            row["ok"] = bool(row["ok"] and torch.isfinite(got.float()).all()
+                             and rel <= TOL[dname]
+                             and (dname == "float32" or differ <= MAX_DIFFER_BF16))
+        emit(row)
+        if not row["ok"]:
+            failures.append(f"rdb_ct training forward {dname}: {row}")
+
+        def worst_err(got, ref):
+            worst, worst_abs, finite = 0.0, 0.0, True
+            for k, r in ref.items():
+                if r is None:
+                    continue
+                a, r = got[k].float(), r.float()
+                finite = finite and bool(torch.isfinite(a).all())
+                d = (a - r).abs().max().item()
+                worst_abs = max(worst_abs, d)
+                worst = max(worst, d / max(r.abs().max().item(), 1e-30))
+            return worst, worst_abs, finite
+
+        for name, (kern, plain, lib, macs, nbytes, plain_own) in cases.items():
+            with fp32_exact():
+                got = kern()
+                torch.cuda.synchronize()
+                worst, worst_abs, finite = worst_err(got, plain())
+                ok = finite and worst <= BWD_TOL[dname]
+                own = {}
+                if plain_own is not None:
+                    own = {"rel_err_own_buffers": worst_err(got, plain_own())[0],
+                           "tol_own_buffers": BWD_TOL_OWN_BUFFERS}
+                    ok = ok and own["rel_err_own_buffers"] <= BWD_TOL_OWN_BUFFERS
+                # backward does the forward's products twice (dx and dW)
+                ops_ms = 2 * 2 * macs / PEAK_FLOPS[dname] * 1e3
+                bytes_ms = nbytes / PEAK_BYTES * 1e3
+                row = {"phase": "kernels-bwd", "kernel": name, "dtype": dname,
+                       "lr": list(TRAIN_SHAPE), "max_abs_err": worst_abs,
+                       "rel_err": worst, "tol": BWD_TOL[dname], "ok": ok,
+                       "ms": time_ms(kern, iters=10), "plain_ms": time_ms(plain, iters=5),
+                       "library_ms": time_ms(lib, iters=10),
+                       "bound_ms": max(ops_ms, bytes_ms),
+                       "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", **own}
+                report[(name, dname)] = row
+            emit(row)
+            if not ok:
+                failures.append(f"{name} {dname}: gradient rel err {worst:.3g}"
+                                + (f", twin on its own buffers "
+                                   f"{own['rel_err_own_buffers']:.3g}" if own else ""))
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phases 5-7: training
+# ---------------------------------------------------------------------------
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in _leaves(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree) for kv in _leaves(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def train_check(failures):
+    """Flagship width and depth, one batch of the training shape: the kernel
+    path's loss and every gradient leaf against autograd of the plain graph
+    (cuDNN with TF32 off, in its backward too) on the card, the same noise
+    tensors fed to both. fp32: loss 1e-5, every leaf within 1e-3 of max|ref|.
+    bf16 (kernel path in bf16 against the fp32 plain graph): the loss within
+    2e-2, every leaf within 0.1 and the whole gradient's cosine at least
+    0.999; the bf16 cuDNN graph's own figures are printed beside it."""
+    import dataclasses
+
+    import torch
+
+    from esrganplus_tpu_torch.infer import params_to
+    from esrganplus_tpu_torch.models.layers import fp32_exact
+    from esrganplus_tpu_torch.models.rrdb import (RRDBNetConfig, draw_noise, init_rrdbnet,
+                                                  rrdbnet_forward)
+
+    cfg = RRDBNetConfig()
+    plain = dataclasses.replace(cfg, trunk_kernel="plain", tail_kernel="plain")
+    B, H, W = TRAIN_SHAPE
+    params = params_to(init_rrdbnet(cfg, seed=0, init_scale=0.5), "cuda")
+    named = _leaves(params)
+    for _, p in named:
+        p.requires_grad_()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.rand((B, H, W, 3), generator=gen, device="cuda")
+    hr = torch.rand((B, 4 * H, 4 * W, 3), generator=gen, device="cuda")
+    noise = draw_noise(cfg, (B, H, W, cfg.nf), gen, torch.float32, "cuda")
+
+    def run(c, dtype):
+        with fp32_exact():  # the backward runs here, outside the forward's own context
+            y = rrdbnet_forward(params, x, c, train=True, noise=noise, dtype=dtype)
+            loss = (y.float() - hr).abs().mean()
+            grads = torch.autograd.grad(loss, [p for _, p in named])
+        return loss.item(), grads
+
+    flat = lambda gs: torch.cat([g.flatten().float() for g in gs])
+    l_ref, g_ref = run(plain, None)
+    for dname, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        l_k, g_k = run(cfg, dtype)
+        per_leaf = {n: ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                    for (n, _), a, b in zip(named, g_k, g_ref)}
+        worst = max(per_leaf, key=per_leaf.get)
+        cos = torch.nn.functional.cosine_similarity(flat(g_k), flat(g_ref), dim=0).item()
+        row = {"phase": "train-check", "dtype": dname, "loss_plain_fp32": l_ref,
+               "loss_kernel": l_k, "loss_rel_err": abs(l_k - l_ref) / abs(l_ref),
+               "grad_worst_leaf": worst, "grad_worst_rel_err": per_leaf[worst],
+               "grad_cosine": cos, "leaves": len(named),
+               "finite": all(bool(torch.isfinite(g).all()) for g in g_k)}
+        if dtype is None:
+            row.update(tol_loss=1e-5, tol_grad=1e-3)
+            ok = row["loss_rel_err"] <= 1e-5 and per_leaf[worst] <= 1e-3
+        else:
+            l_p, g_p = run(plain, dtype)  # context: the cuDNN bf16 graph's own distance
+            row.update(tol_loss=2e-2, tol_grad=0.1, tol_cosine=0.999,
+                       plain_bf16_loss_rel_err=abs(l_p - l_ref) / abs(l_ref),
+                       plain_bf16_grad_cosine=torch.nn.functional.cosine_similarity(
+                           flat(g_p), flat(g_ref), dim=0).item())
+            ok = row["loss_rel_err"] <= 2e-2 and per_leaf[worst] <= 0.1 and cos >= 0.999
+        row["ok"] = bool(ok and row["finite"])
+        emit(row)
+        if not row["ok"]:
+            failures.append(f"train-check {dname}: {row}")
+
+
+def _smooth_image(rng, h, w):
+    """Smooth random content: bilinear blow-up of a coarse random grid."""
+    coarse = rng.rand(h // 8 + 2, w // 8 + 2, 3)
+    yy = np.linspace(0, coarse.shape[0] - 1.001, h)
+    xx = np.linspace(0, coarse.shape[1] - 1.001, w)
+    y0, x0 = yy.astype(int), xx.astype(int)
+    fy, fx = (yy - y0)[:, None, None], (xx - x0)[None, :, None]
+    img = ((1 - fy) * ((1 - fx) * coarse[y0][:, x0] + fx * coarse[y0][:, x0 + 1])
+           + fy * ((1 - fx) * coarse[y0 + 1][:, x0] + fx * coarse[y0 + 1][:, x0 + 1]))
+    return (img * 255).round().astype(np.uint8)
+
+
+def _logged_losses(exp_dir):
+    """{step: the l_pix text} from the newest train log of an experiment."""
+    logs = sorted(f for f in os.listdir(exp_dir) if f.endswith(".log"))
+    text = open(os.path.join(exp_dir, logs[-1])).read()
+    return {int(m.group(1).replace(",", "")): m.group(2)
+            for m in re.finditer(r"<step:\s*([\d,]+),.*?l_pix: (\S+)", text)}, text
+
+
+def train_path(failures, workdir):
+    """16 flagship training steps through the CLI, then a resume from step 8."""
+    import shutil
+
+    import torch
+
+    from esrganplus_tpu_torch.cli import train as train_cli
+    from esrganplus_tpu_torch.infer import load_generator
+    from esrganplus_tpu_torch.kernels import rdb_ct as K
+    from esrganplus_tpu_torch.kernels import tail_ct as T
+    from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig, init_rrdbnet
+    from esrganplus_tpu_torch.ops.image_io import save_img
+    from esrganplus_tpu_torch.ops.resize import imresize_np
+
+    rng = np.random.RandomState(3)
+    dirs = {k: os.path.join(workdir, k) for k in ("HR", "LR", "valHR", "valLR")}
+    for prefix, n, size in (("", 8, (192, 192)), ("val", VAL_IMAGES, (96, 128))):
+        for i in range(n):
+            img = _smooth_image(rng, *size)
+            save_img(img, os.path.join(dirs[prefix + "HR"], f"img{i}.png"))
+            lr = np.clip(imresize_np(img.astype(np.float32) / 255.0, 0.25), 0, 1)
+            save_img((lr * 255).round().astype(np.uint8),
+                     os.path.join(dirs[prefix + "LR"], f"img{i}.png"))
+    opt = {
+        "name": "debug_smoke", "model": "sr", "scale": 4, "use_tb_logger": False,
+        "datasets": {
+            # one worker: the batch stream is then a function of the seed alone
+            "train": {"name": "smoke", "mode": "LRHR", "dataroot_HR": dirs["HR"],
+                      "dataroot_LR": dirs["LR"], "n_workers": 1, "batch_size": TRAIN_SHAPE[0],
+                      "HR_size": 4 * TRAIN_SHAPE[1], "use_flip": True, "use_rot": True},
+            "val": {"name": "smoke_val", "mode": "LRHR", "dataroot_HR": dirs["valHR"],
+                    "dataroot_LR": dirs["valLR"]},
+        },
+        "path": {"root": workdir},
+        "network_G": {"which_model_G": "RRDB_net", "norm_type": None, "mode": "CNA",
+                      "nf": NF, "nb": 23, "in_nc": 3, "out_nc": OUT_NC, "gc": GC,
+                      "gaussian_noise": True},
+        "train": {"lr_G": 2e-4, "lr_scheme": "MultiStepLR", "lr_steps": [200000],
+                  "lr_gamma": 0.5, "pixel_criterion": "l1", "pixel_weight": 1.0,
+                  "manual_seed": 0, "niter": TRAIN_STEPS, "compute_dtype": "bfloat16"},
+        "logger": {"print_freq": 2},
+    }
+    opt_path = os.path.join(workdir, "train_smoke.json")
+    with open(opt_path, "w") as f:
+        json.dump(opt, f, indent=1)
+
+    fwd = (K.rdb_ct, K.conv3x3_ct, T.upfold_ct, T.conv_hr_ct)
+    bwd = (K.rdb_ct_bwd, K.conv3x3_ct_bwd, T.upfold_ct_bwd, T.conv_hr_ct_bwd)
+    for fn in fwd + bwd:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    train_cli.main(["-opt", opt_path, "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in fwd + bwd}
+    # forward: every step, plus each validation image at steps 8 and 16
+    n_val = VAL_IMAGES * (TRAIN_STEPS // 8)
+    for k, per in PER_IMAGE.items():
+        if launches[k] != per * (TRAIN_STEPS + n_val):
+            failures.append(f"train: {k} launched {launches[k]} times, expected "
+                            f"{per * (TRAIN_STEPS + n_val)}")
+    for k, per in BWD_PER_STEP.items():
+        if launches[k] != per * TRAIN_STEPS:
+            failures.append(f"train: {k} launched {launches[k]} times, expected "
+                            f"{per * TRAIN_STEPS}")
+
+    exp = os.path.join(workdir, "experiments", "debug_smoke")
+    losses, text = _logged_losses(exp)
+    finite = all(np.isfinite(float(v)) for v in losses.values())
+    files = {f: os.path.exists(os.path.join(exp, f)) for f in
+             ("training_state/8.state.npz", "training_state/16.state.npz", "models/8_G.pth",
+              "models/16_G.pth", "models/latest_G.pth")}
+    cfg = RRDBNetConfig()
+    latest = os.path.join(exp, "models", "latest_G.pth")
+    trained, tcfg, _ = load_generator(latest, device="cuda")
+    init = init_rrdbnet(cfg, seed=0, init_scale=0.1)
+    moved = max((a.cpu() - b).abs().max().item()
+                for (_, a), (_, b) in zip(_leaves(trained), _leaves(init)))
+    row = {"phase": "train", "steps": TRAIN_STEPS, "seconds_total": seconds,
+           "launches": launches, "l_pix": losses, "finite": finite, "files": files,
+           "validations": text.count("Validation # PSNR"), "max_abs_weight_change": moved,
+           "reloaded": [tcfg.nb, tcfg.nf, tcfg.gc]}
+    ok = (finite and sorted(losses) == list(range(2, TRAIN_STEPS + 1, 2)) and all(files.values())
+          and row["validations"] == TRAIN_STEPS // 8 and moved > 0
+          and (tcfg.nb, tcfg.nf, tcfg.gc) == (23, NF, GC))
+    row["ok"] = bool(ok)
+    emit(row)
+    if not ok:
+        failures.append(f"train: {row}")
+
+    # resume from step 8: the same batches, noise and arithmetic must follow
+    kept = os.path.join(workdir, "latest_G_uninterrupted.pth")
+    shutil.copy(latest, kept)
+    opt["path"]["resume_state"] = os.path.join(exp, "training_state", "8.state.npz")
+    with open(opt_path, "w") as f:
+        json.dump(opt, f, indent=1)
+    train_cli.main(["-opt", opt_path, "--device", "cuda"])
+    torch.cuda.synchronize()
+    losses2, text2 = _logged_losses(exp)
+    a, b = torch.load(kept), torch.load(latest)
+    diff = max((a[k] - b[k]).abs().max().item() for k in a)
+    row = {"phase": "train-resume", "resumed": "resumed from" in text2, "l_pix": losses2,
+           "l_pix_same_as_uninterrupted": all(losses2.get(s) == losses[s]
+                                              for s in range(10, TRAIN_STEPS + 1, 2)),
+           "max_abs_weight_diff_vs_uninterrupted": diff}
+    row["ok"] = bool(row["resumed"] and row["l_pix_same_as_uninterrupted"] and diff == 0.0)
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"train-resume: {row}")
+    return launches
+
+
+def train_steady(failures):
+    """SRTrainer.train_step on one device-resident batch: median ms/step of
+    10 after 3 warm-up steps (host clock around a synchronised step), twice
+    from the same seed; the two runs' l_pix must agree bit for bit."""
+    import torch
+
+    from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig
+    from esrganplus_tpu_torch.train import SRTrainConfig, SRTrainer
+
+    B, H, W = TRAIN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    batch = (torch.rand((B, H, W, 3), generator=gen, device="cuda"),
+             torch.rand((B, 4 * H, 4 * W, 3), generator=gen, device="cuda"))
+    runs = []
+    for _ in range(2):
+        trainer = SRTrainer(RRDBNetConfig(), SRTrainConfig(compute_dtype="bfloat16"),
+                            device="cuda")
+        state = trainer.init_state(0)
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for i in range(13):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, logs = trainer.train_step(state, batch, 1)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(logs["l_pix"].item())
+        runs.append((losses, times[3:]))
+    med = float(np.median(runs[0][1] + runs[1][1])) * 1e3
+    row = {"phase": "train-steady", "batch": B, "hr": 4 * H, "dtype": "bfloat16",
+           "ms_per_step_runs": [float(np.median(t)) * 1e3 for _, t in runs],
+           "median_ms_per_step": med, "crops_per_s": B / med * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "l_pix_run0": runs[0][0], "bit_equal_runs": runs[0][0] == runs[1][0],
+           "finite": bool(np.isfinite(runs[0][0]).all())}
+    row["ok"] = bool(row["finite"] and row["bit_equal_runs"])
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"train-steady: {row}")
+    return med
+
+
+def train_profile(step_ms):
+    """``--profile`` only: ``torch.profiler`` over three steady training steps
+    (bf16, batch 16): device time per step by kernel family, and the card's
+    busy share of an untraced step (``step_ms``, train-steady's median; the
+    traced steps themselves are slowed by the profiler). Reports; holds
+    nothing."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig
+    from esrganplus_tpu_torch.train import SRTrainConfig, SRTrainer
+
+    B, H, W = TRAIN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    batch = (torch.rand((B, H, W, 3), generator=gen, device="cuda"),
+             torch.rand((B, 4 * H, 4 * W, 3), generator=gen, device="cuda"))
+    trainer = SRTrainer(RRDBNetConfig(), SRTrainConfig(compute_dtype="bfloat16"), device="cuda")
+    state = trainer.init_state(0)
+    for _ in range(3):
+        state, _ = trainer.train_step(state, batch, 1)
+    torch.cuda.synchronize()
+    steps = 3
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _ = trainer.train_step(state, batch, 1)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    fam = collections.Counter()
+    count = collections.Counter()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = re.sub(r"\(anonymous namespace\)::|^void ", "", e.name)
+        name = re.split(r"[<(]", name)[0].split("::")[-1] or e.name
+        fam[name] += e.time_range.elapsed_us() / 1e3 / steps
+        count[name] += 1
+    busy = sum(fam.values())
+    emit({"phase": "train-profile", "steps": steps, "wall_ms_per_step_traced": wall_ms,
+          "untraced_ms_per_step": step_ms, "device_ms_per_step": busy,
+          "device_busy_share": busy / step_ms, "device_idle_share": 1 - busy / step_ms,
+          "device_launches_per_step": sum(count.values()) / steps,
+          "by_kernel_ms_per_step": {k: round(v, 4) for k, v in fam.most_common(14)},
+          "launches_per_step": {k: count[k] / steps for k, _ in fam.most_common(14)}})
+
+
 def main() -> int:
     import torch
 
@@ -400,6 +933,13 @@ def main() -> int:
     os.makedirs(workdir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
         launches = main_path(failures, tmp)
+    bwd_report = check_bwd_kernels(failures)
+    train_check(failures)
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        train_launches = train_path(failures, tmp)
+    step_ms = train_steady(failures)
+    if "--profile" in sys.argv[1:]:
+        train_profile(step_ms)
 
     kernels = []
     for name in PER_IMAGE:
@@ -411,7 +951,23 @@ def main() -> int:
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                         "dtype": "bfloat16", "lr": row["lr"],
                         "fp32_ms": report[(name, "float32")]["ms"],
-                        "fp32_max_abs_err": report[(name, "float32")]["max_abs_err"]})
+                        "fp32_max_abs_err": report[(name, "float32")]["max_abs_err"],
+                        "train_launches": train_launches[name]})
+    for name in BWD_PER_STEP:
+        row = bwd_report[(name, "bfloat16")]
+        k = {"name": name, "route": "cuda", "source": BWD_SOURCE,
+             "replaces": BWD_REPLACES[name], "launches": train_launches[name],
+             "max_abs_err": row["max_abs_err"], "rel_err": row["rel_err"], "ms": row["ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+             "dtype": "bfloat16", "lr": row["lr"],
+             "fp32_ms": bwd_report[(name, "float32")]["ms"],
+             "fp32_rel_err": bwd_report[(name, "float32")]["rel_err"]}
+        if name == "upfold_ct_bwd":  # the 2nd stage (64² → 128²) beside the 1st
+            second = bwd_report[("upfold_ct_bwd_2nd", "bfloat16")]
+            k.update({f"second_call_{f}": second[f]
+                      for f in ("ms", "plain_ms", "bound_ms", "library_ms", "rel_err")})
+        kernels.append(k)
     if failures:
         for f in failures:
             print("FAIL:", f, file=sys.stderr)

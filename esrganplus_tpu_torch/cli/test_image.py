@@ -29,7 +29,8 @@ def main(argv=None):
     ap.add_argument("--pad-multiple", type=int, default=None,
                     help="edge-pad inputs to a multiple (inexact borders)")
     ap.add_argument("--noise-seed", type=int, default=None,
-                    help="nESRGAN+/Tarsier noise sites (not yet ported)")
+                    help="activate the nESRGAN+/Tarsier noise sites with this "
+                         "deterministic seed")
     ap.add_argument("--dump-activations", metavar="OUT.json", default=None,
                     help="also write per-stage activation stats (mean/rms/"
                          "maxabs per fea_conv, every RRDB, trunk, upconvs, HR "
@@ -42,9 +43,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.compare_activations and not args.dump_activations:
         ap.error("--compare-activations requires --dump-activations")
-    if args.noise_seed is not None:
-        ap.error("--noise-seed: the nESRGAN+/Tarsier noise mode is not yet ported "
-                 "to the PyTorch package; use esrganplus_tpu.cli.test_image")
 
     import torch
 
@@ -58,7 +56,7 @@ def main(argv=None):
               f"{len(info['missing_conv1x1_blocks'])} RDBs (vanilla-ESRGAN ckpt); using zeros")
     dtype = torch.bfloat16 if args.dtype == "bf16" else None
     inf = SRInferencer(params, cfg, dtype=dtype, pad_multiple=args.pad_multiple,
-                       device=args.device)
+                       noise_rng=args.noise_seed, device=args.device)
     print(f"model: nb={cfg.nb} nf={cfg.nf} gc={cfg.gc} x{cfg.upscale} "
           f"conv1x1={cfg.conv1x1} dtype={args.dtype} device={inf.device}")
 

@@ -1,0 +1,201 @@
+"""Training entry point (reference ``codes/train.py`` surface).
+
+    python -m esrganplus_tpu_torch.cli.train -opt path/to/options.json [--device cuda|cpu]
+
+Counterpart of ``esrganplus_tpu/cli/train.py`` for PSNR pretraining
+(``model: "sr"``): experiment-dir management, dual loggers, periodic
+validation with PSNR and saved val images, checkpoint/resume with optimizer
+state, reference-layout .pth weight export, optional TensorBoard scalars.
+Runs on the card (``--device cuda``, the default), forward and backward
+through the CUDA kernels; ``--device cpu`` runs the plain graph. GAN
+fine-tuning, SFT-GAN, multi-process launch, the resident crop store and
+profiling are not ported yet and exit saying so.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+
+
+def _export_networks(models_dir, tag, state, net_g, trainer):
+    from esrganplus_tpu_torch.train.checkpoint import save_networks_pth
+
+    save_networks_pth(models_dir, tag, trainer.canonical_params(state["params"]), net_g)
+
+
+def _get_tb_writer(log_dir: str):
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+
+        return SummaryWriter(log_dir=log_dir)
+    except Exception:
+        return None
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("-opt", required=True, help="path to option JSON file")
+    ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="profiler trace of the training loop (not yet ported)")
+    ap.add_argument("--dist-coordinator", default=None, metavar="HOST:PORT",
+                    help="multi-process launch (not yet ported)")
+    ap.add_argument("--dist-num-processes", type=int, default=None)
+    ap.add_argument("--dist-process-id", type=int, default=None)
+    args = ap.parse_args(argv)
+    if args.profile is not None:
+        ap.error("--profile is not yet ported to the PyTorch package")
+    if args.dist_coordinator is not None or args.dist_num_processes is not None \
+            or args.dist_process_id is not None:
+        ap.error("--dist-*: multi-process training is not yet ported to the PyTorch package")
+
+    import torch
+
+    from esrganplus_tpu_torch.data import DeviceFeeder, create_dataloader, create_dataset
+    from esrganplus_tpu_torch.infer import resolve_device
+    from esrganplus_tpu_torch.ops.image_io import save_img, tensor2img
+    from esrganplus_tpu_torch.ops.metrics import calculate_psnr
+    from esrganplus_tpu_torch.options.options import (build_net_g_config, build_train_config,
+                                                      check_resume, dict2str, parse)
+    from esrganplus_tpu_torch.train.checkpoint import (STATE_SUFFIX, AsyncCheckpointer,
+                                                       load_state)
+    from esrganplus_tpu_torch.utils import mkdir_and_rename, set_random_seed, setup_logger
+
+    device = resolve_device(args.device)
+    opt = parse(args.opt, is_train=True)
+    model_kind = opt["model"]
+    net_g = build_net_g_config(opt)        # raise for what is not ported
+    train_cfg = build_train_config(opt)    # before any directory is touched
+    train_opt_ds = val_opt_ds = None
+    for ds_opt in opt["datasets"].values():
+        if ds_opt["phase"] == "train":
+            train_opt_ds = ds_opt
+        elif ds_opt["phase"] == "val":
+            val_opt_ds = ds_opt
+    assert train_opt_ds is not None, "no train dataset in options"
+    if train_opt_ds.get("resident_crops"):
+        raise SystemExit("datasets.train.resident_crops: the resident crop store is not "
+                         "yet ported to the PyTorch package")
+    if int(opt["train"].get("steps_per_dispatch", 1) or 1) > 1:
+        raise SystemExit("train.steps_per_dispatch: multi-step dispatch is not yet ported "
+                         "to the PyTorch package")
+
+    resume_path = opt["path"].get("resume_state")
+    if resume_path:
+        check_resume(opt)
+    else:
+        mkdir_and_rename(opt["path"]["experiments_root"])
+    for key in ("models", "training_state", "val_images", "log"):
+        os.makedirs(opt["path"][key], exist_ok=True)
+
+    logger = setup_logger("base", opt["path"]["log"], "train", screen=True)
+    logger.info(dict2str(opt))
+    tb = _get_tb_writer(os.path.join(opt["path"]["log"], "tb")) \
+        if (opt.get("use_tb_logger") and "debug" not in opt["name"]) else None
+
+    seed = opt["train"].get("manual_seed") or 0
+    set_random_seed(seed)
+
+    # ---- data ----
+    val_ds = create_dataset(val_opt_ds) if val_opt_ds is not None else None
+    train_ds = create_dataset(train_opt_ds)
+    batch_size = train_opt_ds.get("batch_size", 16)
+    niter = int(opt["train"].get("niter", 500_000))
+    logger.info(f"train images: {len(train_ds)}, batch {batch_size}, iters {niter:,}")
+
+    # ---- trainer ----
+    from esrganplus_tpu_torch.train import SRTrainer
+
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    logger.info(f"device: {device} ({name})")
+    trainer = SRTrainer(net_g, train_cfg, device=device)
+    state = trainer.init_state(seed)
+
+    # ---- pretrained / resume ----
+    if opt["path"].get("pretrain_model_G") and not resume_path:
+        from esrganplus_tpu_torch.convert import generator_from_state_dict, load_state_dict
+
+        params, _, _ = generator_from_state_dict(
+            load_state_dict(opt["path"]["pretrain_model_G"]), net_g)
+        state["params"] = trainer.ingest_params(params)
+        logger.info(f"loaded pretrained G from {opt['path']['pretrain_model_G']}")
+    start_step = 0
+    if resume_path:
+        state = load_state(resume_path, state)
+        start_step = int(state["step"])
+        logger.info(f"resumed from {resume_path} at step {start_step}")
+
+    # ---- loop ----
+    # a resumed run continues the batch stream where the checkpoint left it
+    train_loader = create_dataloader(train_ds, train_opt_ds, seed=seed,
+                                     start_batch=start_step)
+    feeder_obj = DeviceFeeder(train_loader, device, keys=("LR", "HR"))
+    feeder = iter(feeder_obj)
+    print_freq = opt["logger"].get("print_freq", 100)
+    val_freq = opt["train"].get("val_freq", 5000)
+    save_freq = opt["train"].get("save_checkpoint_freq", 5000)
+    rng = seed + 1  # the run's noise seed; the trainer folds the step in
+    ckpt = AsyncCheckpointer()
+
+    t_last = time.time()
+    step = start_step
+    while step < niter:
+        batch_dev, _ = next(feeder)
+        state, logs = trainer.train_step(state, batch_dev, rng)
+
+        if (step + 1) % print_freq == 0:
+            logs_h = {k: float(v) for k, v in logs.items()}  # waits for the device
+            dt = (time.time() - t_last) / print_freq
+            t_last = time.time()
+            msg = f"<step:{step + 1:8,d}, {dt*1000:6.1f} ms/it> " + " ".join(
+                f"{k}: {v:.4e}" for k, v in logs_h.items())
+            logger.info(msg)
+            if tb:
+                for k, v in logs_h.items():
+                    tb.add_scalar(k, v, step + 1)
+
+        if val_ds is not None and (step + 1) % val_freq == 0:
+            psnrs = []
+            scale = net_g.upscale
+            for sample in val_ds:  # sequential whole-image protocol
+                sr = trainer.predict(state["params"], sample["LR"][None])[0].cpu().numpy()
+                sr_img = tensor2img(sr)
+                gt_img = tensor2img(sample["HR"])
+                base = os.path.splitext(os.path.basename(sample["HR_path"]))[0]
+                img_dir = os.path.join(opt["path"]["val_images"], base)
+                os.makedirs(img_dir, exist_ok=True)
+                save_img(sr_img, os.path.join(img_dir, f"{base}_{step + 1}.png"))
+                c = scale
+                psnrs.append(calculate_psnr(
+                    sr_img[c:-c, c:-c].astype(np.float64),
+                    gt_img[c:-c, c:-c].astype(np.float64)))
+            mean_psnr = float(np.mean(psnrs))
+            logger.info(f"# Validation # PSNR: {mean_psnr:.4e}")
+            if tb:
+                tb.add_scalar("val_psnr", mean_psnr, step + 1)
+
+        if (step + 1) % save_freq == 0:
+            logger.info("Saving models and training states.")
+            tag = step + 1
+            # async: snapshot on the device now, fetch+write in the background
+            ckpt.save(
+                os.path.join(opt["path"]["training_state"], f"{tag}{STATE_SUFFIX}"),
+                state,
+                export_fn=lambda snap, tag=tag: _export_networks(
+                    opt["path"]["models"], tag, snap, net_g, trainer))
+        step += 1
+
+    ckpt.wait()  # flush any in-flight periodic save before the final one
+    logger.info("Saving the final model.")
+    _export_networks(opt["path"]["models"], "latest", state, net_g, trainer)
+    logger.info("End of training.")
+    feeder_obj.stop()
+    train_loader.stop()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,4 @@
-from esrganplus_tpu_torch.convert.jax_params import from_jax_params
+from esrganplus_tpu_torch.convert.jax_params import from_jax_params, trainer_state_from_jax
 from esrganplus_tpu_torch.convert.pth import (
     generator_from_state_dict,
     infer_rrdbnet_config,
@@ -14,4 +14,5 @@ __all__ = [
     "load_state_dict",
     "rrdbnet_from_state_dict",
     "rrdbnet_to_state_dict",
+    "trainer_state_from_jax",
 ]

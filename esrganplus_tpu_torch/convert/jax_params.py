@@ -4,7 +4,9 @@
 subtree stacked over nb) is the port's layout too, so the conversion is a
 tree walk from numpy arrays to fp32 CPU tensors plus a shape check against
 the config. The caller turns JAX arrays into numpy first
-(``jax.tree.map(np.asarray, params)``); this module imports no JAX.
+(``jax.tree.map(np.asarray, params)``); this module imports no JAX. A whole
+trainer state (parameters, Adam moments, step) crosses through
+:func:`trainer_state_from_jax`.
 """
 
 from __future__ import annotations
@@ -47,3 +49,41 @@ def from_jax_params(tree: dict, cfg: RRDBNetConfig) -> dict:
     if cfg.conv1x1 != ("conv1x1" in params["trunk"]["rdb1"]):
         raise ValueError("conv1x1 weights do not match cfg.conv1x1")
     return params
+
+
+def _find_adam(opt_state):
+    """The ``ScaleByAdamState(count, mu, nu)`` inside an optax state: the
+    state itself, or one element of a chain's tuple."""
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (list, tuple)):
+        for s in opt_state:
+            found = _find_adam(s)
+            if found is not None:
+                return found
+    return None
+
+
+def trainer_state_from_jax(state: dict, cfg: RRDBNetConfig) -> dict:
+    """A JAX ``SRTrainer`` state with numpy leaves (``params`` canonical,
+    ``opt_state`` optax's ``ScaleByAdamState`` possibly inside a chain,
+    ``step``) → the port's trainer state on the CPU: ``{"params",
+    "opt_state": {"count", "mu", "nu"}, "step"}``. Hand the result's
+    ``params`` to ``SRTrainer.ingest_params`` and the moments to the device
+    to continue the run (``tests/test_torch_trainer.py`` shows it).
+
+    A state that holds the JAX package's prepared ``trunk_ct`` masters is
+    refused: convert it there first, with ``unprep_trunk_ct``."""
+    if "trunk_ct" in state["params"]:
+        raise ValueError("this state holds prepared trunk_ct masters (the JAX package's "
+                         "kernel layout); convert it with "
+                         "esrganplus_tpu.models.rrdb.unprep_trunk_ct (params and both "
+                         "Adam moments) before carrying it across")
+    adam = _find_adam(state["opt_state"])
+    if adam is None:
+        raise ValueError("no ScaleByAdamState(count, mu, nu) in opt_state")
+    return {"params": from_jax_params(state["params"], cfg),
+            "opt_state": {"count": int(np.asarray(adam.count)),
+                          "mu": from_jax_params(adam.mu, cfg),
+                          "nu": from_jax_params(adam.nu, cfg)},
+            "step": int(np.asarray(state["step"]))}

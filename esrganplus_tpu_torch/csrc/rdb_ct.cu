@@ -10,7 +10,11 @@
 //     leaky-relu, the stage-2 1x1 shortcut (computed from x's centre tap in
 //     the same pass), the stage-4 x4 += x2, and the stage-5 beta*x5 + x with
 //     the optional RRDB fold (*rrdb + h0), each rounded to T once, as
-//     rdb_ct.py:217-233 and :258-266 do.
+//     rdb_ct.py:217-233 and :258-266 do. The training forward also keeps the
+//     pre-residual activations l2 and l4 (`lsave`: the backward takes its
+//     leaky-relu masks from their signs, rdb_ct.py:248-256) and applies the
+//     pre-drawn relative noise out + n*(sigma*out) in T after the rounding
+//     (`noise`, rdb_ct.py:267-271).
 //   * conv3x3_ct  (_conv_ct_kernel): the trunk conv plus the global residual,
 //     the same kernel in RESID mode with alpha = 1 (rdb_ct.py:556-566).
 //
@@ -57,6 +61,8 @@ __global__ void __launch_bounds__(NT) dense_conv3x3_kernel(
     T* __restrict__ out, int out_stride,    // pixel stride of the output
     const T* __restrict__ r1, int r1_stride,
     const T* __restrict__ r2, int r2_stride,
+    T* __restrict__ lsave, int lsave_stride,   // kAct*: lrelu(conv + b) before the add
+    const T* __restrict__ noise, float sigma,  // kResid: [B,H,W,COUT] pre-drawn normals
     float alpha, float beta2, float slope, int H, int W) {
   constexpr int KC = COUT >= 64 ? 8 : 16;  // input channels staged per step
   constexpr int CPT = COUT / NCG;          // output channels per thread
@@ -155,8 +161,14 @@ __global__ void __launch_bounds__(NT) dense_conv3x3_kernel(
       if (MODE == kResid) {
         v = r1 ? v * alpha + to_f(r1[pix * r1_stride + c]) : v * alpha;
         if (r2) v = v * beta2 + to_f(r2[pix * r2_stride + c]);
+        if (noise) {  // every product and the sum rounded to T, as the T-typed XLA ops are
+          const float o = esr::round_to<T>(v);
+          const float t = esr::round_to<T>(esr::round_to<T>(sigma) * o);
+          v = o + esr::round_to<T>(to_f(noise[pix * COUT + c]) * t);
+        }
       } else {
         v = esr::lrelu(v, slope);
+        if (lsave) lsave[pix * lsave_stride + c] = from_f<T>(v);
         if (MODE == kAct1x1) v += acc11[MODE == kAct1x1 ? i : 0][j];
         if (MODE == kActAdd) v += to_f(r1[pix * r1_stride + c]);
       }
@@ -165,56 +177,47 @@ __global__ void __launch_bounds__(NT) dense_conv3x3_kernel(
   }
 }
 
+// One launch's arguments, as the C interface receives them.
+struct DenseArgs {
+  const void *x, *cat, *w, *bias, *w11, *r1, *r2, *noise;
+  void *out, *lsave;
+  int c0, ccat, cin, out_stride, r1_stride, r2_stride, lsave_stride, B, H, W;
+  float sigma, alpha, beta2, slope;
+};
+
 template <typename T, int COUT, int MODE>
-void launch(const void* x, int c0, const void* cat, int ccat, int cin, const void* w,
-            const void* bias, const void* w11, void* out, int out_stride, const void* r1,
-            int r1_stride, const void* r2, int r2_stride, float alpha, float beta2,
-            float slope, int B, int H, int W, cudaStream_t stream) {
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+void launch(const DenseArgs& a, cudaStream_t stream) {
+  const dim3 grid((a.W + TW - 1) / TW, (a.H + TH - 1) / TH, a.B);
   dense_conv3x3_kernel<T, COUT, MODE><<<grid, NT, 0, stream>>>(
-      static_cast<const T*>(x), c0, static_cast<const T*>(cat), ccat, cin,
-      static_cast<const T*>(w), static_cast<const float*>(bias), static_cast<const T*>(w11),
-      static_cast<T*>(out), out_stride, static_cast<const T*>(r1), r1_stride,
-      static_cast<const T*>(r2), r2_stride, alpha, beta2, slope, H, W);
+      static_cast<const T*>(a.x), a.c0, static_cast<const T*>(a.cat), a.ccat, a.cin,
+      static_cast<const T*>(a.w), static_cast<const float*>(a.bias),
+      static_cast<const T*>(a.w11), static_cast<T*>(a.out), a.out_stride,
+      static_cast<const T*>(a.r1), a.r1_stride, static_cast<const T*>(a.r2), a.r2_stride,
+      static_cast<T*>(a.lsave), a.lsave_stride, static_cast<const T*>(a.noise), a.sigma,
+      a.alpha, a.beta2, a.slope, a.H, a.W);
 }
 
 template <typename T, int COUT>
-int dispatch_mode(int mode, const void* x, int c0, const void* cat, int ccat, int cin,
-                  const void* w, const void* bias, const void* w11, void* out, int out_stride,
-                  const void* r1, int r1_stride, const void* r2, int r2_stride, float alpha,
-                  float beta2, float slope, int B, int H, int W, cudaStream_t s) {
-#define ESR_LAUNCH(M)                                                                    \
-  launch<T, COUT, M>(x, c0, cat, ccat, cin, w, bias, w11, out, out_stride, r1, r1_stride, \
-                     r2, r2_stride, alpha, beta2, slope, B, H, W, s)
+int dispatch_mode(int mode, const DenseArgs& a, cudaStream_t s) {
   switch (mode) {
-    case kAct: ESR_LAUNCH(kAct); break;
-    case kAct1x1: ESR_LAUNCH(kAct1x1); break;
-    case kActAdd: ESR_LAUNCH(kActAdd); break;
-    case kResid: ESR_LAUNCH(kResid); break;
+    case kAct: launch<T, COUT, kAct>(a, s); break;
+    case kAct1x1: launch<T, COUT, kAct1x1>(a, s); break;
+    case kActAdd: launch<T, COUT, kActAdd>(a, s); break;
+    case kResid: launch<T, COUT, kResid>(a, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
-#undef ESR_LAUNCH
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_cout(int cout, int mode, const void* x, int c0, const void* cat, int ccat,
-                  int cin, const void* w, const void* bias, const void* w11, void* out,
-                  int out_stride, const void* r1, int r1_stride, const void* r2,
-                  int r2_stride, float alpha, float beta2, float slope, int B, int H, int W,
-                  cudaStream_t s) {
-#define ESR_COUT(C)                                                                   \
-  return dispatch_mode<T, C>(mode, x, c0, cat, ccat, cin, w, bias, w11, out,          \
-                             out_stride, r1, r1_stride, r2, r2_stride, alpha, beta2, \
-                             slope, B, H, W, s)
+int dispatch_cout(int cout, int mode, const DenseArgs& a, cudaStream_t s) {
   switch (cout) {
-    case 8: ESR_COUT(8);
-    case 16: ESR_COUT(16);
-    case 32: ESR_COUT(32);
-    case 64: ESR_COUT(64);
+    case 8: return dispatch_mode<T, 8>(mode, a, s);
+    case 16: return dispatch_mode<T, 16>(mode, a, s);
+    case 32: return dispatch_mode<T, 32>(mode, a, s);
+    case 64: return dispatch_mode<T, 64>(mode, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef ESR_COUT
 }
 
 }  // namespace
@@ -226,17 +229,15 @@ extern "C" {
 int esr_dense_conv3x3(int dtype, int cout, int mode, const void* x, int c0, const void* cat,
                       int ccat, int cin, const void* w, const void* bias, const void* w11,
                       void* out, int out_stride, const void* r1, int r1_stride,
-                      const void* r2, int r2_stride, float alpha, float beta2, float slope,
+                      const void* r2, int r2_stride, void* lsave, int lsave_stride,
+                      const void* noise, float sigma, float alpha, float beta2, float slope,
                       int B, int H, int W, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == esr::kFloat32)
-    return dispatch_cout<float>(cout, mode, x, c0, cat, ccat, cin, w, bias, w11, out,
-                                out_stride, r1, r1_stride, r2, r2_stride, alpha, beta2,
-                                slope, B, H, W, s);
-  if (dtype == esr::kBFloat16)
-    return dispatch_cout<__nv_bfloat16>(cout, mode, x, c0, cat, ccat, cin, w, bias, w11, out,
-                                        out_stride, r1, r1_stride, r2, r2_stride, alpha,
-                                        beta2, slope, B, H, W, s);
+  const DenseArgs a{x, cat, w, bias, w11, r1, r2, noise, out, lsave, c0, ccat, cin,
+                    out_stride, r1_stride, r2_stride, lsave_stride, B, H, W,
+                    sigma, alpha, beta2, slope};
+  if (dtype == esr::kFloat32) return dispatch_cout<float>(cout, mode, a, s);
+  if (dtype == esr::kBFloat16) return dispatch_cout<__nv_bfloat16>(cout, mode, a, s);
   return (int)cudaErrorInvalidValue;
 }
 

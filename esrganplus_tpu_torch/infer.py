@@ -8,8 +8,7 @@ it does not fall back. On the card the forward goes through the CUDA kernels
 Reference behaviour mirrored (``test_image/test.py:26-40``): BGR uint8 on disk →
 RGB [0,1] → forward → clamp(0,1) → BGR ×255 rounded PNG named ``<base>_rlt.png``.
 
-Not ported yet: ``ShardedEvaluator`` (mesh evaluation) and the Tarsier
-``noise_rng`` mode.
+Not ported yet: ``ShardedEvaluator`` (mesh evaluation).
 """
 
 from __future__ import annotations
@@ -56,16 +55,26 @@ class SRInferencer:
     """×scale SR on arbitrary-size images.
 
     ``dtype=None`` is the fp32 parity path; ``torch.bfloat16`` the
-    throughput path."""
+    throughput path.
+
+    ``noise_rng`` (an integer seed) activates the nESRGAN+/Tarsier noise
+    sites at inference with a DETERMINISTIC realisation: every forward
+    re-seeds a device generator from it, so the same image gives the same
+    output (the Tarsier workflow evolves/selects such realisations per image;
+    reference README.md:6, arXiv:2009.12177). The forward then runs in train
+    mode without gradients, on the card through the training kernels' forward.
+    None = standard deterministic inference."""
 
     def __init__(self, params, cfg: RRDBNetConfig, dtype: Optional[torch.dtype] = None,
-                 pad_multiple: Optional[int] = None, noise_rng=None, device="cuda"):
-        if noise_rng is not None:
-            raise NotImplementedError("the Tarsier noise_rng mode is not ported yet")
+                 pad_multiple: Optional[int] = None, noise_rng: Optional[int] = None,
+                 device="cuda"):
         self.device = resolve_device(device)
         params = params_to(params, self.device)
         kdt = dtype or torch.float32
-        if (needs_kernel_weights(cfg, self.device, kdt)
+        self.noise_active = noise_rng is not None
+        self._noise_seed = noise_rng
+        self._noise_gen = torch.Generator(device=self.device) if self.noise_active else None
+        if (not self.noise_active and needs_kernel_weights(cfg, self.device, kdt)
                 and params.get("trunk_ct", {}).get("dtype") != kdt):
             # convert the kernels' weights once, not inside every forward
             params = prep_trunk_ct(params, cfg, kdt)
@@ -74,8 +83,10 @@ class SRInferencer:
         self.dtype = dtype
         self.pad_multiple = pad_multiple
 
-    def upscale(self, img_rgb: np.ndarray) -> np.ndarray:
-        """HWC (or NHWC) RGB [0,1] float → upscaled float32 RGB, clipped to [0,1]."""
+    def upscale(self, img_rgb: np.ndarray, noise=None) -> np.ndarray:
+        """HWC (or NHWC) RGB [0,1] float → upscaled float32 RGB, clipped to [0,1].
+        In the noise mode ``noise`` may hand in the pre-drawn realisation
+        (``models.rrdb.draw_noise`` layout) instead of the seeded draw."""
         x = np.asarray(img_rgb, np.float32)
         squeeze = x.ndim == 3
         if squeeze:
@@ -87,8 +98,14 @@ class SRInferencer:
             if ph or pw:
                 x = np.pad(x, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="edge")
         xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-        with torch.inference_mode():
-            y = generator_forward(self.params, xt, self.cfg, dtype=self.dtype)
+        if self.noise_active:
+            rng = self._noise_gen.manual_seed(self._noise_seed)
+            with torch.no_grad():
+                y = generator_forward(self.params, xt, self.cfg, train=True, rng=rng,
+                                      noise=noise, dtype=self.dtype)
+        else:
+            with torch.inference_mode():
+                y = generator_forward(self.params, xt, self.cfg, dtype=self.dtype)
         s = self.cfg.upscale
         out = y[:, : h * s, : w * s, :].clamp(0.0, 1.0).cpu().numpy()
         return out[0] if squeeze else out

@@ -19,17 +19,37 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("rdb_ct", "tail_ct")
+SOURCES = ("rdb_ct", "tail_ct", "dgrad_ct", "wgrad_ct")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+class DzSrc(ctypes.Structure):
+    """Where a backward kernel reads a conv output's cotangent
+    (``csrc/dz_src.cuh``: the same plain C layout)."""
+
+    _fields_ = [("g", P), ("noise", P), ("d32", P), ("mask", P),
+                ("mode", I), ("g_stride", I), ("d_stride", I), ("coff", I),
+                ("coff2", I), ("m_stride", I), ("co", I), ("H", I), ("W", I),
+                ("sigma", F), ("scale", F), ("slope", F)]
+
+
+DZ_G, DZ_GATE, DZ_PLAIN, DZ_PHASE = 0, 1, 2, 3  # csrc/dz_src.cuh DzMode
+PDZ = ctypes.POINTER(DzSrc)
 # C signatures (every pointer and the stream as c_void_p, or ctypes truncates
 # them to 32-bit ints); each function returns cudaGetLastError() as an int.
 SIGNATURES = {
     "rdb_ct": {
         "esr_dense_conv3x3": [I, I, I, P, I, P, I, I, P, P, P, P, I, P, I, P, I,
-                              F, F, F, I, I, I, P],
+                              P, I, P, F, F, F, F, I, I, I, P],
+    },
+    "dgrad_ct": {
+        "esr_dgrad": [I, I, I, PDZ, I, P, I, P, I, I, P, I, PDZ, I, P],
+    },
+    "wgrad_ct": {
+        "esr_wgrad": [I, I, P, I, P, I, I, PDZ, I, P, I, P, I, P],
     },
     "tail_ct": {
         "esr_upfold": [I, I, I, P, P, P, P, I, I, I, F, P],

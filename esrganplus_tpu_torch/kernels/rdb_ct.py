@@ -13,6 +13,16 @@ activation dtype per stage output (x1..x4), and stage 5 computes
 ``β·x5 + x`` — and for an RRDB's third block ``(β·x5 + x)·β + h0`` — in fp32
 with a single rounding.
 
+Training goes through ``rdb_ct_diff`` and ``conv3x3_ct_diff``:
+``torch.autograd.Function``s whose forward is the same kernel in its training
+mode (the concat buffer and the pre-residual activations l2, l4 are kept, the
+pre-drawn relative noise rides in stage 5's epilogue) and whose backward is
+``rdb_ct_bwd`` / ``conv3x3_ct_bwd``: one data-gradient launch
+(``csrc/dgrad_ct.cu``) and one weight-gradient launch (``csrc/wgrad_ct.cu``)
+per dense stage over an fp32 cotangent buffer ``[B, H, W, nf + 4·gc]``, the
+TPU kernel's ``dim_ref``. Weights cross the Function boundary as fp32 masters
+and are cast inside; gradients come back fp32.
+
 Each CUDA wrapper has a plain PyTorch twin (``*_plain``) with the same
 rounding points. A CPU tensor goes to the twin; a CUDA tensor launches the
 kernel or raises.
@@ -20,6 +30,7 @@ kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -83,26 +94,41 @@ def _lrelu(t: torch.Tensor, slope: float) -> torch.Tensor:
     return torch.where(t >= 0, t, t * slope)
 
 
-def rdb_ct_plain(x: torch.Tensor, w: dict, res: Optional[torch.Tensor] = None, *,
-                 rrdb_scale: Optional[float] = None, slope: float = 0.2,
-                 res_scale: float = 0.2) -> torch.Tensor:
-    """Plain twin of :func:`rdb_ct` (same rounding points), NHWC in and out."""
+def _rdb_ct_train_plain(x, w, res=None, noise=None, *, rrdb_scale=None, sigma=0.0,
+                         slope=0.2, res_scale=0.2):
+    """The RDB with the kernel's rounding points → (out, cat, lsv): ``cat``
+    ``[B, H, W, 4·gc]`` holds x1|x2|x3|x4 and ``lsv`` ``[B, H, W, 2·gc]`` the
+    pre-residual activations l2|l4, all in x's dtype."""
     dt = x.dtype
     rnd = lambda t: t.to(dt).float()
     xf = _nchw(x)
     x1 = rnd(_lrelu(_conv(xf, w["w1"], w["b1"]), slope))
-    x2 = _lrelu(_conv(torch.cat([xf, x1], 1), w["w2"], w["b2"]), slope)
+    l2 = _lrelu(_conv(torch.cat([xf, x1], 1), w["w2"], w["b2"]), slope)
+    x2 = l2
     if w["w11"] is not None:
         x2 = x2 + _conv(xf, w["w11"][None, None], None)
     x2 = rnd(x2)
     x3 = rnd(_lrelu(_conv(torch.cat([xf, x1, x2], 1), w["w3"], w["b3"]), slope))
-    x4 = rnd(_lrelu(_conv(torch.cat([xf, x1, x2, x3], 1), w["w4"], w["b4"]), slope)
-             + x2)
+    l4 = _lrelu(_conv(torch.cat([xf, x1, x2, x3], 1), w["w4"], w["b4"]), slope)
+    x4 = rnd(l4 + x2)
     x5 = _conv(torch.cat([xf, x1, x2, x3, x4], 1), w["w5"], w["b5"])
     out = x5 * res_scale + xf
     if res is not None:
         out = out * rrdb_scale + _nchw(res)
-    return out.to(dt).permute(0, 2, 3, 1).contiguous()
+    out = out.to(dt)
+    if noise is not None:
+        # out + n·(σ·out), every op in the working dtype (σ rounded to it too)
+        out = out + noise.permute(0, 3, 1, 2) * (torch.tensor(sigma, dtype=dt) * out)
+    nhwc = lambda t: t.to(dt).permute(0, 2, 3, 1).contiguous()
+    return nhwc(out), nhwc(torch.cat([x1, x2, x3, x4], 1)), nhwc(torch.cat([l2, l4], 1))
+
+
+def rdb_ct_plain(x: torch.Tensor, w: dict, res: Optional[torch.Tensor] = None, *,
+                 rrdb_scale: Optional[float] = None, slope: float = 0.2,
+                 res_scale: float = 0.2) -> torch.Tensor:
+    """Plain twin of :func:`rdb_ct` (same rounding points), NHWC in and out."""
+    return _rdb_ct_train_plain(x, w, res, rrdb_scale=rrdb_scale, slope=slope,
+                               res_scale=res_scale)[0]
 
 
 def conv3x3_ct_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -120,32 +146,24 @@ def conv3x3_ct_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 
 def _dense(lib, x, cat, cin, w, b, out_ptr, out_stride, *, mode, cout, w11=None,
-           r1=0, r1_stride=0, r2=0, r2_stride=0, alpha=1.0, beta2=1.0, slope=0.2):
+           r1=0, r1_stride=0, r2=0, r2_stride=0, lsave=0, lsave_stride=0, noise=None,
+           sigma=0.0, alpha=1.0, beta2=1.0, slope=0.2):
     B, H, W, c0 = x.shape
     code = lib.esr_dense_conv3x3(
         build.dtype_code(x), cout, mode, x.data_ptr(), c0,
         None if cat is None else cat.data_ptr(),
         0 if cat is None else cat.shape[3], cin, w.data_ptr(), b.data_ptr(),
         None if w11 is None else w11.data_ptr(), out_ptr, out_stride,
-        r1 or None, r1_stride, r2 or None, r2_stride, alpha, beta2, slope,
+        r1 or None, r1_stride, r2 or None, r2_stride, lsave or None, lsave_stride,
+        None if noise is None else noise.data_ptr(), sigma, alpha, beta2, slope,
         B, H, W, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(code, "esr_dense_conv3x3")
 
 
-def rdb_ct(x: torch.Tensor, w: dict, res: Optional[torch.Tensor] = None, *,
-           rrdb_scale: Optional[float] = None, slope: float = 0.2,
-           res_scale: float = 0.2) -> torch.Tensor:
-    """One ResidualDenseBlock_5C: NHWC ``x`` ``[B, H, W, nf]`` → same shape.
-
-    ``w`` from :func:`prepare_rdb_ct_weights`. With ``res`` (the RRDB's
-    input h0) and ``rrdb_scale`` the RRDB epilogue ``out·rrdb_scale + res``
-    is folded in. ``rdb_ct.launches`` counts calls that launched the CUDA
-    kernel, ``rdb_ct.device_launches`` the kernel launches (5 per call)."""
-    if (res is None) != (rrdb_scale is None):
-        raise ValueError("rdb_ct: res and rrdb_scale go together")
-    if x.device.type == "cpu":
-        return rdb_ct_plain(x, w, res, rrdb_scale=rrdb_scale, slope=slope,
-                            res_scale=res_scale)
+def _rdb_ct_cuda(x, w, res=None, noise=None, *, rrdb_scale=None, sigma=0.0, slope=0.2,
+                 res_scale=0.2, save=False):
+    """Validate and launch the five dense stages → (out, cat, lsv); ``lsv``
+    (l2|l4) is kept only with ``save``."""
     if x.dim() != 4:
         raise ValueError(f"rdb_ct: x must be NHWC, got shape {tuple(x.shape)}")
     B, H, W, nf = x.shape
@@ -163,8 +181,11 @@ def rdb_ct(x: torch.Tensor, w: dict, res: Optional[torch.Tensor] = None, *,
         build.require(w["w11"], "w11", (nf, gc), dt, dev)
     if res is not None:
         build.require(res, "res", (B, H, W, nf), dt, dev)
+    if noise is not None:
+        build.require(noise, "noise", (B, H, W, nf), dt, dev)
     lib = build.load("rdb_ct")
     cat = torch.empty((B, H, W, 4 * gc), dtype=dt, device=dev)
+    lsv = torch.empty((B, H, W, 2 * gc), dtype=dt, device=dev) if save else None
     out = torch.empty_like(x)
     esz = x.element_size()
     with torch.cuda.device(dev):
@@ -176,16 +197,39 @@ def rdb_ct(x: torch.Tensor, w: dict, res: Optional[torch.Tensor] = None, *,
                              r1_stride=4 * gc)
             else:
                 extra = dict(mode=_ACT)
+            if save and k in (2, 4):
+                extra.update(lsave=lsv.data_ptr() + (k // 2 - 1) * gc * esz,
+                             lsave_stride=2 * gc)
             _dense(lib, x, cat, nf + (k - 1) * gc, w[f"w{k}"], w[f"b{k}"],
                    cat.data_ptr() + (k - 1) * gc * esz, 4 * gc, cout=gc,
                    slope=slope, **extra)
         _dense(lib, x, cat, nf + 4 * gc, w["w5"], w["b5"], out.data_ptr(), nf,
                mode=_RESID, cout=nf, r1=x.data_ptr(), r1_stride=nf,
                r2=0 if res is None else res.data_ptr(), r2_stride=nf,
-               alpha=res_scale, beta2=1.0 if rrdb_scale is None else rrdb_scale)
+               noise=noise, sigma=sigma, alpha=res_scale,
+               beta2=1.0 if rrdb_scale is None else rrdb_scale)
     rdb_ct.launches += 1
     rdb_ct.device_launches += 5
-    return out
+    return out, cat, lsv
+
+
+def rdb_ct(x: torch.Tensor, w: dict, res: Optional[torch.Tensor] = None, *,
+           rrdb_scale: Optional[float] = None, slope: float = 0.2,
+           res_scale: float = 0.2) -> torch.Tensor:
+    """One ResidualDenseBlock_5C: NHWC ``x`` ``[B, H, W, nf]`` → same shape.
+
+    ``w`` from :func:`prepare_rdb_ct_weights`. With ``res`` (the RRDB's
+    input h0) and ``rrdb_scale`` the RRDB epilogue ``out·rrdb_scale + res``
+    is folded in. ``rdb_ct.launches`` counts calls that launched the CUDA
+    kernel (training forwards included), ``rdb_ct.device_launches`` the
+    kernel launches (5 per call)."""
+    if (res is None) != (rrdb_scale is None):
+        raise ValueError("rdb_ct: res and rrdb_scale go together")
+    if x.device.type == "cpu":
+        return rdb_ct_plain(x, w, res, rrdb_scale=rrdb_scale, slope=slope,
+                            res_scale=res_scale)
+    return _rdb_ct_cuda(x, w, res, rrdb_scale=rrdb_scale, slope=slope,
+                        res_scale=res_scale)[0]
 
 
 rdb_ct.launches = 0
@@ -223,3 +267,323 @@ def conv3x3_ct(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 
 conv3x3_ct.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# training: backward twins, backward kernels, autograd Functions
+# ---------------------------------------------------------------------------
+
+
+def _dgrad_plain(dz: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Adjoint of the SAME conv wrt its input: NCHW fp32 ``dz`` (already
+    rounded) with HWIO ``w`` → ``[B, Cin, H, W]``."""
+    with fp32_exact():
+        return F.conv_transpose2d(dz, w.float().permute(3, 2, 0, 1),
+                                  padding=w.shape[0] // 2)
+
+
+def _wgrad_plain(xin: torch.Tensor, dz: torch.Tensor, k: int = 3) -> torch.Tensor:
+    """Adjoint of the SAME k×k conv wrt its HWIO weight, fp32, summed over
+    the batch: NCHW ``xin`` and ``dz`` (already rounded)."""
+    with fp32_exact():
+        dw = torch.nn.grad.conv2d_weight(xin, (dz.shape[1], xin.shape[1], k, k), dz,
+                                         padding=k // 2)
+    return dw.permute(2, 3, 1, 0).contiguous()
+
+
+def _dlrelu(src: torch.Tensor, t: torch.Tensor, slope: float) -> torch.Tensor:
+    """lrelu' from the sign of a saved activation (``>= 0`` of the value
+    rounded to the working dtype, the TPU kernel's rule)."""
+    return torch.where(src >= 0, t, t * slope)
+
+
+def rdb_ct_bwd_plain(x, w, cat, lsv, g, noise=None, *, sigma: float = 0.0,
+                     slope: float = 0.2, res_scale: float = 0.2) -> dict:
+    """Plain twin of :func:`rdb_ct_bwd`: the dense chain's adjoint walked
+    5 → 1 with the kernels' rounding points. Each ``dz_k`` is rounded to the
+    working dtype before a product, ``db_k`` sums it unrounded, dx is rounded
+    once. Returns ``{"dx", "w1".."w5", "b1".."b5", "w11"}`` (weights HWIO
+    fp32, ``w11`` ``[nf, gc]`` or None)."""
+    dt = x.dtype
+    rnd = lambda t: t.to(dt).float()
+    nf, gc = x.shape[3], w["w1"].shape[3]
+    src = torch.cat([_nchw(x), _nchw(cat)], 1)
+    lf = _nchw(lsv)
+    gf = _nchw(g)
+    if noise is not None:
+        gf = gf * (1.0 + sigma * _nchw(noise))
+    dcat = torch.zeros_like(src)
+    out = {}
+
+    def stage(k, dz):
+        cin = nf + (k - 1) * gc
+        dzr = rnd(dz)
+        out[f"w{k}"] = _wgrad_plain(src[:, :cin], dzr)
+        out[f"b{k}"] = dz.sum((0, 2, 3))
+        dcat[:, :cin] += _dgrad_plain(dzr, w[f"w{k}"])
+
+    xk = lambda k: slice(nf + (k - 1) * gc, nf + k * gc)  # x_k's channels
+    stage(5, gf * res_scale)
+    stage(4, _dlrelu(lf[:, gc:], dcat[:, xk(4)], slope))
+    stage(3, _dlrelu(src[:, xk(3)], dcat[:, xk(3)], slope))
+    dx2 = dcat[:, xk(2)] + dcat[:, xk(4)]            # + the x4 += x2 path
+    out["w11"] = None
+    if w["w11"] is not None:                         # the 1×1 shortcut, not gated
+        dx2r = rnd(dx2)
+        out["w11"] = _wgrad_plain(src[:, :nf], dx2r, 1)[0, 0]
+        dcat[:, :nf] += _dgrad_plain(dx2r, w["w11"][None, None])
+    stage(2, _dlrelu(lf[:, :gc], dx2, slope))
+    stage(1, _dlrelu(src[:, xk(1)], dcat[:, xk(1)], slope))
+    out["dx"] = (dcat[:, :nf] + gf).to(dt).permute(0, 2, 3, 1).contiguous()
+    return out
+
+
+def conv3x3_ct_bwd_plain(x, w, g) -> dict:
+    """Plain twin of :func:`conv3x3_ct_bwd` → ``{"dx", "w", "b"}``."""
+    gf = _nchw(g)
+    return {"dx": _dgrad_plain(gf, w).to(x.dtype).permute(0, 2, 3, 1).contiguous(),
+            "w": _wgrad_plain(_nchw(x), gf), "b": gf.sum((0, 2, 3))}
+
+
+def dz_src(H: int, W: int, mode: int, *, g=None, g_stride=0, noise=None, sigma=0.0,
+           scale=1.0, d32=None, d_stride=0, coff=0, coff2=-1, mask=0, m_stride=0,
+           co=0, slope=0.2) -> build.DzSrc:
+    """A cotangent source for the backward kernels (``csrc/dz_src.cuh``).
+    ``mask`` is a raw address (a channel offset into a saved buffer)."""
+    ptr = lambda t: None if t is None else t.data_ptr()
+    return build.DzSrc(ptr(g), ptr(noise), ptr(d32), mask or None, mode, g_stride, d_stride,
+                       coff, coff2, m_stride, co, H, W, sigma, scale, slope)
+
+
+def _dgrad_chunk(*widths: int) -> int:
+    """Input channels per data-gradient block: the largest instantiated
+    chunk that divides every width."""
+    for c in (32, 16, 8):
+        if all(n % c == 0 for n in widths):
+            return c
+    raise ValueError(f"widths {widths}: the CUDA backward takes multiples of 8")
+
+
+def dgrad(x_like: torch.Tensor, B: int, dz: build.DzSrc, s: int, w: torch.Tensor, cin: int,
+          *, taps: int = 9, chunk: int, out32=None, accumulate=False, out=None, addg=None):
+    """One data-gradient launch (``csrc/dgrad_ct.cu``) on ``x_like``'s device
+    and dtype: into the fp32 buffer ``out32`` (channels [0, cin)), or rounded
+    into ``out``."""
+    lib = build.load("dgrad_ct")
+    code = lib.esr_dgrad(
+        build.dtype_code(x_like), chunk, taps, ctypes.byref(dz), s, w.data_ptr(), cin,
+        None if out32 is None else out32.data_ptr(),
+        0 if out32 is None else out32.shape[-1], int(accumulate),
+        None if out is None else out.data_ptr(), 0 if out is None else out.shape[-1],
+        None if addg is None else ctypes.byref(addg), B,
+        torch.cuda.current_stream(x_like.device).cuda_stream)
+    build.check(code, "esr_dgrad")
+
+
+def wgrad_parts(B: int, H: int, W: int, cin: int, s: int) -> int:
+    """Rows of the weight-gradient workspace: about 512 blocks over the
+    input-channel chunks, at most one row per 8×16 pixel tile and 128 rows.
+    A function of the shapes only, so the reduction order is fixed."""
+    tiles = B * -(-H // 8) * -(-W // 16)
+    kc = 16 if s >= 16 else 32
+    want = max(1, min(tiles, 128, -(-512 // -(-cin // kc))))
+    per = -(-tiles // want)
+    return -(-tiles // per)
+
+
+def wgrad(x: torch.Tensor, cat: Optional[torch.Tensor], cin: int, dz: build.DzSrc, s: int,
+          *, taps: int = 9):
+    """One weight-gradient launch plus its fixed-order finishing pass
+    (``csrc/wgrad_ct.cu``) → (dW ``[taps, cin, s]`` fp32, db ``[s]`` fp32).
+    The conv's input is the first ``cin`` channels of (x | cat)."""
+    B, H, W, c0 = x.shape
+    npart = wgrad_parts(B, H, W, cin, s)
+    row = taps * cin * s + s
+    part = torch.empty((npart, row), dtype=torch.float32, device=x.device)
+    out = torch.empty((row,), dtype=torch.float32, device=x.device)
+    lib = build.load("wgrad_ct")
+    code = lib.esr_wgrad(build.dtype_code(x), taps, x.data_ptr(), c0,
+                         None if cat is None else cat.data_ptr(),
+                         0 if cat is None else cat.shape[3], cin, ctypes.byref(dz), s,
+                         part.data_ptr(), npart, out.data_ptr(), B,
+                         torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(code, "esr_wgrad")
+    return out[:taps * cin * s].view(taps, cin, s), out[taps * cin * s:]
+
+
+def rdb_ct_bwd(x, w, cat, lsv, g, noise=None, *, sigma: float = 0.0, slope: float = 0.2,
+               res_scale: float = 0.2) -> dict:
+    """Adjoint of the training-mode :func:`rdb_ct` from its saved buffers.
+
+    ``w`` are the forward's cast weights, ``g`` the output cotangent in x's
+    dtype, ``noise`` the forward's noise tensor when the cotangent is to be
+    scaled by ``1 + sigma·noise`` (None for no noise or a detached scale).
+    Returns ``{"dx", "w1".."w5", "b1".."b5", "w11"}``. On a CUDA tensor: 12
+    launches (a data- and a weight-gradient per stage and for the 1×1), all
+    deterministic. ``rdb_ct_bwd.launches`` counts CUDA calls."""
+    if x.device.type == "cpu":
+        return rdb_ct_bwd_plain(x, w, cat, lsv, g, noise, sigma=sigma, slope=slope,
+                                res_scale=res_scale)
+    B, H, W, nf = x.shape
+    gc = w["w1"].shape[3]
+    dt, dev = x.dtype, x.device
+    ctot = nf + 4 * gc
+    build.require(x, "x", (B, H, W, nf), dt, dev)
+    build.require(g, "g", (B, H, W, nf), dt, dev)
+    build.require(cat, "cat", (B, H, W, 4 * gc), dt, dev)
+    build.require(lsv, "lsv", (B, H, W, 2 * gc), dt, dev)
+    if noise is not None:
+        build.require(noise, "noise", (B, H, W, nf), dt, dev)
+    chunk = _dgrad_chunk(nf, gc)
+    esz = x.element_size()
+    dcat = torch.empty((B, H, W, ctot), dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    out = {"dx": dx, "w11": None}
+    gate = lambda k, mask, m_stride, coff2=-1: dz_src(
+        H, W, build.DZ_GATE, d32=dcat, d_stride=ctot, coff=nf + (k - 1) * gc, coff2=coff2,
+        mask=mask, m_stride=m_stride, slope=slope)
+    stages = {
+        5: dz_src(H, W, build.DZ_G, g=g, g_stride=nf, noise=noise, sigma=sigma,
+                  scale=res_scale),
+        4: gate(4, lsv.data_ptr() + gc * esz, 2 * gc),
+        3: gate(3, cat.data_ptr() + 2 * gc * esz, 4 * gc),
+        2: gate(2, lsv.data_ptr(), 2 * gc, coff2=nf + 3 * gc),   # dx2 = dx2 + dx4
+        1: gate(1, cat.data_ptr(), 4 * gc),
+    }
+    skip = dz_src(H, W, build.DZ_G, g=g, g_stride=nf, noise=noise, sigma=sigma)
+    with torch.cuda.device(dev):
+        for k in (5, 4, 3, 2, 1):
+            cin, s = nf + (k - 1) * gc, nf if k == 5 else gc
+            if k == 2 and w["w11"] is not None:  # the 1×1 shortcut: dx2, not gated
+                dz11 = dz_src(H, W, build.DZ_PLAIN, d32=dcat, d_stride=ctot, coff=nf + gc,
+                              coff2=nf + 3 * gc)
+                out["w11"] = wgrad(x, None, nf, dz11, gc, taps=1)[0][0]
+                dgrad(x, B, dz11, gc, w["w11"], nf, taps=1, chunk=chunk, out32=dcat,
+                      accumulate=True)
+            out[f"w{k}"], out[f"b{k}"] = wgrad(x, cat, cin, stages[k], s)
+            out[f"w{k}"] = out[f"w{k}"].view(3, 3, cin, s)
+            if k > 1:
+                dgrad(x, B, stages[k], s, w[f"w{k}"], cin, chunk=chunk, out32=dcat,
+                      accumulate=k < 5)
+            else:  # + the earlier stages' share, + the skip's cotangent, one rounding
+                dgrad(x, B, stages[k], s, w[f"w{k}"], cin, chunk=chunk, out32=dcat,
+                      accumulate=True, out=dx, addg=skip)
+    rdb_ct_bwd.launches += 1
+    return out
+
+
+rdb_ct_bwd.launches = 0
+
+
+def conv3x3_ct_bwd(x, w, g) -> dict:
+    """Adjoint of :func:`conv3x3_ct` wrt x, w and bias → ``{"dx", "w", "b"}``
+    (the residual's cotangent is ``g`` itself). ``conv3x3_ct_bwd.launches``
+    counts CUDA calls."""
+    if x.device.type == "cpu":
+        return conv3x3_ct_bwd_plain(x, w, g)
+    B, H, W, cin = x.shape
+    cout = w.shape[3]
+    dt, dev = x.dtype, x.device
+    build.require_width(cout, "cout")
+    build.require(x, "x", (B, H, W, cin), dt, dev)
+    build.require(w, "w", (3, 3, cin, cout), dt, dev)
+    build.require(g, "g", (B, H, W, cout), dt, dev)
+    dz = dz_src(H, W, build.DZ_G, g=g, g_stride=cout)
+    dx = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        dw, db = wgrad(x, None, cin, dz, cout)
+        dgrad(x, B, dz, cout, w, cin, chunk=_dgrad_chunk(cin), out=dx)
+    conv3x3_ct_bwd.launches += 1
+    return {"dx": dx, "w": dw.view(3, 3, cin, cout), "b": db}
+
+
+conv3x3_ct_bwd.launches = 0
+
+
+def _cast_masters(wb, dt) -> dict:
+    """(w1, b1, …, w5, b5[, w11]) fp32 masters → the kernels' weight dict at
+    ``dt`` (what :func:`prepare_rdb_ct_weights` gives for inference)."""
+    w = {f"w{k}": wb[2 * k - 2].to(dt).contiguous() for k in range(1, 6)}
+    w.update({f"b{k}": wb[2 * k - 1].float().contiguous() for k in range(1, 6)})
+    w["w11"] = wb[10].to(dt).contiguous() if len(wb) > 10 else None
+    return w
+
+
+class _RdbCtDiff(torch.autograd.Function):
+    """``wb`` = (w1, b1, …, w5, b5[, w11]) fp32 masters."""
+
+    @staticmethod
+    def forward(ctx, x, noise, opts, *wb):
+        sigma, detach, slope, res_scale = opts
+        w = _cast_masters(wb, x.dtype)
+        fwd = _rdb_ct_train_plain if x.device.type == "cpu" else _rdb_ct_cuda
+        extra = {} if x.device.type == "cpu" else {"save": True}
+        out, cat, lsv = fwd(x, w, None, noise, sigma=sigma, slope=slope,
+                            res_scale=res_scale, **extra)
+        ctx.save_for_backward(x, cat, lsv, noise, *wb)
+        ctx.opts = opts
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, cat, lsv, noise, *wb = ctx.saved_tensors
+        sigma, detach, slope, res_scale = ctx.opts
+        # recast from the masters, as the forward did (no cast copy is kept)
+        r = rdb_ct_bwd(x, _cast_masters(wb, x.dtype), cat, lsv, g.to(x.dtype).contiguous(),
+                       None if detach else noise, sigma=sigma, slope=slope,
+                       res_scale=res_scale)
+        grads = []
+        for k in range(1, 6):
+            grads += [r[f"w{k}"].to(wb[2 * k - 2].dtype), r[f"b{k}"].to(wb[2 * k - 1].dtype)]
+        if len(wb) > 10:
+            grads.append(r["w11"].to(wb[10].dtype))
+        return (r["dx"], None, None, *grads)
+
+
+def rdb_ct_diff(x: torch.Tensor, p: dict, noise: Optional[torch.Tensor] = None, *,
+                noise_sigma: float = 0.0, noise_detach: bool = False,
+                slope: float = 0.2, res_scale: float = 0.2) -> torch.Tensor:
+    """Differentiable :func:`rdb_ct`: forward the training-mode kernel,
+    backward :func:`rdb_ct_bwd`.
+
+    ``p`` is one RDB's canonical params (HWIO fp32 masters, ``conv1..conv5``
+    with biases, optional bias-free ``conv1x1``): they are cast to ``x.dtype``
+    inside and their gradients come back in the masters' dtype. ``noise``
+    (x's shape and dtype, pre-drawn standard normals) applies the nESRGAN+
+    relative noise ``out + n·(σ·out)`` in the kernel's epilogue; the backward
+    scales the cotangent by ``1 + σ·n``, or not at all with
+    ``noise_detach``."""
+    wb = []
+    for k in range(1, 6):
+        wb += [p[f"conv{k}"]["w"], p[f"conv{k}"]["b"]]
+    if "conv1x1" in p:
+        wb.append(p["conv1x1"]["w"][0, 0])
+    if noise is not None:
+        noise = noise.to(x.dtype).contiguous()
+    return _RdbCtDiff.apply(x.contiguous(), noise,
+                            (float(noise_sigma), bool(noise_detach), slope, res_scale), *wb)
+
+
+class _Conv3x3CtDiff(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, bias, res):
+        ctx.save_for_backward(x, w)
+        return conv3x3_ct(x, w.to(x.dtype).contiguous(), bias.float().contiguous(), res)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        r = conv3x3_ct_bwd(x, w.to(x.dtype).contiguous(), g)
+        return r["dx"], r["w"].to(w.dtype), r["b"], g
+
+
+def conv3x3_ct_diff(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                    res: torch.Tensor) -> torch.Tensor:
+    """Differentiable :func:`conv3x3_ct` (bias + residual): the trunk conv
+    with the global residual in training. ``w`` is the fp32 master (HWIO),
+    cast to ``x.dtype`` inside; dW comes back fp32 and the residual's
+    cotangent is the output's, unchanged."""
+    return _Conv3x3CtDiff.apply(x.contiguous(), w, bias, res.contiguous())

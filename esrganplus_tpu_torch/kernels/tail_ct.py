@@ -9,6 +9,15 @@ round: the 2×2 dense fold of the upconv (weights folded in fp32, then cast),
 one rounding of each upconv output, conv0's activation rounded and zeroed
 outside the image before conv1, and conv1's output in the working dtype.
 
+Training goes through ``upfold_ct_diff`` and ``conv_hr_ct_diff``
+(``torch.autograd.Function``s; fp32 master weights in, fp32 gradients out).
+Their backwards, ``upfold_ct_bwd`` and ``conv_hr_ct_bwd``, are built from the
+data- and weight-gradient kernels of ``csrc/dgrad_ct.cu`` and
+``csrc/wgrad_ct.cu``: the upconv's per-phase 2×2 convs are embedded in 3×3 taps
+and read the HR cotangent through a phase view, gated by the saved output's
+sign; conv_hr's adjoint recomputes conv0's activation with the forward's dense
+kernel, as the TPU kernel recomputes it per stripe.
+
 A CPU tensor goes to the plain twin (``*_plain``); a CUDA tensor launches the
 kernel or raises.
 """
@@ -21,7 +30,10 @@ import torch
 import torch.nn.functional as F
 
 from esrganplus_tpu_torch.kernels import build
-from esrganplus_tpu_torch.kernels.rdb_ct import _bias, _conv, _lrelu, _nchw
+from esrganplus_tpu_torch.kernels import rdb_ct as _K
+from esrganplus_tpu_torch.kernels.rdb_ct import (_bias, _conv, _dgrad_plain, _dlrelu,
+                                                 _lrelu, _nchw, _wgrad_plain)
+from esrganplus_tpu_torch.models.layers import fp32_exact
 
 
 def prepare_upfold_ct(w: torch.Tensor, b: Optional[torch.Tensor],
@@ -153,3 +165,187 @@ def conv_hr_ct(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
 
 
 conv_hr_ct.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# training: backward twins, backward kernels, autograd Functions
+# ---------------------------------------------------------------------------
+
+
+def upfold_ct_bwd_plain(x, wf, out, g, *, slope: float = 0.2) -> dict:
+    """Plain twin of :func:`upfold_ct_bwd` → ``{"dx", "wf", "b"}``: per
+    output phase the adjoint of the forward twin's VALID 2×2 conv, the lrelu
+    mask from the saved output's sign, dz rounded before each product."""
+    B, H, W, C = x.shape
+    dt = x.dtype
+    xp = F.pad(_nchw(x), (1, 1, 1, 1))
+    of, gf = _nchw(out), _nchw(g)
+    dxp = torch.zeros_like(xp)
+    dwf = torch.zeros(wf.shape, dtype=torch.float32, device=x.device)
+    db = torch.zeros(wf.shape[-1], dtype=torch.float32, device=x.device)
+    for a in range(2):
+        for b in range(2):
+            dz = _dlrelu(of[:, :, a::2, b::2], gf[:, :, a::2, b::2], slope)
+            dzr = dz.to(dt).float()
+            win = xp[:, :, a:a + H + 1, b:b + W + 1]
+            with fp32_exact():
+                dw = torch.nn.grad.conv2d_weight(win, (dz.shape[1], C, 2, 2), dzr)
+                dwin = F.conv_transpose2d(dzr, wf[a, b].float().permute(3, 2, 0, 1))
+            dwf[a, b] = dw.permute(2, 3, 1, 0)
+            dxp[:, :, a:a + H + 1, b:b + W + 1] += dwin
+            db += dz.sum((0, 2, 3))
+    dx = dxp[:, :, 1:-1, 1:-1].to(dt).permute(0, 2, 3, 1).contiguous()
+    return {"dx": dx, "wf": dwf, "b": db}
+
+
+def conv_hr_ct_bwd_plain(x, w0, b0, w1, g, *, slope: float = 0.2) -> dict:
+    """Plain twin of :func:`conv_hr_ct_bwd` →
+    ``{"dx", "w0", "b0", "w1", "b1"}``: conv0's activation recomputed and
+    rounded as in the forward, conv1's adjoint, the lrelu gate, conv0's
+    adjoint; ``dz0`` rounded before its products, ``db0`` summed unrounded."""
+    dt = x.dtype
+    xf, gf = _nchw(x), _nchw(g)
+    hid = _lrelu(_conv(xf, w0, b0), slope).to(dt).float()
+    dz0 = _dlrelu(hid, _dgrad_plain(gf, w1), slope)
+    dz0r = dz0.to(dt).float()
+    return {"dx": _dgrad_plain(dz0r, w0).to(dt).permute(0, 2, 3, 1).contiguous(),
+            "w0": _wgrad_plain(xf, dz0r), "b0": dz0.sum((0, 2, 3)),
+            "w1": _wgrad_plain(hid, gf), "b1": gf.sum((0, 2, 3))}
+
+
+def _embed_phases(wf: torch.Tensor) -> torch.Tensor:
+    """Folded ``[2, 2, 2, 2, C, CO]`` → ``[3, 3, C, 4·CO]``: phase (a, b)'s
+    2×2 taps (i, j) sit at 3×3 taps (a + i, b + j) of its CO channels."""
+    C, CO = wf.shape[-2:]
+    w3 = torch.zeros((3, 3, C, 4, CO), dtype=wf.dtype, device=wf.device)
+    for a in range(2):
+        for b in range(2):
+            w3[a:a + 2, b:b + 2, :, 2 * a + b] = wf[a, b]
+    return w3.view(3, 3, C, 4 * CO)
+
+
+def upfold_ct_bwd(x, wf, out, g, *, slope: float = 0.2) -> dict:
+    """Adjoint of :func:`upfold_ct` from its input, cast folded weights and
+    saved output → ``{"dx", "wf", "b"}`` (``wf`` the folded weights' fp32
+    gradient). ``upfold_ct_bwd.launches`` counts CUDA calls."""
+    if x.device.type == "cpu":
+        return upfold_ct_bwd_plain(x, wf, out, g, slope=slope)
+    B, H, W, C = x.shape
+    CO = wf.shape[-1]
+    dt, dev = x.dtype, x.device
+    build.require_width(CO, "CO")
+    build.require(x, "x", (B, H, W, C), dt, dev)
+    build.require(wf, "wf", (2, 2, 2, 2, C, CO), dt, dev)
+    build.require(out, "out", (B, 2 * H, 2 * W, CO), dt, dev)
+    build.require(g, "g", (B, 2 * H, 2 * W, CO), dt, dev)
+    phase = lambda coff: _K.dz_src(H, W, build.DZ_PHASE, g=g, mask=out.data_ptr(), co=CO,
+                                   coff=coff, slope=slope)
+    dx = torch.empty_like(x)
+    dwf = torch.empty((2, 2, 2, 2, C, CO), dtype=torch.float32, device=dev)
+    db = None
+    with torch.cuda.device(dev):
+        _K.dgrad(x, B, phase(0), 4 * CO, _embed_phases(wf), C, chunk=_K._dgrad_chunk(C),
+                 out=dx)
+        for a in range(2):
+            for b in range(2):
+                dw3, dbp = _K.wgrad(x, None, C, phase((2 * a + b) * CO), CO)
+                dwf[a, b] = dw3.view(3, 3, C, CO)[a:a + 2, b:b + 2]
+                db = dbp if db is None else db + dbp
+    upfold_ct_bwd.launches += 1
+    return {"dx": dx, "wf": dwf, "b": db}
+
+
+upfold_ct_bwd.launches = 0
+
+
+def conv_hr_ct_bwd(x, w0, b0, w1, g, *, slope: float = 0.2) -> dict:
+    """Adjoint of :func:`conv_hr_ct` → ``{"dx", "w0", "b0", "w1", "b1"}``.
+    conv0's activation never left shared memory in the forward, so it is
+    recomputed here (the forward's dense kernel, rounded as there) into a
+    device buffer; SAME padding of that buffer is the forward's zeroing
+    outside the image. ``conv_hr_ct_bwd.launches`` counts CUDA calls."""
+    if x.device.type == "cpu":
+        return conv_hr_ct_bwd_plain(x, w0, b0, w1, g, slope=slope)
+    B, H, W, C = x.shape
+    CO2 = w1.shape[3]
+    dt, dev = x.dtype, x.device
+    build.require_width(C, "C")
+    build.require_width(CO2, "CO2", range(1, 9))
+    build.require(x, "x", (B, H, W, C), dt, dev)
+    build.require(w0, "w0", (3, 3, C, C), dt, dev)
+    build.require(b0, "b0", (C,), torch.float32, dev)
+    build.require(w1, "w1", (3, 3, C, CO2), dt, dev)
+    build.require(g, "g", (B, H, W, CO2), dt, dev)
+    hid = torch.empty_like(x)
+    dhid = torch.empty((B, H, W, C), dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    chunk = _K._dgrad_chunk(C)
+    with torch.cuda.device(dev):
+        _K._dense(build.load("rdb_ct"), x, None, C, w0, b0, hid.data_ptr(), C, mode=_K._ACT,
+                  cout=C, slope=slope)
+        dz1 = _K.dz_src(H, W, build.DZ_G, g=g, g_stride=CO2)
+        dw1, db1 = _K.wgrad(hid, None, C, dz1, CO2)
+        _K.dgrad(x, B, dz1, CO2, w1, C, chunk=chunk, out32=dhid)
+        dz0 = _K.dz_src(H, W, build.DZ_GATE, d32=dhid, d_stride=C, mask=hid.data_ptr(),
+                        m_stride=C, slope=slope)
+        dw0, db0 = _K.wgrad(x, None, C, dz0, C)
+        _K.dgrad(x, B, dz0, C, w0, C, chunk=chunk, out=dx)
+    conv_hr_ct_bwd.launches += 1
+    return {"dx": dx, "w0": dw0.view(3, 3, C, C), "b0": db0,
+            "w1": dw1.view(3, 3, C, CO2), "b1": db1}
+
+
+conv_hr_ct_bwd.launches = 0
+
+
+class _UpfoldCtDiff(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wf, bias, slope):
+        out = upfold_ct(x, wf.to(x.dtype).contiguous(), bias.float().contiguous(),
+                        slope=slope)
+        ctx.save_for_backward(x, wf, out)
+        ctx.slope = slope
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, wf, out = ctx.saved_tensors
+        r = upfold_ct_bwd(x, wf.to(x.dtype).contiguous(), out, g.to(x.dtype).contiguous(),
+                          slope=ctx.slope)
+        return r["dx"], r["wf"].to(wf.dtype), r["b"], None
+
+
+def upfold_ct_diff(x: torch.Tensor, wf: torch.Tensor, bias: torch.Tensor, *,
+                   slope: float = 0.2) -> torch.Tensor:
+    """Differentiable :func:`upfold_ct`. ``wf`` is the folded weight as an
+    fp32 master (``prepare_upfold_ct(w, b, torch.float32)``, itself
+    differentiable, so autograd carries the gradient back through the fold to
+    the canonical ``[3, 3, C, CO]`` weight); it is cast to ``x.dtype`` inside."""
+    return _UpfoldCtDiff.apply(x.contiguous(), wf, bias, slope)
+
+
+class _ConvHrCtDiff(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w0, b0, w1, b1, slope):
+        dt = x.dtype
+        ctx.save_for_backward(x, w0, b0, w1)
+        ctx.slope = slope
+        return conv_hr_ct(x, w0.to(dt).contiguous(), b0.float().contiguous(),
+                          w1.to(dt).contiguous(), b1.float().contiguous(), slope=slope)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, w0, b0, w1 = ctx.saved_tensors
+        dt = x.dtype
+        r = conv_hr_ct_bwd(x, w0.to(dt).contiguous(), b0.float().contiguous(),
+                           w1.to(dt).contiguous(), g.to(dt).contiguous(), slope=ctx.slope)
+        return r["dx"], r["w0"].to(w0.dtype), r["b0"], r["w1"].to(w1.dtype), r["b1"], None
+
+
+def conv_hr_ct_diff(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor,
+                    b1: torch.Tensor, *, slope: float = 0.2) -> torch.Tensor:
+    """Differentiable :func:`conv_hr_ct`; HWIO fp32 master weights, cast to
+    ``x.dtype`` inside, fp32 gradients."""
+    return _ConvHrCtDiff.apply(x.contiguous(), w0, b0, w1, b1, slope)

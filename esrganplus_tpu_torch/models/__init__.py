@@ -1,3 +1,5 @@
+import torch
+
 from esrganplus_tpu_torch.models.rrdb import (
     RRDBNetConfig,
     count_params,
@@ -5,13 +7,22 @@ from esrganplus_tpu_torch.models.rrdb import (
     rrdbnet_forward,
 )
 
-__all__ = ["RRDBNetConfig", "count_params", "generator_forward", "init_rrdbnet",
-           "rrdbnet_forward"]
+__all__ = ["RRDBNetConfig", "count_params", "generator_forward", "generator_init",
+           "init_rrdbnet", "rrdbnet_forward"]
 
 
-def generator_forward(params, x, cfg, *, dtype=None):
+def generator_forward(params, x, cfg, *, train=False, rng=None, noise=None, dtype=None):
     """Dispatch on the generator config type (RRDBNet only in this port so
     far; SRResNet and SFT-GAN are not ported yet)."""
     if isinstance(cfg, RRDBNetConfig):
-        return rrdbnet_forward(params, x, cfg, dtype=dtype)
+        return rrdbnet_forward(params, x, cfg, train=train, rng=rng, noise=noise,
+                               dtype=dtype)
+    raise NotImplementedError(f"generator config {type(cfg).__name__} is not ported yet")
+
+
+def generator_init(seed: int, cfg, init_scale: float = 0.1, dtype=None):
+    """Seeded random generator parameters on the CPU (fp32 unless ``dtype``)."""
+    if isinstance(cfg, RRDBNetConfig):
+        return init_rrdbnet(cfg, seed=seed, init_scale=init_scale,
+                            dtype=dtype or torch.float32)
     raise NotImplementedError(f"generator config {type(cfg).__name__} is not ported yet")

@@ -6,7 +6,10 @@ tensors in the JAX package's layout (``{"w": [kh, kw, cin, cout], "b":
 
 fp32 convolutions on the card run with TF32 off (:func:`fp32_exact`): cuDNN
 would otherwise compute them in TF32, about three decimal digits, which
-breaks the ≤1e-5 checkpoint parity the fp32 path is held to.
+breaks the ≤1e-5 checkpoint parity the fp32 path is held to. The context
+covers what runs inside it: a backward pass started outside (``autograd.grad``
+after the forward returned) picks its cuDNN algorithms under the flags of
+that moment, so training wraps the whole step (``SRTrainer.train_step``).
 """
 
 from __future__ import annotations
@@ -29,6 +32,19 @@ def fp32_exact():
         yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """Make cuDNN pick deterministic algorithms (its weight-gradient kernels
+    may otherwise add with atomics), so a training step that also runs the
+    package's own deterministic kernels repeats bit for bit."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
 
 
 def kaiming_conv_init(gen: torch.Generator, kh: int, kw: int, cin: int, cout: int,
@@ -71,6 +87,18 @@ def act(x: torch.Tensor, kind: Optional[str], slope: float = 0.2) -> torch.Tenso
     if kind in ("leakyrelu", "lrelu"):
         return torch.where(x >= 0, x, x * slope)
     raise NotImplementedError(f"activation [{kind}]")
+
+
+def gaussian_noise(x: torch.Tensor, noise: torch.Tensor, sigma: float,
+                   relative_detach: bool = False) -> torch.Tensor:
+    """nESRGAN+ noise injection (reference ``block.py:110-122``): additive
+    noise with per-element scale ``sigma * x``, ``x + noise·(σ·x)`` with
+    ``noise`` pre-drawn standard normals of x's shape. Train-time only
+    (callers gate on the train flag). With ``relative_detach`` the scale is
+    cut out of the gradient. σ is rounded to x's dtype first, as a weakly
+    typed scalar is in the JAX package."""
+    scale = torch.tensor(sigma, dtype=x.dtype) * (x.detach() if relative_detach else x)
+    return x + noise.to(x.dtype) * scale
 
 
 def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""RRDB generator (ESRGAN / ESRGAN+), one-shot inference.
+"""RRDB generator (ESRGAN / ESRGAN+ / nESRGAN+), inference and training.
 
 Counterpart of ``esrganplus_tpu/models/rrdb.py``. Parameters are dicts of
 tensors in the JAX package's layout (HWIO weights, the ``trunk`` subtree
@@ -16,10 +16,18 @@ Two paths, picked from the config and the tensor's device:
     ``conv_hr_ct``. The ×3 upconv has no kernel and stays plain, as in the
     JAX package. Forced onto the CPU (``trunk_kernel="cuda"``,
     ``tail_kernel="cuda"``), the same chain runs the kernels' plain twins.
-    Its weights are converted once, by :func:`prep_trunk_ct`.
+    Its inference weights are converted once, by :func:`prep_trunk_ct`.
 
-Noise sites (nESRGAN+ training, the Tarsier inference mode) are not ported
-yet: the config carries their fields so configs carry across unchanged.
+With ``train=True`` the nESRGAN+ noise sites act (after each RDB, and with
+``rrdb_noise`` after each RRDB), and the kernel path runs the differentiable
+twins: three ``rdb_ct_diff`` per RRDB, the RRDB epilogue ``h·β + h0`` as a
+plain tensor op between them (the fold is inference-only, as in the JAX
+package), ``conv3x3_ct_diff`` with the global residual, then
+``upfold_ct_diff`` and ``conv_hr_ct_diff``. The canonical fp32 masters cross
+every kernel boundary and are cast inside; the per-RDB noise rides in the
+kernel's epilogue (``noise_kernel="input"``). Noise comes from a
+``torch.Generator`` (``rng``) or is handed in pre-drawn (``noise``, see
+:func:`draw_noise`).
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from esrganplus_tpu_torch.models.layers import (
     act,
     conv2d,
     fp32_exact,
+    gaussian_noise,
     kaiming_conv_init,
     pixel_shuffle,
     upsample_nearest,
@@ -56,8 +65,7 @@ class RRDBNetConfig:
     # ESRGAN+ 1×1 dense shortcut (reference block.py:153-154,263); False gives
     # the vanilla-ESRGAN RDB graph.
     conv1x1: bool = True
-    # Noise sites act only in training and the Tarsier noise_rng mode, neither
-    # ported yet: these four fields are carried but read by nothing.
+    # Noise sites (nESRGAN+): active only when train=True.
     rdb_noise: bool = True
     rrdb_noise: bool = False
     noise_sigma: float = 0.1
@@ -75,7 +83,9 @@ class RRDBNetConfig:
     # kernels cannot take the config; only "plain" asks for the plain graph.
     trunk_kernel: str = "auto"
     tail_kernel: str = "auto"
-    # The noise application site; only "input" is taken.
+    # Where the kernel path applies the per-RDB noise: "input" = pre-drawn
+    # noise multiplied in the kernel's epilogue. The JAX package's "fused"
+    # (in-kernel PRNG) mode is not ported.
     noise_kernel: str = "input"
 
     def __post_init__(self):
@@ -157,8 +167,9 @@ def count_params(params) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _rdb_forward(x, p: dict, cfg: RRDBNetConfig, dtype):
-    """Residual dense block with ESRGAN+'s two extra residual paths."""
+def _rdb_forward(x, p: dict, cfg: RRDBNetConfig, dtype, noise=None):
+    """Residual dense block with ESRGAN+'s two extra residual paths;
+    ``noise`` (train mode) perturbs the output."""
     a = lambda t: act(t, cfg.act_type, cfg.act_slope)
     x1 = a(conv2d(x, p["conv1"], dtype=dtype))
     x2 = a(conv2d(torch.cat([x, x1], -1), p["conv2"], dtype=dtype))
@@ -167,14 +178,36 @@ def _rdb_forward(x, p: dict, cfg: RRDBNetConfig, dtype):
     x3 = a(conv2d(torch.cat([x, x1, x2], -1), p["conv3"], dtype=dtype))
     x4 = a(conv2d(torch.cat([x, x1, x2, x3], -1), p["conv4"], dtype=dtype)) + x2
     x5 = conv2d(torch.cat([x, x1, x2, x3, x4], -1), p["conv5"], dtype=dtype)
-    return x5 * cfg.res_scale + x
+    out = x5 * cfg.res_scale + x
+    if noise is not None:
+        out = gaussian_noise(out, noise, cfg.noise_sigma, cfg.noise_relative_detach)
+    return out
 
 
-def _rrdb_forward(x, p: dict, cfg: RRDBNetConfig, dtype):
-    h = _rdb_forward(x, p["rdb1"], cfg, dtype)
-    h = _rdb_forward(h, p["rdb2"], cfg, dtype)
-    h = _rdb_forward(h, p["rdb3"], cfg, dtype)
-    return h * cfg.res_scale + x
+def _rrdb_forward(x, p: dict, cfg: RRDBNetConfig, dtype, noise=(None,) * 4):
+    h = _rdb_forward(x, p["rdb1"], cfg, dtype, noise[0])
+    h = _rdb_forward(h, p["rdb2"], cfg, dtype, noise[1])
+    h = _rdb_forward(h, p["rdb3"], cfg, dtype, noise[2])
+    out = h * cfg.res_scale + x
+    if noise[3] is not None:
+        out = gaussian_noise(out, noise[3], cfg.noise_sigma, cfg.noise_relative_detach)
+    return out
+
+
+def noise_active(cfg: RRDBNetConfig, train: bool) -> bool:
+    return train and cfg.noise_sigma > 0 and (cfg.rdb_noise or cfg.rrdb_noise)
+
+
+def draw_noise(cfg: RRDBNetConfig, shape, rng: torch.Generator, dtype: torch.dtype,
+               device) -> list:
+    """Standard normals for every active noise site of one train-mode
+    forward: ``[nb][4]`` tensors of ``shape`` = (B, H, W, nf) (sites rdb1,
+    rdb2, rdb3, rrdb; None where a site is off), drawn from ``rng`` in
+    forward order on ``device``."""
+    draw = lambda on: (torch.randn(shape, generator=rng, device=device,
+                                   dtype=torch.float32).to(dtype) if on else None)
+    return [[draw(cfg.rdb_noise), draw(cfg.rdb_noise), draw(cfg.rdb_noise),
+             draw(cfg.rrdb_noise)] for _ in range(cfg.nb)]
 
 
 def _fold_upconv(p: dict, f: int) -> dict:
@@ -313,28 +346,92 @@ def _tail_cuda(tc: dict, fea, cfg: RRDBNetConfig):
     return conv_hr_ct(fea, *tc["hr"], slope=_slope(cfg)).float()
 
 
+def _unbind_blocks(trunk) -> list:
+    """The nb-stacked trunk as a list of per-block trees. ``unbind`` gives
+    every leaf one backward node (a stack of the blocks' gradients) where
+    nb separate selects would each scatter into a zero tensor of full size."""
+    if isinstance(trunk, dict):
+        cols = {k: _unbind_blocks(v) for k, v in trunk.items()}
+        n = len(next(iter(cols.values())))
+        return [{k: v[i] for k, v in cols.items()} for i in range(n)]
+    return list(torch.unbind(trunk, 0))
+
+
+def _trunk_cuda_train(params: dict, fea, cfg: RRDBNetConfig, noise):
+    """Training twin of :func:`_trunk_cuda` on the canonical fp32 masters:
+    no RRDB-epilogue fold, the per-RDB noise in the kernels' epilogue."""
+    from esrganplus_tpu_torch.kernels.rdb_ct import conv3x3_ct_diff, rdb_ct_diff
+
+    kw = dict(noise_sigma=cfg.noise_sigma, noise_detach=cfg.noise_relative_detach,
+              slope=_slope(cfg), res_scale=cfg.res_scale)
+    beta = torch.tensor(cfg.res_scale, dtype=fea.dtype)
+    h = fea
+    for bp, sites in zip(_unbind_blocks(params["trunk"]), noise):
+        h0 = h
+        for name, n in zip(("rdb1", "rdb2", "rdb3"), sites):
+            h = rdb_ct_diff(h, bp[name], n, **kw)
+        h = h * beta + h0
+        if sites[3] is not None:
+            h = gaussian_noise(h, sites[3], cfg.noise_sigma, cfg.noise_relative_detach)
+    tc = params["trunk_conv"]
+    return conv3x3_ct_diff(h, tc["w"], tc["b"], fea)
+
+
+def _tail_cuda_train(params: dict, fea, cfg: RRDBNetConfig):
+    from esrganplus_tpu_torch.kernels.tail_ct import (conv_hr_ct_diff, prepare_upfold_ct,
+                                                      upfold_ct_diff)
+
+    for up in params["upconvs"]:
+        # folded in fp32 by differentiable tensor ops: autograd carries dWf
+        # back through the fold to the canonical weight
+        wf, b = prepare_upfold_ct(up["w"], up.get("b"), torch.float32)
+        fea = upfold_ct_diff(fea, wf, b, slope=_slope(cfg))
+    hr0, hr1 = params["hr_conv0"], params["hr_conv1"]
+    return conv_hr_ct_diff(fea, hr0["w"], hr0["b"], hr1["w"], hr1["b"],
+                           slope=_slope(cfg)).float()
+
+
 def rrdbnet_forward(params: dict, x: torch.Tensor, cfg: RRDBNetConfig, *,
+                    train: bool = False, rng: Optional[torch.Generator] = None,
+                    noise: Optional[list] = None,
                     dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """×``cfg.upscale`` super-resolution of NHWC RGB [0,1] input → fp32.
 
     ``dtype`` selects the compute precision (None: the input's, the fp32
-    parity path; ``torch.bfloat16`` for throughput). A forward that runs a
-    kernel needs ``params`` from :func:`prep_trunk_ct` at that precision."""
+    parity path; ``torch.bfloat16`` for throughput). An inference forward
+    that runs a kernel needs ``params`` from :func:`prep_trunk_ct` at that
+    precision; a training forward (``train=True``, differentiable on both
+    paths) takes the canonical fp32 masters. Train-mode noise needs ``rng``
+    (a generator on x's device) or pre-drawn ``noise`` (:func:`draw_noise`)."""
     kdt = dtype or x.dtype
     cuda_trunk = use_cuda_trunk(cfg, x.device, kdt)
     cuda_tail = use_cuda_tail(cfg, x.device, kdt)
-    if (cuda_trunk or cuda_tail) and params.get("trunk_ct", {}).get("dtype") != kdt:
+    if not train and (cuda_trunk or cuda_tail) \
+            and params.get("trunk_ct", {}).get("dtype") != kdt:
         raise ValueError(f"the kernel path at {kdt} needs the kernels' weights: pass "
                          f"prep_trunk_ct(params, cfg, {kdt}) (converted once, at load)")
+    if noise_active(cfg, train):
+        if noise is None:
+            if rng is None:
+                raise ValueError("rrdbnet_forward: train-mode noise needs an rng "
+                                 "(torch.Generator) or pre-drawn noise")
+            noise = draw_noise(cfg, (*x.shape[:3], cfg.nf), rng, kdt, x.device)
+    else:
+        noise = [(None,) * 4] * cfg.nb
     with fp32_exact():
         fea = conv2d(x, params["fea_conv"], dtype=dtype)
-        if cuda_trunk:
+        if cuda_trunk and train:
+            fea = _trunk_cuda_train(params, fea.to(kdt).contiguous(), cfg, noise)
+        elif cuda_trunk:
             fea = _trunk_cuda(params["trunk_ct"], fea.to(kdt).contiguous(), cfg)
         else:
             trunk = fea
             for i in range(cfg.nb):
-                trunk = _rrdb_forward(trunk, block_params(params["trunk"], i), cfg, dtype)
+                trunk = _rrdb_forward(trunk, block_params(params["trunk"], i), cfg, dtype,
+                                      noise[i])
             fea = fea + conv2d(trunk, params["trunk_conv"], dtype=dtype)
+        if cuda_tail and train:
+            return _tail_cuda_train(params, fea.to(kdt).contiguous(), cfg)
         if cuda_tail:
             return _tail_cuda(params["tail_ct"], fea.to(kdt).contiguous(), cfg)
         return _tail_plain(params, fea, cfg, dtype)

@@ -1,0 +1,145 @@
+"""Checkpoint / resume.
+
+Counterpart of ``esrganplus_tpu/train/checkpoint.py`` (reference semantics,
+``codes/models/base_model.py:50-85``): per-network weight files
+``<iter>_G.pth`` plus a trainer-state file with iteration, optimizer state and
+parameters, saved every ``save_checkpoint_freq`` and restored via
+``resume_state``.
+
+The full train state is one ``<iter>.state.npz``: leaves flattened in a
+fixed order (dict keys sorted, the order ``jax.tree_util.tree_flatten`` gives
+the JAX package's files), restored against a template state from
+``trainer.init_state``. Generator weights are additionally exported as
+reference-layout ``.pth`` so the upstream tools and both packages can consume
+the checkpoints. The JAX package's ``load_state_auto`` toggles between its
+canonical and prepared-trunk layouts; this port has one layout, so
+:func:`load_state` is all there is.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+from typing import Optional
+
+import numpy as np
+import torch
+
+from esrganplus_tpu_torch.train.sr_model import tree_unflatten_like, tree_leaves, tree_map
+
+STATE_SUFFIX = ".state.npz"
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    if torch.is_tensor(leaf):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def save_state(path: str, state) -> None:
+    leaves = [_to_numpy(l) for l in tree_leaves(state)]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    arrays = {f"leaf_{i}": leaf for i, leaf in enumerate(leaves)}
+    meta = {"n_leaves": len(leaves)}
+    # write-then-rename: a crash mid-write must not leave a truncated file
+    # where resume expects a checkpoint (np.savez appends '.npz' to bare
+    # paths, so hand it an open handle)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, __meta__=json.dumps(meta), **arrays)
+    os.replace(tmp, path)
+
+
+def device_snapshot(tree):
+    """A copy of every tensor leaf on its device. The train step updates its
+    state in place, so a background write must read from a snapshot."""
+    return tree_map(lambda a: a.detach().clone() if torch.is_tensor(a) else a, tree)
+
+
+class AsyncCheckpointer:
+    """Background checkpoint writer: ``save()`` snapshots the state on the
+    device (fast), then fetches and writes it, plus any caller-supplied
+    export, in a daemon thread, so the train loop only pays the device copy.
+    One write in flight at a time: a new save first waits out the previous
+    one; call ``wait()`` before process exit so the last write lands."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, path: str, state, export_fn=None) -> None:
+        self.wait()
+        snap = device_snapshot(state)
+        done = None
+        if torch.cuda.is_available() and any(
+                torch.is_tensor(l) and l.is_cuda for l in tree_leaves(snap)):
+            done = torch.cuda.Event()
+            done.record()  # the copies are queued on this thread's stream
+
+        def work():
+            try:
+                if done is not None:
+                    done.synchronize()
+                save_state(path, snap)
+                if export_fn is not None:
+                    export_fn(snap)
+            except BaseException as e:  # surfaced on the next wait()/save()
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Block until the in-flight write (if any) finished; re-raise its
+        error, if it had one, on the caller's thread."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+
+def load_state(path: str, template_state):
+    """Restore into the structure of ``template_state`` (shape-checked):
+    tensors land on the template leaf's device with its dtype and
+    ``requires_grad``, integers stay integers."""
+    with np.load(path, allow_pickle=False) as data:
+        meta = json.loads(str(data["__meta__"]))
+        leaves = [data[f"leaf_{i}"] for i in range(meta["n_leaves"])]
+    t_leaves = tree_leaves(template_state)
+    if len(t_leaves) != len(leaves):
+        raise ValueError(
+            f"checkpoint has {len(leaves)} leaves but template has {len(t_leaves)} "
+            "— config mismatch?")
+    restored = []
+    for i, (a, b) in enumerate(zip(leaves, t_leaves)):
+        if tuple(a.shape) != tuple(np.shape(b) if not torch.is_tensor(b) else b.shape):
+            raise ValueError(f"leaf {i} shape {a.shape} != template {tuple(np.shape(b))}")
+        if torch.is_tensor(b):
+            t = torch.from_numpy(np.array(a)).to(b.device, b.dtype)
+            restored.append(t.requires_grad_(b.requires_grad))
+        else:
+            restored.append(type(b)(a))
+    return tree_unflatten_like(template_state, iter(restored))
+
+
+def save_networks_pth(models_dir: str, tag, g_params, g_cfg) -> None:
+    """Export generator weights in reference-layout .pth (``<tag>_G.pth``)."""
+    from esrganplus_tpu_torch.convert.pth import rrdbnet_to_state_dict
+
+    os.makedirs(models_dir, exist_ok=True)
+    cpu = tree_map(lambda p: p.detach().cpu(), g_params)
+    sd = {k: v.clone() for k, v in rrdbnet_to_state_dict(cpu, g_cfg).items()}
+    torch.save(sd, os.path.join(models_dir, f"{tag}_G.pth"))
+
+
+def latest_state_path(state_dir: str) -> Optional[str]:
+    if not os.path.isdir(state_dir):
+        return None
+    states = [f for f in os.listdir(state_dir) if f.endswith(STATE_SUFFIX)]
+    if not states:
+        return None
+    states.sort(key=lambda f: int(f.split(".")[0]))
+    return os.path.join(state_dir, states[-1])

@@ -1,5 +1,6 @@
-"""Card tests: each CUDA kernel against its plain PyTorch twin, and the
-flagship kernel path against the plain graph, on an NVIDIA GPU.
+"""Card tests: each CUDA kernel, forward and backward, against its plain
+PyTorch twin, the flagship kernel path against the plain graph (inference,
+and value and gradients in train mode), and the trainer, on an NVIDIA GPU.
 
 Every test here is marked ``cuda`` and skips without a card (the kernels
 have no CPU mode). The module imports neither JAX nor the JAX package, so it
@@ -80,6 +81,112 @@ def test_cuda_kernel_matches_plain_twin(name, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 37, 53), (16, 32, 32)], ids=["odd", "train"])
+def test_cuda_rdb_ct_training_forward_matches_plain_twin(shape, dtype):
+    """The training mode of rdb_ct (noise epilogue, saved x1..x4 and the
+    pre-residual l2|l4 the backward takes its masks from): output and both
+    saved buffers against the twin's, at the forward kernels' bars."""
+    _need_card()
+    rs = np.random.RandomState(2)
+    B, H, W = shape
+    act = lambda: torch.from_numpy(rs.randn(B, H, W, 64).astype(np.float32)).to("cuda", dtype)
+    p = {f"conv{k}": _conv(rs, 64 + (k - 1) * 32, 64 if k == 5 else 32) for k in range(1, 6)}
+    p["conv1x1"] = {"w": torch.from_numpy((rs.randn(1, 1, 64, 32) / 8).astype(np.float32)).cuda()}
+    w = K.prepare_rdb_ct_weights(p, dtype)
+    x, noise = act(), act()
+    with fp32_exact():
+        got = K._rdb_ct_cuda(x, w, None, noise, sigma=0.1, save=True)
+        want = K._rdb_ct_train_plain(x, w, None, noise, sigma=0.1)
+    for name, a, b in zip(("out", "cat", "lsv"), got, want):
+        a, b = a.float(), b.float()
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        assert (a - b).abs().max().item() <= TOL[dtype] * max(1.0, b.abs().max().item()), name
+        if dtype == torch.bfloat16:
+            assert (a != b).float().mean().item() <= 0.01, name
+
+
+def _bwd_case(name, dtype, shape=(2, 37, 53), nf=64, gc=32):
+    """(kernel call, twin call) for a backward wrapper; both return the
+    wrapper's dict of gradients. The saved buffers come from the forward
+    kernel in its training mode (held against the twin's by the test above):
+    fed its own, the twin would differ wherever a saved activation is within
+    a summation-order difference of 0 and its lrelu mask flips."""
+    rs = np.random.RandomState(1)
+    B, H, W = shape
+    act = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32)).to("cuda", dtype)
+    x = act(B, H, W, nf)
+    if name.startswith("rdb_ct_bwd"):
+        p = {f"conv{k}": _conv(rs, nf + (k - 1) * gc, nf if k == 5 else gc)
+             for k in range(1, 6)}
+        if "no1x1" not in name:
+            p["conv1x1"] = {"w": torch.from_numpy(
+                (rs.randn(1, 1, nf, gc) / 8).astype(np.float32)).cuda()}
+        w = K.prepare_rdb_ct_weights(p, dtype)
+        noise = act(B, H, W, nf) if "noise" in name else None
+        _, cat, lsv = K._rdb_ct_cuda(x, w, None, noise, sigma=0.1, save=True)
+        g = act(B, H, W, nf)
+        args = (x, w, cat, lsv, g, noise)
+        return (lambda: K.rdb_ct_bwd(*args, sigma=0.1),
+                lambda: K.rdb_ct_bwd_plain(*args, sigma=0.1))
+    if name == "conv3x3_ct_bwd":
+        c = _conv(rs, nf, nf)
+        w, _ = K.prepare_conv_ct_weights(c["w"], c["b"], dtype)
+        g = act(B, H, W, nf)
+        return lambda: K.conv3x3_ct_bwd(x, w, g), lambda: K.conv3x3_ct_bwd_plain(x, w, g)
+    if name == "upfold_ct_bwd":
+        c = _conv(rs, nf, nf)
+        wf, b = T.prepare_upfold_ct(c["w"], c["b"], dtype)
+        out = T.upfold_ct(x, wf, b)
+        g = act(B, 2 * H, 2 * W, nf)
+        return (lambda: T.upfold_ct_bwd(x, wf, out, g),
+                lambda: T.upfold_ct_bwd_plain(x, wf, out, g))
+    w0, b0, w1, _ = T.prepare_conv_hr_ct(_conv(rs, nf, nf), _conv(rs, nf, 3), dtype)
+    g = act(B, H, W, 3)
+    return (lambda: T.conv_hr_ct_bwd(x, w0, b0, w1, g),
+            lambda: T.conv_hr_ct_bwd_plain(x, w0, b0, w1, g))
+
+
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # of max|ref|, per gradient
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("name", ["rdb_ct_bwd", "rdb_ct_bwd_noise", "rdb_ct_bwd_no1x1",
+                                  "conv3x3_ct_bwd", "upfold_ct_bwd", "conv_hr_ct_bwd"])
+def test_cuda_backward_kernel_matches_plain_twin(name, dtype):
+    """Every gradient of each backward wrapper against its plain twin on the
+    same saved buffers: fp32 1e-4 of max|ref| (summation order only); bf16
+    2e-2 (a flipped rounding of a dz or of the recomputed activation moves a
+    product by one bf16 ulp of its operand)."""
+    _need_card()
+    kern, plain = _bwd_case(name, dtype)
+    with fp32_exact():
+        got, want = kern(), plain()
+    torch.cuda.synchronize()
+    assert set(got) == set(want)
+    for k, ref in want.items():
+        if ref is None:
+            assert got[k] is None
+            continue
+        a, b = got[k].float(), ref.float()
+        assert a.shape == b.shape and torch.isfinite(a).all(), k
+        err = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        assert err <= BWD_TOL[dtype], (k, err)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_is_deterministic():
+    """The weight gradient's split reduction has a fixed order: two runs on
+    the same inputs give the same bits."""
+    _need_card()
+    kern, _ = _bwd_case("rdb_ct_bwd_noise", torch.bfloat16, shape=(4, 32, 32))
+    a, b = kern(), kern()
+    for k in a:
+        assert a[k] is None or torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_rejects_cpu_weights():
     _need_card()
     w = K.prepare_rdb_ct_weights({f"conv{k}": {"w": torch.zeros(3, 3, 64 + (k - 1) * 32,
@@ -129,3 +236,67 @@ def test_auto_on_card_raises_where_kernels_do_not_fit(case):
             rrdbnet_forward(params, x, cfg, dtype=dtype)
         plain = dataclasses.replace(cfg, trunk_kernel="plain", tail_kernel="plain")
         assert rrdbnet_forward(params, x, plain, dtype=dtype).shape == (1, 32, 32, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["noise", "detach", "rrdb_noise"])
+def test_train_kernel_path_grads_match_plain_graph(variant):
+    """nb=1 at flagship widths, batch 2 of 16×16, fp32, the same noise fed to
+    both: the kernel path's loss (≤1e-5 relative) and every gradient leaf
+    (≤1e-3 of max|ref|) against autograd of the plain cuDNN graph, and one
+    forward + backward launches each kernel 3 / 1 / 2 / 1 times."""
+    _need_card()
+    from esrganplus_tpu_torch.models.rrdb import draw_noise
+
+    cfg = RRDBNetConfig(nb=1, noise_relative_detach=variant == "detach",
+                        rrdb_noise=variant == "rrdb_noise")
+    plain = dataclasses.replace(cfg, trunk_kernel="plain", tail_kernel="plain")
+    params = params_to(init_rrdbnet(cfg, seed=0, init_scale=0.5), "cuda")
+
+    def leaves(t):
+        if isinstance(t, dict):
+            return [l for k in sorted(t) for l in leaves(t[k])]
+        return [l for v in t for l in leaves(v)] if isinstance(t, list) else [t]
+
+    ls = leaves(params)
+    for l in ls:
+        l.requires_grad_()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.rand((2, 16, 16, 3), generator=gen, device="cuda")
+    noise = draw_noise(cfg, (2, 16, 16, 64), gen, torch.float32, "cuda")
+
+    def run(c):
+        with fp32_exact():  # cuDNN's backward too: it runs here, not in the forward
+            y = rrdbnet_forward(params, x, c, train=True, noise=noise)
+            loss = (y - 0.5).abs().mean()
+            return loss.item(), torch.autograd.grad(loss, ls)
+
+    counted = (K.rdb_ct, K.conv3x3_ct, T.upfold_ct, T.conv_hr_ct, K.rdb_ct_bwd,
+               K.conv3x3_ct_bwd, T.upfold_ct_bwd, T.conv_hr_ct_bwd)
+    for fn in counted:
+        fn.launches = 0
+    lk, gk = run(cfg)
+    assert [fn.launches for fn in counted] == [3, 1, 2, 1, 3, 1, 2, 1]
+    lp, gp = run(plain)
+    assert abs(lk - lp) / abs(lp) <= 1e-5
+    errs = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(gk, gp)]
+    assert max(errs) <= 1e-3, errs
+
+
+@pytest.mark.cuda
+def test_trainer_steps_on_the_card_repeat_bit_for_bit():
+    """Two SRTrainer runs from one seed (bf16, noise on, nb=2): the same
+    l_pix at every step, finite, and fp32 masters throughout."""
+    _need_card()
+    from esrganplus_tpu_torch.train import SRTrainConfig, SRTrainer
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    batch = (torch.rand((4, 16, 16, 3), generator=gen, device="cuda"),
+             torch.rand((4, 64, 64, 3), generator=gen, device="cuda"))
+    runs = []
+    for _ in range(2):
+        tr = SRTrainer(RRDBNetConfig(nb=2), SRTrainConfig(compute_dtype="bfloat16"))
+        state = tr.init_state(0)
+        runs.append([tr.train_step(state, batch, 1)[1]["l_pix"].item() for _ in range(4)])
+    assert runs[0] == runs[1] and np.isfinite(runs[0]).all()
+    assert tr.predict(state["params"], batch[0]).shape == (4, 64, 64, 3)
