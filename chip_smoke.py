@@ -41,10 +41,29 @@ final result line:
                step 8 that must end bit-equal to the uninterrupted run;
   7. train-steady — ``SRTrainer.train_step`` on one device-resident batch:
                median ms/step and crops/s, twice from one seed (bit-equal);
+  8. kernels-stage — the GAN slice's four stage wrappers (conv_s1_ct,
+               conv_s2_ct and their backwards) against their plain twins, fp32
+               and bf16, at an odd shape (B=2, 36×52, 3→8 and 16→16 channels,
+               act none/relu/lrelu) and at every shape the flagship
+               discriminator and VGG19 give them at batch 16, there with times,
+               bounds and a cuDNN yardstick; the backward also on the twin's
+               own forward output and with the weight half switched off;
+  9. gan-check — flagship G, discriminator_vgg_128 and VGG19 (seeded), one
+               batch: every loss term and every gradient leaf of G and of D
+               through the kernel path against autograd of the plain graph on
+               the card, fp32 then bf16, the same noise fed to both;
+ 10. gan-train — an options file with ``model: "srragan"`` at the recipe's
+               shape (batch 16, HR 128, bf16, noise on, perceptual loss on)
+               for 16 steps through ``esrganplus_tpu_torch.cli.train``; checks
+               the logged terms, the launch counts of all twelve kernels,
+               ``latest_G.pth`` / ``latest_D.pth``, and a resume from step 8
+               that must end bit-equal;
+ 11. gan-steady — ``GANTrainer.train_step`` on one device-resident batch:
+               median ms/step and crops/s, twice from one seed (bit-equal);
      with ``--profile`` also a ``torch.profiler`` trace of three steady steps
-     (device time by kernel family, the card's busy share).
+     of each trainer (device time by kernel family, the card's busy share).
 
-Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
+Then one ``{"kernels": [...]}`` line (twelve kernels), the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -97,6 +116,39 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # per gradient, of max|ref|
 BWD_TOL_OWN_BUFFERS = 5e-2
 TRAIN_STEPS, VAL_IMAGES = 16, 2
 
+# the GAN slice: the stage convs of the discriminator (D) and the perceptual
+# net (F) at the flagship recipe (batch 16, HR 128).
+# name: (kernel size, cin, cout, input height = width, fused act, net)
+GAN_BATCH = 16
+STAGE_SHAPES = {
+    "d_3_64_128": (3, 3, 64, 128, None, "D"),
+    "f_3_64_128": (3, 3, 64, 128, "relu", "F"),
+    "f_64_64_128": (3, 64, 64, 128, "relu", "F"),
+    "d_64_128_64": (3, 64, 128, 64, None, "D"),
+    "f_64_128_64": (3, 64, 128, 64, "relu", "F"),
+    "f_128_128_64": (3, 128, 128, 64, "relu", "F"),
+    "d_s2_64_64_128": (4, 64, 64, 128, None, "D"),
+    "d_s2_128_128_64": (4, 128, 128, 64, None, "D"),
+}
+# per GAN step (srragan, perceptual loss on, G updated every step): F(real) and
+# F(fake) run 4 convs each; D runs three times (real; fake in the G phase with
+# D frozen; fake detached in the D phase), 2 + 2 stage convs each. Backward:
+# F(fake) 4, D three times 2 + 2; F(real) is computed without a graph.
+GAN_FWD_PER_STEP = {"conv_s1_ct": 14, "conv_s2_ct": 6}
+GAN_BWD_PER_STEP = {"conv_s1_ct_bwd": 10, "conv_s2_ct_bwd": 6}
+GAN_LOG_KEYS = ("l_g_pix", "l_g_fea", "l_g_gan", "l_d_total", "D_real", "D_fake")
+STAGE_ODD = (2, 36, 52)  # B, H, W of the odd-shape check (3→8 and 16→16 channels)
+STAGE_REPLACES = {
+    "conv_s1_ct": "esrganplus_tpu/kernels/stage_ct.py:239",
+    "conv_s1_ct_bwd": "esrganplus_tpu/kernels/stage_ct.py:350",
+    "conv_s2_ct": "esrganplus_tpu/kernels/stage_ct.py:484",
+    "conv_s2_ct_bwd": "esrganplus_tpu/kernels/stage_ct.py:614",
+}
+STAGE_SOURCE = "esrganplus_tpu_torch/csrc/stage_ct.cu"
+# the shape whose numbers stand in the kernels line (every shape is listed beside it)
+STAGE_MAIN_SHAPE = {"conv_s1_ct": "f_64_64_128", "conv_s1_ct_bwd": "f_64_64_128",
+                    "conv_s2_ct": "d_s2_64_64_128", "conv_s2_ct_bwd": "d_s2_64_64_128"}
+
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
@@ -122,8 +174,9 @@ def ptxas_summary(log: str) -> list:
     template arguments, registers, shared memory and spill bytes."""
     out, name, spill = [], None, "0"
     for line in log.splitlines():
-        m = re.search(r"(dense_conv3x3_kernel|upfold_kernel|conv_hr_kernel|dgrad_kernel|"
-                      r"wgrad_kernel)I(\w+?)EE", line)
+        m = re.search(r"(dense_conv3x3_kernel|upfold_kernel|conv_hr_kernel|stage_fwd_kernel|"
+                      r"stage_dgrad_kernel|stage_wgrad_kernel|dgrad_kernel|wgrad_kernel)"
+                      r"I(\w+?)EE", line)
         if m:
             args = (m.group(2).replace("13__nv_bfloat16", "bf16").replace("Li", ",")
                     .replace("E", "").lstrip(","))
@@ -542,6 +595,23 @@ def make_bwd_cases(dtype, gen):
     return cases, train_fwd
 
 
+def worst_err(got: dict, ref: dict):
+    """Over the gradients of a backward's result dict: (largest max|Δ| /
+    max|ref|, largest max|Δ|, all finite)."""
+    import torch
+
+    worst, worst_abs, finite = 0.0, 0.0, True
+    for k, r in ref.items():
+        if r is None:
+            continue
+        a, r = got[k].float(), r.float()
+        finite = finite and bool(torch.isfinite(a).all())
+        d = (a - r).abs().max().item()
+        worst_abs = max(worst_abs, d)
+        worst = max(worst, d / max(r.abs().max().item(), 1e-30))
+    return worst, worst_abs, finite
+
+
 def check_bwd_kernels(failures):
     import torch
 
@@ -567,18 +637,6 @@ def check_bwd_kernels(failures):
         emit(row)
         if not row["ok"]:
             failures.append(f"rdb_ct training forward {dname}: {row}")
-
-        def worst_err(got, ref):
-            worst, worst_abs, finite = 0.0, 0.0, True
-            for k, r in ref.items():
-                if r is None:
-                    continue
-                a, r = got[k].float(), r.float()
-                finite = finite and bool(torch.isfinite(a).all())
-                d = (a - r).abs().max().item()
-                worst_abs = max(worst_abs, d)
-                worst = max(worst, d / max(r.abs().max().item(), 1e-30))
-            return worst, worst_abs, finite
 
         for name, (kern, plain, lib, macs, nbytes, plain_own) in cases.items():
             with fp32_exact():
@@ -607,6 +665,144 @@ def check_bwd_kernels(failures):
                 failures.append(f"{name} {dname}: gradient rel err {worst:.3g}"
                                 + (f", twin on its own buffers "
                                    f"{own['rel_err_own_buffers']:.3g}" if own else ""))
+    return report
+
+
+# ---------------------------------------------------------------------------
+# the GAN slice: the stage kernels of the discriminator (D) and the VGG19
+# perceptual net (F) against their plain twins
+# ---------------------------------------------------------------------------
+
+
+def make_stage_case(dtype, gen, ks, B, H, W, cin, cout, act):
+    """One stage conv on seeded tensors: forward and backward wrappers, their
+    twins, a cuDNN yardstick (``F.conv2d`` and ``autograd.grad`` through it,
+    used nowhere in the port), MACs and the bytes each direction must move."""
+    import torch
+    import torch.nn.functional as F
+
+    from esrganplus_tpu_torch.kernels import stage_ct as S
+    from esrganplus_tpu_torch.models.layers import fp32_exact
+
+    dev = "cuda"
+    esz = torch.tensor([], dtype=dtype).element_size()
+    fwd, fwd_p, bwd, bwd_p = ((S.conv_s1_ct, S.conv_s1_ct_plain, S.conv_s1_ct_bwd,
+                               S.conv_s1_ct_bwd_plain) if ks == 3 else
+                              (S.conv_s2_ct, S.conv_s2_ct_plain, S.conv_s2_ct_bwd,
+                               S.conv_s2_ct_bwd_plain))
+    stride = 1 if ks == 3 else 2
+    rnd = lambda *shape, scale=1.0: (torch.randn(shape, generator=gen) * scale).to(dev)
+    w, b = S.prepare_stage_ct(rnd(ks, ks, cin, cout, scale=(2.0 / (ks * ks * cin)) ** 0.5),
+                              rnd(cout, scale=0.1), dtype)
+    x = rnd(B, H, W, cin).to(dtype)
+    kw = dict(act=act, slope=0.2)
+    with fp32_exact():
+        out, out_p = fwd(x, w, b, **kw), fwd_p(x, w, b, **kw)
+    g = rnd(*out.shape).to(dtype)
+    saved = (lambda o: None if act is None else o)
+
+    xn = x.permute(0, 3, 1, 2).contiguous().requires_grad_()
+    wo = w.permute(3, 2, 0, 1).contiguous().requires_grad_()
+    bo = b.to(dtype).requires_grad_()
+    gn = g.permute(0, 3, 1, 2).contiguous()
+
+    def lib():
+        y = F.conv2d(xn, wo, bo, stride=stride, padding=1)
+        return F.relu(y) if act == "relu" else F.leaky_relu(y, 0.2) if act == "lrelu" else y
+
+    lib_out = lib()
+    n_out = out.numel() // cout
+    nw = w.numel()
+    return {
+        "fwd": (lambda: fwd(x, w, b, **kw), lambda: fwd_p(x, w, b, **kw),
+                lambda: lib().detach()),
+        "bwd": (lambda: bwd(x, w, saved(out), g, **kw), lambda: bwd_p(x, w, saved(out), g, **kw),
+                lambda: torch.autograd.grad(lib_out, [xn, wo, bo], gn, retain_graph=True),
+                None if act is None else lambda: bwd_p(x, w, out_p, g, **kw)),
+        "bwd_dx_only": lambda: bwd(x, w, saved(out), g, need_dw=False, **kw),
+        "macs": n_out * nw,
+        "fwd_bytes": (x.numel() + out.numel() + nw) * esz + 4 * cout,
+        # x, g, the saved output and the weights in; dx out; dW and db out in fp32
+        "bwd_bytes": ((2 * x.numel() + (1 if act is None else 2) * out.numel() + nw) * esz
+                      + 4 * (nw + cout)),
+    }
+
+
+def check_stage_kernels(failures):
+    """Phase kernels-stage: conv_s1_ct, conv_s2_ct and their backward wrappers
+    against their twins, fp32 (TF32 off) and bf16, at an odd shape and at
+    every shape the flagship GAN step gives them (timed there)."""
+    import torch
+
+    from esrganplus_tpu_torch.models.layers import fp32_exact
+
+    gen = torch.Generator().manual_seed(2)
+    report = {}
+    odd = [("odd", ks, STAGE_ODD[0], *STAGE_ODD[1:], cin, cout, a, "odd")
+           for ks in (3, 4) for cin, cout in ((3, 8), (16, 16)) for a in (None, "relu", "lrelu")]
+    flag = [(name, ks, GAN_BATCH, hw, hw, cin, cout, a, net)
+            for name, (ks, cin, cout, hw, a, net) in STAGE_SHAPES.items()]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for sname, ks, B, H, W, cin, cout, act, net in odd + flag:
+            case = make_stage_case(dtype, gen, ks, B, H, W, cin, cout, act)
+            kname = "conv_s1_ct" if ks == 3 else "conv_s2_ct"
+            base = {"dtype": dname, "shape": sname, "net": net, "x": [B, H, W, cin],
+                    "cout": cout, "act": act}
+            with fp32_exact():
+                kern, plain, lib = case["fwd"]
+                got = kern()
+                torch.cuda.synchronize()
+                ref = plain()
+                d, rel = rel_err(got, ref)
+                differ = (got != ref).float().mean().item()
+                ok = (bool(torch.isfinite(got.float()).all()) and rel <= TOL[dname]
+                      and (dname == "float32" or differ <= MAX_DIFFER_BF16))
+                row = {"phase": "kernels-stage", "kernel": kname, **base, "max_abs_err": d,
+                       "rel_err": rel, "tol": TOL[dname], "frac_differ": differ,
+                       "rel_err_vs_library": rel_err(got, lib().permute(0, 2, 3, 1))[1],
+                       "ok": ok}
+                if sname != "odd":
+                    ops_ms = 2 * case["macs"] / PEAK_FLOPS[dname] * 1e3
+                    bytes_ms = case["fwd_bytes"] / PEAK_BYTES * 1e3
+                    row.update(ms=time_ms(kern), plain_ms=time_ms(plain),
+                               library_ms=time_ms(lib), bound_ms=max(ops_ms, bytes_ms),
+                               bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+                    report[(kname, sname, dname)] = row
+                emit(row)
+                if not ok:
+                    failures.append(f"{kname} {dname} {sname} {cin}->{cout} act={act}: "
+                                    f"rel err {rel:.3g}, differ {differ:.3g}")
+
+                kern, plain, lib, plain_own = case["bwd"]
+                got = kern()
+                torch.cuda.synchronize()
+                worst, worst_abs, finite = worst_err(got, plain())
+                ok = finite and worst <= BWD_TOL[dname]
+                own = {}
+                if plain_own is not None:
+                    own = {"rel_err_own_buffers": worst_err(got, plain_own())[0],
+                           "tol_own_buffers": BWD_TOL_OWN_BUFFERS}
+                    ok = ok and own["rel_err_own_buffers"] <= BWD_TOL_OWN_BUFFERS
+                # the half a frozen net launches must give the same dx
+                dx_only = case["bwd_dx_only"]()
+                ok = ok and dx_only["w"] is None and torch.equal(dx_only["dx"], got["dx"])
+                row = {"phase": "kernels-stage", "kernel": kname + "_bwd", **base,
+                       "max_abs_err": worst_abs, "rel_err": worst, "tol": BWD_TOL[dname],
+                       "ok": bool(ok), **own}
+                if sname != "odd":
+                    ops_ms = 2 * 2 * case["macs"] / PEAK_FLOPS[dname] * 1e3
+                    bytes_ms = case["bwd_bytes"] / PEAK_BYTES * 1e3
+                    row.update(ms=time_ms(kern, iters=10), plain_ms=time_ms(plain, iters=5),
+                               library_ms=time_ms(lib, iters=10),
+                               dx_only_ms=time_ms(case["bwd_dx_only"], iters=10),
+                               bound_ms=max(ops_ms, bytes_ms),
+                               bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+                    report[(kname + "_bwd", sname, dname)] = row
+                emit(row)
+                if not ok:
+                    failures.append(f"{kname}_bwd {dname} {sname} {cin}->{cout} act={act}: "
+                                    f"gradient rel err {worst:.3g} {own}")
     return report
 
 
@@ -700,12 +896,55 @@ def _smooth_image(rng, h, w):
     return (img * 255).round().astype(np.uint8)
 
 
-def _logged_losses(exp_dir):
-    """{step: the l_pix text} from the newest train log of an experiment."""
+def _logged_losses(exp_dir, key="l_pix"):
+    """({step: the logged text of ``key``}, the log text) from the newest
+    train log of an experiment."""
     logs = sorted(f for f in os.listdir(exp_dir) if f.endswith(".log"))
     text = open(os.path.join(exp_dir, logs[-1])).read()
     return {int(m.group(1).replace(",", "")): m.group(2)
-            for m in re.finditer(r"<step:\s*([\d,]+),.*?l_pix: (\S+)", text)}, text
+            for m in re.finditer(rf"<step:\s*([\d,]+),.*?\b{key}: (\S+)", text)}, text
+
+
+def _smoke_dataset(workdir):
+    """8 train and VAL_IMAGES validation PNG pairs (HR and bicubic ×1/4 LR)
+    from a seed → {"HR" | "LR" | "valHR" | "valLR": directory}."""
+    from esrganplus_tpu_torch.ops.image_io import save_img
+    from esrganplus_tpu_torch.ops.resize import imresize_np
+
+    rng = np.random.RandomState(3)
+    dirs = {k: os.path.join(workdir, k) for k in ("HR", "LR", "valHR", "valLR")}
+    for prefix, n, size in (("", 8, (192, 192)), ("val", VAL_IMAGES, (96, 128))):
+        for i in range(n):
+            img = _smooth_image(rng, *size)
+            save_img(img, os.path.join(dirs[prefix + "HR"], f"img{i}.png"))
+            lr = np.clip(imresize_np(img.astype(np.float32) / 255.0, 0.25), 0, 1)
+            save_img((lr * 255).round().astype(np.uint8),
+                     os.path.join(dirs[prefix + "LR"], f"img{i}.png"))
+    return dirs
+
+
+def _smoke_options(workdir, dirs, name, model, train):
+    """The flagship recipe's options (batch 16, HR 128, bf16, noise on) cut
+    to TRAIN_STEPS steps with the debug cadences."""
+    return {
+        "name": name, "model": model, "scale": 4, "use_tb_logger": False,
+        "datasets": {
+            # one worker: the batch stream is then a function of the seed alone
+            "train": {"name": "smoke", "mode": "LRHR", "dataroot_HR": dirs["HR"],
+                      "dataroot_LR": dirs["LR"], "n_workers": 1, "batch_size": TRAIN_SHAPE[0],
+                      "HR_size": 4 * TRAIN_SHAPE[1], "use_flip": True, "use_rot": True},
+            "val": {"name": "smoke_val", "mode": "LRHR", "dataroot_HR": dirs["valHR"],
+                    "dataroot_LR": dirs["valLR"]},
+        },
+        "path": {"root": workdir},
+        "network_G": {"which_model_G": "RRDB_net", "norm_type": None, "mode": "CNA",
+                      "nf": NF, "nb": 23, "in_nc": 3, "out_nc": OUT_NC, "gc": GC,
+                      "gaussian_noise": True},
+        "train": {"lr_scheme": "MultiStepLR", "lr_steps": [200000], "lr_gamma": 0.5,
+                  "pixel_criterion": "l1", "manual_seed": 0, "niter": TRAIN_STEPS,
+                  "compute_dtype": "bfloat16", **train},
+        "logger": {"print_freq": 2},
+    }
 
 
 def train_path(failures, workdir):
@@ -719,37 +958,10 @@ def train_path(failures, workdir):
     from esrganplus_tpu_torch.kernels import rdb_ct as K
     from esrganplus_tpu_torch.kernels import tail_ct as T
     from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig, init_rrdbnet
-    from esrganplus_tpu_torch.ops.image_io import save_img
-    from esrganplus_tpu_torch.ops.resize import imresize_np
 
-    rng = np.random.RandomState(3)
-    dirs = {k: os.path.join(workdir, k) for k in ("HR", "LR", "valHR", "valLR")}
-    for prefix, n, size in (("", 8, (192, 192)), ("val", VAL_IMAGES, (96, 128))):
-        for i in range(n):
-            img = _smooth_image(rng, *size)
-            save_img(img, os.path.join(dirs[prefix + "HR"], f"img{i}.png"))
-            lr = np.clip(imresize_np(img.astype(np.float32) / 255.0, 0.25), 0, 1)
-            save_img((lr * 255).round().astype(np.uint8),
-                     os.path.join(dirs[prefix + "LR"], f"img{i}.png"))
-    opt = {
-        "name": "debug_smoke", "model": "sr", "scale": 4, "use_tb_logger": False,
-        "datasets": {
-            # one worker: the batch stream is then a function of the seed alone
-            "train": {"name": "smoke", "mode": "LRHR", "dataroot_HR": dirs["HR"],
-                      "dataroot_LR": dirs["LR"], "n_workers": 1, "batch_size": TRAIN_SHAPE[0],
-                      "HR_size": 4 * TRAIN_SHAPE[1], "use_flip": True, "use_rot": True},
-            "val": {"name": "smoke_val", "mode": "LRHR", "dataroot_HR": dirs["valHR"],
-                    "dataroot_LR": dirs["valLR"]},
-        },
-        "path": {"root": workdir},
-        "network_G": {"which_model_G": "RRDB_net", "norm_type": None, "mode": "CNA",
-                      "nf": NF, "nb": 23, "in_nc": 3, "out_nc": OUT_NC, "gc": GC,
-                      "gaussian_noise": True},
-        "train": {"lr_G": 2e-4, "lr_scheme": "MultiStepLR", "lr_steps": [200000],
-                  "lr_gamma": 0.5, "pixel_criterion": "l1", "pixel_weight": 1.0,
-                  "manual_seed": 0, "niter": TRAIN_STEPS, "compute_dtype": "bfloat16"},
-        "logger": {"print_freq": 2},
-    }
+    dirs = _smoke_dataset(workdir)
+    opt = _smoke_options(workdir, dirs, "debug_smoke", "sr",
+                         {"lr_G": 2e-4, "pixel_weight": 1.0})
     opt_path = os.path.join(workdir, "train_smoke.json")
     with open(opt_path, "w") as f:
         json.dump(opt, f, indent=1)
@@ -862,9 +1074,292 @@ def train_steady(failures):
     return med
 
 
-def train_profile(step_ms):
+# ---------------------------------------------------------------------------
+# the GAN slice: gradients, the CLI, the steady step
+# ---------------------------------------------------------------------------
+
+
+def _twelve():
+    """The twelve counted wrappers, forward then backward."""
+    from esrganplus_tpu_torch.kernels import rdb_ct as K
+    from esrganplus_tpu_torch.kernels import stage_ct as S
+    from esrganplus_tpu_torch.kernels import tail_ct as T
+
+    return (K.rdb_ct, K.conv3x3_ct, T.upfold_ct, T.conv_hr_ct, S.conv_s1_ct, S.conv_s2_ct,
+            K.rdb_ct_bwd, K.conv3x3_ct_bwd, T.upfold_ct_bwd, T.conv_hr_ct_bwd,
+            S.conv_s1_ct_bwd, S.conv_s2_ct_bwd)
+
+
+def gan_check(failures):
+    """Flagship width and depth (G nb=23, D vgg_128 with BN, F VGG19 to
+    features[34] from a seed), one batch of the training shape: the loss terms
+    and every gradient leaf of G and of D through the kernel path against
+    autograd of the plain graph on the card (cuDNN, TF32 off in the backward
+    too), the same noise fed to both, through ``GANTrainer``'s own loss
+    functions. fp32: every logged term within 1e-4 (relative, or of 1 for the
+    mean logits), every leaf of G within 5e-3 of max|ref| (see ``leaf_errs``),
+    every leaf of D within 2e-2 in the 2-norm (D's lrelu gates sit behind
+    batch norms: one that flips at a near-zero activation moves single
+    entries of the deep weight gradients, which sum few pixels, by percents,
+    so the largest entry error is printed, not held), both cosines at least
+    0.9999. bf16 (kernel path in bf16 against the fp32 plain
+    graph): terms within 5e-2, G's gradient cosine at least 0.999 and D's
+    0.95 (D's batch-norm chain makes its bf16 gradient the noisier one in the
+    cuDNN graph too, whose own figures are printed beside it)."""
+    import dataclasses
+
+    import torch
+
+    from esrganplus_tpu_torch.models.discriminator import DiscriminatorVGGConfig
+    from esrganplus_tpu_torch.models.layers import deterministic_convs, fp32_exact
+    from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig, draw_noise
+    from esrganplus_tpu_torch.models.vgg import VGGFeatConfig
+    from esrganplus_tpu_torch.train import GANTrainConfig, GANTrainer
+    from esrganplus_tpu_torch.train.sr_model import tree_leaves, tree_map
+
+    B, H, W = TRAIN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.rand((B, H, W, 3), generator=gen, device="cuda")
+    hr = torch.rand((B, 4 * H, 4 * W, 3), generator=gen, device="cuda")
+    cfg_g = RRDBNetConfig()
+    noise = draw_noise(cfg_g, (B, H, W, cfg_g.nf), gen, torch.float32, "cuda")
+
+    def trainer(kind, dtype):
+        g = cfg_g if kind == "auto" else dataclasses.replace(cfg_g, trunk_kernel="plain",
+                                                             tail_kernel="plain")
+        return GANTrainer(g, DiscriminatorVGGConfig(stage_kernel=kind),
+                          GANTrainConfig(compute_dtype=dtype, init_scale_g=0.5), device="cuda",
+                          vgg_cfg=VGGFeatConfig(stage_kernel=kind))
+
+    state = trainer("plain", None).init_state(0)
+    g_params, d_params = state["g_params"], state["d_params"]
+    named_g, named_d = _leaves(g_params), [kv for kv in _leaves(d_params) if kv[1] is not None]
+
+    def run(kind, dtype):
+        t = trainer(kind, dtype)
+        with fp32_exact(), deterministic_convs():
+            real = t._d_logits(d_params, hr)
+            frozen = tree_map(lambda p: p.detach(), d_params)
+            g_total, fake, logs = t._g_loss(g_params, frozen, x, hr, None, real[0].detach(),
+                                            noise=noise)
+            g_grads = torch.autograd.grad(g_total, tree_leaves(g_params))
+            d_total, _, d_logs = t._d_loss(d_params, fake.detach(), hr, None, real)
+            d_grads = torch.autograd.grad(d_total, tree_leaves(d_params), allow_unused=True)
+        terms = {k: v.item() for k, v in {**logs, **d_logs}.items()}
+        return terms, g_grads, d_grads
+
+    flat = lambda gs: torch.cat([g.flatten().float() for g in gs if g is not None])
+    cosine = lambda a, b: torch.nn.functional.cosine_similarity(flat(a), flat(b), dim=0).item()
+
+    def leaf_errs(named, got, ref, norm=float("inf")):
+        # max|Δ| (or ‖Δ‖₂) of the leaf's largest reference entry (its norm),
+        # or of 1e-3 of the net's largest where the leaf's own gradient is
+        # smaller: a bias in front of a batch norm and the last bias under
+        # the relativistic loss have a gradient of exactly 0, and what both
+        # graphs compute there is rounding noise
+        size = lambda t: torch.linalg.vector_norm(t.float().flatten(), norm)
+        floor = 1e-3 * max(size(b).item() for b in ref if b is not None)
+        return {n: (size(a - b) / size(b).clamp_min(floor)).item()
+                for (n, _), a, b in zip(named, got, ref) if b is not None}
+
+    def term_errs(got, ref):
+        # the mean logits may sit near 0: of max(1, |ref|) for them
+        return {k: abs(got[k] - ref[k]) / (max(1.0, abs(ref[k])) if k.startswith("D_")
+                                           else abs(ref[k])) for k in ref}
+
+    t_ref, gg_ref, dg_ref = run("plain", None)
+    counted = _twelve()
+    for dname, dtype in (("float32", None), ("bfloat16", "bfloat16")):
+        for fn in counted:
+            fn.launches = 0
+        t_k, gg_k, dg_k = run("auto", dtype)
+        terr = term_errs(t_k, t_ref)
+        g_err, d_err = leaf_errs(named_g, gg_k, gg_ref), leaf_errs(named_d, dg_k, dg_ref)
+        d_l2 = leaf_errs(named_d, dg_k, dg_ref, norm=2)
+        wg, wd, wd2 = (max(e, key=e.get) for e in (g_err, d_err, d_l2))
+        row = {"phase": "gan-check", "dtype": dname, "terms_plain_fp32": t_ref,
+               "terms_kernel": t_k, "term_rel_err": terr,
+               "g_worst_leaf": wg, "g_worst_rel_err": g_err[wg], "g_cosine": cosine(gg_k, gg_ref),
+               "d_worst_leaf": wd, "d_worst_rel_err": d_err[wd],
+               "d_worst_leaf_l2": wd2, "d_worst_rel_err_l2": d_l2[wd2],
+               "d_cosine": cosine(dg_k, dg_ref),
+               "leaves": [len(g_err), len(d_err)],
+               "launches": {fn.__name__: fn.launches for fn in counted},
+               "finite": all(bool(torch.isfinite(g).all()) for g in list(gg_k) + list(dg_k)
+                             if g is not None)}
+        if dtype is None:
+            row.update(tol_terms=1e-4, tol_g_grad=5e-3, tol_d_grad_l2=2e-2, tol_cosine=0.9999)
+            ok = (max(terr.values()) <= 1e-4 and g_err[wg] <= 5e-3 and d_l2[wd2] <= 2e-2
+                  and row["g_cosine"] >= 0.9999 and row["d_cosine"] >= 0.9999)
+        else:
+            t_p, gg_p, dg_p = run("plain", dtype)  # context: the cuDNN bf16 graph's own distance
+            row.update(tol_terms=5e-2, tol_g_cosine=0.999, tol_d_cosine=0.95,
+                       plain_bf16_term_rel_err=term_errs(t_p, t_ref),
+                       plain_bf16_g_cosine=cosine(gg_p, gg_ref),
+                       plain_bf16_d_cosine=cosine(dg_p, dg_ref))
+            ok = (max(terr.values()) <= 5e-2 and row["g_cosine"] >= 0.999
+                  and row["d_cosine"] >= 0.95)
+        # the check itself must have gone through every stage kernel
+        ok = ok and all(row["launches"][k] == n
+                        for k, n in {**GAN_FWD_PER_STEP, **GAN_BWD_PER_STEP}.items())
+        row["ok"] = bool(ok and row["finite"])
+        emit(row)
+        if not row["ok"]:
+            failures.append(f"gan-check {dname}: {row}")
+
+
+def gan_train_path(failures, workdir):
+    """TRAIN_STEPS flagship ``srragan`` steps through the CLI (G nb=23 with
+    noise, discriminator_vgg_128, VGG19 perceptual net from a seed, batch 16,
+    HR 128, bf16), then a resume from step 8."""
+    import shutil
+
+    import torch
+
+    from esrganplus_tpu_torch.cli import train as train_cli
+    from esrganplus_tpu_torch.convert import discriminator_from_state_dict, load_state_dict
+    from esrganplus_tpu_torch.infer import load_generator
+    from esrganplus_tpu_torch.models.discriminator import DiscriminatorVGGConfig
+
+    dirs = _smoke_dataset(workdir)
+    opt = _smoke_options(workdir, dirs, "debug_gan_smoke", "srragan", {
+        "lr_G": 1e-4, "lr_D": 1e-4, "pixel_weight": 1e-2, "feature_criterion": "l1",
+        "feature_weight": 1, "gan_type": "vanilla", "gan_weight": 5e-3,
+        "D_update_ratio": 1, "D_init_iters": 0})
+    opt["network_D"] = {"which_model_D": "discriminator_vgg_128", "norm_type": "batch",
+                        "act_type": "leakyrelu", "mode": "CNA", "nf": 64, "in_nc": 3}
+    opt_path = os.path.join(workdir, "gan_smoke.json")
+    with open(opt_path, "w") as f:
+        json.dump(opt, f, indent=1)
+
+    counted = _twelve()
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    train_cli.main(["-opt", opt_path, "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    # G's forward: every step, plus each validation image at steps 8 and 16
+    n_val = VAL_IMAGES * (TRAIN_STEPS // 8)
+    expected = {**{k: per * (TRAIN_STEPS + n_val) for k, per in PER_IMAGE.items()},
+                **{k: per * TRAIN_STEPS for k, per in {**BWD_PER_STEP, **GAN_FWD_PER_STEP,
+                                                       **GAN_BWD_PER_STEP}.items()}}
+    for k, n in expected.items():
+        if launches[k] != n:
+            failures.append(f"gan-train: {k} launched {launches[k]} times, expected {n}")
+
+    exp = os.path.join(workdir, "experiments", "debug_gan_smoke")
+    logged = {k: _logged_losses(exp, k)[0] for k in GAN_LOG_KEYS}
+    text = _logged_losses(exp)[1]
+    steps = list(range(2, TRAIN_STEPS + 1, 2))
+    finite = all(sorted(v) == steps and all(np.isfinite(float(t)) for t in v.values())
+                 for v in logged.values())
+    files = {f: os.path.exists(os.path.join(exp, f)) for f in
+             ("training_state/8.state.npz", "training_state/16.state.npz", "models/8_G.pth",
+              "models/8_D.pth", "models/16_G.pth", "models/16_D.pth", "models/latest_G.pth",
+              "models/latest_D.pth")}
+    latest = {n: os.path.join(exp, "models", f"latest_{n}.pth") for n in "GD"}
+    _, tcfg, _ = load_generator(latest["G"], device="cuda")
+    d_back = discriminator_from_state_dict(load_state_dict(latest["D"]),
+                                           DiscriminatorVGGConfig())
+    bn_moved = (d_back["bn"][1]["a"]["mean"].abs().max().item() > 0
+                and (d_back["bn"][0]["b"]["var"] - 1).abs().max().item() > 0)
+    row = {"phase": "gan-train", "steps": TRAIN_STEPS, "seconds_total": seconds,
+           "launches": launches, "expected_launches": expected, "logged": logged,
+           "finite": finite, "files": files,
+           "validations": text.count("Validation # PSNR"),
+           "random_vgg_warning": "VGG19 weights not provided" in text,
+           "d_running_stats_moved": bn_moved, "reloaded_g": [tcfg.nb, tcfg.nf, tcfg.gc]}
+    ok = (finite and all(files.values()) and row["validations"] == TRAIN_STEPS // 8
+          and row["random_vgg_warning"] and bn_moved
+          and (tcfg.nb, tcfg.nf, tcfg.gc) == (23, NF, GC))
+    row["ok"] = bool(ok)
+    emit(row)
+    if not ok:
+        failures.append(f"gan-train: {row}")
+
+    # resume from step 8: the same batches, noise and arithmetic must follow
+    kept = {n: os.path.join(workdir, f"latest_{n}_uninterrupted.pth") for n in "GD"}
+    for n in "GD":
+        shutil.copy(latest[n], kept[n])
+    opt["path"]["resume_state"] = os.path.join(exp, "training_state", "8.state.npz")
+    with open(opt_path, "w") as f:
+        json.dump(opt, f, indent=1)
+    train_cli.main(["-opt", opt_path, "--device", "cuda"])
+    torch.cuda.synchronize()
+    logged2 = {k: _logged_losses(exp, k)[0] for k in GAN_LOG_KEYS}
+    text2 = _logged_losses(exp)[1]
+    diff = {}
+    for n in "GD":
+        a, b = torch.load(kept[n]), torch.load(latest[n])
+        diff[n] = max((a[k].double() - b[k].double()).abs().max().item() for k in a)
+    row = {"phase": "gan-train-resume", "resumed": "resumed from" in text2,
+           "logged_same_as_uninterrupted": all(
+               logged2[k].get(s) == logged[k][s]
+               for k in GAN_LOG_KEYS for s in range(10, TRAIN_STEPS + 1, 2)),
+           "max_abs_weight_diff_vs_uninterrupted": diff}
+    row["ok"] = bool(row["resumed"] and row["logged_same_as_uninterrupted"]
+                     and diff["G"] == 0.0 and diff["D"] == 0.0)
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"gan-train-resume: {row}")
+    return launches
+
+
+def _gan_trainer():
+    from esrganplus_tpu_torch.models.discriminator import DiscriminatorVGGConfig
+    from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig
+    from esrganplus_tpu_torch.train import GANTrainConfig, GANTrainer
+
+    return GANTrainer(RRDBNetConfig(), DiscriminatorVGGConfig(),
+                      GANTrainConfig(compute_dtype="bfloat16"), device="cuda")
+
+
+def gan_steady(failures):
+    """GANTrainer.train_step (srragan, the flagship recipe) on one
+    device-resident batch: median ms/step of 10 after 3 warm-up steps (host
+    clock around a synchronised step), twice from the same seed; the two
+    runs' logged terms must agree bit for bit."""
+    import torch
+
+    B, H, W = TRAIN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    batch = (torch.rand((B, H, W, 3), generator=gen, device="cuda"),
+             torch.rand((B, 4 * H, 4 * W, 3), generator=gen, device="cuda"))
+    runs = []
+    for _ in range(2):
+        trainer = _gan_trainer()
+        state = trainer.init_state(0)
+        torch.cuda.reset_peak_memory_stats()
+        terms, times = [], []
+        for i in range(13):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, logs = trainer.train_step(state, batch, 1)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            terms.append({k: logs[k].item() for k in GAN_LOG_KEYS})
+        runs.append((terms, times[3:]))
+    med = float(np.median(runs[0][1] + runs[1][1])) * 1e3
+    row = {"phase": "gan-steady", "batch": B, "hr": 4 * H, "dtype": "bfloat16",
+           "ms_per_step_runs": [float(np.median(t)) * 1e3 for _, t in runs],
+           "median_ms_per_step": med, "crops_per_s": B / med * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "terms_first_step": runs[0][0][0], "terms_last_step": runs[0][0][-1],
+           "bit_equal_runs": runs[0][0] == runs[1][0],
+           "finite": all(np.isfinite(v) for t in runs[0][0] for v in t.values())}
+    row["ok"] = bool(row["finite"] and row["bit_equal_runs"])
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"gan-steady: {row}")
+    return med
+
+
+def train_profile(step_ms, make_trainer=None, phase="train-profile"):
     """``--profile`` only: ``torch.profiler`` over three steady training steps
-    (bf16, batch 16): device time per step by kernel family, and the card's
+    (bf16, batch 16; the PSNR trainer, or the one ``make_trainer`` builds):
+    device time per step by kernel family, and the card's
     busy share of an untraced step (``step_ms``, train-steady's median; the
     traced steps themselves are slowed by the profiler). Reports; holds
     nothing."""
@@ -880,7 +1375,8 @@ def train_profile(step_ms):
     gen = torch.Generator(device="cuda").manual_seed(9)
     batch = (torch.rand((B, H, W, 3), generator=gen, device="cuda"),
              torch.rand((B, 4 * H, 4 * W, 3), generator=gen, device="cuda"))
-    trainer = SRTrainer(RRDBNetConfig(), SRTrainConfig(compute_dtype="bfloat16"), device="cuda")
+    trainer = (make_trainer() if make_trainer is not None else
+               SRTrainer(RRDBNetConfig(), SRTrainConfig(compute_dtype="bfloat16"), device="cuda"))
     state = trainer.init_state(0)
     for _ in range(3):
         state, _ = trainer.train_step(state, batch, 1)
@@ -902,12 +1398,12 @@ def train_profile(step_ms):
         fam[name] += e.time_range.elapsed_us() / 1e3 / steps
         count[name] += 1
     busy = sum(fam.values())
-    emit({"phase": "train-profile", "steps": steps, "wall_ms_per_step_traced": wall_ms,
+    emit({"phase": phase, "steps": steps, "wall_ms_per_step_traced": wall_ms,
           "untraced_ms_per_step": step_ms, "device_ms_per_step": busy,
           "device_busy_share": busy / step_ms, "device_idle_share": 1 - busy / step_ms,
           "device_launches_per_step": sum(count.values()) / steps,
-          "by_kernel_ms_per_step": {k: round(v, 4) for k, v in fam.most_common(14)},
-          "launches_per_step": {k: count[k] / steps for k, _ in fam.most_common(14)}})
+          "by_kernel_ms_per_step": {k: round(v, 4) for k, v in fam.most_common(20)},
+          "launches_per_step": {k: count[k] / steps for k, _ in fam.most_common(20)}})
 
 
 def main() -> int:
@@ -938,8 +1434,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
         train_launches = train_path(failures, tmp)
     step_ms = train_steady(failures)
+    stage_report = check_stage_kernels(failures)
+    gan_check(failures)
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        gan_launches = gan_train_path(failures, tmp)
+    gan_step_ms = gan_steady(failures)
     if "--profile" in sys.argv[1:]:
         train_profile(step_ms)
+        train_profile(gan_step_ms, _gan_trainer, "gan-profile")
 
     kernels = []
     for name in PER_IMAGE:
@@ -952,7 +1454,8 @@ def main() -> int:
                         "dtype": "bfloat16", "lr": row["lr"],
                         "fp32_ms": report[(name, "float32")]["ms"],
                         "fp32_max_abs_err": report[(name, "float32")]["max_abs_err"],
-                        "train_launches": train_launches[name]})
+                        "train_launches": train_launches[name],
+                        "gan_launches": gan_launches[name]})
     for name in BWD_PER_STEP:
         row = bwd_report[(name, "bfloat16")]
         k = {"name": name, "route": "cuda", "source": BWD_SOURCE,
@@ -962,12 +1465,31 @@ def main() -> int:
              "bound_by": row["bound_by"], "library_ms": row["library_ms"],
              "dtype": "bfloat16", "lr": row["lr"],
              "fp32_ms": bwd_report[(name, "float32")]["ms"],
-             "fp32_rel_err": bwd_report[(name, "float32")]["rel_err"]}
+             "fp32_rel_err": bwd_report[(name, "float32")]["rel_err"],
+             "gan_launches": gan_launches[name]}
         if name == "upfold_ct_bwd":  # the 2nd stage (64² → 128²) beside the 1st
             second = bwd_report[("upfold_ct_bwd_2nd", "bfloat16")]
             k.update({f"second_call_{f}": second[f]
                       for f in ("ms", "plain_ms", "bound_ms", "library_ms", "rel_err")})
         kernels.append(k)
+    for name in STAGE_REPLACES:
+        # one shape's numbers in the required keys, every flagship shape beside them
+        row = stage_report[(name, STAGE_MAIN_SHAPE[name], "bfloat16")]
+        fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+                  "rel_err") + (("dx_only_ms",) if name.endswith("_bwd") else ())
+        kernels.append({
+            "name": name, "route": "cuda", "source": STAGE_SOURCE,
+            "replaces": STAGE_REPLACES[name], "launches": gan_launches[name],
+            "max_abs_err": row["max_abs_err"], "rel_err": row["rel_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "dtype": "bfloat16", "shape": STAGE_MAIN_SHAPE[name], "x": row["x"],
+            "cout": row["cout"],
+            "fp32_ms": stage_report[(name, STAGE_MAIN_SHAPE[name], "float32")]["ms"],
+            "shapes": {sname: {**{f: r[f] for f in fields},
+                               "fp32_ms": stage_report[(kn, sname, "float32")]["ms"]}
+                       for (kn, sname, dn), r in stage_report.items()
+                       if kn == name and dn == "bfloat16"}})
     if failures:
         for f in failures:
             print("FAIL:", f, file=sys.stderr)

@@ -3,13 +3,14 @@
     python -m esrganplus_tpu_torch.cli.train -opt path/to/options.json [--device cuda|cpu]
 
 Counterpart of ``esrganplus_tpu/cli/train.py`` for PSNR pretraining
-(``model: "sr"``): experiment-dir management, dual loggers, periodic
-validation with PSNR and saved val images, checkpoint/resume with optimizer
-state, reference-layout .pth weight export, optional TensorBoard scalars.
-Runs on the card (``--device cuda``, the default), forward and backward
-through the CUDA kernels; ``--device cpu`` runs the plain graph. GAN
-fine-tuning, SFT-GAN, multi-process launch, the resident crop store and
-profiling are not ported yet and exit saying so.
+(``model: "sr"``) and GAN fine-tuning (``model: "srgan" | "srragan"``):
+experiment-dir management, dual loggers, periodic validation with PSNR and
+saved val images, checkpoint/resume with optimizer state, reference-layout
+.pth weight export (G and, for the GAN models, D), optional TensorBoard
+scalars. Runs on the card (``--device cuda``, the default), forward and
+backward through the CUDA kernels; ``--device cpu`` runs the plain graph.
+SFT-GAN, multi-process launch, the resident crop store and profiling are not
+ported yet and exit saying so.
 """
 
 from __future__ import annotations
@@ -21,10 +22,14 @@ import time
 import numpy as np
 
 
-def _export_networks(models_dir, tag, state, net_g, trainer):
+def _export_networks(models_dir, tag, model_kind, state, net_g, net_d, trainer):
     from esrganplus_tpu_torch.train.checkpoint import save_networks_pth
 
-    save_networks_pth(models_dir, tag, trainer.canonical_params(state["params"]), net_g)
+    if model_kind == "sr":
+        save_networks_pth(models_dir, tag, trainer.canonical_params(state["params"]), net_g)
+    else:
+        save_networks_pth(models_dir, tag, trainer.canonical_params(state["g_params"]), net_g,
+                          state["d_params"], net_d)
 
 
 def _get_tb_writer(log_dir: str):
@@ -59,8 +64,9 @@ def main(argv=None):
     from esrganplus_tpu_torch.infer import resolve_device
     from esrganplus_tpu_torch.ops.image_io import save_img, tensor2img
     from esrganplus_tpu_torch.ops.metrics import calculate_psnr
-    from esrganplus_tpu_torch.options.options import (build_net_g_config, build_train_config,
-                                                      check_resume, dict2str, parse)
+    from esrganplus_tpu_torch.options.options import (build_net_d_config, build_net_g_config,
+                                                      build_train_config, check_resume,
+                                                      dict2str, parse)
     from esrganplus_tpu_torch.train.checkpoint import (STATE_SUFFIX, AsyncCheckpointer,
                                                        load_state)
     from esrganplus_tpu_torch.utils import mkdir_and_rename, set_random_seed, setup_logger
@@ -70,6 +76,7 @@ def main(argv=None):
     model_kind = opt["model"]
     net_g = build_net_g_config(opt)        # raise for what is not ported
     train_cfg = build_train_config(opt)    # before any directory is touched
+    net_d = build_net_d_config(opt) if model_kind != "sr" else None
     train_opt_ds = val_opt_ds = None
     for ds_opt in opt["datasets"].values():
         if ds_opt["phase"] == "train":
@@ -108,21 +115,45 @@ def main(argv=None):
     logger.info(f"train images: {len(train_ds)}, batch {batch_size}, iters {niter:,}")
 
     # ---- trainer ----
-    from esrganplus_tpu_torch.train import SRTrainer
+    from esrganplus_tpu_torch.train import GANTrainer, SRTrainer
 
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     logger.info(f"device: {device} ({name})")
-    trainer = SRTrainer(net_g, train_cfg, device=device)
+    if model_kind == "sr":
+        trainer = SRTrainer(net_g, train_cfg, device=device)
+    else:
+        trainer = GANTrainer(net_g, net_d, train_cfg, device=device)
+    if getattr(trainer, "use_feature", False) and not trainer.f_params.get("pretrained"):
+        logger.warning("VGG19 weights not provided (path.vgg19); perceptual "
+                       "loss uses RANDOM features — supply a torchvision "
+                       "vgg19 .pth for real training")
     state = trainer.init_state(seed)
 
     # ---- pretrained / resume ----
+    g_key = "params" if model_kind == "sr" else "g_params"
     if opt["path"].get("pretrain_model_G") and not resume_path:
         from esrganplus_tpu_torch.convert import generator_from_state_dict, load_state_dict
 
         params, _, _ = generator_from_state_dict(
             load_state_dict(opt["path"]["pretrain_model_G"]), net_g)
-        state["params"] = trainer.ingest_params(params)
+        state[g_key] = trainer.ingest_params(params)
         logger.info(f"loaded pretrained G from {opt['path']['pretrain_model_G']}")
+    if opt["path"].get("pretrain_model_D") and not resume_path:
+        # reference semantics: GAN models load a pretrained D when set
+        # (SRGAN_model.py:233)
+        if model_kind == "sr":
+            logger.warning("pretrain_model_D is set but model 'sr' has no "
+                           "discriminator — ignored")
+        else:
+            from esrganplus_tpu_torch.convert import (discriminator_from_state_dict,
+                                                      discriminator_sn_from_state_dict,
+                                                      load_state_dict)
+
+            conv_fn = (discriminator_sn_from_state_dict if net_d.spectral_norm
+                       else discriminator_from_state_dict)
+            state["d_params"] = trainer.ingest_d_params(
+                conv_fn(load_state_dict(opt["path"]["pretrain_model_D"]), net_d))
+            logger.info(f"loaded pretrained D from {opt['path']['pretrain_model_D']}")
     start_step = 0
     if resume_path:
         state = load_state(resume_path, state)
@@ -162,7 +193,7 @@ def main(argv=None):
             psnrs = []
             scale = net_g.upscale
             for sample in val_ds:  # sequential whole-image protocol
-                sr = trainer.predict(state["params"], sample["LR"][None])[0].cpu().numpy()
+                sr = trainer.predict(state[g_key], sample["LR"][None])[0].cpu().numpy()
                 sr_img = tensor2img(sr)
                 gt_img = tensor2img(sample["HR"])
                 base = os.path.splitext(os.path.basename(sample["HR_path"]))[0]
@@ -186,12 +217,12 @@ def main(argv=None):
                 os.path.join(opt["path"]["training_state"], f"{tag}{STATE_SUFFIX}"),
                 state,
                 export_fn=lambda snap, tag=tag: _export_networks(
-                    opt["path"]["models"], tag, snap, net_g, trainer))
+                    opt["path"]["models"], tag, model_kind, snap, net_g, net_d, trainer))
         step += 1
 
     ckpt.wait()  # flush any in-flight periodic save before the final one
     logger.info("Saving the final model.")
-    _export_networks(opt["path"]["models"], "latest", state, net_g, trainer)
+    _export_networks(opt["path"]["models"], "latest", model_kind, state, net_g, net_d, trainer)
     logger.info("End of training.")
     feeder_obj.stop()
     train_loader.stop()

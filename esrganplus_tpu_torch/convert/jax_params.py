@@ -6,7 +6,10 @@ tree walk from numpy arrays to fp32 CPU tensors plus a shape check against
 the config. The caller turns JAX arrays into numpy first
 (``jax.tree.map(np.asarray, params)``); this module imports no JAX. A whole
 trainer state (parameters, Adam moments, step) crosses through
-:func:`trainer_state_from_jax`.
+:func:`trainer_state_from_jax` (PSNR trainer) or
+:func:`gan_trainer_state_from_jax` (GAN trainer: generator, discriminator,
+both Adam states); the discriminator's and the perceptual net's trees
+through :func:`discriminator_from_jax` and :func:`vgg_feat_from_jax`.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig
 
 
 def _to_torch(tree):
+    if tree is None or isinstance(tree, bool):
+        return tree
     if isinstance(tree, dict):
         return {k: _to_torch(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -87,3 +92,57 @@ def trainer_state_from_jax(state: dict, cfg: RRDBNetConfig) -> dict:
                           "mu": from_jax_params(adam.mu, cfg),
                           "nu": from_jax_params(adam.nu, cfg)},
             "step": int(np.asarray(state["step"]))}
+
+
+def discriminator_from_jax(tree: dict, cfg) -> dict:
+    """JAX discriminator parameter pytree (numpy leaves; ``bn[0]["a"]`` is
+    None) → the port's params, shape-checked against ``cfg``
+    (a ``DiscriminatorVGGConfig``)."""
+    params = _to_torch(tree)
+    if len(params["convs"]) != cfg.n_stages:
+        raise ValueError(f"{len(params['convs'])} stages, config expects {cfg.n_stages}")
+    cin = cfg.in_nc
+    for i, cout in enumerate(cfg.stage_channels):
+        for side, shape in (("a", (3, 3, cin, cout)), ("b", (4, 4, cout, cout))):
+            got = tuple(params["convs"][i][side]["w"].shape)
+            if got != shape:
+                raise ValueError(f"convs/{i}/{side}: weight {got}, config expects {shape}")
+        cin = cout
+    f = cfg.final_spatial
+    if tuple(params["fc0"]["w"].shape) != (cfg.stage_channels[-1] * f * f, 100):
+        raise ValueError(f"fc0: weight {tuple(params['fc0']['w'].shape)} does not match "
+                         f"input_size={cfg.input_size}")
+    if cfg.use_bn != ("bn" in params) or cfg.spectral_norm != ("u" in params["fc0"]):
+        raise ValueError("batch-norm / spectral-norm entries do not match the config")
+    return params
+
+
+def vgg_feat_from_jax(tree: dict) -> dict:
+    """JAX perceptual-net pytree (``{"layers": [...], "pretrained": bool}``,
+    numpy leaves) → the port's params."""
+    return {"layers": _to_torch(list(tree["layers"])), "pretrained": bool(tree["pretrained"])}
+
+
+def gan_trainer_state_from_jax(state: dict, net_g: RRDBNetConfig, net_d) -> dict:
+    """A JAX ``GANTrainer`` state with numpy leaves (``g_params`` canonical,
+    ``d_params``, ``g_opt`` / ``d_opt`` optax ``ScaleByAdamState``s, ``step``)
+    → the port's GAN trainer state on the CPU. ``f_params``, if present,
+    crosses through :func:`vgg_feat_from_jax`. Hand the parameter trees to
+    ``GANTrainer.ingest_params`` / ``ingest_d_params`` to continue the run."""
+    if "trunk_ct" in state["g_params"]:
+        raise ValueError("this state holds prepared trunk_ct masters (the JAX package's "
+                         "kernel layout); convert it with "
+                         "esrganplus_tpu.models.rrdb.unprep_trunk_ct (params and both "
+                         "Adam moments) before carrying it across")
+    out = {"step": int(np.asarray(state["step"]))}
+    for key, opt_key, conv in (("g_params", "g_opt", lambda t: from_jax_params(t, net_g)),
+                               ("d_params", "d_opt", lambda t: discriminator_from_jax(t, net_d))):
+        adam = _find_adam(state[opt_key])
+        if adam is None:
+            raise ValueError(f"no ScaleByAdamState(count, mu, nu) in {opt_key}")
+        out[key] = conv(state[key])
+        out[opt_key] = {"count": int(np.asarray(adam.count)), "mu": conv(adam.mu),
+                        "nu": conv(adam.nu)}
+    if "f_params" in state:
+        out["f_params"] = vgg_feat_from_jax(state["f_params"])
+    return out

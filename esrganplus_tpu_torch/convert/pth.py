@@ -1,4 +1,5 @@
-"""Torch ``.pth`` checkpoint ↔ the port's parameter trees (generator half).
+"""Torch ``.pth`` checkpoint ↔ the port's parameter trees (RRDBNet generator
+and the VGG-style discriminators).
 
 Counterpart of ``esrganplus_tpu/convert/pth.py``. The reference saves
 flattened ``nn.Sequential`` state dicts:
@@ -34,6 +35,10 @@ import torch
 from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig
 
 __all__ = [
+    "discriminator_from_state_dict",
+    "discriminator_sn_from_state_dict",
+    "discriminator_sn_to_state_dict",
+    "discriminator_to_state_dict",
     "generator_from_state_dict",
     "infer_rrdbnet_config",
     "load_state_dict",
@@ -183,3 +188,140 @@ def generator_from_state_dict(sd: Dict[str, torch.Tensor], cfg=None, **kw):
     if any(k.startswith("sft_branch.") or ".res.0.weight" in k for k in sd):
         raise NotImplementedError("SRResNet / SFT-GAN checkpoints are not ported yet")
     return rrdbnet_from_state_dict(sd, cfg, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Discriminator (VGG-style) conversion
+# ---------------------------------------------------------------------------
+#
+# Reference flattening (architecture.py:87-129 via block.sequential): stage 0
+# contributes [conv, act]; every later conv_block contributes [conv, bn, act]
+# (or [conv, act] without norm). Classifier = classifier.0 / classifier.2
+# Linears. The first Linear acts on a C-major (NCHW) flatten; the forward
+# transposes to NCHW before flattening, so Linear weights convert as plain
+# transposes.
+
+
+def _d_plan(cfg):
+    """Yield ('a'|'b', stage_idx, has_bn) in flattened feature order."""
+    for i in range(cfg.n_stages):
+        yield ("a", i, cfg.use_bn and i > 0)
+        yield ("b", i, cfg.use_bn)
+
+
+def discriminator_from_state_dict(sd: Dict[str, torch.Tensor], cfg,
+                                  dtype: torch.dtype = torch.float32) -> dict:
+    """Reference ``Discriminator_VGG_{96,128,192}`` state dict → params on the CPU."""
+    t = lambda v: torch.as_tensor(v).detach().to(dtype)
+    idx = 0
+    convs, bns = [], []
+    cur = None
+    for side, i, has_bn in _d_plan(cfg):
+        p = {"w": _oihw_to_hwio(t(sd[f"features.{idx}.weight"])),
+             "b": t(sd[f"features.{idx}.bias"])}
+        idx += 1
+        bn = None
+        if has_bn:
+            bn = {"scale": t(sd[f"features.{idx}.weight"]),
+                  "bias": t(sd[f"features.{idx}.bias"]),
+                  "mean": t(sd[f"features.{idx}.running_mean"]),
+                  "var": t(sd[f"features.{idx}.running_var"])}
+            idx += 1
+        idx += 1  # activation slot
+        if side == "a":
+            cur = {"a": p}
+            if cfg.use_bn:
+                bns.append({"a": bn})
+        else:
+            cur["b"] = p
+            convs.append(cur)
+            if cfg.use_bn:
+                bns[-1]["b"] = bn
+    params = {"convs": convs,
+              "fc0": {"w": t(sd["classifier.0.weight"]).T.contiguous(),
+                      "b": t(sd["classifier.0.bias"])},
+              "fc1": {"w": t(sd["classifier.2.weight"]).T.contiguous(),
+                      "b": t(sd["classifier.2.bias"])}}
+    if cfg.use_bn:
+        params["bn"] = bns
+    return params
+
+
+def discriminator_to_state_dict(params: dict, cfg) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    cpu = lambda v: v.detach().to("cpu", torch.float32).contiguous()
+    idx = 0
+    for side, i, has_bn in _d_plan(cfg):
+        p = params["convs"][i][side]
+        sd[f"features.{idx}.weight"] = _hwio_to_oihw(cpu(p["w"]))
+        sd[f"features.{idx}.bias"] = cpu(p["b"])
+        idx += 1
+        if has_bn:
+            bn = params["bn"][i][side]
+            sd[f"features.{idx}.weight"] = cpu(bn["scale"])
+            sd[f"features.{idx}.bias"] = cpu(bn["bias"])
+            sd[f"features.{idx}.running_mean"] = cpu(bn["mean"])
+            sd[f"features.{idx}.running_var"] = cpu(bn["var"])
+            sd[f"features.{idx}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+            idx += 1
+        idx += 1
+    sd["classifier.0.weight"] = cpu(params["fc0"]["w"]).T.contiguous()
+    sd["classifier.0.bias"] = cpu(params["fc0"]["b"])
+    sd["classifier.2.weight"] = cpu(params["fc1"]["w"]).T.contiguous()
+    sd["classifier.2.bias"] = cpu(params["fc1"]["b"])
+    return sd
+
+
+def discriminator_sn_to_state_dict(params: dict, cfg) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`discriminator_sn_from_state_dict`: the reference SN
+    layout ``conv{0..2n-1}.{weight_orig,weight,weight_u,bias}`` +
+    ``linear{0,1}.*`` (architecture.py:133-175). ``weight`` is the
+    sigma-normalised buffer torch's vendored SN registers alongside the
+    parameter (spectral_norm.py:66-74), computed from the stored ``u`` exactly
+    as a forward pass leaves it, so reference tools can load strict=True."""
+    cpu = lambda v: v.detach().to("cpu", torch.float32)
+
+    def put(sd, name, w_store, w2d, b, u):
+        u = cpu(u)
+        v = w2d.T @ u
+        v = v / (torch.linalg.vector_norm(v) + 1e-12)
+        sigma = float(u @ (w2d @ v))
+        sd[f"{name}.weight_orig"] = w_store.contiguous()
+        sd[f"{name}.weight"] = (w_store / sigma).contiguous()
+        sd[f"{name}.weight_u"] = u
+        sd[f"{name}.bias"] = cpu(b)
+
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(cfg.n_stages):
+        for j, side in enumerate(("a", "b")):
+            p = params["convs"][i][side]
+            w = cpu(p["w"])  # HWIO
+            # sigma is invariant to the contraction-column permutation (hwi
+            # here, ihw in torch)
+            put(sd, f"conv{2 * i + j}", _hwio_to_oihw(w), w.reshape(-1, w.shape[-1]).T,
+                p["b"], p["u"])
+    for ours, theirs in (("fc0", "linear0"), ("fc1", "linear1")):
+        p = params[ours]
+        wt = cpu(p["w"]).T  # [out, in], torch layout
+        put(sd, theirs, wt, wt, p["b"], p["u"])
+    return sd
+
+
+def discriminator_sn_from_state_dict(sd: Dict[str, torch.Tensor], cfg,
+                                     dtype: torch.dtype = torch.float32) -> dict:
+    """Convert the spectral-norm discriminator (``Discriminator_VGG_128_SN``,
+    architecture.py:133-175; vendored SN state: ``weight_orig`` + ``weight_u``).
+    The power-iteration u imports directly: the port's weight matricisation
+    permutes the contraction columns relative to torch's (hwi vs ihw order),
+    which leaves u, sigma and the normalised weight invariant."""
+    t = lambda v: torch.as_tensor(v).detach().to(dtype)
+
+    def conv(i):
+        return {"w": _oihw_to_hwio(t(sd[f"conv{i}.weight_orig"])),
+                "b": t(sd[f"conv{i}.bias"]), "u": t(sd[f"conv{i}.weight_u"])}
+
+    params = {"convs": [{"a": conv(2 * i), "b": conv(2 * i + 1)} for i in range(cfg.n_stages)]}
+    for ours, theirs in (("fc0", "linear0"), ("fc1", "linear1")):
+        params[ours] = {"w": t(sd[f"{theirs}.weight_orig"]).T.contiguous(),
+                        "b": t(sd[f"{theirs}.bias"]), "u": t(sd[f"{theirs}.weight_u"])}
+    return params

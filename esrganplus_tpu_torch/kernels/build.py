@@ -19,7 +19,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("rdb_ct", "tail_ct", "dgrad_ct", "wgrad_ct")
+SOURCES = ("rdb_ct", "tail_ct", "dgrad_ct", "wgrad_ct", "stage_ct")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -54,6 +54,11 @@ SIGNATURES = {
     "tail_ct": {
         "esr_upfold": [I, I, I, P, P, P, P, I, I, I, F, P],
         "esr_conv_hr": [I, I, I, P, P, P, P, P, P, I, I, I, F, P],
+    },
+    "stage_ct": {
+        "esr_stage_fwd": [I, I, I, P, P, P, P, I, I, I, I, I, I, F, P],
+        "esr_stage_dgrad": [I, I, I, P, P, P, P, I, I, I, I, I, I, F, P],
+        "esr_stage_wgrad": [I, I, I, P, P, P, P, I, P, I, I, I, I, I, I, F, P],
     },
 }
 

@@ -60,8 +60,24 @@ def kaiming_conv_init(gen: torch.Generator, kh: int, kw: int, cin: int, cout: in
     return p
 
 
-def conv2d(x: torch.Tensor, p: dict, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Stride-1 SAME (zero-padded) convolution, NHWC × HWIO → NHWC.
+def kaiming_linear_init(gen: torch.Generator, cin: int, cout: int, scale: float = 1.0,
+                        dtype: torch.dtype = torch.float32) -> dict:
+    """He-normal linear weight ``[cin, cout]`` (``x @ w``), scaled; zero bias."""
+    w = torch.randn((cin, cout), generator=gen, dtype=torch.float32)
+    return {"w": (w * (math.sqrt(2.0 / cin) * scale)).to(dtype),
+            "b": torch.zeros((cout,), dtype=dtype)}
+
+
+def batchnorm_init(c: int, dtype: torch.dtype = torch.float32) -> dict:
+    return {"scale": torch.ones((c,), dtype=dtype), "bias": torch.zeros((c,), dtype=dtype),
+            "mean": torch.zeros((c,), dtype=dtype), "var": torch.ones((c,), dtype=dtype)}
+
+
+def conv2d(x: torch.Tensor, p: dict, stride: int = 1, pad="same",
+           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Zero-padded convolution, NHWC × HWIO → NHWC. ``pad``: "same" (odd
+    kernels, stride 1) or an explicit symmetric int (the discriminator's
+    4×4 stride-2 conv pads 1 on both sides, as torch does).
 
     ``dtype`` casts input and weights (the bf16 compute policy) and the
     output stays in ``dtype``, with the bias added in ``dtype`` as the JAX
@@ -69,13 +85,52 @@ def conv2d(x: torch.Tensor, p: dict, dtype: Optional[torch.dtype] = None) -> tor
     w = p["w"]
     if dtype is not None:
         x, w = x.to(dtype), w.to(dtype)
-    pad = w.shape[0] // 2
+    if pad == "same":
+        pad = w.shape[0] // 2
     with fp32_exact():
-        out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=pad)
+        out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=stride,
+                       padding=pad)
     out = out.permute(0, 2, 3, 1)
     if "b" in p:
         out = out + p["b"].to(out.dtype)
     return out.contiguous()
+
+
+def linear(x: torch.Tensor, p: dict, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x @ w + b`` with ``w`` as ``[cin, cout]``. ``dtype`` casts input and
+    weights; the product accumulates in fp32, the bias is added in fp32 and
+    the result is rounded to ``dtype`` once. ``dtype=None`` computes in fp32
+    with TF32 off."""
+    w = p["w"]
+    if dtype is not None:
+        x, w = x.to(dtype), w.to(dtype)
+    with fp32_exact():
+        out = (x @ w).float() + p["b"].float()
+    return out if dtype is None else out.to(dtype)
+
+
+def batchnorm(x: torch.Tensor, p: dict, train: bool, momentum: float = 0.9,
+              eps: float = 1e-5):
+    """BatchNorm over NHW → (y, updated running statistics). torch semantics:
+    batch statistics in train mode (biased variance to normalise, unbiased
+    for the running update), running statistics in eval. ``momentum`` is the
+    share of the old running value that is KEPT (torch's ``1 - momentum``).
+    The statistics are reduced in fp32 and held in x's dtype, as
+    ``jnp.mean`` / ``jnp.var`` hold them."""
+    if train:
+        xf = x.float()
+        mean = xf.mean((0, 1, 2))
+        var = xf.var((0, 1, 2), unbiased=False)
+        n = x.shape[0] * x.shape[1] * x.shape[2]
+        mean, var = mean.to(x.dtype), var.to(x.dtype)
+        with torch.no_grad():
+            new_stats = {"mean": momentum * p["mean"] + (1 - momentum) * mean,
+                         "var": momentum * p["var"] + (1 - momentum) * (var * n / max(n - 1, 1))}
+    else:
+        mean, var = p["mean"], p["var"]
+        new_stats = {"mean": p["mean"], "var": p["var"]}
+    y = (x - mean) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return y, new_stats
 
 
 def act(x: torch.Tensor, kind: Optional[str], slope: float = 0.2) -> torch.Tensor:

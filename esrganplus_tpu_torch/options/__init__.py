@@ -1,5 +1,6 @@
 from esrganplus_tpu_torch.options.options import (
     OptionDict,
+    build_net_d_config,
     build_net_g_config,
     build_train_config,
     check_resume,
@@ -9,4 +10,4 @@ from esrganplus_tpu_torch.options.options import (
 )
 
 __all__ = ["OptionDict", "parse", "dict2str", "check_resume", "wrap_nonedict",
-           "build_net_g_config", "build_train_config"]
+           "build_net_d_config", "build_net_g_config", "build_train_config"]

@@ -10,8 +10,7 @@ frequency overrides (``options.py:53-58``), missing-key access returning None
 
 On top of the dict surface, typed builders map options onto the framework's
 config dataclasses (the reference's ``define_G`` factory role,
-``networks.py:83-139``). Counterpart of ``esrganplus_tpu/options/options.py``;
-``build_net_d_config`` comes with the GAN slice.
+``networks.py:83-139``). Counterpart of ``esrganplus_tpu/options/options.py``.
 """
 
 from __future__ import annotations
@@ -153,9 +152,28 @@ def build_net_g_config(opt):
     raise NotImplementedError(f"Generator model [{which}] not recognized")
 
 
+def build_net_d_config(opt):
+    """network_D options → DiscriminatorVGGConfig."""
+    from esrganplus_tpu_torch.models.discriminator import DiscriminatorVGGConfig
+
+    d = opt["network_D"]
+    which = d["which_model_D"]
+    size = {"discriminator_vgg_128": 128, "discriminator_vgg_96": 96,
+            "discriminator_vgg_192": 192, "discriminator_vgg_128_SN": 128}.get(which)
+    if size is None:
+        raise NotImplementedError(f"Discriminator model [{which}] not recognized")
+    return DiscriminatorVGGConfig(
+        input_size=size,
+        in_nc=d.get("in_nc", 3),
+        base_nf=d.get("nf", 64),
+        norm_type=d.get("norm_type", "batch"),
+        spectral_norm=which.endswith("_SN"),
+    )
+
+
 def build_train_config(opt):
-    """train options → SRTrainConfig (``model: "sr"``). The GAN trainers wait
-    for their slices of the port."""
+    """train options → SRTrainConfig (``model: "sr"``) or GANTrainConfig
+    (``"srgan"`` | ``"srragan"``). SFT-GAN waits for its slice of the port."""
     t = opt["train"] or {}
     model = opt["model"]
     if model == "sr":
@@ -173,8 +191,29 @@ def build_train_config(opt):
             noise_prng=t.get("noise_prng") or "rbg",
         )
     if model in ("srgan", "srragan"):
-        raise NotImplementedError(f"Model [{model}] is not ported yet "
-                                  "(ROADMAP queue 1: GAN fine-tuning)")
+        from esrganplus_tpu_torch.train.gan_model import GANTrainConfig
+
+        return GANTrainConfig(
+            variant=model,
+            gan_type=t.get("gan_type", "vanilla"),
+            lr_g=t.get("lr_G", 1e-4),
+            lr_d=t.get("lr_D", 1e-4),
+            beta1_g=t.get("beta1_G", 0.9),
+            beta1_d=t.get("beta1_D", 0.9),
+            milestones=tuple(t.get("lr_steps", (50_000, 100_000, 200_000, 300_000))),
+            lr_gamma=t.get("lr_gamma", 0.5),
+            pixel_criterion=t.get("pixel_criterion", "l1"),
+            pixel_weight=t.get("pixel_weight", 1e-2),
+            feature_criterion=t.get("feature_criterion", "l1"),
+            feature_weight=t.get("feature_weight", 1.0),
+            gan_weight=t.get("gan_weight", 5e-3),
+            d_update_ratio=t.get("D_update_ratio", 1),
+            d_init_iters=t.get("D_init_iters", 0),
+            gp_weight=t.get("gp_weigth_loss", 10.0),  # the reference's spelling
+            vgg_path=(opt["path"] or {}).get("vgg19"),
+            compute_dtype=t.get("compute_dtype"),
+            noise_prng=t.get("noise_prng") or "rbg",
+        )
     if model == "sftgan":
         raise NotImplementedError(f"Model [{model}] is not ported yet "
                                   "(ROADMAP queue 1: SFT-GAN)")

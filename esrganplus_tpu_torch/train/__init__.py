@@ -1,5 +1,7 @@
+from esrganplus_tpu_torch.train.gan_model import GANTrainConfig, GANTrainer
 from esrganplus_tpu_torch.train.schedule import multistep_lr
 from esrganplus_tpu_torch.train.sr_model import (SRTrainConfig, SRTrainer, make_optimizer,
                                                  pixel_loss)
 
-__all__ = ["multistep_lr", "SRTrainConfig", "SRTrainer", "make_optimizer", "pixel_loss"]
+__all__ = ["multistep_lr", "GANTrainConfig", "GANTrainer", "SRTrainConfig", "SRTrainer",
+           "make_optimizer", "pixel_loss"]

@@ -2,15 +2,15 @@
 
 Counterpart of ``esrganplus_tpu/train/checkpoint.py`` (reference semantics,
 ``codes/models/base_model.py:50-85``): per-network weight files
-``<iter>_G.pth`` plus a trainer-state file with iteration, optimizer state and
+``<iter>_G.pth`` / ``<iter>_D.pth`` plus a trainer-state file with iteration, optimizer state and
 parameters, saved every ``save_checkpoint_freq`` and restored via
 ``resume_state``.
 
 The full train state is one ``<iter>.state.npz``: leaves flattened in a
 fixed order (dict keys sorted, the order ``jax.tree_util.tree_flatten`` gives
 the JAX package's files), restored against a template state from
-``trainer.init_state``. Generator weights are additionally exported as
-reference-layout ``.pth`` so the upstream tools and both packages can consume
+``trainer.init_state``. Generator (and, for the GAN trainers, discriminator)
+weights are additionally exported as reference-layout ``.pth`` so the upstream tools and both packages can consume
 the checkpoints. The JAX package's ``load_state_auto`` toggles between its
 canonical and prepared-trunk layouts; this port has one layout, so
 :func:`load_state` is all there is.
@@ -125,14 +125,22 @@ def load_state(path: str, template_state):
     return tree_unflatten_like(template_state, iter(restored))
 
 
-def save_networks_pth(models_dir: str, tag, g_params, g_cfg) -> None:
-    """Export generator weights in reference-layout .pth (``<tag>_G.pth``)."""
-    from esrganplus_tpu_torch.convert.pth import rrdbnet_to_state_dict
+def save_networks_pth(models_dir: str, tag, g_params, g_cfg, d_params=None, d_cfg=None) -> None:
+    """Export network weights in reference-layout .pth: ``<tag>_G.pth`` and,
+    with a discriminator, ``<tag>_D.pth``."""
+    from esrganplus_tpu_torch.convert.pth import (discriminator_sn_to_state_dict,
+                                                  discriminator_to_state_dict,
+                                                  rrdbnet_to_state_dict)
 
     os.makedirs(models_dir, exist_ok=True)
-    cpu = tree_map(lambda p: p.detach().cpu(), g_params)
-    sd = {k: v.clone() for k, v in rrdbnet_to_state_dict(cpu, g_cfg).items()}
+    cpu = lambda tree: tree_map(lambda p: p.detach().cpu(), tree)
+    sd = {k: v.clone() for k, v in rrdbnet_to_state_dict(cpu(g_params), g_cfg).items()}
     torch.save(sd, os.path.join(models_dir, f"{tag}_G.pth"))
+    if d_params is not None and d_cfg is not None:
+        to_sd = (discriminator_sn_to_state_dict if d_cfg.spectral_norm
+                 else discriminator_to_state_dict)
+        sd_d = {k: v.clone() for k, v in to_sd(cpu(d_params), d_cfg).items()}
+        torch.save(sd_d, os.path.join(models_dir, f"{tag}_D.pth"))
 
 
 def latest_state_path(state_dir: str) -> Optional[str]:

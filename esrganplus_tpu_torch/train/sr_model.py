@@ -63,8 +63,10 @@ def pixel_loss(pred, target, criterion: str):
 
 
 def tree_leaves(tree) -> list:
-    """Leaves of a dict/list tree in a fixed order: dict keys sorted, as
-    ``jax.tree_util.tree_flatten`` orders them."""
+    """Leaves of a dict/list tree in a fixed order: dict keys sorted, None
+    an empty subtree, as ``jax.tree_util.tree_flatten`` orders them."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
@@ -73,6 +75,8 @@ def tree_leaves(tree) -> list:
 
 
 def tree_map(fn, tree, *rest):
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     if isinstance(tree, (list, tuple)):
@@ -82,6 +86,8 @@ def tree_map(fn, tree, *rest):
 
 def tree_unflatten_like(tree, it):
     """A tree shaped like ``tree`` filled from ``it`` in :func:`tree_leaves` order."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         out = {k: tree_unflatten_like(tree[k], it) for k in sorted(tree)}
         return {k: out[k] for k in tree}
@@ -144,21 +150,63 @@ def make_optimizer(cfg: SRTrainConfig):
     return AdamTransform(cfg.beta1, cfg.beta2, cfg.weight_decay, cfg.grad_clip), sched
 
 
-class SRTrainer:
+class GeneratorTrainerBase:
+    """What the PSNR and the GAN trainer share: the device, the compute
+    dtype, the per-step noise generator, and the generator's parameter
+    representation and eval-mode forward."""
+
+    def __init__(self, net_cfg: RRDBNetConfig, compute_dtype: Optional[str], device):
+        self.net_cfg = net_cfg
+        self.device = resolve_device(device)
+        if compute_dtype not in (None, "float32", "bfloat16"):
+            raise ValueError(f"compute_dtype {compute_dtype!r}: None or 'bfloat16'")
+        self._dtype = torch.bfloat16 if compute_dtype == "bfloat16" else None
+        self._noise_gen = torch.Generator(device=self.device)
+        self._eval_weights = None  # (params version, kernels' inference weights)
+        self._version = 0
+
+    def _as_leaves(self, params):
+        """A parameter tree as fp32 leaf tensors on the device."""
+        return tree_map(lambda p: p.detach().to(self.device, torch.float32).clone()
+                        .requires_grad_(True), params)
+
+    def ingest_params(self, params):
+        """Canonical generator params → the trainer's representation: the
+        same tree as fp32 leaf tensors on the device (nothing is re-laid
+        out; see the module docstring)."""
+        self._version += 1
+        return self._as_leaves(params)
+
+    def canonical_params(self, params):
+        """State representation → canonical tree (detached; the identity
+        otherwise)."""
+        return tree_map(lambda p: p.detach(), params)
+
+
+
+    def predict(self, params, lr_img) -> torch.Tensor:
+        """Eval-mode forward of NHWC [0,1] input (numpy or tensor) → fp32
+        tensor on the device. On the card this is the inference kernel path;
+        its weights are converted once per parameter version."""
+        x = torch.as_tensor(lr_img, dtype=torch.float32).to(self.device)
+        kdt = self._dtype or torch.float32
+        with torch.inference_mode():
+            p = self.canonical_params(params)
+            if needs_kernel_weights(self.net_cfg, self.device, kdt):
+                if self._eval_weights is None or self._eval_weights[0] != self._version:
+                    self._eval_weights = (self._version, prep_trunk_ct(p, self.net_cfg, kdt))
+                p = self._eval_weights[1]
+            return generator_forward(p, x, self.net_cfg, train=False, dtype=self._dtype)
+
+
+class SRTrainer(GeneratorTrainerBase):
     """PSNR pretrainer on one device (the card unless ``device="cpu"``)."""
 
     def __init__(self, net_cfg: RRDBNetConfig, train_cfg: SRTrainConfig = SRTrainConfig(),
                  device="cuda"):
-        self.net_cfg = net_cfg
+        super().__init__(net_cfg, train_cfg.compute_dtype, device)
         self.train_cfg = train_cfg
-        self.device = resolve_device(device)
         self.tx, self.lr_schedule = make_optimizer(train_cfg)
-        if train_cfg.compute_dtype not in (None, "float32", "bfloat16"):
-            raise ValueError(f"compute_dtype {train_cfg.compute_dtype!r}: None or 'bfloat16'")
-        self._dtype = torch.bfloat16 if train_cfg.compute_dtype == "bfloat16" else None
-        self._noise_gen = torch.Generator(device=self.device)
-        self._eval_weights = None  # (params version, kernels' inference weights)
-        self._version = 0
 
     # -- state -------------------------------------------------------------
 
@@ -166,19 +214,6 @@ class SRTrainer:
         params = self.ingest_params(
             generator_init(seed, self.net_cfg, init_scale=self.train_cfg.init_scale))
         return {"params": params, "opt_state": self.tx.init(params), "step": 0}
-
-    def ingest_params(self, params):
-        """Canonical generator params → the trainer's representation: the
-        same tree as fp32 leaf tensors on the device (nothing is re-laid
-        out; see the module docstring)."""
-        self._version += 1
-        return tree_map(lambda p: p.detach().to(self.device, torch.float32).clone()
-                        .requires_grad_(True), params)
-
-    def canonical_params(self, params):
-        """State representation → canonical tree (detached; the identity
-        otherwise)."""
-        return tree_map(lambda p: p.detach(), params)
 
     # -- steps -------------------------------------------------------------
 
@@ -216,17 +251,3 @@ class SRTrainer:
         state["opt_state"] = new_opt
         state["step"] = step + 1
         return state, logs
-
-    def predict(self, params, lr_img) -> torch.Tensor:
-        """Eval-mode forward of NHWC [0,1] input (numpy or tensor) → fp32
-        tensor on the device. On the card this is the inference kernel path;
-        its weights are converted once per parameter version."""
-        x = torch.as_tensor(lr_img, dtype=torch.float32).to(self.device)
-        kdt = self._dtype or torch.float32
-        with torch.inference_mode():
-            p = self.canonical_params(params)
-            if needs_kernel_weights(self.net_cfg, self.device, kdt):
-                if self._eval_weights is None or self._eval_weights[0] != self._version:
-                    self._eval_weights = (self._version, prep_trunk_ct(p, self.net_cfg, kdt))
-                p = self._eval_weights[1]
-            return generator_forward(p, x, self.net_cfg, train=False, dtype=self._dtype)

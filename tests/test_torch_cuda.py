@@ -300,3 +300,186 @@ def test_trainer_steps_on_the_card_repeat_bit_for_bit():
         runs.append([tr.train_step(state, batch, 1)[1]["l_pix"].item() for _ in range(4)])
     assert runs[0] == runs[1] and np.isfinite(runs[0]).all()
     assert tr.predict(state["params"], batch[0]).shape == (4, 64, 64, 3)
+
+
+# ---------------------------------------------------------------------------
+# the GAN slice: the stage kernels of the discriminator and the perceptual net
+# ---------------------------------------------------------------------------
+
+STAGE_CASES = {  # id: (kernel size, B, H, W, cin, cout, act)
+    "s1-3to8-odd": (3, 2, 36, 52, 3, 8, "lrelu"),
+    "s1-16to16-odd": (3, 2, 36, 52, 16, 16, "relu"),
+    "s1-3to64": (3, 4, 128, 128, 3, 64, None),
+    "s1-64to128": (3, 4, 64, 64, 64, 128, "relu"),
+    "s1-128to128": (3, 4, 64, 64, 128, 128, "relu"),
+    "s2-3to8-odd": (4, 2, 36, 52, 3, 8, "lrelu"),
+    "s2-16to16-odd": (4, 2, 36, 52, 16, 16, None),
+    "s2-64to64": (4, 4, 128, 128, 64, 64, None),
+    "s2-128to128": (4, 4, 64, 64, 128, 128, "lrelu"),
+}
+
+
+def _stage_case(case, dtype):
+    from esrganplus_tpu_torch.kernels import stage_ct as S
+
+    ks, B, H, W, cin, cout, act = STAGE_CASES[case]
+    rs = np.random.RandomState(1)
+    t = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32)).cuda()
+    w, b = S.prepare_stage_ct(t(ks, ks, cin, cout) * float(np.sqrt(2.0 / (ks * ks * cin))),
+                              t(cout) * 0.1, dtype)
+    x = t(B, H, W, cin).to(dtype)
+    fns = ((S.conv_s1_ct, S.conv_s1_ct_plain, S.conv_s1_ct_bwd, S.conv_s1_ct_bwd_plain)
+           if ks == 3 else
+           (S.conv_s2_ct, S.conv_s2_ct_plain, S.conv_s2_ct_bwd, S.conv_s2_ct_bwd_plain))
+    return fns, x, w, b, act, t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", list(STAGE_CASES))
+def test_cuda_stage_kernel_matches_plain_twin_forward_and_backward(case, dtype):
+    _need_card()
+    (fwd, fwd_p, bwd, bwd_p), x, w, b, act, t = _stage_case(case, dtype)
+    with fp32_exact():
+        got, want = fwd(x, w, b, act=act), fwd_p(x, w, b, act=act)
+        assert got.shape == want.shape and torch.isfinite(got.float()).all()
+        assert (got.float() - want.float()).abs().max().item() \
+            <= TOL[dtype] * max(1.0, want.float().abs().max().item())
+        if dtype == torch.bfloat16:
+            assert (got != want).float().mean().item() <= 0.01
+        g = t(*got.shape).to(dtype)
+        saved = None if act is None else got
+        r, r_p = bwd(x, w, saved, g, act=act), bwd_p(x, w, saved, g, act=act)
+        assert r["dx"].dtype == dtype and r["w"].dtype == r["b"].dtype == torch.float32
+        for k in ("dx", "w", "b"):
+            ref = r_p[k].float()
+            assert (r[k].float() - ref).abs().max().item() <= TOL[dtype] * ref.abs().max().item(), k
+        # the halves on their own, and a second launch, give the same bits
+        assert torch.equal(bwd(x, w, saved, g, act=act, need_dw=False)["dx"], r["dx"])
+        again = bwd(x, w, saved, g, act=act, need_dx=False)
+        assert again["dx"] is None and torch.equal(again["w"], r["w"]) \
+            and torch.equal(again["b"], r["b"])
+
+
+@pytest.mark.cuda
+def test_cuda_stage_kernels_raise_for_what_they_do_not_take():
+    _need_card()
+    from esrganplus_tpu_torch.kernels import stage_ct as S
+
+    x = torch.zeros(1, 8, 8, 8, device="cuda")
+    w, b = torch.zeros(3, 3, 8, 24, device="cuda"), torch.zeros(24, device="cuda")
+    with pytest.raises(ValueError, match="cout"):  # a width the kernel has no instance for
+        S.conv_s1_ct(x, w, b)
+    with pytest.raises(ValueError, match="input channels"):
+        S.conv_s1_ct(torch.zeros(1, 8, 8, 256, device="cuda"),
+                     torch.zeros(3, 3, 256, 64, device="cuda"), torch.zeros(64, device="cuda"))
+    with pytest.raises(TypeError):
+        S.conv_s1_ct(x.half(), w[..., :8].half(), b[:8])
+    with pytest.raises(ValueError, match="cpu"):  # weights left on the CPU: no silent copy
+        S.conv_s2_ct(x, torch.zeros(4, 4, 8, 8), b[:8])
+
+
+def _grads_close_but_flips(got, want, tol=1e-4):
+    """Gradients of the kernel route against the plain graph's: the median
+    entry error within ``tol`` of its leaf's largest entry (or of 5 % of the
+    largest gradient, for leaves whose true gradient is 0), 90 % of the
+    entries within ``tol``, and the whole gradient's cosine at least 0.9999.
+    Not every entry: a relu / lrelu gate that flips at a near-zero
+    activation, where kernel and cuDNN sum in another order, moves the whole
+    patch of entries behind it by as much as the cotangent there."""
+    pairs = [(a.float(), b.float()) for a, b in zip(got, want) if b is not None]
+    scale = max(b.abs().max().item() for _, b in pairs)
+    errs = torch.cat([((a - b).abs() / max(b.abs().max().item(), 0.05 * scale)).flatten()
+                      for a, b in pairs])
+    assert torch.isfinite(errs).all()
+    assert errs.median().item() <= tol and (errs <= tol).float().mean().item() >= 0.9
+    flat = lambda i: torch.cat([p[i].flatten() for p in pairs])
+    assert torch.nn.functional.cosine_similarity(flat(0), flat(1), dim=0).item() >= 0.9999
+
+
+def _count_stage(fn):
+    from esrganplus_tpu_torch.kernels import stage_ct as S
+
+    counted = (S.conv_s1_ct, S.conv_s2_ct, S.conv_s1_ct_bwd, S.conv_s2_ct_bwd)
+    for f in counted:
+        f.launches = 0
+    out = fn()
+    return out, [f.launches for f in counted]
+
+
+@pytest.mark.cuda
+def test_auto_on_the_card_runs_d_and_f_through_the_stage_kernels():
+    """``stage_kernel="auto"`` on a CUDA device: D's two early stages and F's
+    four early convs launch the stage kernels (value and gradients within
+    1e-4 of the plain graph's in fp32); a frozen net launches no weight
+    half; ``"plain"`` launches nothing."""
+    _need_card()
+    from esrganplus_tpu_torch.models.discriminator import (DiscriminatorVGGConfig,
+                                                           discriminator_forward,
+                                                           init_discriminator)
+    from esrganplus_tpu_torch.models.vgg import VGGFeatConfig, init_vgg_feat, vgg_feat_forward
+    from esrganplus_tpu_torch.train.sr_model import tree_leaves
+
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.rand(2, 128, 128, 3).astype(np.float32)).cuda().requires_grad_()
+    dcfg = DiscriminatorVGGConfig(base_nf=16)
+    dp = params_to(init_discriminator(0, dcfg), "cuda")
+    leaves = [l.requires_grad_() for l in tree_leaves(dp)]
+
+    def d_run(cfg):
+        with fp32_exact():
+            logits, st = discriminator_forward(dp, x, cfg, train=True)
+            grads = torch.autograd.grad(torch.sin(logits).sum(), [x] + leaves, allow_unused=True)
+        return logits, st, grads
+
+    (logits, st, grads), launches = _count_stage(lambda: d_run(dcfg))
+    assert launches == [2, 2, 2, 2]
+    (logits_p, st_p, grads_p), launches_p = _count_stage(
+        lambda: d_run(dataclasses.replace(dcfg, stage_kernel="plain")))
+    assert launches_p == [0, 0, 0, 0]
+    assert (logits - logits_p).abs().max().item() <= 1e-4 * max(1.0, logits_p.abs().max().item())
+    _grads_close_but_flips(grads, grads_p)
+    assert torch.allclose(st["bn"][1]["a"]["mean"], st_p["bn"][1]["a"]["mean"], atol=1e-5)
+
+    vcfg = VGGFeatConfig(layout=(16, 16, "M", 32, 32, "M", 256, 256), feature_layer=13)
+    vp = params_to(init_vgg_feat(0, vcfg), "cuda")
+
+    def f_run(cfg):
+        with fp32_exact():
+            fea = vgg_feat_forward(vp, x, cfg)
+            gx, = torch.autograd.grad(torch.sin(fea).sum(), x)
+        return fea, gx
+
+    (fea, gx), launches = _count_stage(lambda: f_run(vcfg))
+    assert launches == [4, 0, 4, 0]  # frozen weights: four data-gradient launches
+    (fea_p, gx_p), _ = _count_stage(lambda: f_run(dataclasses.replace(vcfg, stage_kernel="plain")))
+    assert (fea - fea_p).abs().max().item() <= 1e-4 * max(1.0, fea_p.abs().max().item())
+    _grads_close_but_flips([gx], [gx_p])
+    # a width the kernels have no instance for raises under auto: no fallback
+    bad = DiscriminatorVGGConfig(base_nf=24)
+    with pytest.raises(ValueError, match="cout"):
+        discriminator_forward(params_to(init_discriminator(0, bad), "cuda"), x.detach(), bad)
+
+
+@pytest.mark.cuda
+def test_gan_trainer_steps_on_the_card_repeat_bit_for_bit():
+    _need_card()
+    from esrganplus_tpu_torch.models.discriminator import DiscriminatorVGGConfig
+    from esrganplus_tpu_torch.models.vgg import VGGFeatConfig
+    from esrganplus_tpu_torch.train import GANTrainConfig, GANTrainer
+
+    rs = np.random.RandomState(0)
+    batch = (rs.rand(4, 24, 24, 3).astype(np.float32), rs.rand(4, 96, 96, 3).astype(np.float32))
+    runs = []
+    for _ in range(2):
+        t = GANTrainer(RRDBNetConfig(nb=2), DiscriminatorVGGConfig(input_size=96, base_nf=16),
+                       GANTrainConfig(compute_dtype="bfloat16"), device="cuda",
+                       vgg_cfg=VGGFeatConfig(layout=(16, 16, "M", 32, 32, "M", 256, 256),
+                                             feature_layer=13))
+        state = t.init_state(0)
+        (_, logs), launches = _count_stage(lambda: t.train_step(state, batch, 3))
+        assert launches == [14, 6, 10, 6]
+        runs.append([{k: float(v) for k, v in logs.items()}]
+                    + [{k: float(v) for k, v in t.train_step(state, batch, 3)[1].items()}
+                       for _ in range(2)])
+    assert runs[0] == runs[1] and all(np.isfinite(v) for r in runs[0] for v in r.values())

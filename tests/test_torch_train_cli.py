@@ -148,7 +148,11 @@ def test_unported_training_options_exit_saying_so(tmp_path, case, capsys):
     elif case == "dispatch":
         opt["train"]["steps_per_dispatch"] = 4
     else:
+        # GAN fine-tuning itself is ported (tests/test_torch_gan_cli.py); what
+        # is not ported is refused under it too
         opt["model"] = "srragan"
+        opt["network_D"] = {"which_model_D": "discriminator_vgg_96", "nf": 8}
+        opt["datasets"]["train"]["resident_crops"] = 64
     path = os.path.join(root, "opt.json")
     with open(path, "w") as f:
         json.dump(opt, f)
