@@ -30,6 +30,12 @@ final result line:
                on the kernel's saved buffers and again with the twin fed its
                own forward's buffers, with times, bounds and a cuDNN-autograd
                yardstick;
+     kernels-noise — the fused noise mode at the training shape: the device
+               Philox draws (csrc/philox.cu) against the twin's, rdb_ct's
+               training forward drawing the noise in its epilogue and
+               rdb_ct_bwd replaying it against their twins (fp32, bf16, detach
+               on and off; two backward calls bit-equal), timed beside the
+               input mode (a pre-drawn noise tensor) on the same inputs;
   5. train-check — flagship width and depth, one batch: loss and every
                gradient leaf of the kernel path against autograd of the plain
                graph on the card, fp32 then bf16, the same noise fed to both;
@@ -41,6 +47,16 @@ final result line:
                step 8 that must end bit-equal to the uninterrupted run;
   7. train-steady — ``SRTrainer.train_step`` on one device-resident batch:
                median ms/step and crops/s, twice from one seed (bit-equal);
+     train-fused — phases 6 and 7 again with ``"noise_kernel": "fused"``
+               (every rdb_ct call of a step seeded, resume bit-equal, two
+               steady runs bit-equal), then the input mode's steady step once
+               more; ms/step and peak memory of both modes;
+     kernels-rdb-t — rdb_t (with and without the RRDB fold) and rdb_t_bwd
+               against their twins, fp32 and bf16, at the odd, inference and
+               training shapes, with times, bounds and a cuDNN yardstick;
+     rdb-t-path — three chained ``rdb_t_diff`` (one RRDB) forward and
+               backward at the training shape in bf16, launch counts from
+               0, against autograd of the fp32 twins;
   8. kernels-stage — the GAN slice's four stage wrappers (conv_s1_ct,
                conv_s2_ct and their backwards) against their plain twins, fp32
                and bf16, at an odd shape (B=2, 36×52, 3→8 and 16→16 channels,
@@ -61,9 +77,10 @@ final result line:
  11. gan-steady — ``GANTrainer.train_step`` on one device-resident batch:
                median ms/step and crops/s, twice from one seed (bit-equal);
      with ``--profile`` also a ``torch.profiler`` trace of three steady steps
-     of each trainer (device time by kernel family, the card's busy share).
+     of each trainer, the PSNR one in both noise modes (device time by
+     kernel family, the card's busy share).
 
-Then one ``{"kernels": [...]}`` line (twelve kernels), the card's name and power limit, and
+Then one ``{"kernels": [...]}`` line (fourteen kernels), the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -148,6 +165,21 @@ STAGE_SOURCE = "esrganplus_tpu_torch/csrc/stage_ct.cu"
 # the shape whose numbers stand in the kernels line (every shape is listed beside it)
 STAGE_MAIN_SHAPE = {"conv_s1_ct": "f_64_64_128", "conv_s1_ct_bwd": "f_64_64_128",
                     "conv_s2_ct": "d_s2_64_64_128", "conv_s2_ct_bwd": "d_s2_64_64_128"}
+
+# the nESRGAN+ slice: the fused noise mode of rdb_ct / rdb_ct_bwd, and rdb_t
+NOISE_SEED = (0x1234ABCD, 0x0BADF00D)  # one noise site's two Philox seed words
+NOISE_SIGMA = 0.1
+PHILOX_TOL = 1e-5  # device logf / cosf against torch's log / cos, max|Δ| of a normal
+RDB_T_REPLACES = {"rdb_t": "esrganplus_tpu/kernels/rdb_t.py:255",
+                  "rdb_t_bwd": "esrganplus_tpu/kernels/rdb_t.py:499"}
+RDB_T_SOURCE = "esrganplus_tpu_torch/csrc/rdb_t.cu"
+RDB_T_MAIN_SHAPE = "train"  # the shape whose numbers stand in the kernels line
+# one RDB's multiply-adds per pixel: five 3×3 stages and the 1×1 shortcut
+RDB_MACS = 9 * sum((NF + (k - 1) * GC) * (NF if k == 5 else GC) for k in range(1, 6)) + NF * GC
+# rdb_t_bwd's per pixel: a data and a weight gradient of every product (twice
+# the forward) and the recompute of stages 1–4 and the 1×1 (stage 5 is linear
+# and not recomputed)
+RDB_T_BWD_MACS = 2 * RDB_MACS + 9 * sum((NF + (k - 1) * GC) * GC for k in range(1, 5)) + NF * GC
 
 
 def emit(obj):
@@ -947,8 +979,11 @@ def _smoke_options(workdir, dirs, name, model, train):
     }
 
 
-def train_path(failures, workdir):
-    """16 flagship training steps through the CLI, then a resume from step 8."""
+def train_path(failures, workdir, noise_kernel="input"):
+    """16 flagship training steps through the CLI, then a resume from step 8.
+    ``noise_kernel="fused"`` (phase train-fused): every per-RDB site draws its
+    noise in rdb_ct's epilogue and rdb_ct_bwd replays it, so all 69 forward
+    and 69 backward rdb_ct calls of each step must be seeded ones."""
     import shutil
 
     import torch
@@ -959,9 +994,11 @@ def train_path(failures, workdir):
     from esrganplus_tpu_torch.kernels import tail_ct as T
     from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig, init_rrdbnet
 
+    fused = noise_kernel == "fused"
+    phase, name = ("train-fused", "debug_smoke_fused") if fused else ("train", "debug_smoke")
     dirs = _smoke_dataset(workdir)
-    opt = _smoke_options(workdir, dirs, "debug_smoke", "sr",
-                         {"lr_G": 2e-4, "pixel_weight": 1.0})
+    opt = _smoke_options(workdir, dirs, name, "sr", {"lr_G": 2e-4, "pixel_weight": 1.0})
+    opt["network_G"]["noise_kernel"] = noise_kernel
     opt_path = os.path.join(workdir, "train_smoke.json")
     with open(opt_path, "w") as f:
         json.dump(opt, f, indent=1)
@@ -970,23 +1007,28 @@ def train_path(failures, workdir):
     bwd = (K.rdb_ct_bwd, K.conv3x3_ct_bwd, T.upfold_ct_bwd, T.conv_hr_ct_bwd)
     for fn in fwd + bwd:
         fn.launches = 0
+    K.rdb_ct.seeded_launches = K.rdb_ct_bwd.seeded_launches = 0
     t0 = time.perf_counter()
     train_cli.main(["-opt", opt_path, "--device", "cuda"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in fwd + bwd}
+    seeded = {"rdb_ct": K.rdb_ct.seeded_launches, "rdb_ct_bwd": K.rdb_ct_bwd.seeded_launches}
     # forward: every step, plus each validation image at steps 8 and 16
     n_val = VAL_IMAGES * (TRAIN_STEPS // 8)
     for k, per in PER_IMAGE.items():
         if launches[k] != per * (TRAIN_STEPS + n_val):
-            failures.append(f"train: {k} launched {launches[k]} times, expected "
+            failures.append(f"{phase}: {k} launched {launches[k]} times, expected "
                             f"{per * (TRAIN_STEPS + n_val)}")
     for k, per in BWD_PER_STEP.items():
         if launches[k] != per * TRAIN_STEPS:
-            failures.append(f"train: {k} launched {launches[k]} times, expected "
+            failures.append(f"{phase}: {k} launched {launches[k]} times, expected "
                             f"{per * TRAIN_STEPS}")
+    want_seeded = 69 * TRAIN_STEPS if fused else 0  # validation forwards draw no noise
+    if seeded != {"rdb_ct": want_seeded, "rdb_ct_bwd": want_seeded}:
+        failures.append(f"{phase}: seeded rdb_ct launches {seeded}, expected {want_seeded} each")
 
-    exp = os.path.join(workdir, "experiments", "debug_smoke")
+    exp = os.path.join(workdir, "experiments", name)
     losses, text = _logged_losses(exp)
     finite = all(np.isfinite(float(v)) for v in losses.values())
     files = {f: os.path.exists(os.path.join(exp, f)) for f in
@@ -998,8 +1040,9 @@ def train_path(failures, workdir):
     init = init_rrdbnet(cfg, seed=0, init_scale=0.1)
     moved = max((a.cpu() - b).abs().max().item()
                 for (_, a), (_, b) in zip(_leaves(trained), _leaves(init)))
-    row = {"phase": "train", "steps": TRAIN_STEPS, "seconds_total": seconds,
-           "launches": launches, "l_pix": losses, "finite": finite, "files": files,
+    row = {"phase": phase, "noise_kernel": noise_kernel, "steps": TRAIN_STEPS,
+           "seconds_total": seconds, "launches": launches, "seeded_launches": seeded,
+           "l_pix": losses, "finite": finite, "files": files,
            "validations": text.count("Validation # PSNR"), "max_abs_weight_change": moved,
            "reloaded": [tcfg.nb, tcfg.nf, tcfg.gc]}
     ok = (finite and sorted(losses) == list(range(2, TRAIN_STEPS + 1, 2)) and all(files.values())
@@ -1008,7 +1051,7 @@ def train_path(failures, workdir):
     row["ok"] = bool(ok)
     emit(row)
     if not ok:
-        failures.append(f"train: {row}")
+        failures.append(f"{phase}: {row}")
 
     # resume from step 8: the same batches, noise and arithmetic must follow
     kept = os.path.join(workdir, "latest_G_uninterrupted.pth")
@@ -1021,21 +1064,22 @@ def train_path(failures, workdir):
     losses2, text2 = _logged_losses(exp)
     a, b = torch.load(kept), torch.load(latest)
     diff = max((a[k] - b[k]).abs().max().item() for k in a)
-    row = {"phase": "train-resume", "resumed": "resumed from" in text2, "l_pix": losses2,
+    row = {"phase": phase + "-resume", "resumed": "resumed from" in text2, "l_pix": losses2,
            "l_pix_same_as_uninterrupted": all(losses2.get(s) == losses[s]
                                               for s in range(10, TRAIN_STEPS + 1, 2)),
            "max_abs_weight_diff_vs_uninterrupted": diff}
     row["ok"] = bool(row["resumed"] and row["l_pix_same_as_uninterrupted"] and diff == 0.0)
     emit(row)
     if not row["ok"]:
-        failures.append(f"train-resume: {row}")
+        failures.append(f"{phase}-resume: {row}")
     return launches
 
 
-def train_steady(failures):
+def train_steady(failures, noise_kernel="input", phase="train-steady"):
     """SRTrainer.train_step on one device-resident batch: median ms/step of
     10 after 3 warm-up steps (host clock around a synchronised step), twice
-    from the same seed; the two runs' l_pix must agree bit for bit."""
+    from the same seed; the two runs' l_pix must agree bit for bit. Returns
+    (median ms/step, peak device memory in bytes)."""
     import torch
 
     from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig
@@ -1047,8 +1091,8 @@ def train_steady(failures):
              torch.rand((B, 4 * H, 4 * W, 3), generator=gen, device="cuda"))
     runs = []
     for _ in range(2):
-        trainer = SRTrainer(RRDBNetConfig(), SRTrainConfig(compute_dtype="bfloat16"),
-                            device="cuda")
+        trainer = SRTrainer(RRDBNetConfig(noise_kernel=noise_kernel),
+                            SRTrainConfig(compute_dtype="bfloat16"), device="cuda")
         state = trainer.init_state(0)
         torch.cuda.reset_peak_memory_stats()
         losses, times = [], []
@@ -1061,17 +1105,19 @@ def train_steady(failures):
             losses.append(logs["l_pix"].item())
         runs.append((losses, times[3:]))
     med = float(np.median(runs[0][1] + runs[1][1])) * 1e3
-    row = {"phase": "train-steady", "batch": B, "hr": 4 * H, "dtype": "bfloat16",
+    peak = torch.cuda.max_memory_allocated()
+    row = {"phase": phase, "noise_kernel": noise_kernel, "batch": B, "hr": 4 * H,
+           "dtype": "bfloat16",
            "ms_per_step_runs": [float(np.median(t)) * 1e3 for _, t in runs],
            "median_ms_per_step": med, "crops_per_s": B / med * 1e3,
-           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_memory_gb": peak / 1e9, "peak_memory_bytes": peak,
            "l_pix_run0": runs[0][0], "bit_equal_runs": runs[0][0] == runs[1][0],
            "finite": bool(np.isfinite(runs[0][0]).all())}
     row["ok"] = bool(row["finite"] and row["bit_equal_runs"])
     emit(row)
     if not row["ok"]:
-        failures.append(f"train-steady: {row}")
-    return med
+        failures.append(f"{phase}: {row}")
+    return med, peak
 
 
 # ---------------------------------------------------------------------------
@@ -1316,6 +1362,14 @@ def _gan_trainer():
                       GANTrainConfig(compute_dtype="bfloat16"), device="cuda")
 
 
+def _fused_trainer():
+    from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig
+    from esrganplus_tpu_torch.train import SRTrainConfig, SRTrainer
+
+    return SRTrainer(RRDBNetConfig(noise_kernel="fused"), SRTrainConfig(compute_dtype="bfloat16"),
+                     device="cuda")
+
+
 def gan_steady(failures):
     """GANTrainer.train_step (srragan, the flagship recipe) on one
     device-resident batch: median ms/step of 10 after 3 warm-up steps (host
@@ -1406,6 +1460,312 @@ def train_profile(step_ms, make_trainer=None, phase="train-profile"):
           "launches_per_step": {k: count[k] / steps for k, _ in fam.most_common(20)}})
 
 
+# ---------------------------------------------------------------------------
+# the nESRGAN+ slice: the fused noise mode (rdb_ct / rdb_ct_bwd drawing and
+# replaying the noise from a site's seed words) and the 9-tap RDB (rdb_t)
+# ---------------------------------------------------------------------------
+
+
+def _rdb_params(gen):
+    """One flagship-width RDB (nf=64, gc=32, conv1x1), HWIO, on the card."""
+    import torch
+
+    rnd = lambda *shape, scale=1.0: (torch.randn(shape, generator=gen) * scale).to("cuda")
+    p = {f"conv{k}": {"w": rnd(3, 3, NF + (k - 1) * GC, NF if k == 5 else GC,
+                               scale=(2.0 / (9 * (NF + (k - 1) * GC))) ** 0.5),
+                      "b": rnd(NF if k == 5 else GC, scale=0.1)} for k in range(1, 6)}
+    p["conv1x1"] = {"w": rnd(1, 1, NF, GC, scale=(2.0 / NF) ** 0.5)}
+    return p
+
+
+def _interleaved(a, b, iters):
+    """CUDA-event times of two calls measured in turns (a, b, b, a): the
+    mean of each pair."""
+    ta1, tb1 = time_ms(a, iters=iters), time_ms(b, iters=iters)
+    tb2, ta2 = time_ms(b, iters=iters), time_ms(a, iters=iters)
+    return (ta1 + ta2) / 2, (tb1 + tb2) / 2
+
+
+def check_noise_kernels(failures):
+    """Phase kernels-noise at the training shape (batch 16, 32×32 LR):
+    philox.cu's draws against the twin's; rdb_ct's training forward drawing
+    its noise in the kernel and rdb_ct_bwd replaying it against their twins
+    (fp32 1e-4, bf16 2e-2, detach on and off), two backward calls bit-equal;
+    CUDA-event times beside the input mode's (a pre-drawn noise tensor) on
+    the same inputs."""
+    import torch
+
+    from esrganplus_tpu_torch.kernels import rdb_ct as K
+    from esrganplus_tpu_torch.kernels.philox import philox_normal, philox_normal_cuda
+    from esrganplus_tpu_torch.models.layers import fp32_exact
+
+    B, H, W = TRAIN_SHAPE
+    shape = (B, H, W, NF)
+    got = philox_normal_cuda(NOISE_SEED, shape)
+    torch.cuda.synchronize()
+    errs = {dev: (got.cpu() - philox_normal(NOISE_SEED, shape, dev).cpu()).abs().max().item()
+            for dev in ("cpu", "cuda")}
+    row = {"phase": "kernels-noise", "kernel": "philox_normal", "shape": list(shape),
+           "max_abs_err_vs_twin": errs, "tol": PHILOX_TOL,
+           "mean": got.mean().item(), "std": got.std().item(),
+           "ms": time_ms(lambda: philox_normal_cuda(NOISE_SEED, shape)),
+           "plain_ms": time_ms(lambda: philox_normal(NOISE_SEED, shape, "cuda"), iters=5)}
+    row["ok"] = bool(torch.isfinite(got).all() and max(errs.values()) <= PHILOX_TOL)
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"philox_normal_cuda: {row}")
+
+    gen = torch.Generator().manual_seed(12)
+    p = _rdb_params(gen)
+    report = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        wr = K.prepare_rdb_ct_weights(p, dtype)
+        act = lambda: torch.randn(shape, generator=gen).to("cuda", dtype)
+        x, noise, g = act(), act(), act()
+        kw = dict(seed=NOISE_SEED, sigma=NOISE_SIGMA)
+        with fp32_exact():
+            fwd_k = K._rdb_ct_cuda(x, wr, save=True, **kw)
+            torch.cuda.synchronize()
+            fwd_p = K._rdb_ct_train_plain(x, wr, **kw)
+        row = {"phase": "kernels-noise", "kernel": "rdb_ct", "mode": "fused", "dtype": dname,
+               "lr": list(TRAIN_SHAPE), "noise_sigma": NOISE_SIGMA, "tol": TOL[dname]}
+        ok = True
+        for key, a, b in zip(("out", "cat", "lsv"), fwd_k, fwd_p):
+            d, rel = rel_err(a, b)
+            differ = (a != b).float().mean().item()
+            row[key] = {"max_abs_err": d, "rel_err": rel, "frac_differ": differ}
+            ok = ok and bool(torch.isfinite(a.float()).all()) and rel <= TOL[dname] and (
+                dname == "float32" or differ <= MAX_DIFFER_BF16)
+        input_ms, fused_ms = _interleaved(
+            lambda: K._rdb_ct_cuda(x, wr, None, noise, sigma=NOISE_SIGMA, save=True),
+            lambda: K._rdb_ct_cuda(x, wr, save=True, **kw), iters=20)
+        row.update(ok=bool(ok), fused_ms=fused_ms, input_ms=input_ms,
+                   plain_ms=time_ms(lambda: K._rdb_ct_train_plain(x, wr, **kw), iters=5))
+        emit(row)
+        report[("rdb_ct", dname)] = row
+        if not ok:
+            failures.append(f"rdb_ct fused forward {dname}: {row}")
+
+        _, cat, lsv = fwd_k
+        for detach in (False, True):
+            seed = None if detach else NOISE_SEED
+            with fp32_exact():
+                got = K.rdb_ct_bwd(x, wr, cat, lsv, g, seed=seed, sigma=NOISE_SIGMA)
+                again = K.rdb_ct_bwd(x, wr, cat, lsv, g, seed=seed, sigma=NOISE_SIGMA)
+                torch.cuda.synchronize()
+                want = K.rdb_ct_bwd_plain(x, wr, cat, lsv, g, seed=seed, sigma=NOISE_SIGMA)
+            worst, worst_abs, finite = worst_err(got, want)
+            bit_equal = all(got[k] is None or torch.equal(got[k], again[k]) for k in got)
+            row = {"phase": "kernels-noise", "kernel": "rdb_ct_bwd",
+                   "mode": "fused_detach" if detach else "fused", "dtype": dname,
+                   "lr": list(TRAIN_SHAPE), "max_abs_err": worst_abs, "rel_err": worst,
+                   "tol": BWD_TOL[dname], "bit_equal_second_call": bit_equal}
+            row["ok"] = bool(finite and worst <= BWD_TOL[dname] and bit_equal)
+            if not detach:
+                input_ms, fused_ms = _interleaved(
+                    lambda: K.rdb_ct_bwd(x, wr, cat, lsv, g, noise, sigma=NOISE_SIGMA),
+                    lambda: K.rdb_ct_bwd(x, wr, cat, lsv, g, seed=NOISE_SEED,
+                                         sigma=NOISE_SIGMA), iters=10)
+                row.update(fused_ms=fused_ms, input_ms=input_ms)
+                report[("rdb_ct_bwd", dname)] = row
+            emit(row)
+            if not row["ok"]:
+                failures.append(f"rdb_ct_bwd {row['mode']} {dname}: {row}")
+    return report
+
+
+def train_fused(failures, workdir, input_steady):
+    """Phase train-fused: the flagship recipe with ``noise_kernel: "fused"``
+    through the CLI (launch counts, resume bit-equal), the steady step twice
+    from one seed (bit-equal), and the input mode's steady step measured
+    again after it; ms/step and peak memory of the two modes side by side."""
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        train_path(failures, tmp, "fused")
+    fused_ms, fused_peak = train_steady(failures, "fused", "train-fused-steady")
+    input_ms, input_peak = train_steady(failures, "input", "train-steady-again")
+    emit({"phase": "train-fused-vs-input", "fused_ms_per_step": fused_ms,
+          "input_ms_per_step": [input_steady[0], input_ms],
+          "fused_peak_memory_bytes": fused_peak,
+          "input_peak_memory_bytes": [input_steady[1], input_peak],
+          "peak_saved_mib": (input_peak - fused_peak) / 2 ** 20,
+          "predicted_peak_saved_mib": 69 * TRAIN_SHAPE[0] * TRAIN_SHAPE[1] * TRAIN_SHAPE[2]
+          * NF * 2 / 2 ** 20})
+    return fused_ms
+
+
+def make_rdb_t_case(dtype, B, H, W, gen):
+    """rdb_t and rdb_t_bwd on seeded flagship-width tensors: the kernel
+    calls, their twins, cuDNN yardsticks (the five-conv chain and autograd
+    through it, used nowhere in the port), MACs and the bytes each
+    direction must move."""
+    import torch
+    import torch.nn.functional as F
+
+    from esrganplus_tpu_torch.kernels import rdb_t as R
+
+    p = _rdb_params(gen)
+    ws = R.prepare_rdb_t_weights(p, NF, GC, True, dtype)
+    act = lambda: torch.randn((B, H, W, NF), generator=gen).to("cuda", dtype)
+    x, res, g = act(), act(), act()
+    esz = x.element_size()
+    nchw = lambda t: t.permute(0, 3, 1, 2).contiguous()
+    oihw = lambda w: w.to(dtype).permute(3, 2, 0, 1).contiguous().requires_grad_()
+    lrelu = lambda t: F.leaky_relu(t, 0.2)
+    xn = nchw(x).requires_grad_()
+    cw = [(oihw(p[f"conv{k}"]["w"]), p[f"conv{k}"]["b"].to(dtype).requires_grad_())
+          for k in range(1, 6)]
+    w11 = oihw(p["conv1x1"]["w"])
+
+    def chain():
+        c = lambda t, k: F.conv2d(t, cw[k][0], cw[k][1], padding=1)
+        x1 = lrelu(c(xn, 0))
+        x2 = lrelu(c(torch.cat([xn, x1], 1), 1)) + F.conv2d(xn, w11)
+        x3 = lrelu(c(torch.cat([xn, x1, x2], 1), 2))
+        x4 = lrelu(c(torch.cat([xn, x1, x2, x3], 1), 3)) + x2
+        return c(torch.cat([xn, x1, x2, x3, x4], 1), 4) * 0.2 + xn
+
+    lib_out = chain()
+    gn = nchw(g)
+    nw = sum(w.numel() for w in ws[:6])
+    return {
+        "fwd": (lambda: R.rdb_t(x, *ws), lambda: R.rdb_t_plain(x, *ws),
+                lambda: chain().detach()),
+        "fold": (lambda: R.rdb_t(x, *ws, res, rrdb_scale=0.2),
+                 lambda: R.rdb_t_plain(x, *ws, res, rrdb_scale=0.2)),
+        "bwd": (lambda: R.rdb_t_bwd(x, *ws, g), lambda: R.rdb_t_bwd_plain(x, *ws, g),
+                lambda: torch.autograd.grad(lib_out, [xn, w11] + [t for c in cw for t in c],
+                                            gn, retain_graph=True)),
+        "macs": B * H * W * RDB_MACS,
+        "bwd_macs": B * H * W * RDB_T_BWD_MACS,
+        # x in, out out; the weights in (the bias in fp32)
+        "fwd_bytes": 2 * x.numel() * esz + nw * esz + 4 * ws[6].numel(),
+        # x and g in, dx out; the weights in; dW, dW11 and db out in fp32
+        "bwd_bytes": 3 * x.numel() * esz + nw * (esz + 4) + 2 * 4 * ws[6].numel(),
+    }
+
+
+def check_rdb_t_kernels(failures):
+    """Phase kernels-rdb-t: rdb_t (with and without the RRDB fold) and
+    rdb_t_bwd against their twins, fp32 (TF32 off) and bf16, at the odd,
+    the inference (B=1, 128²) and the training (B=16, 32²) shapes; at the
+    last two CUDA-event times of the kernel, the twin and cuDNN, and the
+    bound (the backward's: twice the forward's products, plus the recompute
+    of stages 1–4 and the 1×1)."""
+    import torch
+
+    from esrganplus_tpu_torch.models.layers import fp32_exact
+
+    gen = torch.Generator().manual_seed(13)
+    report = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for sname, (B, H, W) in SHAPES.items():
+            case = make_rdb_t_case(dtype, B, H, W, gen)
+            base = {"phase": "kernels-rdb-t", "dtype": dname, "shape": sname, "lr": [B, H, W]}
+            with fp32_exact():
+                for tag in ("fwd", "fold"):
+                    kern, plain = case[tag][:2]
+                    got = kern()
+                    torch.cuda.synchronize()
+                    ref = plain()
+                    d, rel = rel_err(got, ref)
+                    differ = (got != ref).float().mean().item()
+                    ok = (bool(torch.isfinite(got.float()).all()) and rel <= TOL[dname]
+                          and (dname == "float32" or differ <= MAX_DIFFER_BF16))
+                    row = {**base, "kernel": "rdb_t" if tag == "fwd" else "rdb_t_fold",
+                           "max_abs_err": d, "rel_err": rel, "tol": TOL[dname],
+                           "frac_differ": differ, "ok": ok}
+                    if tag == "fwd":
+                        row["rel_err_vs_library"] = rel_err(
+                            got, case["fwd"][2]().permute(0, 2, 3, 1))[1]
+                        if sname != "odd":
+                            ops_ms = 2 * case["macs"] / PEAK_FLOPS[dname] * 1e3
+                            bytes_ms = case["fwd_bytes"] / PEAK_BYTES * 1e3
+                            row.update(ms=time_ms(kern), plain_ms=time_ms(plain, iters=5),
+                                       library_ms=time_ms(case["fwd"][2]),
+                                       bound_ms=max(ops_ms, bytes_ms),
+                                       bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+                            report[("rdb_t", sname, dname)] = row
+                    emit(row)
+                    if not ok:
+                        failures.append(f"{row['kernel']} {dname} {sname}: rel err {rel:.3g}, "
+                                        f"differ {differ:.3g}")
+
+                kern, plain, lib = case["bwd"]
+                got = kern()
+                again = kern()
+                torch.cuda.synchronize()
+                want = plain()
+                names = ("dx", "w1", "w2", "w3", "w4", "w5", "w11", "b")
+                worst, worst_abs, finite = worst_err(dict(zip(names, got)),
+                                                     dict(zip(names, want)))
+                bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+                ok = finite and worst <= BWD_TOL[dname] and bit_equal
+                row = {**base, "kernel": "rdb_t_bwd", "max_abs_err": worst_abs, "rel_err": worst,
+                       "tol": BWD_TOL[dname], "bit_equal_second_call": bit_equal, "ok": bool(ok)}
+                if sname != "odd":
+                    ops_ms = 2 * case["bwd_macs"] / PEAK_FLOPS[dname] * 1e3
+                    bytes_ms = case["bwd_bytes"] / PEAK_BYTES * 1e3
+                    row.update(ms=time_ms(kern, iters=10), plain_ms=time_ms(plain, iters=3),
+                               library_ms=time_ms(lib, iters=10), bound_ms=max(ops_ms, bytes_ms),
+                               bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+                    report[("rdb_t_bwd", sname, dname)] = row
+            emit(row)
+            if not ok:
+                failures.append(f"rdb_t_bwd {dname} {sname}: gradient rel err {worst:.3g}, "
+                                f"bit-equal {bit_equal}")
+    return report
+
+
+def rdb_t_path(failures):
+    """Phase rdb-t-path, the slice's second path: rdb_t's own API as a user
+    calls it. One RRDB's chain of three ``rdb_t_diff`` (fp32 masters in
+    rdb_t's layout, bf16 activations, batch 16 of 32×32 at flagship widths)
+    forward and backward through autograd, the launch counts set to 0 just
+    before and read just after; the loss within 2e-2 and the gradient's
+    cosine at least 0.999 against autograd of the fp32 twins."""
+    import torch
+
+    from esrganplus_tpu_torch.kernels import rdb_t as R
+    from esrganplus_tpu_torch.models.layers import fp32_exact
+
+    gen = torch.Generator().manual_seed(14)
+    B, H, W = TRAIN_SHAPE
+    masters = [[w.requires_grad_() for w in R.prepare_rdb_t_weights(
+        _rdb_params(gen), NF, GC, True, torch.float32)] for _ in range(3)]
+    x = torch.randn((B, H, W, NF), generator=gen).cuda().requires_grad_()
+    leaves = [x] + [w for ws in masters for w in ws]
+
+    def run(block, dtype):
+        with fp32_exact():
+            h = x.to(dtype)
+            for ws in masters:
+                h = block(h, ws)
+            out = h.float() * 0.2 + x
+            loss = torch.sin(out).mean()
+            return loss.item(), torch.autograd.grad(loss, leaves)
+
+    R.rdb_t.launches = R.rdb_t_bwd.launches = 0
+    loss_k, g_k = run(lambda h, ws: R.rdb_t_diff(h, *ws), torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = {"rdb_t": R.rdb_t.launches, "rdb_t_bwd": R.rdb_t_bwd.launches}
+    loss_p, g_p = run(lambda h, ws: R.rdb_t_plain(h, *ws), torch.float32)
+    flat = lambda gs: torch.cat([t.flatten() for t in gs])
+    cos = torch.nn.functional.cosine_similarity(flat(g_k), flat(g_p), dim=0).item()
+    row = {"phase": "rdb-t-path", "lr": list(TRAIN_SHAPE), "dtype": "bfloat16", "blocks": 3,
+           "loss_kernel": loss_k, "loss_plain_fp32": loss_p,
+           "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p), "grad_cosine": cos,
+           "launches": launches, "tol_loss": 2e-2, "tol_cosine": 0.999,
+           "finite": all(bool(torch.isfinite(t).all()) for t in g_k)}
+    row["ok"] = bool(row["finite"] and row["loss_rel_err"] <= 2e-2 and cos >= 0.999
+                     and launches == {"rdb_t": 3, "rdb_t_bwd": 3})
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"rdb-t-path: {row}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1430,10 +1790,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
         launches = main_path(failures, tmp)
     bwd_report = check_bwd_kernels(failures)
+    noise_report = check_noise_kernels(failures)
     train_check(failures)
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
         train_launches = train_path(failures, tmp)
-    step_ms = train_steady(failures)
+    input_steady = train_steady(failures)
+    step_ms = input_steady[0]
+    fused_step_ms = train_fused(failures, workdir, input_steady)
+    rdb_t_report = check_rdb_t_kernels(failures)
+    rdb_t_launches = rdb_t_path(failures)
     stage_report = check_stage_kernels(failures)
     gan_check(failures)
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
@@ -1441,6 +1806,7 @@ def main() -> int:
     gan_step_ms = gan_steady(failures)
     if "--profile" in sys.argv[1:]:
         train_profile(step_ms)
+        train_profile(fused_step_ms, _fused_trainer, "train-fused-profile")
         train_profile(gan_step_ms, _gan_trainer, "gan-profile")
 
     kernels = []
@@ -1456,6 +1822,12 @@ def main() -> int:
                         "fp32_max_abs_err": report[(name, "float32")]["max_abs_err"],
                         "train_launches": train_launches[name],
                         "gan_launches": gan_launches[name]})
+        if name == "rdb_ct":  # the training forward at batch 16, 32×32: fused beside input
+            fused = noise_report[("rdb_ct", "bfloat16")]
+            kernels[-1].update(fused_ms=fused["fused_ms"], fused_input_ms=fused["input_ms"],
+                               fused_rel_err=fused["out"]["rel_err"],
+                               fused_fp32_rel_err=noise_report[("rdb_ct", "float32")]["out"]
+                               ["rel_err"], fused_lr=list(TRAIN_SHAPE))
     for name in BWD_PER_STEP:
         row = bwd_report[(name, "bfloat16")]
         k = {"name": name, "route": "cuda", "source": BWD_SOURCE,
@@ -1467,6 +1839,12 @@ def main() -> int:
              "fp32_ms": bwd_report[(name, "float32")]["ms"],
              "fp32_rel_err": bwd_report[(name, "float32")]["rel_err"],
              "gan_launches": gan_launches[name]}
+        if name == "rdb_ct_bwd":  # the fused mode's replay beside the input mode
+            fused = noise_report[("rdb_ct_bwd", "bfloat16")]
+            k.update(fused_ms=fused["fused_ms"], fused_input_ms=fused["input_ms"],
+                     fused_rel_err=fused["rel_err"],
+                     fused_source="esrganplus_tpu_torch/csrc/philox.cu",
+                     fused_fp32_rel_err=noise_report[("rdb_ct_bwd", "float32")]["rel_err"])
         if name == "upfold_ct_bwd":  # the 2nd stage (64² → 128²) beside the 1st
             second = bwd_report[("upfold_ct_bwd_2nd", "bfloat16")]
             k.update({f"second_call_{f}": second[f]
@@ -1489,6 +1867,20 @@ def main() -> int:
             "shapes": {sname: {**{f: r[f] for f in fields},
                                "fp32_ms": stage_report[(kn, sname, "float32")]["ms"]}
                        for (kn, sname, dn), r in stage_report.items()
+                       if kn == name and dn == "bfloat16"}})
+    for name in RDB_T_REPLACES:
+        row = rdb_t_report[(name, RDB_T_MAIN_SHAPE, "bfloat16")]
+        fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+                  "rel_err")
+        kernels.append({
+            "name": name, "route": "cuda", "source": RDB_T_SOURCE,
+            "replaces": RDB_T_REPLACES[name], "launches": rdb_t_launches[name],
+            **{f: row[f] for f in fields}, "dtype": "bfloat16", "lr": row["lr"],
+            "fp32_ms": rdb_t_report[(name, RDB_T_MAIN_SHAPE, "float32")]["ms"],
+            "fp32_rel_err": rdb_t_report[(name, RDB_T_MAIN_SHAPE, "float32")]["rel_err"],
+            "shapes": {sname: {**{f: r[f] for f in fields},
+                               "fp32_ms": rdb_t_report[(kn, sname, "float32")]["ms"]}
+                       for (kn, sname, dn), r in rdb_t_report.items()
                        if kn == name and dn == "bfloat16"}})
     if failures:
         for f in failures:

@@ -2,6 +2,7 @@ from esrganplus_tpu_torch.convert.jax_params import (
     discriminator_from_jax,
     from_jax_params,
     gan_trainer_state_from_jax,
+    rdb_t_weights_from_jax,
     trainer_state_from_jax,
     vgg_feat_from_jax,
 )
@@ -28,6 +29,7 @@ __all__ = [
     "generator_from_state_dict",
     "infer_rrdbnet_config",
     "load_state_dict",
+    "rdb_t_weights_from_jax",
     "rrdbnet_from_state_dict",
     "rrdbnet_to_state_dict",
     "trainer_state_from_jax",

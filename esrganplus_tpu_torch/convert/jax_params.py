@@ -9,7 +9,9 @@ trainer state (parameters, Adam moments, step) crosses through
 :func:`trainer_state_from_jax` (PSNR trainer) or
 :func:`gan_trainer_state_from_jax` (GAN trainer: generator, discriminator,
 both Adam states); the discriminator's and the perceptual net's trees
-through :func:`discriminator_from_jax` and :func:`vgg_feat_from_jax`.
+through :func:`discriminator_from_jax` and :func:`vgg_feat_from_jax`; the
+matrices of ``esrganplus_tpu.kernels.rdb_t.prepare_rdb_t_weights`` through
+:func:`rdb_t_weights_from_jax`.
 """
 
 from __future__ import annotations
@@ -146,3 +148,26 @@ def gan_trainer_state_from_jax(state: dict, net_g: RRDBNetConfig, net_d) -> dict
     if "f_params" in state:
         out["f_params"] = vgg_feat_from_jax(state["f_params"])
     return out
+
+
+def rdb_t_weights_from_jax(ws) -> tuple:
+    """The JAX package's ``prepare_rdb_t_weights`` output as numpy arrays,
+    ``(w1, .., w5, w11, bias)`` → the port's tensors for
+    ``kernels/rdb_t.py``: the same layouts (``w_k`` ``[S_k, 9·C_prefix_k]``,
+    ``w11`` ``[gc, nf]``, ``bias`` ``[nf + 4·gc, 1]`` packed b5 first), each
+    in its array's dtype (the bias in fp32), contiguous on the CPU."""
+    if len(ws) != 7:
+        raise ValueError(f"expected (w1, .., w5, w11, bias), got {len(ws)} arrays")
+    *mats, bias = ws
+    gc, nf = np.shape(mats[5])
+    for k, w in enumerate(mats[:5], 1):
+        want = (nf if k == 5 else gc, 9 * (nf + (k - 1) * gc))
+        if np.shape(w) != want:
+            raise ValueError(f"w{k}: shape {np.shape(w)}, expected {want}")
+    if np.shape(bias) != (nf + 4 * gc, 1):
+        raise ValueError(f"bias: shape {np.shape(bias)}, expected {(nf + 4 * gc, 1)}")
+    conv = lambda a: (torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+                      if np.asarray(a).dtype.name == "bfloat16"
+                      else torch.from_numpy(np.array(a, np.float32)))
+    return (*(conv(w).contiguous() for w in mats),
+            torch.from_numpy(np.array(bias, np.float32)).contiguous())

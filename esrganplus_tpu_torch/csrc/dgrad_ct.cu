@@ -1,184 +1,18 @@
-// Data gradient of a SAME 3x3 (or 1x1) convolution (NHWC, sm_90a).
-//
-// The dx half of four TPU adjoints:
-//   * esrganplus_tpu/kernels/rdb_ct.py _rdb_ct_bwd_kernel (dim_add + untap3):
-//     one launch per dense stage, walked 5 -> 1 over an fp32 cotangent buffer
-//     [B,H,W,nf+4*gc] that takes the place of the TPU kernel's dim_ref. Stage
-//     k reads its dz from the buffer's x_k channels (gated at load, dz_src.cuh)
-//     and adds w_k^T * dz_k into the channels of every earlier source; stage
-//     2's 1x1 shortcut is one more launch with TAPS = 1; the last launch adds
-//     the skip's cotangent and rounds dx to T once.
-//   * _conv3x3_ct_bwd_kernel, and through kernels/tail_ct.py the upconv's and
-//     the hr convs' adjoints (_upfold_bwd_kernel, _conv_hr_bwd_kernel).
-//
-// dx[p, ci] = sum_{dy,dx,co} dz[p - (dy-1, dx-1), co] * w[dy, dx, ci, co]: a
-// 3x3 convolution of dz with the taps flipped and the weight's channel axes
-// swapped, read straight from the forward's HWIO weights.
-//
-// Bound on this card: operations (the forward's MACs again). Like the forward
-// kernel this version accumulates on the CUDA cores in fp32: a 256-thread
-// block owns an 8x16 pixel tile and CO of the conv's input channels, stages
-// 16 dz channels of the haloed tile (rounded to T) and the matching weights
-// in shared memory, and keeps a 4-pixel x CO/8-channel register tile.
-#include "dz_src.cuh"
-
-namespace {
-
-using esr::DzSrc;
-using esr::from_f;
-using esr::to_f;
-
-constexpr int TH = 8;
-constexpr int TW = 16;
-constexpr int NT = 256;
-constexpr int NCG = 8;
-constexpr int NPG = NT / NCG;
-constexpr int PPT = TH * TW / NPG;
-constexpr int KC = 16;  // dz channels staged per step
-
-template <typename T, int CO, int TAPS>
-__global__ void __launch_bounds__(NT) dgrad_kernel(
-    DzSrc dz, int s,                     // dz has s channels
-    const T* __restrict__ w, int cin,    // [TAPS, cin, s] (HWIO with the taps flat)
-    float* __restrict__ out32, int o32_stride, int accumulate,  // fp32 [pix * stride + c]
-    T* __restrict__ outT, int oT_stride,                        // or T, rounded once
-    DzSrc addg, int add_g,               // outT only: + this cotangent (the skip path)
-    int nchunk) {
-  constexpr int CPT = CO / NCG;
-  constexpr int HALO = TAPS == 9 ? 1 : 0;
-  constexpr int XH = TH + 2 * HALO, XW = TW + 2 * HALO;
-  __shared__ float xs[KC][XH][XW];
-  __shared__ float ws[TAPS][KC][CO];
-
-  const int tid = threadIdx.x;
-  const int cg = tid % NCG;
-  const int pg = tid / NCG;
-  const int b = blockIdx.z / nchunk;
-  const int cbeg = (blockIdx.z % nchunk) * CO;
-  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-  const int H = dz.H, W = dz.W;
-
-  float acc[PPT][CPT];
-#pragma unroll
-  for (int i = 0; i < PPT; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < s; k0 += KC) {
-    for (int i = tid; i < KC * XH * XW; i += NT) {
-      const int kk = i % KC;
-      const int p = i / KC;
-      const int ty = p / XW, tx = p % XW;
-      const int gy = y0 + ty - HALO, gx = x0 + tx - HALO, c = k0 + kk;
-      float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W && c < s)
-        v = esr::round_to<T>(esr::dz_load<T>(dz, b, gy, gx, c));
-      xs[kk][ty][tx] = v;
-    }
-    // tile tap t' pairs with forward tap TAPS-1-t' (the flip)
-    for (int i = tid; i < TAPS * KC * CO; i += NT) {
-      const int kk = i % KC;
-      const int co = (i / KC) % CO;
-      const int t = i / (KC * CO);
-      const int c = k0 + kk, ci = cbeg + co;
-      ws[t][kk][co] = (c < s && ci < cin)
-                          ? to_f(w[((size_t)(TAPS - 1 - t) * cin + ci) * s + c]) : 0.f;
-    }
-    __syncthreads();
-    for (int kk = 0; kk < KC; ++kk) {
-#pragma unroll
-      for (int t = 0; t < TAPS; ++t) {
-        const int dy = TAPS == 9 ? t / 3 : 0, dx = TAPS == 9 ? t % 3 : 0;
-        float wv[CPT];
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) wv[j] = ws[t][kk][cg * CPT + j];
-#pragma unroll
-        for (int i = 0; i < PPT; ++i) {
-          const int p = pg + NPG * i;
-          const float v = xs[kk][p / TW + dy][p % TW + dx];
-#pragma unroll
-          for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(v, wv[j], acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < PPT; ++i) {
-    const int p = pg + NPG * i;
-    const int gy = y0 + p / TW, gx = x0 + p % TW;
-    if (gy >= H || gx >= W) continue;
-    const size_t pix = ((size_t)b * H + gy) * W + gx;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int c = cbeg + cg * CPT + j;
-      if (c >= cin) continue;
-      float v = acc[i][j];
-      if (out32 && accumulate) v += out32[pix * o32_stride + c];
-      if (outT) {
-        if (add_g) v += esr::dz_load<T>(addg, b, gy, gx, c);
-        outT[pix * oT_stride + c] = from_f<T>(v);
-      } else {
-        out32[pix * o32_stride + c] = v;
-      }
-    }
-  }
-}
-
-struct DgradArgs {
-  DzSrc dz, addg;
-  const void* w;
-  float* out32;
-  void* outT;
-  int s, cin, o32_stride, accumulate, oT_stride, add_g, B;
-};
-
-template <typename T, int CO, int TAPS>
-int launch(const DgradArgs& a, cudaStream_t stream) {
-  const int nchunk = (a.cin + CO - 1) / CO;
-  const dim3 grid((a.dz.W + TW - 1) / TW, (a.dz.H + TH - 1) / TH, a.B * nchunk);
-  dgrad_kernel<T, CO, TAPS><<<grid, NT, 0, stream>>>(
-      a.dz, a.s, static_cast<const T*>(a.w), a.cin, a.out32, a.o32_stride, a.accumulate,
-      static_cast<T*>(a.outT), a.oT_stride, a.addg, a.add_g, nchunk);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int CO>
-int dispatch_taps(int taps, const DgradArgs& a, cudaStream_t s) {
-  if (taps == 9) return launch<T, CO, 9>(a, s);
-  if (taps == 1) return launch<T, CO, 1>(a, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-template <typename T>
-int dispatch_co(int co, int taps, const DgradArgs& a, cudaStream_t s) {
-  switch (co) {
-    case 8: return dispatch_taps<T, 8>(taps, a, s);
-    case 16: return dispatch_taps<T, 16>(taps, a, s);
-    case 32: return dispatch_taps<T, 32>(taps, a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
+// Data gradient of a SAME 3x3 (or 1x1) convolution with HWIO weights (NHWC,
+// sm_90a): the dx half of esrganplus_tpu/kernels/rdb_ct.py's
+// _rdb_ct_bwd_kernel and _conv3x3_ct_bwd_kernel, and through
+// kernels/tail_ct.py of the upconv's and the hr convs' adjoints. The kernel,
+// its bound and its design are described in dgrad.cuh.
+#include "dgrad.cuh"
 
 extern "C" {
 
-// dx (+)= conv^T(dz, w) for the conv's input channels [0, cin), `chunk` of
-// them per block. With `outT` the result (plus out32's earlier content when
-// `accumulate`, plus `addg` when `add_g`) is rounded to T; else it is stored
-// or accumulated in out32. Returns cudaGetLastError().
-int esr_dgrad(int dtype, int chunk, int taps, const DzSrc* dz, int s, const void* w, int cin,
-              float* out32, int o32_stride, int accumulate, void* outT, int oT_stride,
-              const DzSrc* addg, int B, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  DgradArgs a{*dz, addg ? *addg : *dz, w, out32, outT, s, cin, o32_stride, accumulate,
-              oT_stride, addg ? 1 : 0, B};
-  if (!out32 && !outT) return (int)cudaErrorInvalidValue;
-  if (dtype == esr::kFloat32) return dispatch_co<float>(chunk, taps, a, st);
-  if (dtype == esr::kBFloat16) return dispatch_co<__nv_bfloat16>(chunk, taps, a, st);
-  return (int)cudaErrorInvalidValue;
+// dx (+)= conv^T(dz, w) for HWIO `w` [taps, cin, s]; see esr::dgrad::run.
+int esr_dgrad(int dtype, int chunk, int taps, const esr::DzSrc* dz, int s, const void* w,
+              int cin, float* out32, int o32_stride, int accumulate, void* outT, int oT_stride,
+              const esr::DzSrc* addg, int B, void* stream) {
+  return esr::dgrad::run(dtype, chunk, taps, dz, s, w, esr::HwioLayout{}, cin, out32,
+                         o32_stride, accumulate, outT, oT_stride, addg, B, stream);
 }
 
 }  // extern "C"

@@ -19,18 +19,19 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("rdb_ct", "tail_ct", "dgrad_ct", "wgrad_ct", "stage_ct")
+SOURCES = ("rdb_ct", "tail_ct", "dgrad_ct", "wgrad_ct", "stage_ct", "rdb_t", "philox")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 
 
 class DzSrc(ctypes.Structure):
     """Where a backward kernel reads a conv output's cotangent
-    (``csrc/dz_src.cuh``: the same plain C layout)."""
+    (``csrc/dz_src.cuh``: the same plain C layout, checked against the
+    library's ``esr_dzsrc_size()`` when it loads)."""
 
-    _fields_ = [("g", P), ("noise", P), ("d32", P), ("mask", P),
+    _fields_ = [("g", P), ("noise", P), ("fac", P), ("d32", P), ("mask", P),
                 ("mode", I), ("g_stride", I), ("d_stride", I), ("coff", I),
                 ("coff2", I), ("m_stride", I), ("co", I), ("H", I), ("W", I),
                 ("sigma", F), ("scale", F), ("slope", F)]
@@ -43,13 +44,26 @@ PDZ = ctypes.POINTER(DzSrc)
 SIGNATURES = {
     "rdb_ct": {
         "esr_dense_conv3x3": [I, I, I, P, I, P, I, I, P, P, P, P, I, P, I, P, I,
-                              P, I, P, F, F, F, F, I, I, I, P],
+                              P, I, P, F, I, U, U, F, F, F, I, I, I, P],
     },
     "dgrad_ct": {
         "esr_dgrad": [I, I, I, PDZ, I, P, I, P, I, I, P, I, PDZ, I, P],
+        "esr_dzsrc_size": [],
     },
     "wgrad_ct": {
         "esr_wgrad": [I, I, P, I, P, I, I, PDZ, I, P, I, P, I, P],
+        "esr_dzsrc_size": [],
+    },
+    "rdb_t": {
+        "esr_rdb_t_stage": [I, I, I, I, I, P, P, I, I, P, P, P, P, I, P, I, P, I, P, I,
+                            F, F, F, I, I, I, P],
+        "esr_rdb_t_dgrad": [I, I, I, I, I, PDZ, I, P, I, P, I, I, P, I, PDZ, I, P],
+        "esr_rdb_t_wgrad": [I, I, I, I, P, P, I, I, PDZ, I, P, I, P, I, P],
+        "esr_dzsrc_size": [],
+    },
+    "philox": {
+        "esr_philox_normal": [P, U, U, I, I, I, I, P],
+        "esr_philox_factor": [P, U, U, F, I, I, I, I, P],
     },
     "tail_ct": {
         "esr_upfold": [I, I, I, P, P, P, P, I, I, I, F, P],
@@ -134,8 +148,19 @@ def load(name: str) -> ctypes.CDLL:
                 f = getattr(lib, fn)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
+            if "esr_dzsrc_size" in SIGNATURES[name]:
+                check_dzsrc_layout(lib.esr_dzsrc_size(), name)
             _libs[name] = lib
         return lib
+
+
+def check_dzsrc_layout(c_size: int, name: str) -> None:
+    """Raise if the C ``DzSrc`` a library was built with differs in size
+    from :class:`DzSrc`: a field added on one side only would hand both
+    gradient kernels garbage without an error."""
+    if c_size != ctypes.sizeof(DzSrc):
+        raise RuntimeError(f"lib{name}.so: sizeof(DzSrc) is {c_size} in C, "
+                           f"{ctypes.sizeof(DzSrc)} in kernels/build.py; the two layouts differ")
 
 
 def check(code: int, what: str) -> None:

@@ -16,12 +16,23 @@ with a single rounding.
 Training goes through ``rdb_ct_diff`` and ``conv3x3_ct_diff``:
 ``torch.autograd.Function``s whose forward is the same kernel in its training
 mode (the concat buffer and the pre-residual activations l2, l4 are kept, the
-pre-drawn relative noise rides in stage 5's epilogue) and whose backward is
+relative noise rides in stage 5's epilogue, pre-drawn or drawn in the kernel)
+and whose backward is
 ``rdb_ct_bwd`` / ``conv3x3_ct_bwd``: one data-gradient launch
 (``csrc/dgrad_ct.cu``) and one weight-gradient launch (``csrc/wgrad_ct.cu``)
 per dense stage over an fp32 cotangent buffer ``[B, H, W, nf + 4·gc]``, the
 TPU kernel's ``dim_ref``. Weights cross the Function boundary as fp32 masters
 and are cast inside; gradients come back fp32.
+
+The nESRGAN+ noise comes in two modes. ``noise`` (``noise_kernel="input"``)
+is a pre-drawn tensor: ``out + n·(σ·out)`` after the rounding, every op in the
+working dtype, and the backward reads the tensor again. ``noise_seed``
+(``"fused"``) is a site's two Philox seed words: the kernel draws n in fp32
+(``csrc/philox.cuh``) and applies ``out·(1 + σn)`` before the single
+rounding; the backward regenerates the same factor from the seed into one
+fp32 buffer per call (``csrc/philox.cu``), which its kernels read where they
+read the cotangent, so nothing is saved from the forward. The two orders
+differ by one rounding per element.
 
 Each CUDA wrapper has a plain PyTorch twin (``*_plain``) with the same
 rounding points. A CPU tensor goes to the twin; a CUDA tensor launches the
@@ -30,18 +41,16 @@ kernel or raises.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from esrganplus_tpu_torch.kernels import build
+from esrganplus_tpu_torch.kernels.launch import (ACT, ACT_1X1, ACT_ADD, RESID, dgrad,
+                                                 dgrad_chunk, dz_src, wgrad)
+from esrganplus_tpu_torch.kernels.philox import noise_factor_cuda, philox_normal
 from esrganplus_tpu_torch.models.layers import fp32_exact
-
-# dense-stage epilogue modes (csrc/rdb_ct.cu)
-_ACT, _ACT_1X1, _ACT_ADD, _RESID = 0, 1, 2, 3
-
 
 def _bias(b: Optional[torch.Tensor], n: int, device) -> torch.Tensor:
     """fp32 bias, zeros for a bias-free conv (the kernels always take one)."""
@@ -94,11 +103,17 @@ def _lrelu(t: torch.Tensor, slope: float) -> torch.Tensor:
     return torch.where(t >= 0, t, t * slope)
 
 
-def _rdb_ct_train_plain(x, w, res=None, noise=None, *, rrdb_scale=None, sigma=0.0,
-                         slope=0.2, res_scale=0.2):
+def _noise_factor(seed, sigma: float, shape, device) -> torch.Tensor:
+    """The fused mode's fp32 ``1 + σ·n`` for the site ``seed``, NCHW."""
+    return (1.0 + sigma * philox_normal(seed, shape, device)).permute(0, 3, 1, 2)
+
+
+def _rdb_ct_train_plain(x, w, res=None, noise=None, *, seed=None, rrdb_scale=None,
+                         sigma=0.0, slope=0.2, res_scale=0.2):
     """The RDB with the kernel's rounding points → (out, cat, lsv): ``cat``
     ``[B, H, W, 4·gc]`` holds x1|x2|x3|x4 and ``lsv`` ``[B, H, W, 2·gc]`` the
-    pre-residual activations l2|l4, all in x's dtype."""
+    pre-residual activations l2|l4, all in x's dtype. ``noise`` applies the
+    input mode's noise, ``seed`` the fused mode's."""
     dt = x.dtype
     rnd = lambda t: t.to(dt).float()
     xf = _nchw(x)
@@ -115,6 +130,8 @@ def _rdb_ct_train_plain(x, w, res=None, noise=None, *, rrdb_scale=None, sigma=0.
     out = x5 * res_scale + xf
     if res is not None:
         out = out * rrdb_scale + _nchw(res)
+    if seed is not None:  # fp32 product with the fp32 draw, then the one rounding
+        out = out * _noise_factor(seed, sigma, x.shape, x.device)
     out = out.to(dt)
     if noise is not None:
         # out + n·(σ·out), every op in the working dtype (σ rounded to it too)
@@ -147,21 +164,22 @@ def conv3x3_ct_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 def _dense(lib, x, cat, cin, w, b, out_ptr, out_stride, *, mode, cout, w11=None,
            r1=0, r1_stride=0, r2=0, r2_stride=0, lsave=0, lsave_stride=0, noise=None,
-           sigma=0.0, alpha=1.0, beta2=1.0, slope=0.2):
+           seed=None, sigma=0.0, alpha=1.0, beta2=1.0, slope=0.2):
     B, H, W, c0 = x.shape
+    s0, s1 = (0, 0) if seed is None else seed
     code = lib.esr_dense_conv3x3(
         build.dtype_code(x), cout, mode, x.data_ptr(), c0,
         None if cat is None else cat.data_ptr(),
         0 if cat is None else cat.shape[3], cin, w.data_ptr(), b.data_ptr(),
         None if w11 is None else w11.data_ptr(), out_ptr, out_stride,
         r1 or None, r1_stride, r2 or None, r2_stride, lsave or None, lsave_stride,
-        None if noise is None else noise.data_ptr(), sigma, alpha, beta2, slope,
-        B, H, W, torch.cuda.current_stream(x.device).cuda_stream)
+        None if noise is None else noise.data_ptr(), sigma, int(seed is not None), s0, s1,
+        alpha, beta2, slope, B, H, W, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(code, "esr_dense_conv3x3")
 
 
-def _rdb_ct_cuda(x, w, res=None, noise=None, *, rrdb_scale=None, sigma=0.0, slope=0.2,
-                 res_scale=0.2, save=False):
+def _rdb_ct_cuda(x, w, res=None, noise=None, *, seed=None, rrdb_scale=None, sigma=0.0,
+                 slope=0.2, res_scale=0.2, save=False):
     """Validate and launch the five dense stages → (out, cat, lsv); ``lsv``
     (l2|l4) is kept only with ``save``."""
     if x.dim() != 4:
@@ -183,6 +201,8 @@ def _rdb_ct_cuda(x, w, res=None, noise=None, *, rrdb_scale=None, sigma=0.0, slop
         build.require(res, "res", (B, H, W, nf), dt, dev)
     if noise is not None:
         build.require(noise, "noise", (B, H, W, nf), dt, dev)
+    if noise is not None and seed is not None:
+        raise ValueError("rdb_ct: pre-drawn noise or a noise seed, not both")
     lib = build.load("rdb_ct")
     cat = torch.empty((B, H, W, 4 * gc), dtype=dt, device=dev)
     lsv = torch.empty((B, H, W, 2 * gc), dtype=dt, device=dev) if save else None
@@ -191,12 +211,12 @@ def _rdb_ct_cuda(x, w, res=None, noise=None, *, rrdb_scale=None, sigma=0.0, slop
     with torch.cuda.device(dev):
         for k in range(1, 5):
             if k == 2 and w["w11"] is not None:
-                extra = dict(mode=_ACT_1X1, w11=w["w11"])
+                extra = dict(mode=ACT_1X1, w11=w["w11"])
             elif k == 4:  # x4 += x2, read back from the buffer
-                extra = dict(mode=_ACT_ADD, r1=cat.data_ptr() + gc * esz,
+                extra = dict(mode=ACT_ADD, r1=cat.data_ptr() + gc * esz,
                              r1_stride=4 * gc)
             else:
-                extra = dict(mode=_ACT)
+                extra = dict(mode=ACT)
             if save and k in (2, 4):
                 extra.update(lsave=lsv.data_ptr() + (k // 2 - 1) * gc * esz,
                              lsave_stride=2 * gc)
@@ -204,12 +224,13 @@ def _rdb_ct_cuda(x, w, res=None, noise=None, *, rrdb_scale=None, sigma=0.0, slop
                    cat.data_ptr() + (k - 1) * gc * esz, 4 * gc, cout=gc,
                    slope=slope, **extra)
         _dense(lib, x, cat, nf + 4 * gc, w["w5"], w["b5"], out.data_ptr(), nf,
-               mode=_RESID, cout=nf, r1=x.data_ptr(), r1_stride=nf,
+               mode=RESID, cout=nf, r1=x.data_ptr(), r1_stride=nf,
                r2=0 if res is None else res.data_ptr(), r2_stride=nf,
-               noise=noise, sigma=sigma, alpha=res_scale,
+               noise=noise, seed=seed, sigma=sigma, alpha=res_scale,
                beta2=1.0 if rrdb_scale is None else rrdb_scale)
     rdb_ct.launches += 1
     rdb_ct.device_launches += 5
+    rdb_ct.seeded_launches += seed is not None
     return out, cat, lsv
 
 
@@ -222,7 +243,8 @@ def rdb_ct(x: torch.Tensor, w: dict, res: Optional[torch.Tensor] = None, *,
     input h0) and ``rrdb_scale`` the RRDB epilogue ``out·rrdb_scale + res``
     is folded in. ``rdb_ct.launches`` counts calls that launched the CUDA
     kernel (training forwards included), ``rdb_ct.device_launches`` the
-    kernel launches (5 per call)."""
+    kernel launches (5 per call), ``rdb_ct.seeded_launches`` the calls that
+    drew the fused mode's noise in the kernel."""
     if (res is None) != (rrdb_scale is None):
         raise ValueError("rdb_ct: res and rrdb_scale go together")
     if x.device.type == "cpu":
@@ -234,6 +256,7 @@ def rdb_ct(x: torch.Tensor, w: dict, res: Optional[torch.Tensor] = None, *,
 
 rdb_ct.launches = 0
 rdb_ct.device_launches = 0
+rdb_ct.seeded_launches = 0
 
 
 def conv3x3_ct(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -259,7 +282,7 @@ def conv3x3_ct(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     lib = build.load("rdb_ct")
     out = torch.empty((B, H, W, cout), dtype=dt, device=dev)
     with torch.cuda.device(dev):
-        _dense(lib, x, None, cin, w, bias, out.data_ptr(), cout, mode=_RESID,
+        _dense(lib, x, None, cin, w, bias, out.data_ptr(), cout, mode=RESID,
                cout=cout, r1=0 if res is None else res.data_ptr(),
                r1_stride=cout)
     conv3x3_ct.launches += 1
@@ -297,13 +320,14 @@ def _dlrelu(src: torch.Tensor, t: torch.Tensor, slope: float) -> torch.Tensor:
     return torch.where(src >= 0, t, t * slope)
 
 
-def rdb_ct_bwd_plain(x, w, cat, lsv, g, noise=None, *, sigma: float = 0.0,
+def rdb_ct_bwd_plain(x, w, cat, lsv, g, noise=None, *, seed=None, sigma: float = 0.0,
                      slope: float = 0.2, res_scale: float = 0.2) -> dict:
     """Plain twin of :func:`rdb_ct_bwd`: the dense chain's adjoint walked
     5 → 1 with the kernels' rounding points. Each ``dz_k`` is rounded to the
     working dtype before a product, ``db_k`` sums it unrounded, dx is rounded
-    once. Returns ``{"dx", "w1".."w5", "b1".."b5", "w11"}`` (weights HWIO
-    fp32, ``w11`` ``[nf, gc]`` or None)."""
+    once. The cotangent is scaled by ``1 + σ·n`` for the pre-drawn ``noise``
+    or the fused mode's draw of ``seed``. Returns ``{"dx", "w1".."w5",
+    "b1".."b5", "w11"}`` (weights HWIO fp32, ``w11`` ``[nf, gc]`` or None)."""
     dt = x.dtype
     rnd = lambda t: t.to(dt).float()
     nf, gc = x.shape[3], w["w1"].shape[3]
@@ -312,6 +336,8 @@ def rdb_ct_bwd_plain(x, w, cat, lsv, g, noise=None, *, sigma: float = 0.0,
     gf = _nchw(g)
     if noise is not None:
         gf = gf * (1.0 + sigma * _nchw(noise))
+    elif seed is not None:
+        gf = gf * _noise_factor(seed, sigma, x.shape, x.device)
     dcat = torch.zeros_like(src)
     out = {}
 
@@ -345,85 +371,22 @@ def conv3x3_ct_bwd_plain(x, w, g) -> dict:
             "w": _wgrad_plain(_nchw(x), gf), "b": gf.sum((0, 2, 3))}
 
 
-def dz_src(H: int, W: int, mode: int, *, g=None, g_stride=0, noise=None, sigma=0.0,
-           scale=1.0, d32=None, d_stride=0, coff=0, coff2=-1, mask=0, m_stride=0,
-           co=0, slope=0.2) -> build.DzSrc:
-    """A cotangent source for the backward kernels (``csrc/dz_src.cuh``).
-    ``mask`` is a raw address (a channel offset into a saved buffer)."""
-    ptr = lambda t: None if t is None else t.data_ptr()
-    return build.DzSrc(ptr(g), ptr(noise), ptr(d32), mask or None, mode, g_stride, d_stride,
-                       coff, coff2, m_stride, co, H, W, sigma, scale, slope)
-
-
-def _dgrad_chunk(*widths: int) -> int:
-    """Input channels per data-gradient block: the largest instantiated
-    chunk that divides every width."""
-    for c in (32, 16, 8):
-        if all(n % c == 0 for n in widths):
-            return c
-    raise ValueError(f"widths {widths}: the CUDA backward takes multiples of 8")
-
-
-def dgrad(x_like: torch.Tensor, B: int, dz: build.DzSrc, s: int, w: torch.Tensor, cin: int,
-          *, taps: int = 9, chunk: int, out32=None, accumulate=False, out=None, addg=None):
-    """One data-gradient launch (``csrc/dgrad_ct.cu``) on ``x_like``'s device
-    and dtype: into the fp32 buffer ``out32`` (channels [0, cin)), or rounded
-    into ``out``."""
-    lib = build.load("dgrad_ct")
-    code = lib.esr_dgrad(
-        build.dtype_code(x_like), chunk, taps, ctypes.byref(dz), s, w.data_ptr(), cin,
-        None if out32 is None else out32.data_ptr(),
-        0 if out32 is None else out32.shape[-1], int(accumulate),
-        None if out is None else out.data_ptr(), 0 if out is None else out.shape[-1],
-        None if addg is None else ctypes.byref(addg), B,
-        torch.cuda.current_stream(x_like.device).cuda_stream)
-    build.check(code, "esr_dgrad")
-
-
-def wgrad_parts(B: int, H: int, W: int, cin: int, s: int) -> int:
-    """Rows of the weight-gradient workspace: about 512 blocks over the
-    input-channel chunks, at most one row per 8×16 pixel tile and 128 rows.
-    A function of the shapes only, so the reduction order is fixed."""
-    tiles = B * -(-H // 8) * -(-W // 16)
-    kc = 16 if s >= 16 else 32
-    want = max(1, min(tiles, 128, -(-512 // -(-cin // kc))))
-    per = -(-tiles // want)
-    return -(-tiles // per)
-
-
-def wgrad(x: torch.Tensor, cat: Optional[torch.Tensor], cin: int, dz: build.DzSrc, s: int,
-          *, taps: int = 9):
-    """One weight-gradient launch plus its fixed-order finishing pass
-    (``csrc/wgrad_ct.cu``) → (dW ``[taps, cin, s]`` fp32, db ``[s]`` fp32).
-    The conv's input is the first ``cin`` channels of (x | cat)."""
-    B, H, W, c0 = x.shape
-    npart = wgrad_parts(B, H, W, cin, s)
-    row = taps * cin * s + s
-    part = torch.empty((npart, row), dtype=torch.float32, device=x.device)
-    out = torch.empty((row,), dtype=torch.float32, device=x.device)
-    lib = build.load("wgrad_ct")
-    code = lib.esr_wgrad(build.dtype_code(x), taps, x.data_ptr(), c0,
-                         None if cat is None else cat.data_ptr(),
-                         0 if cat is None else cat.shape[3], cin, ctypes.byref(dz), s,
-                         part.data_ptr(), npart, out.data_ptr(), B,
-                         torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(code, "esr_wgrad")
-    return out[:taps * cin * s].view(taps, cin, s), out[taps * cin * s:]
-
-
-def rdb_ct_bwd(x, w, cat, lsv, g, noise=None, *, sigma: float = 0.0, slope: float = 0.2,
-               res_scale: float = 0.2) -> dict:
+def rdb_ct_bwd(x, w, cat, lsv, g, noise=None, *, seed=None, sigma: float = 0.0,
+               slope: float = 0.2, res_scale: float = 0.2) -> dict:
     """Adjoint of the training-mode :func:`rdb_ct` from its saved buffers.
 
     ``w`` are the forward's cast weights, ``g`` the output cotangent in x's
-    dtype, ``noise`` the forward's noise tensor when the cotangent is to be
-    scaled by ``1 + sigma·noise`` (None for no noise or a detached scale).
+    dtype, ``noise`` the forward's noise tensor, or ``seed`` the fused
+    mode's site key, when the cotangent is to be scaled by ``1 + sigma·n``
+    (neither for no noise or a detached scale).
     Returns ``{"dx", "w1".."w5", "b1".."b5", "w11"}``. On a CUDA tensor: 12
     launches (a data- and a weight-gradient per stage and for the 1×1), all
-    deterministic. ``rdb_ct_bwd.launches`` counts CUDA calls."""
+    deterministic, and with ``seed`` one more that fills the noise factor.
+    ``rdb_ct_bwd.launches`` counts CUDA calls, ``rdb_ct_bwd.seeded_launches``
+    those that replayed the fused noise."""
     if x.device.type == "cpu":
-        return rdb_ct_bwd_plain(x, w, cat, lsv, g, noise, sigma=sigma, slope=slope,
-                                res_scale=res_scale)
+        return rdb_ct_bwd_plain(x, w, cat, lsv, g, noise, seed=seed, sigma=sigma,
+                                slope=slope, res_scale=res_scale)
     B, H, W, nf = x.shape
     gc = w["w1"].shape[3]
     dt, dev = x.dtype, x.device
@@ -434,7 +397,11 @@ def rdb_ct_bwd(x, w, cat, lsv, g, noise=None, *, sigma: float = 0.0, slope: floa
     build.require(lsv, "lsv", (B, H, W, 2 * gc), dt, dev)
     if noise is not None:
         build.require(noise, "noise", (B, H, W, nf), dt, dev)
-    chunk = _dgrad_chunk(nf, gc)
+    if noise is not None and seed is not None:
+        raise ValueError("rdb_ct_bwd: pre-drawn noise or a noise seed, not both")
+    # the fused mode's 1 + σn, regenerated for this call and freed with it
+    fac = None if seed is None else noise_factor_cuda(seed, sigma, x.shape, dev)
+    chunk = dgrad_chunk(nf, gc)
     esz = x.element_size()
     dcat = torch.empty((B, H, W, ctot), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
@@ -443,14 +410,14 @@ def rdb_ct_bwd(x, w, cat, lsv, g, noise=None, *, sigma: float = 0.0, slope: floa
         H, W, build.DZ_GATE, d32=dcat, d_stride=ctot, coff=nf + (k - 1) * gc, coff2=coff2,
         mask=mask, m_stride=m_stride, slope=slope)
     stages = {
-        5: dz_src(H, W, build.DZ_G, g=g, g_stride=nf, noise=noise, sigma=sigma,
+        5: dz_src(H, W, build.DZ_G, g=g, g_stride=nf, noise=noise, fac=fac, sigma=sigma,
                   scale=res_scale),
         4: gate(4, lsv.data_ptr() + gc * esz, 2 * gc),
         3: gate(3, cat.data_ptr() + 2 * gc * esz, 4 * gc),
         2: gate(2, lsv.data_ptr(), 2 * gc, coff2=nf + 3 * gc),   # dx2 = dx2 + dx4
         1: gate(1, cat.data_ptr(), 4 * gc),
     }
-    skip = dz_src(H, W, build.DZ_G, g=g, g_stride=nf, noise=noise, sigma=sigma)
+    skip = dz_src(H, W, build.DZ_G, g=g, g_stride=nf, noise=noise, fac=fac, sigma=sigma)
     with torch.cuda.device(dev):
         for k in (5, 4, 3, 2, 1):
             cin, s = nf + (k - 1) * gc, nf if k == 5 else gc
@@ -469,10 +436,12 @@ def rdb_ct_bwd(x, w, cat, lsv, g, noise=None, *, sigma: float = 0.0, slope: floa
                 dgrad(x, B, stages[k], s, w[f"w{k}"], cin, chunk=chunk, out32=dcat,
                       accumulate=True, out=dx, addg=skip)
     rdb_ct_bwd.launches += 1
+    rdb_ct_bwd.seeded_launches += seed is not None
     return out
 
 
 rdb_ct_bwd.launches = 0
+rdb_ct_bwd.seeded_launches = 0
 
 
 def conv3x3_ct_bwd(x, w, g) -> dict:
@@ -492,7 +461,7 @@ def conv3x3_ct_bwd(x, w, g) -> dict:
     dx = torch.empty_like(x)
     with torch.cuda.device(dev):
         dw, db = wgrad(x, None, cin, dz, cout)
-        dgrad(x, B, dz, cout, w, cin, chunk=_dgrad_chunk(cin), out=dx)
+        dgrad(x, B, dz, cout, w, cin, chunk=dgrad_chunk(cin), out=dx)
     conv3x3_ct_bwd.launches += 1
     return {"dx": dx, "w": dw.view(3, 3, cin, cout), "b": db}
 
@@ -510,16 +479,18 @@ def _cast_masters(wb, dt) -> dict:
 
 
 class _RdbCtDiff(torch.autograd.Function):
-    """``wb`` = (w1, b1, …, w5, b5[, w11]) fp32 masters."""
+    """``wb`` = (w1, b1, …, w5, b5[, w11]) fp32 masters; ``opts`` = (σ,
+    detach, slope, β, the fused mode's seed words or None)."""
 
     @staticmethod
     def forward(ctx, x, noise, opts, *wb):
-        sigma, detach, slope, res_scale = opts
+        sigma, detach, slope, res_scale, seed = opts
         w = _cast_masters(wb, x.dtype)
         fwd = _rdb_ct_train_plain if x.device.type == "cpu" else _rdb_ct_cuda
         extra = {} if x.device.type == "cpu" else {"save": True}
-        out, cat, lsv = fwd(x, w, None, noise, sigma=sigma, slope=slope,
+        out, cat, lsv = fwd(x, w, None, noise, seed=seed, sigma=sigma, slope=slope,
                             res_scale=res_scale, **extra)
+        # the fused mode keeps its two seed words (in opts), not a tensor
         ctx.save_for_backward(x, cat, lsv, noise, *wb)
         ctx.opts = opts
         return out
@@ -528,11 +499,11 @@ class _RdbCtDiff(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x, cat, lsv, noise, *wb = ctx.saved_tensors
-        sigma, detach, slope, res_scale = ctx.opts
+        sigma, detach, slope, res_scale, seed = ctx.opts
         # recast from the masters, as the forward did (no cast copy is kept)
         r = rdb_ct_bwd(x, _cast_masters(wb, x.dtype), cat, lsv, g.to(x.dtype).contiguous(),
-                       None if detach else noise, sigma=sigma, slope=slope,
-                       res_scale=res_scale)
+                       None if detach else noise, seed=None if detach else seed,
+                       sigma=sigma, slope=slope, res_scale=res_scale)
         grads = []
         for k in range(1, 6):
             grads += [r[f"w{k}"].to(wb[2 * k - 2].dtype), r[f"b{k}"].to(wb[2 * k - 1].dtype)]
@@ -542,8 +513,9 @@ class _RdbCtDiff(torch.autograd.Function):
 
 
 def rdb_ct_diff(x: torch.Tensor, p: dict, noise: Optional[torch.Tensor] = None, *,
-                noise_sigma: float = 0.0, noise_detach: bool = False,
-                slope: float = 0.2, res_scale: float = 0.2) -> torch.Tensor:
+                noise_seed: Optional[tuple] = None, noise_sigma: float = 0.0,
+                noise_detach: bool = False, slope: float = 0.2,
+                res_scale: float = 0.2) -> torch.Tensor:
     """Differentiable :func:`rdb_ct`: forward the training-mode kernel,
     backward :func:`rdb_ct_bwd`.
 
@@ -551,9 +523,14 @@ def rdb_ct_diff(x: torch.Tensor, p: dict, noise: Optional[torch.Tensor] = None, 
     with biases, optional bias-free ``conv1x1``): they are cast to ``x.dtype``
     inside and their gradients come back in the masters' dtype. ``noise``
     (x's shape and dtype, pre-drawn standard normals) applies the nESRGAN+
-    relative noise ``out + n·(σ·out)`` in the kernel's epilogue; the backward
-    scales the cotangent by ``1 + σ·n``, or not at all with
-    ``noise_detach``."""
+    relative noise ``out + n·(σ·out)`` in the kernel's epilogue (the JAX
+    package's ``noise_input=True``). ``noise_seed`` = (s0, s1) instead draws n
+    in the kernel from that site key (its ``noise_input=False``, the fused
+    mode): ``out·(1 + σn)`` in fp32 before the one rounding, and the backward
+    regenerates n. Either way the backward scales the cotangent by
+    ``1 + σ·n``, or not at all with ``noise_detach``."""
+    if noise is not None and noise_seed is not None:
+        raise ValueError("rdb_ct_diff: pre-drawn noise or a noise seed, not both")
     wb = []
     for k in range(1, 6):
         wb += [p[f"conv{k}"]["w"], p[f"conv{k}"]["b"]]
@@ -561,8 +538,10 @@ def rdb_ct_diff(x: torch.Tensor, p: dict, noise: Optional[torch.Tensor] = None, 
         wb.append(p["conv1x1"]["w"][0, 0])
     if noise is not None:
         noise = noise.to(x.dtype).contiguous()
+    seed = None if noise_seed is None else (int(noise_seed[0]), int(noise_seed[1]))
     return _RdbCtDiff.apply(x.contiguous(), noise,
-                            (float(noise_sigma), bool(noise_detach), slope, res_scale), *wb)
+                            (float(noise_sigma), bool(noise_detach), slope, res_scale, seed),
+                            *wb)
 
 
 class _Conv3x3CtDiff(torch.autograd.Function):

@@ -30,8 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from esrganplus_tpu_torch.kernels import build
-from esrganplus_tpu_torch.kernels import rdb_ct as _K
-from esrganplus_tpu_torch.kernels.rdb_ct import (_bias, _conv, _dgrad_plain, _dlrelu,
+from esrganplus_tpu_torch.kernels import launch
+from esrganplus_tpu_torch.kernels.rdb_ct import (_bias, _conv, _dense, _dgrad_plain, _dlrelu,
                                                  _lrelu, _nchw, _wgrad_plain)
 from esrganplus_tpu_torch.models.layers import fp32_exact
 
@@ -238,17 +238,17 @@ def upfold_ct_bwd(x, wf, out, g, *, slope: float = 0.2) -> dict:
     build.require(wf, "wf", (2, 2, 2, 2, C, CO), dt, dev)
     build.require(out, "out", (B, 2 * H, 2 * W, CO), dt, dev)
     build.require(g, "g", (B, 2 * H, 2 * W, CO), dt, dev)
-    phase = lambda coff: _K.dz_src(H, W, build.DZ_PHASE, g=g, mask=out.data_ptr(), co=CO,
-                                   coff=coff, slope=slope)
+    phase = lambda coff: launch.dz_src(H, W, build.DZ_PHASE, g=g, mask=out.data_ptr(), co=CO,
+                                       coff=coff, slope=slope)
     dx = torch.empty_like(x)
     dwf = torch.empty((2, 2, 2, 2, C, CO), dtype=torch.float32, device=dev)
     db = None
     with torch.cuda.device(dev):
-        _K.dgrad(x, B, phase(0), 4 * CO, _embed_phases(wf), C, chunk=_K._dgrad_chunk(C),
-                 out=dx)
+        launch.dgrad(x, B, phase(0), 4 * CO, _embed_phases(wf), C,
+                     chunk=launch.dgrad_chunk(C), out=dx)
         for a in range(2):
             for b in range(2):
-                dw3, dbp = _K.wgrad(x, None, C, phase((2 * a + b) * CO), CO)
+                dw3, dbp = launch.wgrad(x, None, C, phase((2 * a + b) * CO), CO)
                 dwf[a, b] = dw3.view(3, 3, C, CO)[a:a + 2, b:b + 2]
                 db = dbp if db is None else db + dbp
     upfold_ct_bwd.launches += 1
@@ -279,17 +279,17 @@ def conv_hr_ct_bwd(x, w0, b0, w1, g, *, slope: float = 0.2) -> dict:
     hid = torch.empty_like(x)
     dhid = torch.empty((B, H, W, C), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
-    chunk = _K._dgrad_chunk(C)
+    chunk = launch.dgrad_chunk(C)
     with torch.cuda.device(dev):
-        _K._dense(build.load("rdb_ct"), x, None, C, w0, b0, hid.data_ptr(), C, mode=_K._ACT,
-                  cout=C, slope=slope)
-        dz1 = _K.dz_src(H, W, build.DZ_G, g=g, g_stride=CO2)
-        dw1, db1 = _K.wgrad(hid, None, C, dz1, CO2)
-        _K.dgrad(x, B, dz1, CO2, w1, C, chunk=chunk, out32=dhid)
-        dz0 = _K.dz_src(H, W, build.DZ_GATE, d32=dhid, d_stride=C, mask=hid.data_ptr(),
-                        m_stride=C, slope=slope)
-        dw0, db0 = _K.wgrad(x, None, C, dz0, C)
-        _K.dgrad(x, B, dz0, C, w0, C, chunk=chunk, out=dx)
+        _dense(build.load("rdb_ct"), x, None, C, w0, b0, hid.data_ptr(), C, mode=launch.ACT,
+               cout=C, slope=slope)
+        dz1 = launch.dz_src(H, W, build.DZ_G, g=g, g_stride=CO2)
+        dw1, db1 = launch.wgrad(hid, None, C, dz1, CO2)
+        launch.dgrad(x, B, dz1, CO2, w1, C, chunk=chunk, out32=dhid)
+        dz0 = launch.dz_src(H, W, build.DZ_GATE, d32=dhid, d_stride=C, mask=hid.data_ptr(),
+                            m_stride=C, slope=slope)
+        dw0, db0 = launch.wgrad(x, None, C, dz0, C)
+        launch.dgrad(x, B, dz0, C, w0, C, chunk=chunk, out=dx)
     conv_hr_ct_bwd.launches += 1
     return {"dx": dx, "w0": dw0.view(3, 3, C, C), "b0": db0,
             "w1": dw1.view(3, 3, C, CO2), "b1": db1}

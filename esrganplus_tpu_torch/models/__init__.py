@@ -11,12 +11,13 @@ __all__ = ["RRDBNetConfig", "count_params", "generator_forward", "generator_init
            "init_rrdbnet", "rrdbnet_forward"]
 
 
-def generator_forward(params, x, cfg, *, train=False, rng=None, noise=None, dtype=None):
+def generator_forward(params, x, cfg, *, train=False, rng=None, noise=None,
+                      noise_seeds=None, noise_prng="rbg", dtype=None):
     """Dispatch on the generator config type (RRDBNet only in this port so
     far; SRResNet and SFT-GAN are not ported yet)."""
     if isinstance(cfg, RRDBNetConfig):
         return rrdbnet_forward(params, x, cfg, train=train, rng=rng, noise=noise,
-                               dtype=dtype)
+                               noise_seeds=noise_seeds, noise_prng=noise_prng, dtype=dtype)
     raise NotImplementedError(f"generator config {type(cfg).__name__} is not ported yet")
 
 

@@ -156,6 +156,29 @@ def gaussian_noise(x: torch.Tensor, noise: torch.Tensor, sigma: float,
     return x + noise.to(x.dtype) * scale
 
 
+class _FusedRelativeNoise(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fac, detach):
+        ctx.save_for_backward(None if detach else fac)
+        ctx.dtype = x.dtype
+        return (x.float() * fac).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (fac,) = ctx.saved_tensors
+        return (g if fac is None else (g.float() * fac).to(ctx.dtype)), None, None
+
+
+def fused_relative_noise(x: torch.Tensor, noise: torch.Tensor, sigma: float,
+                         relative_detach: bool = False) -> torch.Tensor:
+    """The fused noise mode's arithmetic on the plain graph: ``x·(1 + σn)``
+    in fp32 with the fp32 draws ``noise``, rounded to x's dtype once (the
+    order of the JAX package's in-kernel epilogue, ``kernels/rdb_ct.py``
+    :258-266). The gradient is ``g·(1 + σn)``, or ``g`` with
+    ``relative_detach``: the forward is the same either way."""
+    return _FusedRelativeNoise.apply(x, 1.0 + sigma * noise.float(), bool(relative_detach))
+
+
 def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
     """Nearest-neighbour spatial upsampling of NHWC by an integer factor."""
     return x.repeat_interleave(factor, dim=1).repeat_interleave(factor, dim=2)

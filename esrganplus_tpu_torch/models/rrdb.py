@@ -24,10 +24,22 @@ twins: three ``rdb_ct_diff`` per RRDB, the RRDB epilogue ``h·β + h0`` as a
 plain tensor op between them (the fold is inference-only, as in the JAX
 package), ``conv3x3_ct_diff`` with the global residual, then
 ``upfold_ct_diff`` and ``conv_hr_ct_diff``. The canonical fp32 masters cross
-every kernel boundary and are cast inside; the per-RDB noise rides in the
-kernel's epilogue (``noise_kernel="input"``). Noise comes from a
+every kernel boundary and are cast inside. Noise comes from a
 ``torch.Generator`` (``rng``) or is handed in pre-drawn (``noise``, see
-:func:`draw_noise`).
+:func:`draw_noise`), and ``noise_kernel`` says where the kernel path applies
+the per-RDB sites, as in the JAX package:
+
+  * ``"input"``: the pre-drawn noise rides in the kernel's epilogue;
+  * ``"xla"``: it is applied between kernel calls (:func:`gaussian_noise`);
+  * ``"fused"``: the kernel draws it from each site's two Philox seed words
+    (``noise_seeds``, :func:`esrganplus_tpu_torch.train.rng.site_seeds`) and
+    the backward regenerates it; the plain graph draws the same numbers
+    (``kernels/philox.py``) and applies them in the same rounding order.
+    That is under ``noise_prng="rbg"``, the default, where the seeds are
+    required; under ``"threefry"`` (the JAX package's threefry keys) it is
+    the ``"xla"`` path and no seeds are read.
+
+The per-RRDB site (``rrdb_noise``) is always applied between kernel calls.
 """
 
 from __future__ import annotations
@@ -39,10 +51,12 @@ from typing import Optional
 import torch
 
 from esrganplus_tpu_torch.kernels.build import KERNEL_WIDTHS
+from esrganplus_tpu_torch.kernels.philox import philox_normal
 from esrganplus_tpu_torch.models.layers import (
     act,
     conv2d,
     fp32_exact,
+    fused_relative_noise,
     gaussian_noise,
     kaiming_conv_init,
     pixel_shuffle,
@@ -50,6 +64,7 @@ from esrganplus_tpu_torch.models.layers import (
 )
 
 _KERNEL_ALIASES = {"xla": "plain", "pallas": "cuda"}
+NOISE_KERNELS = ("input", "xla", "fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +86,9 @@ class RRDBNetConfig:
     noise_sigma: float = 0.1
     noise_relative_detach: bool = False
     res_scale: float = 0.2
-    # The JAX package's trunk unroll; only 0 (the loop as written) is taken.
+    # The JAX package's trunk unroll (0 = auto, n = scan unroll, >= nb = a
+    # Python loop): it shapes JAX's compile, not the values. Here the trunk is
+    # always a Python loop, so any value >= 0 is accepted and changes nothing.
     unroll: int = 0
     # True: the plain ×3 tail folds nearest-×3 + conv into one LR conv with
     # phase-packed outputs + pixel shuffle (exact), as the JAX package does.
@@ -83,9 +100,8 @@ class RRDBNetConfig:
     # kernels cannot take the config; only "plain" asks for the plain graph.
     trunk_kernel: str = "auto"
     tail_kernel: str = "auto"
-    # Where the kernel path applies the per-RDB noise: "input" = pre-drawn
-    # noise multiplied in the kernel's epilogue. The JAX package's "fused"
-    # (in-kernel PRNG) mode is not ported.
+    # Where the kernel path applies the per-RDB noise: "input" | "xla" |
+    # "fused" (see the module docstring).
     noise_kernel: str = "input"
 
     def __post_init__(self):
@@ -94,9 +110,11 @@ class RRDBNetConfig:
             if v not in ("auto", "plain", "cuda"):
                 raise ValueError(f"{f} must be auto|plain|cuda, got {v!r}")
             object.__setattr__(self, f, v)
-        if self.unroll != 0 or self.noise_kernel != "input":
-            raise ValueError(f"unroll={self.unroll}, noise_kernel={self.noise_kernel!r}: "
-                             "not ported; only unroll=0, noise_kernel='input'")
+        if self.noise_kernel not in NOISE_KERNELS:
+            raise ValueError(f"noise_kernel must be one of {NOISE_KERNELS}, "
+                             f"got {self.noise_kernel!r}")
+        if not isinstance(self.unroll, int) or self.unroll < 0:
+            raise ValueError(f"unroll must be an int >= 0, got {self.unroll!r}")
 
     @property
     def n_upscale_stages(self) -> int:
@@ -167,9 +185,10 @@ def count_params(params) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _rdb_forward(x, p: dict, cfg: RRDBNetConfig, dtype, noise=None):
+def _rdb_forward(x, p: dict, cfg: RRDBNetConfig, dtype, noise=None, seed=None):
     """Residual dense block with ESRGAN+'s two extra residual paths;
-    ``noise`` (train mode) perturbs the output."""
+    ``noise`` (train mode) perturbs the output, or the fused mode's draws
+    for the site ``seed``."""
     a = lambda t: act(t, cfg.act_type, cfg.act_slope)
     x1 = a(conv2d(x, p["conv1"], dtype=dtype))
     x2 = a(conv2d(torch.cat([x, x1], -1), p["conv2"], dtype=dtype))
@@ -179,15 +198,19 @@ def _rdb_forward(x, p: dict, cfg: RRDBNetConfig, dtype, noise=None):
     x4 = a(conv2d(torch.cat([x, x1, x2, x3], -1), p["conv4"], dtype=dtype)) + x2
     x5 = conv2d(torch.cat([x, x1, x2, x3, x4], -1), p["conv5"], dtype=dtype)
     out = x5 * cfg.res_scale + x
-    if noise is not None:
+    if seed is not None:
+        out = fused_relative_noise(out, philox_normal(seed, out.shape, out.device),
+                                   cfg.noise_sigma, cfg.noise_relative_detach)
+    elif noise is not None:
         out = gaussian_noise(out, noise, cfg.noise_sigma, cfg.noise_relative_detach)
     return out
 
 
-def _rrdb_forward(x, p: dict, cfg: RRDBNetConfig, dtype, noise=(None,) * 4):
-    h = _rdb_forward(x, p["rdb1"], cfg, dtype, noise[0])
-    h = _rdb_forward(h, p["rdb2"], cfg, dtype, noise[1])
-    h = _rdb_forward(h, p["rdb3"], cfg, dtype, noise[2])
+def _rrdb_forward(x, p: dict, cfg: RRDBNetConfig, dtype, noise=(None,) * 4,
+                  seeds=(None,) * 3):
+    h = _rdb_forward(x, p["rdb1"], cfg, dtype, noise[0], seeds[0])
+    h = _rdb_forward(h, p["rdb2"], cfg, dtype, noise[1], seeds[1])
+    h = _rdb_forward(h, p["rdb3"], cfg, dtype, noise[2], seeds[2])
     out = h * cfg.res_scale + x
     if noise[3] is not None:
         out = gaussian_noise(out, noise[3], cfg.noise_sigma, cfg.noise_relative_detach)
@@ -199,15 +222,25 @@ def noise_active(cfg: RRDBNetConfig, train: bool) -> bool:
 
 
 def draw_noise(cfg: RRDBNetConfig, shape, rng: torch.Generator, dtype: torch.dtype,
-               device) -> list:
+               device, *, rdb_sites: bool = True) -> list:
     """Standard normals for every active noise site of one train-mode
     forward: ``[nb][4]`` tensors of ``shape`` = (B, H, W, nf) (sites rdb1,
     rdb2, rdb3, rrdb; None where a site is off), drawn from ``rng`` in
-    forward order on ``device``."""
+    forward order on ``device``. ``rdb_sites=False`` leaves the per-RDB
+    sites to the fused mode's in-kernel draws."""
     draw = lambda on: (torch.randn(shape, generator=rng, device=device,
                                    dtype=torch.float32).to(dtype) if on else None)
-    return [[draw(cfg.rdb_noise), draw(cfg.rdb_noise), draw(cfg.rdb_noise),
-             draw(cfg.rrdb_noise)] for _ in range(cfg.nb)]
+    rdb = cfg.rdb_noise and rdb_sites
+    return [[draw(rdb), draw(rdb), draw(rdb), draw(cfg.rrdb_noise)] for _ in range(cfg.nb)]
+
+
+def fused_noise_active(cfg: RRDBNetConfig, train: bool, noise_prng: str) -> bool:
+    """The per-RDB sites draw in-kernel: ``noise_kernel="fused"`` under
+    "rbg" keys, as the JAX gate ``models/rrdb.py:525-527``."""
+    if noise_prng not in ("rbg", "threefry"):
+        raise ValueError(f"noise_prng must be 'rbg' or 'threefry', got {noise_prng!r}")
+    return (noise_active(cfg, train) and cfg.rdb_noise and cfg.noise_kernel == "fused"
+            and noise_prng == "rbg")
 
 
 def _fold_upconv(p: dict, f: int) -> dict:
@@ -357,19 +390,29 @@ def _unbind_blocks(trunk) -> list:
     return list(torch.unbind(trunk, 0))
 
 
-def _trunk_cuda_train(params: dict, fea, cfg: RRDBNetConfig, noise):
+def _trunk_cuda_train(params: dict, fea, cfg: RRDBNetConfig, noise, seeds):
     """Training twin of :func:`_trunk_cuda` on the canonical fp32 masters:
-    no RRDB-epilogue fold, the per-RDB noise in the kernels' epilogue."""
+    no RRDB-epilogue fold; the per-RDB noise drawn in the kernel from the
+    site's seeds, pre-drawn in the kernels' epilogue ("input"), or applied
+    between kernel calls ("xla", and "fused" under threefry)."""
     from esrganplus_tpu_torch.kernels.rdb_ct import conv3x3_ct_diff, rdb_ct_diff
 
     kw = dict(noise_sigma=cfg.noise_sigma, noise_detach=cfg.noise_relative_detach,
               slope=_slope(cfg), res_scale=cfg.res_scale)
+    in_kernel = cfg.noise_kernel == "input"
     beta = torch.tensor(cfg.res_scale, dtype=fea.dtype)
     h = fea
-    for bp, sites in zip(_unbind_blocks(params["trunk"]), noise):
+    for bp, sites, keys in zip(_unbind_blocks(params["trunk"]), noise, seeds):
         h0 = h
-        for name, n in zip(("rdb1", "rdb2", "rdb3"), sites):
-            h = rdb_ct_diff(h, bp[name], n, **kw)
+        for name, n, key in zip(("rdb1", "rdb2", "rdb3"), sites, keys):
+            if key is not None:
+                h = rdb_ct_diff(h, bp[name], noise_seed=key, **kw)
+            elif in_kernel:
+                h = rdb_ct_diff(h, bp[name], n, **kw)
+            else:
+                h = rdb_ct_diff(h, bp[name], **kw)
+                if n is not None:
+                    h = gaussian_noise(h, n, cfg.noise_sigma, cfg.noise_relative_detach)
         h = h * beta + h0
         if sites[3] is not None:
             h = gaussian_noise(h, sites[3], cfg.noise_sigma, cfg.noise_relative_detach)
@@ -393,7 +436,8 @@ def _tail_cuda_train(params: dict, fea, cfg: RRDBNetConfig):
 
 def rrdbnet_forward(params: dict, x: torch.Tensor, cfg: RRDBNetConfig, *,
                     train: bool = False, rng: Optional[torch.Generator] = None,
-                    noise: Optional[list] = None,
+                    noise: Optional[list] = None, noise_seeds: Optional[list] = None,
+                    noise_prng: str = "rbg",
                     dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """×``cfg.upscale`` super-resolution of NHWC RGB [0,1] input → fp32.
 
@@ -402,7 +446,11 @@ def rrdbnet_forward(params: dict, x: torch.Tensor, cfg: RRDBNetConfig, *,
     that runs a kernel needs ``params`` from :func:`prep_trunk_ct` at that
     precision; a training forward (``train=True``, differentiable on both
     paths) takes the canonical fp32 masters. Train-mode noise needs ``rng``
-    (a generator on x's device) or pre-drawn ``noise`` (:func:`draw_noise`)."""
+    (a generator on x's device) or pre-drawn ``noise`` (:func:`draw_noise`);
+    with ``noise_kernel="fused"`` under ``noise_prng="rbg"``, ``noise_seeds``
+    (``[nb][3]`` pairs of uint32 words, ``train.rng.site_seeds``) key the
+    per-RDB sites and must be given; under ``"threefry"`` the fused mode
+    applies them between kernel calls, as ``"xla"``, and reads no seeds."""
     kdt = dtype or x.dtype
     cuda_trunk = use_cuda_trunk(cfg, x.device, kdt)
     cuda_tail = use_cuda_tail(cfg, x.device, kdt)
@@ -410,25 +458,38 @@ def rrdbnet_forward(params: dict, x: torch.Tensor, cfg: RRDBNetConfig, *,
             and params.get("trunk_ct", {}).get("dtype") != kdt:
         raise ValueError(f"the kernel path at {kdt} needs the kernels' weights: pass "
                          f"prep_trunk_ct(params, cfg, {kdt}) (converted once, at load)")
+    fused = fused_noise_active(cfg, train, noise_prng)
+    seeds = [(None,) * 3] * cfg.nb
+    if fused:
+        if noise_seeds is None:
+            raise ValueError('rrdbnet_forward: noise_kernel="fused" under noise_prng "rbg" '
+                             "draws in the kernel and needs noise_seeds (train.rng.site_seeds)")
+        if len(noise_seeds) != cfg.nb or any(len(s) != 3 for s in noise_seeds):
+            raise ValueError(f"noise_seeds: expected [{cfg.nb}][3] seed pairs")
+        seeds = noise_seeds
     if noise_active(cfg, train):
         if noise is None:
-            if rng is None:
+            if rng is None and not (fused and not cfg.rrdb_noise):
                 raise ValueError("rrdbnet_forward: train-mode noise needs an rng "
                                  "(torch.Generator) or pre-drawn noise")
-            noise = draw_noise(cfg, (*x.shape[:3], cfg.nf), rng, kdt, x.device)
+            noise = draw_noise(cfg, (*x.shape[:3], cfg.nf), rng, kdt, x.device,
+                               rdb_sites=not fused)
+        elif fused and any(n is not None for sites in noise for n in sites[:3]):
+            raise ValueError("rrdbnet_forward: the fused mode draws the per-RDB sites "
+                             "itself; pass None there in `noise`")
     else:
         noise = [(None,) * 4] * cfg.nb
     with fp32_exact():
         fea = conv2d(x, params["fea_conv"], dtype=dtype)
         if cuda_trunk and train:
-            fea = _trunk_cuda_train(params, fea.to(kdt).contiguous(), cfg, noise)
+            fea = _trunk_cuda_train(params, fea.to(kdt).contiguous(), cfg, noise, seeds)
         elif cuda_trunk:
             fea = _trunk_cuda(params["trunk_ct"], fea.to(kdt).contiguous(), cfg)
         else:
             trunk = fea
             for i in range(cfg.nb):
                 trunk = _rrdb_forward(trunk, block_params(params["trunk"], i), cfg, dtype,
-                                      noise[i])
+                                      noise[i], seeds[i])
             fea = fea + conv2d(trunk, params["trunk_conv"], dtype=dtype)
         if cuda_tail and train:
             return _tail_cuda_train(params, fea.to(kdt).contiguous(), cfg)

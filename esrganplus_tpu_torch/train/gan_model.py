@@ -147,13 +147,16 @@ class GANTrainer(GeneratorTrainerBase):
     def _features(self, x):
         return vgg_feat_forward(self.f_params, x, self.vgg_cfg, dtype=self._dtype)
 
-    def _g_loss(self, g_params, d_params, lr_img, hr_img, rng, d_real, noise=None):
+    def _g_loss(self, g_params, d_params, lr_img, hr_img, rng, d_real, noise=None,
+                noise_seeds=None):
         """(total, fake, logs). ``d_params`` are frozen (detached) here;
         ``d_real`` is D(real)'s detached value for the RaGAN pairing;
-        ``noise`` hands the generator pre-drawn noise instead of ``rng``."""
+        ``noise`` hands the generator pre-drawn noise instead of ``rng``,
+        ``noise_seeds`` the fused mode's site keys."""
         cfg = self.cfg
         fake = generator_forward(g_params, lr_img, self.net_g, train=True, rng=rng,
-                                 noise=noise, dtype=self._dtype)
+                                 noise=noise, noise_seeds=noise_seeds,
+                                 noise_prng=cfg.noise_prng, dtype=self._dtype)
         logs = {}
         total = 0.0
         if cfg.pixel_weight > 0:
@@ -218,6 +221,7 @@ class GANTrainer(GeneratorTrainerBase):
                           for a in batch)
         step = int(state["step"])
         gen = noise_generator(self._noise_gen, rng, step, cfg.noise_prng)
+        seeds = self._site_seeds(rng, step, cfg.noise_prng)
         gstep = step + 1  # 1-based, the reference's current_step
         lr_g, lr_d = self.sched_g(gstep), self.sched_d(gstep)
         do_g = gstep % cfg.d_update_ratio == 0 and gstep > cfg.d_init_iters
@@ -235,7 +239,7 @@ class GANTrainer(GeneratorTrainerBase):
                     d_real_value = real[0].detach()
                 frozen = tree_map(lambda p: p.detach(), d_params)
                 g_total, fake, g_logs = self._g_loss(g_params, frozen, lr_img, hr_img, gen,
-                                                     d_real_value)
+                                                     d_real_value, noise_seeds=seeds)
                 g_grads = torch.autograd.grad(g_total, tree_leaves(g_params))
                 state["g_opt"] = self._apply(self.tx_g, g_params, state["g_opt"], g_grads, lr_g)
                 self._version += 1
@@ -244,6 +248,7 @@ class GANTrainer(GeneratorTrainerBase):
             else:
                 with torch.no_grad():
                     fake = generator_forward(g_params, lr_img, self.net_g, train=True, rng=gen,
+                                             noise_seeds=seeds, noise_prng=cfg.noise_prng,
                                              dtype=self._dtype)
                 keys = (["l_g_pix"] if cfg.pixel_weight > 0 else []) \
                     + (["l_g_fea"] if self.use_feature else []) + ["l_g_gan", "l_g_total"]

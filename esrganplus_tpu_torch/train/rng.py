@@ -8,6 +8,11 @@ gives the same property. ``noise_prng`` ("rbg" | "threefry") is carried in
 the training config so option files carry across; both values map to this
 generator (torch's Philox), and the draws differ from either JAX
 implementation's.
+
+The fused noise mode (``noise_kernel="fused"``) draws its per-RDB sites inside
+the kernels from two seed words per site instead (``kernels/philox.py``);
+:func:`site_seeds` derives them from (seed, step) on the host, with Python
+ints, so no device work is needed and a resumed run gets the same words.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch
 
 NOISE_PRNGS = ("rbg", "threefry")
 _MIX = 0x9E3779B97F4A7C15  # odd 64-bit constant: spreads consecutive steps
+_M64 = 2 ** 64 - 1
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -30,3 +36,27 @@ def noise_generator(gen: torch.Generator, seed: int, step: int,
         raise ValueError(f"noise_prng must be one of {NOISE_PRNGS}, got {impl!r}")
     gen.manual_seed(step_seed(seed, step))
     return gen
+
+
+def _splitmix64(z: int) -> int:
+    """SplitMix64's output function (Steele et al., OOPSLA'14) on a 64-bit state."""
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return z ^ (z >> 31)
+
+
+def site_seeds(seed: int, step: int, nb: int) -> list:
+    """The fused noise mode's Philox keys for optimizer step ``step``:
+    ``[nb][3]`` pairs (s0, s1) of uint32 words, one per (block, rdb) site in
+    forward order. The i-th site's 64 bits are SplitMix64 of the state
+    ``step_seed(seed, step) + (i + 1)·golden``, a pure function of
+    (seed, step, i)."""
+    base = step_seed(seed, step)
+    out = []
+    for b in range(nb):
+        row = []
+        for r in range(3):
+            z = _splitmix64((base + (3 * b + r + 1) * _MIX) & _M64)
+            row.append((z & 0xFFFFFFFF, z >> 32))
+        out.append(row)
+    return out

@@ -15,7 +15,11 @@ What differs from the JAX trainer, by design:
     by nothing, ``mask_trunk_ct_grads`` has no counterpart, and
     ``ingest_params`` / ``canonical_params`` only place the tree on the device.
   * ``rng`` is the run's integer noise seed; the trainer folds the step into
-    a device generator (``train/rng.py``) where JAX folds it into a key.
+    a device generator (``train/rng.py``) where JAX folds it into a key. With
+    ``noise_kernel="fused"`` under ``noise_prng: "rbg"`` it also derives each
+    per-RDB site's Philox key from (seed, step) (``site_seeds``), which the
+    kernels draw from; under "threefry" the fused mode takes the
+    between-kernels path, as the JAX gate does for threefry keys.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from esrganplus_tpu_torch.models import generator_forward, generator_init
 from esrganplus_tpu_torch.models.layers import deterministic_convs, fp32_exact
 from esrganplus_tpu_torch.models.rrdb import (RRDBNetConfig, needs_kernel_weights,
                                               prep_trunk_ct)
-from esrganplus_tpu_torch.train.rng import noise_generator
+from esrganplus_tpu_torch.train.rng import noise_generator, site_seeds
 from esrganplus_tpu_torch.train.schedule import multistep_lr
 
 
@@ -182,7 +186,13 @@ class GeneratorTrainerBase:
         otherwise)."""
         return tree_map(lambda p: p.detach(), params)
 
-
+    def _site_seeds(self, seed: int, step: int, impl: str):
+        """The fused noise mode's per-RDB Philox keys for ``step`` (Python
+        ints, no device work), or None where the mode does not draw
+        in-kernel: another ``noise_kernel``, or the "threefry" contract."""
+        if self.net_cfg.noise_kernel != "fused" or impl != "rbg":
+            return None
+        return site_seeds(seed, step, self.net_cfg.nb)
 
     def predict(self, params, lr_img) -> torch.Tensor:
         """Eval-mode forward of NHWC [0,1] input (numpy or tensor) → fp32
@@ -217,9 +227,10 @@ class SRTrainer(GeneratorTrainerBase):
 
     # -- steps -------------------------------------------------------------
 
-    def _loss_fn(self, params, lr_img, hr_img, rng):
+    def _loss_fn(self, params, lr_img, hr_img, rng, noise_seeds=None):
         fake = generator_forward(params, lr_img, self.net_cfg, train=True, rng=rng,
-                                 dtype=self._dtype)
+                                 noise_seeds=noise_seeds,
+                                 noise_prng=self.train_cfg.noise_prng, dtype=self._dtype)
         l_pix = self.train_cfg.pixel_weight * pixel_loss(
             fake.float(), hr_img.float(), self.train_cfg.pixel_criterion)
         return l_pix, fake
@@ -233,12 +244,13 @@ class SRTrainer(GeneratorTrainerBase):
                           for a in batch)
         step = int(state["step"])
         gen = noise_generator(self._noise_gen, rng, step, self.train_cfg.noise_prng)
+        seeds = self._site_seeds(rng, step, self.train_cfg.noise_prng)
         gstep = step + 1  # 1-based, the reference's current_step
         leaves = tree_leaves(state["params"])
         # fea_conv is cuDNN's, forward and backward: full fp32 where fp32 is
         # asked for, and algorithms that repeat bit for bit
         with fp32_exact(), deterministic_convs():
-            loss, _ = self._loss_fn(state["params"], lr_img, hr_img, gen)
+            loss, _ = self._loss_fn(state["params"], lr_img, hr_img, gen, seeds)
             flat = torch.autograd.grad(loss, leaves)
         grads = tree_unflatten_like(state["params"], iter(flat))
         updates, new_opt = self.tx.update(grads, state["opt_state"], state["params"])

@@ -483,3 +483,214 @@ def test_gan_trainer_steps_on_the_card_repeat_bit_for_bit():
                     + [{k: float(v) for k, v in t.train_step(state, batch, 3)[1].items()}
                        for _ in range(2)])
     assert runs[0] == runs[1] and all(np.isfinite(v) for r in runs[0] for v in r.values())
+
+
+# ---------------------------------------------------------------------------
+# the nESRGAN+ slice: the fused noise mode and the 9-tap RDB (rdb_t)
+# ---------------------------------------------------------------------------
+
+SEED = (0x1234ABCD, 0x0BADF00D)
+
+
+@pytest.mark.cuda
+def test_cuda_dzsrc_layout_matches_the_ctypes_struct():
+    """Every library whose kernels read a ``DzSrc`` reports the C size it was
+    built with, and loading refuses a size that differs from the ctypes one."""
+    _need_card()
+    import ctypes
+
+    from esrganplus_tpu_torch.kernels import build
+
+    for name in ("dgrad_ct", "wgrad_ct", "rdb_t"):
+        assert build.load(name).esr_dzsrc_size() == ctypes.sizeof(build.DzSrc), name
+    with pytest.raises(RuntimeError, match="DzSrc"):
+        build.check_dzsrc_layout(ctypes.sizeof(build.DzSrc) + 4, "dgrad_ct")
+
+
+@pytest.mark.cuda
+def test_cuda_philox_draw_matches_twin():
+    """The device function's normals against the twin's (on the CPU and on the
+    card): the same counter and key, Box-Muller in fp32 (logf / cosf against
+    torch's log / cos: within 1e-5); the draw of an element does not depend
+    on the shape around it."""
+    _need_card()
+    from esrganplus_tpu_torch.kernels.philox import (noise_factor_cuda, philox_normal,
+                                                     philox_normal_cuda)
+
+    shape = (3, 17, 23, 64)
+    got = philox_normal_cuda(SEED, shape)
+    assert got.dtype == torch.float32 and got.shape == shape
+    for dev in ("cpu", "cuda"):
+        want = philox_normal(SEED, shape, dev)
+        assert (got.cpu() - want.cpu()).abs().max().item() <= 1e-5, dev
+    assert torch.equal(philox_normal_cuda(SEED, (2, 9, 23, 64)), got[:2, :9])
+    assert not torch.equal(philox_normal_cuda((SEED[0], SEED[1] + 1), shape), got)
+    # the factor the backward fills is 1 + σn of the same draws, rounded as the twin
+    assert torch.equal(noise_factor_cuda(SEED, 0.1, shape, "cuda"), 1.0 + 0.1 * got)
+
+
+def _rdb_ct_case(dtype, shape, rs):
+    B, H, W = shape
+    act = lambda: torch.from_numpy(rs.randn(B, H, W, 64).astype(np.float32)).to("cuda", dtype)
+    p = {f"conv{k}": _conv(rs, 64 + (k - 1) * 32, 64 if k == 5 else 32) for k in range(1, 6)}
+    p["conv1x1"] = {"w": torch.from_numpy((rs.randn(1, 1, 64, 32) / 8).astype(np.float32)).cuda()}
+    return K.prepare_rdb_ct_weights(p, dtype), act(), act()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 37, 53), (16, 32, 32)], ids=["odd", "train"])
+def test_cuda_rdb_ct_fused_forward_matches_plain_twin(shape, dtype):
+    """rdb_ct's training forward drawing its noise in the kernel: output and
+    saved buffers against the twin's (which draws with philox_normal), at the
+    forward kernels' bars."""
+    _need_card()
+    w, x, _ = _rdb_ct_case(dtype, shape, np.random.RandomState(3))
+    with fp32_exact():
+        got = K._rdb_ct_cuda(x, w, seed=SEED, sigma=0.1, save=True)
+        want = K._rdb_ct_train_plain(x, w, seed=SEED, sigma=0.1)
+        clean = K._rdb_ct_cuda(x, w, save=True)[0]
+    for name, a, b in zip(("out", "cat", "lsv"), got, want):
+        a, b = a.float(), b.float()
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        assert (a - b).abs().max().item() <= TOL[dtype] * max(1.0, b.abs().max().item()), name
+        if dtype == torch.bfloat16:
+            assert (a != b).float().mean().item() <= 0.01, name
+    assert not torch.equal(got[0], clean)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_cuda_rdb_ct_fused_backward_matches_plain_twin(dtype):
+    """The backward kernels regenerate the forward's draws where they read the
+    cotangent: every gradient against the twin's on the same saved buffers,
+    and a second call gives the same bits."""
+    _need_card()
+    w, x, g = _rdb_ct_case(dtype, (2, 37, 53), np.random.RandomState(4))
+    _, cat, lsv = K._rdb_ct_cuda(x, w, seed=SEED, sigma=0.1, save=True)
+    before = K.rdb_ct_bwd.launches
+    with fp32_exact():
+        got = K.rdb_ct_bwd(x, w, cat, lsv, g, seed=SEED, sigma=0.1)
+        want = K.rdb_ct_bwd_plain(x, w, cat, lsv, g, seed=SEED, sigma=0.1)
+        again = K.rdb_ct_bwd(x, w, cat, lsv, g, seed=SEED, sigma=0.1)
+    assert K.rdb_ct_bwd.launches == before + 2
+    for k, ref in want.items():
+        a, b = got[k].float(), ref.float()
+        assert torch.isfinite(a).all(), k
+        assert (a - b).abs().max().item() <= BWD_TOL[dtype] * b.abs().max().item(), k
+        assert torch.equal(got[k], again[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("detach", [False, True], ids=["noise", "detach"])
+def test_fused_train_kernel_path_grads_match_plain_graph(detach):
+    """nb=1 at flagship widths, batch 2 of 16×16, fp32, ``noise_kernel="fused"``
+    with one set of site seeds: the kernel path (noise drawn in the kernels)
+    against autograd of the plain cuDNN graph (the same draws from
+    philox_normal), loss ≤1e-5 relative and every leaf ≤1e-3 of max|ref|."""
+    _need_card()
+    from esrganplus_tpu_torch.train.rng import site_seeds
+
+    cfg = RRDBNetConfig(nb=1, noise_kernel="fused", noise_relative_detach=detach)
+    plain = dataclasses.replace(cfg, trunk_kernel="plain", tail_kernel="plain")
+    params = params_to(init_rrdbnet(cfg, seed=0, init_scale=0.5), "cuda")
+
+    def leaves(t):
+        if isinstance(t, dict):
+            return [l for k in sorted(t) for l in leaves(t[k])]
+        return [l for v in t for l in leaves(v)] if isinstance(t, list) else [t]
+
+    ls = [l.requires_grad_() for l in leaves(params)]
+    x = torch.rand((2, 16, 16, 3), generator=torch.Generator(device="cuda").manual_seed(2),
+                   device="cuda")
+    seeds = site_seeds(3, 7, cfg.nb)
+
+    def run(c):
+        with fp32_exact():
+            y = rrdbnet_forward(params, x, c, train=True, noise_seeds=seeds)
+            loss = (y - 0.5).abs().mean()
+            return loss.item(), torch.autograd.grad(loss, ls)
+
+    K.rdb_ct.launches = K.rdb_ct_bwd.launches = 0
+    lk, gk = run(cfg)
+    assert (K.rdb_ct.launches, K.rdb_ct_bwd.launches) == (3, 3)
+    lp, gp = run(plain)
+    assert abs(lk - lp) / abs(lp) <= 1e-5
+    errs = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(gk, gp)]
+    assert max(errs) <= 1e-3, errs
+
+
+def _rdb_t_case(dtype, shape=(2, 37, 53), seed=5):
+    from esrganplus_tpu_torch.kernels import rdb_t as R
+
+    rs = np.random.RandomState(seed)
+    B, H, W = shape
+    act = lambda: torch.from_numpy(rs.randn(B, H, W, 64).astype(np.float32)).to("cuda", dtype)
+    p = {f"conv{k}": _conv(rs, 64 + (k - 1) * 32, 64 if k == 5 else 32) for k in range(1, 6)}
+    p["conv1x1"] = {"w": torch.from_numpy((rs.randn(1, 1, 64, 32) / 8).astype(np.float32)).cuda()}
+    return R, R.prepare_rdb_t_weights(p, 64, 32, True, dtype), act(), act()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("fold", [False, True], ids=["plain", "rrdb_fold"])
+def test_cuda_rdb_t_matches_plain_twin(fold, dtype):
+    _need_card()
+    R, ws, x, res = _rdb_t_case(dtype)
+    kw = dict(res=res, rrdb_scale=0.2) if fold else {}
+    before = R.rdb_t.launches
+    with fp32_exact():
+        got, want = R.rdb_t(x, *ws, **kw).float(), R.rdb_t_plain(x, *ws, **kw).float()
+    assert R.rdb_t.launches == before + 1
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL[dtype] * max(1.0, want.abs().max().item())
+    if dtype == torch.bfloat16:
+        assert (got != want).float().mean().item() <= 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_cuda_rdb_t_bwd_matches_plain_twin(dtype):
+    """The adjoint recomputed from x: dx, fp32 dW in rdb_t's layout, dW11 and
+    the packed db against the twin's; deterministic; its workspace is freed
+    when it returns."""
+    _need_card()
+    R, ws, x, g = _rdb_t_case(dtype, seed=6)
+    torch.cuda.synchronize()
+    before_mem, before = torch.cuda.memory_allocated(), R.rdb_t_bwd.launches
+    with fp32_exact():
+        got = R.rdb_t_bwd(x, *ws, g)
+        torch.cuda.synchronize()
+        kept = torch.cuda.memory_allocated() - before_mem
+        want = R.rdb_t_bwd_plain(x, *ws, g)
+    assert R.rdb_t_bwd.launches == before + 1
+    assert kept <= sum(t.numel() * t.element_size() for t in got) + (1 << 20)
+    assert got[0].dtype == dtype and all(t.dtype == torch.float32 for t in got[1:])
+    names = ("dx", "dw1", "dw2", "dw3", "dw4", "dw5", "dw11", "db")
+    for name, a, b in zip(names, got, want):
+        a, b = a.float(), b.float()
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        assert (a - b).abs().max().item() <= BWD_TOL[dtype] * b.abs().max().item(), name
+    again = R.rdb_t_bwd(x, *ws, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_cuda_rdb_t_diff_launches_both_kernels_and_never_the_twins(monkeypatch):
+    _need_card()
+    R, ws, x, _ = _rdb_t_case(torch.bfloat16, shape=(2, 16, 16), seed=7)
+
+    def refuse(*a, **kw):
+        raise AssertionError("a twin ran on a CUDA tensor")
+
+    for twin in ("rdb_t_plain", "rdb_t_bwd_plain"):
+        monkeypatch.setattr(R, twin, refuse)
+    masters = [w.float().requires_grad_() for w in ws]
+    xr = x.float().requires_grad_()
+    R.rdb_t.launches = R.rdb_t_bwd.launches = 0
+    out = R.rdb_t_diff(xr.to(torch.bfloat16), *masters)
+    grads = torch.autograd.grad(out.float().square().sum(), [xr, *masters])
+    assert (R.rdb_t.launches, R.rdb_t_bwd.launches) == (1, 1)
+    assert all(g.dtype == torch.float32 and torch.isfinite(g).all() for g in grads)
+    with pytest.raises(ValueError):  # weights in the wrong layout raise, no fallback
+        R.rdb_t(x, ws[0].t().contiguous(), *ws[1:])

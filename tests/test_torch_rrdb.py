@@ -134,9 +134,15 @@ def test_config_kernel_aliases_and_gates():
     assert (cfg.trunk_kernel, cfg.tail_kernel) == ("plain", "cuda")
     with pytest.raises(ValueError):
         prrdb.RRDBNetConfig(trunk_kernel="triton")
-    for unported in (dict(unroll=1), dict(noise_kernel="fused")):
-        with pytest.raises(ValueError, match="not ported"):
-            prrdb.RRDBNetConfig(**unported)
+    # noise_kernel takes the JAX package's three values; unroll (a JAX compile
+    # knob) any int >= 0, changing nothing here; anything else raises
+    for nk in ("input", "xla", "fused"):
+        assert prrdb.RRDBNetConfig(noise_kernel=nk).noise_kernel == nk
+    for n in (0, 1, 23, 99):
+        assert prrdb.RRDBNetConfig(unroll=n).unroll == n
+    for bad in (dict(noise_kernel="rbg"), dict(unroll=-1), dict(unroll=1.5)):
+        with pytest.raises(ValueError, match="noise_kernel|unroll"):
+            prrdb.RRDBNetConfig(**bad)
     auto = prrdb.RRDBNetConfig()
     assert not prrdb.use_cuda_trunk(auto, "cpu", torch.float32)
     assert not prrdb.use_cuda_tail(auto, "cpu", torch.float32)
