@@ -76,11 +76,22 @@ final result line:
                that must end bit-equal;
  11. gan-steady — ``GANTrainer.train_step`` on one device-resident batch:
                median ms/step and crops/s, twice from one seed (bit-equal);
+ 12. kernels-workbench — the workbench's conv3x3 and rdb_fused against their
+               plain twins, fp32 and bf16: odd cases (conv 5→7 and 8→24 at
+               B=2, 16×24; rdb_fused nf=16, gc=8 at B=2, 32×48, the 1×1 on
+               and off, fp32 activations with bf16 weights) and flagship
+               widths (conv 64→32, 192→64, 64→224; rdb_fused nf=64, gc=32)
+               at B=1, 128² and B=16, 32², with times, bounds, a cuDNN
+               yardstick, and rdb_ct on the same RDB params timed in turns;
+ 13. workbench-path — the flagship trunk's 23 RRDBs (69 rdb_fused calls)
+               at B=1, 128², bf16, against the rdb_ct chain on the same
+               params, and conv3x3 as the first RDB's by-source stage 1;
+               launch counts and the total ms of both chains;
      with ``--profile`` also a ``torch.profiler`` trace of three steady steps
      of each trainer, the PSNR one in both noise modes (device time by
      kernel family, the card's busy share).
 
-Then one ``{"kernels": [...]}`` line (fourteen kernels), the card's name and power limit, and
+Then one ``{"kernels": [...]}`` line (sixteen kernels), the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -207,7 +218,8 @@ def ptxas_summary(log: str) -> list:
     out, name, spill = [], None, "0"
     for line in log.splitlines():
         m = re.search(r"(dense_conv3x3_kernel|upfold_kernel|conv_hr_kernel|stage_fwd_kernel|"
-                      r"stage_dgrad_kernel|stage_wgrad_kernel|dgrad_kernel|wgrad_kernel)"
+                      r"stage_dgrad_kernel|stage_wgrad_kernel|dgrad_kernel|wgrad_kernel|"
+                      r"wb_conv3x3_kernel|wb_rdb_fused_kernel)"
                       r"I(\w+?)EE", line)
         if m:
             args = (m.group(2).replace("13__nv_bfloat16", "bf16").replace("Li", ",")
@@ -1766,6 +1778,285 @@ def rdb_t_path(failures):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the workbench slice: the implicit-GEMM conv3x3 and the one-launch fused RDB
+# rdb_fused, public API on no model path
+# ---------------------------------------------------------------------------
+
+WB_REPLACES = {"conv3x3": "esrganplus_tpu/kernels/workbench/conv.py:69",
+               "rdb_fused": "esrganplus_tpu/kernels/workbench/rdb.py:154"}
+WB_SOURCES = {"conv3x3": "esrganplus_tpu_torch/csrc/workbench_conv.cu",
+              "rdb_fused": "esrganplus_tpu_torch/csrc/workbench_rdb.cu"}
+WB_ODD = (2, 16, 24)  # B, H, W of conv3x3's odd cases (tile 8)
+WB_CONV_ODD = {"5_7": (5, 7, None), "8_24": (8, 24, 0.2)}  # cin, cout, act_slope
+# the by-source widths: a gc-wide stage, the widest tail source, and x's
+# contributions to every target with the 1×1 (the by-source stage 1)
+WB_CONV_FLAG = {"64_32": (64, 32, 0.2), "192_64": (192, 64, 0.2), "64_224": (64, 224, None)}
+WB_RDB_ODD = (2, 32, 48, 16, 8)  # B, H, W, nf, gc of rdb_fused's odd cases (tile 16)
+WB_FLAG_SHAPES = ("bench", "train")
+WB_MAIN = {"conv3x3": ("64_224", "bench"), "rdb_fused": ("flagship", "bench")}
+WB_PATH_TOL = 5e-2  # bf16 rdb_fused chain against the rdb_ct chain, of max|ref|
+
+
+def _held(row, got, ref, dname):
+    """Fill a row's error fields and ``ok`` from a kernel output and its twin's."""
+    import torch
+
+    d, rel = rel_err(got, ref)
+    differ = (got != ref).float().mean().item()
+    row.update(max_abs_err=d, rel_err=rel, tol=TOL[dname], frac_differ=differ,
+               ok=bool(torch.isfinite(got.float()).all()) and rel <= TOL[dname]
+               and (dname == "float32" or differ <= MAX_DIFFER_BF16))
+    return row
+
+
+def _bound(row, macs, nbytes, dname):
+    ops_ms = 2 * macs / PEAK_FLOPS[dname] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    row.update(bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def _wb_conv_case(gen, dtype, B, H, W, cin, cout, slope):
+    """conv3x3, its twin and the cuDNN yardstick (F.conv2d + activation on
+    the same values in channels-last, never called by the port)."""
+    import torch
+    import torch.nn.functional as F
+
+    from esrganplus_tpu_torch.kernels.workbench import conv as WC
+
+    x = torch.randn((B, H, W, cin), generator=gen).to("cuda", dtype)
+    w = (torch.randn((3, 3, cin, cout), generator=gen) * (2.0 / (9 * cin)) ** 0.5).cuda()
+    b = (torch.randn(cout, generator=gen) * 0.1).cuda()
+    xl = x.permute(0, 3, 1, 2)
+    wl = w.to(dtype).permute(3, 2, 0, 1).contiguous()
+    bl = b.to(dtype)
+
+    def lib():
+        y = F.conv2d(xl, wl, bl, padding=1)
+        return y if slope is None else F.leaky_relu(y, slope)
+
+    esz = x.element_size()
+    return {"kern": lambda: WC.conv3x3(x, w, b, act_slope=slope),
+            "plain": lambda: WC.conv3x3_plain(x, w, b, act_slope=slope),
+            "lib": lib, "macs": B * H * W * 9 * cin * cout,
+            "bytes": (x.numel() + B * H * W * cout + w.numel()) * esz + 4 * cout}
+
+
+def _wb_rdb_case(gen, xdt, wdt, B, H, W, nf, gc, conv1x1):
+    """rdb_fused on seeded weights, its twin, the cuDNN five-conv literal RDB
+    and rdb_ct on the same params (flagship widths only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from esrganplus_tpu_torch.kernels import rdb_ct as K
+    from esrganplus_tpu_torch.kernels.workbench import rdb as WR
+
+    rnd = lambda *shape, scale=1.0: (torch.randn(shape, generator=gen) * scale).to("cuda")
+    p = {f"conv{k}": {"w": rnd(3, 3, nf + (k - 1) * gc, nf if k == 5 else gc,
+                               scale=(2.0 / (9 * (nf + (k - 1) * gc))) ** 0.5),
+                      "b": rnd(nf if k == 5 else gc, scale=0.1)} for k in range(1, 6)}
+    if conv1x1:
+        p["conv1x1"] = {"w": rnd(1, 1, nf, gc, scale=(2.0 / nf) ** 0.5)}
+    ws = WR.prepare_rdb_weights(p, nf, gc, conv1x1, wdt)
+    x = torch.randn((B, H, W, nf), generator=gen).to("cuda", xdt)
+    kw = dict(nf=nf, gc=gc, conv1x1=conv1x1, tile=16 if H % 16 == 0 == W % 16 else 8)
+    case = {"kern": lambda: WR.rdb_fused(x, *ws, **kw),
+            "plain": lambda: WR.rdb_fused_plain(x, *ws, **kw),
+            # the kernel at tile 16 (shared memory allows it in bf16 only)
+            "ktile16": lambda: WR._rdb_fused_cuda(x, ws[:5], ws[5], nf=nf, gc=gc,
+                                                  conv1x1=conv1x1, slope=0.2, res_scale=0.2,
+                                                  ktile=16),
+            "macs": B * H * W * RDB_MACS,
+            "bytes": 2 * x.numel() * x.element_size()
+            + sum(w.numel() * w.element_size() for w in ws)}
+    if xdt == wdt and (nf, gc) == (NF, GC):
+        oihw = lambda w: w.to(xdt).permute(3, 2, 0, 1).contiguous()
+        cw = [(oihw(p[f"conv{k}"]["w"]), p[f"conv{k}"]["b"].to(xdt)) for k in range(1, 6)]
+        w11 = oihw(p["conv1x1"]["w"])
+        xl = x.permute(0, 3, 1, 2)
+        lrelu = lambda t: F.leaky_relu(t, 0.2)
+
+        def lib():
+            c = lambda t, k: F.conv2d(t, cw[k][0], cw[k][1], padding=1)
+            x1 = lrelu(c(xl, 0))
+            x2 = lrelu(c(torch.cat([xl, x1], 1), 1)) + F.conv2d(xl, w11)
+            x3 = lrelu(c(torch.cat([xl, x1, x2], 1), 2))
+            x4 = lrelu(c(torch.cat([xl, x1, x2, x3], 1), 3)) + x2
+            return c(torch.cat([xl, x1, x2, x3, x4], 1), 4) * 0.2 + xl
+
+        wr = K.prepare_rdb_ct_weights(p, xdt)
+        case.update(lib=lib, rdb_ct=lambda: K.rdb_ct(x, wr))
+    return case
+
+
+def check_workbench_kernels(failures):
+    """Phase kernels-workbench: conv3x3 and rdb_fused against their twins,
+    fp32 (TF32 off) and bf16, at odd cases (conv 5→7 and 8→24 at B=2,
+    16×24, tile 8; rdb_fused nf=16, gc=8 at B=2, 32×48, tile 16, the 1×1 on
+    and off, fp32 activations with bf16 weights) and at flagship widths
+    (conv 64→32, 192→64, 64→224; rdb_fused nf=64, gc=32 with the 1×1) at
+    B=1, 128² and B=16, 32², there with CUDA-event times of the kernel, the
+    twin and the cuDNN yardstick, the bound, and rdb_ct on the same RDB
+    params timed in turns with rdb_fused (in bf16 also rdb_fused at kernel
+    tile 16, which must give the same bits)."""
+    import torch
+
+    from esrganplus_tpu_torch.kernels.workbench import conv as WC
+    from esrganplus_tpu_torch.models.layers import fp32_exact
+
+    gen = torch.Generator().manual_seed(16)
+    report = {}
+    WC.conv3x3.launches = 0
+    with fp32_exact():
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            cases = [(c, "odd", WB_ODD, WB_CONV_ODD[c]) for c in WB_CONV_ODD] + [
+                (c, sname, SHAPES[sname], WB_CONV_FLAG[c])
+                for sname in WB_FLAG_SHAPES for c in WB_CONV_FLAG]
+            for cname, sname, (B, H, W), (cin, cout, slope) in cases:
+                case = _wb_conv_case(gen, dtype, B, H, W, cin, cout, slope)
+                got = case["kern"]()
+                torch.cuda.synchronize()
+                row = _held({"phase": "kernels-workbench", "kernel": "conv3x3", "dtype": dname,
+                             "conv": cname, "shape": sname, "x": [B, H, W, cin],
+                             "cout": cout, "act_slope": slope}, got, case["plain"](), dname)
+                if sname != "odd":
+                    row.update(ms=time_ms(case["kern"]), plain_ms=time_ms(case["plain"], iters=5),
+                               library_ms=time_ms(case["lib"]))
+                    _bound(row, case["macs"], case["bytes"], dname)
+                    report[("conv3x3", cname, sname, dname)] = row
+                emit(row)
+                if not row["ok"]:
+                    failures.append(f"conv3x3 {cname} {sname} {dname}: {row}")
+        conv_launches = WC.conv3x3.launches
+
+        B, H, W, nf, gc = WB_RDB_ODD
+        cases = [("odd", (B, H, W), xdt, wdt, nf, gc, c11)
+                 for xdt, wdt in ((torch.float32, torch.float32),
+                                  (torch.bfloat16, torch.bfloat16),
+                                  (torch.float32, torch.bfloat16))
+                 for c11 in (True, False)]
+        cases += [(sname, SHAPES[sname], dt, dt, NF, GC, True)
+                  for dt in (torch.float32, torch.bfloat16) for sname in WB_FLAG_SHAPES]
+        for sname, (B, H, W), xdt, wdt, nf, gc, c11 in cases:
+            dname = str(xdt).split(".")[1]
+            case = _wb_rdb_case(gen, xdt, wdt, B, H, W, nf, gc, c11)
+            got = case["kern"]()
+            torch.cuda.synchronize()
+            row = _held({"phase": "kernels-workbench", "kernel": "rdb_fused", "dtype": dname,
+                         "weights": str(wdt).split(".")[1], "shape": sname,
+                         "lr": [B, H, W], "nf": nf, "gc": gc, "conv1x1": c11},
+                        got, case["plain"](), dname)
+            if sname != "odd":
+                if xdt == torch.bfloat16:  # bit-equal: no per-pixel sum depends on the tile
+                    d16 = rel_err(case["ktile16"](), got)[1]
+                    row.update(ms_ktile16=time_ms(case["ktile16"], iters=10),
+                               rel_err_ktile16_vs_ktile8=d16)
+                    row["ok"] = row["ok"] and d16 == 0
+                rdb_ct_ms, fused_ms = _interleaved(case["rdb_ct"], case["kern"], iters=10)
+                row.update(ms=fused_ms, rdb_ct_ms=rdb_ct_ms,
+                           plain_ms=time_ms(case["plain"], iters=3),
+                           library_ms=time_ms(case["lib"], iters=10),
+                           rel_err_vs_library=rel_err(got, case["lib"]().permute(0, 2, 3, 1))[1])
+                _bound(row, case["macs"], case["bytes"], dname)
+                report[("rdb_fused", "flagship", sname, dname)] = row
+            emit(row)
+            if not row["ok"]:
+                failures.append(f"rdb_fused {sname} {dname} w {row['weights']} "
+                                f"conv1x1 {c11}: {row}")
+    return report, conv_launches
+
+
+def workbench_path(failures):
+    """Phase workbench-path, the slice's path: the workbench kernels through
+    their public API as a user calls them. The flagship trunk's 23 RRDBs at
+    full width (nf=64, gc=32, conv1x1) on seeded weights, B=1, 128², bf16:
+    69 ``rdb_fused`` calls with each RRDB's ``·0.2 + x`` in torch between
+    them, against the port's rdb_ct kernel path on the same params (within
+    5e-2 of max|ref|); and ``conv3x3`` computing the first RDB's by-source
+    stage 1 (x's 64→224 contributions, the 1×1 included) against its twin.
+    The launch counts are set to 0 just before and read just after; the
+    total ms of both chains are taken in turns."""
+    import torch
+
+    from esrganplus_tpu_torch.kernels import rdb_ct as K
+    from esrganplus_tpu_torch.kernels.workbench import conv as WC
+    from esrganplus_tpu_torch.kernels.workbench import rdb as WR
+
+    gen = torch.Generator().manual_seed(17)
+    B, H, W = SHAPES["bench"]
+    bf16 = torch.bfloat16
+    params = [[_rdb_params(gen) for _ in range(3)] for _ in range(23)]
+    fused_w = [[WR.prepare_rdb_weights(p, NF, GC, True, bf16) for p in rrdb] for rrdb in params]
+    ct_w = [[K.prepare_rdb_ct_weights(p, bf16) for p in rrdb] for rrdb in params]
+    x = torch.randn((B, H, W, NF), generator=gen).to("cuda", bf16)
+    # the first RDB's w0 as an HWIO conv: x's contributions to every target
+    w0 = fused_w[0][0][0]
+    w0_hwio = w0.reshape(3, 3, NF, w0.shape[2]).permute(1, 0, 2, 3).contiguous()
+
+    def fused_chain():
+        h0 = x
+        for rrdb in fused_w:
+            h = h0
+            for ws in rrdb:
+                h = WR.rdb_fused(h, *ws, nf=NF, gc=GC)
+            h0 = (h.float() * 0.2 + h0.float()).to(bf16)
+        return h0
+
+    def ct_chain():
+        h0 = x
+        for ws in ct_w:
+            h = K.rdb_ct(K.rdb_ct(h0, ws[0]), ws[1])
+            h0 = K.rdb_ct(h, ws[2], h0, rrdb_scale=0.2)
+        return h0
+
+    WR.rdb_fused.launches = WC.conv3x3.launches = 0
+    out = fused_chain()
+    contrib = WC.conv3x3(x, w0_hwio)
+    torch.cuda.synchronize()
+    launches = {"rdb_fused": WR.rdb_fused.launches, "conv3x3": WC.conv3x3.launches}
+    ref = ct_chain()
+    d, _ = rel_err(out, ref)
+    rel = d / ref.float().abs().max().item()
+    c_rel = rel_err(contrib, WC.conv3x3_plain(x, w0_hwio))[1]
+    fused_ms, ct_ms = _interleaved(fused_chain, ct_chain, iters=3)
+    row = {"phase": "workbench-path", "lr": [B, H, W], "dtype": "bfloat16", "rrdbs": 23,
+           "launches": launches, "max_abs_err_vs_rdb_ct": d, "rel_err_vs_rdb_ct": rel,
+           "tol": WB_PATH_TOL, "max_abs_out": ref.float().abs().max().item(),
+           "conv3x3_rel_err": c_rel, "fused_chain_ms": fused_ms, "rdb_ct_chain_ms": ct_ms,
+           "finite": bool(torch.isfinite(out.float()).all())}
+    row["ok"] = bool(row["finite"] and rel <= WB_PATH_TOL and c_rel <= TOL["bfloat16"]
+                     and launches == {"rdb_fused": 69, "conv3x3": 1})
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"workbench-path: {row}")
+    return launches
+
+
+def workbench_rows(report, conv_launches, launches):
+    """The kernels line's rows 15 and 16: the main case's bf16 numbers in the
+    required keys, every flagship case beside them."""
+    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "rel_err")
+    rows = []
+    for name in WB_REPLACES:
+        case, sname = WB_MAIN[name]
+        row = report[(name, case, sname, "bfloat16")]
+        extra = ("rdb_ct_ms", "ms_ktile16") if name == "rdb_fused" else ()
+        rows.append({
+            "name": name, "route": "cuda", "source": WB_SOURCES[name],
+            "replaces": WB_REPLACES[name], "launches": launches[name],
+            **{f: row[f] for f in fields + extra}, "dtype": "bfloat16", "case": case,
+            "shape": sname, "fp32_ms": report[(name, case, sname, "float32")]["ms"],
+            "fp32_rel_err": report[(name, case, sname, "float32")]["rel_err"],
+            **({"kernels_workbench_launches": conv_launches} if name == "conv3x3" else {}),
+            "cases": {f"{c}@{s}": {**{f: r[f] for f in fields + extra},
+                                   "fp32_ms": report[(n, c, s, "float32")]["ms"]}
+                      for (n, c, s, dn), r in report.items()
+                      if n == name and dn == "bfloat16"}})
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1804,6 +2095,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
         gan_launches = gan_train_path(failures, tmp)
     gan_step_ms = gan_steady(failures)
+    wb_report, wb_conv_launches = check_workbench_kernels(failures)
+    wb_launches = workbench_path(failures)
     if "--profile" in sys.argv[1:]:
         train_profile(step_ms)
         train_profile(fused_step_ms, _fused_trainer, "train-fused-profile")
@@ -1882,6 +2175,7 @@ def main() -> int:
                                "fp32_ms": rdb_t_report[(kn, sname, "float32")]["ms"]}
                        for (kn, sname, dn), r in rdb_t_report.items()
                        if kn == name and dn == "bfloat16"}})
+    kernels += workbench_rows(wb_report, wb_conv_launches, wb_launches)
     if failures:
         for f in failures:
             print("FAIL:", f, file=sys.stderr)

@@ -11,7 +11,9 @@ trainer state (parameters, Adam moments, step) crosses through
 both Adam states); the discriminator's and the perceptual net's trees
 through :func:`discriminator_from_jax` and :func:`vgg_feat_from_jax`; the
 matrices of ``esrganplus_tpu.kernels.rdb_t.prepare_rdb_t_weights`` through
-:func:`rdb_t_weights_from_jax`.
+:func:`rdb_t_weights_from_jax`; the by-source weights of
+``esrganplus_tpu.kernels.workbench.rdb.prepare_rdb_weights`` through
+:func:`rdb_fused_weights_from_jax`.
 """
 
 from __future__ import annotations
@@ -150,6 +152,14 @@ def gan_trainer_state_from_jax(state: dict, net_g: RRDBNetConfig, net_d) -> dict
     return out
 
 
+def _keep_dtype(a) -> torch.Tensor:
+    """A numpy array (bf16 from JAX included) → a contiguous CPU tensor of
+    the same dtype (fp32 otherwise)."""
+    if np.asarray(a).dtype.name == "bfloat16":
+        return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16).contiguous()
+    return torch.from_numpy(np.array(a, np.float32)).contiguous()
+
+
 def rdb_t_weights_from_jax(ws) -> tuple:
     """The JAX package's ``prepare_rdb_t_weights`` output as numpy arrays,
     ``(w1, .., w5, w11, bias)`` → the port's tensors for
@@ -166,8 +176,27 @@ def rdb_t_weights_from_jax(ws) -> tuple:
             raise ValueError(f"w{k}: shape {np.shape(w)}, expected {want}")
     if np.shape(bias) != (nf + 4 * gc, 1):
         raise ValueError(f"bias: shape {np.shape(bias)}, expected {(nf + 4 * gc, 1)}")
-    conv = lambda a: (torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
-                      if np.asarray(a).dtype.name == "bfloat16"
-                      else torch.from_numpy(np.array(a, np.float32)))
-    return (*(conv(w).contiguous() for w in mats),
+    return (*(_keep_dtype(w) for w in mats),
+            torch.from_numpy(np.array(bias, np.float32)).contiguous())
+
+
+def rdb_fused_weights_from_jax(ws) -> tuple:
+    """The JAX package's workbench ``prepare_rdb_weights`` output as numpy
+    arrays, ``(w0, .., w4, bias)`` → the port's tensors for
+    ``kernels/workbench/rdb.py``, unchanged: ``w_i`` ``[3, 3·C_i, width_i]``
+    in its array's dtype and ``bias`` ``[1, nf + 4·gc]`` in fp32."""
+    if len(ws) != 6:
+        raise ValueError(f"expected (w0, .., w4, bias), got {len(ws)} arrays")
+    *mats, bias = ws
+    nf, gc = np.shape(mats[0])[1] // 3, np.shape(mats[1])[1] // 3
+    width0 = np.shape(mats[0])[2]
+    if width0 not in (nf + 4 * gc, nf + 5 * gc):
+        raise ValueError(f"w0: {width0} lanes, expected {nf + 4 * gc} or {nf + 5 * gc}")
+    for i, w in enumerate(mats[1:], 1):
+        want = (3, 3 * gc, nf + (4 - i) * gc)
+        if np.shape(w) != want:
+            raise ValueError(f"w{i}: shape {np.shape(w)}, expected {want}")
+    if np.shape(bias) != (1, nf + 4 * gc):
+        raise ValueError(f"bias: shape {np.shape(bias)}, expected {(1, nf + 4 * gc)}")
+    return (*(_keep_dtype(w) for w in mats),
             torch.from_numpy(np.array(bias, np.float32)).contiguous())

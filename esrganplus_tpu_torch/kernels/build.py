@@ -19,7 +19,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("rdb_ct", "tail_ct", "dgrad_ct", "wgrad_ct", "stage_ct", "rdb_t", "philox")
+SOURCES = ("rdb_ct", "tail_ct", "dgrad_ct", "wgrad_ct", "stage_ct", "rdb_t", "philox",
+           "workbench_conv", "workbench_rdb")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -73,6 +74,12 @@ SIGNATURES = {
         "esr_stage_fwd": [I, I, I, P, P, P, P, I, I, I, I, I, I, F, P],
         "esr_stage_dgrad": [I, I, I, P, P, P, P, I, I, I, I, I, I, F, P],
         "esr_stage_wgrad": [I, I, I, P, P, P, P, I, P, I, I, I, I, I, I, F, P],
+    },
+    "workbench_conv": {
+        "esr_wb_conv3x3": [I, P, P, P, P, I, I, I, I, I, I, F, P],
+    },
+    "workbench_rdb": {
+        "esr_wb_rdb_fused": [I, I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, I, P],
     },
 }
 

@@ -1,0 +1,117 @@
+"""A 3×3 stride-1 SAME convolution as an implicit GEMM (``conv3x3``).
+
+Counterpart of ``esrganplus_tpu/kernels/workbench/conv.py``: NHWC
+``[B, H, W, Cin]`` × HWIO ``[3, 3, Cin, Cout]`` + bias, an optional fused
+(leaky) ReLU, in the input's dtype. What the TPU kernel computes is kept:
+the weights *and the bias* are cast to x's dtype first (in bf16 the bias is
+rounded to bf16), the nine taps accumulate in fp32, the bias is added in
+fp32, then the activation, then one rounding. Its channel pad to 128 and its
+column over-fetch were DMA constraints of the TPU and are gone; the CUDA
+kernel (``csrc/workbench_conv.cu``) takes any Cin and Cout.
+
+``tile`` keeps the JAX function's contract on the spatial tile: ``None``
+picks the largest of (64, 32, 16, 8) dividing H and W (else ``ValueError``),
+and an explicit tile must divide both (the JAX function leaves the rows past
+the last whole tile unwritten there; this one raises). It does not choose the
+CUDA kernel's own tiling.
+
+A CPU tensor goes to the plain twin (:func:`conv3x3_plain`); a CUDA tensor
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from esrganplus_tpu_torch.kernels import build
+from esrganplus_tpu_torch.models.layers import fp32_exact
+
+TILES = (64, 32, 16, 8)  # the JAX function's candidate tiles, largest first
+
+
+def pick_tile(h: int, w: int, tile: Optional[int] = None) -> int:
+    """The spatial tile of ``conv3x3``'s contract: the largest of
+    :data:`TILES` dividing H and W, or the given one if it divides both."""
+    if tile is None:
+        for cand in TILES:
+            if h % cand == 0 and w % cand == 0:
+                return cand
+        raise ValueError(f"H={h}, W={w} not tileable; pad spatially first")
+    if not isinstance(tile, int) or tile <= 0 or h % tile or w % tile:
+        raise ValueError(f"tile={tile!r} does not divide H={h} and W={w}")
+    return tile
+
+
+def _act(v: torch.Tensor, act_slope: Optional[float]) -> torch.Tensor:
+    if act_slope is None:
+        return v
+    return torch.where(v >= 0, v, v * act_slope)
+
+
+def _check(x, w, b):
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:2]) != (3, 3) or w.shape[2] != x.shape[3]:
+        raise ValueError(f"conv3x3: x [B, H, W, Cin] and w [3, 3, Cin, Cout], got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if b is not None and tuple(b.shape) != (w.shape[3],):
+        raise ValueError(f"conv3x3: b must be [{w.shape[3]}], got {tuple(b.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"conv3x3: x must be float32 or bfloat16, got {x.dtype}")
+
+
+def _cast(x, w, b):
+    """(w in x's dtype, the bias rounded to x's dtype and held in fp32)."""
+    bias = (torch.zeros(w.shape[3], device=x.device) if b is None
+            else b.to(x.dtype).float())
+    return w.to(x.dtype), bias
+
+
+def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+                  act_slope: Optional[float] = None, tile: Optional[int] = None) -> torch.Tensor:
+    """Plain twin of :func:`conv3x3`: an fp32 conv (TF32 off) of the
+    dtype-rounded values, the dtype-rounded bias added in fp32, the
+    activation, one rounding."""
+    _check(x, w, b)
+    pick_tile(x.shape[1], x.shape[2], tile)
+    wc, bias = _cast(x, w, b)
+    with fp32_exact():
+        y = F.conv2d(x.float().permute(0, 3, 1, 2), wc.float().permute(3, 2, 0, 1), bias,
+                     padding=1)
+    return _act(y, act_slope).to(x.dtype).permute(0, 2, 3, 1).contiguous()
+
+
+def conv3x3(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+            act_slope: Optional[float] = None, tile: Optional[int] = None) -> torch.Tensor:
+    """3×3 stride-1 SAME conv + bias + optional activation: NHWC ``x``
+    ``[B, H, W, Cin]`` (bf16 or fp32), HWIO ``w`` ``[3, 3, Cin, Cout]``,
+    ``b`` ``[Cout]`` or None (zeros) → ``[B, H, W, Cout]`` in x's dtype.
+    ``act_slope``: None linear, 0.0 ReLU, e.g. 0.2 LeakyReLU.
+    ``conv3x3.launches`` counts CUDA launches."""
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, w, b, act_slope, tile)
+    _check(x, w, b)
+    B, H, W, cin = x.shape
+    pick_tile(H, W, tile)
+    cout = w.shape[3]
+    wc, bias = _cast(x, w, b)
+    dev = x.device
+    build.require(x, "x", (B, H, W, cin), x.dtype, dev)
+    wc, bias = wc.contiguous(), bias.contiguous()
+    build.require(wc, "w", (3, 3, cin, cout), x.dtype, dev)
+    build.require(bias, "b", (cout,), torch.float32, dev)
+    out = torch.empty((B, H, W, cout), dtype=x.dtype, device=dev)
+    lib = build.load("workbench_conv")
+    with torch.cuda.device(dev):
+        code = lib.esr_wb_conv3x3(build.dtype_code(x), x.data_ptr(), wc.data_ptr(),
+                                  bias.data_ptr(), out.data_ptr(), B, H, W, cin, cout,
+                                  int(act_slope is not None),
+                                  0.0 if act_slope is None else float(act_slope),
+                                  torch.cuda.current_stream(dev).cuda_stream)
+    build.check(code, "esr_wb_conv3x3")
+    conv3x3.launches += 1
+    return out
+
+
+conv3x3.launches = 0

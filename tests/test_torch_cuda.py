@@ -694,3 +694,99 @@ def test_cuda_rdb_t_diff_launches_both_kernels_and_never_the_twins(monkeypatch):
     assert all(g.dtype == torch.float32 and torch.isfinite(g).all() for g in grads)
     with pytest.raises(ValueError):  # weights in the wrong layout raise, no fallback
         R.rdb_t(x, ws[0].t().contiguous(), *ws[1:])
+
+
+def _workbench_rdb_case(rs, nf, gc, conv1x1, xdt, wdt, shape):
+    from esrganplus_tpu_torch.kernels.workbench import rdb as WR
+
+    p = {f"conv{k}": _conv(rs, nf + (k - 1) * gc, nf if k == 5 else gc) for k in range(1, 6)}
+    if conv1x1:
+        p["conv1x1"] = {"w": torch.from_numpy(
+            (rs.randn(1, 1, nf, gc) * np.sqrt(2.0 / nf)).astype(np.float32)).cuda()}
+    x = torch.from_numpy(rs.randn(*shape, nf).astype(np.float32)).to("cuda", xdt)
+    return WR, WR.prepare_rdb_weights(p, nf, gc, conv1x1, wdt), x
+
+
+def _close_to_twin(got, want, dtype):
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL[dtype] * max(1.0, want.abs().max().item())
+    if dtype == torch.bfloat16:
+        assert (got != want).float().mean().item() <= 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("cin,cout,slope", [(5, 7, None), (8, 24, 0.2), (64, 224, 0.0),
+                                            (192, 64, 0.2)])
+def test_cuda_workbench_conv3x3_matches_plain_twin(cin, cout, slope, dtype):
+    """Any Cin and Cout (the last Cout chunk ragged), bias in x's dtype."""
+    from esrganplus_tpu_torch.kernels.workbench import conv as WC
+
+    _need_card()
+    rs = np.random.RandomState(cin + cout)
+    c = _conv(rs, cin, cout)
+    x = torch.from_numpy(rs.randn(2, 16, 24, cin).astype(np.float32)).to("cuda", dtype)
+    before = WC.conv3x3.launches
+    with fp32_exact():
+        got = WC.conv3x3(x, c["w"], c["b"], act_slope=slope, tile=8)
+        want = WC.conv3x3_plain(x, c["w"], c["b"], act_slope=slope, tile=8)
+    assert WC.conv3x3.launches == before + 1 and got.dtype == dtype
+    _close_to_twin(got, want, dtype)
+    with fp32_exact():  # no bias
+        _close_to_twin(WC.conv3x3(x, c["w"]), WC.conv3x3_plain(x, c["w"]), dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_workbench_kernels_raise_for_a_non_dividing_tile():
+    from esrganplus_tpu_torch.kernels.workbench import conv as WC
+
+    _need_card()
+    rs = np.random.RandomState(1)
+    c = _conv(rs, 8, 8)
+    x = torch.zeros((1, 20, 16, 8), device="cuda")
+    before = WC.conv3x3.launches
+    with pytest.raises(ValueError):
+        WC.conv3x3(x, c["w"], c["b"], tile=8)
+    with pytest.raises(ValueError):
+        WC.conv3x3(x, c["w"], c["b"])
+    WR, ws, x = _workbench_rdb_case(rs, 16, 8, True, torch.bfloat16, torch.bfloat16, (1, 24, 32))
+    rbefore = WR.rdb_fused.launches
+    with pytest.raises(ValueError):
+        WR.rdb_fused(x, *ws, nf=16, gc=8, tile=16)
+    assert WC.conv3x3.launches == before and WR.rdb_fused.launches == rbefore
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,wdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.bfloat16)],
+                         ids=["fp32", "bf16", "fp32x_bf16w"])
+@pytest.mark.parametrize("conv1x1", [True, False], ids=["1x1", "no1x1"])
+def test_cuda_rdb_fused_matches_plain_twin_odd(conv1x1, xdt, wdt):
+    """nf=16, gc=8 at B=2, 32×48 (tile 16): seams, borders, H ≠ W."""
+    _need_card()
+    WR, ws, x = _workbench_rdb_case(np.random.RandomState(2), 16, 8, conv1x1, xdt, wdt,
+                                    (2, 32, 48))
+    kw = dict(nf=16, gc=8, conv1x1=conv1x1, slope=0.1, res_scale=0.3, tile=16)
+    before = WR.rdb_fused.launches
+    with fp32_exact():
+        got, want = WR.rdb_fused(x, *ws, **kw), WR.rdb_fused_plain(x, *ws, **kw)
+    assert WR.rdb_fused.launches == before + 1 and got.dtype == xdt
+    _close_to_twin(got, want, xdt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_cuda_rdb_fused_flagship_width_matches_plain_twin(dtype):
+    """nf=64, gc=32 with the 1×1 (kernel tile 16 in bf16, 8 in fp32) at an
+    image that is not a multiple of the kernel tile; never the twin."""
+    _need_card()
+    WR, ws, x = _workbench_rdb_case(np.random.RandomState(3), 64, 32, True, dtype, dtype,
+                                    (2, 40, 24))
+    kw = dict(nf=64, gc=32, tile=8)
+    with fp32_exact():
+        got, want = WR.rdb_fused(x, *ws, **kw), WR.rdb_fused_plain(x, *ws, **kw)
+    _close_to_twin(got, want, dtype)
+    with pytest.raises(RuntimeError, match="forward only"):
+        WR.rdb_fused(x.float().requires_grad_().to(dtype), *ws, **kw)
