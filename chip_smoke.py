@@ -63,7 +63,10 @@ final result line:
                act none/relu/lrelu) and at every shape the flagship
                discriminator and VGG19 give them at batch 16, there with times,
                bounds and a cuDNN yardstick; the backward also on the twin's
-               own forward output and with the weight half switched off;
+               own forward output, each half alone and a second call (all
+               bit-equal to the full call); every row names the design its
+               launch took: bf16 conv_s1_ct runs on the tensor cores ("mma"),
+               fp32 and conv_s2_ct on the CUDA cores ("fma");
   9. gan-check — flagship G, discriminator_vgg_128 and VGG19 (seeded), one
                batch: every loss term and every gradient leaf of G and of D
                through the kernel path against autograd of the plain graph on
@@ -71,7 +74,8 @@ final result line:
  10. gan-train — an options file with ``model: "srragan"`` at the recipe's
                shape (batch 16, HR 128, bf16, noise on, perceptual loss on)
                for 16 steps through ``esrganplus_tpu_torch.cli.train``; checks
-               the logged terms, the launch counts of all twelve kernels,
+               the logged terms, the launch counts of all twelve kernels
+               (every conv_s1_ct call, forward and backward, through "mma"),
                ``latest_G.pth`` / ``latest_D.pth``, and a resume from step 8
                that must end bit-equal;
  11. gan-steady — ``GANTrainer.train_step`` on one device-resident batch:
@@ -89,7 +93,7 @@ final result line:
                launch counts and the total ms of both chains;
      with ``--profile`` also a ``torch.profiler`` trace of three steady steps
      of each trainer, the PSNR one in both noise modes (device time by
-     kernel family, the card's busy share).
+     kernel family, the stage kernels' sum, the card's busy share).
 
 Then one ``{"kernels": [...]}`` line (sixteen kernels), the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.
@@ -218,7 +222,8 @@ def ptxas_summary(log: str) -> list:
     out, name, spill = [], None, "0"
     for line in log.splitlines():
         m = re.search(r"(dense_conv3x3_kernel|upfold_kernel|conv_hr_kernel|stage_fwd_kernel|"
-                      r"stage_dgrad_kernel|stage_wgrad_kernel|dgrad_kernel|wgrad_kernel|"
+                      r"stage_dgrad_kernel|stage_wgrad_kernel|stage_fwd_mma_kernel|"
+                      r"stage_dgrad_mma_kernel|stage_wgrad_mma_kernel|dgrad_kernel|wgrad_kernel|"
                       r"wb_conv3x3_kernel|wb_rdb_fused_kernel)"
                       r"I(\w+?)EE", line)
         if m:
@@ -764,6 +769,7 @@ def make_stage_case(dtype, gen, ks, B, H, W, cin, cout, act):
                 lambda: torch.autograd.grad(lib_out, [xn, wo, bo], gn, retain_graph=True),
                 None if act is None else lambda: bwd_p(x, w, out_p, g, **kw)),
         "bwd_dx_only": lambda: bwd(x, w, saved(out), g, need_dw=False, **kw),
+        "bwd_dw_only": lambda: bwd(x, w, saved(out), g, need_dx=False, **kw),
         "macs": n_out * nw,
         "fwd_bytes": (x.numel() + out.numel() + nw) * esz + 4 * cout,
         # x, g, the saved output and the weights in; dx out; dW and db out in fp32
@@ -772,12 +778,25 @@ def make_stage_case(dtype, gen, ks, B, H, W, cin, cout, act):
     }
 
 
+def _design_of(fn, call):
+    """The result of ``call()`` and the one design its launch of ``fn`` took."""
+    before = dict(fn.launches_by_design)
+    out = call()
+    ran = [d for d, n in fn.launches_by_design.items() if n > before[d]]
+    return out, ran[0] if len(ran) == 1 else ran
+
+
 def check_stage_kernels(failures):
     """Phase kernels-stage: conv_s1_ct, conv_s2_ct and their backward wrappers
     against their twins, fp32 (TF32 off) and bf16, at an odd shape and at
-    every shape the flagship GAN step gives them (timed there)."""
+    every shape the flagship GAN step gives them (timed there). Each row
+    names the design its launch took (``stage_design``): the bf16 3×3 conv
+    must run on the tensor cores (``mma``), everything else on ``fma``. The
+    backward's dx-only and dW-only halves and a second full call must give
+    the full call's bits."""
     import torch
 
+    from esrganplus_tpu_torch.kernels import stage_ct as S
     from esrganplus_tpu_torch.models.layers import fp32_exact
 
     gen = torch.Generator().manual_seed(2)
@@ -791,19 +810,20 @@ def check_stage_kernels(failures):
         for sname, ks, B, H, W, cin, cout, act, net in odd + flag:
             case = make_stage_case(dtype, gen, ks, B, H, W, cin, cout, act)
             kname = "conv_s1_ct" if ks == 3 else "conv_s2_ct"
+            want = "mma" if (ks, dname) == (3, "bfloat16") else "fma"
             base = {"dtype": dname, "shape": sname, "net": net, "x": [B, H, W, cin],
                     "cout": cout, "act": act}
             with fp32_exact():
                 kern, plain, lib = case["fwd"]
-                got = kern()
+                got, design = _design_of(getattr(S, kname), kern)
                 torch.cuda.synchronize()
                 ref = plain()
                 d, rel = rel_err(got, ref)
                 differ = (got != ref).float().mean().item()
                 ok = (bool(torch.isfinite(got.float()).all()) and rel <= TOL[dname]
-                      and (dname == "float32" or differ <= MAX_DIFFER_BF16))
-                row = {"phase": "kernels-stage", "kernel": kname, **base, "max_abs_err": d,
-                       "rel_err": rel, "tol": TOL[dname], "frac_differ": differ,
+                      and (dname == "float32" or differ <= MAX_DIFFER_BF16) and design == want)
+                row = {"phase": "kernels-stage", "kernel": kname, **base, "design": design,
+                       "max_abs_err": d, "rel_err": rel, "tol": TOL[dname], "frac_differ": differ,
                        "rel_err_vs_library": rel_err(got, lib().permute(0, 2, 3, 1))[1],
                        "ok": ok}
                 if sname != "odd":
@@ -816,10 +836,10 @@ def check_stage_kernels(failures):
                 emit(row)
                 if not ok:
                     failures.append(f"{kname} {dname} {sname} {cin}->{cout} act={act}: "
-                                    f"rel err {rel:.3g}, differ {differ:.3g}")
+                                    f"rel err {rel:.3g}, differ {differ:.3g}, design {design}")
 
                 kern, plain, lib, plain_own = case["bwd"]
-                got = kern()
+                got, design = _design_of(getattr(S, kname + "_bwd"), kern)
                 torch.cuda.synchronize()
                 worst, worst_abs, finite = worst_err(got, plain())
                 ok = finite and worst <= BWD_TOL[dname]
@@ -828,11 +848,19 @@ def check_stage_kernels(failures):
                     own = {"rel_err_own_buffers": worst_err(got, plain_own())[0],
                            "tol_own_buffers": BWD_TOL_OWN_BUFFERS}
                     ok = ok and own["rel_err_own_buffers"] <= BWD_TOL_OWN_BUFFERS
-                # the half a frozen net launches must give the same dx
-                dx_only = case["bwd_dx_only"]()
-                ok = ok and dx_only["w"] is None and torch.equal(dx_only["dx"], got["dx"])
+                # the half a frozen net launches must give the same dx, the half
+                # an image input launches the same dW and db, and a second call
+                # the same bits (the reduction order is fixed by the shapes)
+                dx_only, dw_only, again = (case["bwd_dx_only"](), case["bwd_dw_only"](),
+                                           kern())
+                bits = (dx_only["w"] is None and torch.equal(dx_only["dx"], got["dx"])
+                        and dw_only["dx"] is None
+                        and all(torch.equal(dw_only[k], got[k]) for k in ("w", "b"))
+                        and all(torch.equal(again[k], got[k]) for k in ("dx", "w", "b")))
+                ok = ok and bits and design == want
                 row = {"phase": "kernels-stage", "kernel": kname + "_bwd", **base,
-                       "max_abs_err": worst_abs, "rel_err": worst, "tol": BWD_TOL[dname],
+                       "design": design, "max_abs_err": worst_abs, "rel_err": worst,
+                       "tol": BWD_TOL[dname], "halves_and_repeat_bit_equal": bits,
                        "ok": bool(ok), **own}
                 if sname != "odd":
                     ops_ms = 2 * 2 * case["macs"] / PEAK_FLOPS[dname] * 1e3
@@ -840,13 +868,15 @@ def check_stage_kernels(failures):
                     row.update(ms=time_ms(kern, iters=10), plain_ms=time_ms(plain, iters=5),
                                library_ms=time_ms(lib, iters=10),
                                dx_only_ms=time_ms(case["bwd_dx_only"], iters=10),
+                               dw_only_ms=time_ms(case["bwd_dw_only"], iters=10),
                                bound_ms=max(ops_ms, bytes_ms),
                                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
                     report[(kname + "_bwd", sname, dname)] = row
                 emit(row)
                 if not ok:
                     failures.append(f"{kname}_bwd {dname} {sname} {cin}->{cout} act={act}: "
-                                    f"gradient rel err {worst:.3g} {own}")
+                                    f"gradient rel err {worst:.3g} {own}, bits {bits}, "
+                                    f"design {design}")
     return report
 
 
@@ -1277,6 +1307,7 @@ def gan_train_path(failures, workdir):
     from esrganplus_tpu_torch.cli import train as train_cli
     from esrganplus_tpu_torch.convert import discriminator_from_state_dict, load_state_dict
     from esrganplus_tpu_torch.infer import load_generator
+    from esrganplus_tpu_torch.kernels import stage_ct as S
     from esrganplus_tpu_torch.models.discriminator import DiscriminatorVGGConfig
 
     dirs = _smoke_dataset(workdir)
@@ -1293,11 +1324,19 @@ def gan_train_path(failures, workdir):
     counted = _twelve()
     for fn in counted:
         fn.launches = 0
+    S.reset_launch_counts()
     t0 = time.perf_counter()
     train_cli.main(["-opt", opt_path, "--device", "cuda"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counted}
+    # the bf16 step's 3×3 stage convs, forward and backward, all on the tensor cores
+    by_design = {fn.__name__: dict(fn.launches_by_design)
+                 for fn in (S.conv_s1_ct, S.conv_s1_ct_bwd, S.conv_s2_ct, S.conv_s2_ct_bwd)}
+    for k in ("conv_s1_ct", "conv_s1_ct_bwd"):
+        want = {"fma": 0, "mma": {**GAN_FWD_PER_STEP, **GAN_BWD_PER_STEP}[k] * TRAIN_STEPS}
+        if by_design[k] != want:
+            failures.append(f"gan-train: {k} launched {by_design[k]} by design, expected {want}")
     # G's forward: every step, plus each validation image at steps 8 and 16
     n_val = VAL_IMAGES * (TRAIN_STEPS // 8)
     expected = {**{k: per * (TRAIN_STEPS + n_val) for k, per in PER_IMAGE.items()},
@@ -1324,7 +1363,8 @@ def gan_train_path(failures, workdir):
     bn_moved = (d_back["bn"][1]["a"]["mean"].abs().max().item() > 0
                 and (d_back["bn"][0]["b"]["var"] - 1).abs().max().item() > 0)
     row = {"phase": "gan-train", "steps": TRAIN_STEPS, "seconds_total": seconds,
-           "launches": launches, "expected_launches": expected, "logged": logged,
+           "launches": launches, "expected_launches": expected,
+           "stage_launches_by_design": by_design, "logged": logged,
            "finite": finite, "files": files,
            "validations": text.count("Validation # PSNR"),
            "random_vgg_warning": "VGG19 weights not provided" in text,
@@ -1464,12 +1504,15 @@ def train_profile(step_ms, make_trainer=None, phase="train-profile"):
         fam[name] += e.time_range.elapsed_us() / 1e3 / steps
         count[name] += 1
     busy = sum(fam.values())
+    stage = {k: v for k, v in fam.items() if k.startswith("stage_")}  # csrc/stage_ct.cu
     emit({"phase": phase, "steps": steps, "wall_ms_per_step_traced": wall_ms,
           "untraced_ms_per_step": step_ms, "device_ms_per_step": busy,
           "device_busy_share": busy / step_ms, "device_idle_share": 1 - busy / step_ms,
           "device_launches_per_step": sum(count.values()) / steps,
           "by_kernel_ms_per_step": {k: round(v, 4) for k, v in fam.most_common(20)},
-          "launches_per_step": {k: count[k] / steps for k, _ in fam.most_common(20)}})
+          "launches_per_step": {k: count[k] / steps for k, _ in fam.most_common(20)},
+          "stage_kernels_ms_per_step": sum(stage.values()),
+          "stage_kernels_by_name_ms_per_step": {k: round(v, 4) for k, v in stage.items()}})
 
 
 # ---------------------------------------------------------------------------
@@ -2146,16 +2189,17 @@ def main() -> int:
     for name in STAGE_REPLACES:
         # one shape's numbers in the required keys, every flagship shape beside them
         row = stage_report[(name, STAGE_MAIN_SHAPE[name], "bfloat16")]
-        fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
-                  "rel_err") + (("dx_only_ms",) if name.endswith("_bwd") else ())
+        fields = ("design", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                  "max_abs_err", "rel_err") + (("dx_only_ms", "dw_only_ms")
+                                               if name.endswith("_bwd") else ())
         kernels.append({
             "name": name, "route": "cuda", "source": STAGE_SOURCE,
             "replaces": STAGE_REPLACES[name], "launches": gan_launches[name],
             "max_abs_err": row["max_abs_err"], "rel_err": row["rel_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "dtype": "bfloat16", "shape": STAGE_MAIN_SHAPE[name], "x": row["x"],
-            "cout": row["cout"],
+            "dtype": "bfloat16", "design": row["design"], "shape": STAGE_MAIN_SHAPE[name],
+            "x": row["x"], "cout": row["cout"],
             "fp32_ms": stage_report[(name, STAGE_MAIN_SHAPE[name], "float32")]["ms"],
             "shapes": {sname: {**{f: r[f] for f in fields},
                                "fp32_ms": stage_report[(kn, sname, "float32")]["ms"]}

@@ -20,8 +20,11 @@
 //
 // Bound on this card: operations at every flagship shape except the
 // 3-channel entry convs (27 or 48 MAC per output against a 64-channel
-// output write: bytes). This first version accumulates on the CUDA cores in
-// fp32 like the trunk kernels: a 256-thread block owns an 8x16 output tile and
+// output write: bytes). Two designs, picked by the caller
+// (kernels/stage_ct.py stage_design): the bf16 3x3 conv and its adjoint run
+// on the tensor cores (the "mma" kernels below); fp32 and the 4x4 conv run the
+// FMA kernels, which accumulate on the CUDA cores in fp32 like the trunk
+// kernels: a 256-thread block owns an 8x16 output tile and
 // up to 64 output channels (a wider conv takes several blocks per tile),
 // stages a few input channels of the haloed tile and of every tap's weights
 // in shared memory as fp32, and keeps a 4-pixel x CO/8-channel register tile.
@@ -34,6 +37,9 @@
 // of pixel tiles and writes its partial sums to row `part` of a workspace,
 // and the finishing pass adds the rows in order.
 #include "common.cuh"
+#include "mma_bf16.cuh"
+
+#include <algorithm>
 
 namespace {
 
@@ -376,6 +382,541 @@ __global__ void stage_wgrad_finish_kernel(const float* __restrict__ part, int np
   out[i] = v;
 }
 
+// ===========================================================================
+// The bf16 tensor-core design ("mma") of the 3x3 stride-1 conv and its adjoint.
+//
+// Each of the three products is an implicit GEMM on mma.sync m16n8k16 (bf16 in,
+// fp32 accumulators) with operands read from shared memory by ldmatrix; nothing
+// is im2col'ed in device memory and the rounding points are the FMA kernels'.
+//   * forward: M = a block's 8x16 output pixels, N = all of cout, K = 9 taps x
+//     cin. The haloed 10x18 input tile is copied once as [pixel][cin] rows
+//     (cp.async, the zero ring written as zero-fill); a tap's A fragments are
+//     ldmatrix reads of the same tile at a shifted pixel row. The weights (HWIO:
+//     [k = ci][n = co] rows) stream through a 3-slot cp.async ring, one
+//     (tap, 64-channel) slice at a time, and reach B through ldmatrix.trans.
+//   * data gradient: the same GEMM with M = input pixels, N = cin, K = 9 taps x
+//     cout, taps flipped. The haloed g tile lands by cp.async beside the first
+//     weight slices and becomes dz in place (gate from the saved output in
+//     fp32, one rounding; without an activation dz is g itself); w[t][ci][co]
+//     is already the [n][k] layout that plain ldmatrix reads.
+//   * weight gradient: M = (ci chunk of 16, tap) rows, N = cout, K = pixels. A
+//     block owns 12 such m16 tiles and up to 64 output channels, and walks a
+//     fixed range of 4x16 pixel tiles through a double-buffered cp.async
+//     pipeline (x, g, the saved output); dz is formed in shared memory, its
+//     unrounded value added to the block's db partial. Partial rows and the
+//     fixed-order finishing pass keep the reduction order a function of the
+//     shapes.
+// The forward and data-gradient blocks are 8 warps of 32-pixel warp tiles when
+// a width is above 64 (two ~100 KB blocks an SM), else 4 warps of 64-pixel
+// tiles (fewer ldmatrix per mma: shared-memory bandwidth, not the tensor
+// cores, bounds mma.sync fed from shared memory). Input channels are padded
+// to 16 in shared memory only (the 3-channel entry convs), and an input whose
+// channel count is not a multiple of 8 is staged a pixel at a time with plain
+// loads (no 16-byte alignment). Bound: operations at 64+ channels, bytes at
+// the 3-channel convs.
+// ===========================================================================
+
+namespace mk {
+
+using bf16 = __nv_bfloat16;
+using esr::mma::cp_async16;
+using esr::mma::ldsm_pitch;
+using esr::mma::smem_u32;
+
+constexpr int NT = 256;                 // threads of a weight-gradient block (8 warps)
+constexpr int TH = 8, TW = 16;          // forward / data-gradient pixel tile
+constexpr int PIX = TH * TW;            // M of a block (8 m16 tiles, one per tile row)
+constexpr int HW = TW + 2;              // haloed tile width
+constexpr int HP = (TH + 2) * HW;       // haloed tile pixels (180)
+constexpr int KCH = 64;                 // K rows of one weight-ring slot
+constexpr int NSLOT = 3;                // weight-ring depth
+constexpr int WG_TH = 4;                // weight-gradient pixel tile: 4x16 = 64 pixels of K
+constexpr int WG_PIX = WG_TH * TW;
+constexpr int WG_HP = (WG_TH + 2) * HW;
+constexpr int WG_MT = 12;               // m16 tiles of (ci, tap) rows a weight-gradient block owns
+constexpr int WG_XC = 32;               // input channels it stages (see stage_wgrad_mma_kernel)
+
+__host__ __device__ constexpr int round16(int c) { return (c + 15) / 16 * 16; }
+
+// warps and fragments of an N-wide product over PIX = 8 m16 tiles by NW warps
+template <int NP, int NW_>
+struct Tiling {
+  static constexpr int NW = NW_;                // warps (4 or 8)
+  static constexpr int NTH = NW * 32;           // threads
+  static constexpr int WN = NP >= 16 ? 2 : 1;   // warps along N
+  static constexpr int WM = NW / WN;            // warps along M
+  static constexpr int MT = 8 / WM;             // m16 tiles (tile rows) per warp
+  static constexpr int NT8 = NP / 8 / WN;       // n8 tiles per warp
+  static constexpr int MIN_BLOCKS = NW == 8 ? 2 : 3;
+};
+
+// A haloed RH x RW tile of src [B, H, W, c] (origin gy0, gx0; channels
+// c_off .. c_off + cs) into shared [pixel][cs] bf16 rows of `pitch` bytes,
+// zero outside the image and at channels >= c. cp.async when rows are
+// 16-byte aligned (c % 8 == 0), plain loads otherwise.
+template <int RH, int RW>
+__device__ __forceinline__ void stage_tile(const bf16* __restrict__ src, unsigned char* dst,
+                                           int pitch, int b, int gy0, int gx0, int H, int W,
+                                           int c, int c_off, int cs, int tid) {
+  const int nth = blockDim.x;
+  if ((c & 7) == 0) {
+    const uint32_t d = smem_u32(dst);
+    const int nc = cs / 8;
+    for (int i = tid; i < RH * RW * nc; i += nth) {
+      const int p = i / nc, c8 = i % nc;
+      const int gy = gy0 + p / RW, gx = gx0 + p % RW, ch = c_off + c8 * 8;
+      const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && ch < c;
+      cp_async16(d + p * pitch + c8 * 16,
+                 ok ? src + (((size_t)b * H + gy) * W + gx) * c + ch : src, ok);
+    }
+  } else {  // a pixel at a time: loads of the real channels, 16-byte stores
+    const int nc = cs / 8;
+    for (int i = tid; i < RH * RW * nc; i += nth) {
+      const int p = i / nc, c8 = i % nc;
+      const int gy = gy0 + p / RW, gx = gx0 + p % RW;
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      const bf16* px = in ? src + (((size_t)b * H + gy) * W + gx) * c : src;
+      __align__(16) bf16 v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int ch = c_off + c8 * 8 + k;
+        v[k] = in && ch < c ? px[ch] : __float2bfloat16_rn(0.f);
+      }
+      *reinterpret_cast<uint4*>(dst + p * pitch + c8 * 16) = *reinterpret_cast<const uint4*>(v);
+    }
+  }
+}
+
+// dz = gate(g, saved output) in fp32 for 8 channels.
+__device__ __forceinline__ void dz8(const uint4& gv, const uint4& ov, int act, float slope,
+                                    float (&d)[8]) {
+  const bf16* gp = reinterpret_cast<const bf16*>(&gv);
+  const bf16* op = reinterpret_cast<const bf16*>(&ov);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float v = __bfloat162float(gp[k]);
+    d[k] = act == kNone ? v : act_adj(v, __bfloat162float(op[k]), act, slope);
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&d)[8]) {
+  uint4 r;
+  r.x = esr::mma::pack_bf16(d[0], d[1]);
+  r.y = esr::mma::pack_bf16(d[2], d[3]);
+  r.z = esr::mma::pack_bf16(d[4], d[5]);
+  r.w = esr::mma::pack_bf16(d[6], d[7]);
+  return r;
+}
+
+// acc += A * B over `klen` (a multiple of 16) for this warp's MT m16 tiles
+// and NT8 n8 tiles from column n0. a[i]: this lane's ldmatrix row address of
+// m16 tile i ([pixel][k] rows, k offset (lane / 16) * 8 folded in). B is a
+// [k][n] tile read with .trans (BT) or an [n][k] tile read plainly.
+template <int MT, int NT8, bool BT>
+__device__ __forceinline__ void warp_mma(float (&acc)[MT][NT8][4], const uint32_t (&a)[MT],
+                                         uint32_t bt, int bpitch, int n0, int klen, int lane) {
+  using namespace esr::mma;
+  for (int k = 0; k < klen; k += 16) {
+    uint32_t af[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) ldsm_x4(af[i], a[i] + k * 2);
+    if constexpr (NT8 == 1) {
+      uint32_t b[2];
+      const int l = lane & 15;
+      if constexpr (BT) ldsm_x2_t(b, bt + (k + l) * bpitch + n0 * 2);
+      else ldsm_x2(b, bt + (n0 + (l & 7)) * bpitch + (k + (l >> 3) * 8) * 2);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) mma_bf16(acc[i][0], af[i], b[0], b[1]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NT8; j += 2) {
+        uint32_t b[4];
+        if constexpr (BT)
+          ldsm_x4_t(b, bt + (k + (lane & 15)) * bpitch + (n0 + j * 8 + (lane >> 4) * 8) * 2);
+        else
+          ldsm_x4(b, bt + (n0 + j * 8 + (lane & 7) + (lane >> 4) * 8) * bpitch +
+                         (k + ((lane >> 3) & 1) * 8) * 2);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          mma_bf16(acc[i][j], af[i], b[0], b[1]);
+          mma_bf16(acc[i][j + 1], af[i], b[2], b[3]);
+        }
+      }
+    }
+  }
+}
+
+// The block's accumulators (PIX x NP) as bf16 into shared rows of `pitch`
+// bytes, after bias and activation when `bias` is given.
+template <int NP, int NW>
+__device__ __forceinline__ void acc_to_smem(
+    const float (&acc)[Tiling<NP, NW>::MT][Tiling<NP, NW>::NT8][4], unsigned char* dst, int pitch,
+    const float* __restrict__ bias, int act, float slope, int warp, int lane) {
+  using Tl = Tiling<NP, NW>;
+  const int wm = warp / Tl::WN, wn = warp % Tl::WN;
+#pragma unroll
+  for (int i = 0; i < Tl::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < Tl::NT8; ++j) {
+      const int m = (wm * Tl::MT + i) * 16 + (lane >> 2);
+      const int n = (wn * Tl::NT8 + j) * 8 + (lane & 3) * 2;
+      const float b0 = bias ? bias[n] : 0.f, b1 = bias ? bias[n + 1] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v0 = act_fwd(acc[i][j][2 * h] + b0, act, slope);
+        const float v1 = act_fwd(acc[i][j][2 * h + 1] + b1, act, slope);
+        *reinterpret_cast<uint32_t*>(dst + (m + 8 * h) * pitch + n * 2) =
+            esr::mma::pack_bf16(v0, v1);
+      }
+    }
+}
+
+// Shared [PIX][np] bf16 rows to dst [B, H, W, c] at the tile (y0, x0): the
+// channels < c of the pixels inside the image.
+__device__ __forceinline__ void smem_to_out(const unsigned char* src, int pitch,
+                                            bf16* __restrict__ dst, int b, int y0, int x0, int H,
+                                            int W, int c, int tid) {
+  const int nth = blockDim.x;
+  if ((c & 7) == 0) {
+    const int nc = c / 8;
+    for (int i = tid; i < PIX * nc; i += nth) {
+      const int m = i / nc, c8 = i % nc, y = y0 + m / TW, x = x0 + m % TW;
+      if (y < H && x < W)
+        *reinterpret_cast<uint4*>(dst + (((size_t)b * H + y) * W + x) * c + c8 * 8) =
+            *reinterpret_cast<const uint4*>(src + m * pitch + c8 * 16);
+    }
+  } else {
+    for (int i = tid; i < PIX * c; i += nth) {
+      const int m = i / c, k = i % c, y = y0 + m / TW, x = x0 + m % TW;
+      if (y < H && x < W)
+        dst[(((size_t)b * H + y) * W + x) * c + k] =
+            reinterpret_cast<const bf16*>(src + m * pitch)[k];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward: NP = cout
+// ---------------------------------------------------------------------------
+
+template <int NP, int NW>
+__global__ void __launch_bounds__(Tiling<NP, NW>::NTH, Tiling<NP, NW>::MIN_BLOCKS)
+    stage_fwd_mma_kernel(
+    const bf16* __restrict__ x,      // [B, H, W, cin]
+    const bf16* __restrict__ w,      // [3, 3, cin, NP]
+    const float* __restrict__ bias,  // [NP]
+    bf16* __restrict__ out,          // [B, H, W, NP]
+    int H, int W, int cin, int act, float slope) {
+  using Tl = Tiling<NP, NW>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int cinp = round16(cin);
+  const int xp = ldsm_pitch(cinp);
+  constexpr int WP = ldsm_pitch(NP);
+  const int slot = min(KCH, cinp) * WP;
+  const uint32_t xs = smem_u32(smem), ws = xs + HP * xp;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / Tl::WN, wn = warp % Tl::WN;
+  const int b = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+  const int nkc = (cinp + KCH - 1) / KCH, nstage = 9 * nkc;
+
+  auto load_w = [&](int s) {  // stage s = (tap, channel slice) into ring slot s % NSLOT
+    const int t = s / nkc, c0 = (s % nkc) * KCH, len = min(KCH, cinp - c0);
+    const uint32_t dst = ws + (s % NSLOT) * slot;
+    constexpr int NC = NP / 8;
+    for (int i = tid; i < len * NC; i += Tl::NTH) {
+      const int r = i / NC, n8 = i % NC, ci = c0 + r;
+      const bool ok = ci < cin;
+      cp_async16(dst + r * WP + n8 * 16, ok ? w + ((size_t)t * cin + ci) * NP + n8 * 8 : w, ok);
+    }
+  };
+  stage_tile<TH + 2, HW>(x, smem, xp, b, y0 - 1, x0 - 1, H, W, cin, 0, cinp, tid);
+  esr::mma::cp_async_commit();
+  load_w(0);
+  esr::mma::cp_async_commit();
+  load_w(1);
+  esr::mma::cp_async_commit();
+
+  float acc[Tl::MT][Tl::NT8][4];
+#pragma unroll
+  for (int i = 0; i < Tl::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < Tl::NT8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+  uint32_t arow[Tl::MT];
+#pragma unroll
+  for (int i = 0; i < Tl::MT; ++i)
+    arow[i] = xs + ((wm * Tl::MT + i) * HW + (lane & 15)) * xp + (lane >> 4) * 16;
+
+  for (int s = 0; s < nstage; ++s) {
+    esr::mma::cp_async_wait<1>();  // the input tile and stage s have landed
+    __syncthreads();               // ... for every thread, and slot (s+2) % 3 is free
+    if (s + 2 < nstage) load_w(s + 2);
+    esr::mma::cp_async_commit();
+    const int t = s / nkc, c0 = (s % nkc) * KCH, len = min(KCH, cinp - c0);
+    const int shift = (t / 3) * HW + t % 3;
+    uint32_t a[Tl::MT];
+#pragma unroll
+    for (int i = 0; i < Tl::MT; ++i) a[i] = arow[i] + shift * xp + c0 * 2;
+    warp_mma<Tl::MT, Tl::NT8, true>(acc, a, ws + (s % NSLOT) * slot, WP, wn * Tl::NT8 * 8, len,
+                                    lane);
+  }
+  esr::mma::cp_async_wait<0>();
+  __syncthreads();
+  acc_to_smem<NP, NW>(acc, smem, WP, bias, act, slope, warp, lane);
+  __syncthreads();
+  smem_to_out(smem, WP, out, b, y0, x0, H, W, NP, tid);
+}
+
+// ---------------------------------------------------------------------------
+// data gradient: NP = cin rounded up to 8, 16, 32, 64 or 128
+// ---------------------------------------------------------------------------
+
+template <int NP, int NW>
+__global__ void __launch_bounds__(Tiling<NP, NW>::NTH, Tiling<NP, NW>::MIN_BLOCKS)
+    stage_dgrad_mma_kernel(
+    const bf16* __restrict__ g,     // [B, H, W, cout]
+    const bf16* __restrict__ outp,  // [B, H, W, cout] (null for kNone)
+    const bf16* __restrict__ w,     // [3, 3, cin, cout]
+    bf16* __restrict__ dx,          // [B, H, W, cin]
+    int H, int W, int cin, int cout, int act, float slope) {
+  using Tl = Tiling<NP, NW>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int coutp = round16(cout);
+  const int zp = ldsm_pitch(coutp);
+  const int kch = min(KCH, coutp);
+  const int wp = ldsm_pitch(kch);
+  const int slot = NP * wp;
+  const uint32_t zs = smem_u32(smem), ws = zs + HP * zp;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / Tl::WN, wn = warp % Tl::WN;
+  const int b = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+  const int nkc = (coutp + kch - 1) / kch, nstage = 9 * nkc;
+
+  auto load_w = [&](int s) {  // w[t][ci][c0 .. c0+len) as [n = ci][k = co] rows
+    const int t = s / nkc, c0 = (s % nkc) * kch, len = min(kch, coutp - c0);
+    const uint32_t dst = ws + (s % NSLOT) * slot;
+    const int nc = len / 8;
+    for (int i = tid; i < NP * nc; i += Tl::NTH) {
+      const int ci = i / nc, k8 = i % nc, co = c0 + k8 * 8;
+      const bool ok = ci < cin && co < cout;
+      cp_async16(dst + ci * wp + k8 * 16, ok ? w + ((size_t)t * cin + ci) * cout + co : w, ok);
+    }
+  };
+  // the haloed g tile beside the first weight slices
+  stage_tile<TH + 2, HW>(g, smem, zp, b, y0 - 1, x0 - 1, H, W, cout, 0, coutp, tid);
+  esr::mma::cp_async_commit();
+  load_w(0);
+  esr::mma::cp_async_commit();
+  load_w(1);
+  esr::mma::cp_async_commit();
+  if (act != kNone) {  // dz in place of g, gated by the saved output, rounded once
+    esr::mma::cp_async_wait<2>();  // (without a gate dz is g itself)
+    __syncthreads();
+    const int nc = coutp / 8;
+#pragma unroll 4
+    for (int i = tid; i < HP * nc; i += Tl::NTH) {
+      const int p = i / nc, c8 = i % nc;
+      const int zy = y0 - 1 + p / HW, zx = x0 - 1 + p % HW, co = c8 * 8;
+      if (zy >= 0 && zy < H && zx >= 0 && zx < W && co < cout) {  // else g was zero-filled
+        uint4* z = reinterpret_cast<uint4*>(smem + p * zp + c8 * 16);
+        float d[8];
+        dz8(*z, *reinterpret_cast<const uint4*>(outp + (((size_t)b * H + zy) * W + zx) * cout + co),
+            act, slope, d);
+        *z = pack8(d);
+      }
+    }
+  }
+
+  float acc[Tl::MT][Tl::NT8][4];
+#pragma unroll
+  for (int i = 0; i < Tl::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < Tl::NT8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+  uint32_t arow[Tl::MT];
+#pragma unroll
+  for (int i = 0; i < Tl::MT; ++i)
+    arow[i] = zs + ((wm * Tl::MT + i) * HW + (lane & 15)) * zp + (lane >> 4) * 16;
+
+  for (int s = 0; s < nstage; ++s) {
+    esr::mma::cp_async_wait<1>();
+    __syncthreads();
+    if (s + 2 < nstage) load_w(s + 2);
+    esr::mma::cp_async_commit();
+    const int t = s / nkc, c0 = (s % nkc) * kch, len = min(kch, coutp - c0);
+    const int shift = (2 - t / 3) * HW + 2 - t % 3;  // dz pixel (y + 1 - dy, x + 1 - dx)
+    uint32_t a[Tl::MT];
+#pragma unroll
+    for (int i = 0; i < Tl::MT; ++i) a[i] = arow[i] + shift * zp + c0 * 2;
+    warp_mma<Tl::MT, Tl::NT8, false>(acc, a, ws + (s % NSLOT) * slot, wp, wn * Tl::NT8 * 8, len,
+                                     lane);
+  }
+  esr::mma::cp_async_wait<0>();
+  __syncthreads();
+  constexpr int DP = ldsm_pitch(NP);
+  acc_to_smem<NP, NW>(acc, smem, DP, nullptr, kNone, 0.f, warp, lane);
+  __syncthreads();
+  smem_to_out(smem, DP, dx, b, y0, x0, H, W, cin, tid);
+}
+
+// ---------------------------------------------------------------------------
+// weight and bias gradient: a block owns WG_MT m16 tiles of (ci, tap) rows and
+// NCH (16, 32 or 64) output channels
+// ---------------------------------------------------------------------------
+
+template <int NCH>
+__global__ void __launch_bounds__(NT, 2) stage_wgrad_mma_kernel(
+    const bf16* __restrict__ x,     // [B, H, W, cin]
+    const bf16* __restrict__ g,     // [B, H, W, cout]
+    const bf16* __restrict__ outp,  // [B, H, W, cout] (null for kNone)
+    float* __restrict__ part,       // [npart][9*cin*cout + cout]
+    int H, int W, int cin, int cout, int act, float slope, int tiles_per_part, int total_tiles,
+    int tiles_x, int tiles_y) {
+  constexpr int WN = 2, MT = WG_MT / 4, NT8 = NCH / 16;  // 4 x 2 warps of MT m16 x NCH/2
+  constexpr int XP = ldsm_pitch(WG_XC), GP = ldsm_pitch(NCH);
+  constexpr int XBYTES = WG_HP * XP, GBYTES = WG_PIX * GP;
+  constexpr int BUF = XBYTES + 2 * GBYTES;  // x, g (then dz), the saved output
+  constexpr int NC = NCH / 8;               // dz chunks of 8 channels per pixel
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / WN, wn = warp % WN;
+  const int mtiles = 9 * round16(cin) / 16;  // m16 tile m = (ci chunk m / 9, tap m % 9)
+  const int ngroups = (cout + NCH - 1) / NCH;
+  const int m0 = blockIdx.x / ngroups * WG_MT;
+  const int n0 = blockIdx.x % ngroups * NCH;  // the block's output channels n0 .. n0 + NCH
+  // m0 % 9 is 0, 3 or 6, so the block's 12 tiles span at most two ci chunks
+  const int cx0 = m0 / 9 * 16;
+  const size_t row = (size_t)9 * cin * cout + cout;
+  float* dst = part + (size_t)blockIdx.y * row;
+
+  const int tbeg = blockIdx.y * tiles_per_part;
+  const int ntile = min(total_tiles, tbeg + tiles_per_part) - tbeg;
+  auto load = [&](int it) {
+    const int tile = tbeg + it;
+    unsigned char* buf = smem + (it & 1) * BUF;
+    const int b = tile / (tiles_x * tiles_y);
+    const int oy0 = (tile / tiles_x) % tiles_y * WG_TH, ox0 = tile % tiles_x * TW;
+    stage_tile<WG_TH + 2, HW>(x, buf, XP, b, oy0 - 1, ox0 - 1, H, W, cin, cx0, WG_XC, tid);
+    const uint32_t gs = smem_u32(buf + XBYTES);
+    for (int i = tid; i < WG_PIX * NC; i += NT) {
+      const int p = i / NC, c8 = i % NC, oy = oy0 + p / TW, ox = ox0 + p % TW;
+      const int co = n0 + c8 * 8;
+      const bool ok = oy < H && ox < W && co < cout;
+      const size_t idx = ok ? (((size_t)b * H + oy) * W + ox) * cout + co : 0;
+      cp_async16(gs + p * GP + c8 * 16, g + idx, ok);
+      if (act != kNone) cp_async16(gs + GBYTES + p * GP + c8 * 16, outp + idx, ok);
+    }
+  };
+
+  float acc[MT][NT8][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+  float db[8];  // channels n0 + (tid % NC) * 8 .. + 8: the chunk this thread always forms
+#pragma unroll
+  for (int k = 0; k < 8; ++k) db[k] = 0.f;
+
+  if (ntile > 0) load(0);
+  esr::mma::cp_async_commit();
+  for (int it = 0; it < ntile; ++it) {
+    if (it + 1 < ntile) load(it + 1);
+    esr::mma::cp_async_commit();
+    esr::mma::cp_async_wait<1>();
+    __syncthreads();
+    unsigned char* buf = smem + (it & 1) * BUF;
+    unsigned char* gz = buf + XBYTES;
+    for (int i = tid; i < WG_PIX * NC; i += NT) {  // dz in place of g, rounded once
+      const int p = i / NC, c8 = i % NC;
+      uint4* gp = reinterpret_cast<uint4*>(gz + p * GP + c8 * 16);
+      const uint4 gv = *gp;
+      const uint4 ov =
+          act == kNone ? gv : *reinterpret_cast<const uint4*>(gz + GBYTES + p * GP + c8 * 16);
+      float d[8];
+      dz8(gv, ov, act, slope, d);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) db[k] += d[k];
+      *gp = pack8(d);
+    }
+    __syncthreads();
+    const uint32_t xs = smem_u32(buf), zs = smem_u32(gz);
+#pragma unroll
+    for (int kk = 0; kk < WG_TH; ++kk) {  // one tile row of 16 pixels per k16 step
+      uint32_t bf[NT8][2];
+      if constexpr (NT8 == 1) {
+        esr::mma::ldsm_x2_t(bf[0], zs + (kk * 16 + (lane & 15)) * GP + wn * 16);
+      } else {
+#pragma unroll
+        for (int j = 0; j < NT8; j += 2) {
+          uint32_t r[4];
+          esr::mma::ldsm_x4_t(r, zs + (kk * 16 + (lane & 15)) * GP +
+                                     (wn * NT8 * 8 + j * 8 + (lane >> 4) * 8) * 2);
+          bf[j][0] = r[0], bf[j][1] = r[1], bf[j + 1][0] = r[2], bf[j + 1][1] = r[3];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int m = m0 + wm * MT + i;
+        if (m >= mtiles) continue;  // warp-uniform
+        const int t = m % 9, cl = m / 9 * 16 - cx0;
+        // A = x^T: [k = pixel][m = ci] rows read with .trans
+        const int px = (lane & 7) + (lane >> 4) * 8;
+        uint32_t af[4];
+        esr::mma::ldsm_x4_t(af, xs + ((kk + t / 3) * HW + px + t % 3) * XP +
+                                    (cl + ((lane >> 3) & 1) * 8) * 2);
+#pragma unroll
+        for (int j = 0; j < NT8; ++j) esr::mma::mma_bf16(acc[i][j], af, bf[j][0], bf[j][1]);
+      }
+    }
+    __syncthreads();
+  }
+  esr::mma::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int m = m0 + wm * MT + i;
+    if (m >= mtiles) continue;
+    const int t = m % 9;
+#pragma unroll
+    for (int j = 0; j < NT8; ++j) {
+      const int n = n0 + (wn * NT8 + j) * 8 + (lane & 3) * 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ci = m / 9 * 16 + (lane >> 2) + 8 * h;
+        if (ci < cin && n < cout)
+          *reinterpret_cast<float2*>(dst + ((size_t)t * cin + ci) * cout + n) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+    }
+  }
+  if (m0 == 0) {  // db: the threads' partials in a fixed order
+    __syncthreads();
+    float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) red[tid * 8 + k] = db[k];
+    __syncthreads();
+    for (int c = tid; c < NCH; c += NT) {
+      float v = 0.f;
+      for (int r = c / 8; r < NT; r += NC) v += red[r * 8 + c % 8];
+      if (n0 + c < cout) dst[(size_t)9 * cin * cout + n0 + c] = v;
+    }
+  }
+}
+
+// Opt a kernel into `bytes` of dynamic shared memory (above the 48 KB default).
+template <typename K>
+int smem_opt_in(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+}  // namespace mk
+
 struct StageArgs {
   const void *x, *w, *g, *outp;
   const float* bias;
@@ -405,6 +946,13 @@ int launch_dgrad(const StageArgs& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// dW/db = the partial rows added in order.
+void finish_wgrad(const StageArgs& a, int ks, cudaStream_t st) {
+  const size_t row = (size_t)ks * ks * a.cin * a.cout + a.cout;
+  stage_wgrad_finish_kernel<<<(unsigned)((row + 255) / 256), 256, 0, st>>>(a.part, a.npart, row,
+                                                                          a.dwdb);
+}
+
 template <typename T, int SC, int KS>
 int launch_wgrad(const StageArgs& a, cudaStream_t st) {
   constexpr int KC = NT / (SC >= 16 ? 16 : SC);
@@ -420,9 +968,7 @@ int launch_wgrad(const StageArgs& a, cudaStream_t st) {
       tiles_x, tiles_y);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const size_t row = (size_t)KS * KS * a.cin * a.cout + a.cout;
-  stage_wgrad_finish_kernel<<<(unsigned)((row + 255) / 256), 256, 0, st>>>(a.part, a.npart, row,
-                                                                          a.dwdb);
+  finish_wgrad(a, KS, st);
   return (int)cudaGetLastError();
 }
 
@@ -447,14 +993,121 @@ int dispatch_chunk(int op, int chunk, const StageArgs& a, cudaStream_t st) {
   }
 }
 
-int dispatch(int dtype, int ks, int op, int chunk, const StageArgs& a, cudaStream_t st) {
+// ---- the bf16 tensor-core design: launches -------------------------------------
+
+template <int NP, int NW>
+int launch_fwd_mma(const StageArgs& a, cudaStream_t st) {
+  const int cinp = mk::round16(a.cin);
+  const size_t smem = std::max<size_t>(
+      (size_t)mk::HP * mk::ldsm_pitch(cinp) +
+          (size_t)mk::NSLOT * std::min(mk::KCH, cinp) * mk::ldsm_pitch(NP),
+      (size_t)mk::PIX * mk::ldsm_pitch(NP));
+  if (int e = mk::smem_opt_in(mk::stage_fwd_mma_kernel<NP, NW>, smem)) return e;
+  const dim3 grid((a.W + mk::TW - 1) / mk::TW, (a.H + mk::TH - 1) / mk::TH, a.B);
+  mk::stage_fwd_mma_kernel<NP, NW><<<grid, NW * 32, smem, st>>>(
+      static_cast<const mk::bf16*>(a.x), static_cast<const mk::bf16*>(a.w), a.bias,
+      static_cast<mk::bf16*>(a.out), a.H, a.W, a.cin, a.act, a.slope);
+  return (int)cudaGetLastError();
+}
+
+template <int NP, int NW>
+int launch_dgrad_mma(const StageArgs& a, cudaStream_t st) {
+  const int coutp = mk::round16(a.cout);
+  const size_t smem = std::max<size_t>(
+      (size_t)mk::HP * mk::ldsm_pitch(coutp) +
+          (size_t)mk::NSLOT * NP * mk::ldsm_pitch(std::min(mk::KCH, coutp)),
+      (size_t)mk::PIX * mk::ldsm_pitch(NP));
+  if (int e = mk::smem_opt_in(mk::stage_dgrad_mma_kernel<NP, NW>, smem)) return e;
+  const dim3 grid((a.W + mk::TW - 1) / mk::TW, (a.H + mk::TH - 1) / mk::TH, a.B);
+  mk::stage_dgrad_mma_kernel<NP, NW><<<grid, NW * 32, smem, st>>>(
+      static_cast<const mk::bf16*>(a.g), static_cast<const mk::bf16*>(a.outp),
+      static_cast<const mk::bf16*>(a.w), static_cast<mk::bf16*>(a.out), a.H, a.W, a.cin,
+      a.cout, a.act, a.slope);
+  return (int)cudaGetLastError();
+}
+
+template <int NCH>
+int launch_wgrad_mma(const StageArgs& a, cudaStream_t st) {
+  const size_t smem = 2 * ((size_t)mk::WG_HP * mk::ldsm_pitch(mk::WG_XC) +
+                           2 * (size_t)mk::WG_PIX * mk::ldsm_pitch(NCH));
+  if (int e = mk::smem_opt_in(mk::stage_wgrad_mma_kernel<NCH>, smem)) return e;
+  const int tiles_x = (a.W + mk::TW - 1) / mk::TW, tiles_y = (a.H + mk::WG_TH - 1) / mk::WG_TH;
+  const int total = a.B * tiles_x * tiles_y;
+  const int per = (total + a.npart - 1) / a.npart;
+  const int mtiles = 9 * mk::round16(a.cin) / 16;
+  const int ngroups = (a.cout + NCH - 1) / NCH;
+  const dim3 grid((mtiles + mk::WG_MT - 1) / mk::WG_MT * ngroups, a.npart);
+  mk::stage_wgrad_mma_kernel<NCH><<<grid, mk::NT, smem, st>>>(
+      static_cast<const mk::bf16*>(a.x), static_cast<const mk::bf16*>(a.g),
+      static_cast<const mk::bf16*>(a.outp), a.part, a.H, a.W, a.cin, a.cout, a.act, a.slope, per,
+      total, tiles_x, tiles_y);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  finish_wgrad(a, 3, st);
+  return (int)cudaGetLastError();
+}
+
+// by width `np`: a power of two from 8 to 128
+// Warps of a forward / data-gradient block: 8 (32-pixel warp tiles) when
+// either width is above 64, as the block's shared memory then lets only two
+// blocks share an SM; else 4 (64-pixel warp tiles, fewer ldmatrix per mma,
+// three or more blocks an SM). Measured both ways on the H100 (PERF.md).
+#define ESR_NW(LAUNCH, NP)                            \
+  (a.cin > 64 || a.cout > 64 ? LAUNCH<NP, 8>(a, st) \
+                             : LAUNCH<NP, (NP > 64 ? 8 : 4)>(a, st))
+#define ESR_BY_WIDTH(LAUNCH)                                        \
+  int LAUNCH##_w(int np, const StageArgs& a, cudaStream_t st) {     \
+    switch (np) {                                                   \
+      case 8: return ESR_NW(LAUNCH, 8);                             \
+      case 16: return ESR_NW(LAUNCH, 16);                           \
+      case 32: return ESR_NW(LAUNCH, 32);                           \
+      case 64: return ESR_NW(LAUNCH, 64);                           \
+      case 128: return ESR_NW(LAUNCH, 128);                         \
+      default: return (int)cudaErrorInvalidValue;                   \
+    }                                                               \
+  }
+
+int pow2_width(int c, int least) {
+  int n = least;
+  while (n < c) n *= 2;
+  return n;
+}
+
+// the weight gradient's N per block: cout (at least 16), at most 64
+int launch_wgrad_mma_w(int cout, const StageArgs& a, cudaStream_t st) {
+  switch (cout) {
+    case 8:
+    case 16: return launch_wgrad_mma<16>(a, st);
+    case 32: return launch_wgrad_mma<32>(a, st);
+    case 64:
+    case 128: return launch_wgrad_mma<64>(a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+ESR_BY_WIDTH(launch_fwd_mma)
+ESR_BY_WIDTH(launch_dgrad_mma)
+#undef ESR_BY_WIDTH
+
+enum Design : int { kFma = 0, kMma = 1 };  // kernels/stage_ct.py stage_design
+
+int dispatch_mma(int op, const StageArgs& a, cudaStream_t st) {
+  if (a.cin < 1 || a.cin > 128) return (int)cudaErrorInvalidValue;
+  if (op == kFwd) return launch_fwd_mma_w(a.cout, a, st);
+  if (op == kDgrad) return launch_dgrad_mma_w(pow2_width(a.cin, 8), a, st);
+  return launch_wgrad_mma_w(a.cout, a, st);
+}
+
+int dispatch(int dtype, int ks, int design, int op, int chunk, const StageArgs& a,
+             cudaStream_t st) {
   if (ks != 3 && ks != 4) return (int)cudaErrorInvalidValue;
+  // one design per (dtype, ks): the bf16 3x3 conv on the tensor cores, the rest on the FMA kernels
+  const bool mma = dtype == esr::kBFloat16 && ks == 3;
+  if (design != (mma ? kMma : kFma)) return (int)cudaErrorInvalidValue;
+  if (mma) return dispatch_mma(op, a, st);
   if (dtype == esr::kFloat32)
     return ks == 3 ? dispatch_chunk<float, 3>(op, chunk, a, st)
                    : dispatch_chunk<float, 4>(op, chunk, a, st);
-  if (dtype == esr::kBFloat16)
-    return ks == 3 ? dispatch_chunk<__nv_bfloat16, 3>(op, chunk, a, st)
-                   : dispatch_chunk<__nv_bfloat16, 4>(op, chunk, a, st);
+  if (dtype == esr::kBFloat16) return dispatch_chunk<__nv_bfloat16, 4>(op, chunk, a, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -472,36 +1125,41 @@ extern "C" {
 
 // ks = 3: SAME 3x3 stride 1; ks = 4: 4x4 stride 2 pad 1 (H and W even).
 // x [B,H,W,cin], w [ks,ks,cin,cout], bias fp32 [cout] -> out [B,Ho,Wo,cout].
-// `chunk` divides cout. Every function returns cudaGetLastError().
-int esr_stage_fwd(int dtype, int ks, int chunk, const void* x, const void* w, const float* bias,
-                  void* out, int B, int H, int W, int cin, int cout, int act, float slope,
-                  void* stream) {
-  if (cout % chunk) return (int)cudaErrorInvalidValue;
+// `design`: 1 (the tensor-core kernels) for bf16 at ks = 3, else 0 (the FMA
+// kernels); any other value returns cudaErrorInvalidValue. `chunk` (FMA only)
+// divides cout. Every function returns cudaGetLastError().
+int esr_stage_fwd(int dtype, int ks, int design, int chunk, const void* x, const void* w,
+                  const float* bias, void* out, int B, int H, int W, int cin, int cout, int act,
+                  float slope, void* stream) {
+  if (design == kFma && cout % chunk) return (int)cudaErrorInvalidValue;
   StageArgs a = geometry(ks, B, H, W, cin, cout, act, slope);
   a.x = x, a.w = w, a.bias = bias, a.out = out;
-  return dispatch(dtype, ks, kFwd, chunk, a, static_cast<cudaStream_t>(stream));
+  return dispatch(dtype, ks, design, kFwd, chunk, a, static_cast<cudaStream_t>(stream));
 }
 
 // dx [B,H,W,cin] from the cotangent g and the saved output outp (both
-// [B,Ho,Wo,cout]; outp may be null when act is none). `chunk` dx channels per block.
-int esr_stage_dgrad(int dtype, int ks, int chunk, const void* g, const void* outp, const void* w,
-                    void* dx, int B, int H, int W, int cin, int cout, int act, float slope,
-                    void* stream) {
+// [B,Ho,Wo,cout]; outp may be null when act is none). `chunk` (FMA only): dx
+// channels per block.
+int esr_stage_dgrad(int dtype, int ks, int design, int chunk, const void* g, const void* outp,
+                    const void* w, void* dx, int B, int H, int W, int cin, int cout, int act,
+                    float slope, void* stream) {
   if (act != kNone && !outp) return (int)cudaErrorInvalidValue;
   StageArgs a = geometry(ks, B, H, W, cin, cout, act, slope);
   a.g = g, a.outp = outp, a.w = w, a.out = dx;
-  return dispatch(dtype, ks, kDgrad, chunk, a, static_cast<cudaStream_t>(stream));
+  return dispatch(dtype, ks, design, kDgrad, chunk, a, static_cast<cudaStream_t>(stream));
 }
 
 // dwdb[0 : ks*ks*cin*cout] = dW (HWIO), dwdb[ks*ks*cin*cout :] = db, both
-// fp32. `part` is an fp32 workspace of npart * (ks*ks*cin*cout + cout) floats.
-int esr_stage_wgrad(int dtype, int ks, int chunk, const void* x, const void* g, const void* outp,
-                    float* part, int npart, float* dwdb, int B, int H, int W, int cin, int cout,
-                    int act, float slope, void* stream) {
+// fp32. `part` is an fp32 workspace of npart * (ks*ks*cin*cout + cout) floats;
+// part p sums the pixel tiles [p * per, (p + 1) * per), per = ceil(tiles / npart)
+// (kernels/stage_ct.py stage_wgrad_ranges).
+int esr_stage_wgrad(int dtype, int ks, int design, int chunk, const void* x, const void* g,
+                    const void* outp, float* part, int npart, float* dwdb, int B, int H, int W,
+                    int cin, int cout, int act, float slope, void* stream) {
   if (npart < 1 || (act != kNone && !outp)) return (int)cudaErrorInvalidValue;
   StageArgs a = geometry(ks, B, H, W, cin, cout, act, slope);
   a.x = x, a.g = g, a.outp = outp, a.part = part, a.npart = npart, a.dwdb = dwdb;
-  return dispatch(dtype, ks, kWgrad, chunk, a, static_cast<cudaStream_t>(stream));
+  return dispatch(dtype, ks, design, kWgrad, chunk, a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -101,8 +101,10 @@ class SRInferencer:
         if self.noise_active:
             rng = self._noise_gen.manual_seed(self._noise_seed)
             with torch.no_grad():
+                # threefry, as JAX's inferencer key: a fused-noise config
+                # applies the noise between kernel calls and needs no site seeds
                 y = generator_forward(self.params, xt, self.cfg, train=True, rng=rng,
-                                      noise=noise, dtype=self.dtype)
+                                      noise=noise, noise_prng="threefry", dtype=self.dtype)
         else:
             with torch.inference_mode():
                 y = generator_forward(self.params, xt, self.cfg, dtype=self.dtype)
@@ -119,8 +121,12 @@ class SRInferencer:
         ``codes/models/SR_model.py:82-120``): average the SR results of the 8
         dihedral transforms of the input, each inverse-transformed back.
         ``batched`` runs the 4 untransposed and the 4 transposed variants as
-        two batched forwards instead of 8."""
+        two batched forwards instead of 8. In the noise mode batching would
+        change the noise shapes, and with them the realisation each variant
+        sees, so the per-variant path is forced, as in the JAX package."""
         assert img_rgb.ndim == 3
+        if self.noise_active:
+            batched = False
 
         def tf(img, op):
             if op == "v":

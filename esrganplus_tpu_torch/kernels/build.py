@@ -71,9 +71,9 @@ SIGNATURES = {
         "esr_conv_hr": [I, I, I, P, P, P, P, P, P, I, I, I, F, P],
     },
     "stage_ct": {
-        "esr_stage_fwd": [I, I, I, P, P, P, P, I, I, I, I, I, I, F, P],
-        "esr_stage_dgrad": [I, I, I, P, P, P, P, I, I, I, I, I, I, F, P],
-        "esr_stage_wgrad": [I, I, I, P, P, P, P, I, P, I, I, I, I, I, I, F, P],
+        "esr_stage_fwd": [I, I, I, I, P, P, P, P, I, I, I, I, I, I, F, P],
+        "esr_stage_dgrad": [I, I, I, I, P, P, P, P, I, I, I, I, I, I, F, P],
+        "esr_stage_wgrad": [I, I, I, I, P, P, P, P, I, P, I, I, I, I, I, I, F, P],
     },
     "workbench_conv": {
         "esr_wb_conv3x3": [I, P, P, P, P, I, I, I, I, I, I, F, P],

@@ -27,6 +27,13 @@ gradient for frozen weights (the perceptual net; the discriminator while the
 generator is updated), no data gradient for an input that needs none (the
 discriminator's first conv on an image).
 
+Two designs of the CUDA kernels, picked by :func:`stage_design`: the bf16 3×3
+conv and its adjoint run as implicit GEMMs on the tensor cores (``"mma"``:
+``mma.sync`` bf16 with fp32 accumulators, operands staged by ``cp.async`` and
+read by ``ldmatrix``); fp32 and the 4×4 conv run on the CUDA cores (``"fma"``).
+Both round where the twins round. Each wrapper counts its launches, and
+``launches_by_design`` counts them by design.
+
 A CPU tensor goes to the plain twin (``*_plain``); a CUDA tensor launches the
 kernel or raises.
 """
@@ -43,6 +50,7 @@ from esrganplus_tpu_torch.kernels.rdb_ct import _nchw, prepare_conv_ct_weights
 from esrganplus_tpu_torch.models.layers import fp32_exact
 
 ACTS = {None: 0, "relu": 1, "lrelu": 2}  # csrc/stage_ct.cu Act
+DESIGNS = {"fma": 0, "mma": 1}            # csrc/stage_ct.cu Design
 STAGE_WIDTHS = (8, 16, 32, 64, 128)      # output-channel counts the kernels take
 MAX_CIN = 128
 
@@ -163,17 +171,66 @@ def _dgrad_chunk(cin: int) -> int:
     return next(c for c in (8, 16, 32, 64) if c >= min(cin, 64))
 
 
-def stage_wgrad_parts(B: int, Ho: int, Wo: int, cin: int, cout: int, ks: int) -> int:
+def stage_design(dtype: torch.dtype, ks: int, cin: int, cout: int) -> str:
+    """Which CUDA design runs a stage conv: ``"mma"`` (bf16 tensor cores) for
+    the bf16 3×3 conv at every width the kernels take, ``"fma"`` (fp32 on
+    the CUDA cores) for fp32, whose 1e-4 bar TF32 would miss, and for the 4×4
+    stride-2 conv."""
+    require_stage_widths(cin, cout)
+    return "mma" if dtype == torch.bfloat16 and ks == 3 else "fma"
+
+
+def stage_wgrad_tiles(B: int, Ho: int, Wo: int, ks: int, design: str = "fma") -> int:
+    """Pixel tiles the weight gradient walks: 8×16 (the FMA 3×3), 4×16 (the
+    FMA 4×4 and the mma design) output pixels each."""
+    th = 8 if ks == 3 and design == "fma" else 4
+    return B * -(-Ho // th) * -(-Wo // 16)
+
+
+def stage_wgrad_parts(B: int, Ho: int, Wo: int, cin: int, cout: int, ks: int,
+                      design: str = "fma") -> int:
     """Rows of the weight-gradient workspace: about 512 blocks over the
-    channel chunks, at most one row per pixel tile and 128 rows. A function
-    of the shapes only, so the reduction order is fixed."""
-    tiles = B * -(-Ho // (8 if ks == 3 else 4)) * -(-Wo // 16)
-    sc = min(cout, 64)
-    kc = 16 if sc >= 16 else 32
-    blocks = -(-cin // kc) * (cout // sc)
+    channel chunks (FMA) or the m16 tiles of (ci, tap) rows (mma), at most
+    one row per pixel tile and 128 rows. A function of the shapes only, so
+    the reduction order is fixed."""
+    tiles = stage_wgrad_tiles(B, Ho, Wo, ks, design)
+    if design == "mma":  # 12 m16 tiles of (16 ci, tap) rows × up to 64 output channels a block
+        blocks = -(-(9 * -(-cin // 16)) // 12) * -(-cout // 64)
+    else:
+        sc = min(cout, 64)
+        kc = 16 if sc >= 16 else 32
+        blocks = -(-cin // kc) * (cout // sc)
     want = max(1, min(tiles, 128, -(-512 // blocks)))
     per = -(-tiles // want)
     return -(-tiles // per)
+
+
+def stage_wgrad_ranges(B: int, Ho: int, Wo: int, cin: int, cout: int, ks: int,
+                       design: str = "fma") -> list:
+    """``[(first tile, end)]`` of each workspace row, as ``esr_stage_wgrad``
+    cuts them: ``per = ceil(tiles / parts)`` tiles a row, in tile order."""
+    tiles = stage_wgrad_tiles(B, Ho, Wo, ks, design)
+    parts = stage_wgrad_parts(B, Ho, Wo, cin, cout, ks, design)
+    per = -(-tiles // parts)
+    return [(p * per, min(tiles, (p + 1) * per)) for p in range(parts)]
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it whose data start on 16 bytes: the mma kernels
+    move 16-byte vectors (a fresh allocation always is aligned)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _count(fn, design: str) -> None:
+    fn.launches += 1
+    fn.launches_by_design[design] += 1
+
+
+def reset_launch_counts() -> None:
+    """Set every stage wrapper's ``launches`` and ``launches_by_design`` to 0."""
+    for fn in (conv_s1_ct, conv_s2_ct, conv_s1_ct_bwd, conv_s2_ct_bwd):
+        fn.launches = 0
+        fn.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 def _validate(name, ks, x, w, dt, dev):
@@ -197,15 +254,17 @@ def _fwd(fn, ks, x, w, bias, act, slope):
     dt, dev = x.dtype, x.device
     B, H, W, cin, cout, Ho, Wo = _validate(fn.__name__, ks, x, w, dt, dev)
     build.require(bias, "bias", (cout,), torch.float32, dev)
+    design = stage_design(dt, ks, cin, cout)
+    x, w = _aligned(x), _aligned(w)
     lib = build.load("stage_ct")
     out = torch.empty((B, Ho, Wo, cout), dtype=dt, device=dev)
     with torch.cuda.device(dev):
-        code = lib.esr_stage_fwd(build.dtype_code(x), ks, min(cout, 64), x.data_ptr(),
-                                 w.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, W, cin,
-                                 cout, ACTS[act], slope,
+        code = lib.esr_stage_fwd(build.dtype_code(x), ks, DESIGNS[design], min(cout, 64),
+                                 x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), B,
+                                 H, W, cin, cout, ACTS[act], slope,
                                  torch.cuda.current_stream(dev).cuda_stream)
     build.check(code, "esr_stage_fwd")
-    fn.launches += 1
+    _count(fn, design)
     return out
 
 
@@ -214,11 +273,8 @@ def conv_s1_ct(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,
     """SAME 3×3 stride-1 conv + bias + fused activation: NHWC
     ``[B, H, W, C]`` → ``[B, H, W, CO]`` in the input dtype. ``w``/``bias``
     from :func:`prepare_stage_ct`. ``conv_s1_ct.launches`` counts CUDA
-    launches."""
+    launches, ``conv_s1_ct.launches_by_design`` them by design."""
     return _fwd(conv_s1_ct, 3, x, w, bias, act, slope)
-
-
-conv_s1_ct.launches = 0
 
 
 def conv_s2_ct(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,
@@ -227,9 +283,6 @@ def conv_s2_ct(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,
     ``[B, H, W, C]`` (H, W even) → ``[B, H/2, W/2, CO]``.
     ``conv_s2_ct.launches`` counts CUDA launches."""
     return _fwd(conv_s2_ct, 4, x, w, bias, act, slope)
-
-
-conv_s2_ct.launches = 0
 
 
 def _bwd(fn, ks, x, w, out, g, act, slope, need_dx, need_dw) -> dict:
@@ -245,30 +298,34 @@ def _bwd(fn, ks, x, w, out, g, act, slope, need_dx, need_dw) -> dict:
     build.require(g, "g", (B, Ho, Wo, cout), dt, dev)
     if act is not None:
         build.require(out, "out", (B, Ho, Wo, cout), dt, dev)
-    outp = None if act is None else out.data_ptr()
+    design = stage_design(dt, ks, cin, cout)
+    x, w, g = _aligned(x), _aligned(w), _aligned(g)
+    out = None if act is None else _aligned(out)  # held until the launches are queued
+    outp = None if out is None else out.data_ptr()
+    code_d = DESIGNS[design]
     lib = build.load("stage_ct")
     stream = torch.cuda.current_stream(dev).cuda_stream
     res = {"dx": None, "w": None, "b": None}
     with torch.cuda.device(dev):
         if need_dx:
             dx = torch.empty_like(x)
-            code = lib.esr_stage_dgrad(build.dtype_code(x), ks, _dgrad_chunk(cin), g.data_ptr(),
-                                       outp, w.data_ptr(), dx.data_ptr(), B, H, W, cin, cout,
-                                       ACTS[act], slope, stream)
+            code = lib.esr_stage_dgrad(build.dtype_code(x), ks, code_d, _dgrad_chunk(cin),
+                                       g.data_ptr(), outp, w.data_ptr(), dx.data_ptr(), B, H, W,
+                                       cin, cout, ACTS[act], slope, stream)
             build.check(code, "esr_stage_dgrad")
             res["dx"] = dx
         if need_dw:
-            npart = stage_wgrad_parts(B, Ho, Wo, cin, cout, ks)
+            npart = stage_wgrad_parts(B, Ho, Wo, cin, cout, ks, design)
             nw = ks * ks * cin * cout
             part = torch.empty((npart, nw + cout), dtype=torch.float32, device=dev)
             dwdb = torch.empty((nw + cout,), dtype=torch.float32, device=dev)
-            code = lib.esr_stage_wgrad(build.dtype_code(x), ks, min(cout, 64), x.data_ptr(),
-                                       g.data_ptr(), outp, part.data_ptr(), npart,
+            code = lib.esr_stage_wgrad(build.dtype_code(x), ks, code_d, min(cout, 64),
+                                       x.data_ptr(), g.data_ptr(), outp, part.data_ptr(), npart,
                                        dwdb.data_ptr(), B, H, W, cin, cout, ACTS[act], slope,
                                        stream)
             build.check(code, "esr_stage_wgrad")
             res["w"], res["b"] = dwdb[:nw].view(ks, ks, cin, cout), dwdb[nw:]
-    fn.launches += 1
+    _count(fn, design)
     return res
 
 
@@ -279,11 +336,8 @@ def conv_s1_ct_bwd(x, w, out, g, *, act: Optional[str] = None, slope: float = 0.
     an entry that was not asked for is None. On a CUDA tensor: one
     data-gradient launch and/or one weight-gradient launch with its
     fixed-order finishing pass. ``conv_s1_ct_bwd.launches`` counts CUDA
-    calls."""
+    calls, ``launches_by_design`` them by design."""
     return _bwd(conv_s1_ct_bwd, 3, x, w, out, g, act, slope, need_dx, need_dw)
-
-
-conv_s1_ct_bwd.launches = 0
 
 
 def conv_s2_ct_bwd(x, w, out, g, *, act: Optional[str] = None, slope: float = 0.2,
@@ -291,9 +345,6 @@ def conv_s2_ct_bwd(x, w, out, g, *, act: Optional[str] = None, slope: float = 0.
     """Adjoint of :func:`conv_s2_ct`; see :func:`conv_s1_ct_bwd`.
     ``conv_s2_ct_bwd.launches`` counts CUDA calls."""
     return _bwd(conv_s2_ct_bwd, 4, x, w, out, g, act, slope, need_dx, need_dw)
-
-
-conv_s2_ct_bwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -338,3 +389,6 @@ def conv_s2_ct_diff(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,
                     act: Optional[str] = None, slope: float = 0.2) -> torch.Tensor:
     """Differentiable :func:`conv_s2_ct`; see :func:`conv_s1_ct_diff`."""
     return _StageCtDiff.apply(x.contiguous(), w, bias, 4, act, slope)
+
+
+reset_launch_counts()

@@ -310,6 +310,8 @@ STAGE_CASES = {  # id: (kernel size, B, H, W, cin, cout, act)
     "s1-3to8-odd": (3, 2, 36, 52, 3, 8, "lrelu"),
     "s1-16to16-odd": (3, 2, 36, 52, 16, 16, "relu"),
     "s1-3to64": (3, 4, 128, 128, 3, 64, None),
+    "s1-3to64-relu": (3, 4, 128, 128, 3, 64, "relu"),
+    "s1-64to64": (3, 4, 128, 128, 64, 64, "relu"),
     "s1-64to128": (3, 4, 64, 64, 64, 128, "relu"),
     "s1-128to128": (3, 4, 64, 64, 128, 128, "relu"),
     "s2-3to8-odd": (4, 2, 36, 52, 3, 8, "lrelu"),
@@ -338,8 +340,13 @@ def _stage_case(case, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("case", list(STAGE_CASES))
 def test_cuda_stage_kernel_matches_plain_twin_forward_and_backward(case, dtype):
+    """Each stage kernel against its twin; the bf16 3x3 conv and its adjoint
+    launch the tensor-core design, everything else the FMA design."""
     _need_card()
+    from esrganplus_tpu_torch.kernels import stage_ct as S
+
     (fwd, fwd_p, bwd, bwd_p), x, w, b, act, t = _stage_case(case, dtype)
+    S.reset_launch_counts()
     with fp32_exact():
         got, want = fwd(x, w, b, act=act), fwd_p(x, w, b, act=act)
         assert got.shape == want.shape and torch.isfinite(got.float()).all()
@@ -359,6 +366,9 @@ def test_cuda_stage_kernel_matches_plain_twin_forward_and_backward(case, dtype):
         again = bwd(x, w, saved, g, act=act, need_dx=False)
         assert again["dx"] is None and torch.equal(again["w"], r["w"]) \
             and torch.equal(again["b"], r["b"])
+    design = "mma" if dtype == torch.bfloat16 and STAGE_CASES[case][0] == 3 else "fma"
+    assert fwd.launches_by_design == {"fma": 0, "mma": 0, design: 1}
+    assert bwd.launches_by_design == {"fma": 0, "mma": 0, design: 3}
 
 
 @pytest.mark.cuda
@@ -377,6 +387,53 @@ def test_cuda_stage_kernels_raise_for_what_they_do_not_take():
         S.conv_s1_ct(x.half(), w[..., :8].half(), b[:8])
     with pytest.raises(ValueError, match="cpu"):  # weights left on the CPU: no silent copy
         S.conv_s2_ct(x, torch.zeros(4, 4, 8, 8), b[:8])
+
+
+@pytest.mark.cuda
+def test_cuda_stage_entry_refuses_a_design_other_than_stage_design():
+    """The C entry takes one design per (dtype, kernel size), the one
+    ``stage_design`` names: asked for mma in fp32 or at ks=4, or for fma in
+    bf16 at ks=3, it returns an error code (``build.check`` raises)."""
+    _need_card()
+    from esrganplus_tpu_torch.kernels import build
+    from esrganplus_tpu_torch.kernels import stage_ct as S
+
+    lib = build.load("stage_ct")
+    stream = torch.cuda.current_stream().cuda_stream
+    for dtype, ks, design in ((torch.float32, 3, "mma"), (torch.bfloat16, 4, "mma"),
+                              (torch.bfloat16, 3, "fma")):
+        x = torch.zeros(1, 8, 8, 16, device="cuda", dtype=dtype)
+        w = torch.zeros(ks, ks, 16, 16, device="cuda", dtype=dtype)
+        b = torch.zeros(16, device="cuda")
+        ho = 8 if ks == 3 else 4
+        out = torch.empty(1, ho, ho, 16, device="cuda", dtype=dtype)
+        code = lib.esr_stage_fwd(build.dtype_code(x), ks, S.DESIGNS[design], 16, x.data_ptr(),
+                                 w.data_ptr(), b.data_ptr(), out.data_ptr(), 1, 8, 8, 16, 16, 0,
+                                 0.2, stream)
+        with pytest.raises(RuntimeError, match="cudaError"):
+            build.check(code, "esr_stage_fwd")
+
+
+@pytest.mark.cuda
+def test_cuda_stage_mma_takes_tensors_off_16_byte_alignment():
+    """The tensor-core kernels move 16-byte vectors; a view that starts two
+    bytes into its storage gives the aligned copy's bits, forward and
+    backward."""
+    _need_card()
+    from esrganplus_tpu_torch.kernels import stage_ct as S
+
+    rs = np.random.RandomState(3)
+    t = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32)).cuda()
+    w, b = S.prepare_stage_ct(t(3, 3, 16, 32) * 0.1, t(32) * 0.1, torch.bfloat16)
+    x = t(2, 12, 20, 16).to(torch.bfloat16)
+    g = t(2, 12, 20, 32).to(torch.bfloat16)
+    off = lambda a: torch.cat([a.new_zeros(1), a.flatten()])[1:].view(a.shape)
+    assert off(x).data_ptr() % 16 and off(w).data_ptr() % 16
+    y = S.conv_s1_ct(x, w, b, act="relu")
+    assert torch.equal(S.conv_s1_ct(off(x), off(w), b, act="relu"), y)
+    r = S.conv_s1_ct_bwd(x, w, y, g, act="relu")
+    r_off = S.conv_s1_ct_bwd(off(x), off(w), off(y), off(g), act="relu")
+    assert all(torch.equal(r[k], r_off[k]) for k in ("dx", "w", "b"))
 
 
 def _grads_close_but_flips(got, want, tol=1e-4):

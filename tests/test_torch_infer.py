@@ -124,6 +124,31 @@ def test_noise_mode_is_not_ported_yet(tmp_path):
     assert sorted(os.listdir(tmp_path / "out")) == ["a_rlt.png", "b_rlt.png"]
 
 
+def test_noise_mode_upscale_x8_is_per_variant():
+    """In the noise mode the batched self-ensemble is the per-variant one, bit
+    for bit (a batch would change the noise shapes each variant sees), as in
+    the JAX package."""
+    pp, pcfg, _ = pinfer.load_generator(CKPT, device="cpu")
+    p = pinfer.SRInferencer(pp, pcfg, noise_rng=3, device="cpu")
+    img = _img(9, 7, seed=2)
+    assert np.array_equal(p.upscale_x8(img, batched=True), p.upscale_x8(img, batched=False))
+
+
+def test_noise_mode_runs_a_fused_noise_config():
+    """A ``noise_kernel="fused"`` config in the noise mode applies the noise
+    between kernel calls (threefry, as JAX's inferencer key) and gives the
+    image of the same config with ``noise_kernel="xla"``."""
+    import dataclasses
+
+    pp, pcfg, _ = pinfer.load_generator(CKPT, device="cpu")
+    img = _img(9, 13, seed=6)
+    out = {kind: pinfer.SRInferencer(pp, dataclasses.replace(pcfg, noise_kernel=kind),
+                                     noise_rng=3, device="cpu").upscale(img)
+           for kind in ("fused", "xla")}
+    assert out["fused"].shape == (36, 52, 3)
+    assert np.array_equal(out["fused"], out["xla"])
+
+
 def _write_pngs(d):
     os.makedirs(d)
     rs = np.random.RandomState(5)
