@@ -29,7 +29,12 @@ final result line:
                twin at the training shape (batch 16, 32×32 LR), fp32 and bf16,
                on the kernel's saved buffers and again with the twin fed its
                own forward's buffers, with times, bounds and a cuDNN-autograd
-               yardstick;
+               yardstick; conv_hr_ct_bwd's row names its design (bf16 on the
+               tensor cores, "mma") and times each of its launches;
+     kernels-bwd-gate — bf16 conv_hr_ct_bwd on four seeded inputs: its lrelu
+               gates whose sign differs from the twin's before and after the
+               near-zero fix-up, and every gradient against the twin with
+               the fix (held to the bar) and without it;
      kernels-noise — the fused noise mode at the training shape: the device
                Philox draws (csrc/philox.cu) against the twin's, rdb_ct's
                training forward drawing the noise in its epilogue and
@@ -43,8 +48,9 @@ final result line:
                then ``esrganplus_tpu_torch.cli.train`` at the full flagship
                config (batch 16, HR 128, bf16, noise on) for 16 steps with the
                debug cadences; checks the logged losses, the launch counts of
-               all eight kernels, the exported checkpoint, and a resume from
-               step 8 that must end bit-equal to the uninterrupted run;
+               all eight kernels (conv_hr_ct_bwd through "mma"), the
+               exported checkpoint, and a resume from step 8 that must end
+               bit-equal to the uninterrupted run;
   7. train-steady — ``SRTrainer.train_step`` on one device-resident batch:
                median ms/step and crops/s, twice from one seed (bit-equal);
      train-fused — phases 6 and 7 again with ``"noise_kernel": "fused"``
@@ -65,8 +71,9 @@ final result line:
                bounds and a cuDNN yardstick; the backward also on the twin's
                own forward output, each half alone and a second call (all
                bit-equal to the full call); every row names the design its
-               launch took: bf16 conv_s1_ct runs on the tensor cores ("mma"),
-               fp32 and conv_s2_ct on the CUDA cores ("fma");
+               launch took: bf16 conv_s1_ct (both directions) and the bf16
+               conv_s2_ct forward run on the tensor cores ("mma"), fp32 and
+               the conv_s2_ct adjoint on the CUDA cores ("fma");
   9. gan-check — flagship G, discriminator_vgg_128 and VGG19 (seeded), one
                batch: every loss term and every gradient leaf of G and of D
                through the kernel path against autograd of the plain graph on
@@ -75,7 +82,9 @@ final result line:
                shape (batch 16, HR 128, bf16, noise on, perceptual loss on)
                for 16 steps through ``esrganplus_tpu_torch.cli.train``; checks
                the logged terms, the launch counts of all twelve kernels
-               (every conv_s1_ct call, forward and backward, through "mma"),
+               (every conv_s1_ct call and every conv_s2_ct forward through
+               "mma", the conv_s2_ct adjoint through "fma", conv_hr_ct_bwd
+               through "mma"),
                ``latest_G.pth`` / ``latest_D.pth``, and a resume from step 8
                that must end bit-equal;
  11. gan-steady — ``GANTrainer.train_step`` on one device-resident batch:
@@ -93,7 +102,8 @@ final result line:
                launch counts and the total ms of both chains;
      with ``--profile`` also a ``torch.profiler`` trace of three steady steps
      of each trainer, the PSNR one in both noise modes (device time by
-     kernel family, the stage kernels' sum, the card's busy share).
+     kernel family, the stage kernels' sum, conv_hr_ct_bwd's two tail_ct.cu
+     kernels, the card's busy share).
 
 Then one ``{"kernels": [...]}`` line (sixteen kernels), the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.
@@ -141,6 +151,10 @@ BWD_REPLACES = {
 }
 BWD_SOURCE = ("esrganplus_tpu_torch/csrc/dgrad_ct.cu + "
               "esrganplus_tpu_torch/csrc/wgrad_ct.cu")
+# conv_hr_ct_bwd in bf16: the stage tensor-core kernels around tail_ct.cu's
+# conv_hr_hid_fix_kernel and conv_hr_adj_kernel
+HR_BWD_SOURCE = ("esrganplus_tpu_torch/csrc/tail_ct.cu + "
+                 "esrganplus_tpu_torch/csrc/stage_ct.cu")
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # per gradient, of max|ref|
 # the same, with the twin's backward fed the twin's own forward buffers: where a
 # saved activation is within a summation-order difference of 0 its lrelu mask
@@ -223,7 +237,8 @@ def ptxas_summary(log: str) -> list:
     for line in log.splitlines():
         m = re.search(r"(dense_conv3x3_kernel|upfold_kernel|conv_hr_kernel|stage_fwd_kernel|"
                       r"stage_dgrad_kernel|stage_wgrad_kernel|stage_fwd_mma_kernel|"
-                      r"stage_dgrad_mma_kernel|stage_wgrad_mma_kernel|dgrad_kernel|wgrad_kernel|"
+                      r"stage_fwd_s2_mma_kernel|stage_dgrad_mma_kernel|stage_wgrad_mma_kernel|"
+                      r"conv_hr_hid_fix_kernel|conv_hr_adj_kernel|dgrad_kernel|wgrad_kernel|"
                       r"wb_conv3x3_kernel|wb_rdb_fused_kernel)"
                       r"I(\w+?)EE", line)
         if m:
@@ -532,7 +547,8 @@ def make_bwd_cases(dtype, gen):
     tensors a training step hands it. The yardstick is ``torch.autograd.grad``
     through a cuDNN ``F.conv2d`` graph built once (the port never calls it).
     Also returns rdb_ct's training forward from the kernel and from the twin,
-    ``{"out" | "cat" | "lsv": (kernel's, twin's)}``."""
+    ``{"out" | "cat" | "lsv": (kernel's, twin's)}``, and a function giving
+    conv_hr_ct_bwd's bf16 launches on its case (``conv_hr_bwd_mma_steps``)."""
     import torch
     import torch.nn.functional as F
 
@@ -641,7 +657,8 @@ def make_bwd_cases(dtype, gen):
                                   padding=1), [xhn, w0o, b0o, w1o, b1o], gh),
         B * 16 * H * W * 9 * NF * (NF + OUT_NC),
         fbytes(xh, gh, xh) + (w0.numel() + w1.numel()) * (esz + 4), None)
-    return cases, train_fwd
+    hr_steps = lambda: T.conv_hr_bwd_mma_steps(xh, w0, b0, w1, gh)[0]
+    return cases, train_fwd, hr_steps
 
 
 def worst_err(got: dict, ref: dict):
@@ -664,13 +681,14 @@ def worst_err(got: dict, ref: dict):
 def check_bwd_kernels(failures):
     import torch
 
+    from esrganplus_tpu_torch.kernels import tail_ct as T
     from esrganplus_tpu_torch.models.layers import fp32_exact
 
     gen = torch.Generator().manual_seed(1)
     report = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
-        cases, train_fwd = make_bwd_cases(dtype, gen)
+        cases, train_fwd, hr_steps = make_bwd_cases(dtype, gen)
         # rdb_ct's training forward: what the backward's masks and products read
         row = {"phase": "kernels-train-fwd", "kernel": "rdb_ct", "dtype": dname,
                "lr": list(TRAIN_SHAPE), "noise_sigma": 0.1, "tol": TOL[dname], "ok": True}
@@ -689,10 +707,24 @@ def check_bwd_kernels(failures):
 
         for name, (kern, plain, lib, macs, nbytes, plain_own) in cases.items():
             with fp32_exact():
-                got = kern()
+                hr = name == "conv_hr_ct_bwd"
+                if hr:  # bf16 on the tensor cores, fp32 on the FMA kernels
+                    got, design = _design_of(T.conv_hr_ct_bwd, kern)
+                else:
+                    got = kern()
                 torch.cuda.synchronize()
                 worst, worst_abs, finite = worst_err(got, plain())
                 ok = finite and worst <= BWD_TOL[dname]
+                extra = {}
+                if hr:
+                    want = "mma" if dname == "bfloat16" else "fma"
+                    again = kern()
+                    bits = all(torch.equal(again[k], got[k]) for k in got)
+                    extra = {"design": design, "repeat_bit_equal": bits}
+                    if design == "mma":  # ms of each launch (and its finishing pass)
+                        extra["step_ms"] = {k: time_ms(f, iters=10)
+                                            for k, f in hr_steps().items()}
+                    ok = ok and bits and design == want
                 own = {}
                 if plain_own is not None:
                     own = {"rel_err_own_buffers": worst_err(got, plain_own())[0],
@@ -707,14 +739,81 @@ def check_bwd_kernels(failures):
                        "ms": time_ms(kern, iters=10), "plain_ms": time_ms(plain, iters=5),
                        "library_ms": time_ms(lib, iters=10),
                        "bound_ms": max(ops_ms, bytes_ms),
-                       "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", **own}
+                       "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", **own,
+                       **extra}
                 report[(name, dname)] = row
             emit(row)
             if not ok:
                 failures.append(f"{name} {dname}: gradient rel err {worst:.3g}"
                                 + (f", twin on its own buffers "
-                                   f"{own['rel_err_own_buffers']:.3g}" if own else ""))
+                                   f"{own['rel_err_own_buffers']:.3g}" if own else "")
+                                + (f", {extra}" if extra else ""))
     return report
+
+
+def check_conv_hr_gate(failures, seeds=4):
+    """Phase kernels-bwd-gate: bf16 conv_hr_ct_bwd at the training shape on
+    ``seeds`` seeded inputs. The lrelu gate is the sign of conv0's
+    activation, which the kernel path and the twin recompute apart: per seed
+    the share of the tensor-core recompute (``conv_s1_ct``, the same kernel)
+    that differs from the twin's at all, the share ``fix_near_zero_hid``
+    rewrites, whether the FMA design's recompute (the fp32 path's dense
+    kernel) equals the twin's, the gates whose sign differs from the twin's
+    before and after the fix, and every gradient against the twin with the
+    fix (the path; held to BWD_TOL) and without it (reported)."""
+    import torch
+
+    from esrganplus_tpu_torch.kernels import build, launch
+    from esrganplus_tpu_torch.kernels import stage_ct as S
+    from esrganplus_tpu_torch.kernels import tail_ct as T
+    from esrganplus_tpu_torch.kernels.rdb_ct import _conv, _dense, _lrelu
+    from esrganplus_tpu_torch.models.layers import fp32_exact
+
+    B, H, W = TRAIN_SHAPE
+    dt, dev = torch.bfloat16, "cuda"
+    gen = torch.Generator().manual_seed(5)
+    rnd = lambda *shape, scale=1.0: (torch.randn(shape, generator=gen) * scale).to(dev)
+    rows = []
+    for seed in range(seeds):
+        hr0 = {"w": rnd(3, 3, NF, NF, scale=(2.0 / (9 * NF)) ** 0.5), "b": rnd(NF, scale=0.1)}
+        hr1 = {"w": rnd(3, 3, NF, OUT_NC, scale=(2.0 / (9 * NF)) ** 0.5),
+               "b": rnd(OUT_NC, scale=0.1)}
+        w0, b0, w1, _ = T.prepare_conv_hr_ct(hr0, hr1, dt)
+        x, g = rnd(B, 4 * H, 4 * W, NF).to(dt), rnd(B, 4 * H, 4 * W, OUT_NC).to(dt)
+        with fp32_exact():
+            ref = T.conv_hr_ct_bwd_plain(x, w0, b0, w1, g)
+            hid_twin = _lrelu(_conv(x.float().permute(0, 3, 1, 2), w0, b0), 0.2).to(dt)
+            hid_twin = hid_twin.permute(0, 2, 3, 1)
+            hid = S.conv_s1_ct(x, w0, b0, act="lrelu")
+            differ = (hid != hid_twin).float().mean().item()
+            flips = int(((hid >= 0) != (hid_twin >= 0)).sum())
+            near = hid.abs().float().view(-1, 8)
+            near = (near < near.amax(1, keepdim=True) / 65536).float().mean().item()
+            fixed = hid.clone()
+            T.fix_near_zero_hid(fixed, x, w0, b0)
+            flips_fixed = int(((fixed >= 0) != (hid_twin >= 0)).sum())
+            hid_fma = torch.empty_like(x)
+            _dense(build.load("rdb_ct"), x, None, NF, w0, b0, hid_fma.data_ptr(), NF,
+                   mode=launch.ACT, cout=NF, slope=0.2)
+            got = T.conv_hr_ct_bwd(x, w0, b0, w1, g)
+            steps, unfixed = T.conv_hr_bwd_mma_steps(x, w0, b0, w1, g)
+            for name, step in steps.items():
+                if name != "hid_near_zero":
+                    step()
+            torch.cuda.synchronize()
+        err, _, finite = worst_err(got, ref)
+        rows.append({"seed": seed, "hid_share_differing_from_twin": differ,
+                     "hid_share_rewritten": near,
+                     "fma_hid_equals_twin": bool(torch.equal(hid_fma, hid_twin)),
+                     "gate_sign_flips_tensor_cores": flips,
+                     "gate_sign_flips_after_fix": flips_fixed, "rel_err": err,
+                     "rel_err_without_fix": worst_err(unfixed, ref)[0], "finite": finite})
+    ok = all(r["finite"] and r["rel_err"] <= BWD_TOL["bfloat16"] for r in rows)
+    row = {"phase": "kernels-bwd-gate", "kernel": "conv_hr_ct_bwd", "dtype": "bfloat16",
+           "lr": list(TRAIN_SHAPE), "tol": BWD_TOL["bfloat16"], "seeds": rows, "ok": ok}
+    emit(row)
+    if not ok:
+        failures.append(f"kernels-bwd-gate: {row}")
 
 
 # ---------------------------------------------------------------------------
@@ -790,10 +889,11 @@ def check_stage_kernels(failures):
     """Phase kernels-stage: conv_s1_ct, conv_s2_ct and their backward wrappers
     against their twins, fp32 (TF32 off) and bf16, at an odd shape and at
     every shape the flagship GAN step gives them (timed there). Each row
-    names the design its launch took (``stage_design``): the bf16 3×3 conv
-    must run on the tensor cores (``mma``), everything else on ``fma``. The
-    backward's dx-only and dW-only halves and a second full call must give
-    the full call's bits."""
+    names the design its launch took (``stage_design``): the bf16 3×3 conv,
+    its adjoint and the bf16 4×4 forward must run on the tensor cores
+    (``mma``), fp32 and the 4×4 adjoint on ``fma``. The backward's dx-only
+    and dW-only halves and a second full call must give the full call's
+    bits."""
     import torch
 
     from esrganplus_tpu_torch.kernels import stage_ct as S
@@ -810,7 +910,8 @@ def check_stage_kernels(failures):
         for sname, ks, B, H, W, cin, cout, act, net in odd + flag:
             case = make_stage_case(dtype, gen, ks, B, H, W, cin, cout, act)
             kname = "conv_s1_ct" if ks == 3 else "conv_s2_ct"
-            want = "mma" if (ks, dname) == (3, "bfloat16") else "fma"
+            want = "mma" if dname == "bfloat16" else "fma"  # the forward
+            want_bwd = "mma" if (ks, dname) == (3, "bfloat16") else "fma"
             base = {"dtype": dname, "shape": sname, "net": net, "x": [B, H, W, cin],
                     "cout": cout, "act": act}
             with fp32_exact():
@@ -857,7 +958,7 @@ def check_stage_kernels(failures):
                         and dw_only["dx"] is None
                         and all(torch.equal(dw_only[k], got[k]) for k in ("w", "b"))
                         and all(torch.equal(again[k], got[k]) for k in ("dx", "w", "b")))
-                ok = ok and bits and design == want
+                ok = ok and bits and design == want_bwd
                 row = {"phase": "kernels-stage", "kernel": kname + "_bwd", **base,
                        "design": design, "max_abs_err": worst_abs, "rel_err": worst,
                        "tol": BWD_TOL[dname], "halves_and_repeat_bit_equal": bits,
@@ -1049,6 +1150,7 @@ def train_path(failures, workdir, noise_kernel="input"):
     bwd = (K.rdb_ct_bwd, K.conv3x3_ct_bwd, T.upfold_ct_bwd, T.conv_hr_ct_bwd)
     for fn in fwd + bwd:
         fn.launches = 0
+    T.reset_conv_hr_bwd_counts()
     K.rdb_ct.seeded_launches = K.rdb_ct_bwd.seeded_launches = 0
     t0 = time.perf_counter()
     train_cli.main(["-opt", opt_path, "--device", "cuda"])
@@ -1066,6 +1168,10 @@ def train_path(failures, workdir, noise_kernel="input"):
         if launches[k] != per * TRAIN_STEPS:
             failures.append(f"{phase}: {k} launched {launches[k]} times, expected "
                             f"{per * TRAIN_STEPS}")
+    hr_design = dict(T.conv_hr_ct_bwd.launches_by_design)  # bf16: the tensor cores
+    if hr_design != {"fma": 0, "mma": TRAIN_STEPS}:
+        failures.append(f"{phase}: conv_hr_ct_bwd launched {hr_design} by design, expected "
+                        f"{TRAIN_STEPS} mma")
     want_seeded = 69 * TRAIN_STEPS if fused else 0  # validation forwards draw no noise
     if seeded != {"rdb_ct": want_seeded, "rdb_ct_bwd": want_seeded}:
         failures.append(f"{phase}: seeded rdb_ct launches {seeded}, expected {want_seeded} each")
@@ -1084,7 +1190,8 @@ def train_path(failures, workdir, noise_kernel="input"):
                 for (_, a), (_, b) in zip(_leaves(trained), _leaves(init)))
     row = {"phase": phase, "noise_kernel": noise_kernel, "steps": TRAIN_STEPS,
            "seconds_total": seconds, "launches": launches, "seeded_launches": seeded,
-           "l_pix": losses, "finite": finite, "files": files,
+           "conv_hr_ct_bwd_by_design": hr_design, "l_pix": losses, "finite": finite,
+           "files": files,
            "validations": text.count("Validation # PSNR"), "max_abs_weight_change": moved,
            "reloaded": [tcfg.nb, tcfg.nf, tcfg.gc]}
     ok = (finite and sorted(losses) == list(range(2, TRAIN_STEPS + 1, 2)) and all(files.values())
@@ -1308,6 +1415,7 @@ def gan_train_path(failures, workdir):
     from esrganplus_tpu_torch.convert import discriminator_from_state_dict, load_state_dict
     from esrganplus_tpu_torch.infer import load_generator
     from esrganplus_tpu_torch.kernels import stage_ct as S
+    from esrganplus_tpu_torch.kernels import tail_ct as T
     from esrganplus_tpu_torch.models.discriminator import DiscriminatorVGGConfig
 
     dirs = _smoke_dataset(workdir)
@@ -1325,16 +1433,21 @@ def gan_train_path(failures, workdir):
     for fn in counted:
         fn.launches = 0
     S.reset_launch_counts()
+    T.reset_conv_hr_bwd_counts()
     t0 = time.perf_counter()
     train_cli.main(["-opt", opt_path, "--device", "cuda"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counted}
-    # the bf16 step's 3×3 stage convs, forward and backward, all on the tensor cores
+    # the bf16 step's 3×3 stage convs (both directions), the 4×4 forward and
+    # conv_hr_ct_bwd on the tensor cores; the 4×4 adjoint on the FMA kernels
     by_design = {fn.__name__: dict(fn.launches_by_design)
-                 for fn in (S.conv_s1_ct, S.conv_s1_ct_bwd, S.conv_s2_ct, S.conv_s2_ct_bwd)}
-    for k in ("conv_s1_ct", "conv_s1_ct_bwd"):
-        want = {"fma": 0, "mma": {**GAN_FWD_PER_STEP, **GAN_BWD_PER_STEP}[k] * TRAIN_STEPS}
+                 for fn in (S.conv_s1_ct, S.conv_s1_ct_bwd, S.conv_s2_ct, S.conv_s2_ct_bwd,
+                            T.conv_hr_ct_bwd)}
+    per_step = {**GAN_FWD_PER_STEP, **GAN_BWD_PER_STEP, "conv_hr_ct_bwd": 1}
+    for k, design in (("conv_s1_ct", "mma"), ("conv_s1_ct_bwd", "mma"), ("conv_s2_ct", "mma"),
+                      ("conv_s2_ct_bwd", "fma"), ("conv_hr_ct_bwd", "mma")):
+        want = {"fma": 0, "mma": 0, design: per_step[k] * TRAIN_STEPS}
         if by_design[k] != want:
             failures.append(f"gan-train: {k} launched {by_design[k]} by design, expected {want}")
     # G's forward: every step, plus each validation image at steps 8 and 16
@@ -1505,6 +1618,7 @@ def train_profile(step_ms, make_trainer=None, phase="train-profile"):
         count[name] += 1
     busy = sum(fam.values())
     stage = {k: v for k, v in fam.items() if k.startswith("stage_")}  # csrc/stage_ct.cu
+    # (in the PSNR step the stage kernels are conv_hr_ct_bwd's bf16 launches)
     emit({"phase": phase, "steps": steps, "wall_ms_per_step_traced": wall_ms,
           "untraced_ms_per_step": step_ms, "device_ms_per_step": busy,
           "device_busy_share": busy / step_ms, "device_idle_share": 1 - busy / step_ms,
@@ -1512,7 +1626,9 @@ def train_profile(step_ms, make_trainer=None, phase="train-profile"):
           "by_kernel_ms_per_step": {k: round(v, 4) for k, v in fam.most_common(20)},
           "launches_per_step": {k: count[k] / steps for k, _ in fam.most_common(20)},
           "stage_kernels_ms_per_step": sum(stage.values()),
-          "stage_kernels_by_name_ms_per_step": {k: round(v, 4) for k, v in stage.items()}})
+          "stage_kernels_by_name_ms_per_step": {k: round(v, 4) for k, v in stage.items()},
+          "conv_hr_bwd_tail_kernels_ms_per_step": {  # csrc/tail_ct.cu's bf16 adjoint launches
+              k: fam.get(k, 0.0) for k in ("conv_hr_hid_fix_kernel", "conv_hr_adj_kernel")}})
 
 
 # ---------------------------------------------------------------------------
@@ -2124,6 +2240,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
         launches = main_path(failures, tmp)
     bwd_report = check_bwd_kernels(failures)
+    check_conv_hr_gate(failures)
     noise_report = check_noise_kernels(failures)
     train_check(failures)
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
@@ -2166,7 +2283,8 @@ def main() -> int:
                                ["rel_err"], fused_lr=list(TRAIN_SHAPE))
     for name in BWD_PER_STEP:
         row = bwd_report[(name, "bfloat16")]
-        k = {"name": name, "route": "cuda", "source": BWD_SOURCE,
+        k = {"name": name, "route": "cuda",
+             "source": HR_BWD_SOURCE if name == "conv_hr_ct_bwd" else BWD_SOURCE,
              "replaces": BWD_REPLACES[name], "launches": train_launches[name],
              "max_abs_err": row["max_abs_err"], "rel_err": row["rel_err"], "ms": row["ms"],
              "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -2181,6 +2299,10 @@ def main() -> int:
                      fused_rel_err=fused["rel_err"],
                      fused_source="esrganplus_tpu_torch/csrc/philox.cu",
                      fused_fp32_rel_err=noise_report[("rdb_ct_bwd", "float32")]["rel_err"])
+        if name == "conv_hr_ct_bwd":  # the design, and ms of each of its launches
+            k.update(design=row["design"], step_ms=row["step_ms"],
+                     fp32_design=bwd_report[(name, "float32")]["design"],
+                     fp32_source=BWD_SOURCE + " + esrganplus_tpu_torch/csrc/rdb_ct.cu")
         if name == "upfold_ct_bwd":  # the 2nd stage (64² → 128²) beside the 1st
             second = bwd_report[("upfold_ct_bwd_2nd", "bfloat16")]
             k.update({f"second_call_{f}": second[f]

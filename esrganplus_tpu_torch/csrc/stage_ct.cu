@@ -4,7 +4,8 @@
 //
 // Replaces four TPU kernels of esrganplus_tpu/kernels/stage_ct.py:
 //   * conv_s1_ct (_conv_s1_kernel) and conv_s2_ct (_conv_s2_kernel): the
-//     forward, stage_fwd_kernel<KS = 3 | 4>. fp32 accumulation over taps and
+//     forward, stage_fwd_kernel<KS = 3 | 4> (fp32), stage_fwd_mma_kernel and
+//     stage_fwd_s2_mma_kernel (bf16). fp32 accumulation over taps and
 //     channels, + bias, the activation on the fp32 value, one rounding to T.
 //   * _make_conv_s1_ct_diff (_conv_s1_bwd_kernel) and _make_conv_s2_ct_diff
 //     (_conv_s2_bwd_kernel): the adjoint, split into stage_dgrad_kernel (dx)
@@ -15,14 +16,16 @@
 //     take it rounded to T.
 // The TPU kernels carry the image as column-phase planes [C, pixels] with the
 // stride-2 conv as a phase decimation over parity buffers; none of that layout
-// is kept. Here activations are NHWC, weights HWIO, and the stride-2 conv
-// reads input rows 2i-1..2i+2 and columns 2j-1..2j+2 directly.
+// is kept. Here activations are NHWC, weights HWIO; the FMA stride-2 conv
+// reads input rows 2i-1..2i+2 and columns 2j-1..2j+2 directly, the bf16 one
+// splits its shared input tile into row- and column-parity planes (below).
 //
 // Bound on this card: operations at every flagship shape except the
 // 3-channel entry convs (27 or 48 MAC per output against a 64-channel
 // output write: bytes). Two designs, picked by the caller
-// (kernels/stage_ct.py stage_design): the bf16 3x3 conv and its adjoint run
-// on the tensor cores (the "mma" kernels below); fp32 and the 4x4 conv run the
+// (kernels/stage_ct.py stage_design) per (dtype, kernel size, direction):
+// the bf16 3x3 conv and its adjoint, and the bf16 4x4 forward, run on the
+// tensor cores (the "mma" kernels below); fp32 and the 4x4 adjoint run the
 // FMA kernels, which accumulate on the CUDA cores in fp32 like the trunk
 // kernels: a 256-thread block owns an 8x16 output tile and
 // up to 64 output channels (a wider conv takes several blocks per tile),
@@ -40,6 +43,7 @@
 #include "mma_bf16.cuh"
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -406,10 +410,25 @@ __global__ void stage_wgrad_finish_kernel(const float* __restrict__ part, int np
 //     unrounded value added to the block's db partial. Partial rows and the
 //     fixed-order finishing pass keep the reduction order a function of the
 //     shapes.
+//   * 4x4 stride-2 forward: M = a block's 8x16 output pixels, N = cout, K = 16
+//     taps x cin. Output pixel (i, j) reads padded input row 2i + ky and column
+//     2j + kx, so the block's haloed 18x34 input tile is staged as four parity
+//     planes (row & 1, column & 1) of 9x17 pixels each: tap (ky, kx) of output
+//     pixel (i, j) is pixel (i + ky/2, j + kx/2) of plane (ky & 1, kx & 1), a
+//     shifted row of one plane, as in the 3x3 forward. Eight neighbouring
+//     output pixels are then consecutive plane rows (in the unsplit tile they
+//     would be 2 pixels apart, 4 bank groups against an odd pitch). The planes
+//     hold s2_xc(cout) input channels at a time and the weight ring walks
+//     (chunk, tap) stages: 32 at cout <= 64 (a 63 KB block), 64 at 128 (140 KB,
+//     one block an SM; the 32x32 output of the flagship 128-wide conv makes
+//     only 128 blocks, so fewer, longer chunks win). Measured on the H100
+//     against 4x16 tiles and other chunks (PERF.md). The 4x4 adjoint stays on
+//     the FMA kernels.
 // The forward and data-gradient blocks are 8 warps of 32-pixel warp tiles when
 // a width is above 64 (two ~100 KB blocks an SM), else 4 warps of 64-pixel
 // tiles (fewer ldmatrix per mma: shared-memory bandwidth, not the tensor
-// cores, bounds mma.sync fed from shared memory). Input channels are padded
+// cores, bounds mma.sync fed from shared memory); the stride-2 forward is
+// always 8 warps. Input channels are padded
 // to 16 in shared memory only (the 3-channel entry convs), and an input whose
 // channel count is not a multiple of 8 is staged a pixel at a time with plain
 // loads (no 16-byte alignment). Bound: operations at 64+ channels, bytes at
@@ -435,8 +454,14 @@ constexpr int WG_PIX = WG_TH * TW;
 constexpr int WG_HP = (WG_TH + 2) * HW;
 constexpr int WG_MT = 12;               // m16 tiles of (ci, tap) rows a weight-gradient block owns
 constexpr int WG_XC = 32;               // input channels it stages (see stage_wgrad_mma_kernel)
+constexpr int S2_PW = TW + 1;           // stride-2 forward (TH x TW output pixels): a parity
+constexpr int S2_PP = (TH + 1) * S2_PW; // plane is (TH + 1) x (TW + 1) pixels
+constexpr int S2_NW = 8;                // warps of a stride-2 forward block
 
 __host__ __device__ constexpr int round16(int c) { return (c + 15) / 16 * 16; }
+
+// input channels a stride-2 forward block stages at a time (K rows of a ring slot)
+__host__ __device__ constexpr int s2_xc(int np) { return np > 64 ? 64 : 32; }
 
 // warps and fragments of an N-wide product over PIX = 8 m16 tiles by NW warps
 template <int NP, int NW_>
@@ -450,11 +475,22 @@ struct Tiling {
   static constexpr int MIN_BLOCKS = NW == 8 ? 2 : 3;
 };
 
+// Shared row of pixel p = (y, x) of an RH x RW tile: p itself, or with
+// PARITY (RH, RW even) row (y >> 1) * RW/2 + (x >> 1) of parity plane
+// (y & 1, x & 1), the planes one after another (kernels/stage_ct.py
+// s2_plane_slot mirrors it).
+template <int RH, int RW, bool PARITY>
+__device__ __forceinline__ int tile_slot(int p) {
+  if constexpr (!PARITY) return p;
+  const int y = p / RW, x = p % RW;
+  return ((y & 1) * 2 + (x & 1)) * (RH / 2) * (RW / 2) + (y >> 1) * (RW / 2) + (x >> 1);
+}
+
 // A haloed RH x RW tile of src [B, H, W, c] (origin gy0, gx0; channels
-// c_off .. c_off + cs) into shared [pixel][cs] bf16 rows of `pitch` bytes,
-// zero outside the image and at channels >= c. cp.async when rows are
-// 16-byte aligned (c % 8 == 0), plain loads otherwise.
-template <int RH, int RW>
+// c_off .. c_off + cs) into shared [pixel][cs] bf16 rows of `pitch` bytes
+// (at tile_slot<RH, RW, PARITY>), zero outside the image and at channels >= c.
+// cp.async when rows are 16-byte aligned (c % 8 == 0), plain loads otherwise.
+template <int RH, int RW, bool PARITY = false>
 __device__ __forceinline__ void stage_tile(const bf16* __restrict__ src, unsigned char* dst,
                                            int pitch, int b, int gy0, int gx0, int H, int W,
                                            int c, int c_off, int cs, int tid) {
@@ -466,7 +502,7 @@ __device__ __forceinline__ void stage_tile(const bf16* __restrict__ src, unsigne
       const int p = i / nc, c8 = i % nc;
       const int gy = gy0 + p / RW, gx = gx0 + p % RW, ch = c_off + c8 * 8;
       const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && ch < c;
-      cp_async16(d + p * pitch + c8 * 16,
+      cp_async16(d + tile_slot<RH, RW, PARITY>(p) * pitch + c8 * 16,
                  ok ? src + (((size_t)b * H + gy) * W + gx) * c + ch : src, ok);
     }
   } else {  // a pixel at a time: loads of the real channels, 16-byte stores
@@ -482,7 +518,8 @@ __device__ __forceinline__ void stage_tile(const bf16* __restrict__ src, unsigne
         const int ch = c_off + c8 * 8 + k;
         v[k] = in && ch < c ? px[ch] : __float2bfloat16_rn(0.f);
       }
-      *reinterpret_cast<uint4*>(dst + p * pitch + c8 * 16) = *reinterpret_cast<const uint4*>(v);
+      *reinterpret_cast<uint4*>(dst + tile_slot<RH, RW, PARITY>(p) * pitch + c8 * 16) =
+          *reinterpret_cast<const uint4*>(v);
     }
   }
 }
@@ -666,6 +703,94 @@ __global__ void __launch_bounds__(Tiling<NP, NW>::NTH, Tiling<NP, NW>::MIN_BLOCK
   acc_to_smem<NP, NW>(acc, smem, WP, bias, act, slope, warp, lane);
   __syncthreads();
   smem_to_out(smem, WP, out, b, y0, x0, H, W, NP, tid);
+}
+
+// ---------------------------------------------------------------------------
+// 4x4 stride-2 pad-1 forward: NP = cout, the input as parity planes
+// ---------------------------------------------------------------------------
+
+template <int NP>
+__global__ void __launch_bounds__(Tiling<NP, S2_NW>::NTH, Tiling<NP, S2_NW>::MIN_BLOCKS)
+    stage_fwd_s2_mma_kernel(
+    const bf16* __restrict__ x,      // [B, H, W, cin]
+    const bf16* __restrict__ w,      // [4, 4, cin, NP]
+    const float* __restrict__ bias,  // [NP]
+    bf16* __restrict__ out,          // [B, Ho, Wo, NP]
+    int H, int W, int Ho, int Wo, int cin, int act, float slope) {
+  using Tl = Tiling<NP, S2_NW>;
+  constexpr int XC = s2_xc(NP);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int cinp = round16(cin);
+  const int xc = min(XC, cinp);  // channels of a staged chunk, and K rows of a ring slot
+  const int xp = ldsm_pitch(xc);
+  constexpr int WP = ldsm_pitch(NP);
+  const int slot = xc * WP;
+  const uint32_t xs = smem_u32(smem), ws = xs + 4 * S2_PP * xp;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / Tl::WN, wn = warp % Tl::WN;
+  const int b = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+  const int nkc = (cinp + XC - 1) / XC, nstage = 16 * nkc;
+
+  // the input rows 2*y0 - 1 .. 2*y0 + 2*TH and columns likewise, channel
+  // chunk kc, as four parity planes
+  auto load_x = [&](int kc) {
+    stage_tile<2 * TH + 2, 2 * TW + 2, true>(x, smem, xp, b, 2 * y0 - 1, 2 * x0 - 1, H, W, cin,
+                                             kc * XC, xc, tid);
+  };
+  auto load_w = [&](int s) {  // stage s = (chunk s / 16, tap s % 16) into slot s % NSLOT
+    const int t = s % 16, c0 = (s / 16) * XC, len = min(XC, cinp - c0);
+    const uint32_t dst = ws + (s % NSLOT) * slot;
+    constexpr int NC = NP / 8;
+    for (int i = tid; i < len * NC; i += Tl::NTH) {
+      const int r = i / NC, n8 = i % NC, ci = c0 + r;
+      const bool ok = ci < cin;
+      cp_async16(dst + r * WP + n8 * 16, ok ? w + ((size_t)t * cin + ci) * NP + n8 * 8 : w, ok);
+    }
+  };
+  load_x(0);
+  esr::mma::cp_async_commit();
+  load_w(0);
+  esr::mma::cp_async_commit();
+  load_w(1);
+  esr::mma::cp_async_commit();
+
+  float acc[Tl::MT][Tl::NT8][4];
+#pragma unroll
+  for (int i = 0; i < Tl::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < Tl::NT8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+  uint32_t arow[Tl::MT];  // output tile row = plane row, lane & 15 = plane column
+#pragma unroll
+  for (int i = 0; i < Tl::MT; ++i)
+    arow[i] = xs + ((wm * Tl::MT + i) * S2_PW + (lane & 15)) * xp + (lane >> 4) * 16;
+
+  for (int s = 0; s < nstage; ++s) {
+    if (s > 0 && s % 16 == 0) {  // the next channel chunk replaces this one
+      __syncthreads();           // every warp is done with it
+      load_x(s / 16);
+      esr::mma::cp_async_commit();
+      esr::mma::cp_async_wait<0>();
+    }
+    esr::mma::cp_async_wait<1>();  // the input chunk and stage s have landed
+    __syncthreads();               // ... for every thread, and slot (s+2) % 3 is free
+    if (s + 2 < nstage) load_w(s + 2);
+    esr::mma::cp_async_commit();
+    const int t = s % 16, ky = t / 4, kx = t % 4;
+    const int len = min(XC, cinp - (s / 16) * XC);
+    const int shift = ((ky & 1) * 2 + (kx & 1)) * S2_PP + (ky >> 1) * S2_PW + (kx >> 1);
+    uint32_t a[Tl::MT];
+#pragma unroll
+    for (int i = 0; i < Tl::MT; ++i) a[i] = arow[i] + shift * xp;
+    warp_mma<Tl::MT, Tl::NT8, true>(acc, a, ws + (s % NSLOT) * slot, WP, wn * Tl::NT8 * 8, len,
+                                    lane);
+  }
+  esr::mma::cp_async_wait<0>();
+  __syncthreads();
+  acc_to_smem<NP, S2_NW>(acc, smem, WP, bias, act, slope, warp, lane);
+  __syncthreads();
+  smem_to_out(smem, WP, out, b, y0, x0, Ho, Wo, NP, tid);
 }
 
 // ---------------------------------------------------------------------------
@@ -976,7 +1101,10 @@ enum Op : int { kFwd = 0, kDgrad = 1, kWgrad = 2 };
 
 template <typename T, int C, int KS>
 int dispatch_op(int op, const StageArgs& a, cudaStream_t st) {
-  if (op == kFwd) return launch_fwd<T, C, KS>(a, st);
+  if (op == kFwd) {
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) return (int)cudaErrorInvalidValue;  // mma
+    else return launch_fwd<T, C, KS>(a, st);
+  }
   if (op == kDgrad) return launch_dgrad<T, C, KS>(a, st);
   return launch_wgrad<T, C, KS>(a, st);
 }
@@ -1023,6 +1151,21 @@ int launch_dgrad_mma(const StageArgs& a, cudaStream_t st) {
       static_cast<const mk::bf16*>(a.g), static_cast<const mk::bf16*>(a.outp),
       static_cast<const mk::bf16*>(a.w), static_cast<mk::bf16*>(a.out), a.H, a.W, a.cin,
       a.cout, a.act, a.slope);
+  return (int)cudaGetLastError();
+}
+
+template <int NP>
+int launch_fwd_s2_mma(const StageArgs& a, cudaStream_t st) {
+  const int xc = std::min(mk::s2_xc(NP), mk::round16(a.cin));
+  const size_t smem = std::max<size_t>(
+      (size_t)4 * mk::S2_PP * mk::ldsm_pitch(xc) +
+          (size_t)mk::NSLOT * xc * mk::ldsm_pitch(NP),
+      (size_t)mk::PIX * mk::ldsm_pitch(NP));
+  if (int e = mk::smem_opt_in(mk::stage_fwd_s2_mma_kernel<NP>, smem)) return e;
+  const dim3 grid((a.Wo + mk::TW - 1) / mk::TW, (a.Ho + mk::TH - 1) / mk::TH, a.B);
+  mk::stage_fwd_s2_mma_kernel<NP><<<grid, mk::S2_NW * 32, smem, st>>>(
+      static_cast<const mk::bf16*>(a.x), static_cast<const mk::bf16*>(a.w), a.bias,
+      static_cast<mk::bf16*>(a.out), a.H, a.W, a.Ho, a.Wo, a.cin, a.act, a.slope);
   return (int)cudaGetLastError();
 }
 
@@ -1088,10 +1231,22 @@ ESR_BY_WIDTH(launch_fwd_mma)
 ESR_BY_WIDTH(launch_dgrad_mma)
 #undef ESR_BY_WIDTH
 
+int launch_fwd_s2_mma_w(int np, const StageArgs& a, cudaStream_t st) {
+  switch (np) {
+    case 8: return launch_fwd_s2_mma<8>(a, st);
+    case 16: return launch_fwd_s2_mma<16>(a, st);
+    case 32: return launch_fwd_s2_mma<32>(a, st);
+    case 64: return launch_fwd_s2_mma<64>(a, st);
+    case 128: return launch_fwd_s2_mma<128>(a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 enum Design : int { kFma = 0, kMma = 1 };  // kernels/stage_ct.py stage_design
 
-int dispatch_mma(int op, const StageArgs& a, cudaStream_t st) {
+int dispatch_mma(int ks, int op, const StageArgs& a, cudaStream_t st) {
   if (a.cin < 1 || a.cin > 128) return (int)cudaErrorInvalidValue;
+  if (ks == 4) return launch_fwd_s2_mma_w(a.cout, a, st);
   if (op == kFwd) return launch_fwd_mma_w(a.cout, a, st);
   if (op == kDgrad) return launch_dgrad_mma_w(pow2_width(a.cin, 8), a, st);
   return launch_wgrad_mma_w(a.cout, a, st);
@@ -1100,10 +1255,11 @@ int dispatch_mma(int op, const StageArgs& a, cudaStream_t st) {
 int dispatch(int dtype, int ks, int design, int op, int chunk, const StageArgs& a,
              cudaStream_t st) {
   if (ks != 3 && ks != 4) return (int)cudaErrorInvalidValue;
-  // one design per (dtype, ks): the bf16 3x3 conv on the tensor cores, the rest on the FMA kernels
-  const bool mma = dtype == esr::kBFloat16 && ks == 3;
+  // one design per (dtype, ks, op): the bf16 3x3 conv, its adjoint and the bf16
+  // 4x4 forward on the tensor cores, the rest on the FMA kernels
+  const bool mma = dtype == esr::kBFloat16 && (ks == 3 || op == kFwd);
   if (design != (mma ? kMma : kFma)) return (int)cudaErrorInvalidValue;
-  if (mma) return dispatch_mma(op, a, st);
+  if (mma) return dispatch_mma(ks, op, a, st);
   if (dtype == esr::kFloat32)
     return ks == 3 ? dispatch_chunk<float, 3>(op, chunk, a, st)
                    : dispatch_chunk<float, 4>(op, chunk, a, st);
@@ -1125,9 +1281,10 @@ extern "C" {
 
 // ks = 3: SAME 3x3 stride 1; ks = 4: 4x4 stride 2 pad 1 (H and W even).
 // x [B,H,W,cin], w [ks,ks,cin,cout], bias fp32 [cout] -> out [B,Ho,Wo,cout].
-// `design`: 1 (the tensor-core kernels) for bf16 at ks = 3, else 0 (the FMA
-// kernels); any other value returns cudaErrorInvalidValue. `chunk` (FMA only)
-// divides cout. Every function returns cudaGetLastError().
+// `design`: 1 (the tensor-core kernels) for bf16 at ks = 3, and for the bf16
+// forward at ks = 4, else 0 (the FMA kernels); any other value returns
+// cudaErrorInvalidValue. `chunk` (FMA only) divides cout. Every function
+// returns cudaGetLastError().
 int esr_stage_fwd(int dtype, int ks, int design, int chunk, const void* x, const void* w,
                   const float* bias, void* out, int B, int H, int W, int cin, int cout, int act,
                   float slope, void* stream) {

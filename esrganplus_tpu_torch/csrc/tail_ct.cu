@@ -24,9 +24,16 @@
 // with the same register tiling (4-6 pixels x C/8 channels per thread) over
 // shared-memory tiles; the 2x2 fold cuts upfold's work 2.25x, and conv_hr
 // never writes or re-reads its 64-channel HR intermediate.
+//
+// Also two launches of conv_hr's bf16 adjoint (_make_conv_hr_ct_diff,
+// _conv_hr_bwd_kernel): conv_hr_hid_fix_kernel and conv_hr_adj_kernel below;
+// kernels/tail_ct.py conv_hr_ct_bwd runs them between the stage tensor-core
+// kernels of stage_ct.cu.
 #include <algorithm>
 
 #include "common.cuh"
+#include "mma_bf16.cuh"
+#include "wgrad.cuh"
 
 namespace {
 
@@ -247,6 +254,360 @@ __global__ void __launch_bounds__(NT) conv_hr_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// conv_hr's adjoint, bf16 design. kernels/tail_ct.py conv_hr_ct_bwd recomputes
+// hid = bf16(lrelu(conv0(x) + b0)) with the stage forward (its entries near 0
+// then rewritten by conv_hr_hid_fix_kernel, below), runs this kernel, then
+// conv0's adjoint (dW0 and dx) on the stage tensor-core kernels. One
+// pass over hid and conv1's output cotangent g forms
+//   dz0[p, c] = lrelu'(hid[p, c]) * sum_{t, co} g[p + 1 - d(t), co] * w1[t, c, co]
+// in fp32, adds it unrounded to db0, stores it rounded once, and sums
+//   dW1[t, c, co] = sum_p hid[p + d(t) - 1, c] * g[p, co],   db1[co] = sum_p g[p, co].
+// K = 9 * CO2 (27) for dz0 and N = CO2 (3) for dW1 are too narrow for mma.sync:
+// both run on the CUDA cores in fp32 (~0.9 GFLOP each at the flagship shape),
+// and the bound is bytes (hid read, dz0 written: 33.5 MB each). A thread
+// forms 8 channels of dz0 for NZ pixels (w1 as float4 from shared memory, g
+// broadcast), and one channel's 9 x CO2 dW1 sums over a run of pixels with a
+// sliding 3x3 register window. Block `part` walks a fixed range of 8x16 pixel
+// tiles (hid haloed by cp.async, double-buffered; g prefetched into
+// registers, staged as fp32) and writes its dW1 | db1 | db0 sums to row
+// `part` of a workspace; wgrad_finish_kernel adds the rows in order, so the
+// reduction order is a function of the shapes (kernels/tail_ct.py
+// conv_hr_adj_ranges mirrors the partition).
+// ---------------------------------------------------------------------------
+
+namespace adj {
+
+using bf16 = __nv_bfloat16;
+constexpr int HW = TW + 2;          // haloed tile width
+constexpr int HPX = (TH + 2) * HW;  // haloed tile pixels (180)
+constexpr int PIX = TH * TW;
+
+template <int C, int CO2P>
+struct Plan {
+  static constexpr int NG = C / 8;                    // 8-channel groups of a pixel (dz0)
+  static constexpr int ZSTEP = NT / NG;               // pixel stride of a thread's dz0 pixels
+  static constexpr int NZ = (PIX + ZSTEP - 1) / ZSTEP;
+  static constexpr int Q = NT / C;                    // threads of a channel (dW1)
+  static constexpr int SEG = PIX / Q;                 // pixels each of them walks
+  static constexpr int L = SEG < TW ? SEG : TW;       // a run along one tile row
+  static constexpr int NSEG = SEG / L;
+  static constexpr int HBYTES = HPX * C * 2;          // one hid buffer
+  static constexpr int GFL = HPX * CO2P;              // one g buffer, floats
+  static constexpr int GPT = (GFL + NT - 1) / NT;     // g values a thread prefetches
+  static constexpr size_t SMEM_MAIN = 2 * (size_t)HBYTES + 4 * (2 * (size_t)GFL + 9 * CO2P * C);
+  static constexpr size_t SMEM_RED = 4 * (size_t)9 * NT;  // dW1's [Q][9][C] (db0's [NT][8] is less)
+  static constexpr size_t SMEM = SMEM_MAIN > SMEM_RED ? SMEM_MAIN : SMEM_RED;
+};
+
+// two blocks an SM (128 registers) for up to 3 output channels; 8 would spill there
+template <int C, int CO2P>
+__global__ void __launch_bounds__(NT, CO2P > 3 ? 1 : 2) conv_hr_adj_kernel(
+    const bf16* __restrict__ g,    // [B, H, W, co2]: conv1's output cotangent
+    const bf16* __restrict__ w1,   // [3, 3, C, co2]
+    const bf16* __restrict__ hid,  // [B, H, W, C]: conv0's activation, rounded
+    bf16* __restrict__ dz0,        // [B, H, W, C]
+    float* __restrict__ part,      // [npart][9*C*co2 + co2 + C]: dW1 | db1 | db0
+    int co2, int H, int W, float slope, int tiles_per_part, int total_tiles, int tiles_x,
+    int tiles_y) {
+  using Pl = Plan<C, CO2P>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* gs = reinterpret_cast<float*>(smem + 2 * Pl::HBYTES);  // [2][HPX][CO2P]
+  float* w1s = gs + 2 * Pl::GFL;                                 // [9][CO2P][C]
+  const int tid = threadIdx.x;
+  const int c = tid % C, q = tid / C;              // dW1: channel, pixel run
+  const int cg = tid % Pl::NG, zp = tid / Pl::NG;  // dz0: channel group, first pixel
+  const int tbeg = blockIdx.x * tiles_per_part;
+  const int ntile = min(total_tiles, tbeg + tiles_per_part) - tbeg;
+  float* dst = part + (size_t)blockIdx.x * (9 * C * co2 + co2 + C);
+
+  for (int i = tid; i < 9 * CO2P * C; i += NT) {
+    const int cc = i % C, co = i / C % CO2P, t = i / (C * CO2P);
+    w1s[i] = co < co2 ? __bfloat162float(w1[((size_t)t * C + cc) * co2 + co]) : 0.f;
+  }
+  auto origin = [&](int it, int& b, int& y0, int& x0) {
+    const int tile = tbeg + it;
+    b = tile / (tiles_x * tiles_y);
+    y0 = tile / tiles_x % tiles_y * TH;
+    x0 = tile % tiles_x * TW;
+  };
+  // the haloed hid tile, zero outside the image (conv1's SAME padding)
+  auto load_hid = [&](int it) {
+    int b, y0, x0;
+    origin(it, b, y0, x0);
+    const uint32_t d = esr::mma::smem_u32(smem + (it & 1) * Pl::HBYTES);
+    constexpr int NC = C / 8;
+    for (int i = tid; i < HPX * NC; i += NT) {
+      const int p = i / NC, c8 = i % NC, gy = y0 - 1 + p / HW, gx = x0 - 1 + p % HW;
+      const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      esr::mma::cp_async16(d + p * C * 2 + c8 * 16,
+                           ok ? hid + (((size_t)b * H + gy) * W + gx) * C + c8 * 8 : hid, ok);
+    }
+  };
+  float gr[Pl::GPT];  // element tid + k * NT of the next haloed g tile, [pixel][CO2P]
+  auto load_g = [&](int it) {
+    int b, y0, x0;
+    origin(it, b, y0, x0);
+#pragma unroll
+    for (int k = 0; k < Pl::GPT; ++k) {
+      const int i = tid + k * NT, p = i / CO2P, co = i % CO2P;
+      const int gy = y0 - 1 + p / HW, gx = x0 - 1 + p % HW;
+      const bool ok = i < Pl::GFL && co < co2 && gy >= 0 && gy < H && gx >= 0 && gx < W;
+      gr[k] = ok ? __bfloat162float(g[(((size_t)b * H + gy) * W + gx) * co2 + co]) : 0.f;
+    }
+  };
+
+  float wacc[9][CO2P], gsum[CO2P], zsum[8];
+#pragma unroll
+  for (int co = 0; co < CO2P; ++co) {
+    gsum[co] = 0.f;
+#pragma unroll
+    for (int t = 0; t < 9; ++t) wacc[t][co] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) zsum[j] = 0.f;
+
+  if (ntile > 0) {
+    load_hid(0);
+    load_g(0);
+  }
+  esr::mma::cp_async_commit();
+  for (int it = 0; it < ntile; ++it) {
+    if (it + 1 < ntile) load_hid(it + 1);
+    esr::mma::cp_async_commit();
+    float* gcur = gs + (it & 1) * Pl::GFL;
+#pragma unroll
+    for (int k = 0; k < Pl::GPT; ++k)
+      if (tid + k * NT < Pl::GFL) gcur[tid + k * NT] = gr[k];
+    if (it + 1 < ntile) load_g(it + 1);
+    esr::mma::cp_async_wait<1>();
+    __syncthreads();
+    const unsigned char* hcur = smem + (it & 1) * Pl::HBYTES;
+    int b, y0, x0;
+    origin(it, b, y0, x0);
+
+    // dz0 for channels cg*8 .. +8 of pixels zp, zp + ZSTEP, ...
+    float acc[Pl::NZ][8];
+#pragma unroll
+    for (int k = 0; k < Pl::NZ; ++k)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[k][j] = 0.f;
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+#pragma unroll
+      for (int co = 0; co < CO2P; ++co) {
+        const float4 wl = *reinterpret_cast<const float4*>(w1s + (t * CO2P + co) * C + cg * 8);
+        const float4 wh = *reinterpret_cast<const float4*>(w1s + (t * CO2P + co) * C + cg * 8 + 4);
+        const float wv[8] = {wl.x, wl.y, wl.z, wl.w, wh.x, wh.y, wh.z, wh.w};
+#pragma unroll
+        for (int k = 0; k < Pl::NZ; ++k) {
+          const int p = min(zp + k * Pl::ZSTEP, PIX - 1);  // (past PIX: C = 8's idle half)
+          const float gv = gcur[((p / TW + 2 - t / 3) * HW + p % TW + 2 - t % 3) * CO2P + co];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[k][j] = fmaf(gv, wv[j], acc[k][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < Pl::NZ; ++k) {
+      const int p = zp + k * Pl::ZSTEP, y = y0 + p / TW, xx = x0 + p % TW;
+      if (p >= PIX || y >= H || xx >= W) continue;
+      const uint4 hv = *reinterpret_cast<const uint4*>(
+          hcur + ((p / TW + 1) * HW + p % TW + 1) * C * 2 + cg * 16);
+      const bf16* hb = reinterpret_cast<const bf16*>(&hv);
+      float d[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        d[j] = __bfloat162float(hb[j]) >= 0.f ? acc[k][j] : acc[k][j] * slope;
+        zsum[j] += d[j];
+      }
+      uint4 r;
+      r.x = esr::mma::pack_bf16(d[0], d[1]);
+      r.y = esr::mma::pack_bf16(d[2], d[3]);
+      r.z = esr::mma::pack_bf16(d[4], d[5]);
+      r.w = esr::mma::pack_bf16(d[6], d[7]);
+      *reinterpret_cast<uint4*>(dz0 + (((size_t)b * H + y) * W + xx) * C + cg * 8) = r;
+    }
+
+    // dW1 and db1 over this thread's runs of L pixels along a tile row
+    const bf16* hc = reinterpret_cast<const bf16*>(hcur) + c;  // channel c of pixel p: hc[p * C]
+#pragma unroll
+    for (int sg = 0; sg < Pl::NSEG; ++sg) {
+      const int base = q * Pl::SEG + sg * Pl::L, ly = base / TW, lx0 = base % TW;
+      float a[3][3];
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 2; ++dx)
+          a[dy][dx] = __bfloat162float(hc[((ly + dy) * HW + lx0 + dx) * C]);
+#pragma unroll
+      for (int px = 0; px < Pl::L; ++px) {
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy)
+          a[dy][2] = __bfloat162float(hc[((ly + dy) * HW + lx0 + px + 2) * C]);
+        const float* gp = gcur + ((ly + 1) * HW + lx0 + px + 1) * CO2P;
+#pragma unroll
+        for (int co = 0; co < CO2P; ++co) {
+          const float gv = gp[co];
+          gsum[co] += gv;
+#pragma unroll
+          for (int t = 0; t < 9; ++t) wacc[t][co] = fmaf(a[t / 3][t % 3], gv, wacc[t][co]);
+        }
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) a[dy][0] = a[dy][1], a[dy][1] = a[dy][2];
+      }
+    }
+    __syncthreads();
+  }
+  esr::mma::cp_async_wait<0>();
+  __syncthreads();
+
+  // the block's sums, each in a fixed order: dW1 over the Q runs of a channel
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int co = 0; co < CO2P; ++co) {
+    if (co >= co2) break;
+#pragma unroll
+    for (int t = 0; t < 9; ++t) red[(q * 9 + t) * C + c] = wacc[t][co];
+    __syncthreads();
+    for (int i = tid; i < 9 * C; i += NT) {
+      float v = 0.f;
+      for (int r = 0; r < Pl::Q; ++r) v += red[r * 9 * C + i];
+      dst[(size_t)i * co2 + co] = v;  // i = t * C + channel: HWIO
+    }
+    __syncthreads();
+  }
+  if (c == 0) {  // db1: the runs of channel 0's threads
+#pragma unroll
+    for (int co = 0; co < CO2P; ++co) red[q * CO2P + co] = gsum[co];
+  }
+  __syncthreads();
+  if (tid < co2) {
+    float v = 0.f;
+    for (int r = 0; r < Pl::Q; ++r) v += red[r * CO2P + tid];
+    dst[9 * C * co2 + tid] = v;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 8; ++j) red[tid * 8 + j] = zsum[j];  // db0: the unrounded dz0
+  __syncthreads();
+  if (tid < C) {
+    float v = 0.f;
+    for (int r = tid / 8; r < NT; r += Pl::NG) v += red[r * 8 + tid % 8];
+    dst[9 * C * co2 + co2 + tid] = v;
+  }
+}
+
+// hid's near-zero entries as the FMA design computes them. The gate of
+// conv_hr_adj_kernel is lrelu'(hid), the sign of conv0's pre-activation v.
+// The tensor cores' fp32 accumulation of the recompute errs by ~1e-6 of the
+// activations' scale, so a v that close to 0 can take the other sign than the
+// FMA design's sum gives it (and cuDNN's fp32 conv, the twin's, which gives
+// the same bits); at the flagship shape ~1 element in 16.7M flips a call, and
+// one flipped gate moves dx by up to ~0.8 |dhid| |w0|, a few % of max|dx|. A
+// thread reads 8 channels of one pixel; each whose |hid| is below GATE_EPS of
+// their largest is recomputed as dense_conv3x3_kernel sums it, bit for bit:
+// its fmaf chain over the input channels, the 9 taps inside, then + b0, then
+// lrelu and one rounding. A bf16 x bf16 product is exact in fp32, so each
+// fmaf is one rounded add: the warp forms the 9*C products (x and w0 from
+// global memory) into shared memory and one lane adds them in the chain's
+// order. ~5e-5 of the elements at random inputs; the pass is a read of hid.
+constexpr float GATE_EPS = 1.f / 65536;
+
+template <int C>
+__global__ void __launch_bounds__(NT) conv_hr_hid_fix_kernel(
+    bf16* __restrict__ hid,        // [B, H, W, C]: rewritten where near 0
+    const bf16* __restrict__ x,    // [B, H, W, C]: conv0's input
+    const bf16* __restrict__ w0,   // [3, 3, C, C]
+    const float* __restrict__ b0,  // [C]
+    int n8, int H, int W, float slope) {
+  __shared__ float prod[NT / 32][9 * C];  // a warp's products of the element it recomputes
+  const int tid = threadIdx.x, lane = tid & 31, i = blockIdx.x * NT + tid;
+  uint4 hv = i < n8 ? reinterpret_cast<const uint4*>(hid)[i] : uint4{0, 0, 0, 0};
+  bf16* hb = reinterpret_cast<bf16*>(&hv);
+  float scale = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) scale = fmaxf(scale, fabsf(__bfloat162float(hb[j])));
+  uint32_t todo = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    todo |= (uint32_t)(i < n8 && fabsf(__bfloat162float(hb[j])) < GATE_EPS * scale) << j;
+  const bool any = todo != 0;
+  while (__any_sync(0xffffffffu, todo != 0)) {  // the warp's near-zero entries, one at a time
+    const int leader = __ffs(__ballot_sync(0xffffffffu, todo != 0)) - 1;
+    const int j = __shfl_sync(0xffffffffu, todo ? __ffs(todo) - 1 : 0, leader);
+    const int e = __shfl_sync(0xffffffffu, i, leader) * 8 + j;  // element of hid
+    const int c = e % C, pix = e / C, xx = pix % W, y = pix / W % H, b = pix / (W * H);
+    for (int k = lane; k < 9 * C; k += 32) {  // product k = (ci = k / 9, tap k % 9), exact
+      const int ci = k / 9, t = k % 9, gy = y + t / 3 - 1, gx = xx + t % 3 - 1;
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      prod[tid / 32][k] = in ? __bfloat162float(x[(((size_t)b * H + gy) * W + gx) * C + ci]) *
+                                   __bfloat162float(w0[((size_t)t * C + ci) * C + c])
+                             : 0.f;
+    }
+    __syncwarp();
+    if (lane == leader) {
+      float v = 0.f;
+#pragma unroll 16
+      for (int k = 0; k < 9 * C; ++k) v += prod[tid / 32][k];
+      hb[j] = __float2bfloat16_rn(esr::lrelu(v + b0[c], slope));
+      todo &= todo - 1;
+    }
+    __syncwarp();
+  }
+  if (any) reinterpret_cast<uint4*>(hid)[i] = hv;
+}
+
+}  // namespace adj
+
+template <int C, int CO2P>
+int launch_conv_hr_adj(int co2, const void* g, const void* w1, const void* hid, void* dz0,
+                       float* part, int npart, float* out, int B, int H, int W, float slope,
+                       cudaStream_t s) {
+  using Pl = adj::Plan<C, CO2P>;
+  cudaError_t e = cudaFuncSetAttribute(adj::conv_hr_adj_kernel<C, CO2P>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Pl::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
+  const int total = B * tiles_x * tiles_y;
+  const int per = (total + npart - 1) / npart;
+  adj::conv_hr_adj_kernel<C, CO2P><<<npart, NT, Pl::SMEM, s>>>(
+      static_cast<const adj::bf16*>(g), static_cast<const adj::bf16*>(w1),
+      static_cast<const adj::bf16*>(hid), static_cast<adj::bf16*>(dz0), part, co2, H, W, slope,
+      per, total, tiles_x, tiles_y);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int row = 9 * C * co2 + co2 + C;
+  esr::wgrad::wgrad_finish_kernel<<<(row + 255) / 256, 256, 0, s>>>(part, npart, row, out);
+  return (int)cudaGetLastError();
+}
+
+template <int CO2P>
+int conv_hr_adj_c(int C, int co2, const void* g, const void* w1, const void* hid, void* dz0,
+                  float* part, int npart, float* out, int B, int H, int W, float slope,
+                  cudaStream_t s) {
+#define ESR_ADJ(CC) \
+  launch_conv_hr_adj<CC, CO2P>(co2, g, w1, hid, dz0, part, npart, out, B, H, W, slope, s)
+  switch (C) {
+    case 8: return ESR_ADJ(8);
+    case 16: return ESR_ADJ(16);
+    case 32: return ESR_ADJ(32);
+    case 64: return ESR_ADJ(64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef ESR_ADJ
+}
+
+template <int C>
+int launch_conv_hr_hid_fix(void* hid, const void* x, const void* w0, const float* b0, int B,
+                           int H, int W, float slope, cudaStream_t s) {
+  const int n8 = B * H * W * C / 8;
+  adj::conv_hr_hid_fix_kernel<C><<<(n8 + NT - 1) / NT, NT, 0, s>>>(
+      static_cast<adj::bf16*>(hid), static_cast<const adj::bf16*>(x),
+      static_cast<const adj::bf16*>(w0), b0, n8, H, W, slope);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int CO>
 int launch_upfold(const void* x, int C, const void* wf, const void* bias, void* out, int B,
                   int H, int W, float slope, cudaStream_t s) {
@@ -324,6 +685,38 @@ int esr_conv_hr(int dtype, int C, int CO2, const void* x, const void* w0, const 
   if (dtype == esr::kBFloat16)
     return conv_hr_c<__nv_bfloat16>(C, CO2, x, w0, b0, w1, b1, out, B, H, W, slope, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// conv_hr's bf16 adjoint, after the recompute of hid [B,H,W,C] bf16 on the
+// tensor cores (conv_hr_hid_fix_kernel): its entries near 0 recomputed as the
+// FMA design computes them, from conv0's input x [B,H,W,C], w0 [3,3,C,C]
+// (bf16) and b0 [C] (fp32), in place. Returns cudaGetLastError().
+int esr_conv_hr_hid_fix(int C, void* hid, const void* x, const void* w0, const float* b0, int B,
+                        int H, int W, float slope, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 8: return launch_conv_hr_hid_fix<8>(hid, x, w0, b0, B, H, W, slope, s);
+    case 16: return launch_conv_hr_hid_fix<16>(hid, x, w0, b0, B, H, W, slope, s);
+    case 32: return launch_conv_hr_hid_fix<32>(hid, x, w0, b0, B, H, W, slope, s);
+    case 64: return launch_conv_hr_hid_fix<64>(hid, x, w0, b0, B, H, W, slope, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// conv_hr's bf16 adjoint, middle launch (conv_hr_adj_kernel): dz0 [B,H,W,C]
+// bf16 from g [B,H,W,CO2], w1 [3,3,C,CO2] and hid [B,H,W,C] (all bf16);
+// out[0 : 9*C*CO2] = dW1 (HWIO), then db1 [CO2], then db0 [C], fp32. `part` is
+// an fp32 workspace of npart * (9*C*CO2 + CO2 + C) floats; part p sums the
+// 8x16 pixel tiles [p * per, (p + 1) * per), per = ceil(tiles / npart)
+// (kernels/tail_ct.py conv_hr_adj_ranges). Returns cudaGetLastError().
+int esr_conv_hr_adj(int C, int CO2, const void* g, const void* w1, const void* hid, void* dz0,
+                    float* part, int npart, float* out, int B, int H, int W, float slope,
+                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (npart < 1 || CO2 < 1 || CO2 > 8) return (int)cudaErrorInvalidValue;
+  // the output channels, padded to an instance: 1, 3 (RGB) or 8
+  auto by_co2 = CO2 == 1 ? conv_hr_adj_c<1> : CO2 <= 3 ? conv_hr_adj_c<3> : conv_hr_adj_c<8>;
+  return by_co2(C, CO2, g, w1, hid, dz0, part, npart, out, B, H, W, slope, s);
 }
 
 }  // extern "C"

@@ -69,6 +69,8 @@ SIGNATURES = {
     "tail_ct": {
         "esr_upfold": [I, I, I, P, P, P, P, I, I, I, F, P],
         "esr_conv_hr": [I, I, I, P, P, P, P, P, P, I, I, I, F, P],
+        "esr_conv_hr_hid_fix": [I, P, P, P, P, I, I, I, F, P],
+        "esr_conv_hr_adj": [I, I, P, P, P, P, P, I, P, I, I, I, F, P],
     },
     "stage_ct": {
         "esr_stage_fwd": [I, I, I, I, P, P, P, P, I, I, I, I, I, I, F, P],

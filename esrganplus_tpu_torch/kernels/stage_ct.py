@@ -27,12 +27,14 @@ gradient for frozen weights (the perceptual net; the discriminator while the
 generator is updated), no data gradient for an input that needs none (the
 discriminator's first conv on an image).
 
-Two designs of the CUDA kernels, picked by :func:`stage_design`: the bf16 3×3
-conv and its adjoint run as implicit GEMMs on the tensor cores (``"mma"``:
-``mma.sync`` bf16 with fp32 accumulators, operands staged by ``cp.async`` and
-read by ``ldmatrix``); fp32 and the 4×4 conv run on the CUDA cores (``"fma"``).
-Both round where the twins round. Each wrapper counts its launches, and
-``launches_by_design`` counts them by design.
+Two designs of the CUDA kernels, picked by :func:`stage_design` per dtype,
+kernel size and direction: the bf16 3×3 conv, its adjoint and the bf16 4×4
+forward run as implicit GEMMs on the tensor cores (``"mma"``: ``mma.sync``
+bf16 with fp32 accumulators, operands staged by ``cp.async`` and read by
+``ldmatrix``; the 4×4 forward stages its input as four parity planes, see
+:func:`s2_plane_slot`); fp32 and the 4×4 adjoint run on the CUDA cores
+(``"fma"``). Both round where the twins round. Each wrapper counts its
+launches, and ``launches_by_design`` counts them by design.
 
 A CPU tensor goes to the plain twin (``*_plain``); a CUDA tensor launches the
 kernel or raises.
@@ -51,8 +53,10 @@ from esrganplus_tpu_torch.models.layers import fp32_exact
 
 ACTS = {None: 0, "relu": 1, "lrelu": 2}  # csrc/stage_ct.cu Act
 DESIGNS = {"fma": 0, "mma": 1}            # csrc/stage_ct.cu Design
+OPS = ("fwd", "bwd")                      # the directions stage_design tells apart
 STAGE_WIDTHS = (8, 16, 32, 64, 128)      # output-channel counts the kernels take
 MAX_CIN = 128
+S2_TILE = (8, 16)  # output rows × columns of a 4×4 tensor-core forward block (TH, TW)
 
 # (weights in the working dtype, fp32 bias) from HWIO masters
 prepare_stage_ct = prepare_conv_ct_weights
@@ -171,13 +175,38 @@ def _dgrad_chunk(cin: int) -> int:
     return next(c for c in (8, 16, 32, 64) if c >= min(cin, 64))
 
 
-def stage_design(dtype: torch.dtype, ks: int, cin: int, cout: int) -> str:
-    """Which CUDA design runs a stage conv: ``"mma"`` (bf16 tensor cores) for
-    the bf16 3×3 conv at every width the kernels take, ``"fma"`` (fp32 on
-    the CUDA cores) for fp32, whose 1e-4 bar TF32 would miss, and for the 4×4
-    stride-2 conv."""
+def stage_design(dtype: torch.dtype, ks: int, cin: int, cout: int, op: str) -> str:
+    """Which CUDA design runs a stage conv in direction ``op`` (``"fwd"`` or
+    ``"bwd"``): ``"mma"`` (bf16 tensor cores) for the bf16 3×3 conv, its
+    adjoint and the bf16 4×4 forward, at every width the kernels take;
+    ``"fma"`` (fp32 on the CUDA cores) for fp32, whose 1e-4 bar TF32 would
+    miss, and for the 4×4 adjoint."""
+    if op not in OPS:
+        raise ValueError(f"op must be one of {OPS}, got {op!r}")
     require_stage_widths(cin, cout)
-    return "mma" if dtype == torch.bfloat16 and ks == 3 else "fma"
+    return "mma" if dtype == torch.bfloat16 and (ks == 3 or op == "fwd") else "fma"
+
+
+def s2_plane_slot(dy, dx, th: int = S2_TILE[0], tw: int = S2_TILE[1]):
+    """Shared-memory row of pixel (dy, dx) of a 4×4 tensor-core forward
+    block's haloed ``(2·th + 2) × (2·tw + 2)`` input tile (its origin is input
+    pixel (2·y0 − 1, 2·x0 − 1)): row ``(dy >> 1)·(tw + 1) + (dx >> 1)`` of
+    parity plane ``(dy & 1, dx & 1)``, the four planes of ``(th + 1)·(tw + 1)``
+    rows one after another. Mirrors ``csrc/stage_ct.cu`` ``tile_slot``; takes
+    ints or integer tensors."""
+    pw = tw + 1
+    return ((dy & 1) * 2 + (dx & 1)) * (th + 1) * pw + (dy >> 1) * pw + (dx >> 1)
+
+
+def s2_tap_slot(ly, lx, ky, kx, th: int = S2_TILE[0], tw: int = S2_TILE[1]):
+    """The row that tap (ky, kx) of the block's output pixel (ly, lx) reads:
+    pixel ``(ly + ky/2, lx + kx/2)`` of plane ``(ky & 1, kx & 1)``, i.e. the
+    A row of output pixel (ly, lx) shifted by the tap's offset, as
+    ``stage_fwd_s2_mma_kernel`` computes it. Equal to
+    ``s2_plane_slot(2·ly + ky, 2·lx + kx)``."""
+    pw = tw + 1
+    shift = ((ky & 1) * 2 + (kx & 1)) * (th + 1) * pw + (ky >> 1) * pw + (kx >> 1)
+    return ly * pw + lx + shift
 
 
 def stage_wgrad_tiles(B: int, Ho: int, Wo: int, ks: int, design: str = "fma") -> int:
@@ -254,7 +283,7 @@ def _fwd(fn, ks, x, w, bias, act, slope):
     dt, dev = x.dtype, x.device
     B, H, W, cin, cout, Ho, Wo = _validate(fn.__name__, ks, x, w, dt, dev)
     build.require(bias, "bias", (cout,), torch.float32, dev)
-    design = stage_design(dt, ks, cin, cout)
+    design = stage_design(dt, ks, cin, cout, "fwd")
     x, w = _aligned(x), _aligned(w)
     lib = build.load("stage_ct")
     out = torch.empty((B, Ho, Wo, cout), dtype=dt, device=dev)
@@ -281,7 +310,8 @@ def conv_s2_ct(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,
                act: Optional[str] = None, slope: float = 0.2) -> torch.Tensor:
     """4×4 stride-2 pad-1 conv + bias + fused activation: NHWC
     ``[B, H, W, C]`` (H, W even) → ``[B, H/2, W/2, CO]``.
-    ``conv_s2_ct.launches`` counts CUDA launches."""
+    ``conv_s2_ct.launches`` counts CUDA launches, ``launches_by_design``
+    them by design (bf16 on the tensor cores)."""
     return _fwd(conv_s2_ct, 4, x, w, bias, act, slope)
 
 
@@ -298,7 +328,7 @@ def _bwd(fn, ks, x, w, out, g, act, slope, need_dx, need_dw) -> dict:
     build.require(g, "g", (B, Ho, Wo, cout), dt, dev)
     if act is not None:
         build.require(out, "out", (B, Ho, Wo, cout), dt, dev)
-    design = stage_design(dt, ks, cin, cout)
+    design = stage_design(dt, ks, cin, cout, "bwd")
     x, w, g = _aligned(x), _aligned(w), _aligned(g)
     out = None if act is None else _aligned(out)  # held until the launches are queued
     outp = None if out is None else out.data_ptr()

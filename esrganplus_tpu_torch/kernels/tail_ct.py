@@ -11,12 +11,17 @@ outside the image before conv1, and conv1's output in the working dtype.
 
 Training goes through ``upfold_ct_diff`` and ``conv_hr_ct_diff``
 (``torch.autograd.Function``s; fp32 master weights in, fp32 gradients out).
-Their backwards, ``upfold_ct_bwd`` and ``conv_hr_ct_bwd``, are built from the
-data- and weight-gradient kernels of ``csrc/dgrad_ct.cu`` and
-``csrc/wgrad_ct.cu``: the upconv's per-phase 2×2 convs are embedded in 3×3 taps
-and read the HR cotangent through a phase view, gated by the saved output's
-sign; conv_hr's adjoint recomputes conv0's activation with the forward's dense
-kernel, as the TPU kernel recomputes it per stripe.
+``upfold_ct_bwd`` is built from the data- and weight-gradient kernels of
+``csrc/dgrad_ct.cu`` and ``csrc/wgrad_ct.cu``: the upconv's per-phase 2×2 convs
+are embedded in 3×3 taps and read the HR cotangent through a phase view, gated
+by the saved output's sign. ``conv_hr_ct_bwd`` recomputes conv0's activation,
+as the TPU kernel recomputes it per stripe, in one of two designs
+(:func:`conv_hr_bwd_design`): in bf16 on the tensor cores, the stage kernels
+of ``csrc/stage_ct.cu`` recompute it and run conv0's adjoint, and
+``csrc/tail_ct.cu`` rewrites its entries near 0 as the FMA design computes
+them (so the lrelu gate takes the FMA design's sign there) and forms conv1's
+adjoint, the gate and conv1's weight gradient between them; in fp32, the FMA
+kernels (the forward's dense kernel, ``dgrad_ct``, ``wgrad_ct``).
 
 A CPU tensor goes to the plain twin (``*_plain``); a CUDA tensor launches the
 kernel or raises.
@@ -31,6 +36,7 @@ import torch.nn.functional as F
 
 from esrganplus_tpu_torch.kernels import build
 from esrganplus_tpu_torch.kernels import launch
+from esrganplus_tpu_torch.kernels import stage_ct as S
 from esrganplus_tpu_torch.kernels.rdb_ct import (_bias, _conv, _dense, _dgrad_plain, _dlrelu,
                                                  _lrelu, _nchw, _wgrad_plain)
 from esrganplus_tpu_torch.models.layers import fp32_exact
@@ -213,6 +219,118 @@ def conv_hr_ct_bwd_plain(x, w0, b0, w1, g, *, slope: float = 0.2) -> dict:
             "w1": _wgrad_plain(hid, gf), "b1": gf.sum((0, 2, 3))}
 
 
+CONV_HR_ADJ_TILE = (8, 16)    # pixel rows × columns of a conv_hr_adj_kernel tile
+CONV_HR_ADJ_MAX_PARTS = 256   # workspace rows: about two blocks an SM
+
+
+def conv_hr_bwd_design(dtype: torch.dtype) -> str:
+    """Which design runs :func:`conv_hr_ct_bwd` on the card: ``"mma"`` in
+    bf16 (the stage tensor-core kernels for conv0's recompute and adjoint,
+    ``conv_hr_adj_kernel`` between them); ``"fma"`` in fp32, whose 1e-4 bar
+    TF32 would miss."""
+    if dtype not in build.DTYPE_CODES:
+        raise TypeError(f"CUDA kernels take float32 or bfloat16, got {dtype}")
+    return "mma" if dtype == torch.bfloat16 else "fma"
+
+
+def conv_hr_adj_tiles(B: int, H: int, W: int) -> int:
+    """8×16 pixel tiles that ``conv_hr_adj_kernel`` walks."""
+    th, tw = CONV_HR_ADJ_TILE
+    return B * -(-H // th) * -(-W // tw)
+
+
+def conv_hr_adj_parts(B: int, H: int, W: int) -> int:
+    """Rows of ``conv_hr_adj_kernel``'s workspace (one block each): at most
+    ``CONV_HR_ADJ_MAX_PARTS``, none empty. A function of the shapes only, so
+    the reduction order of dW1, db1 and db0 is."""
+    tiles = conv_hr_adj_tiles(B, H, W)
+    per = -(-tiles // min(tiles, CONV_HR_ADJ_MAX_PARTS))
+    return -(-tiles // per)
+
+
+def conv_hr_adj_ranges(B: int, H: int, W: int) -> list:
+    """``[(first tile, end)]`` of each workspace row, as ``esr_conv_hr_adj``
+    cuts them: ``per = ceil(tiles / parts)`` tiles a row, in tile order."""
+    tiles = conv_hr_adj_tiles(B, H, W)
+    parts = conv_hr_adj_parts(B, H, W)
+    per = -(-tiles // parts)
+    return [(p * per, min(tiles, (p + 1) * per)) for p in range(parts)]
+
+
+def fix_near_zero_hid(hid, x, w0, b0, *, slope: float = 0.2) -> None:
+    """In place: the entries of ``hid`` (conv0's bf16 activation as the
+    tensor cores recompute it) within 2⁻¹⁶ of their pixel's 8-channel
+    group's largest, recomputed as the FMA design sums them, bit for bit
+    (``conv_hr_hid_fix_kernel``), so that conv_hr's lrelu gate takes that
+    design's sign, which is the twin's. CUDA bf16 tensors as
+    :func:`conv_hr_ct_bwd` validates them."""
+    B, H, W, C = x.shape
+    with torch.cuda.device(x.device):
+        build.check(build.load("tail_ct").esr_conv_hr_hid_fix(
+            C, hid.data_ptr(), x.data_ptr(), w0.data_ptr(), b0.data_ptr(), B, H, W, slope,
+            torch.cuda.current_stream(x.device).cuda_stream), "esr_conv_hr_hid_fix")
+
+
+def conv_hr_bwd_mma_steps(x, w0, b0, w1, g, *, slope: float = 0.2):
+    """The bf16 design of :func:`conv_hr_ct_bwd` as its five launches, in
+    order, over outputs allocated here → ``(steps, result)``. ``steps`` maps
+    ``"hid"`` (conv0 + lrelu recomputed, ``stage_fwd_mma_kernel``),
+    ``"hid_near_zero"`` (:func:`fix_near_zero_hid`), ``"adjoint_gate"``
+    (``conv_hr_adj_kernel``: dz0 rounded once, dW1, db1 and db0 from the
+    unrounded dz0), ``"dw0"`` (``stage_wgrad_mma_kernel``; its db, the sum of
+    the *rounded* dz0, is not used) and ``"dx"`` (``stage_dgrad_mma_kernel``)
+    to callables; each may be run again on its own (for timing) and gives
+    the same bits. ``result`` holds the gradients once every step has run.
+    Inputs as :func:`conv_hr_ct_bwd` validates them."""
+    B, H, W, C = x.shape
+    CO2 = w1.shape[3]
+    dev = x.device
+    x, w0 = S._aligned(x), S._aligned(w0)
+    stage, tail = build.load("stage_ct"), build.load("tail_ct")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    bf, mma = build.dtype_code(x), S.DESIGNS["mma"]
+    hid, dz0, dx = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+    n1, nw0 = 9 * C * CO2, 9 * C * C
+    npart_a = conv_hr_adj_parts(B, H, W)
+    part_a = torch.empty((npart_a, n1 + CO2 + C), dtype=torch.float32, device=dev)
+    out_a = torch.empty((n1 + CO2 + C,), dtype=torch.float32, device=dev)
+    npart_w = S.stage_wgrad_parts(B, H, W, C, C, 3, "mma")
+    part_w = torch.empty((npart_w, nw0 + C), dtype=torch.float32, device=dev)
+    dwdb0 = torch.empty((nw0 + C,), dtype=torch.float32, device=dev)
+    chunk = min(C, 64)  # read by the FMA design only
+
+    def hid_step():
+        build.check(stage.esr_stage_fwd(bf, 3, mma, chunk, x.data_ptr(), w0.data_ptr(),
+                                        b0.data_ptr(), hid.data_ptr(), B, H, W, C, C,
+                                        S.ACTS["lrelu"], slope, stream), "esr_stage_fwd")
+
+    def hid_near_zero_step():
+        fix_near_zero_hid(hid, x, w0, b0, slope=slope)
+
+    def adjoint_gate_step():
+        build.check(tail.esr_conv_hr_adj(C, CO2, g.data_ptr(), w1.data_ptr(), hid.data_ptr(),
+                                         dz0.data_ptr(), part_a.data_ptr(), npart_a,
+                                         out_a.data_ptr(), B, H, W, slope, stream),
+                    "esr_conv_hr_adj")
+
+    def dw0_step():
+        build.check(stage.esr_stage_wgrad(bf, 3, mma, chunk, x.data_ptr(), dz0.data_ptr(), None,
+                                          part_w.data_ptr(), npart_w, dwdb0.data_ptr(), B, H,
+                                          W, C, C, S.ACTS[None], slope, stream),
+                    "esr_stage_wgrad")
+
+    def dx_step():
+        build.check(stage.esr_stage_dgrad(bf, 3, mma, chunk, dz0.data_ptr(), None,
+                                          w0.data_ptr(), dx.data_ptr(), B, H, W, C, C,
+                                          S.ACTS[None], slope, stream), "esr_stage_dgrad")
+
+    steps = {"hid": hid_step, "hid_near_zero": hid_near_zero_step,
+             "adjoint_gate": adjoint_gate_step, "dw0": dw0_step, "dx": dx_step}
+    result = {"dx": dx, "w0": dwdb0[:nw0].view(3, 3, C, C), "b0": out_a[n1 + CO2:],
+              "w1": out_a[:n1].view(3, 3, C, CO2), "b1": out_a[n1:n1 + CO2]}
+    return steps, result
+
+
 def _embed_phases(wf: torch.Tensor) -> torch.Tensor:
     """Folded ``[2, 2, 2, 2, C, CO]`` → ``[3, 3, C, 4·CO]``: phase (a, b)'s
     2×2 taps (i, j) sit at 3×3 taps (a + i, b + j) of its CO channels."""
@@ -261,9 +379,11 @@ upfold_ct_bwd.launches = 0
 def conv_hr_ct_bwd(x, w0, b0, w1, g, *, slope: float = 0.2) -> dict:
     """Adjoint of :func:`conv_hr_ct` → ``{"dx", "w0", "b0", "w1", "b1"}``.
     conv0's activation never left shared memory in the forward, so it is
-    recomputed here (the forward's dense kernel, rounded as there) into a
-    device buffer; SAME padding of that buffer is the forward's zeroing
-    outside the image. ``conv_hr_ct_bwd.launches`` counts CUDA calls."""
+    recomputed here (rounded as there) into a device buffer; SAME padding of
+    that buffer is the forward's zeroing outside the image. bf16 runs the
+    tensor-core design (:func:`conv_hr_bwd_mma_steps`), fp32 the FMA
+    kernels; no fallback between them. ``conv_hr_ct_bwd.launches`` counts
+    CUDA calls, ``launches_by_design`` them by design."""
     if x.device.type == "cpu":
         return conv_hr_ct_bwd_plain(x, w0, b0, w1, g, slope=slope)
     B, H, W, C = x.shape
@@ -276,26 +396,49 @@ def conv_hr_ct_bwd(x, w0, b0, w1, g, *, slope: float = 0.2) -> dict:
     build.require(b0, "b0", (C,), torch.float32, dev)
     build.require(w1, "w1", (3, 3, C, CO2), dt, dev)
     build.require(g, "g", (B, H, W, CO2), dt, dev)
+    design = conv_hr_bwd_design(dt)
+    with torch.cuda.device(dev):
+        if design == "mma":
+            steps, res = conv_hr_bwd_mma_steps(x, w0, b0, w1, g, slope=slope)
+            for step in steps.values():
+                step()
+        else:
+            res = _conv_hr_bwd_fma(x, w0, b0, w1, g, slope)
+    conv_hr_ct_bwd.launches += 1
+    conv_hr_ct_bwd.launches_by_design[design] += 1
+    return res
+
+
+def _conv_hr_bwd_fma(x, w0, b0, w1, g, slope) -> dict:
+    """The fp32 design: the forward's dense kernel recomputes hid, conv1's
+    data gradient lands in an fp32 buffer that the gate of conv0's weight-
+    and data-gradient launches reads at load."""
+    B, H, W, C = x.shape
+    CO2 = w1.shape[3]
     hid = torch.empty_like(x)
-    dhid = torch.empty((B, H, W, C), dtype=torch.float32, device=dev)
+    dhid = torch.empty((B, H, W, C), dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     chunk = launch.dgrad_chunk(C)
-    with torch.cuda.device(dev):
-        _dense(build.load("rdb_ct"), x, None, C, w0, b0, hid.data_ptr(), C, mode=launch.ACT,
-               cout=C, slope=slope)
-        dz1 = launch.dz_src(H, W, build.DZ_G, g=g, g_stride=CO2)
-        dw1, db1 = launch.wgrad(hid, None, C, dz1, CO2)
-        launch.dgrad(x, B, dz1, CO2, w1, C, chunk=chunk, out32=dhid)
-        dz0 = launch.dz_src(H, W, build.DZ_GATE, d32=dhid, d_stride=C, mask=hid.data_ptr(),
-                            m_stride=C, slope=slope)
-        dw0, db0 = launch.wgrad(x, None, C, dz0, C)
-        launch.dgrad(x, B, dz0, C, w0, C, chunk=chunk, out=dx)
-    conv_hr_ct_bwd.launches += 1
+    _dense(build.load("rdb_ct"), x, None, C, w0, b0, hid.data_ptr(), C, mode=launch.ACT,
+           cout=C, slope=slope)
+    dz1 = launch.dz_src(H, W, build.DZ_G, g=g, g_stride=CO2)
+    dw1, db1 = launch.wgrad(hid, None, C, dz1, CO2)
+    launch.dgrad(x, B, dz1, CO2, w1, C, chunk=chunk, out32=dhid)
+    dz0 = launch.dz_src(H, W, build.DZ_GATE, d32=dhid, d_stride=C, mask=hid.data_ptr(),
+                        m_stride=C, slope=slope)
+    dw0, db0 = launch.wgrad(x, None, C, dz0, C)
+    launch.dgrad(x, B, dz0, C, w0, C, chunk=chunk, out=dx)
     return {"dx": dx, "w0": dw0.view(3, 3, C, C), "b0": db0,
             "w1": dw1.view(3, 3, C, CO2), "b1": db1}
 
 
-conv_hr_ct_bwd.launches = 0
+def reset_conv_hr_bwd_counts() -> None:
+    """Set ``conv_hr_ct_bwd.launches`` and ``launches_by_design`` to 0."""
+    conv_hr_ct_bwd.launches = 0
+    conv_hr_ct_bwd.launches_by_design = dict.fromkeys(S.DESIGNS, 0)
+
+
+reset_conv_hr_bwd_counts()
 
 
 class _UpfoldCtDiff(torch.autograd.Function):

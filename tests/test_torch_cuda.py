@@ -176,6 +176,30 @@ def test_cuda_backward_kernel_matches_plain_twin(name, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C,co2", [(64, 3), (16, 3), (8, 1), (32, 8)])
+def test_cuda_conv_hr_bwd_design_and_repeat(C, co2):
+    """bf16 takes the tensor-core design (its four launches), within the bf16
+    bar of the twin at a ragged shape, and a second call gives the same
+    bits; fp32 stays on the FMA design at 1e-4."""
+    _need_card()
+    rs = np.random.RandomState(4)
+    for dtype, design in ((torch.bfloat16, "mma"), (torch.float32, "fma")):
+        act = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32)).to("cuda", dtype)
+        w0, b0, w1, _ = T.prepare_conv_hr_ct(_conv(rs, C, C), _conv(rs, C, co2), dtype)
+        x, g = act(2, 37, 53, C), act(2, 37, 53, co2)
+        T.reset_conv_hr_bwd_counts()
+        with fp32_exact():
+            got, want = T.conv_hr_ct_bwd(x, w0, b0, w1, g), T.conv_hr_ct_bwd_plain(x, w0, b0, w1, g)
+        again = T.conv_hr_ct_bwd(x, w0, b0, w1, g)
+        assert T.conv_hr_ct_bwd.launches_by_design == {"fma": 0, "mma": 0, design: 2}
+        for k, ref in want.items():
+            a, b = got[k].float(), ref.float()
+            assert a.shape == b.shape and torch.isfinite(a).all(), k
+            assert (a - b).abs().max().item() <= BWD_TOL[dtype] * b.abs().max().item(), k
+            assert torch.equal(again[k], got[k]), k
+
+
+@pytest.mark.cuda
 def test_cuda_backward_is_deterministic():
     """The weight gradient's split reduction has a fixed order: two runs on
     the same inputs give the same bits."""
@@ -316,6 +340,7 @@ STAGE_CASES = {  # id: (kernel size, B, H, W, cin, cout, act)
     "s1-128to128": (3, 4, 64, 64, 128, 128, "relu"),
     "s2-3to8-odd": (4, 2, 36, 52, 3, 8, "lrelu"),
     "s2-16to16-odd": (4, 2, 36, 52, 16, 16, None),
+    "s2-128to128-odd": (4, 2, 36, 52, 128, 128, "relu"),
     "s2-64to64": (4, 4, 128, 128, 64, 64, None),
     "s2-128to128": (4, 4, 64, 64, 128, 128, "lrelu"),
 }
@@ -340,8 +365,9 @@ def _stage_case(case, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("case", list(STAGE_CASES))
 def test_cuda_stage_kernel_matches_plain_twin_forward_and_backward(case, dtype):
-    """Each stage kernel against its twin; the bf16 3x3 conv and its adjoint
-    launch the tensor-core design, everything else the FMA design."""
+    """Each stage kernel against its twin; the bf16 3x3 conv, its adjoint and
+    the bf16 4x4 forward launch the tensor-core design, everything else the
+    FMA design."""
     _need_card()
     from esrganplus_tpu_torch.kernels import stage_ct as S
 
@@ -366,9 +392,11 @@ def test_cuda_stage_kernel_matches_plain_twin_forward_and_backward(case, dtype):
         again = bwd(x, w, saved, g, act=act, need_dx=False)
         assert again["dx"] is None and torch.equal(again["w"], r["w"]) \
             and torch.equal(again["b"], r["b"])
-    design = "mma" if dtype == torch.bfloat16 and STAGE_CASES[case][0] == 3 else "fma"
-    assert fwd.launches_by_design == {"fma": 0, "mma": 0, design: 1}
-    assert bwd.launches_by_design == {"fma": 0, "mma": 0, design: 3}
+    bf16, ks = dtype == torch.bfloat16, STAGE_CASES[case][0]
+    fwd_design = "mma" if bf16 else "fma"
+    bwd_design = "mma" if bf16 and ks == 3 else "fma"
+    assert fwd.launches_by_design == {"fma": 0, "mma": 0, fwd_design: 1}
+    assert bwd.launches_by_design == {"fma": 0, "mma": 0, bwd_design: 3}
 
 
 @pytest.mark.cuda
@@ -391,17 +419,18 @@ def test_cuda_stage_kernels_raise_for_what_they_do_not_take():
 
 @pytest.mark.cuda
 def test_cuda_stage_entry_refuses_a_design_other_than_stage_design():
-    """The C entry takes one design per (dtype, kernel size), the one
-    ``stage_design`` names: asked for mma in fp32 or at ks=4, or for fma in
-    bf16 at ks=3, it returns an error code (``build.check`` raises)."""
+    """The C entry takes one design per (dtype, kernel size, direction), the
+    one ``stage_design`` names: asked for mma in fp32 or for the 4x4 adjoint
+    in bf16, or for fma in bf16 at ks=3 or for the bf16 4x4 forward, it
+    returns an error code (``build.check`` raises)."""
     _need_card()
     from esrganplus_tpu_torch.kernels import build
     from esrganplus_tpu_torch.kernels import stage_ct as S
 
     lib = build.load("stage_ct")
     stream = torch.cuda.current_stream().cuda_stream
-    for dtype, ks, design in ((torch.float32, 3, "mma"), (torch.bfloat16, 4, "mma"),
-                              (torch.bfloat16, 3, "fma")):
+    for dtype, ks, design in ((torch.float32, 3, "mma"), (torch.float32, 4, "mma"),
+                              (torch.bfloat16, 4, "fma"), (torch.bfloat16, 3, "fma")):
         x = torch.zeros(1, 8, 8, 16, device="cuda", dtype=dtype)
         w = torch.zeros(ks, ks, 16, 16, device="cuda", dtype=dtype)
         b = torch.zeros(16, device="cuda")
@@ -412,6 +441,15 @@ def test_cuda_stage_entry_refuses_a_design_other_than_stage_design():
                                  0.2, stream)
         with pytest.raises(RuntimeError, match="cudaError"):
             build.check(code, "esr_stage_fwd")
+    # the bf16 4x4 adjoint: the FMA kernels only
+    x = torch.zeros(1, 8, 8, 16, device="cuda", dtype=torch.bfloat16)
+    w = torch.zeros(4, 4, 16, 16, device="cuda", dtype=torch.bfloat16)
+    g = torch.zeros(1, 4, 4, 16, device="cuda", dtype=torch.bfloat16)
+    code = lib.esr_stage_dgrad(build.dtype_code(x), 4, S.DESIGNS["mma"], 16, g.data_ptr(), None,
+                               w.data_ptr(), torch.empty_like(x).data_ptr(), 1, 8, 8, 16, 16, 0,
+                               0.2, stream)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        build.check(code, "esr_stage_dgrad")
 
 
 @pytest.mark.cuda
