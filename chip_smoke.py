@@ -14,10 +14,15 @@ final result line:
                (B=16, 32×32 LR), fp32 (TF32 off) and bf16;
                CUDA-event times of the kernel, the twin and a PyTorch
                yardstick (cuDNN convolutions), and the bound for the work;
+               conv_hr_ct's rows name its design (bf16 on the tensor cores,
+               "mma": the stage forward, then conv_hr_out_mma_kernel), time
+               each launch, give the share of its conv0 activations that
+               differ from the twin's, and hold a second call bit-equal;
   3. main    — flagship ESRGAN+ ×4 (nb=23, nf=64, gc=32) with seeded random
                weights exported to a .pth, through the port's test_image CLI
                on three PNGs in bf16; checks output shapes, the kernels'
-               launch counts per image, and the bf16 kernel path against the
+               launch counts per image (every conv_hr_ct call through "mma"),
+               and the bf16 kernel path against the
                fp32 plain path (and the fp32 kernel path) on the card; then
                the small golden ESRGAN+ checkpoint (tests/golden) through the
                kernel path against the reference implementation's output;
@@ -25,12 +30,15 @@ final result line:
                epilogue) at the training shape: its output and both saved
                buffers against the plain twin's, fp32 and bf16;
      kernels-bwd — each backward wrapper (rdb_ct_bwd, conv3x3_ct_bwd,
-               upfold_ct_bwd at both stages, conv_hr_ct_bwd) against its plain
-               twin at the training shape (batch 16, 32×32 LR), fp32 and bf16,
-               on the kernel's saved buffers and again with the twin fed its
-               own forward's buffers, with times, bounds and a cuDNN-autograd
-               yardstick; conv_hr_ct_bwd's row names its design (bf16 on the
-               tensor cores, "mma") and times each of its launches;
+               upfold_ct_bwd at both stages and at an odd shape,
+               conv_hr_ct_bwd) against its plain twin at the training shape
+               (batch 16, 32×32 LR), fp32 and bf16, on the kernel's saved
+               buffers and again with the twin fed its own forward's
+               buffers, with times, bounds and a cuDNN-autograd yardstick;
+               the rows of upfold_ct_bwd and conv_hr_ct_bwd name their design
+               (bf16 on the tensor cores, "mma"), time each of its launches
+               and hold a second call bit-equal; upfold_ct_bwd's db is held
+               to 1e-4 of the twin's (the sum of the unrounded dz);
      kernels-bwd-gate — bf16 conv_hr_ct_bwd on four seeded inputs: its lrelu
                gates whose sign differs from the twin's before and after the
                near-zero fix-up, and every gradient against the twin with
@@ -48,7 +56,8 @@ final result line:
                then ``esrganplus_tpu_torch.cli.train`` at the full flagship
                config (batch 16, HR 128, bf16, noise on) for 16 steps with the
                debug cadences; checks the logged losses, the launch counts of
-               all eight kernels (conv_hr_ct_bwd through "mma"), the
+               all eight kernels (conv_hr_ct, upfold_ct_bwd and conv_hr_ct_bwd
+               through "mma"), the
                exported checkpoint, and a resume from step 8 that must end
                bit-equal to the uninterrupted run;
   7. train-steady — ``SRTrainer.train_step`` on one device-resident batch:
@@ -83,8 +92,8 @@ final result line:
                for 16 steps through ``esrganplus_tpu_torch.cli.train``; checks
                the logged terms, the launch counts of all twelve kernels
                (every conv_s1_ct call and every conv_s2_ct forward through
-               "mma", the conv_s2_ct adjoint through "fma", conv_hr_ct_bwd
-               through "mma"),
+               "mma", the conv_s2_ct adjoint through "fma", conv_hr_ct,
+               upfold_ct_bwd and conv_hr_ct_bwd through "mma"),
                ``latest_G.pth`` / ``latest_D.pth``, and a resume from step 8
                that must end bit-equal;
  11. gan-steady — ``GANTrainer.train_step`` on one device-resident batch:
@@ -102,8 +111,8 @@ final result line:
                launch counts and the total ms of both chains;
      with ``--profile`` also a ``torch.profiler`` trace of three steady steps
      of each trainer, the PSNR one in both noise modes (device time by
-     kernel family, the stage kernels' sum, conv_hr_ct_bwd's two tail_ct.cu
-     kernels, the card's busy share).
+     kernel family, the stage kernels' sum, csrc/tail_ct.cu's kernels by
+     name, the card's busy share).
 
 Then one ``{"kernels": [...]}`` line (sixteen kernels), the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.
@@ -136,10 +145,11 @@ REPLACES = {
     "upfold_ct": "esrganplus_tpu/kernels/tail_ct.py:297",
     "conv_hr_ct": "esrganplus_tpu/kernels/tail_ct.py:434",
 }
+# conv_hr_ct in bf16: stage_ct.cu's forward for conv0, tail_ct.cu's conv1
 SOURCES = {"rdb_ct": "esrganplus_tpu_torch/csrc/rdb_ct.cu",
            "conv3x3_ct": "esrganplus_tpu_torch/csrc/rdb_ct.cu",
            "upfold_ct": "esrganplus_tpu_torch/csrc/tail_ct.cu",
-           "conv_hr_ct": "esrganplus_tpu_torch/csrc/tail_ct.cu"}
+           "conv_hr_ct": "esrganplus_tpu_torch/csrc/tail_ct.cu + esrganplus_tpu_torch/csrc/stage_ct.cu"}
 PER_IMAGE = {"rdb_ct": 69, "conv3x3_ct": 1, "upfold_ct": 2, "conv_hr_ct": 1}
 # the training slice: backward wrappers, per optimizer step
 BWD_PER_STEP = {"rdb_ct_bwd": 69, "conv3x3_ct_bwd": 1, "upfold_ct_bwd": 2, "conv_hr_ct_bwd": 1}
@@ -151,11 +161,23 @@ BWD_REPLACES = {
 }
 BWD_SOURCE = ("esrganplus_tpu_torch/csrc/dgrad_ct.cu + "
               "esrganplus_tpu_torch/csrc/wgrad_ct.cu")
-# conv_hr_ct_bwd in bf16: the stage tensor-core kernels around tail_ct.cu's
-# conv_hr_hid_fix_kernel and conv_hr_adj_kernel
-HR_BWD_SOURCE = ("esrganplus_tpu_torch/csrc/tail_ct.cu + "
-                 "esrganplus_tpu_torch/csrc/stage_ct.cu")
+# the bf16 sources of the tail's backward wrappers (fp32: BWD_SOURCE): the
+# upconv adjoint is tail_ct.cu's; conv_hr_ct_bwd runs the stage tensor-core
+# kernels around tail_ct.cu's conv_hr_hid_fix_kernel and conv_hr_adj_kernel
+BWD_MMA_SOURCE = {"upfold_ct_bwd": "esrganplus_tpu_torch/csrc/tail_ct.cu",
+                  "conv_hr_ct_bwd": ("esrganplus_tpu_torch/csrc/tail_ct.cu + "
+                                     "esrganplus_tpu_torch/csrc/stage_ct.cu")}
+# the two-design tail wrappers (tail_ct.tail_design): bf16 "mma", fp32 "fma"
+DESIGNED = ("conv_hr_ct", "upfold_ct_bwd", "conv_hr_ct_bwd")
+# csrc/tail_ct.cu's kernels, by name in a profile (the bf16 step runs all but
+# conv_hr_kernel; the finishing passes are wgrad_finish_kernel, shared)
+TAIL_KERNELS = ("upfold_kernel", "conv_hr_kernel", "conv_hr_out_mma_kernel", "upfold_dz_kernel",
+                "upfold_dgrad_mma_kernel", "upfold_wgrad_mma_kernel", "conv_hr_hid_fix_kernel",
+                "conv_hr_adj_kernel")
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # per gradient, of max|ref|
+# the upconv adjoint's db against the twin's (the sum of the unrounded dz), of
+# max|ref|: fp32 summation order only; a sum of the rounded dz is ~1e-3 off
+DB_TOL = 1e-4
 # the same, with the twin's backward fed the twin's own forward buffers: where a
 # saved activation is within a summation-order difference of 0 its lrelu mask
 # flips in one of the two, which moves single elements of dz by 0.8·|cotangent|
@@ -239,6 +261,8 @@ def ptxas_summary(log: str) -> list:
                       r"stage_dgrad_kernel|stage_wgrad_kernel|stage_fwd_mma_kernel|"
                       r"stage_fwd_s2_mma_kernel|stage_dgrad_mma_kernel|stage_wgrad_mma_kernel|"
                       r"conv_hr_hid_fix_kernel|conv_hr_adj_kernel|dgrad_kernel|wgrad_kernel|"
+                      r"upfold_dz_kernel|upfold_dgrad_mma_kernel|upfold_wgrad_mma_kernel|"
+                      r"conv_hr_out_mma_kernel|"
                       r"wb_conv3x3_kernel|wb_rdb_fused_kernel)"
                       r"I(\w+?)EE", line)
         if m:
@@ -268,7 +292,8 @@ def rel_err(got, ref):
 
 def make_cases(dtype, B, H, W, gen):
     """Per kernel: (cuda call, plain call, yardstick call, MACs, bytes) on
-    the tensors the main path hands it for a B×H×W LR input."""
+    the tensors the main path hands it for a B×H×W LR input; and conv_hr_ct's
+    inputs ``(x, w0, b0, w1, b1)``, for its bf16 launches one by one."""
     import torch
     import torch.nn.functional as F
 
@@ -361,12 +386,24 @@ def make_cases(dtype, B, H, W, gen):
                                             w1o, b1o, padding=1),
                            npx * 9 * NF * (NF + OUT_NC),
                            npx * (NF + OUT_NC) * esz + (hw[0].numel() + hw[2].numel()) * esz)
-    return cases
+    return cases, (xh, *hw)
+
+
+def _hid_share_differing(x, w0, b0):
+    """Share of conv_hr_ct's bf16 conv0 activations (the tensor-core stage
+    forward, ``stage_fwd_mma_kernel``) that differ from the twin's at all."""
+    from esrganplus_tpu_torch.kernels import stage_ct as S
+    from esrganplus_tpu_torch.kernels.rdb_ct import _conv, _lrelu
+
+    hid = S.conv_s1_ct(x, w0, b0, act="lrelu").permute(0, 3, 1, 2)
+    twin = _lrelu(_conv(x.float().permute(0, 3, 1, 2), w0, b0), 0.2).to(x.dtype)
+    return (hid != twin).float().mean().item()
 
 
 def check_kernels(failures):
     import torch
 
+    from esrganplus_tpu_torch.kernels import tail_ct as T
     from esrganplus_tpu_torch.models.layers import fp32_exact
 
     gen = torch.Generator().manual_seed(0)
@@ -374,10 +411,18 @@ def check_kernels(failures):
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         for sname, (B, H, W) in SHAPES.items():
-            cases = make_cases(dtype, B, H, W, gen)
+            cases, hr_inputs = make_cases(dtype, B, H, W, gen)
             for name, (kern, plain, lib, macs, nbytes) in cases.items():
                 with fp32_exact():
-                    got = kern()
+                    extra = {}
+                    if name == "conv_hr_ct":  # bf16 on the tensor cores, fp32 on the FMA kernel
+                        got, design = _design_of(T.conv_hr_ct, kern)
+                        extra = {"design": design,
+                                 "repeat_bit_equal": torch.equal(kern(), got)}
+                        if dname == "bfloat16":
+                            extra["hid_frac_differ"] = _hid_share_differing(*hr_inputs[:3])
+                    else:
+                        got = kern()
                     torch.cuda.synchronize()
                     ref = plain()
                     d, rel = rel_err(got, ref)
@@ -386,13 +431,16 @@ def check_kernels(failures):
                     differ = (got != ref).float().mean().item()
                     ok = (bool(torch.isfinite(got.float()).all()) and rel <= TOL[dname]
                           and (dname == "float32" or differ <= MAX_DIFFER_BF16))
+                    if extra:
+                        ok = (ok and extra["repeat_bit_equal"]
+                              and extra["design"] == T.tail_design(dtype))
                     # the cuDNN yardstick is an independent check (it rounds
                     # bf16 at other points, so it is reported, not held)
                     _, rel_lib = rel_err(got, lib().permute(0, 2, 3, 1))
                     row = {"phase": "kernels", "kernel": name, "dtype": dname,
                            "shape": sname, "lr": [B, H, W], "max_abs_err": d,
                            "rel_err": rel, "tol": TOL[dname], "frac_differ": differ,
-                           "rel_err_vs_library": rel_lib,
+                           "rel_err_vs_library": rel_lib, **extra,
                            "ok": ok}
                     if sname == "bench":
                         bound = max(2 * macs / PEAK_FLOPS[dname], nbytes / PEAK_BYTES) * 1e3
@@ -401,6 +449,9 @@ def check_kernels(failures):
                                    bound_by="operations"
                                    if 2 * macs / PEAK_FLOPS[dname] >= nbytes / PEAK_BYTES
                                    else "bytes")
+                        if extra.get("design") == "mma":  # ms of each of its launches
+                            row["step_ms"] = {k: time_ms(f) for k, f in
+                                              T.conv_hr_mma_steps(*hr_inputs)[0].items()}
                         report[(name, dname)] = row
                 emit(row)
                 if not ok:
@@ -447,6 +498,7 @@ def main_path(failures, workdir):
     counted = (K.rdb_ct, K.conv3x3_ct, T.upfold_ct, T.conv_hr_ct)
     for fn in counted:
         fn.launches = 0
+    T.reset_design_counts()
     K.rdb_ct.device_launches = 0
     t0 = time.perf_counter()
     test_image.main([ckpt, "--input", lr_dir, "--output", out_dir, "--dtype", "bf16",
@@ -458,8 +510,9 @@ def main_path(failures, workdir):
     for k, per in PER_IMAGE.items():
         if launches[k] != per * n:
             failures.append(f"main path: {k} launched {launches[k]} times, expected {per * n}")
+    by_design = _tail_designs(failures, "main", launches)
     emit({"phase": "main", "images": n, "seconds_total": seconds, "launches": launches,
-          "rdb_ct_device_launches": K.rdb_ct.device_launches})
+          "by_design": by_design, "rdb_ct_device_launches": K.rdb_ct.device_launches})
 
     # outputs: shapes of the written PNGs; the raw (unclipped) bf16 kernel-path
     # output against the fp32 plain graph, relative to the output's magnitude
@@ -547,8 +600,9 @@ def make_bwd_cases(dtype, gen):
     tensors a training step hands it. The yardstick is ``torch.autograd.grad``
     through a cuDNN ``F.conv2d`` graph built once (the port never calls it).
     Also returns rdb_ct's training forward from the kernel and from the twin,
-    ``{"out" | "cat" | "lsv": (kernel's, twin's)}``, and a function giving
-    conv_hr_ct_bwd's bf16 launches on its case (``conv_hr_bwd_mma_steps``)."""
+    ``{"out" | "cat" | "lsv": (kernel's, twin's)}``, and per case of a
+    two-design tail wrapper a function giving its bf16 launches on the case
+    (``upfold_bwd_mma_steps``, ``conv_hr_bwd_mma_steps``)."""
     import torch
     import torch.nn.functional as F
 
@@ -623,15 +677,17 @@ def make_bwd_cases(dtype, gen):
         lib_grad(lambda: F.conv2d(xn, wco, bco, padding=1), [xn, wco, bco], g),
         B * H * W * 9 * NF * NF, fbytes(x, g, x) + wc.numel() * (esz + 4), None)
 
-    # upfold_ct_bwd: both stages of the ×4 tail
+    # upfold_ct_bwd: both stages of the ×4 tail, and an odd shape
     up = conv_w(NF, NF)
     wf, bf = T.prepare_upfold_ct(up["w"], up["b"], dtype)
     wuo, buo = oihw(up["w"]), up["b"].to(dtype).requires_grad_()
-    for tag, mul in (("upfold_ct_bwd", 1), ("upfold_ct_bwd_2nd", 2)):
-        xs = act(mul * H, mul * W)
+    steps = {}
+    for tag, (b, h, w) in (("upfold_ct_bwd", (B, H, W)), ("upfold_ct_bwd_2nd", (B, 2 * H, 2 * W)),
+                           ("upfold_ct_bwd_odd", (2, 37, 53))):
+        xs = torch.randn((b, h, w, NF), generator=gen).to(dev, dtype)
         with fp32_exact():
             out, out_p = T.upfold_ct(xs, wf, bf), T.upfold_ct_plain(xs, wf, bf)
-        gs = act(2 * mul * H, 2 * mul * W)
+        gs = torch.randn((b, 2 * h, 2 * w, NF), generator=gen).to(dev, dtype)
         xsn = nchw(xs).requires_grad_()
         cases[tag] = (
             lambda xs=xs, out=out, gs=gs: T.upfold_ct_bwd(xs, wf, out, gs),
@@ -639,9 +695,10 @@ def make_bwd_cases(dtype, gen):
             lib_grad(lambda xsn=xsn: lrelu(F.conv2d(
                 F.interpolate(xsn, scale_factor=2, mode="nearest"), wuo, buo, padding=1)),
                 [xsn, wuo, buo], gs),
-            4 * mul * mul * B * H * W * 4 * NF * NF,
+            4 * b * h * w * 4 * NF * NF,
             fbytes(xs, out, gs, xs) + wf.numel() * (esz + 4),
             lambda xs=xs, out_p=out_p, gs=gs: T.upfold_ct_bwd_plain(xs, wf, out_p, gs))
+        steps[tag] = lambda xs=xs, out=out, gs=gs: T.upfold_bwd_mma_steps(xs, wf, out, gs)[0]
 
     # conv_hr_ct_bwd on the 4×LR image
     hr0, hr1 = conv_w(NF, NF), conv_w(NF, OUT_NC)
@@ -657,8 +714,8 @@ def make_bwd_cases(dtype, gen):
                                   padding=1), [xhn, w0o, b0o, w1o, b1o], gh),
         B * 16 * H * W * 9 * NF * (NF + OUT_NC),
         fbytes(xh, gh, xh) + (w0.numel() + w1.numel()) * (esz + 4), None)
-    hr_steps = lambda: T.conv_hr_bwd_mma_steps(xh, w0, b0, w1, gh)[0]
-    return cases, train_fwd, hr_steps
+    steps["conv_hr_ct_bwd"] = lambda: T.conv_hr_bwd_mma_steps(xh, w0, b0, w1, gh)[0]
+    return cases, train_fwd, steps
 
 
 def worst_err(got: dict, ref: dict):
@@ -688,7 +745,7 @@ def check_bwd_kernels(failures):
     report = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
-        cases, train_fwd, hr_steps = make_bwd_cases(dtype, gen)
+        cases, train_fwd, mma_steps = make_bwd_cases(dtype, gen)
         # rdb_ct's training forward: what the backward's masks and products read
         row = {"phase": "kernels-train-fwd", "kernel": "rdb_ct", "dtype": dname,
                "lr": list(TRAIN_SHAPE), "noise_sigma": 0.1, "tol": TOL[dname], "ok": True}
@@ -707,24 +764,28 @@ def check_bwd_kernels(failures):
 
         for name, (kern, plain, lib, macs, nbytes, plain_own) in cases.items():
             with fp32_exact():
-                hr = name == "conv_hr_ct_bwd"
-                if hr:  # bf16 on the tensor cores, fp32 on the FMA kernels
-                    got, design = _design_of(T.conv_hr_ct_bwd, kern)
+                wrapper = name if name in DESIGNED else name.rsplit("_", 1)[0]
+                designed = wrapper in DESIGNED
+                if designed:  # bf16 on the tensor cores, fp32 on the FMA kernels
+                    got, design = _design_of(getattr(T, wrapper), kern)
                 else:
                     got = kern()
                 torch.cuda.synchronize()
-                worst, worst_abs, finite = worst_err(got, plain())
+                ref = plain()
+                worst, worst_abs, finite = worst_err(got, ref)
                 ok = finite and worst <= BWD_TOL[dname]
                 extra = {}
-                if hr:
-                    want = "mma" if dname == "bfloat16" else "fma"
+                if designed:
                     again = kern()
                     bits = all(torch.equal(again[k], got[k]) for k in got)
                     extra = {"design": design, "repeat_bit_equal": bits}
                     if design == "mma":  # ms of each launch (and its finishing pass)
                         extra["step_ms"] = {k: time_ms(f, iters=10)
-                                            for k, f in hr_steps().items()}
-                    ok = ok and bits and design == want
+                                            for k, f in mma_steps[name]().items()}
+                    ok = ok and bits and design == T.tail_design(dtype)
+                if wrapper == "upfold_ct_bwd":  # db sums the unrounded dz, as the twin
+                    extra["db_rel_err"] = worst_err({"b": got["b"]}, {"b": ref["b"]})[0]
+                    ok = ok and extra["db_rel_err"] <= DB_TOL
                 own = {}
                 if plain_own is not None:
                     own = {"rel_err_own_buffers": worst_err(got, plain_own())[0],
@@ -734,7 +795,8 @@ def check_bwd_kernels(failures):
                 ops_ms = 2 * 2 * macs / PEAK_FLOPS[dname] * 1e3
                 bytes_ms = nbytes / PEAK_BYTES * 1e3
                 row = {"phase": "kernels-bwd", "kernel": name, "dtype": dname,
-                       "lr": list(TRAIN_SHAPE), "max_abs_err": worst_abs,
+                       "lr": [2, 37, 53] if name.endswith("_odd") else list(TRAIN_SHAPE),
+                       "max_abs_err": worst_abs,
                        "rel_err": worst, "tol": BWD_TOL[dname], "ok": ok,
                        "ms": time_ms(kern, iters=10), "plain_ms": time_ms(plain, iters=5),
                        "library_ms": time_ms(lib, iters=10),
@@ -883,6 +945,20 @@ def _design_of(fn, call):
     out = call()
     ran = [d for d, n in fn.launches_by_design.items() if n > before[d]]
     return out, ran[0] if len(ran) == 1 else ran
+
+
+def _tail_designs(failures, phase, launches):
+    """``launches_by_design`` of the two-design tail wrappers that ``launches``
+    counts (since ``tail_ct.reset_design_counts()``); a bf16 path must have
+    run every call of each through "mma"."""
+    from esrganplus_tpu_torch.kernels import tail_ct as T
+
+    by_design = {k: dict(getattr(T, k).launches_by_design) for k in DESIGNED if k in launches}
+    for k, got in by_design.items():
+        if got != {"fma": 0, "mma": launches[k]}:
+            failures.append(f"{phase}: {k} launched {got} by design, expected "
+                            f"{launches[k]} mma")
+    return by_design
 
 
 def check_stage_kernels(failures):
@@ -1150,7 +1226,7 @@ def train_path(failures, workdir, noise_kernel="input"):
     bwd = (K.rdb_ct_bwd, K.conv3x3_ct_bwd, T.upfold_ct_bwd, T.conv_hr_ct_bwd)
     for fn in fwd + bwd:
         fn.launches = 0
-    T.reset_conv_hr_bwd_counts()
+    T.reset_design_counts()
     K.rdb_ct.seeded_launches = K.rdb_ct_bwd.seeded_launches = 0
     t0 = time.perf_counter()
     train_cli.main(["-opt", opt_path, "--device", "cuda"])
@@ -1168,10 +1244,7 @@ def train_path(failures, workdir, noise_kernel="input"):
         if launches[k] != per * TRAIN_STEPS:
             failures.append(f"{phase}: {k} launched {launches[k]} times, expected "
                             f"{per * TRAIN_STEPS}")
-    hr_design = dict(T.conv_hr_ct_bwd.launches_by_design)  # bf16: the tensor cores
-    if hr_design != {"fma": 0, "mma": TRAIN_STEPS}:
-        failures.append(f"{phase}: conv_hr_ct_bwd launched {hr_design} by design, expected "
-                        f"{TRAIN_STEPS} mma")
+    by_design = _tail_designs(failures, phase, launches)  # bf16: the tensor cores
     want_seeded = 69 * TRAIN_STEPS if fused else 0  # validation forwards draw no noise
     if seeded != {"rdb_ct": want_seeded, "rdb_ct_bwd": want_seeded}:
         failures.append(f"{phase}: seeded rdb_ct launches {seeded}, expected {want_seeded} each")
@@ -1190,7 +1263,7 @@ def train_path(failures, workdir, noise_kernel="input"):
                 for (_, a), (_, b) in zip(_leaves(trained), _leaves(init)))
     row = {"phase": phase, "noise_kernel": noise_kernel, "steps": TRAIN_STEPS,
            "seconds_total": seconds, "launches": launches, "seeded_launches": seeded,
-           "conv_hr_ct_bwd_by_design": hr_design, "l_pix": losses, "finite": finite,
+           "by_design": by_design, "l_pix": losses, "finite": finite,
            "files": files,
            "validations": text.count("Validation # PSNR"), "max_abs_weight_change": moved,
            "reloaded": [tcfg.nb, tcfg.nf, tcfg.gc]}
@@ -1433,23 +1506,24 @@ def gan_train_path(failures, workdir):
     for fn in counted:
         fn.launches = 0
     S.reset_launch_counts()
-    T.reset_conv_hr_bwd_counts()
+    T.reset_design_counts()
     t0 = time.perf_counter()
     train_cli.main(["-opt", opt_path, "--device", "cuda"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counted}
-    # the bf16 step's 3×3 stage convs (both directions), the 4×4 forward and
-    # conv_hr_ct_bwd on the tensor cores; the 4×4 adjoint on the FMA kernels
+    # the bf16 step's 3×3 stage convs (both directions) and the 4×4 forward on
+    # the tensor cores, the 4×4 adjoint on the FMA kernels; the tail's
+    # two-design wrappers (conv_hr_ct, upfold_ct_bwd, conv_hr_ct_bwd) on "mma"
     by_design = {fn.__name__: dict(fn.launches_by_design)
-                 for fn in (S.conv_s1_ct, S.conv_s1_ct_bwd, S.conv_s2_ct, S.conv_s2_ct_bwd,
-                            T.conv_hr_ct_bwd)}
-    per_step = {**GAN_FWD_PER_STEP, **GAN_BWD_PER_STEP, "conv_hr_ct_bwd": 1}
+                 for fn in (S.conv_s1_ct, S.conv_s1_ct_bwd, S.conv_s2_ct, S.conv_s2_ct_bwd)}
+    per_step = {**GAN_FWD_PER_STEP, **GAN_BWD_PER_STEP}
     for k, design in (("conv_s1_ct", "mma"), ("conv_s1_ct_bwd", "mma"), ("conv_s2_ct", "mma"),
-                      ("conv_s2_ct_bwd", "fma"), ("conv_hr_ct_bwd", "mma")):
+                      ("conv_s2_ct_bwd", "fma")):
         want = {"fma": 0, "mma": 0, design: per_step[k] * TRAIN_STEPS}
         if by_design[k] != want:
             failures.append(f"gan-train: {k} launched {by_design[k]} by design, expected {want}")
+    by_design.update(_tail_designs(failures, "gan-train", launches))
     # G's forward: every step, plus each validation image at steps 8 and 16
     n_val = VAL_IMAGES * (TRAIN_STEPS // 8)
     expected = {**{k: per * (TRAIN_STEPS + n_val) for k, per in PER_IMAGE.items()},
@@ -1618,7 +1692,8 @@ def train_profile(step_ms, make_trainer=None, phase="train-profile"):
         count[name] += 1
     busy = sum(fam.values())
     stage = {k: v for k, v in fam.items() if k.startswith("stage_")}  # csrc/stage_ct.cu
-    # (in the PSNR step the stage kernels are conv_hr_ct_bwd's bf16 launches)
+    # (in the PSNR step the stage kernels are conv_hr_ct's and conv_hr_ct_bwd's
+    # bf16 launches)
     emit({"phase": phase, "steps": steps, "wall_ms_per_step_traced": wall_ms,
           "untraced_ms_per_step": step_ms, "device_ms_per_step": busy,
           "device_busy_share": busy / step_ms, "device_idle_share": 1 - busy / step_ms,
@@ -1627,8 +1702,8 @@ def train_profile(step_ms, make_trainer=None, phase="train-profile"):
           "launches_per_step": {k: count[k] / steps for k, _ in fam.most_common(20)},
           "stage_kernels_ms_per_step": sum(stage.values()),
           "stage_kernels_by_name_ms_per_step": {k: round(v, 4) for k, v in stage.items()},
-          "conv_hr_bwd_tail_kernels_ms_per_step": {  # csrc/tail_ct.cu's bf16 adjoint launches
-              k: fam.get(k, 0.0) for k in ("conv_hr_hid_fix_kernel", "conv_hr_adj_kernel")}})
+          "tail_kernels_ms_per_step": {k: fam.get(k, 0.0) for k in TAIL_KERNELS},
+          "tail_launches_per_step": {k: count[k] / steps for k in TAIL_KERNELS}})
 
 
 # ---------------------------------------------------------------------------
@@ -2275,6 +2350,12 @@ def main() -> int:
                         "fp32_max_abs_err": report[(name, "float32")]["max_abs_err"],
                         "train_launches": train_launches[name],
                         "gan_launches": gan_launches[name]})
+        if name == "conv_hr_ct":  # the design, and ms of each of its launches
+            kernels[-1].update(design=row["design"], step_ms=row["step_ms"],
+                               hid_frac_differ=row["hid_frac_differ"],
+                               frac_differ=row["frac_differ"],
+                               fp32_design=report[(name, "float32")]["design"],
+                               fp32_source="esrganplus_tpu_torch/csrc/tail_ct.cu")
         if name == "rdb_ct":  # the training forward at batch 16, 32×32: fused beside input
             fused = noise_report[("rdb_ct", "bfloat16")]
             kernels[-1].update(fused_ms=fused["fused_ms"], fused_input_ms=fused["input_ms"],
@@ -2284,7 +2365,7 @@ def main() -> int:
     for name in BWD_PER_STEP:
         row = bwd_report[(name, "bfloat16")]
         k = {"name": name, "route": "cuda",
-             "source": HR_BWD_SOURCE if name == "conv_hr_ct_bwd" else BWD_SOURCE,
+             "source": BWD_MMA_SOURCE.get(name, BWD_SOURCE),
              "replaces": BWD_REPLACES[name], "launches": train_launches[name],
              "max_abs_err": row["max_abs_err"], "rel_err": row["rel_err"], "ms": row["ms"],
              "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -2299,14 +2380,17 @@ def main() -> int:
                      fused_rel_err=fused["rel_err"],
                      fused_source="esrganplus_tpu_torch/csrc/philox.cu",
                      fused_fp32_rel_err=noise_report[("rdb_ct_bwd", "float32")]["rel_err"])
-        if name == "conv_hr_ct_bwd":  # the design, and ms of each of its launches
+        if name in DESIGNED:  # the design, and ms of each of its launches
             k.update(design=row["design"], step_ms=row["step_ms"],
                      fp32_design=bwd_report[(name, "float32")]["design"],
-                     fp32_source=BWD_SOURCE + " + esrganplus_tpu_torch/csrc/rdb_ct.cu")
+                     fp32_source=BWD_SOURCE + (" + esrganplus_tpu_torch/csrc/rdb_ct.cu"
+                                               if name == "conv_hr_ct_bwd" else ""))
         if name == "upfold_ct_bwd":  # the 2nd stage (64² → 128²) beside the 1st
             second = bwd_report[("upfold_ct_bwd_2nd", "bfloat16")]
-            k.update({f"second_call_{f}": second[f]
-                      for f in ("ms", "plain_ms", "bound_ms", "library_ms", "rel_err")})
+            k.update(db_rel_err=row["db_rel_err"],
+                     **{f"second_call_{f}": second[f]
+                        for f in ("ms", "plain_ms", "bound_ms", "library_ms", "rel_err",
+                                  "step_ms", "db_rel_err")})
         kernels.append(k)
     for name in STAGE_REPLACES:
         # one shape's numbers in the required keys, every flagship shape beside them

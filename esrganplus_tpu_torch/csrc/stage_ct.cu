@@ -40,7 +40,7 @@
 // of pixel tiles and writes its partial sums to row `part` of a workspace,
 // and the finishing pass adds the rows in order.
 #include "common.cuh"
-#include "mma_bf16.cuh"
+#include "mma_tile.cuh"
 
 #include <algorithm>
 #include <type_traits>
@@ -57,13 +57,10 @@ constexpr int NCG = 8;          // channel groups per block
 constexpr int NPG = NT / NCG;   // pixel groups (32)
 constexpr int PPT = TH * TW / NPG;  // pixels per thread (4)
 
-enum Act : int { kNone = 0, kRelu = 1, kLrelu = 2 };
-
-__device__ __forceinline__ float act_fwd(float v, int act, float slope) {
-  if (act == kRelu) return fmaxf(v, 0.f);
-  if (act == kLrelu) return v >= 0.f ? v : v * slope;
-  return v;
-}
+using esr::tile::act_fwd;
+using esr::tile::kLrelu;
+using esr::tile::kNone;
+using esr::tile::kRelu;
 
 // Cotangent through the activation; `ref` is the saved forward OUTPUT (relu
 // and lrelu keep the sign, so the output's sign is the gate).
@@ -437,16 +434,24 @@ __global__ void stage_wgrad_finish_kernel(const float* __restrict__ part, int np
 
 namespace mk {
 
-using bf16 = __nv_bfloat16;
 using esr::mma::cp_async16;
 using esr::mma::ldsm_pitch;
 using esr::mma::smem_u32;
+using esr::tile::acc_to_smem;
+using esr::tile::bf16;
+using esr::tile::HP;   // the 8x16 forward / data-gradient pixel tile (csrc/mma_tile.cuh)
+using esr::tile::HW;
+using esr::tile::pack8;
+using esr::tile::PIX;
+using esr::tile::round16;
+using esr::tile::smem_to_out;
+using esr::tile::stage_tile;
+using esr::tile::TH;
+using esr::tile::Tiling;
+using esr::tile::TW;
+using esr::tile::warp_mma;
 
 constexpr int NT = 256;                 // threads of a weight-gradient block (8 warps)
-constexpr int TH = 8, TW = 16;          // forward / data-gradient pixel tile
-constexpr int PIX = TH * TW;            // M of a block (8 m16 tiles, one per tile row)
-constexpr int HW = TW + 2;              // haloed tile width
-constexpr int HP = (TH + 2) * HW;       // haloed tile pixels (180)
 constexpr int KCH = 64;                 // K rows of one weight-ring slot
 constexpr int NSLOT = 3;                // weight-ring depth
 constexpr int WG_TH = 4;                // weight-gradient pixel tile: 4x16 = 64 pixels of K
@@ -458,71 +463,9 @@ constexpr int S2_PW = TW + 1;           // stride-2 forward (TH x TW output pixe
 constexpr int S2_PP = (TH + 1) * S2_PW; // plane is (TH + 1) x (TW + 1) pixels
 constexpr int S2_NW = 8;                // warps of a stride-2 forward block
 
-__host__ __device__ constexpr int round16(int c) { return (c + 15) / 16 * 16; }
 
 // input channels a stride-2 forward block stages at a time (K rows of a ring slot)
 __host__ __device__ constexpr int s2_xc(int np) { return np > 64 ? 64 : 32; }
-
-// warps and fragments of an N-wide product over PIX = 8 m16 tiles by NW warps
-template <int NP, int NW_>
-struct Tiling {
-  static constexpr int NW = NW_;                // warps (4 or 8)
-  static constexpr int NTH = NW * 32;           // threads
-  static constexpr int WN = NP >= 16 ? 2 : 1;   // warps along N
-  static constexpr int WM = NW / WN;            // warps along M
-  static constexpr int MT = 8 / WM;             // m16 tiles (tile rows) per warp
-  static constexpr int NT8 = NP / 8 / WN;       // n8 tiles per warp
-  static constexpr int MIN_BLOCKS = NW == 8 ? 2 : 3;
-};
-
-// Shared row of pixel p = (y, x) of an RH x RW tile: p itself, or with
-// PARITY (RH, RW even) row (y >> 1) * RW/2 + (x >> 1) of parity plane
-// (y & 1, x & 1), the planes one after another (kernels/stage_ct.py
-// s2_plane_slot mirrors it).
-template <int RH, int RW, bool PARITY>
-__device__ __forceinline__ int tile_slot(int p) {
-  if constexpr (!PARITY) return p;
-  const int y = p / RW, x = p % RW;
-  return ((y & 1) * 2 + (x & 1)) * (RH / 2) * (RW / 2) + (y >> 1) * (RW / 2) + (x >> 1);
-}
-
-// A haloed RH x RW tile of src [B, H, W, c] (origin gy0, gx0; channels
-// c_off .. c_off + cs) into shared [pixel][cs] bf16 rows of `pitch` bytes
-// (at tile_slot<RH, RW, PARITY>), zero outside the image and at channels >= c.
-// cp.async when rows are 16-byte aligned (c % 8 == 0), plain loads otherwise.
-template <int RH, int RW, bool PARITY = false>
-__device__ __forceinline__ void stage_tile(const bf16* __restrict__ src, unsigned char* dst,
-                                           int pitch, int b, int gy0, int gx0, int H, int W,
-                                           int c, int c_off, int cs, int tid) {
-  const int nth = blockDim.x;
-  if ((c & 7) == 0) {
-    const uint32_t d = smem_u32(dst);
-    const int nc = cs / 8;
-    for (int i = tid; i < RH * RW * nc; i += nth) {
-      const int p = i / nc, c8 = i % nc;
-      const int gy = gy0 + p / RW, gx = gx0 + p % RW, ch = c_off + c8 * 8;
-      const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && ch < c;
-      cp_async16(d + tile_slot<RH, RW, PARITY>(p) * pitch + c8 * 16,
-                 ok ? src + (((size_t)b * H + gy) * W + gx) * c + ch : src, ok);
-    }
-  } else {  // a pixel at a time: loads of the real channels, 16-byte stores
-    const int nc = cs / 8;
-    for (int i = tid; i < RH * RW * nc; i += nth) {
-      const int p = i / nc, c8 = i % nc;
-      const int gy = gy0 + p / RW, gx = gx0 + p % RW;
-      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      const bf16* px = in ? src + (((size_t)b * H + gy) * W + gx) * c : src;
-      __align__(16) bf16 v[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int ch = c_off + c8 * 8 + k;
-        v[k] = in && ch < c ? px[ch] : __float2bfloat16_rn(0.f);
-      }
-      *reinterpret_cast<uint4*>(dst + tile_slot<RH, RW, PARITY>(p) * pitch + c8 * 16) =
-          *reinterpret_cast<const uint4*>(v);
-    }
-  }
-}
 
 // dz = gate(g, saved output) in fp32 for 8 channels.
 __device__ __forceinline__ void dz8(const uint4& gv, const uint4& ov, int act, float slope,
@@ -536,101 +479,7 @@ __device__ __forceinline__ void dz8(const uint4& gv, const uint4& ov, int act, f
   }
 }
 
-__device__ __forceinline__ uint4 pack8(const float (&d)[8]) {
-  uint4 r;
-  r.x = esr::mma::pack_bf16(d[0], d[1]);
-  r.y = esr::mma::pack_bf16(d[2], d[3]);
-  r.z = esr::mma::pack_bf16(d[4], d[5]);
-  r.w = esr::mma::pack_bf16(d[6], d[7]);
-  return r;
-}
 
-// acc += A * B over `klen` (a multiple of 16) for this warp's MT m16 tiles
-// and NT8 n8 tiles from column n0. a[i]: this lane's ldmatrix row address of
-// m16 tile i ([pixel][k] rows, k offset (lane / 16) * 8 folded in). B is a
-// [k][n] tile read with .trans (BT) or an [n][k] tile read plainly.
-template <int MT, int NT8, bool BT>
-__device__ __forceinline__ void warp_mma(float (&acc)[MT][NT8][4], const uint32_t (&a)[MT],
-                                         uint32_t bt, int bpitch, int n0, int klen, int lane) {
-  using namespace esr::mma;
-  for (int k = 0; k < klen; k += 16) {
-    uint32_t af[MT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) ldsm_x4(af[i], a[i] + k * 2);
-    if constexpr (NT8 == 1) {
-      uint32_t b[2];
-      const int l = lane & 15;
-      if constexpr (BT) ldsm_x2_t(b, bt + (k + l) * bpitch + n0 * 2);
-      else ldsm_x2(b, bt + (n0 + (l & 7)) * bpitch + (k + (l >> 3) * 8) * 2);
-#pragma unroll
-      for (int i = 0; i < MT; ++i) mma_bf16(acc[i][0], af[i], b[0], b[1]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < NT8; j += 2) {
-        uint32_t b[4];
-        if constexpr (BT)
-          ldsm_x4_t(b, bt + (k + (lane & 15)) * bpitch + (n0 + j * 8 + (lane >> 4) * 8) * 2);
-        else
-          ldsm_x4(b, bt + (n0 + j * 8 + (lane & 7) + (lane >> 4) * 8) * bpitch +
-                         (k + ((lane >> 3) & 1) * 8) * 2);
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          mma_bf16(acc[i][j], af[i], b[0], b[1]);
-          mma_bf16(acc[i][j + 1], af[i], b[2], b[3]);
-        }
-      }
-    }
-  }
-}
-
-// The block's accumulators (PIX x NP) as bf16 into shared rows of `pitch`
-// bytes, after bias and activation when `bias` is given.
-template <int NP, int NW>
-__device__ __forceinline__ void acc_to_smem(
-    const float (&acc)[Tiling<NP, NW>::MT][Tiling<NP, NW>::NT8][4], unsigned char* dst, int pitch,
-    const float* __restrict__ bias, int act, float slope, int warp, int lane) {
-  using Tl = Tiling<NP, NW>;
-  const int wm = warp / Tl::WN, wn = warp % Tl::WN;
-#pragma unroll
-  for (int i = 0; i < Tl::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < Tl::NT8; ++j) {
-      const int m = (wm * Tl::MT + i) * 16 + (lane >> 2);
-      const int n = (wn * Tl::NT8 + j) * 8 + (lane & 3) * 2;
-      const float b0 = bias ? bias[n] : 0.f, b1 = bias ? bias[n + 1] : 0.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float v0 = act_fwd(acc[i][j][2 * h] + b0, act, slope);
-        const float v1 = act_fwd(acc[i][j][2 * h + 1] + b1, act, slope);
-        *reinterpret_cast<uint32_t*>(dst + (m + 8 * h) * pitch + n * 2) =
-            esr::mma::pack_bf16(v0, v1);
-      }
-    }
-}
-
-// Shared [PIX][np] bf16 rows to dst [B, H, W, c] at the tile (y0, x0): the
-// channels < c of the pixels inside the image.
-__device__ __forceinline__ void smem_to_out(const unsigned char* src, int pitch,
-                                            bf16* __restrict__ dst, int b, int y0, int x0, int H,
-                                            int W, int c, int tid) {
-  const int nth = blockDim.x;
-  if ((c & 7) == 0) {
-    const int nc = c / 8;
-    for (int i = tid; i < PIX * nc; i += nth) {
-      const int m = i / nc, c8 = i % nc, y = y0 + m / TW, x = x0 + m % TW;
-      if (y < H && x < W)
-        *reinterpret_cast<uint4*>(dst + (((size_t)b * H + y) * W + x) * c + c8 * 8) =
-            *reinterpret_cast<const uint4*>(src + m * pitch + c8 * 16);
-    }
-  } else {
-    for (int i = tid; i < PIX * c; i += nth) {
-      const int m = i / c, k = i % c, y = y0 + m / TW, x = x0 + m % TW;
-      if (y < H && x < W)
-        dst[(((size_t)b * H + y) * W + x) * c + k] =
-            reinterpret_cast<const bf16*>(src + m * pitch)[k];
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // forward: NP = cout
@@ -1032,14 +881,6 @@ __global__ void __launch_bounds__(NT, 2) stage_wgrad_mma_kernel(
   }
 }
 
-// Opt a kernel into `bytes` of dynamic shared memory (above the 48 KB default).
-template <typename K>
-int smem_opt_in(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 }  // namespace mk
 
 struct StageArgs {
@@ -1130,7 +971,7 @@ int launch_fwd_mma(const StageArgs& a, cudaStream_t st) {
       (size_t)mk::HP * mk::ldsm_pitch(cinp) +
           (size_t)mk::NSLOT * std::min(mk::KCH, cinp) * mk::ldsm_pitch(NP),
       (size_t)mk::PIX * mk::ldsm_pitch(NP));
-  if (int e = mk::smem_opt_in(mk::stage_fwd_mma_kernel<NP, NW>, smem)) return e;
+  if (int e = esr::tile::smem_opt_in(mk::stage_fwd_mma_kernel<NP, NW>, smem)) return e;
   const dim3 grid((a.W + mk::TW - 1) / mk::TW, (a.H + mk::TH - 1) / mk::TH, a.B);
   mk::stage_fwd_mma_kernel<NP, NW><<<grid, NW * 32, smem, st>>>(
       static_cast<const mk::bf16*>(a.x), static_cast<const mk::bf16*>(a.w), a.bias,
@@ -1145,7 +986,7 @@ int launch_dgrad_mma(const StageArgs& a, cudaStream_t st) {
       (size_t)mk::HP * mk::ldsm_pitch(coutp) +
           (size_t)mk::NSLOT * NP * mk::ldsm_pitch(std::min(mk::KCH, coutp)),
       (size_t)mk::PIX * mk::ldsm_pitch(NP));
-  if (int e = mk::smem_opt_in(mk::stage_dgrad_mma_kernel<NP, NW>, smem)) return e;
+  if (int e = esr::tile::smem_opt_in(mk::stage_dgrad_mma_kernel<NP, NW>, smem)) return e;
   const dim3 grid((a.W + mk::TW - 1) / mk::TW, (a.H + mk::TH - 1) / mk::TH, a.B);
   mk::stage_dgrad_mma_kernel<NP, NW><<<grid, NW * 32, smem, st>>>(
       static_cast<const mk::bf16*>(a.g), static_cast<const mk::bf16*>(a.outp),
@@ -1161,7 +1002,7 @@ int launch_fwd_s2_mma(const StageArgs& a, cudaStream_t st) {
       (size_t)4 * mk::S2_PP * mk::ldsm_pitch(xc) +
           (size_t)mk::NSLOT * xc * mk::ldsm_pitch(NP),
       (size_t)mk::PIX * mk::ldsm_pitch(NP));
-  if (int e = mk::smem_opt_in(mk::stage_fwd_s2_mma_kernel<NP>, smem)) return e;
+  if (int e = esr::tile::smem_opt_in(mk::stage_fwd_s2_mma_kernel<NP>, smem)) return e;
   const dim3 grid((a.Wo + mk::TW - 1) / mk::TW, (a.Ho + mk::TH - 1) / mk::TH, a.B);
   mk::stage_fwd_s2_mma_kernel<NP><<<grid, mk::S2_NW * 32, smem, st>>>(
       static_cast<const mk::bf16*>(a.x), static_cast<const mk::bf16*>(a.w), a.bias,
@@ -1173,7 +1014,7 @@ template <int NCH>
 int launch_wgrad_mma(const StageArgs& a, cudaStream_t st) {
   const size_t smem = 2 * ((size_t)mk::WG_HP * mk::ldsm_pitch(mk::WG_XC) +
                            2 * (size_t)mk::WG_PIX * mk::ldsm_pitch(NCH));
-  if (int e = mk::smem_opt_in(mk::stage_wgrad_mma_kernel<NCH>, smem)) return e;
+  if (int e = esr::tile::smem_opt_in(mk::stage_wgrad_mma_kernel<NCH>, smem)) return e;
   const int tiles_x = (a.W + mk::TW - 1) / mk::TW, tiles_y = (a.H + mk::WG_TH - 1) / mk::WG_TH;
   const int total = a.B * tiles_x * tiles_y;
   const int per = (total + a.npart - 1) / a.npart;

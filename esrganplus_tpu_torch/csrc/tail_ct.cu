@@ -1,6 +1,6 @@
 // Upsample tail of RRDBNet (NHWC, sm_90a): upfold and conv_hr.
 //
-// Replaces two TPU kernels of esrganplus_tpu/kernels/tail_ct.py:
+// Replaces four TPU kernels of esrganplus_tpu/kernels/tail_ct.py:
 //   * upfold_ct  (_upfold_kernel): nearest-x2 upsample + 3x3 conv + bias +
 //     leaky-relu in one pass. Nearest-up duplicates pixels, so for output
 //     phase (a, b) = (Y mod 2, X mod 2) the nine HR taps collapse onto a 2x2
@@ -9,30 +9,34 @@
 //     the kernel does 4*C MACs per output channel instead of 9*C, and the
 //     upsampled intermediate never exists in device memory. Zero padding at
 //     LR resolution is exactly the HR zero padding after the fold.
-//   * conv_hr_ct (_conv_hr_kernel): hr_conv0 (3x3 C->C + leaky-relu) fused
-//     with hr_conv1 (3x3 C->CO2). conv0 runs over the (TH+2)x(TW+2) haloed
-//     tile into shared memory and its values outside the image are set to
-//     zero, because conv1's SAME padding pads conv0's *output*
-//     (tail_ct.py:413-421); conv0's activation is rounded to T as the TPU
-//     kernel rounds it. The C-channel HR intermediate never leaves shared
-//     memory.
+//   * conv_hr_ct (_conv_hr_kernel): hr_conv0 (3x3 C->C + leaky-relu) then
+//     hr_conv1 (3x3 C->CO2). conv1's SAME padding pads conv0's *output*
+//     (tail_ct.py:413-421), and conv0's activation is rounded to T as the TPU
+//     kernel rounds it. fp32 (conv_hr_kernel): conv0 over the (TH+2)x(TW+2)
+//     haloed tile into shared memory, zero outside the image, so the
+//     C-channel HR intermediate never leaves the block. bf16: the
+//     tensor-core design below (namespace tc).
+//   * _make_upfold_ct_diff (_upfold_bwd_kernel): the upconv's adjoint, bf16
+//     on the tensor cores (namespace tc); fp32 runs csrc/dgrad_ct.cu and
+//     csrc/wgrad_ct.cu (kernels/tail_ct.py upfold_ct_bwd).
+//   * _make_conv_hr_ct_diff (_conv_hr_bwd_kernel): two launches of its bf16
+//     design, conv_hr_hid_fix_kernel and conv_hr_adj_kernel below;
+//     kernels/tail_ct.py conv_hr_ct_bwd runs them between the stage
+//     tensor-core kernels of stage_ct.cu.
 //
-// Bound on this card: operations for upfold (4*C*CO MACs per HR pixel against
-// a C-channel LR read and a CO-channel HR write); for conv_hr, 9*C*(C+CO2)
-// MACs per HR pixel against C channels read and CO2 written, also operations.
-// Like rdb_ct.cu this first version accumulates on the CUDA cores in fp32,
-// with the same register tiling (4-6 pixels x C/8 channels per thread) over
-// shared-memory tiles; the 2x2 fold cuts upfold's work 2.25x, and conv_hr
-// never writes or re-reads its 64-channel HR intermediate.
-//
-// Also two launches of conv_hr's bf16 adjoint (_make_conv_hr_ct_diff,
-// _conv_hr_bwd_kernel): conv_hr_hid_fix_kernel and conv_hr_adj_kernel below;
-// kernels/tail_ct.py conv_hr_ct_bwd runs them between the stage tensor-core
-// kernels of stage_ct.cu.
+// Bound on this card in bf16: bytes for upfold (4*C*CO MACs per HR pixel
+// against a C-channel LR read shared by four HR pixels and a CO-channel HR
+// write: ~205 FLOP a byte at 64 wide, below the tensor cores' ~295) and for
+// its adjoint; operations for conv_hr (9*C*(C+CO2) MACs per HR pixel against
+// C channels read and CO2 written). The FMA kernels accumulate on the CUDA
+// cores in fp32, with the same register tiling as rdb_ct.cu (4-6 pixels x
+// C/8 channels per thread) over shared-memory tiles; the 2x2 fold cuts
+// upfold's work 2.25x.
 #include <algorithm>
 
 #include "common.cuh"
 #include "mma_bf16.cuh"
+#include "mma_tile.cuh"
 #include "wgrad.cuh"
 
 namespace {
@@ -560,6 +564,335 @@ __global__ void __launch_bounds__(NT) conv_hr_hid_fix_kernel(
 
 }  // namespace adj
 
+// ---------------------------------------------------------------------------
+// The bf16 tensor-core design ("mma") of the upconv adjoint and of conv_hr's
+// forward: implicit GEMMs on mma.sync m16n8k16 (csrc/mma_tile.cuh), fp32
+// accumulators, one rounding of each output. kernels/tail_ct.py picks the
+// design by dtype (upfold_bwd_design, conv_hr_design); fp32 keeps the FMA
+// kernels, whose 1e-4 bar TF32 would miss.
+//
+// Upconv adjoint (upfold_ct_bwd), three launches and two fixed-order finishes:
+//   * upfold_dz_kernel (bytes: g and the saved output read once as 16-byte
+//     vectors, the rounded dz written once): dz of output phase (a, b) =
+//     g[2y+a, 2x+b] gated by the saved output's sign (>= 0, no recompute, so
+//     the gate is the twin's), rounded once and stored phase-stacked at LR
+//     pixel (y, x): channel (2a+b)*COP + co of a [B, H, W, 4*COP] tensor (COP =
+//     CO, at least 16: K of one mma). db sums the unrounded dz, in per-block
+//     partial rows.
+//   * upfold_dgrad_mma_kernel: dx = sum over the 16 (a, b, i, j) of dz_ab at
+//     LR shift -(a-1+i, b-1+j) times wf[a, b, i, j]^T. M = an 8x16 LR pixel
+//     tile, N = C, K = 16 blocks x COP: only the blocks the fold makes, where
+//     a 3x3 adjoint over the phase-stacked channels would do 36. The haloed
+//     10x18 stacked tile is staged once; block s is a shifted row of it at
+//     channel offset (2a+b)*COP, and wf[a, b, i, j] ([c][co] = [n][k] rows)
+//     streams through a 3-slot cp.async ring.
+//   * upfold_wgrad_mma_kernel: dwf[a, b, i, j] = sum over pixels of x at LR
+//     shift (a-1+i, b-1+j) times dz_ab. A block takes one phase (a, b) and N =
+//     CO; its 8 warps are the 4 taps (i, j) x 2 halves of N, each over all C
+//     (m16 tiles of 16 channels, x^T read by ldmatrix.trans), so a warp's taps
+//     share one B fragment. Blocks walk fixed ranges of 4x16 pixel tiles
+//     (double-buffered cp.async); partial rows and wgrad_finish_kernel keep
+//     the reduction order a function of the shapes (kernels/tail_ct.py
+//     upfold_wgrad_ranges and upfold_dz_ranges mirror both partitions).
+// Bound: bytes (the gate pass's 2 reads and 1 write of an HR-sized tensor
+// dominate; the two products are 2 x 4*C*CO MACs per HR pixel).
+//
+// conv_hr forward (conv_hr_ct), two launches: the stage forward
+// (csrc/stage_ct.cu stage_fwd_mma_kernel, lrelu epilogue) writes hid =
+// bf16(lrelu(conv0(x) + b0)) to device memory, then conv_hr_out_mma_kernel
+// stages an 8x16 tile of hid with its 1-pixel halo (zero outside the image:
+// conv1's SAME padding of conv0's output), w1 padded to N = 8, and runs K = 9
+// taps x C on one n8 tile per warp: + b1, one rounding, co2 channels stored.
+// Bound: operations for conv0 (9*C*C MACs a pixel), bytes for conv1 (hid read
+// once). Writing hid and reading it back (2 x C bf16 a pixel) replaces the
+// FMA kernel's 1.41x halo recompute of conv0.
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using esr::mma::cp_async16;
+using esr::mma::ldsm_pitch;
+using esr::mma::smem_u32;
+using esr::tile::acc_to_smem;
+using esr::tile::bf16;
+using esr::tile::HP;
+using esr::tile::HW;
+using esr::tile::pack8;
+using esr::tile::round16;
+using esr::tile::smem_to_out;
+using esr::tile::stage_tile;
+using esr::tile::Tiling;
+using esr::tile::warp_mma;
+
+constexpr int NSLOT = 3;                 // weight-ring depth of the dx kernel
+constexpr int UP_NW = 8;                 // warps of a dx block
+constexpr int WG_TH = 4;                 // dW pixel tile: 4x16 = 64 pixels of K
+constexpr int WG_PIX = WG_TH * TW;
+constexpr int WG_HP = (WG_TH + 2) * HW;
+constexpr int HR_NW = 4;                 // warps of a conv_hr output block
+
+// the stacked dz's channels per output phase: CO, at least 16 (K of one mma)
+__host__ __device__ constexpr int phase_width(int co) { return co < 16 ? 16 : co; }
+
+// Block p turns the 16-byte chunks [p * per, (p + 1) * per) of g into dz
+// (chunk e = HR pixel e / NC, channels (e % NC) * 8 ..; chunks past CO are the
+// zero padding of COP). per is a multiple of NT and NT of NC, so a thread
+// always forms the same 8 channels and keeps their db partials in registers.
+template <int COP>
+__global__ void __launch_bounds__(NT) upfold_dz_kernel(
+    const bf16* __restrict__ g,    // [B, 2H, 2W, CO]: the upconv output's cotangent
+    const bf16* __restrict__ out,  // [B, 2H, 2W, CO]: its saved output
+    bf16* __restrict__ dz,         // [B, H, W, 4 * COP]
+    float* __restrict__ part,      // [npart][CO]: db
+    int CO, int H, int W, float slope, int n8, int per) {
+  constexpr int NC = COP / 8;
+  __shared__ float red[NT * 8];
+  const int tid = threadIdx.x, c8 = tid % NC;
+  const int end = min(n8, (int)(blockIdx.x + 1) * per);
+  float db[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) db[k] = 0.f;
+  for (int e = blockIdx.x * per + tid; e < end; e += NT) {
+    const int P = e / NC, X = P % (2 * W), Y = P / (2 * W) % (2 * H), n = P / (4 * H * W);
+    uint4 r = make_uint4(0, 0, 0, 0);
+    if (c8 * 8 < CO) {
+      const size_t i = (size_t)P * CO + c8 * 8;
+      const uint4 gv = *reinterpret_cast<const uint4*>(g + i);
+      const uint4 ov = *reinterpret_cast<const uint4*>(out + i);
+      const bf16* gp = reinterpret_cast<const bf16*>(&gv);
+      const bf16* op = reinterpret_cast<const bf16*>(&ov);
+      float d[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float v = __bfloat162float(gp[k]);
+        d[k] = __bfloat162float(op[k]) >= 0.f ? v : v * slope;
+        db[k] += d[k];
+      }
+      r = pack8(d);
+    }
+    *reinterpret_cast<uint4*>(dz + (((size_t)n * H + (Y >> 1)) * W + (X >> 1)) * 4 * COP +
+                              ((Y & 1) * 2 + (X & 1)) * COP + c8 * 8) = r;
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) red[tid * 8 + k] = db[k];
+  __syncthreads();
+  for (int c = tid; c < CO; c += NT) {  // the threads of channel c in a fixed order
+    float v = 0.f;
+    for (int r = c / 8; r < NT; r += NC) v += red[r * 8 + c % 8];
+    part[(size_t)blockIdx.x * CO + c] = v;
+  }
+}
+
+// dx of one 8x16 LR tile: NP = C, K = the 16 (a, b, i, j) blocks of COP rows.
+template <int NP, int COP>
+__global__ void __launch_bounds__(UP_NW * 32, 1) upfold_dgrad_mma_kernel(
+    const bf16* __restrict__ dz,  // [B, H, W, 4 * COP]: phase-stacked, rounded
+    const bf16* __restrict__ wf,  // [2, 2, 2, 2, NP, CO]: the folded weights
+    bf16* __restrict__ dx,        // [B, H, W, NP]
+    int CO, int H, int W) {
+  using Tl = Tiling<NP, UP_NW>;
+  constexpr int ZP = ldsm_pitch(4 * COP), WP = ldsm_pitch(COP), SLOT = NP * WP, NC = COP / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t zs = smem_u32(smem), ws = zs + HP * ZP;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / Tl::WN, wn = warp % Tl::WN;
+  const int b = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+
+  auto load_w = [&](int s) {  // wf[a, b, i, j] as [n = c][k = co] rows, zero past CO
+    const uint32_t dst = ws + (s % NSLOT) * SLOT;
+    for (int i = tid; i < NP * NC; i += Tl::NTH) {
+      const int c = i / NC, k8 = i % NC;
+      const bool ok = k8 * 8 < CO;
+      cp_async16(dst + c * WP + k8 * 16, ok ? wf + ((size_t)s * NP + c) * CO + k8 * 8 : wf, ok);
+    }
+  };
+  stage_tile<TH + 2, HW>(dz, smem, ZP, b, y0 - 1, x0 - 1, H, W, 4 * COP, 0, 4 * COP, tid);
+  esr::mma::cp_async_commit();
+  load_w(0);
+  esr::mma::cp_async_commit();
+  load_w(1);
+  esr::mma::cp_async_commit();
+
+  float acc[Tl::MT][Tl::NT8][4];
+#pragma unroll
+  for (int i = 0; i < Tl::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < Tl::NT8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+  uint32_t arow[Tl::MT];
+#pragma unroll
+  for (int i = 0; i < Tl::MT; ++i)
+    arow[i] = zs + ((wm * Tl::MT + i) * HW + (lane & 15)) * ZP + (lane >> 4) * 16;
+
+  for (int s = 0; s < 16; ++s) {
+    esr::mma::cp_async_wait<1>();  // the dz tile and block s have landed
+    __syncthreads();               // ... for every thread, and slot (s+2) % 3 is free
+    if (s + 2 < 16) load_w(s + 2);
+    esr::mma::cp_async_commit();
+    const int pa = s >> 3, pb = (s >> 2) & 1, i = (s >> 1) & 1, j = s & 1;
+    // dz_ab at LR pixel (y - (a-1+i), x - (b-1+j)): tile row y + 2 - a - i
+    const int shift = (2 - pa - i) * HW + 2 - pb - j;
+    uint32_t a[Tl::MT];
+#pragma unroll
+    for (int m = 0; m < Tl::MT; ++m) a[m] = arow[m] + shift * ZP + (2 * pa + pb) * COP * 2;
+    warp_mma<Tl::MT, Tl::NT8, false>(acc, a, ws + (s % NSLOT) * SLOT, WP, wn * Tl::NT8 * 8, COP,
+                                     lane);
+  }
+  esr::mma::cp_async_wait<0>();
+  __syncthreads();
+  constexpr int DP = ldsm_pitch(NP);
+  acc_to_smem<NP, UP_NW>(acc, smem, DP, nullptr, esr::tile::kNone, 0.f, warp, lane);
+  __syncthreads();
+  smem_to_out(smem, DP, dx, b, y0, x0, H, W, NP, tid);
+}
+
+// dwf of one phase (a, b) = blockIdx.x over the pixel tiles of part blockIdx.y.
+// Warp w: tap (i, j) = (w >> 2 & 1, w >> 1 & 1), output channels (w & 1) * COP/2 ..;
+// M = its CP / 16 m16 tiles of 16 input channels, K = pixels.
+template <int CP, int COP>
+__global__ void __launch_bounds__(NT, 2) upfold_wgrad_mma_kernel(
+    const bf16* __restrict__ x,   // [B, H, W, C]
+    const bf16* __restrict__ dz,  // [B, H, W, 4 * COP]
+    float* __restrict__ part,     // [npart][16 * C * CO]: dwf's layout
+    int C, int CO, int H, int W, int tiles_per_part, int total_tiles, int tiles_x, int tiles_y) {
+  constexpr int MT = CP / 16, NT8 = COP / 16;
+  constexpr int XP = ldsm_pitch(CP), GP = ldsm_pitch(COP);
+  constexpr int XBYTES = WG_HP * XP, BUF = XBYTES + WG_PIX * GP;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tap = warp >> 1, wn = warp & 1, ti = tap >> 1, tj = tap & 1;
+  const int ph = blockIdx.x, pa = ph >> 1, pb = ph & 1;
+  float* dst = part + (size_t)blockIdx.y * 16 * C * CO;
+  const int tbeg = blockIdx.y * tiles_per_part;
+  const int ntile = min(total_tiles, tbeg + tiles_per_part) - tbeg;
+  auto load = [&](int it) {
+    const int tile = tbeg + it;
+    unsigned char* buf = smem + (it & 1) * BUF;
+    const int b = tile / (tiles_x * tiles_y);
+    const int oy0 = tile / tiles_x % tiles_y * WG_TH, ox0 = tile % tiles_x * TW;
+    stage_tile<WG_TH + 2, HW>(x, buf, XP, b, oy0 - 1, ox0 - 1, H, W, C, 0, CP, tid);
+    stage_tile<WG_TH, TW>(dz, buf + XBYTES, GP, b, oy0, ox0, H, W, 4 * COP, ph * COP, COP, tid);
+  };
+
+  float acc[MT][NT8][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+
+  if (ntile > 0) load(0);
+  esr::mma::cp_async_commit();
+  for (int it = 0; it < ntile; ++it) {
+    if (it + 1 < ntile) load(it + 1);
+    esr::mma::cp_async_commit();
+    esr::mma::cp_async_wait<1>();
+    __syncthreads();
+    const uint32_t xs = smem_u32(smem + (it & 1) * BUF), zs = xs + XBYTES;
+#pragma unroll
+    for (int kk = 0; kk < WG_TH; ++kk) {  // one tile row of 16 pixels per k16 step
+      uint32_t bf[NT8][2];
+      if constexpr (NT8 == 1) {
+        esr::mma::ldsm_x2_t(bf[0], zs + (kk * 16 + (lane & 15)) * GP + wn * 16);
+      } else {
+#pragma unroll
+        for (int j = 0; j < NT8; j += 2) {
+          uint32_t r[4];
+          esr::mma::ldsm_x4_t(r, zs + (kk * 16 + (lane & 15)) * GP +
+                                     (wn * NT8 * 8 + j * 8 + (lane >> 4) * 8) * 2);
+          bf[j][0] = r[0], bf[j][1] = r[1], bf[j + 1][0] = r[2], bf[j + 1][1] = r[3];
+        }
+      }
+      // A = x^T: [k = pixel][m = c] rows read with .trans; x of dz pixel (y, x)
+      // at tap (a, b, i, j) is tile pixel (y + a + i, x + b + j)
+      const int px = (lane & 7) + (lane >> 4) * 8;
+      const uint32_t xrow = xs + ((kk + pa + ti) * HW + px + pb + tj) * XP + ((lane >> 3) & 1) * 16;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        uint32_t af[4];
+        esr::mma::ldsm_x4_t(af, xrow + i * 32);
+#pragma unroll
+        for (int j = 0; j < NT8; ++j) esr::mma::mma_bf16(acc[i][j], af, bf[j][0], bf[j][1]);
+      }
+    }
+    __syncthreads();
+  }
+  esr::mma::cp_async_wait<0>();
+
+  const int t = ph * 4 + tap;  // (a, b, i, j) flattened: dwf's leading index
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT8; ++j) {
+      const int n = (wn * NT8 + j) * 8 + (lane & 3) * 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = i * 16 + (lane >> 2) + 8 * h;
+        if (c < C && n < CO)
+          *reinterpret_cast<float2*>(dst + ((size_t)t * C + c) * CO + n) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+    }
+}
+
+// conv1 of conv_hr on the tensor cores: out = bf16(conv1(hid) + b1) over one
+// 8x16 tile; 4 warps of two m16 tiles (tile rows) x one n8 tile.
+template <int CP>
+__global__ void __launch_bounds__(HR_NW * 32) conv_hr_out_mma_kernel(
+    const bf16* __restrict__ hid,  // [B, H, W, C]: conv0's activation, rounded
+    const bf16* __restrict__ w1,   // [3, 3, C, co2]
+    const float* __restrict__ b1,  // [co2]
+    bf16* __restrict__ out,        // [B, H, W, co2]
+    int C, int co2, int H, int W) {
+  using Tl = Tiling<8, HR_NW>;
+  constexpr int XP = ldsm_pitch(CP), WP = 16;  // w1 as [k = (tap, c)][n = 8] rows
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* w1s = reinterpret_cast<bf16*>(smem + HP * XP);
+  const uint32_t xs = smem_u32(smem), ws = xs + HP * XP;
+  const int tid = threadIdx.x, lane = tid & 31, wm = tid >> 5;
+  const int b = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+  stage_tile<TH + 2, HW>(hid, smem, XP, b, y0 - 1, x0 - 1, H, W, C, 0, CP, tid);
+  esr::mma::cp_async_commit();
+  for (int i = tid; i < 9 * CP * 8; i += Tl::NTH) {
+    const int co = i % 8, r = i / 8, t = r / CP, c = r % CP;
+    w1s[i] = c < C && co < co2 ? w1[((size_t)t * C + c) * co2 + co] : __float2bfloat16_rn(0.f);
+  }
+  esr::mma::cp_async_wait<0>();
+  __syncthreads();
+
+  float acc[Tl::MT][1][4];
+#pragma unroll
+  for (int i = 0; i < Tl::MT; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[i][0][r] = 0.f;
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+    uint32_t a[Tl::MT];
+#pragma unroll
+    for (int i = 0; i < Tl::MT; ++i)
+      a[i] = xs + (((wm * Tl::MT + i) + t / 3) * HW + (lane & 15) + t % 3) * XP + (lane >> 4) * 16;
+    warp_mma<Tl::MT, 1, true>(acc, a, ws + t * CP * WP, WP, 0, CP, lane);
+  }
+#pragma unroll
+  for (int i = 0; i < Tl::MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = (wm * Tl::MT + i) * 16 + (lane >> 2) + 8 * h;
+      const int y = y0 + m / TW, xx = x0 + m % TW;
+      if (y >= H || xx >= W) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = (lane & 3) * 2 + e;
+        if (n < co2)
+          out[(((size_t)b * H + y) * W + xx) * co2 + n] = __float2bfloat16_rn(acc[i][0][2 * h + e] + b1[n]);
+      }
+    }
+}
+
+}  // namespace tc
+
 template <int C, int CO2P>
 int launch_conv_hr_adj(int co2, const void* g, const void* w1, const void* hid, void* dz0,
                        float* part, int npart, float* out, int B, int H, int W, float slope,
@@ -660,6 +993,97 @@ int conv_hr_c(int C, int co2, const void* x, const void* w0, const void* b0, con
   }
 }
 
+
+// ---- the bf16 tensor-core design: launches ---------------------------------
+
+enum Design : int { kFma = 0, kMma = 1 };  // kernels/tail_ct.py DESIGNS
+
+using esr::mma::ldsm_pitch;
+
+template <int COP>
+int launch_upfold_dz(int CO, const void* g, const void* out, void* dz, float* part, int npart,
+                     float* db, int B, int H, int W, float slope, cudaStream_t s) {
+  const int n8 = B * 4 * H * W * (COP / 8);
+  const int per = ((n8 + npart - 1) / npart + NT - 1) / NT * NT;
+  tc::upfold_dz_kernel<COP><<<npart, NT, 0, s>>>(
+      static_cast<const tc::bf16*>(g), static_cast<const tc::bf16*>(out),
+      static_cast<tc::bf16*>(dz), part, CO, H, W, slope, n8, per);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  esr::wgrad::wgrad_finish_kernel<<<(CO + 255) / 256, 256, 0, s>>>(part, npart, CO, db);
+  return (int)cudaGetLastError();
+}
+
+template <int NP, int COP>
+int launch_upfold_dgrad(int CO, const void* dz, const void* wf, void* dx, int B, int H, int W,
+                        cudaStream_t s) {
+  const size_t smem = std::max<size_t>(
+      (size_t)esr::tile::HP * ldsm_pitch(4 * COP) + (size_t)tc::NSLOT * NP * ldsm_pitch(COP),
+      (size_t)esr::tile::PIX * ldsm_pitch(NP));
+  if (int e = esr::tile::smem_opt_in(tc::upfold_dgrad_mma_kernel<NP, COP>, smem)) return e;
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+  tc::upfold_dgrad_mma_kernel<NP, COP><<<grid, tc::UP_NW * 32, smem, s>>>(
+      static_cast<const tc::bf16*>(dz), static_cast<const tc::bf16*>(wf),
+      static_cast<tc::bf16*>(dx), CO, H, W);
+  return (int)cudaGetLastError();
+}
+
+template <int CP, int COP>
+int launch_upfold_wgrad(int C, int CO, const void* x, const void* dz, float* part, int npart,
+                        float* dwf, int B, int H, int W, cudaStream_t s) {
+  const size_t smem = 2 * ((size_t)tc::WG_HP * ldsm_pitch(CP) + (size_t)tc::WG_PIX * ldsm_pitch(COP));
+  if (int e = esr::tile::smem_opt_in(tc::upfold_wgrad_mma_kernel<CP, COP>, smem)) return e;
+  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + tc::WG_TH - 1) / tc::WG_TH;
+  const int total = B * tiles_x * tiles_y;
+  const int per = (total + npart - 1) / npart;
+  tc::upfold_wgrad_mma_kernel<CP, COP><<<dim3(4, npart), NT, smem, s>>>(
+      static_cast<const tc::bf16*>(x), static_cast<const tc::bf16*>(dz), part, C, CO, H, W, per,
+      total, tiles_x, tiles_y);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int row = 16 * C * CO;
+  esr::wgrad::wgrad_finish_kernel<<<(row + 255) / 256, 256, 0, s>>>(part, npart, row, dwf);
+  return (int)cudaGetLastError();
+}
+
+template <int CP>
+int launch_conv_hr_out(int C, int co2, const void* hid, const void* w1, const float* b1,
+                       void* out, int B, int H, int W, cudaStream_t s) {
+  const size_t smem = (size_t)esr::tile::HP * ldsm_pitch(CP) + (size_t)9 * CP * 16;
+  if (int e = esr::tile::smem_opt_in(tc::conv_hr_out_mma_kernel<CP>, smem)) return e;
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+  tc::conv_hr_out_mma_kernel<CP><<<grid, tc::HR_NW * 32, smem, s>>>(
+      static_cast<const tc::bf16*>(hid), static_cast<const tc::bf16*>(w1), b1,
+      static_cast<tc::bf16*>(out), C, co2, H, W);
+  return (int)cudaGetLastError();
+}
+
+// by width: N = C (8, 16, 32, 64) of the dx kernel, CP = C rounded up to 16
+// of the dW and conv_hr kernels, COP = phase_width(CO)
+template <int NP>
+int upfold_dgrad_co(int CO, const void* dz, const void* wf, void* dx, int B, int H, int W,
+                    cudaStream_t s) {
+  switch (CO) {
+    case 8:
+    case 16: return launch_upfold_dgrad<NP, 16>(CO, dz, wf, dx, B, H, W, s);
+    case 32: return launch_upfold_dgrad<NP, 32>(CO, dz, wf, dx, B, H, W, s);
+    case 64: return launch_upfold_dgrad<NP, 64>(CO, dz, wf, dx, B, H, W, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int CP>
+int upfold_wgrad_co(int C, int CO, const void* x, const void* dz, float* part, int npart,
+                    float* dwf, int B, int H, int W, cudaStream_t s) {
+  switch (CO) {
+    case 8:
+    case 16: return launch_upfold_wgrad<CP, 16>(C, CO, x, dz, part, npart, dwf, B, H, W, s);
+    case 32: return launch_upfold_wgrad<CP, 32>(C, CO, x, dz, part, npart, dwf, B, H, W, s);
+    case 64: return launch_upfold_wgrad<CP, 64>(C, CO, x, dz, part, npart, dwf, B, H, W, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -674,17 +1098,85 @@ int esr_upfold(int dtype, int C, int CO, const void* x, const void* wf, const vo
   return (int)cudaErrorInvalidValue;
 }
 
-// Fused hr_conv0 (+lrelu) and hr_conv1. Returns cudaGetLastError().
-int esr_conv_hr(int dtype, int C, int CO2, const void* x, const void* w0, const void* b0,
-                const void* w1, const void* b1, void* out, int B, int H, int W, float slope,
-                void* stream) {
+// Fused hr_conv0 (+lrelu) and hr_conv1, the FMA design: fp32 only, `design`
+// 0 (bf16 runs the tensor-core design: the stage forward, then
+// esr_conv_hr_out); anything else returns cudaErrorInvalidValue. Returns
+// cudaGetLastError().
+int esr_conv_hr(int dtype, int design, int C, int CO2, const void* x, const void* w0,
+                const void* b0, const void* w1, const void* b1, void* out, int B, int H, int W,
+                float slope, void* stream) {
+  if (dtype != esr::kFloat32 || design != kFma || CO2 < 1 || CO2 > 8)
+    return (int)cudaErrorInvalidValue;
+  return conv_hr_c<float>(C, CO2, x, w0, b0, w1, b1, out, B, H, W, slope,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// conv_hr's bf16 forward, second launch (tensor cores, `design` 1, else
+// cudaErrorInvalidValue): out [B,H,W,CO2] = bf16(conv1(hid) + b1) from hid
+// [B,H,W,C] (conv0's activation, rounded), w1 [3,3,C,CO2] (bf16), b1 [CO2]
+// (fp32); C in {8, 16, 32, 64}, CO2 in 1..8. Returns cudaGetLastError().
+int esr_conv_hr_out(int design, int C, int CO2, const void* hid, const void* w1,
+                    const float* b1, void* out, int B, int H, int W, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (CO2 < 1 || CO2 > 8) return (int)cudaErrorInvalidValue;
-  if (dtype == esr::kFloat32)
-    return conv_hr_c<float>(C, CO2, x, w0, b0, w1, b1, out, B, H, W, slope, s);
-  if (dtype == esr::kBFloat16)
-    return conv_hr_c<__nv_bfloat16>(C, CO2, x, w0, b0, w1, b1, out, B, H, W, slope, s);
-  return (int)cudaErrorInvalidValue;
+  if (design != kMma || CO2 < 1 || CO2 > 8) return (int)cudaErrorInvalidValue;
+  switch (C) {
+    case 8:
+    case 16: return launch_conv_hr_out<16>(C, CO2, hid, w1, b1, out, B, H, W, s);
+    case 32: return launch_conv_hr_out<32>(C, CO2, hid, w1, b1, out, B, H, W, s);
+    case 64: return launch_conv_hr_out<64>(C, CO2, hid, w1, b1, out, B, H, W, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The upconv's bf16 adjoint on the tensor cores (`design` 1 in each entry,
+// else cudaErrorInvalidValue); C, CO in {8, 16, 32, 64}, COP = max(CO, 16).
+// 1. dz [B,H,W,4*COP] bf16 (phase-stacked, rounded) from g and the saved
+//    output out (both [B,2H,2W,CO] bf16); db [CO] fp32 from the unrounded dz
+//    through `part`, an fp32 workspace of npart * CO floats: part p takes the
+//    16-byte chunks [p * per, (p + 1) * per) of g, per = ceil(ceil(n8 / npart)
+//    / 256) * 256 with n8 = B*4*H*W*COP/8 (kernels/tail_ct.py upfold_dz_ranges).
+int esr_upfold_dz(int design, int CO, const void* g, const void* out, void* dz, float* part,
+                  int npart, float* db, int B, int H, int W, float slope, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (design != kMma || npart < 1) return (int)cudaErrorInvalidValue;
+  switch (CO) {
+    case 8:
+    case 16: return launch_upfold_dz<16>(CO, g, out, dz, part, npart, db, B, H, W, slope, s);
+    case 32: return launch_upfold_dz<32>(CO, g, out, dz, part, npart, db, B, H, W, slope, s);
+    case 64: return launch_upfold_dz<64>(CO, g, out, dz, part, npart, db, B, H, W, slope, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// 2. dx [B,H,W,C] bf16 from dz and the folded weights wf [2,2,2,2,C,CO] bf16.
+int esr_upfold_dgrad(int design, int C, int CO, const void* dz, const void* wf, void* dx, int B,
+                     int H, int W, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (design != kMma) return (int)cudaErrorInvalidValue;
+  switch (C) {
+    case 8: return upfold_dgrad_co<8>(CO, dz, wf, dx, B, H, W, s);
+    case 16: return upfold_dgrad_co<16>(CO, dz, wf, dx, B, H, W, s);
+    case 32: return upfold_dgrad_co<32>(CO, dz, wf, dx, B, H, W, s);
+    case 64: return upfold_dgrad_co<64>(CO, dz, wf, dx, B, H, W, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// 3. dwf [2,2,2,2,C,CO] fp32 from x [B,H,W,C] and dz through `part`, an fp32
+//    workspace of npart * 16*C*CO floats: part p sums the 4x16 LR pixel tiles
+//    [p * per, (p + 1) * per), per = ceil(tiles / npart) (kernels/tail_ct.py
+//    upfold_wgrad_ranges).
+int esr_upfold_wgrad(int design, int C, int CO, const void* x, const void* dz, float* part,
+                     int npart, float* dwf, int B, int H, int W, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (design != kMma || npart < 1) return (int)cudaErrorInvalidValue;
+  switch (C) {
+    case 8:
+    case 16: return upfold_wgrad_co<16>(C, CO, x, dz, part, npart, dwf, B, H, W, s);
+    case 32: return upfold_wgrad_co<32>(C, CO, x, dz, part, npart, dwf, B, H, W, s);
+    case 64: return upfold_wgrad_co<64>(C, CO, x, dz, part, npart, dwf, B, H, W, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // conv_hr's bf16 adjoint, after the recompute of hid [B,H,W,C] bf16 on the

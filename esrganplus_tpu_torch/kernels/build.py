@@ -68,7 +68,11 @@ SIGNATURES = {
     },
     "tail_ct": {
         "esr_upfold": [I, I, I, P, P, P, P, I, I, I, F, P],
-        "esr_conv_hr": [I, I, I, P, P, P, P, P, P, I, I, I, F, P],
+        "esr_conv_hr": [I, I, I, I, P, P, P, P, P, P, I, I, I, F, P],
+        "esr_conv_hr_out": [I, I, I, P, P, P, P, I, I, I, P],
+        "esr_upfold_dz": [I, I, P, P, P, P, I, P, I, I, I, F, P],
+        "esr_upfold_dgrad": [I, I, I, P, P, P, I, I, I, P],
+        "esr_upfold_wgrad": [I, I, I, P, P, P, I, P, I, I, I, P],
         "esr_conv_hr_hid_fix": [I, P, P, P, P, I, I, I, F, P],
         "esr_conv_hr_adj": [I, I, P, P, P, P, P, I, P, I, I, I, F, P],
     },

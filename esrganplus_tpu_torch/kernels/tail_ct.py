@@ -1,5 +1,5 @@
 """The RRDBNet upsample tail's kernels: ``upfold_ct`` (nearest-×2 + 3×3 conv
-+ lrelu) and ``conv_hr_ct`` (hr_conv0 + lrelu fused with hr_conv1).
++ lrelu) and ``conv_hr_ct`` (hr_conv0 + lrelu, then hr_conv1).
 
 Counterpart of ``esrganplus_tpu/kernels/tail_ct.py``. The TPU kernels carry
 the growing width as column-phase planes in a ``[C, pixels]`` layout; here
@@ -9,22 +9,33 @@ round: the 2×2 dense fold of the upconv (weights folded in fp32, then cast),
 one rounding of each upconv output, conv0's activation rounded and zeroed
 outside the image before conv1, and conv1's output in the working dtype.
 
+Two designs, picked by dtype (:func:`tail_design`): bf16 runs on the tensor
+cores (``"mma"``: ``mma.sync`` implicit GEMMs, ``csrc/mma_tile.cuh``), fp32 on
+the CUDA cores (``"fma"``), whose 1e-4 bar TF32 would miss. ``upfold_ct``
+has the FMA design only. ``conv_hr_ct`` in bf16 is two launches
+(:func:`conv_hr_mma_steps`): the stage forward of ``csrc/stage_ct.cu`` writes
+conv0's activation, ``conv_hr_out_mma_kernel`` runs conv1 on it; in fp32 one
+fused FMA kernel keeps the activation in shared memory.
+
 Training goes through ``upfold_ct_diff`` and ``conv_hr_ct_diff``
 (``torch.autograd.Function``s; fp32 master weights in, fp32 gradients out).
-``upfold_ct_bwd`` is built from the data- and weight-gradient kernels of
-``csrc/dgrad_ct.cu`` and ``csrc/wgrad_ct.cu``: the upconv's per-phase 2×2 convs
-are embedded in 3×3 taps and read the HR cotangent through a phase view, gated
-by the saved output's sign. ``conv_hr_ct_bwd`` recomputes conv0's activation,
-as the TPU kernel recomputes it per stripe, in one of two designs
-(:func:`conv_hr_bwd_design`): in bf16 on the tensor cores, the stage kernels
-of ``csrc/stage_ct.cu`` recompute it and run conv0's adjoint, and
-``csrc/tail_ct.cu`` rewrites its entries near 0 as the FMA design computes
-them (so the lrelu gate takes the FMA design's sign there) and forms conv1's
-adjoint, the gate and conv1's weight gradient between them; in fp32, the FMA
-kernels (the forward's dense kernel, ``dgrad_ct``, ``wgrad_ct``).
+``upfold_ct_bwd`` in bf16 (:func:`upfold_bwd_mma_steps`) gates the HR
+cotangent once into a phase-stacked LR tensor and runs the 16 (shift, phase)
+blocks of the fold as the K of the data gradient and as the taps of the
+weight gradient; in fp32 it runs the data- and weight-gradient kernels of
+``csrc/dgrad_ct.cu`` and ``csrc/wgrad_ct.cu``, the per-phase 2×2 convs
+embedded in 3×3 taps and reading the HR cotangent through a phase view.
+``conv_hr_ct_bwd`` recomputes conv0's activation, as the TPU kernel
+recomputes it per stripe: in bf16 the stage kernels of ``csrc/stage_ct.cu``
+recompute it and run conv0's adjoint, and ``csrc/tail_ct.cu`` rewrites its
+entries near 0 as the FMA design computes them (so the lrelu gate takes the
+FMA design's sign there) and forms conv1's adjoint, the gate and conv1's
+weight gradient between them; in fp32, the FMA kernels (the forward's dense
+kernel, ``dgrad_ct``, ``wgrad_ct``).
 
 A CPU tensor goes to the plain twin (``*_plain``); a CUDA tensor launches the
-kernel or raises.
+kernel or raises. Each wrapper counts its calls in ``launches`` and, where it
+has two designs, in ``launches_by_design``.
 """
 
 from __future__ import annotations
@@ -136,13 +147,59 @@ def upfold_ct(x: torch.Tensor, wf: torch.Tensor, bias: torch.Tensor, *,
 upfold_ct.launches = 0
 
 
+def tail_design(dtype: torch.dtype) -> str:
+    """Which design runs a two-design tail function on the card
+    (:func:`conv_hr_ct`, :func:`upfold_ct_bwd`, :func:`conv_hr_ct_bwd`):
+    ``"mma"`` (bf16 on the tensor cores) or ``"fma"`` (fp32 on the CUDA
+    cores, whose 1e-4 bar TF32 would miss)."""
+    if dtype not in build.DTYPE_CODES:
+        raise TypeError(f"CUDA kernels take float32 or bfloat16, got {dtype}")
+    return "mma" if dtype == torch.bfloat16 else "fma"
+
+
+conv_hr_design = upfold_bwd_design = conv_hr_bwd_design = tail_design
+
+CONV_HR_OUT_TILE = (8, 16)  # pixel rows × columns of a conv_hr_out_mma_kernel block
+
+
+def conv_hr_mma_steps(x, w0, b0, w1, b1, *, slope: float = 0.2):
+    """The bf16 design of :func:`conv_hr_ct` as its two launches, in order,
+    over buffers allocated here → ``(steps, out)``. ``steps`` maps ``"hid"``
+    (conv0 + lrelu rounded, ``stage_fwd_mma_kernel``) and ``"out"``
+    (``conv_hr_out_mma_kernel``: conv1 + b1 over hid) to callables; each may
+    run again on its own (for timing) and gives the same bits. Inputs as
+    :func:`conv_hr_ct` validates them."""
+    B, H, W, C = x.shape
+    CO2 = w1.shape[3]
+    x, w0, w1 = S._aligned(x), S._aligned(w0), S._aligned(w1)
+    stage, tail = build.load("stage_ct"), build.load("tail_ct")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    mma = S.DESIGNS["mma"]
+    hid = torch.empty_like(x)
+    out = torch.empty((B, H, W, CO2), dtype=x.dtype, device=x.device)
+
+    def hid_step():
+        build.check(stage.esr_stage_fwd(build.dtype_code(x), 3, mma, min(C, 64), x.data_ptr(),
+                                        w0.data_ptr(), b0.data_ptr(), hid.data_ptr(), B, H, W,
+                                        C, C, S.ACTS["lrelu"], slope, stream), "esr_stage_fwd")
+
+    def out_step():
+        build.check(tail.esr_conv_hr_out(mma, C, CO2, hid.data_ptr(), w1.data_ptr(),
+                                         b1.data_ptr(), out.data_ptr(), B, H, W, stream),
+                    "esr_conv_hr_out")
+
+    return {"hid": hid_step, "out": out_step}, out
+
+
 def conv_hr_ct(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
                w1: torch.Tensor, b1: torch.Tensor, *,
                slope: float = 0.2) -> torch.Tensor:
-    """hr_conv0 (3×3 C→C + lrelu) fused with hr_conv1 (3×3 C→CO2): NHWC
+    """hr_conv0 (3×3 C→C + lrelu) then hr_conv1 (3×3 C→CO2): NHWC
     ``[B, H, W, C]`` → ``[B, H, W, CO2]`` in the input dtype. Weights from
-    :func:`prepare_conv_hr_ct`. ``conv_hr_ct.launches`` counts CUDA
-    launches."""
+    :func:`prepare_conv_hr_ct`. bf16 runs the tensor-core design
+    (:func:`conv_hr_mma_steps`), fp32 the fused FMA kernel; no fallback
+    between them. ``conv_hr_ct.launches`` counts CUDA calls,
+    ``launches_by_design`` them by design."""
     if x.device.type == "cpu":
         return conv_hr_ct_plain(x, w0, b0, w1, b1, slope=slope)
     if x.dim() != 4:
@@ -150,7 +207,7 @@ def conv_hr_ct(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
     B, H, W, C = x.shape
     CO2 = w1.shape[3]
     dt, dev = x.dtype, x.device
-    build.dtype_code(x)
+    design = conv_hr_design(dt)
     build.require_width(C, "C")
     build.require_width(CO2, "CO2", range(1, 9))
     build.require(x, "x", (B, H, W, C), dt, dev)
@@ -158,19 +215,20 @@ def conv_hr_ct(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
     build.require(b0, "b0", (C,), torch.float32, dev)
     build.require(w1, "w1", (3, 3, C, CO2), dt, dev)
     build.require(b1, "b1", (CO2,), torch.float32, dev)
-    lib = build.load("tail_ct")
-    out = torch.empty((B, H, W, CO2), dtype=dt, device=dev)
+    if design == "mma":
+        steps, out = conv_hr_mma_steps(x, w0, b0, w1, b1, slope=slope)
+    else:
+        lib = build.load("tail_ct")
+        out = torch.empty((B, H, W, CO2), dtype=dt, device=dev)
+        steps = {"fused": lambda: build.check(lib.esr_conv_hr(
+            build.dtype_code(x), S.DESIGNS[design], C, CO2, x.data_ptr(), w0.data_ptr(),
+            b0.data_ptr(), w1.data_ptr(), b1.data_ptr(), out.data_ptr(), B, H, W, slope,
+            torch.cuda.current_stream(dev).cuda_stream), "esr_conv_hr")}
     with torch.cuda.device(dev):
-        code = lib.esr_conv_hr(build.dtype_code(x), C, CO2, x.data_ptr(),
-                               w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
-                               b1.data_ptr(), out.data_ptr(), B, H, W, slope,
-                               torch.cuda.current_stream(dev).cuda_stream)
-    build.check(code, "esr_conv_hr")
-    conv_hr_ct.launches += 1
+        for step in steps.values():
+            step()
+    S._count(conv_hr_ct, design)
     return out
-
-
-conv_hr_ct.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -221,16 +279,6 @@ def conv_hr_ct_bwd_plain(x, w0, b0, w1, g, *, slope: float = 0.2) -> dict:
 
 CONV_HR_ADJ_TILE = (8, 16)    # pixel rows × columns of a conv_hr_adj_kernel tile
 CONV_HR_ADJ_MAX_PARTS = 256   # workspace rows: about two blocks an SM
-
-
-def conv_hr_bwd_design(dtype: torch.dtype) -> str:
-    """Which design runs :func:`conv_hr_ct_bwd` on the card: ``"mma"`` in
-    bf16 (the stage tensor-core kernels for conv0's recompute and adjoint,
-    ``conv_hr_adj_kernel`` between them); ``"fma"`` in fp32, whose 1e-4 bar
-    TF32 would miss."""
-    if dtype not in build.DTYPE_CODES:
-        raise TypeError(f"CUDA kernels take float32 or bfloat16, got {dtype}")
-    return "mma" if dtype == torch.bfloat16 else "fma"
 
 
 def conv_hr_adj_tiles(B: int, H: int, W: int) -> int:
@@ -342,45 +390,197 @@ def _embed_phases(wf: torch.Tensor) -> torch.Tensor:
     return w3.view(3, 3, C, 4 * CO)
 
 
+UPFOLD_DX_TILE = (8, 16)      # LR rows × columns of an upfold_dgrad_mma_kernel block
+UPFOLD_WG_TILE = (4, 16)      # LR pixel tiles upfold_wgrad_mma_kernel walks (its K)
+UPFOLD_WG_MAX_PARTS = 64      # dW workspace rows, four blocks (one per phase) each
+UPFOLD_DZ_THREADS = 256       # threads of an upfold_dz_kernel block
+UPFOLD_DZ_MAX_PARTS = 264     # db workspace rows, one block each: two an SM
+
+
+def upfold_phase_width(co: int) -> int:
+    """Channels of one output phase in the phase-stacked dz: CO, at least 16
+    (K of one ``mma.sync``; the padding is zero)."""
+    return max(co, 16)
+
+
+def upfold_blocks() -> list:
+    """The 16 (shift, phase) blocks of the upconv's folded adjoint in the
+    order the kernels walk them: block ``s`` = ``(a, b, i, j)``, the bits of
+    s, is ``wf[a, b, i, j]``; it pairs output phase ``2a + b`` of dz with the
+    LR input at shift ``(a - 1 + i, b - 1 + j)``. Returns
+    ``[((a, b, i, j), phase, (dy, dx))]``."""
+    return [((a, b, i, j), 2 * a + b, (a - 1 + i, b - 1 + j))
+            for a in range(2) for b in range(2) for i in range(2) for j in range(2)]
+
+
+def upfold_stack_dz(out: torch.Tensor, g: torch.Tensor, *, slope: float = 0.2):
+    """Plain mirror of ``upfold_dz_kernel`` → ``(dz, db)``: dz of output phase
+    (a, b) = g[2y+a, 2x+b] gated by ``out >= 0``, rounded to g's dtype and
+    phase-stacked at LR pixel (y, x) as ``[B, H, W, 4·COP]`` (channel
+    ``(2a+b)·COP + co``, zero at co ≥ CO), and db summed unrounded in fp32."""
+    B, H2, W2, CO = g.shape
+    cop = upfold_phase_width(CO)
+    dz = _dlrelu(out, g.float(), slope)
+    st = torch.zeros((B, H2 // 2, W2 // 2, 2, 2, cop), dtype=g.dtype, device=g.device)
+    st[..., :CO] = dz.view(B, H2 // 2, 2, W2 // 2, 2, CO).permute(0, 1, 3, 2, 4, 5).to(g.dtype)
+    return st.view(B, H2 // 2, W2 // 2, 4 * cop), dz.sum((0, 1, 2))
+
+
+def upfold_dz_chunks(B: int, H: int, W: int, CO: int) -> int:
+    """16-byte chunks of the cotangent that ``upfold_dz_kernel`` gates (the
+    LR image is H × W; COP channels a pixel, the padding included)."""
+    return B * 4 * H * W * upfold_phase_width(CO) // 8
+
+
+def _dz_per(n8: int) -> int:
+    """Chunks a db workspace row takes: ceil(n8 / parts), rounded up to a
+    multiple of the block's threads."""
+    nt = UPFOLD_DZ_THREADS
+    per = -(-n8 // min(UPFOLD_DZ_MAX_PARTS, -(-n8 // nt)))
+    return -(-per // nt) * nt
+
+
+def upfold_dz_parts(B: int, H: int, W: int, CO: int) -> int:
+    """Rows of ``upfold_dz_kernel``'s db workspace (one block each), at most
+    ``UPFOLD_DZ_MAX_PARTS``, none empty; see :func:`upfold_dz_ranges`."""
+    n8 = upfold_dz_chunks(B, H, W, CO)
+    return -(-n8 // _dz_per(n8))
+
+
+def upfold_dz_ranges(B: int, H: int, W: int, CO: int) -> list:
+    """``[(first chunk, end)]`` of each db workspace row, as
+    ``esr_upfold_dz`` cuts them: ``per`` = ceil(chunks / parts) rounded up to
+    a multiple of ``UPFOLD_DZ_THREADS`` (so a thread always forms the same 8
+    channels). A function of the shapes only, so db's reduction order is."""
+    n8 = upfold_dz_chunks(B, H, W, CO)
+    per = _dz_per(n8)
+    return [(p, min(n8, p + per)) for p in range(0, n8, per)]
+
+
+def upfold_wgrad_tiles(B: int, H: int, W: int) -> int:
+    """4×16 LR pixel tiles ``upfold_wgrad_mma_kernel`` walks."""
+    th, tw = UPFOLD_WG_TILE
+    return B * -(-H // th) * -(-W // tw)
+
+
+def upfold_wgrad_parts(B: int, H: int, W: int) -> int:
+    """Rows of ``upfold_wgrad_mma_kernel``'s dW workspace (four blocks each),
+    at most ``UPFOLD_WG_MAX_PARTS``, none empty; see
+    :func:`upfold_wgrad_ranges`."""
+    tiles = upfold_wgrad_tiles(B, H, W)
+    per = -(-tiles // min(tiles, UPFOLD_WG_MAX_PARTS))
+    return -(-tiles // per)
+
+
+def upfold_wgrad_ranges(B: int, H: int, W: int) -> list:
+    """``[(first tile, end)]`` of each dW workspace row, as
+    ``esr_upfold_wgrad`` cuts them: ``per = ceil(tiles / parts)`` tiles a row
+    in tile order. A function of the shapes only."""
+    tiles = upfold_wgrad_tiles(B, H, W)
+    per = -(-tiles // upfold_wgrad_parts(B, H, W))
+    return [(p, min(tiles, p + per)) for p in range(0, tiles, per)]
+
+
+def upfold_bwd_mma_steps(x, wf, out, g, *, slope: float = 0.2):
+    """The bf16 design of :func:`upfold_ct_bwd` as its three launches, in
+    order, over buffers allocated here → ``(steps, result)``. ``steps`` maps
+    ``"dz"`` (``upfold_dz_kernel``: the gated, rounded, phase-stacked dz and
+    db from the unrounded one, with its ordered finish), ``"dx"``
+    (``upfold_dgrad_mma_kernel``) and ``"dw"`` (``upfold_wgrad_mma_kernel``
+    and its ordered finish) to callables; each may run again on its own (for
+    timing) and gives the same bits. ``result`` holds ``{"dx", "wf", "b"}``
+    once every step has run. Inputs as :func:`upfold_ct_bwd` validates
+    them."""
+    B, H, W, C = x.shape
+    CO = wf.shape[-1]
+    dev = x.device
+    x, wf, out, g = S._aligned(x), S._aligned(wf), S._aligned(out), S._aligned(g)
+    lib = build.load("tail_ct")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    mma = S.DESIGNS["mma"]
+    dz = torch.empty((B, H, W, 4 * upfold_phase_width(CO)), dtype=x.dtype, device=dev)
+    dx = torch.empty_like(x)
+    nz, nw = upfold_dz_parts(B, H, W, CO), upfold_wgrad_parts(B, H, W)
+    part_z = torch.empty((nz, CO), dtype=torch.float32, device=dev)
+    part_w = torch.empty((nw, 16 * C * CO), dtype=torch.float32, device=dev)
+    db = torch.empty((CO,), dtype=torch.float32, device=dev)
+    dwf = torch.empty((2, 2, 2, 2, C, CO), dtype=torch.float32, device=dev)
+
+    def dz_step():
+        build.check(lib.esr_upfold_dz(mma, CO, g.data_ptr(), out.data_ptr(), dz.data_ptr(),
+                                      part_z.data_ptr(), nz, db.data_ptr(), B, H, W, slope,
+                                      stream), "esr_upfold_dz")
+
+    def dx_step():
+        build.check(lib.esr_upfold_dgrad(mma, C, CO, dz.data_ptr(), wf.data_ptr(),
+                                         dx.data_ptr(), B, H, W, stream), "esr_upfold_dgrad")
+
+    def dw_step():
+        build.check(lib.esr_upfold_wgrad(mma, C, CO, x.data_ptr(), dz.data_ptr(),
+                                         part_w.data_ptr(), nw, dwf.data_ptr(), B, H, W,
+                                         stream), "esr_upfold_wgrad")
+
+    return {"dz": dz_step, "dx": dx_step, "dw": dw_step}, {"dx": dx, "wf": dwf, "b": db}
+
+
 def upfold_ct_bwd(x, wf, out, g, *, slope: float = 0.2) -> dict:
     """Adjoint of :func:`upfold_ct` from its input, cast folded weights and
     saved output → ``{"dx", "wf", "b"}`` (``wf`` the folded weights' fp32
-    gradient). ``upfold_ct_bwd.launches`` counts CUDA calls."""
+    gradient). bf16 runs the tensor-core design
+    (:func:`upfold_bwd_mma_steps`), fp32 the FMA kernels; no fallback between
+    them. ``upfold_ct_bwd.launches`` counts CUDA calls,
+    ``launches_by_design`` them by design."""
     if x.device.type == "cpu":
         return upfold_ct_bwd_plain(x, wf, out, g, slope=slope)
     B, H, W, C = x.shape
     CO = wf.shape[-1]
     dt, dev = x.dtype, x.device
+    design = upfold_bwd_design(dt)
     build.require_width(CO, "CO")
+    if design == "mma":
+        build.require_width(C, "C")
     build.require(x, "x", (B, H, W, C), dt, dev)
     build.require(wf, "wf", (2, 2, 2, 2, C, CO), dt, dev)
     build.require(out, "out", (B, 2 * H, 2 * W, CO), dt, dev)
     build.require(g, "g", (B, 2 * H, 2 * W, CO), dt, dev)
+    with torch.cuda.device(dev):
+        if design == "mma":
+            steps, res = upfold_bwd_mma_steps(x, wf, out, g, slope=slope)
+            for step in steps.values():
+                step()
+        else:
+            res = _upfold_bwd_fma(x, wf, out, g, slope)
+    S._count(upfold_ct_bwd, design)
+    return res
+
+
+def _upfold_bwd_fma(x, wf, out, g, slope) -> dict:
+    """The fp32 design: one data-gradient launch over the phases embedded in
+    3×3 taps, four weight-gradient launches (one per phase) reading the HR
+    cotangent through a phase view gated by the saved output."""
+    B, H, W, C = x.shape
+    CO = wf.shape[-1]
     phase = lambda coff: launch.dz_src(H, W, build.DZ_PHASE, g=g, mask=out.data_ptr(), co=CO,
                                        coff=coff, slope=slope)
     dx = torch.empty_like(x)
-    dwf = torch.empty((2, 2, 2, 2, C, CO), dtype=torch.float32, device=dev)
+    dwf = torch.empty((2, 2, 2, 2, C, CO), dtype=torch.float32, device=x.device)
     db = None
-    with torch.cuda.device(dev):
-        launch.dgrad(x, B, phase(0), 4 * CO, _embed_phases(wf), C,
-                     chunk=launch.dgrad_chunk(C), out=dx)
-        for a in range(2):
-            for b in range(2):
-                dw3, dbp = launch.wgrad(x, None, C, phase((2 * a + b) * CO), CO)
-                dwf[a, b] = dw3.view(3, 3, C, CO)[a:a + 2, b:b + 2]
-                db = dbp if db is None else db + dbp
-    upfold_ct_bwd.launches += 1
+    launch.dgrad(x, B, phase(0), 4 * CO, _embed_phases(wf), C, chunk=launch.dgrad_chunk(C),
+                 out=dx)
+    for a in range(2):
+        for b in range(2):
+            dw3, dbp = launch.wgrad(x, None, C, phase((2 * a + b) * CO), CO)
+            dwf[a, b] = dw3.view(3, 3, C, CO)[a:a + 2, b:b + 2]
+            db = dbp if db is None else db + dbp
     return {"dx": dx, "wf": dwf, "b": db}
-
-
-upfold_ct_bwd.launches = 0
 
 
 def conv_hr_ct_bwd(x, w0, b0, w1, g, *, slope: float = 0.2) -> dict:
     """Adjoint of :func:`conv_hr_ct` → ``{"dx", "w0", "b0", "w1", "b1"}``.
-    conv0's activation never left shared memory in the forward, so it is
-    recomputed here (rounded as there) into a device buffer; SAME padding of
-    that buffer is the forward's zeroing outside the image. bf16 runs the
+    The forward keeps no conv0 activation (fp32: it never leaves shared
+    memory; bf16: a buffer freed after conv1), so it is recomputed here
+    (rounded as there) into a device buffer; SAME padding of that buffer is
+    the forward's zeroing outside the image. bf16 runs the
     tensor-core design (:func:`conv_hr_bwd_mma_steps`), fp32 the FMA
     kernels; no fallback between them. ``conv_hr_ct_bwd.launches`` counts
     CUDA calls, ``launches_by_design`` them by design."""
@@ -404,8 +604,7 @@ def conv_hr_ct_bwd(x, w0, b0, w1, g, *, slope: float = 0.2) -> dict:
                 step()
         else:
             res = _conv_hr_bwd_fma(x, w0, b0, w1, g, slope)
-    conv_hr_ct_bwd.launches += 1
-    conv_hr_ct_bwd.launches_by_design[design] += 1
+    S._count(conv_hr_ct_bwd, design)
     return res
 
 
@@ -432,13 +631,15 @@ def _conv_hr_bwd_fma(x, w0, b0, w1, g, slope) -> dict:
             "w1": dw1.view(3, 3, C, CO2), "b1": db1}
 
 
-def reset_conv_hr_bwd_counts() -> None:
-    """Set ``conv_hr_ct_bwd.launches`` and ``launches_by_design`` to 0."""
-    conv_hr_ct_bwd.launches = 0
-    conv_hr_ct_bwd.launches_by_design = dict.fromkeys(S.DESIGNS, 0)
+def reset_design_counts() -> None:
+    """Set ``launches`` and ``launches_by_design`` of :func:`conv_hr_ct`,
+    :func:`upfold_ct_bwd` and :func:`conv_hr_ct_bwd` to 0."""
+    for fn in (conv_hr_ct, upfold_ct_bwd, conv_hr_ct_bwd):
+        fn.launches = 0
+        fn.launches_by_design = dict.fromkeys(S.DESIGNS, 0)
 
 
-reset_conv_hr_bwd_counts()
+reset_design_counts()
 
 
 class _UpfoldCtDiff(torch.autograd.Function):

@@ -60,6 +60,6 @@ def test_c_entry_matches_the_wrapper():
 
 
 def test_launch_counts_start_at_zero_by_design():
-    T.reset_conv_hr_bwd_counts()
+    T.reset_design_counts()
     assert T.conv_hr_ct_bwd.launches == 0
     assert T.conv_hr_ct_bwd.launches_by_design == {"fma": 0, "mma": 0}

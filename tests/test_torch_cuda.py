@@ -187,7 +187,7 @@ def test_cuda_conv_hr_bwd_design_and_repeat(C, co2):
         act = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32)).to("cuda", dtype)
         w0, b0, w1, _ = T.prepare_conv_hr_ct(_conv(rs, C, C), _conv(rs, C, co2), dtype)
         x, g = act(2, 37, 53, C), act(2, 37, 53, co2)
-        T.reset_conv_hr_bwd_counts()
+        T.reset_design_counts()
         with fp32_exact():
             got, want = T.conv_hr_ct_bwd(x, w0, b0, w1, g), T.conv_hr_ct_bwd_plain(x, w0, b0, w1, g)
         again = T.conv_hr_ct_bwd(x, w0, b0, w1, g)
@@ -197,6 +197,117 @@ def test_cuda_conv_hr_bwd_design_and_repeat(C, co2):
             assert a.shape == b.shape and torch.isfinite(a).all(), k
             assert (a - b).abs().max().item() <= BWD_TOL[dtype] * b.abs().max().item(), k
             assert torch.equal(again[k], got[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,CO", [(64, 64), (16, 8), (8, 16), (32, 32), (64, 8)])
+@pytest.mark.parametrize("shape", [(2, 37, 53), (16, 32, 32)], ids=["odd", "train"])
+def test_cuda_upfold_bwd_design_and_repeat(C, CO, shape):
+    """bf16 takes the tensor-core design (gate pass, dx, dW), within the bf16
+    bar of the twin on the forward kernel's saved output, db from the
+    unrounded dz (1e-4 of the twin's), and a second call gives the same
+    bits; fp32 stays on the FMA design at 1e-4."""
+    _need_card()
+    rs = np.random.RandomState(6)
+    B, H, W = shape
+    for dtype, design in ((torch.bfloat16, "mma"), (torch.float32, "fma")):
+        act = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32)).to("cuda", dtype)
+        c = _conv(rs, C, CO)
+        wf, bias = T.prepare_upfold_ct(c["w"], c["b"], dtype)
+        x, g = act(B, H, W, C), act(B, 2 * H, 2 * W, CO)
+        out = T.upfold_ct(x, wf, bias)
+        T.reset_design_counts()
+        with fp32_exact():
+            got, want = T.upfold_ct_bwd(x, wf, out, g), T.upfold_ct_bwd_plain(x, wf, out, g)
+        again = T.upfold_ct_bwd(x, wf, out, g)
+        assert T.upfold_ct_bwd.launches_by_design == {"fma": 0, "mma": 0, design: 2}
+        assert T.upfold_ct_bwd.launches == 2
+        for k, ref in want.items():
+            a, b = got[k].float(), ref.float()
+            assert a.shape == b.shape and torch.isfinite(a).all(), k
+            tol = 1e-4 if k == "b" else BWD_TOL[dtype]
+            assert (a - b).abs().max().item() <= tol * b.abs().max().item(), k
+            assert torch.equal(again[k], got[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,co2", [(64, 3), (16, 3), (8, 1), (32, 8)])
+@pytest.mark.parametrize("shape", [(2, 37, 53), (1, 128, 128)], ids=["odd", "bench"])
+def test_cuda_conv_hr_design_and_repeat(C, co2, shape):
+    """bf16 takes the tensor-core design (the stage forward for hid, then
+    conv1 on the tensor cores), within the bf16 bar of the twin with at most
+    1 % of outputs differing at all, and a second call gives the same bits;
+    fp32 stays on the fused FMA kernel at 1e-4."""
+    _need_card()
+    rs = np.random.RandomState(7)
+    for dtype, design in ((torch.bfloat16, "mma"), (torch.float32, "fma")):
+        hw = T.prepare_conv_hr_ct(_conv(rs, C, C), _conv(rs, C, co2), dtype)
+        x = torch.from_numpy(rs.rand(*shape, C).astype(np.float32)).to("cuda", dtype)
+        T.reset_design_counts()
+        with fp32_exact():
+            got, want = T.conv_hr_ct(x, *hw), T.conv_hr_ct_plain(x, *hw)
+        again = T.conv_hr_ct(x, *hw)
+        assert T.conv_hr_ct.launches_by_design == {"fma": 0, "mma": 0, design: 2}
+        assert got.shape == want.shape and torch.isfinite(got.float()).all()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= TOL[dtype] * max(1.0, want.float().abs().max().item())
+        if dtype == torch.bfloat16:
+            assert (got != want).float().mean().item() <= 0.01
+        assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+def test_cuda_tail_wrappers_raise_for_widths_they_do_not_take():
+    _need_card()
+    bf = torch.bfloat16
+    z = lambda *s, dt=bf: torch.zeros(*s, device="cuda", dtype=dt)
+    with pytest.raises(ValueError, match="C=48"):  # the bf16 adjoint's N: 8..64 by powers of 2
+        T.upfold_ct_bwd(z(1, 8, 8, 48), z(2, 2, 2, 2, 48, 64), z(1, 16, 16, 64), z(1, 16, 16, 64))
+    with pytest.raises(ValueError, match="CO=24"):
+        T.upfold_ct_bwd(z(1, 8, 8, 64), z(2, 2, 2, 2, 64, 24), z(1, 16, 16, 24), z(1, 16, 16, 24))
+    with pytest.raises(ValueError, match="C=48"):
+        T.conv_hr_ct(z(1, 8, 8, 48), z(3, 3, 48, 48), z(48, dt=torch.float32), z(3, 3, 48, 3),
+                     z(3, dt=torch.float32))
+    with pytest.raises(ValueError, match="CO2=9"):
+        T.conv_hr_ct(z(1, 8, 8, 64), z(3, 3, 64, 64), z(64, dt=torch.float32), z(3, 3, 64, 9),
+                     z(9, dt=torch.float32))
+    with pytest.raises(TypeError):
+        T.conv_hr_ct(z(1, 8, 8, 64, dt=torch.float16), z(3, 3, 64, 64, dt=torch.float16),
+                     z(64, dt=torch.float32), z(3, 3, 64, 3, dt=torch.float16),
+                     z(3, dt=torch.float32))
+
+
+@pytest.mark.cuda
+def test_cuda_tail_entries_refuse_another_design():
+    """Each C entry runs one design: the FMA conv_hr entry refuses the mma
+    code and bf16, the tensor-core entries refuse the fma code
+    (``build.check`` raises)."""
+    _need_card()
+    from esrganplus_tpu_torch.kernels import build
+
+    lib = build.load("tail_ct")
+    s = torch.cuda.current_stream().cuda_stream
+    fma, mma = T.S.DESIGNS["fma"], T.S.DESIGNS["mma"]
+    x = torch.zeros(1, 8, 8, 16, device="cuda", dtype=torch.bfloat16)
+    xf, w0, w1 = x.float(), torch.zeros(3, 3, 16, 16, device="cuda"), torch.zeros(3, 3, 16, 3,
+                                                                                  device="cuda")
+    b, part, o = torch.zeros(64, device="cuda"), torch.zeros(4096, device="cuda"), torch.empty(
+        4096, device="cuda")
+    codes = [
+        lib.esr_conv_hr(build.dtype_code(xf), mma, 16, 3, xf.data_ptr(), w0.data_ptr(),
+                        b.data_ptr(), w1.data_ptr(), b.data_ptr(), o.data_ptr(), 1, 8, 8, 0.2, s),
+        lib.esr_conv_hr(build.dtype_code(x), fma, 16, 3, x.data_ptr(), w0.data_ptr(),
+                        b.data_ptr(), w1.data_ptr(), b.data_ptr(), o.data_ptr(), 1, 8, 8, 0.2, s),
+        lib.esr_conv_hr_out(fma, 16, 3, x.data_ptr(), w1.data_ptr(), b.data_ptr(), o.data_ptr(),
+                            1, 8, 8, s),
+        lib.esr_upfold_dz(fma, 16, x.data_ptr(), x.data_ptr(), o.data_ptr(), part.data_ptr(), 1,
+                          b.data_ptr(), 1, 4, 4, 0.2, s),
+        lib.esr_upfold_dgrad(fma, 16, 16, x.data_ptr(), x.data_ptr(), o.data_ptr(), 1, 4, 4, s),
+        lib.esr_upfold_wgrad(fma, 16, 16, x.data_ptr(), x.data_ptr(), part.data_ptr(), 1,
+                             o.data_ptr(), 1, 4, 4, s)]
+    for code in codes:
+        with pytest.raises(RuntimeError, match="cudaError"):
+            build.check(code, "tail_ct entry")
 
 
 @pytest.mark.cuda

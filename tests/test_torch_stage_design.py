@@ -145,8 +145,10 @@ def test_s2_tap_slot_is_the_plane_slot_of_the_strided_pixel():
 
 def test_s2_tile_matches_the_c_constants():
     src = (build.CSRC / "stage_ct.cu").read_text()
-    mk = src[src.index("namespace mk {"):]  # the tensor-core kernels' tile
-    th, tw = map(int, re.search(r"constexpr int TH = (\d+), TW = (\d+);", mk).groups())
+    mk = src[src.index("namespace mk {"):]  # the tensor-core kernels' tile: the shared one
+    assert "using esr::tile::TH;" in mk and "using esr::tile::TW;" in mk
+    tile = (build.CSRC / "mma_tile.cuh").read_text()
+    th, tw = map(int, re.search(r"constexpr int TH = (\d+), TW = (\d+);", tile).groups())
     assert (th, tw) == S.S2_TILE
 
 
