@@ -102,13 +102,28 @@ final result line:
                plain twins, fp32 and bf16: odd cases (conv 5→7 and 8→24 at
                B=2, 16×24; rdb_fused nf=16, gc=8 at B=2, 32×48, the 1×1 on
                and off, fp32 activations with bf16 weights) and flagship
-               widths (conv 64→32, 192→64, 64→224; rdb_fused nf=64, gc=32)
-               at B=1, 128² and B=16, 32², with times, bounds, a cuDNN
+               widths (conv 64→32, 192→64, 64→224; rdb_fused nf=64,
+               gc=32) at B=1, 128² and B=16, 32², with times, bounds, a cuDNN
                yardstick, and rdb_ct on the same RDB params timed in turns;
+               every row names the design its launch took (bf16 on the
+               tensor cores, "mma"; fp32 on the CUDA cores, "fma") and is
+               gated on it; bf16 rows hold a second call bit-equal and
+               rdb_fused's bf16 rows the kernel at its next tile (8×8 beside
+               8×16, 4×8 beside 8×8) bit-equal; flagship bf16 rows also give
+               the device time (calls queued behind a spin kernel) of the
+               wrapper call, the kernel's launch and the cuDNN call;
+     kernels-workbench-wide — bf16 rdb_fused past nf 64, gc 32 (128/64,
+               72/40 at 8×8, 256/32 at 4×8; B=1, 32×48): several passes of
+               columns and K chunks a tap on the tensor cores, within the
+               twin's max-error bar, no further from the fp64-summed
+               reference than the twin plus 1 % of outputs (the twin's own
+               fp32 sums move 0.2–2.4 % of outputs at 128/64), bit-equal on
+               repeat and at every tile that fits;
  13. workbench-path — the flagship trunk's 23 RRDBs (69 rdb_fused calls)
                at B=1, 128², bf16, against the rdb_ct chain on the same
                params, and conv3x3 as the first RDB's by-source stage 1;
-               launch counts and the total ms of both chains;
+               launch counts by design (all 70 through "mma") and the total
+               ms of both chains;
      with ``--profile`` also a ``torch.profiler`` trace of three steady steps
      of each trainer, the PSNR one in both noise modes (device time by
      kernel family, the stage kernels' sum, csrc/tail_ct.cu's kernels by
@@ -263,7 +278,8 @@ def ptxas_summary(log: str) -> list:
                       r"conv_hr_hid_fix_kernel|conv_hr_adj_kernel|dgrad_kernel|wgrad_kernel|"
                       r"upfold_dz_kernel|upfold_dgrad_mma_kernel|upfold_wgrad_mma_kernel|"
                       r"conv_hr_out_mma_kernel|"
-                      r"wb_conv3x3_kernel|wb_rdb_fused_kernel)"
+                      r"wb_conv3x3_kernel|wb_conv3x3_mma_kernel|wb_rdb_fused_kernel|"
+                      r"wb_rdb_mma_kernel)"
                       r"I(\w+?)EE", line)
         if m:
             args = (m.group(2).replace("13__nv_bfloat16", "bf16").replace("Li", ",")
@@ -2030,6 +2046,50 @@ WB_RDB_ODD = (2, 32, 48, 16, 8)  # B, H, W, nf, gc of rdb_fused's odd cases (til
 WB_FLAG_SHAPES = ("bench", "train")
 WB_MAIN = {"conv3x3": ("64_224", "bench"), "rdb_fused": ("flagship", "bench")}
 WB_PATH_TOL = 5e-2  # bf16 rdb_fused chain against the rdb_ct chain, of max|ref|
+# rdb_fused's bf16 cases past nf 64, gc 32 (B, H, W; (nf, gc) each)
+WB_RDB_WIDE = ((1, 32, 48), ((128, 64), (72, 40), (256, 32)))
+
+
+def _alt_tile(nf, gc):
+    """The tensor-core rdb_fused tile held bit-equal beside the one a call
+    at these widths runs: the next that takes them, None if none does."""
+    from esrganplus_tpu_torch.kernels.workbench import rdb as WR
+
+    tiles = WR.mma_tiles(nf, gc)
+    return tiles[1] if len(tiles) > 1 else None
+
+
+def device_ms(fn, iters=20):
+    """The card's time for one ``fn()`` call without the host's: CUDA events
+    around ``iters`` calls queued behind a spin kernel (``torch.cuda._sleep``)
+    that outlasts their launches, so the card runs them back to back. None
+    if the spin ended before the host had queued them all (then the events
+    would time the host too)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * host_ms + 2) * 2e6))  # cycles: >= 2 host_ms + 2 ms at <= 2 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    hidden = not start.query()  # the spin still ran when the last call was queued
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters if hidden else None
+
+
+def _device_times(row, case):
+    """A flagship bf16 row's device times (:func:`device_ms`): the wrapper
+    call, the kernel's launch alone and the cuDNN call."""
+    row.update(device_ms=device_ms(case["kern"]), launch_device_ms=device_ms(case["launch"]),
+               library_device_ms=device_ms(case["lib"]))
 
 
 def _held(row, got, ref, dname):
@@ -2042,6 +2102,17 @@ def _held(row, got, ref, dname):
                ok=bool(torch.isfinite(got.float()).all()) and rel <= TOL[dname]
                and (dname == "float32" or differ <= MAX_DIFFER_BF16))
     return row
+
+
+def _design_held(row, want, got, call):
+    """Gate a workbench row on the design its launch took; a bf16 row also
+    on a second call giving the same bits."""
+    import torch
+
+    row["ok"] = row["ok"] and row["design"] == want
+    if got.dtype == torch.bfloat16:
+        row["repeat_bit_equal"] = bool(torch.equal(call(), got))
+        row["ok"] = row["ok"] and row["repeat_bit_equal"]
 
 
 def _bound(row, macs, nbytes, dname):
@@ -2070,9 +2141,23 @@ def _wb_conv_case(gen, dtype, B, H, W, cin, cout, slope):
         y = F.conv2d(xl, wl, bl, padding=1)
         return y if slope is None else F.leaky_relu(y, slope)
 
+    # the kernel's launch alone: the C entry on the operands the wrapper
+    # hands it (weights cast, the bias rounded), the output allocated once
+    from esrganplus_tpu_torch.kernels import build
+    from esrganplus_tpu_torch.kernels.stage_ct import DESIGNS
+
+    wc, bias = (t.contiguous() for t in WC._cast(x, w, b))
+    out = torch.empty((B, H, W, cout), dtype=dtype, device="cuda")
+    args = (DESIGNS[WC.conv_design(dtype)], build.dtype_code(x), x.data_ptr(), wc.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), B, H, W, cin, cout, int(slope is not None),
+            0.0 if slope is None else slope, torch.cuda.current_stream().cuda_stream)
+    entry = build.load("workbench_conv").esr_wb_conv3x3
+    build.check(entry(*args), "esr_wb_conv3x3")
+
     esz = x.element_size()
     return {"kern": lambda: WC.conv3x3(x, w, b, act_slope=slope),
             "plain": lambda: WC.conv3x3_plain(x, w, b, act_slope=slope),
+            "launch": lambda: entry(*args),
             "lib": lib, "macs": B * H * W * 9 * cin * cout,
             "bytes": (x.numel() + B * H * W * cout + w.numel()) * esz + 4 * cout}
 
@@ -2095,12 +2180,27 @@ def _wb_rdb_case(gen, xdt, wdt, B, H, W, nf, gc, conv1x1):
     ws = WR.prepare_rdb_weights(p, nf, gc, conv1x1, wdt)
     x = torch.randn((B, H, W, nf), generator=gen).to("cuda", xdt)
     kw = dict(nf=nf, gc=gc, conv1x1=conv1x1, tile=16 if H % 16 == 0 == W % 16 else 8)
-    case = {"kern": lambda: WR.rdb_fused(x, *ws, **kw),
+    # the kernel's launch alone: the C entry at the design's tile, the output
+    # allocated once
+    from esrganplus_tpu_torch.kernels import build
+    from esrganplus_tpu_torch.kernels.stage_ct import DESIGNS
+
+    design = WR.rdb_design(xdt, wdt)
+    th, tw = WR.kernel_tile(design, nf=nf, gc=gc)
+    alt = _alt_tile(nf, gc) if design == "mma" else None
+    out = torch.empty_like(x)
+    args = (DESIGNS[design], build.dtype_code(x), build.dtype_code(ws[0]), x.data_ptr(),
+            *(w.data_ptr() for w in ws), out.data_ptr(), B, H, W, nf, gc, int(conv1x1), 0.2, 0.2,
+            th, tw, torch.cuda.current_stream().cuda_stream)
+    entry = build.load("workbench_rdb").esr_wb_rdb_fused
+    build.check(entry(*args), "esr_wb_rdb_fused")
+    case = {"x": x, "ws": ws, "kern": lambda: WR.rdb_fused(x, *ws, **kw),
+            "launch": lambda: entry(*args),
             "plain": lambda: WR.rdb_fused_plain(x, *ws, **kw),
-            # the kernel at tile 16 (shared memory allows it in bf16 only)
-            "ktile16": lambda: WR._rdb_fused_cuda(x, ws[:5], ws[5], nf=nf, gc=gc,
-                                                  conv1x1=conv1x1, slope=0.2, res_scale=0.2,
-                                                  ktile=16),
+            # the tensor-core kernel at its next tile
+            "ktile": (th, tw), "ktile_alt": alt,
+            "alt": lambda: WR._rdb_fused_cuda(x, ws[:5], ws[5], nf=nf, gc=gc, conv1x1=conv1x1,
+                                              slope=0.2, res_scale=0.2, ktile=alt),
             "macs": B * H * W * RDB_MACS,
             "bytes": 2 * x.numel() * x.element_size()
             + sum(w.numel() * w.element_size() for w in ws)}
@@ -2128,20 +2228,21 @@ def check_workbench_kernels(failures):
     """Phase kernels-workbench: conv3x3 and rdb_fused against their twins,
     fp32 (TF32 off) and bf16, at odd cases (conv 5→7 and 8→24 at B=2,
     16×24, tile 8; rdb_fused nf=16, gc=8 at B=2, 32×48, tile 16, the 1×1 on
-    and off, fp32 activations with bf16 weights) and at flagship widths
-    (conv 64→32, 192→64, 64→224; rdb_fused nf=64, gc=32 with the 1×1) at
-    B=1, 128² and B=16, 32², there with CUDA-event times of the kernel, the
-    twin and the cuDNN yardstick, the bound, and rdb_ct on the same RDB
-    params timed in turns with rdb_fused (in bf16 also rdb_fused at kernel
-    tile 16, which must give the same bits)."""
+    and off, fp32 activations with bf16 weights) and at flagship widths (conv 64→32, 192→64, 64→224; rdb_fused nf=64, gc=32
+    with the 1×1) at B=1, 128² and B=16, 32², there with CUDA-event times of
+    the kernel, the twin and the cuDNN yardstick, the bound, and rdb_ct on the
+    same RDB params timed in turns with rdb_fused; in bf16 the device times
+    of the wrapper call, the launch and cuDNN, and rdb_fused at its next
+    tensor-core tile, which must give the same bits."""
     import torch
 
     from esrganplus_tpu_torch.kernels.workbench import conv as WC
+    from esrganplus_tpu_torch.kernels.workbench import rdb as WR
     from esrganplus_tpu_torch.models.layers import fp32_exact
 
     gen = torch.Generator().manual_seed(16)
     report = {}
-    WC.conv3x3.launches = 0
+    WC.reset_launch_counts()
     with fp32_exact():
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[1]
@@ -2150,20 +2251,25 @@ def check_workbench_kernels(failures):
                 for sname in WB_FLAG_SHAPES for c in WB_CONV_FLAG]
             for cname, sname, (B, H, W), (cin, cout, slope) in cases:
                 case = _wb_conv_case(gen, dtype, B, H, W, cin, cout, slope)
-                got = case["kern"]()
+                got, design = _design_of(WC.conv3x3, case["kern"])
                 torch.cuda.synchronize()
                 row = _held({"phase": "kernels-workbench", "kernel": "conv3x3", "dtype": dname,
                              "conv": cname, "shape": sname, "x": [B, H, W, cin],
-                             "cout": cout, "act_slope": slope}, got, case["plain"](), dname)
+                             "cout": cout, "act_slope": slope, "design": design},
+                            got, case["plain"](), dname)
+                _design_held(row, WC.conv_design(dtype), got, case["kern"])
                 if sname != "odd":
-                    row.update(ms=time_ms(case["kern"]), plain_ms=time_ms(case["plain"], iters=5),
+                    row.update(ms=time_ms(case["kern"]), launch_ms=time_ms(case["launch"]),
+                               plain_ms=time_ms(case["plain"], iters=5),
                                library_ms=time_ms(case["lib"]))
+                    if dtype == torch.bfloat16:
+                        _device_times(row, case)
                     _bound(row, case["macs"], case["bytes"], dname)
                     report[("conv3x3", cname, sname, dname)] = row
                 emit(row)
                 if not row["ok"]:
                     failures.append(f"conv3x3 {cname} {sname} {dname}: {row}")
-        conv_launches = WC.conv3x3.launches
+        conv_launches = dict(WC.conv3x3.launches_by_design)
 
         B, H, W, nf, gc = WB_RDB_ODD
         cases = [("odd", (B, H, W), xdt, wdt, nf, gc, c11)
@@ -2176,20 +2282,25 @@ def check_workbench_kernels(failures):
         for sname, (B, H, W), xdt, wdt, nf, gc, c11 in cases:
             dname = str(xdt).split(".")[1]
             case = _wb_rdb_case(gen, xdt, wdt, B, H, W, nf, gc, c11)
-            got = case["kern"]()
+            got, design = _design_of(WR.rdb_fused, case["kern"])
             torch.cuda.synchronize()
             row = _held({"phase": "kernels-workbench", "kernel": "rdb_fused", "dtype": dname,
                          "weights": str(wdt).split(".")[1], "shape": sname,
-                         "lr": [B, H, W], "nf": nf, "gc": gc, "conv1x1": c11},
-                        got, case["plain"](), dname)
+                         "lr": [B, H, W], "nf": nf, "gc": gc, "conv1x1": c11,
+                         "design": design}, got, case["plain"](), dname)
+            _design_held(row, WR.rdb_design(xdt, wdt), got, case["kern"])
+            if xdt == wdt == torch.bfloat16:  # bit-equal: no per-pixel sum depends on the tile
+                d_alt = rel_err(case["alt"](), got)[1]
+                row.update(ktile=list(case["ktile"]), ktile_alt=list(case["ktile_alt"]),
+                           rel_err_ktile_alt_vs_ktile=d_alt)
+                row["ok"] = row["ok"] and d_alt == 0
             if sname != "odd":
-                if xdt == torch.bfloat16:  # bit-equal: no per-pixel sum depends on the tile
-                    d16 = rel_err(case["ktile16"](), got)[1]
-                    row.update(ms_ktile16=time_ms(case["ktile16"], iters=10),
-                               rel_err_ktile16_vs_ktile8=d16)
-                    row["ok"] = row["ok"] and d16 == 0
+                if xdt == torch.bfloat16:
+                    row["ms_ktile_alt"] = time_ms(case["alt"], iters=10)
+                    _device_times(row, case)
                 rdb_ct_ms, fused_ms = _interleaved(case["rdb_ct"], case["kern"], iters=10)
-                row.update(ms=fused_ms, rdb_ct_ms=rdb_ct_ms,
+                row.update(ms=fused_ms, launch_ms=time_ms(case["launch"], iters=10),
+                           rdb_ct_ms=rdb_ct_ms,
                            plain_ms=time_ms(case["plain"], iters=3),
                            library_ms=time_ms(case["lib"], iters=10),
                            rel_err_vs_library=rel_err(got, case["lib"]().permute(0, 2, 3, 1))[1])
@@ -2200,6 +2311,51 @@ def check_workbench_kernels(failures):
                 failures.append(f"rdb_fused {sname} {dname} w {row['weights']} "
                                 f"conv1x1 {c11}: {row}")
     return report, conv_launches
+
+
+def check_workbench_wide(failures):
+    """Phase kernels-workbench-wide: bf16 rdb_fused at widths past one pass
+    of columns and one K chunk a tap, on the tensor cores at the largest tile
+    that fits. The twin's fp32 sums round differently from exact ones in up to
+    2.4 % of outputs at nf=128, gc=64 (tools/wb_rdb_variants.py), so the
+    share of outputs is held against the fp64-summed reference
+    (``rdb_fused_fp64``): no more than the twin's own share plus
+    MAX_DIFFER_BF16; the max error against the twin within its bar."""
+    import torch
+
+    from esrganplus_tpu_torch.kernels.workbench import rdb as WR
+    from esrganplus_tpu_torch.models.layers import fp32_exact
+
+    gen = torch.Generator().manual_seed(18)
+    (B, H, W), widths = WB_RDB_WIDE
+    bf16 = torch.bfloat16
+    for nf, gc in widths:
+        case = _wb_rdb_case(gen, bf16, bf16, B, H, W, nf, gc, True)
+        got, design = _design_of(WR.rdb_fused, case["kern"])
+        with fp32_exact():
+            twin = case["plain"]()
+            exact = WR.rdb_fused_fp64(case["x"], *case["ws"], nf=nf, gc=gc)
+        torch.cuda.synchronize()
+        d, rel = rel_err(got, twin)
+        share = lambda a, b: (a != b).float().mean().item()
+        fits = WR.mma_tiles(nf, gc)
+        tiles_equal = all(torch.equal(WR._rdb_fused_cuda(
+            case["x"], case["ws"][:5], case["ws"][5], nf=nf, gc=gc, conv1x1=True, slope=0.2,
+            res_scale=0.2, ktile=t), got) for t in fits)
+        row = {"phase": "kernels-workbench-wide", "kernel": "rdb_fused", "dtype": "bfloat16",
+               "lr": [B, H, W], "nf": nf, "gc": gc, "design": design,
+               "ktile": list(WR.mma_tile(nf, gc)), "tiles_fit": [list(t) for t in fits],
+               "max_abs_err": d, "rel_err": rel, "tol": TOL["bfloat16"],
+               "frac_differ": share(got, twin), "frac_differ_fp64": share(got, exact),
+               "twin_frac_differ_fp64": share(twin, exact), "tiles_bit_equal": tiles_equal}
+        row["ok"] = bool(torch.isfinite(got.float()).all() and rel <= TOL["bfloat16"]
+                         and row["frac_differ_fp64"]
+                         <= row["twin_frac_differ_fp64"] + MAX_DIFFER_BF16
+                         and design == "mma" and tiles_equal)
+        _design_held(row, "mma", got, case["kern"])
+        emit(row)
+        if not row["ok"]:
+            failures.append(f"rdb_fused wide {nf}/{gc}: {row}")
 
 
 def workbench_path(failures):
@@ -2245,23 +2401,29 @@ def workbench_path(failures):
             h0 = K.rdb_ct(h, ws[2], h0, rrdb_scale=0.2)
         return h0
 
-    WR.rdb_fused.launches = WC.conv3x3.launches = 0
+    WR.reset_launch_counts()
+    WC.reset_launch_counts()
     out = fused_chain()
     contrib = WC.conv3x3(x, w0_hwio)
     torch.cuda.synchronize()
     launches = {"rdb_fused": WR.rdb_fused.launches, "conv3x3": WC.conv3x3.launches}
+    by_design = {"rdb_fused": dict(WR.rdb_fused.launches_by_design),
+                 "conv3x3": dict(WC.conv3x3.launches_by_design)}
     ref = ct_chain()
     d, _ = rel_err(out, ref)
     rel = d / ref.float().abs().max().item()
     c_rel = rel_err(contrib, WC.conv3x3_plain(x, w0_hwio))[1]
     fused_ms, ct_ms = _interleaved(fused_chain, ct_chain, iters=3)
     row = {"phase": "workbench-path", "lr": [B, H, W], "dtype": "bfloat16", "rrdbs": 23,
-           "launches": launches, "max_abs_err_vs_rdb_ct": d, "rel_err_vs_rdb_ct": rel,
+           "launches": launches, "launches_by_design": by_design,
+           "max_abs_err_vs_rdb_ct": d, "rel_err_vs_rdb_ct": rel,
            "tol": WB_PATH_TOL, "max_abs_out": ref.float().abs().max().item(),
            "conv3x3_rel_err": c_rel, "fused_chain_ms": fused_ms, "rdb_ct_chain_ms": ct_ms,
            "finite": bool(torch.isfinite(out.float()).all())}
     row["ok"] = bool(row["finite"] and rel <= WB_PATH_TOL and c_rel <= TOL["bfloat16"]
-                     and launches == {"rdb_fused": 69, "conv3x3": 1})
+                     and launches == {"rdb_fused": 69, "conv3x3": 1}
+                     and by_design == {"rdb_fused": {"fma": 0, "mma": 69},
+                                       "conv3x3": {"fma": 0, "mma": 1}})
     emit(row)
     if not row["ok"]:
         failures.append(f"workbench-path: {row}")
@@ -2271,20 +2433,24 @@ def workbench_path(failures):
 def workbench_rows(report, conv_launches, launches):
     """The kernels line's rows 15 and 16: the main case's bf16 numbers in the
     required keys, every flagship case beside them."""
-    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "rel_err")
+    fields = ("ms", "launch_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+              "rel_err")
     rows = []
     for name in WB_REPLACES:
         case, sname = WB_MAIN[name]
         row = report[(name, case, sname, "bfloat16")]
-        extra = ("rdb_ct_ms", "ms_ktile16") if name == "rdb_fused" else ()
+        extra = ("device_ms", "launch_device_ms", "library_device_ms") + (
+            ("rdb_ct_ms", "ms_ktile_alt") if name == "rdb_fused" else ())
+        fp32 = report[(name, case, sname, "float32")]
         rows.append({
             "name": name, "route": "cuda", "source": WB_SOURCES[name],
             "replaces": WB_REPLACES[name], "launches": launches[name],
             **{f: row[f] for f in fields + extra}, "dtype": "bfloat16", "case": case,
-            "shape": sname, "fp32_ms": report[(name, case, sname, "float32")]["ms"],
-            "fp32_rel_err": report[(name, case, sname, "float32")]["rel_err"],
+            "shape": sname, "design": row["design"], "frac_differ": row["frac_differ"],
+            "fp32_design": fp32["design"], "fp32_ms": fp32["ms"],
+            "fp32_rel_err": fp32["rel_err"],
             **({"kernels_workbench_launches": conv_launches} if name == "conv3x3" else {}),
-            "cases": {f"{c}@{s}": {**{f: r[f] for f in fields + extra},
+            "cases": {f"{c}@{s}": {**{f: r[f] for f in fields + extra + ("frac_differ",)},
                                    "fp32_ms": report[(n, c, s, "float32")]["ms"]}
                       for (n, c, s, dn), r in report.items()
                       if n == name and dn == "bfloat16"}})
@@ -2331,6 +2497,7 @@ def main() -> int:
         gan_launches = gan_train_path(failures, tmp)
     gan_step_ms = gan_steady(failures)
     wb_report, wb_conv_launches = check_workbench_kernels(failures)
+    check_workbench_wide(failures)
     wb_launches = workbench_path(failures)
     if "--profile" in sys.argv[1:]:
         train_profile(step_ms)

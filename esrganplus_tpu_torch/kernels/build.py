@@ -82,10 +82,11 @@ SIGNATURES = {
         "esr_stage_wgrad": [I, I, I, I, P, P, P, P, I, P, I, I, I, I, I, I, F, P],
     },
     "workbench_conv": {
-        "esr_wb_conv3x3": [I, P, P, P, P, I, I, I, I, I, I, F, P],
+        "esr_wb_conv3x3": [I, I, P, P, P, P, I, I, I, I, I, I, F, P],
     },
     "workbench_rdb": {
-        "esr_wb_rdb_fused": [I, I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, I, P],
+        "esr_wb_rdb_fused": [I, I, I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, I, I,
+                             P],
     },
 }
 

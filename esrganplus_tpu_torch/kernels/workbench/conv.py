@@ -7,7 +7,15 @@ the weights *and the bias* are cast to x's dtype first (in bf16 the bias is
 rounded to bf16), the nine taps accumulate in fp32, the bias is added in
 fp32, then the activation, then one rounding. Its channel pad to 128 and its
 column over-fetch were DMA constraints of the TPU and are gone; the CUDA
-kernel (``csrc/workbench_conv.cu``) takes any Cin and Cout.
+kernels (``csrc/workbench_conv.cu``) take any Cin and Cout.
+
+Two designs, picked by :func:`conv_design` from the dtype: ``"mma"`` (bf16
+on the tensor cores, ``wb_conv3x3_mma_kernel``: a block computes one 8×16
+pixel tile for one chunk of :func:`conv_chunk_width` output channels, the
+chunks over the grid, :func:`conv_chunks`) and ``"fma"`` (fp32 on the CUDA
+cores, whose 1e-4 bar TF32 would miss). The C entry takes the design code
+and refuses the other; ``conv3x3.launches_by_design`` counts launches by
+design.
 
 ``tile`` keeps the JAX function's contract on the spatial tile: ``None``
 picks the largest of (64, 32, 16, 8) dividing H and W (else ``ValueError``),
@@ -27,9 +35,37 @@ import torch
 import torch.nn.functional as F
 
 from esrganplus_tpu_torch.kernels import build
+from esrganplus_tpu_torch.kernels.stage_ct import DESIGNS, _aligned
 from esrganplus_tpu_torch.models.layers import fp32_exact
 
 TILES = (64, 32, 16, 8)  # the JAX function's candidate tiles, largest first
+MMA_MAX_NP = 128         # output channels one tensor-core block computes at most
+
+
+def conv_design(dtype: torch.dtype) -> str:
+    """Which CUDA design runs :func:`conv3x3` on ``dtype`` activations:
+    ``"mma"`` (bf16 on the tensor cores) or ``"fma"`` (fp32 on the CUDA
+    cores), at every Cin and Cout."""
+    if dtype not in build.DTYPE_CODES:
+        raise TypeError(f"conv3x3: x must be float32 or bfloat16, got {dtype}")
+    return "mma" if dtype == torch.bfloat16 else "fma"
+
+
+def conv_chunk_width(cout: int) -> int:
+    """Output channels of one tensor-core block (``csrc/workbench_conv.cu``
+    ``chunk_np``): the narrowest power of two from 8 holding Cout up to 128;
+    above, 64 or 128, whichever pads less (128 on a tie)."""
+    if cout <= MMA_MAX_NP:
+        return next(n for n in (8, 16, 32, 64, 128) if n >= cout)
+    return 128 if -(-cout // 128) * 128 <= -(-cout // 64) * 64 else 64
+
+
+def conv_chunks(cout: int) -> list:
+    """``[(first, end)]`` output channels of each block chunk of the
+    tensor-core design (``blockIdx.z`` mod the chunk count): chunks of
+    :func:`conv_chunk_width`, the last one cut at Cout."""
+    np_ = conv_chunk_width(cout)
+    return [(n0, min(cout, n0 + np_)) for n0 in range(0, cout, np_)]
 
 
 def pick_tile(h: int, w: int, tile: Optional[int] = None) -> int:
@@ -88,7 +124,8 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     ``[B, H, W, Cin]`` (bf16 or fp32), HWIO ``w`` ``[3, 3, Cin, Cout]``,
     ``b`` ``[Cout]`` or None (zeros) → ``[B, H, W, Cout]`` in x's dtype.
     ``act_slope``: None linear, 0.0 ReLU, e.g. 0.2 LeakyReLU.
-    ``conv3x3.launches`` counts CUDA launches."""
+    ``conv3x3.launches`` counts CUDA launches, ``launches_by_design`` them
+    by design (:func:`conv_design`)."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, b, act_slope, tile)
     _check(x, w, b)
@@ -97,21 +134,31 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     cout = w.shape[3]
     wc, bias = _cast(x, w, b)
     dev = x.device
+    design = conv_design(x.dtype)
     build.require(x, "x", (B, H, W, cin), x.dtype, dev)
     wc, bias = wc.contiguous(), bias.contiguous()
     build.require(wc, "w", (3, 3, cin, cout), x.dtype, dev)
     build.require(bias, "b", (cout,), torch.float32, dev)
+    if design == "mma":  # the tensor-core kernel moves 16-byte vectors
+        x, wc = _aligned(x), _aligned(wc)
     out = torch.empty((B, H, W, cout), dtype=x.dtype, device=dev)
     lib = build.load("workbench_conv")
     with torch.cuda.device(dev):
-        code = lib.esr_wb_conv3x3(build.dtype_code(x), x.data_ptr(), wc.data_ptr(),
-                                  bias.data_ptr(), out.data_ptr(), B, H, W, cin, cout,
-                                  int(act_slope is not None),
+        code = lib.esr_wb_conv3x3(DESIGNS[design], build.dtype_code(x), x.data_ptr(),
+                                  wc.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, W, cin,
+                                  cout, int(act_slope is not None),
                                   0.0 if act_slope is None else float(act_slope),
                                   torch.cuda.current_stream(dev).cuda_stream)
     build.check(code, "esr_wb_conv3x3")
     conv3x3.launches += 1
+    conv3x3.launches_by_design[design] += 1
     return out
 
 
-conv3x3.launches = 0
+def reset_launch_counts() -> None:
+    """Set ``conv3x3.launches`` and ``launches_by_design`` to 0."""
+    conv3x3.launches = 0
+    conv3x3.launches_by_design = dict.fromkeys(DESIGNS, 0)
+
+
+reset_launch_counts()

@@ -924,9 +924,11 @@ def _close_to_twin(got, want, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("cin,cout,slope", [(5, 7, None), (8, 24, 0.2), (64, 224, 0.0),
-                                            (192, 64, 0.2)])
+                                            (192, 64, 0.2), (320, 129, 0.2)])
 def test_cuda_workbench_conv3x3_matches_plain_twin(cin, cout, slope, dtype):
-    """Any Cin and Cout (the last Cout chunk ragged), bias in x's dtype."""
+    """Any Cin and Cout (the last Cout chunk ragged; above 192 input
+    channels the tensor-core kernel stages them in two chunks), bias in x's
+    dtype."""
     from esrganplus_tpu_torch.kernels.workbench import conv as WC
 
     _need_card()
@@ -934,10 +936,13 @@ def test_cuda_workbench_conv3x3_matches_plain_twin(cin, cout, slope, dtype):
     c = _conv(rs, cin, cout)
     x = torch.from_numpy(rs.randn(2, 16, 24, cin).astype(np.float32)).to("cuda", dtype)
     before = WC.conv3x3.launches
+    by_design = dict(WC.conv3x3.launches_by_design)
     with fp32_exact():
         got = WC.conv3x3(x, c["w"], c["b"], act_slope=slope, tile=8)
         want = WC.conv3x3_plain(x, c["w"], c["b"], act_slope=slope, tile=8)
     assert WC.conv3x3.launches == before + 1 and got.dtype == dtype
+    design = WC.conv_design(dtype)
+    assert WC.conv3x3.launches_by_design[design] == by_design[design] + 1
     _close_to_twin(got, want, dtype)
     with fp32_exact():  # no bias
         _close_to_twin(WC.conv3x3(x, c["w"]), WC.conv3x3_plain(x, c["w"]), dtype)
@@ -976,23 +981,138 @@ def test_cuda_rdb_fused_matches_plain_twin_odd(conv1x1, xdt, wdt):
                                     (2, 32, 48))
     kw = dict(nf=16, gc=8, conv1x1=conv1x1, slope=0.1, res_scale=0.3, tile=16)
     before = WR.rdb_fused.launches
+    design = WR.rdb_design(xdt, wdt)
+    by_design = WR.rdb_fused.launches_by_design[design]
     with fp32_exact():
         got, want = WR.rdb_fused(x, *ws, **kw), WR.rdb_fused_plain(x, *ws, **kw)
     assert WR.rdb_fused.launches == before + 1 and got.dtype == xdt
+    assert WR.rdb_fused.launches_by_design[design] == by_design + 1
     _close_to_twin(got, want, xdt)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_cuda_rdb_fused_flagship_width_matches_plain_twin(dtype):
-    """nf=64, gc=32 with the 1×1 (kernel tile 16 in bf16, 8 in fp32) at an
-    image that is not a multiple of the kernel tile; never the twin."""
+    """nf=64, gc=32 with the 1×1 (the tensor cores' 8×16 tile in bf16, the
+    FMA kernel's 8×8 in fp32) at an image that is not a multiple of the
+    kernel tile; never the twin."""
     _need_card()
     WR, ws, x = _workbench_rdb_case(np.random.RandomState(3), 64, 32, True, dtype, dtype,
                                     (2, 40, 24))
     kw = dict(nf=64, gc=32, tile=8)
+    design = WR.rdb_design(dtype, dtype)
+    by_design = WR.rdb_fused.launches_by_design[design]
     with fp32_exact():
         got, want = WR.rdb_fused(x, *ws, **kw), WR.rdb_fused_plain(x, *ws, **kw)
+    assert WR.rdb_fused.launches_by_design[design] == by_design + 1
     _close_to_twin(got, want, dtype)
     with pytest.raises(RuntimeError, match="forward only"):
         WR.rdb_fused(x.float().requires_grad_().to(dtype), *ws, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_cuda_workbench_design_and_repeat(dtype):
+    """bf16 runs both workbench kernels on the tensor cores within the
+    twin's bar, bit-equal on a second call and (rdb_fused) at both of its
+    tiles; fp32 runs the FMA kernels within 1e-4."""
+    from esrganplus_tpu_torch.kernels.workbench import conv as WC
+
+    _need_card()
+    rs = np.random.RandomState(4)
+    c = _conv(rs, 64, 224)
+    x = torch.from_numpy(rs.randn(2, 16, 32, 64).astype(np.float32)).to("cuda", dtype)
+    WR, ws, xr = _workbench_rdb_case(rs, 64, 32, True, dtype, dtype, (2, 24, 32))
+    design = "mma" if dtype == torch.bfloat16 else "fma"
+    assert WC.conv_design(dtype) == WR.rdb_design(dtype, dtype) == design
+    WC.reset_launch_counts()
+    WR.reset_launch_counts()
+    kw = dict(nf=64, gc=32, tile=8)
+    with fp32_exact():
+        got_c, got_r = WC.conv3x3(x, c["w"], c["b"], act_slope=0.2), WR.rdb_fused(xr, *ws, **kw)
+        _close_to_twin(got_c, WC.conv3x3_plain(x, c["w"], c["b"], act_slope=0.2), dtype)
+        _close_to_twin(got_r, WR.rdb_fused_plain(xr, *ws, **kw), dtype)
+        again_c, again_r = WC.conv3x3(x, c["w"], c["b"], act_slope=0.2), WR.rdb_fused(xr, *ws, **kw)
+    assert torch.equal(got_c, again_c) and torch.equal(got_r, again_r)
+    assert WC.conv3x3.launches_by_design == {"fma": 0, "mma": 0, design: 2}
+    assert WR.rdb_fused.launches_by_design == {"fma": 0, "mma": 0, design: 2}
+    if dtype == torch.bfloat16:
+        for tile in WR.MMA_TILES:
+            other = WR._rdb_fused_cuda(xr, ws[:5], ws[5], nf=64, gc=32, conv1x1=True, slope=0.2,
+                                       res_scale=0.2, ktile=tile)
+            assert torch.equal(other, got_r), tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nf,gc,tile", [(128, 64, (8, 8)), (72, 40, (8, 8)), (256, 32, (4, 8))],
+                         ids=["128_64", "72_40", "256_32"])
+def test_cuda_rdb_fused_wide_bf16_runs_the_tensor_cores(nf, gc, tile):
+    """bf16 past nf 64, gc 32 (several passes of columns, several K chunks
+    a tap) runs the tensor-core kernel at the largest tile that fits, within
+    the twin's max-error bar, and every tile that fits gives the same bits.
+    The twin's fp32 sums (K = 9·128 a source here) round apart from exact
+    ones in up to 2.4 % of outputs, so the share of outputs is held against
+    the fp64-summed reference: no more than the twin's own share + 1 %."""
+    _need_card()
+    WR, ws, x = _workbench_rdb_case(np.random.RandomState(nf + gc), nf, gc, True,
+                                    torch.bfloat16, torch.bfloat16, (1, 24, 32))
+    kw = dict(nf=nf, gc=gc, tile=8)
+    assert WR.mma_tile(nf, gc) == tile
+    by_design = dict(WR.rdb_fused.launches_by_design)
+    with fp32_exact():
+        got, want = WR.rdb_fused(x, *ws, **kw), WR.rdb_fused_plain(x, *ws, **kw)
+    assert WR.rdb_fused.launches_by_design == {**by_design, "mma": by_design["mma"] + 1}
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    assert (g - w).abs().max().item() <= TOL[torch.bfloat16] * max(1.0, w.abs().max().item())
+    exact = WR.rdb_fused_fp64(x, *ws, nf=nf, gc=gc)
+    share = lambda a, b: (a != b).float().mean().item()
+    assert share(got, exact) <= share(want, exact) + 0.01
+    fits = WR.mma_tiles(nf, gc)
+    assert fits[0] == tile
+    for t in fits[1:]:
+        other = WR._rdb_fused_cuda(x, ws[:5], ws[5], nf=nf, gc=gc, conv1x1=True, slope=0.2,
+                                   res_scale=0.2, ktile=t)
+        assert torch.equal(other, got), t
+
+
+@pytest.mark.cuda
+def test_cuda_workbench_entries_refuse_other_designs():
+    """Each C entry runs one design per dtype pairing: asked for mma in fp32
+    or for fma in bf16 it returns an error code (``build.check`` raises);
+    the tensor-core RDB also refuses a tile it does not run, widths whose
+    planes do not fit a block at the tile asked for, and widths past one
+    pass at 8×16."""
+    from esrganplus_tpu_torch.kernels import build
+    from esrganplus_tpu_torch.kernels.stage_ct import DESIGNS
+
+    _need_card()
+    stream = torch.cuda.current_stream().cuda_stream
+    conv = build.load("workbench_conv")
+    for dtype, design in ((torch.float32, "mma"), (torch.bfloat16, "fma")):
+        x = torch.zeros(1, 8, 16, 16, device="cuda", dtype=dtype)
+        w = torch.zeros(3, 3, 16, 16, device="cuda", dtype=dtype)
+        b, out = torch.zeros(16, device="cuda"), torch.empty_like(x)
+        code = conv.esr_wb_conv3x3(DESIGNS[design], build.dtype_code(x), x.data_ptr(),
+                                   w.data_ptr(), b.data_ptr(), out.data_ptr(), 1, 8, 16, 16, 16,
+                                   0, 0.0, stream)
+        with pytest.raises(RuntimeError, match="cudaError"):
+            build.check(code, "esr_wb_conv3x3")
+    rdb = build.load("workbench_rdb")
+    bad = [(torch.float32, torch.float32, "mma", 16, 8, 8, 8),
+           (torch.float32, torch.bfloat16, "mma", 16, 8, 8, 8),
+           (torch.bfloat16, torch.bfloat16, "fma", 16, 8, 8, 8),
+           (torch.bfloat16, torch.bfloat16, "mma", 16, 8, 16, 16),
+           (torch.bfloat16, torch.bfloat16, "mma", 256, 64, 8, 16),
+           (torch.bfloat16, torch.bfloat16, "mma", 72, 32, 8, 16),
+           (torch.float32, torch.float32, "fma", 16, 8, 8, 16)]
+    for xdt, wdt, design, nf, gc, th, tw in bad:
+        x = torch.zeros(1, 16, 16, nf, device="cuda", dtype=xdt)
+        w = torch.zeros(3 * 3 * (nf + 5 * gc) * (nf + 5 * gc), device="cuda", dtype=wdt)
+        b = torch.zeros(nf + 4 * gc, device="cuda")
+        code = rdb.esr_wb_rdb_fused(DESIGNS[design], build.dtype_code(x), build.dtype_code(w),
+                                    x.data_ptr(), *(w.data_ptr(),) * 5, b.data_ptr(),
+                                    torch.empty_like(x).data_ptr(), 1, 16, 16, nf, gc, 1, 0.2,
+                                    0.2, th, tw, stream)
+        with pytest.raises(RuntimeError, match="cudaError"):
+            build.check(code, f"esr_wb_rdb_fused {xdt} {wdt} {design} {nf} {gc} {th}x{tw}")
