@@ -14,14 +14,22 @@ final result line:
                (B=16, 32×32 LR), fp32 (TF32 off) and bf16;
                CUDA-event times of the kernel, the twin and a PyTorch
                yardstick (cuDNN convolutions), and the bound for the work;
-               conv_hr_ct's rows name its design (bf16 on the tensor cores,
-               "mma": the stage forward, then conv_hr_out_mma_kernel), time
-               each launch, give the share of its conv0 activations that
-               differ from the twin's, and hold a second call bit-equal;
+               the rows of upfold_ct (both upconvs, and one of WIDE_C =
+               512 input channels, whose tile is staged in slices of 128
+               channels) and conv_hr_ct name
+               their design (bf16 on the tensor cores, "mma": upfold_ct's
+               phase fold, upfold_mma_kernel; conv_hr_ct's stage forward,
+               then conv_hr_out_mma_kernel; fp32 "fma"), are gated on it and
+               hold a second call bit-equal; bf16 upfold_ct rows at the main
+               path's shape also give the device time (calls queued behind a
+               spin kernel) of the wrapper call, its launch and the cuDNN
+               call; conv_hr_ct's time each launch and give the share of its
+               conv0 activations that differ from the twin's;
   3. main    — flagship ESRGAN+ ×4 (nb=23, nf=64, gc=32) with seeded random
                weights exported to a .pth, through the port's test_image CLI
                on three PNGs in bf16; checks output shapes, the kernels'
-               launch counts per image (every conv_hr_ct call through "mma"),
+               launch counts per image (every upfold_ct and conv_hr_ct call
+               through "mma"),
                and the bf16 kernel path against the
                fp32 plain path (and the fp32 kernel path) on the card; then
                the small golden ESRGAN+ checkpoint (tests/golden) through the
@@ -56,8 +64,8 @@ final result line:
                then ``esrganplus_tpu_torch.cli.train`` at the full flagship
                config (batch 16, HR 128, bf16, noise on) for 16 steps with the
                debug cadences; checks the logged losses, the launch counts of
-               all eight kernels (conv_hr_ct, upfold_ct_bwd and conv_hr_ct_bwd
-               through "mma"), the
+               all eight kernels (upfold_ct, conv_hr_ct, upfold_ct_bwd and
+               conv_hr_ct_bwd through "mma"), the
                exported checkpoint, and a resume from step 8 that must end
                bit-equal to the uninterrupted run;
   7. train-steady — ``SRTrainer.train_step`` on one device-resident batch:
@@ -80,19 +88,22 @@ final result line:
                bounds and a cuDNN yardstick; the backward also on the twin's
                own forward output, each half alone and a second call (all
                bit-equal to the full call); every row names the design its
-               launch took: bf16 conv_s1_ct (both directions) and the bf16
-               conv_s2_ct forward run on the tensor cores ("mma"), fp32 and
-               the conv_s2_ct adjoint on the CUDA cores ("fma");
+               launch took: bf16 on the tensor cores ("mma": the conv_s2_ct
+               adjoint's data gradient is the phase fold,
+               stage_dgrad_s2_mma_kernel, its weight gradient
+               stage_wgrad_mma_kernel at 16 taps), fp32 on the CUDA cores
+               ("fma"); bf16 conv_s2_ct_bwd rows also time the dx-only and
+               dW-only halves and cuDNN autograd on the card alone;
   9. gan-check — flagship G, discriminator_vgg_128 and VGG19 (seeded), one
                batch: every loss term and every gradient leaf of G and of D
                through the kernel path against autograd of the plain graph on
-               the card, fp32 then bf16, the same noise fed to both;
+               the card, fp32 then bf16, the same noise fed to both; every
+               stage wrapper call by design ("mma" in bf16, "fma" in fp32);
  10. gan-train — an options file with ``model: "srragan"`` at the recipe's
                shape (batch 16, HR 128, bf16, noise on, perceptual loss on)
                for 16 steps through ``esrganplus_tpu_torch.cli.train``; checks
                the logged terms, the launch counts of all twelve kernels
-               (every conv_s1_ct call and every conv_s2_ct forward through
-               "mma", the conv_s2_ct adjoint through "fma", conv_hr_ct,
+               (every call of the four stage wrappers, upfold_ct, conv_hr_ct,
                upfold_ct_bwd and conv_hr_ct_bwd through "mma"),
                ``latest_G.pth`` / ``latest_D.pth``, and a resume from step 8
                that must end bit-equal;
@@ -149,6 +160,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # H100 SXM: fp32 CUDA cores, bf16 dense
 PEAK_BYTES = 3.35e12
 NF, GC, OUT_NC = 64, 32, 3
+# an upconv input wider than the bf16 block's shared memory holds whole: its
+# tile is staged in slices of 128 channels (csrc/phase_fold.cuh fold_kt)
+WIDE_C = 512
 TRAIN_SHAPE = (16, 32, 32)  # batch, LR height, LR width of the reference recipe
 # (B, H, W) of the LR image
 SHAPES = {"odd": (2, 37, 53), "bench": (1, 128, 128), "train": TRAIN_SHAPE}
@@ -182,13 +196,14 @@ BWD_SOURCE = ("esrganplus_tpu_torch/csrc/dgrad_ct.cu + "
 BWD_MMA_SOURCE = {"upfold_ct_bwd": "esrganplus_tpu_torch/csrc/tail_ct.cu",
                   "conv_hr_ct_bwd": ("esrganplus_tpu_torch/csrc/tail_ct.cu + "
                                      "esrganplus_tpu_torch/csrc/stage_ct.cu")}
-# the two-design tail wrappers (tail_ct.tail_design): bf16 "mma", fp32 "fma"
-DESIGNED = ("conv_hr_ct", "upfold_ct_bwd", "conv_hr_ct_bwd")
+# the tail wrappers (stage_ct.design): bf16 "mma", fp32 "fma"
+DESIGNED = ("upfold_ct", "conv_hr_ct", "upfold_ct_bwd", "conv_hr_ct_bwd")
 # csrc/tail_ct.cu's kernels, by name in a profile (the bf16 step runs all but
-# conv_hr_kernel; the finishing passes are wgrad_finish_kernel, shared)
-TAIL_KERNELS = ("upfold_kernel", "conv_hr_kernel", "conv_hr_out_mma_kernel", "upfold_dz_kernel",
-                "upfold_dgrad_mma_kernel", "upfold_wgrad_mma_kernel", "conv_hr_hid_fix_kernel",
-                "conv_hr_adj_kernel")
+# the fp32 upfold_kernel and conv_hr_kernel; the finishing passes are
+# wgrad_finish_kernel, shared)
+TAIL_KERNELS = ("upfold_kernel", "upfold_mma_kernel", "conv_hr_kernel", "conv_hr_out_mma_kernel",
+                "upfold_dz_kernel", "upfold_dgrad_mma_kernel", "upfold_wgrad_mma_kernel",
+                "conv_hr_hid_fix_kernel", "conv_hr_adj_kernel")
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # per gradient, of max|ref|
 # the upconv adjoint's db against the twin's (the sum of the unrounded dz), of
 # max|ref|: fp32 summation order only; a sum of the rounded dz is ~1e-3 off
@@ -275,6 +290,7 @@ def ptxas_summary(log: str) -> list:
         m = re.search(r"(dense_conv3x3_kernel|upfold_kernel|conv_hr_kernel|stage_fwd_kernel|"
                       r"stage_dgrad_kernel|stage_wgrad_kernel|stage_fwd_mma_kernel|"
                       r"stage_fwd_s2_mma_kernel|stage_dgrad_mma_kernel|stage_wgrad_mma_kernel|"
+                      r"stage_dgrad_s2_mma_kernel|upfold_mma_kernel|"
                       r"conv_hr_hid_fix_kernel|conv_hr_adj_kernel|dgrad_kernel|wgrad_kernel|"
                       r"upfold_dz_kernel|upfold_dgrad_mma_kernel|upfold_wgrad_mma_kernel|"
                       r"conv_hr_out_mma_kernel|"
@@ -308,8 +324,9 @@ def rel_err(got, ref):
 
 def make_cases(dtype, B, H, W, gen):
     """Per kernel: (cuda call, plain call, yardstick call, MACs, bytes) on
-    the tensors the main path hands it for a B×H×W LR input; and conv_hr_ct's
-    inputs ``(x, w0, b0, w1, b1)``, for its bf16 launches one by one."""
+    the tensors the main path hands it for a B×H×W LR input; conv_hr_ct's
+    inputs ``(x, w0, b0, w1, b1)``, for its bf16 launches one by one; and
+    each upconv's ``tail_ct.upfold_launch`` (its C entry alone)."""
     import torch
     import torch.nn.functional as F
 
@@ -388,6 +405,22 @@ def make_cases(dtype, B, H, W, gen):
                                                      wuo, buo, padding=1)),
                               16 * B * H * W * 4 * NF * NF,
                               20 * B * H * W * NF * esz + wf.numel() * esz)
+    # the upconv at WIDE_C input channels (no model path: the sliced tile)
+    upw = conv_w(WIDE_C, NF)
+    wfw, bfw = T.prepare_upfold_ct(upw["w"], upw["b"], dtype)
+    wwo, bwo = oihw(upw["w"]), upw["b"].to(dtype)
+    xw = torch.rand((B, H, W, WIDE_C), generator=gen).to(dev, dtype)
+    xwn = nchw(xw)
+    cases["upfold_ct_wide"] = (lambda: T.upfold_ct(xw, wfw, bfw),
+                               lambda: T.upfold_ct_plain(xw, wfw, bfw),
+                               lambda: lrelu(F.conv2d(F.interpolate(xwn, scale_factor=2,
+                                                                    mode="nearest"),
+                                                      wwo, bwo, padding=1)),
+                               4 * B * H * W * 4 * WIDE_C * NF,
+                               B * H * W * (WIDE_C + 4 * NF) * esz + wfw.numel() * esz)
+    up_launch = {"upfold_ct": T.upfold_launch(x, wf, bf),
+                 "upfold_ct_2nd": T.upfold_launch(x2, wf, bf),
+                 "upfold_ct_wide": T.upfold_launch(xw, wfw, bfw)}
 
     # conv_hr_ct: hr_conv0 + hr_conv1 on the 4×LR image
     hr0, hr1 = conv_w(NF, NF), conv_w(NF, OUT_NC)
@@ -402,7 +435,7 @@ def make_cases(dtype, B, H, W, gen):
                                             w1o, b1o, padding=1),
                            npx * 9 * NF * (NF + OUT_NC),
                            npx * (NF + OUT_NC) * esz + (hw[0].numel() + hw[2].numel()) * esz)
-    return cases, (xh, *hw)
+    return cases, (xh, *hw), up_launch
 
 
 def _hid_share_differing(x, w0, b0):
@@ -427,15 +460,17 @@ def check_kernels(failures):
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         for sname, (B, H, W) in SHAPES.items():
-            cases, hr_inputs = make_cases(dtype, B, H, W, gen)
+            cases, hr_inputs, up_launch = make_cases(dtype, B, H, W, gen)
             for name, (kern, plain, lib, macs, nbytes) in cases.items():
                 with fp32_exact():
                     extra = {}
-                    if name == "conv_hr_ct":  # bf16 on the tensor cores, fp32 on the FMA kernel
-                        got, design = _design_of(T.conv_hr_ct, kern)
+                    if name in ("upfold_ct", "upfold_ct_2nd", "upfold_ct_wide", "conv_hr_ct"):
+                        # bf16 on the tensor cores, fp32 on the FMA kernels
+                        fn = T.conv_hr_ct if name == "conv_hr_ct" else T.upfold_ct
+                        got, design = _design_of(fn, kern)
                         extra = {"design": design,
                                  "repeat_bit_equal": torch.equal(kern(), got)}
-                        if dname == "bfloat16":
+                        if dname == "bfloat16" and name == "conv_hr_ct":
                             extra["hid_frac_differ"] = _hid_share_differing(*hr_inputs[:3])
                     else:
                         got = kern()
@@ -449,7 +484,7 @@ def check_kernels(failures):
                           and (dname == "float32" or differ <= MAX_DIFFER_BF16))
                     if extra:
                         ok = (ok and extra["repeat_bit_equal"]
-                              and extra["design"] == T.tail_design(dtype))
+                              and extra["design"] == T.S.design(dtype))
                     # the cuDNN yardstick is an independent check (it rounds
                     # bf16 at other points, so it is reported, not held)
                     _, rel_lib = rel_err(got, lib().permute(0, 2, 3, 1))
@@ -465,9 +500,14 @@ def check_kernels(failures):
                                    bound_by="operations"
                                    if 2 * macs / PEAK_FLOPS[dname] >= nbytes / PEAK_BYTES
                                    else "bytes")
-                        if extra.get("design") == "mma":  # ms of each of its launches
+                        if name == "conv_hr_ct" and extra["design"] == "mma":
+                            # ms of each of its launches
                             row["step_ms"] = {k: time_ms(f) for k, f in
                                               T.conv_hr_mma_steps(*hr_inputs)[0].items()}
+                        if name in up_launch and dname == "bfloat16":
+                            # the card alone: the wrapper call, its launch, cuDNN
+                            _device_times(row, {"kern": kern, "lib": lib,
+                                                "launch": up_launch[name][0]})
                         report[(name, dname)] = row
                 emit(row)
                 if not ok:
@@ -798,7 +838,7 @@ def check_bwd_kernels(failures):
                     if design == "mma":  # ms of each launch (and its finishing pass)
                         extra["step_ms"] = {k: time_ms(f, iters=10)
                                             for k, f in mma_steps[name]().items()}
-                    ok = ok and bits and design == T.tail_design(dtype)
+                    ok = ok and bits and design == T.S.design(dtype)
                 if wrapper == "upfold_ct_bwd":  # db sums the unrounded dz, as the twin
                     extra["db_rel_err"] = worst_err({"b": got["b"]}, {"b": ref["b"]})[0]
                     ok = ok and extra["db_rel_err"] <= DB_TOL
@@ -981,11 +1021,11 @@ def check_stage_kernels(failures):
     """Phase kernels-stage: conv_s1_ct, conv_s2_ct and their backward wrappers
     against their twins, fp32 (TF32 off) and bf16, at an odd shape and at
     every shape the flagship GAN step gives them (timed there). Each row
-    names the design its launch took (``stage_design``): the bf16 3×3 conv,
-    its adjoint and the bf16 4×4 forward must run on the tensor cores
-    (``mma``), fp32 and the 4×4 adjoint on ``fma``. The backward's dx-only
-    and dW-only halves and a second full call must give the full call's
-    bits."""
+    names the design its launch took (``stage_ct.design``): bf16 must run on
+    the tensor cores (``mma``), fp32 on ``fma``. The backward's dx-only and
+    dW-only halves and a second full call must give the full call's bits;
+    bf16 ``conv_s2_ct_bwd`` rows also time both halves and cuDNN autograd on
+    the card alone (:func:`device_ms`)."""
     import torch
 
     from esrganplus_tpu_torch.kernels import stage_ct as S
@@ -1002,8 +1042,7 @@ def check_stage_kernels(failures):
         for sname, ks, B, H, W, cin, cout, act, net in odd + flag:
             case = make_stage_case(dtype, gen, ks, B, H, W, cin, cout, act)
             kname = "conv_s1_ct" if ks == 3 else "conv_s2_ct"
-            want = "mma" if dname == "bfloat16" else "fma"  # the forward
-            want_bwd = "mma" if (ks, dname) == (3, "bfloat16") else "fma"
+            want = "mma" if dname == "bfloat16" else "fma"  # both directions
             base = {"dtype": dname, "shape": sname, "net": net, "x": [B, H, W, cin],
                     "cout": cout, "act": act}
             with fp32_exact():
@@ -1050,7 +1089,7 @@ def check_stage_kernels(failures):
                         and dw_only["dx"] is None
                         and all(torch.equal(dw_only[k], got[k]) for k in ("w", "b"))
                         and all(torch.equal(again[k], got[k]) for k in ("dx", "w", "b")))
-                ok = ok and bits and design == want_bwd
+                ok = ok and bits and design == want
                 row = {"phase": "kernels-stage", "kernel": kname + "_bwd", **base,
                        "design": design, "max_abs_err": worst_abs, "rel_err": worst,
                        "tol": BWD_TOL[dname], "halves_and_repeat_bit_equal": bits,
@@ -1064,6 +1103,10 @@ def check_stage_kernels(failures):
                                dw_only_ms=time_ms(case["bwd_dw_only"], iters=10),
                                bound_ms=max(ops_ms, bytes_ms),
                                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+                    if (ks, dname) == (4, "bfloat16"):  # the card alone, like against like
+                        row.update(dx_only_device_ms=device_ms(case["bwd_dx_only"]),
+                                   dw_only_device_ms=device_ms(case["bwd_dw_only"]),
+                                   device_ms=device_ms(kern), library_device_ms=device_ms(lib))
                     report[(kname + "_bwd", sname, dname)] = row
                 emit(row)
                 if not ok:
@@ -1394,6 +1437,7 @@ def gan_check(failures):
 
     import torch
 
+    from esrganplus_tpu_torch.kernels import stage_ct as S
     from esrganplus_tpu_torch.models.discriminator import DiscriminatorVGGConfig
     from esrganplus_tpu_torch.models.layers import deterministic_convs, fp32_exact
     from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig, draw_noise
@@ -1453,10 +1497,16 @@ def gan_check(failures):
 
     t_ref, gg_ref, dg_ref = run("plain", None)
     counted = _twelve()
+    stage = (S.conv_s1_ct, S.conv_s2_ct, S.conv_s1_ct_bwd, S.conv_s2_ct_bwd)
     for dname, dtype in (("float32", None), ("bfloat16", "bfloat16")):
         for fn in counted:
             fn.launches = 0
+        S.reset_launch_counts()
         t_k, gg_k, dg_k = run("auto", dtype)
+        by_design = {fn.__name__: dict(fn.launches_by_design) for fn in stage}
+        want = "mma" if dtype else "fma"
+        designs_ok = all(d == {"fma": 0, "mma": 0, want: getattr(S, k).launches}
+                         for k, d in by_design.items())
         terr = term_errs(t_k, t_ref)
         g_err, d_err = leaf_errs(named_g, gg_k, gg_ref), leaf_errs(named_d, dg_k, dg_ref)
         d_l2 = leaf_errs(named_d, dg_k, dg_ref, norm=2)
@@ -1469,6 +1519,7 @@ def gan_check(failures):
                "d_cosine": cosine(dg_k, dg_ref),
                "leaves": [len(g_err), len(d_err)],
                "launches": {fn.__name__: fn.launches for fn in counted},
+               "stage_launches_by_design": by_design,
                "finite": all(bool(torch.isfinite(g).all()) for g in list(gg_k) + list(dg_k)
                              if g is not None)}
         if dtype is None:
@@ -1483,9 +1534,10 @@ def gan_check(failures):
                        plain_bf16_d_cosine=cosine(dg_p, dg_ref))
             ok = (max(terr.values()) <= 5e-2 and row["g_cosine"] >= 0.999
                   and row["d_cosine"] >= 0.95)
-        # the check itself must have gone through every stage kernel
-        ok = ok and all(row["launches"][k] == n
-                        for k, n in {**GAN_FWD_PER_STEP, **GAN_BWD_PER_STEP}.items())
+        # the check itself must have gone through every stage kernel, by design
+        ok = ok and designs_ok and all(row["launches"][k] == n
+                                       for k, n in {**GAN_FWD_PER_STEP,
+                                                    **GAN_BWD_PER_STEP}.items())
         row["ok"] = bool(ok and row["finite"])
         emit(row)
         if not row["ok"]:
@@ -1528,15 +1580,13 @@ def gan_train_path(failures, workdir):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counted}
-    # the bf16 step's 3×3 stage convs (both directions) and the 4×4 forward on
-    # the tensor cores, the 4×4 adjoint on the FMA kernels; the tail's
-    # two-design wrappers (conv_hr_ct, upfold_ct_bwd, conv_hr_ct_bwd) on "mma"
+    # the bf16 step's stage convs (both sizes, both directions) and the tail's
+    # wrappers (upfold_ct, conv_hr_ct, upfold_ct_bwd, conv_hr_ct_bwd) on "mma"
     by_design = {fn.__name__: dict(fn.launches_by_design)
                  for fn in (S.conv_s1_ct, S.conv_s1_ct_bwd, S.conv_s2_ct, S.conv_s2_ct_bwd)}
     per_step = {**GAN_FWD_PER_STEP, **GAN_BWD_PER_STEP}
-    for k, design in (("conv_s1_ct", "mma"), ("conv_s1_ct_bwd", "mma"), ("conv_s2_ct", "mma"),
-                      ("conv_s2_ct_bwd", "fma")):
-        want = {"fma": 0, "mma": 0, design: per_step[k] * TRAIN_STEPS}
+    for k in by_design:
+        want = {"fma": 0, "mma": per_step[k] * TRAIN_STEPS}
         if by_design[k] != want:
             failures.append(f"gan-train: {k} launched {by_design[k]} by design, expected {want}")
     by_design.update(_tail_designs(failures, "gan-train", launches))
@@ -2517,6 +2567,19 @@ def main() -> int:
                         "fp32_max_abs_err": report[(name, "float32")]["max_abs_err"],
                         "train_launches": train_launches[name],
                         "gan_launches": gan_launches[name]})
+        if name == "upfold_ct":  # the design, the card alone; the 2nd upconv and WIDE_C beside
+            second = report[("upfold_ct_2nd", "bfloat16")]
+            wide = report[("upfold_ct_wide", "bfloat16")]
+            timed = ("device_ms", "launch_device_ms", "library_device_ms")
+            kernels[-1].update(design=row["design"], frac_differ=row["frac_differ"],
+                               fp32_design=report[(name, "float32")]["design"],
+                               **{f: row[f] for f in timed},
+                               **{f"second_call_{f}": second[f]
+                                  for f in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                            "max_abs_err", "frac_differ") + timed},
+                               wide_c=WIDE_C,
+                               **{f"wide_c_{f}": wide[f]
+                                  for f in ("bound_ms", "max_abs_err", "frac_differ") + timed})
         if name == "conv_hr_ct":  # the design, and ms of each of its launches
             kernels[-1].update(design=row["design"], step_ms=row["step_ms"],
                                hid_frac_differ=row["hid_frac_differ"],
@@ -2565,6 +2628,8 @@ def main() -> int:
         fields = ("design", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                   "max_abs_err", "rel_err") + (("dx_only_ms", "dw_only_ms")
                                                if name.endswith("_bwd") else ())
+        fields += (("dx_only_device_ms", "dw_only_device_ms", "device_ms", "library_device_ms")
+                   if name == "conv_s2_ct_bwd" else ())
         kernels.append({
             "name": name, "route": "cuda", "source": STAGE_SOURCE,
             "replaces": STAGE_REPLACES[name], "launches": gan_launches[name],

@@ -172,24 +172,28 @@ __device__ __forceinline__ void acc_to_smem(
 }
 
 // Shared [PIX][np] bf16 rows to dst [B, H, W, c] at the tile (y0, x0): the
-// channels < c of the pixels inside the image.
+// channels < c of the pixels inside the image. With S = 2, row m of the tile
+// (pixel (y, x) of an H x W grid) goes to pixel (2y + a, 2x + bb) of dst
+// [B, 2H, 2W, c]: one output phase of a doubled-resolution output.
+template <int S = 1>
 __device__ __forceinline__ void smem_to_out(const unsigned char* src, int pitch,
                                             bf16* __restrict__ dst, int b, int y0, int x0, int H,
-                                            int W, int c, int tid) {
+                                            int W, int c, int tid, int a = 0, int bb = 0) {
   const int nth = blockDim.x;
   if ((c & 7) == 0) {
     const int nc = c / 8;
     for (int i = tid; i < PIX * nc; i += nth) {
       const int m = i / nc, c8 = i % nc, y = y0 + m / TW, x = x0 + m % TW;
       if (y < H && x < W)
-        *reinterpret_cast<uint4*>(dst + (((size_t)b * H + y) * W + x) * c + c8 * 8) =
+        *reinterpret_cast<uint4*>(
+            dst + (((size_t)b * S * H + S * y + a) * S * W + S * x + bb) * c + c8 * 8) =
             *reinterpret_cast<const uint4*>(src + m * pitch + c8 * 16);
     }
   } else {
     for (int i = tid; i < PIX * c; i += nth) {
       const int m = i / c, k = i % c, y = y0 + m / TW, x = x0 + m % TW;
       if (y < H && x < W)
-        dst[(((size_t)b * H + y) * W + x) * c + k] =
+        dst[(((size_t)b * S * H + S * y + a) * S * W + S * x + bb) * c + k] =
             reinterpret_cast<const bf16*>(src + m * pitch)[k];
     }
   }

@@ -8,10 +8,13 @@
 //     stage_fwd_s2_mma_kernel (bf16). fp32 accumulation over taps and
 //     channels, + bias, the activation on the fp32 value, one rounding to T.
 //   * _make_conv_s1_ct_diff (_conv_s1_bwd_kernel) and _make_conv_s2_ct_diff
-//     (_conv_s2_bwd_kernel): the adjoint, split into stage_dgrad_kernel (dx)
-//     and stage_wgrad_kernel + stage_wgrad_finish_kernel (dW, db), so that a
-//     caller whose weights are frozen, or whose input is an image, launches
-//     only the half it needs. dz = g * gate(saved forward output) is computed
+//     (_conv_s2_bwd_kernel): the adjoint, split into a data-gradient kernel
+//     (dx: stage_dgrad_kernel in fp32; stage_dgrad_mma_kernel and
+//     stage_dgrad_s2_mma_kernel in bf16) and a weight-gradient kernel +
+//     stage_wgrad_finish_kernel (dW, db: stage_wgrad_kernel in fp32,
+//     stage_wgrad_mma_kernel<NCH, KS> in bf16), so that a caller whose
+//     weights are frozen, or whose input is an image, launches only the half
+//     it needs. dz = g * gate(saved forward output) is computed
 //     in fp32 at load and never stored; db sums it unrounded, both products
 //     take it rounded to T.
 // The TPU kernels carry the image as column-phase planes [C, pixels] with the
@@ -23,11 +26,10 @@
 // Bound on this card: operations at every flagship shape except the
 // 3-channel entry convs (27 or 48 MAC per output against a 64-channel
 // output write: bytes). Two designs, picked by the caller
-// (kernels/stage_ct.py stage_design) per (dtype, kernel size, direction):
-// the bf16 3x3 conv and its adjoint, and the bf16 4x4 forward, run on the
-// tensor cores (the "mma" kernels below); fp32 and the 4x4 adjoint run the
-// FMA kernels, which accumulate on the CUDA cores in fp32 like the trunk
-// kernels: a 256-thread block owns an 8x16 output tile and
+// (kernels/stage_ct.py design) by dtype: bf16 runs on the tensor cores
+// (the "mma" kernels below), fp32 on the FMA kernels, which accumulate on the
+// CUDA cores in fp32 like the trunk kernels: a 256-thread block owns an 8x16
+// output tile and
 // up to 64 output channels (a wider conv takes several blocks per tile),
 // stages a few input channels of the haloed tile and of every tap's weights
 // in shared memory as fp32, and keeps a 4-pixel x CO/8-channel register tile.
@@ -41,9 +43,9 @@
 // and the finishing pass adds the rows in order.
 #include "common.cuh"
 #include "mma_tile.cuh"
+#include "phase_fold.cuh"
 
 #include <algorithm>
-#include <type_traits>
 
 namespace {
 
@@ -419,8 +421,20 @@ __global__ void stage_wgrad_finish_kernel(const float* __restrict__ part, int np
 //     (chunk, tap) stages: 32 at cout <= 64 (a 63 KB block), 64 at 128 (140 KB,
 //     one block an SM; the 32x32 output of the flagship 128-wide conv makes
 //     only 128 blocks, so fewer, longer chunks win). Measured on the H100
-//     against 4x16 tiles and other chunks (PERF.md). The 4x4 adjoint stays on
-//     the FMA kernels.
+//     against 4x16 tiles and other chunks (PERF.md).
+//   * 4x4 stride-2 data gradient: the four parity classes of dx are 2x2
+//     stride-1 convs of dz, input row 2m + a taking dz rows m + a - 1 + i
+//     through tap 3 - a - 2i (columns likewise): the phase fold of
+//     csrc/phase_fold.cuh, M = a block's 8x16 dz pixels, N = cin, K = 4 taps
+//     x cout per phase; the haloed 10x18 g tile becomes dz in place (as in the
+//     3x3 data gradient) and stays resident for the four phases, each phase
+//     stored as 16-byte vectors at the strided dx pixels.
+//   * 4x4 stride-2 weight gradient: the 3x3 weight gradient's kernel at KS = 4
+//     (Wg<4>): 16 taps, a block owns one chunk of 16 input channels x 16
+//     taps, and a 4x16 output-pixel tile's haloed 10x34 input tile is staged
+//     as four parity planes, so the run of 16 output
+//     pixels of a tap is a run of consecutive rows of plane (ky & 1, kx & 1),
+//     read by ldmatrix.trans as in the stride-2 forward.
 // The forward and data-gradient blocks are 8 warps of 32-pixel warp tiles when
 // a width is above 64 (two ~100 KB blocks an SM), else 4 warps of 64-pixel
 // tiles (fewer ldmatrix per mma: shared-memory bandwidth, not the tensor
@@ -456,9 +470,6 @@ constexpr int KCH = 64;                 // K rows of one weight-ring slot
 constexpr int NSLOT = 3;                // weight-ring depth
 constexpr int WG_TH = 4;                // weight-gradient pixel tile: 4x16 = 64 pixels of K
 constexpr int WG_PIX = WG_TH * TW;
-constexpr int WG_HP = (WG_TH + 2) * HW;
-constexpr int WG_MT = 12;               // m16 tiles of (ci, tap) rows a weight-gradient block owns
-constexpr int WG_XC = 32;               // input channels it stages (see stage_wgrad_mma_kernel)
 constexpr int S2_PW = TW + 1;           // stride-2 forward (TH x TW output pixels): a parity
 constexpr int S2_PP = (TH + 1) * S2_PW; // plane is (TH + 1) x (TW + 1) pixels
 constexpr int S2_NW = 8;                // warps of a stride-2 forward block
@@ -466,6 +477,24 @@ constexpr int S2_NW = 8;                // warps of a stride-2 forward block
 
 // input channels a stride-2 forward block stages at a time (K rows of a ring slot)
 __host__ __device__ constexpr int s2_xc(int np) { return np > 64 ? 64 : 32; }
+
+// The weight gradient by kernel size: its WG_TH x TW output-pixel tile reads a
+// haloed XH x XW input tile (four parity planes of PP pixels at KS = 4). A
+// block owns MT m16 tiles m = (ci chunk m / NTAP, tap m % NTAP) and stages
+// the XC input channels they span: at KS = 3, 12 tiles from m0 % 9 = 0, 3 or
+// 6 span at most two chunks of 16; at KS = 4 a block is one chunk's 16 taps,
+// its pixel-row loop unrolled by 2 to fit 128 registers without a spill (on
+// the H100 11 % faster than 12 tiles of two chunks: PERF.md).
+// kernels/stage_ct.py WG_MT mirrors MT.
+template <int KS>
+struct Wg {
+  static constexpr int S = KS == 3 ? 1 : 2;
+  static constexpr int NTAP = KS * KS;
+  static constexpr int MT = KS == 3 ? 12 : 16;
+  static constexpr int XC = KS == 3 ? 32 : 16;
+  static constexpr int XH = S * (WG_TH - 1) + KS, XW = S * (TW - 1) + KS;
+  static constexpr int PW = XW / 2, PP = XH / 2 * PW;
+};
 
 // dz = gate(g, saved output) in fp32 for 8 channels.
 __device__ __forceinline__ void dz8(const uint4& gv, const uint4& ov, int act, float slope,
@@ -480,6 +509,29 @@ __device__ __forceinline__ void dz8(const uint4& gv, const uint4& ov, int act, f
 }
 
 
+
+// The haloed g tile (origin zy0, zx0; coutp channels in rows of zp bytes)
+// becomes dz in place: gated by the saved output in fp32, rounded once.
+// Pixels outside the H x W image were zero-filled and stay zero.
+template <int NTH>
+__device__ __forceinline__ void gate_tile(unsigned char* smem, int zp,
+                                          const bf16* __restrict__ outp, int b, int zy0, int zx0,
+                                          int H, int W, int cout, int coutp, int act, float slope,
+                                          int tid) {
+  const int nc = coutp / 8;
+#pragma unroll 4
+  for (int i = tid; i < HP * nc; i += NTH) {
+    const int p = i / nc, c8 = i % nc;
+    const int zy = zy0 + p / HW, zx = zx0 + p % HW, co = c8 * 8;
+    if (zy >= 0 && zy < H && zx >= 0 && zx < W && co < cout) {  // else g was zero-filled
+      uint4* z = reinterpret_cast<uint4*>(smem + p * zp + c8 * 16);
+      float d[8];
+      dz8(*z, *reinterpret_cast<const uint4*>(outp + (((size_t)b * H + zy) * W + zx) * cout + co),
+          act, slope, d);
+      *z = pack8(d);
+    }
+  }
+}
 
 // ---------------------------------------------------------------------------
 // forward: NP = cout
@@ -687,19 +739,7 @@ __global__ void __launch_bounds__(Tiling<NP, NW>::NTH, Tiling<NP, NW>::MIN_BLOCK
   if (act != kNone) {  // dz in place of g, gated by the saved output, rounded once
     esr::mma::cp_async_wait<2>();  // (without a gate dz is g itself)
     __syncthreads();
-    const int nc = coutp / 8;
-#pragma unroll 4
-    for (int i = tid; i < HP * nc; i += Tl::NTH) {
-      const int p = i / nc, c8 = i % nc;
-      const int zy = y0 - 1 + p / HW, zx = x0 - 1 + p % HW, co = c8 * 8;
-      if (zy >= 0 && zy < H && zx >= 0 && zx < W && co < cout) {  // else g was zero-filled
-        uint4* z = reinterpret_cast<uint4*>(smem + p * zp + c8 * 16);
-        float d[8];
-        dz8(*z, *reinterpret_cast<const uint4*>(outp + (((size_t)b * H + zy) * W + zx) * cout + co),
-            act, slope, d);
-        *z = pack8(d);
-      }
-    }
+    gate_tile<Tl::NTH>(smem, zp, outp, b, y0 - 1, x0 - 1, H, W, cout, coutp, act, slope, tid);
   }
 
   float acc[Tl::MT][Tl::NT8][4];
@@ -736,33 +776,78 @@ __global__ void __launch_bounds__(Tiling<NP, NW>::NTH, Tiling<NP, NW>::MIN_BLOCK
 }
 
 // ---------------------------------------------------------------------------
-// weight and bias gradient: a block owns WG_MT m16 tiles of (ci, tap) rows and
-// NCH (16, 32 or 64) output channels
+// 4x4 stride-2 data gradient: NP = cin rounded up to 8, 16, 32, 64 or 128;
+// the phase fold of csrc/phase_fold.cuh over the block's dz tile
 // ---------------------------------------------------------------------------
 
-template <int NCH>
+template <int NP, int NW>
+__global__ void __launch_bounds__(NW * 32, esr::fold::fold_min_blocks<NW>())
+    stage_dgrad_s2_mma_kernel(
+    const bf16* __restrict__ g,     // [B, Ho, Wo, cout]
+    const bf16* __restrict__ outp,  // [B, Ho, Wo, cout] (null for kNone)
+    const bf16* __restrict__ w,     // [4, 4, cin, cout]
+    bf16* __restrict__ dx,          // [B, 2Ho, 2Wo, cin]
+    int Ho, int Wo, int cin, int cout, int act, float slope) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int coutp = round16(cout), zp = ldsm_pitch(coutp);
+  const int wp = ldsm_pitch(esr::fold::fold_kch(coutp));
+  const int tid = threadIdx.x;
+  const int b = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+  auto stage_g = [&](int c0, int len, int pitch) {  // the whole tile: cout <= 128 fits
+    stage_tile<TH + 2, HW>(g, smem, pitch, b, y0 - 1, x0 - 1, Ho, Wo, cout, c0, len, tid);
+  };
+  // slice (a, b, i, j): w[3-a-2i][3-b-2j] as [n = ci][k = co] rows, K rows c0 ..
+  auto load_w = [&](uint32_t dst, int ph, int t, int c0, int len) {
+    const int tap = (3 - (ph >> 1) - 2 * (t >> 1)) * 4 + 3 - (ph & 1) - 2 * (t & 1);
+    const int nc = len / 8;
+    for (int i = tid; i < NP * nc; i += NW * 32) {
+      const int ci = i / nc, k8 = i % nc, co = c0 + k8 * 8;
+      const bool ok = ci < cin && co < cout;
+      cp_async16(dst + ci * wp + k8 * 16, ok ? w + ((size_t)tap * cin + ci) * cout + co : w, ok);
+    }
+  };
+  auto gate = [&] {  // dz in place of g (without a gate dz is g itself)
+    if (act == kNone) return;
+    esr::mma::cp_async_wait<2>();
+    __syncthreads();
+    gate_tile<NW * 32>(smem, zp, outp, b, y0 - 1, x0 - 1, Ho, Wo, cout, coutp, act, slope, tid);
+  };
+  auto store = [&](int ph, const unsigned char* src, int pitch) {  // dx(2y + a, 2x + b)
+    smem_to_out<2>(src, pitch, dx, b, y0, x0, Ho, Wo, cin, tid, ph >> 1, ph & 1);
+  };
+  esr::fold::fold_mma<NP, NW, false>(smem, coutp, stage_g, load_w, gate, nullptr, kNone, 0.f,
+                                     store);
+}
+
+// ---------------------------------------------------------------------------
+// weight and bias gradient: a block owns Wg<KS>::MT m16 tiles of (ci, tap)
+// rows and NCH (16, 32 or 64) output channels
+// ---------------------------------------------------------------------------
+
+template <int NCH, int KS>
 __global__ void __launch_bounds__(NT, 2) stage_wgrad_mma_kernel(
     const bf16* __restrict__ x,     // [B, H, W, cin]
-    const bf16* __restrict__ g,     // [B, H, W, cout]
-    const bf16* __restrict__ outp,  // [B, H, W, cout] (null for kNone)
-    float* __restrict__ part,       // [npart][9*cin*cout + cout]
+    const bf16* __restrict__ g,     // [B, Ho, Wo, cout]
+    const bf16* __restrict__ outp,  // [B, Ho, Wo, cout] (null for kNone)
+    float* __restrict__ part,       // [npart][KS*KS*cin*cout + cout]
     int H, int W, int cin, int cout, int act, float slope, int tiles_per_part, int total_tiles,
     int tiles_x, int tiles_y) {
-  constexpr int WN = 2, MT = WG_MT / 4, NT8 = NCH / 16;  // 4 x 2 warps of MT m16 x NCH/2
-  constexpr int XP = ldsm_pitch(WG_XC), GP = ldsm_pitch(NCH);
-  constexpr int XBYTES = WG_HP * XP, GBYTES = WG_PIX * GP;
+  using G = Wg<KS>;
+  constexpr int WN = 2, MT = G::MT / 4, NT8 = NCH / 16;  // 4 x 2 warps of MT m16 x NCH/2
+  constexpr int XP = ldsm_pitch(G::XC), GP = ldsm_pitch(NCH);
+  constexpr int XBYTES = G::XH * G::XW * XP, GBYTES = WG_PIX * GP;
   constexpr int BUF = XBYTES + 2 * GBYTES;  // x, g (then dz), the saved output
   constexpr int NC = NCH / 8;               // dz chunks of 8 channels per pixel
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / WN, wn = warp % WN;
-  const int mtiles = 9 * round16(cin) / 16;  // m16 tile m = (ci chunk m / 9, tap m % 9)
+  const int Ho = H / G::S, Wo = W / G::S;
+  const int mtiles = G::NTAP * round16(cin) / 16;  // m16 tile m = (ci chunk, tap)
   const int ngroups = (cout + NCH - 1) / NCH;
-  const int m0 = blockIdx.x / ngroups * WG_MT;
+  const int m0 = blockIdx.x / ngroups * G::MT;
   const int n0 = blockIdx.x % ngroups * NCH;  // the block's output channels n0 .. n0 + NCH
-  // m0 % 9 is 0, 3 or 6, so the block's 12 tiles span at most two ci chunks
-  const int cx0 = m0 / 9 * 16;
-  const size_t row = (size_t)9 * cin * cout + cout;
+  const int cx0 = m0 / G::NTAP * 16;          // the first of the XC channels it stages
+  const size_t row = (size_t)G::NTAP * cin * cout + cout;
   float* dst = part + (size_t)blockIdx.y * row;
 
   const int tbeg = blockIdx.y * tiles_per_part;
@@ -772,13 +857,14 @@ __global__ void __launch_bounds__(NT, 2) stage_wgrad_mma_kernel(
     unsigned char* buf = smem + (it & 1) * BUF;
     const int b = tile / (tiles_x * tiles_y);
     const int oy0 = (tile / tiles_x) % tiles_y * WG_TH, ox0 = tile % tiles_x * TW;
-    stage_tile<WG_TH + 2, HW>(x, buf, XP, b, oy0 - 1, ox0 - 1, H, W, cin, cx0, WG_XC, tid);
+    stage_tile<G::XH, G::XW, KS == 4>(x, buf, XP, b, G::S * oy0 - 1, G::S * ox0 - 1, H, W, cin,
+                                      cx0, G::XC, tid);
     const uint32_t gs = smem_u32(buf + XBYTES);
     for (int i = tid; i < WG_PIX * NC; i += NT) {
       const int p = i / NC, c8 = i % NC, oy = oy0 + p / TW, ox = ox0 + p % TW;
       const int co = n0 + c8 * 8;
-      const bool ok = oy < H && ox < W && co < cout;
-      const size_t idx = ok ? (((size_t)b * H + oy) * W + ox) * cout + co : 0;
+      const bool ok = oy < Ho && ox < Wo && co < cout;
+      const size_t idx = ok ? (((size_t)b * Ho + oy) * Wo + ox) * cout + co : 0;
       cp_async16(gs + p * GP + c8 * 16, g + idx, ok);
       if (act != kNone) cp_async16(gs + GBYTES + p * GP + c8 * 16, outp + idx, ok);
     }
@@ -818,7 +904,7 @@ __global__ void __launch_bounds__(NT, 2) stage_wgrad_mma_kernel(
     }
     __syncthreads();
     const uint32_t xs = smem_u32(buf), zs = smem_u32(gz);
-#pragma unroll
+#pragma unroll (KS == 3 ? WG_TH : 2)
     for (int kk = 0; kk < WG_TH; ++kk) {  // one tile row of 16 pixels per k16 step
       uint32_t bf[NT8][2];
       if constexpr (NT8 == 1) {
@@ -836,12 +922,18 @@ __global__ void __launch_bounds__(NT, 2) stage_wgrad_mma_kernel(
       for (int i = 0; i < MT; ++i) {
         const int m = m0 + wm * MT + i;
         if (m >= mtiles) continue;  // warp-uniform
-        const int t = m % 9, cl = m / 9 * 16 - cx0;
-        // A = x^T: [k = pixel][m = ci] rows read with .trans
+        const int t = m % G::NTAP, cl = m / G::NTAP * 16 - cx0;
+        // A = x^T: [k = pixel][m = ci] rows read with .trans; output pixel
+        // (kk, px) at tap t reads input tile pixel (S*kk + ky, S*px + kx): at
+        // KS = 4 row kk + ky/2, column px + kx/2 of plane (ky & 1, kx & 1)
         const int px = (lane & 7) + (lane >> 4) * 8;
+        int r;
+        if constexpr (KS == 3)
+          r = (kk + t / 3) * HW + px + t % 3;
+        else
+          r = ((t >> 2 & 1) * 2 + (t & 1)) * G::PP + (kk + (t >> 3)) * G::PW + px + (t >> 1 & 1);
         uint32_t af[4];
-        esr::mma::ldsm_x4_t(af, xs + ((kk + t / 3) * HW + px + t % 3) * XP +
-                                    (cl + ((lane >> 3) & 1) * 8) * 2);
+        esr::mma::ldsm_x4_t(af, xs + r * XP + (cl + ((lane >> 3) & 1) * 8) * 2);
 #pragma unroll
         for (int j = 0; j < NT8; ++j) esr::mma::mma_bf16(acc[i][j], af, bf[j][0], bf[j][1]);
       }
@@ -854,13 +946,13 @@ __global__ void __launch_bounds__(NT, 2) stage_wgrad_mma_kernel(
   for (int i = 0; i < MT; ++i) {
     const int m = m0 + wm * MT + i;
     if (m >= mtiles) continue;
-    const int t = m % 9;
+    const int t = m % G::NTAP;
 #pragma unroll
     for (int j = 0; j < NT8; ++j) {
       const int n = n0 + (wn * NT8 + j) * 8 + (lane & 3) * 2;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int ci = m / 9 * 16 + (lane >> 2) + 8 * h;
+        const int ci = m / G::NTAP * 16 + (lane >> 2) + 8 * h;
         if (ci < cin && n < cout)
           *reinterpret_cast<float2*>(dst + ((size_t)t * cin + ci) * cout + n) =
               make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
@@ -876,7 +968,7 @@ __global__ void __launch_bounds__(NT, 2) stage_wgrad_mma_kernel(
     for (int c = tid; c < NCH; c += NT) {
       float v = 0.f;
       for (int r = c / 8; r < NT; r += NC) v += red[r * 8 + c % 8];
-      if (n0 + c < cout) dst[(size_t)9 * cin * cout + n0 + c] = v;
+      if (n0 + c < cout) dst[(size_t)G::NTAP * cin * cout + n0 + c] = v;
     }
   }
 }
@@ -942,10 +1034,7 @@ enum Op : int { kFwd = 0, kDgrad = 1, kWgrad = 2 };
 
 template <typename T, int C, int KS>
 int dispatch_op(int op, const StageArgs& a, cudaStream_t st) {
-  if (op == kFwd) {
-    if constexpr (std::is_same_v<T, __nv_bfloat16>) return (int)cudaErrorInvalidValue;  // mma
-    else return launch_fwd<T, C, KS>(a, st);
-  }
+  if (op == kFwd) return launch_fwd<T, C, KS>(a, st);
   if (op == kDgrad) return launch_dgrad<T, C, KS>(a, st);
   return launch_wgrad<T, C, KS>(a, st);
 }
@@ -1010,24 +1099,37 @@ int launch_fwd_s2_mma(const StageArgs& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <int NCH>
+template <int NP, int NW>
+int launch_dgrad_s2_mma(const StageArgs& a, cudaStream_t st) {
+  const size_t smem = esr::fold::fold_smem(NP, mk::round16(a.cout), false);
+  if (int e = esr::tile::smem_opt_in(mk::stage_dgrad_s2_mma_kernel<NP, NW>, smem)) return e;
+  const dim3 grid((a.Wo + mk::TW - 1) / mk::TW, (a.Ho + mk::TH - 1) / mk::TH, a.B);
+  mk::stage_dgrad_s2_mma_kernel<NP, NW><<<grid, NW * 32, smem, st>>>(
+      static_cast<const mk::bf16*>(a.g), static_cast<const mk::bf16*>(a.outp),
+      static_cast<const mk::bf16*>(a.w), static_cast<mk::bf16*>(a.out), a.Ho, a.Wo, a.cin,
+      a.cout, a.act, a.slope);
+  return (int)cudaGetLastError();
+}
+
+template <int NCH, int KS>
 int launch_wgrad_mma(const StageArgs& a, cudaStream_t st) {
-  const size_t smem = 2 * ((size_t)mk::WG_HP * mk::ldsm_pitch(mk::WG_XC) +
+  using G = mk::Wg<KS>;
+  const size_t smem = 2 * ((size_t)G::XH * G::XW * mk::ldsm_pitch(G::XC) +
                            2 * (size_t)mk::WG_PIX * mk::ldsm_pitch(NCH));
-  if (int e = esr::tile::smem_opt_in(mk::stage_wgrad_mma_kernel<NCH>, smem)) return e;
-  const int tiles_x = (a.W + mk::TW - 1) / mk::TW, tiles_y = (a.H + mk::WG_TH - 1) / mk::WG_TH;
+  if (int e = esr::tile::smem_opt_in(mk::stage_wgrad_mma_kernel<NCH, KS>, smem)) return e;
+  const int tiles_x = (a.Wo + mk::TW - 1) / mk::TW, tiles_y = (a.Ho + mk::WG_TH - 1) / mk::WG_TH;
   const int total = a.B * tiles_x * tiles_y;
   const int per = (total + a.npart - 1) / a.npart;
-  const int mtiles = 9 * mk::round16(a.cin) / 16;
+  const int mtiles = G::NTAP * mk::round16(a.cin) / 16;
   const int ngroups = (a.cout + NCH - 1) / NCH;
-  const dim3 grid((mtiles + mk::WG_MT - 1) / mk::WG_MT * ngroups, a.npart);
-  mk::stage_wgrad_mma_kernel<NCH><<<grid, mk::NT, smem, st>>>(
+  const dim3 grid((mtiles + G::MT - 1) / G::MT * ngroups, a.npart);
+  mk::stage_wgrad_mma_kernel<NCH, KS><<<grid, mk::NT, smem, st>>>(
       static_cast<const mk::bf16*>(a.x), static_cast<const mk::bf16*>(a.g),
       static_cast<const mk::bf16*>(a.outp), a.part, a.H, a.W, a.cin, a.cout, a.act, a.slope, per,
       total, tiles_x, tiles_y);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  finish_wgrad(a, 3, st);
+  finish_wgrad(a, KS, st);
   return (int)cudaGetLastError();
 }
 
@@ -1058,18 +1160,20 @@ int pow2_width(int c, int least) {
 }
 
 // the weight gradient's N per block: cout (at least 16), at most 64
+template <int KS>
 int launch_wgrad_mma_w(int cout, const StageArgs& a, cudaStream_t st) {
   switch (cout) {
     case 8:
-    case 16: return launch_wgrad_mma<16>(a, st);
-    case 32: return launch_wgrad_mma<32>(a, st);
+    case 16: return launch_wgrad_mma<16, KS>(a, st);
+    case 32: return launch_wgrad_mma<32, KS>(a, st);
     case 64:
-    case 128: return launch_wgrad_mma<64>(a, st);
+    case 128: return launch_wgrad_mma<64, KS>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 ESR_BY_WIDTH(launch_fwd_mma)
 ESR_BY_WIDTH(launch_dgrad_mma)
+ESR_BY_WIDTH(launch_dgrad_s2_mma)
 #undef ESR_BY_WIDTH
 
 int launch_fwd_s2_mma_w(int np, const StageArgs& a, cudaStream_t st) {
@@ -1083,28 +1187,29 @@ int launch_fwd_s2_mma_w(int np, const StageArgs& a, cudaStream_t st) {
   }
 }
 
-enum Design : int { kFma = 0, kMma = 1 };  // kernels/stage_ct.py stage_design
+enum Design : int { kFma = 0, kMma = 1 };  // kernels/stage_ct.py DESIGNS, design()
 
 int dispatch_mma(int ks, int op, const StageArgs& a, cudaStream_t st) {
   if (a.cin < 1 || a.cin > 128) return (int)cudaErrorInvalidValue;
-  if (ks == 4) return launch_fwd_s2_mma_w(a.cout, a, st);
+  const int np = pow2_width(a.cin, 8);  // the data gradient's N
+  if (ks == 4) {
+    if (op == kFwd) return launch_fwd_s2_mma_w(a.cout, a, st);
+    if (op == kDgrad) return launch_dgrad_s2_mma_w(np, a, st);
+    return launch_wgrad_mma_w<4>(a.cout, a, st);
+  }
   if (op == kFwd) return launch_fwd_mma_w(a.cout, a, st);
-  if (op == kDgrad) return launch_dgrad_mma_w(pow2_width(a.cin, 8), a, st);
-  return launch_wgrad_mma_w(a.cout, a, st);
+  if (op == kDgrad) return launch_dgrad_mma_w(np, a, st);
+  return launch_wgrad_mma_w<3>(a.cout, a, st);
 }
 
 int dispatch(int dtype, int ks, int design, int op, int chunk, const StageArgs& a,
              cudaStream_t st) {
   if (ks != 3 && ks != 4) return (int)cudaErrorInvalidValue;
-  // one design per (dtype, ks, op): the bf16 3x3 conv, its adjoint and the bf16
-  // 4x4 forward on the tensor cores, the rest on the FMA kernels
-  const bool mma = dtype == esr::kBFloat16 && (ks == 3 || op == kFwd);
-  if (design != (mma ? kMma : kFma)) return (int)cudaErrorInvalidValue;
-  if (mma) return dispatch_mma(ks, op, a, st);
-  if (dtype == esr::kFloat32)
+  // one design per dtype: bf16 on the tensor cores, fp32 on the FMA kernels
+  if (dtype == esr::kBFloat16 && design == kMma) return dispatch_mma(ks, op, a, st);
+  if (dtype == esr::kFloat32 && design == kFma)
     return ks == 3 ? dispatch_chunk<float, 3>(op, chunk, a, st)
                    : dispatch_chunk<float, 4>(op, chunk, a, st);
-  if (dtype == esr::kBFloat16) return dispatch_chunk<__nv_bfloat16, 4>(op, chunk, a, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1122,10 +1227,9 @@ extern "C" {
 
 // ks = 3: SAME 3x3 stride 1; ks = 4: 4x4 stride 2 pad 1 (H and W even).
 // x [B,H,W,cin], w [ks,ks,cin,cout], bias fp32 [cout] -> out [B,Ho,Wo,cout].
-// `design`: 1 (the tensor-core kernels) for bf16 at ks = 3, and for the bf16
-// forward at ks = 4, else 0 (the FMA kernels); any other value returns
-// cudaErrorInvalidValue. `chunk` (FMA only) divides cout. Every function
-// returns cudaGetLastError().
+// `design`: 1 (the tensor-core kernels) for bf16, 0 (the FMA kernels) for
+// fp32; any other value returns cudaErrorInvalidValue. `chunk` (FMA only)
+// divides cout. Every function returns cudaGetLastError().
 int esr_stage_fwd(int dtype, int ks, int design, int chunk, const void* x, const void* w,
                   const float* bias, void* out, int B, int H, int W, int cin, int cout, int act,
                   float slope, void* stream) {

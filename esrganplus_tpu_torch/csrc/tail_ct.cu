@@ -8,7 +8,9 @@
 //     {b-1, b}; the host folds the weights accordingly (prepare_upfold_ct), so
 //     the kernel does 4*C MACs per output channel instead of 9*C, and the
 //     upsampled intermediate never exists in device memory. Zero padding at
-//     LR resolution is exactly the HR zero padding after the fold.
+//     LR resolution is exactly the HR zero padding after the fold. fp32:
+//     upfold_kernel; bf16: upfold_mma_kernel (namespace tc), the phase fold
+//     of csrc/phase_fold.cuh.
 //   * conv_hr_ct (_conv_hr_kernel): hr_conv0 (3x3 C->C + leaky-relu) then
 //     hr_conv1 (3x3 C->CO2). conv1's SAME padding pads conv0's *output*
 //     (tail_ct.py:413-421), and conv0's activation is rounded to T as the TPU
@@ -28,15 +30,16 @@
 // against a C-channel LR read shared by four HR pixels and a CO-channel HR
 // write: ~205 FLOP a byte at 64 wide, below the tensor cores' ~295) and for
 // its adjoint; operations for conv_hr (9*C*(C+CO2) MACs per HR pixel against
-// C channels read and CO2 written). The FMA kernels accumulate on the CUDA
-// cores in fp32, with the same register tiling as rdb_ct.cu (4-6 pixels x
-// C/8 channels per thread) over shared-memory tiles; the 2x2 fold cuts
+// C channels read and CO2 written). The FMA kernels (fp32) accumulate on the
+// CUDA cores in fp32, with the same register tiling as rdb_ct.cu (4-6 pixels
+// x C/8 channels per thread) over shared-memory tiles; the 2x2 fold cuts
 // upfold's work 2.25x.
 #include <algorithm>
 
 #include "common.cuh"
 #include "mma_bf16.cuh"
 #include "mma_tile.cuh"
+#include "phase_fold.cuh"
 #include "wgrad.cuh"
 
 namespace {
@@ -52,7 +55,7 @@ constexpr int NPG = NT / NCG;
 constexpr int PPT = TH * TW / NPG;
 
 // ---------------------------------------------------------------------------
-// upfold: one block = one output phase (a, b) of an 8x16 LR tile, all CO.
+// upfold, fp32: one block = one output phase (a, b) of an 8x16 LR tile, all CO.
 // ---------------------------------------------------------------------------
 
 template <typename T, int CO>
@@ -565,11 +568,21 @@ __global__ void __launch_bounds__(NT) conv_hr_hid_fix_kernel(
 }  // namespace adj
 
 // ---------------------------------------------------------------------------
-// The bf16 tensor-core design ("mma") of the upconv adjoint and of conv_hr's
+// The bf16 tensor-core design ("mma") of the upconv, its adjoint and conv_hr's
 // forward: implicit GEMMs on mma.sync m16n8k16 (csrc/mma_tile.cuh), fp32
 // accumulators, one rounding of each output. kernels/tail_ct.py picks the
-// design by dtype (upfold_bwd_design, conv_hr_design); fp32 keeps the FMA
-// kernels, whose 1e-4 bar TF32 would miss.
+// design by dtype (stage_ct.design); fp32 keeps the FMA kernels, whose 1e-4 bar
+// TF32 would miss.
+//
+// Upconv (upfold_ct): upfold_mma_kernel, the phase fold of
+// csrc/phase_fold.cuh: a block stages its 8x16 LR tile with the 1-pixel halo
+// once (in slices of 128 channels, restaged for each phase, where all C do
+// not fit shared memory) and runs the four output phases in turn, each as K =
+// 4 taps x C of the folded weights wf[a][b][i][j] ([k = c][n = co] rows,
+// ldmatrix.trans) over shifted rows of the tile; + bias, lrelu on the fp32
+// value, one rounding; each phase stored as 16-byte vectors at HR pixels
+// (2y + a, 2x + b).
+// Bound: bytes (above).
 //
 // Upconv adjoint (upfold_ct_bwd), three launches and two fixed-order finishes:
 //   * upfold_dz_kernel (bytes: g and the saved output read once as 16-byte
@@ -626,6 +639,7 @@ using esr::tile::warp_mma;
 
 constexpr int NSLOT = 3;                 // weight-ring depth of the dx kernel
 constexpr int UP_NW = 8;                 // warps of a dx block
+constexpr int UPF_NW = 4;                // warps of an upconv forward block
 constexpr int WG_TH = 4;                 // dW pixel tile: 4x16 = 64 pixels of K
 constexpr int WG_PIX = WG_TH * TW;
 constexpr int WG_HP = (WG_TH + 2) * HW;
@@ -633,6 +647,38 @@ constexpr int HR_NW = 4;                 // warps of a conv_hr output block
 
 // the stacked dz's channels per output phase: CO, at least 16 (K of one mma)
 __host__ __device__ constexpr int phase_width(int co) { return co < 16 ? 16 : co; }
+
+// The upconv forward of one 8x16 LR tile, all four output phases: NP = CO.
+template <int NP>
+__global__ void __launch_bounds__(UPF_NW * 32, esr::fold::fold_min_blocks<UPF_NW>())
+    upfold_mma_kernel(
+    const bf16* __restrict__ x, int C,   // [B, H, W, C] LR
+    const bf16* __restrict__ wf,         // [2(a), 2(b), 2(i), 2(j), C, NP] folded
+    const float* __restrict__ bias,      // [NP]
+    bf16* __restrict__ out,              // [B, 2H, 2W, NP]
+    int H, int W, float slope) {
+  constexpr int WP = ldsm_pitch(NP), NC = NP / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int kp = round16(C), tid = threadIdx.x;
+  const int b = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+  auto stage_x = [&](int c0, int len, int pitch) {  // channels c0 .. c0+len of the LR tile
+    stage_tile<TH + 2, HW>(x, smem, pitch, b, y0 - 1, x0 - 1, H, W, C, c0, len, tid);
+  };
+  // slice (a, b, i, j) = wf[phase][tap] as [k = c][n = co] rows, K rows c0 ..
+  auto load_w = [&](uint32_t dst, int ph, int t, int c0, int len) {
+    const bf16* src = wf + (size_t)(ph * 4 + t) * C * NP;
+    for (int i = tid; i < len * NC; i += UPF_NW * 32) {
+      const int r = i / NC, n8 = i % NC, c = c0 + r;
+      const bool ok = c < C;
+      cp_async16(dst + r * WP + n8 * 16, ok ? src + (size_t)c * NP + n8 * 8 : wf, ok);
+    }
+  };
+  auto store = [&](int ph, const unsigned char* src, int pitch) {  // out(2y + a, 2x + b)
+    smem_to_out<2>(src, pitch, out, b, y0, x0, H, W, NP, tid, ph >> 1, ph & 1);
+  };
+  esr::fold::fold_mma<NP, UPF_NW, true>(smem, kp, stage_x, load_w, [] {}, bias,
+                                         esr::tile::kLrelu, slope, store);
+}
 
 // Block p turns the 16-byte chunks [p * per, (p + 1) * per) of g into dz
 // (chunk e = HR pixel e / NC, channels (e % NC) * 8 ..; chunks past CO are the
@@ -952,14 +998,13 @@ int launch_upfold(const void* x, int C, const void* wf, const void* bias, void* 
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int upfold_cout(int CO, const void* x, int C, const void* wf, const void* bias, void* out,
                 int B, int H, int W, float slope, cudaStream_t s) {
   switch (CO) {
-    case 8: return launch_upfold<T, 8>(x, C, wf, bias, out, B, H, W, slope, s);
-    case 16: return launch_upfold<T, 16>(x, C, wf, bias, out, B, H, W, slope, s);
-    case 32: return launch_upfold<T, 32>(x, C, wf, bias, out, B, H, W, slope, s);
-    case 64: return launch_upfold<T, 64>(x, C, wf, bias, out, B, H, W, slope, s);
+    case 8: return launch_upfold<float, 8>(x, C, wf, bias, out, B, H, W, slope, s);
+    case 16: return launch_upfold<float, 16>(x, C, wf, bias, out, B, H, W, slope, s);
+    case 32: return launch_upfold<float, 32>(x, C, wf, bias, out, B, H, W, slope, s);
+    case 64: return launch_upfold<float, 64>(x, C, wf, bias, out, B, H, W, slope, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -999,6 +1044,19 @@ int conv_hr_c(int C, int co2, const void* x, const void* w0, const void* b0, con
 enum Design : int { kFma = 0, kMma = 1 };  // kernels/tail_ct.py DESIGNS
 
 using esr::mma::ldsm_pitch;
+
+template <int NP>
+int launch_upfold_mma(int C, const void* x, const void* wf, const float* bias, void* out, int B,
+                      int H, int W, float slope, cudaStream_t s) {
+  const int kp = esr::tile::round16(C);
+  const size_t smem = esr::fold::fold_smem(NP, esr::fold::fold_kt(NP, kp, true), true);
+  if (int e = esr::tile::smem_opt_in(tc::upfold_mma_kernel<NP>, smem)) return e;
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+  tc::upfold_mma_kernel<NP><<<grid, tc::UPF_NW * 32, smem, s>>>(
+      static_cast<const tc::bf16*>(x), C, static_cast<const tc::bf16*>(wf), bias,
+      static_cast<tc::bf16*>(out), H, W, slope);
+  return (int)cudaGetLastError();
+}
 
 template <int COP>
 int launch_upfold_dz(int CO, const void* g, const void* out, void* dz, float* part, int npart,
@@ -1088,14 +1146,26 @@ int upfold_wgrad_co(int C, int CO, const void* x, const void* dz, float* part, i
 
 extern "C" {
 
-// Fused nearest-x2 + 3x3 conv + bias + lrelu. Returns cudaGetLastError().
-int esr_upfold(int dtype, int C, int CO, const void* x, const void* wf, const void* bias,
-               void* out, int B, int H, int W, float slope, void* stream) {
+// Fused nearest-x2 + 3x3 conv + bias + lrelu: x [B,H,W,C], wf
+// [2,2,2,2,C,CO] (prepare_upfold_ct), bias fp32 [CO] -> out [B,2H,2W,CO]; CO
+// in {8, 16, 32, 64}. `design`: 1 (upfold_mma_kernel) for bf16, 0
+// (upfold_kernel) for fp32; any other value returns cudaErrorInvalidValue.
+// Returns cudaGetLastError().
+int esr_upfold(int dtype, int design, int C, int CO, const void* x, const void* wf,
+               const void* bias, void* out, int B, int H, int W, float slope, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == esr::kFloat32) return upfold_cout<float>(CO, x, C, wf, bias, out, B, H, W, slope, s);
-  if (dtype == esr::kBFloat16)
-    return upfold_cout<__nv_bfloat16>(CO, x, C, wf, bias, out, B, H, W, slope, s);
-  return (int)cudaErrorInvalidValue;
+  if (design != (dtype == esr::kBFloat16 ? kMma : kFma) || C < 1)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == esr::kFloat32) return upfold_cout(CO, x, C, wf, bias, out, B, H, W, slope, s);
+  if (dtype != esr::kBFloat16) return (int)cudaErrorInvalidValue;
+  const float* b = static_cast<const float*>(bias);
+  switch (CO) {
+    case 8: return launch_upfold_mma<8>(C, x, wf, b, out, B, H, W, slope, s);
+    case 16: return launch_upfold_mma<16>(C, x, wf, b, out, B, H, W, slope, s);
+    case 32: return launch_upfold_mma<32>(C, x, wf, b, out, B, H, W, slope, s);
+    case 64: return launch_upfold_mma<64>(C, x, wf, b, out, B, H, W, slope, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Fused hr_conv0 (+lrelu) and hr_conv1, the FMA design: fp32 only, `design`

@@ -67,7 +67,7 @@ SIGNATURES = {
         "esr_philox_factor": [P, U, U, F, I, I, I, I, P],
     },
     "tail_ct": {
-        "esr_upfold": [I, I, I, P, P, P, P, I, I, I, F, P],
+        "esr_upfold": [I, I, I, I, P, P, P, P, I, I, I, F, P],
         "esr_conv_hr": [I, I, I, I, P, P, P, P, P, P, I, I, I, F, P],
         "esr_conv_hr_out": [I, I, I, P, P, P, P, I, I, I, P],
         "esr_upfold_dz": [I, I, P, P, P, P, I, P, I, I, I, F, P],

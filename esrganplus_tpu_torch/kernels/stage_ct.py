@@ -27,14 +27,16 @@ gradient for frozen weights (the perceptual net; the discriminator while the
 generator is updated), no data gradient for an input that needs none (the
 discriminator's first conv on an image).
 
-Two designs of the CUDA kernels, picked by :func:`stage_design` per dtype,
-kernel size and direction: the bf16 3×3 conv, its adjoint and the bf16 4×4
-forward run as implicit GEMMs on the tensor cores (``"mma"``: ``mma.sync``
-bf16 with fp32 accumulators, operands staged by ``cp.async`` and read by
-``ldmatrix``; the 4×4 forward stages its input as four parity planes, see
-:func:`s2_plane_slot`); fp32 and the 4×4 adjoint run on the CUDA cores
-(``"fma"``). Both round where the twins round. Each wrapper counts its
-launches, and ``launches_by_design`` counts them by design.
+Two designs of the CUDA kernels, picked by :func:`design` from the dtype:
+bf16 runs both convs and both adjoints as implicit GEMMs on the tensor cores
+(``"mma"``: ``mma.sync`` bf16 with fp32 accumulators, operands staged by
+``cp.async`` and read by ``ldmatrix``; the 4×4 forward and weight gradient
+stage their input as four parity planes, see :func:`s2_plane_slot`; the 4×4
+data gradient is the phase fold of ``csrc/phase_fold.cuh``, four 2×2 convs
+of dz, see :func:`fold_tap_slot` and :func:`s2_dgrad_fold_plain`); fp32 runs
+on the CUDA cores (``"fma"``). Both round where the twins round. Each
+wrapper counts its launches, and ``launches_by_design`` counts them by
+design.
 
 A CPU tensor goes to the plain twin (``*_plain``); a CUDA tensor launches the
 kernel or raises.
@@ -53,10 +55,13 @@ from esrganplus_tpu_torch.models.layers import fp32_exact
 
 ACTS = {None: 0, "relu": 1, "lrelu": 2}  # csrc/stage_ct.cu Act
 DESIGNS = {"fma": 0, "mma": 1}            # csrc/stage_ct.cu Design
-OPS = ("fwd", "bwd")                      # the directions stage_design tells apart
 STAGE_WIDTHS = (8, 16, 32, 64, 128)      # output-channel counts the kernels take
 MAX_CIN = 128
 S2_TILE = (8, 16)  # output rows × columns of a 4×4 tensor-core forward block (TH, TW)
+FOLD_TILE = (8, 16)  # staged rows × columns of a phase-fold block (csrc/phase_fold.cuh)
+# m16 tiles of (16 input channels, tap) rows a tensor-core weight-gradient
+# block owns, by kernel size (csrc/stage_ct.cu Wg<KS>::MT)
+WG_MT = {3: 12, 4: 16}
 
 # (weights in the working dtype, fp32 bias) from HWIO masters
 prepare_stage_ct = prepare_conv_ct_weights
@@ -175,16 +180,14 @@ def _dgrad_chunk(cin: int) -> int:
     return next(c for c in (8, 16, 32, 64) if c >= min(cin, 64))
 
 
-def stage_design(dtype: torch.dtype, ks: int, cin: int, cout: int, op: str) -> str:
-    """Which CUDA design runs a stage conv in direction ``op`` (``"fwd"`` or
-    ``"bwd"``): ``"mma"`` (bf16 tensor cores) for the bf16 3×3 conv, its
-    adjoint and the bf16 4×4 forward, at every width the kernels take;
-    ``"fma"`` (fp32 on the CUDA cores) for fp32, whose 1e-4 bar TF32 would
-    miss, and for the 4×4 adjoint."""
-    if op not in OPS:
-        raise ValueError(f"op must be one of {OPS}, got {op!r}")
-    require_stage_widths(cin, cout)
-    return "mma" if dtype == torch.bfloat16 and (ks == 3 or op == "fwd") else "fma"
+def design(dtype: torch.dtype) -> str:
+    """Which CUDA design runs a stage or tail kernel on a ``dtype`` tensor:
+    ``"mma"`` (bf16 on the tensor cores) or ``"fma"`` (fp32 on the CUDA
+    cores, whose 1e-4 bar TF32 would miss). The widths are the wrappers' to
+    check (:func:`require_stage_widths`)."""
+    if dtype not in build.DTYPE_CODES:
+        raise TypeError(f"CUDA kernels take float32 or bfloat16, got {dtype}")
+    return "mma" if dtype == torch.bfloat16 else "fma"
 
 
 def s2_plane_slot(dy, dx, th: int = S2_TILE[0], tw: int = S2_TILE[1]):
@@ -209,6 +212,57 @@ def s2_tap_slot(ly, lx, ky, kx, th: int = S2_TILE[0], tw: int = S2_TILE[1]):
     return ly * pw + lx + shift
 
 
+def fold_shift(a, b, i, j, tw: int = FOLD_TILE[1]):
+    """Rows by which tap (i, j) of output phase (a, b) shifts a phase-fold
+    block pixel's A row: tile pixel (u + a + i, v + b + j) for block pixel
+    (u, v) of the haloed ``(th + 2) × (tw + 2)`` tile, whose origin is staged
+    pixel (y0 − 1, x0 − 1). Mirrors ``csrc/phase_fold.cuh`` ``fold_shift``."""
+    return (a + i) * (tw + 2) + b + j
+
+
+def fold_tap_slot(u, v, a, b, i, j, tw: int = FOLD_TILE[1]):
+    """The tile row that tap (i, j) of output phase (a, b) reads for block
+    pixel (u, v): the pixel's A row ``u·(tw + 2) + v`` shifted by
+    :func:`fold_shift`. It holds staged pixel (y0 + u + a − 1 + i, x0 + v + b
+    − 1 + j): the upconv's LR input of HR pixel (2(y0+u)+a, 2(x0+v)+b), and
+    the 4×4 data gradient's dz of dx pixel (2(y0+u)+a, 2(x0+v)+b). Takes ints
+    or integer arrays."""
+    return u * (tw + 2) + v + fold_shift(a, b, i, j, tw)
+
+
+def s2_dgrad_tap(a, b, i, j):
+    """The 4×4 tap ``(ky, kx) = (3 − a − 2i, 3 − b − 2j)`` through which dx
+    pixel (2m + a, 2n + b) receives dz pixel (m + a − 1 + i, n + b − 1 + j):
+    the forward's output p reads input row 2p + ky − 1."""
+    return 3 - a - 2 * i, 3 - b - 2 * j
+
+
+def s2_dgrad_slices(w: torch.Tensor) -> torch.Tensor:
+    """HWIO 4×4 weights → the phase fold's ``[2(a), 2(b), 2(i), 2(j), cout,
+    cin]`` slices ``w[s2_dgrad_tap(a, b, i, j)]ᵀ`` in fp32."""
+    return torch.stack([w[s2_dgrad_tap(a, b, i, j)].float().T
+                        for a in range(2) for b in range(2) for i in range(2)
+                        for j in range(2)]).view(2, 2, 2, 2, w.shape[3], w.shape[2])
+
+
+def s2_dgrad_fold_plain(dz: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The 4×4 stride-2 pad-1 conv's data gradient as the tensor-core design
+    computes it, in fp32: per output phase (a, b) a VALID 2×2 conv of the
+    zero-padded dz ``[B, Ho, Wo, cout]`` with the slices of
+    :func:`s2_dgrad_slices` → dx ``[B, 2Ho, 2Wo, cin]``. A mirror for the
+    tests: the kernels' twin is :func:`conv_s2_ct_bwd_plain`."""
+    B, Ho, Wo, _ = dz.shape
+    sl = s2_dgrad_slices(w)
+    zp = F.pad(dz.float(), (0, 0, 1, 1, 1, 1))
+    dx = torch.zeros((B, 2 * Ho, 2 * Wo, w.shape[2]), dtype=torch.float32, device=dz.device)
+    for a in range(2):
+        for b in range(2):
+            for i in range(2):
+                for j in range(2):
+                    dx[:, a::2, b::2] += zp[:, a + i:a + i + Ho, b + j:b + j + Wo] @ sl[a, b, i, j]
+    return dx
+
+
 def stage_wgrad_tiles(B: int, Ho: int, Wo: int, ks: int, design: str = "fma") -> int:
     """Pixel tiles the weight gradient walks: 8×16 (the FMA 3×3), 4×16 (the
     FMA 4×4 and the mma design) output pixels each."""
@@ -223,8 +277,8 @@ def stage_wgrad_parts(B: int, Ho: int, Wo: int, cin: int, cout: int, ks: int,
     one row per pixel tile and 128 rows. A function of the shapes only, so
     the reduction order is fixed."""
     tiles = stage_wgrad_tiles(B, Ho, Wo, ks, design)
-    if design == "mma":  # 12 m16 tiles of (16 ci, tap) rows × up to 64 output channels a block
-        blocks = -(-(9 * -(-cin // 16)) // 12) * -(-cout // 64)
+    if design == "mma":  # WG_MT[ks] m16 tiles of (16 ci, tap) rows × ≤ 64 output channels a block
+        blocks = -(-(ks * ks * -(-cin // 16)) // WG_MT[ks]) * -(-cout // 64)
     else:
         sc = min(cout, 64)
         kc = 16 if sc >= 16 else 32
@@ -283,17 +337,17 @@ def _fwd(fn, ks, x, w, bias, act, slope):
     dt, dev = x.dtype, x.device
     B, H, W, cin, cout, Ho, Wo = _validate(fn.__name__, ks, x, w, dt, dev)
     build.require(bias, "bias", (cout,), torch.float32, dev)
-    design = stage_design(dt, ks, cin, cout, "fwd")
+    kind = design(dt)
     x, w = _aligned(x), _aligned(w)
     lib = build.load("stage_ct")
     out = torch.empty((B, Ho, Wo, cout), dtype=dt, device=dev)
     with torch.cuda.device(dev):
-        code = lib.esr_stage_fwd(build.dtype_code(x), ks, DESIGNS[design], min(cout, 64),
+        code = lib.esr_stage_fwd(build.dtype_code(x), ks, DESIGNS[kind], min(cout, 64),
                                  x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), B,
                                  H, W, cin, cout, ACTS[act], slope,
                                  torch.cuda.current_stream(dev).cuda_stream)
     build.check(code, "esr_stage_fwd")
-    _count(fn, design)
+    _count(fn, kind)
     return out
 
 
@@ -328,11 +382,11 @@ def _bwd(fn, ks, x, w, out, g, act, slope, need_dx, need_dw) -> dict:
     build.require(g, "g", (B, Ho, Wo, cout), dt, dev)
     if act is not None:
         build.require(out, "out", (B, Ho, Wo, cout), dt, dev)
-    design = stage_design(dt, ks, cin, cout, "bwd")
+    kind = design(dt)
     x, w, g = _aligned(x), _aligned(w), _aligned(g)
     out = None if act is None else _aligned(out)  # held until the launches are queued
     outp = None if out is None else out.data_ptr()
-    code_d = DESIGNS[design]
+    code_d = DESIGNS[kind]
     lib = build.load("stage_ct")
     stream = torch.cuda.current_stream(dev).cuda_stream
     res = {"dx": None, "w": None, "b": None}
@@ -345,7 +399,7 @@ def _bwd(fn, ks, x, w, out, g, act, slope, need_dx, need_dw) -> dict:
             build.check(code, "esr_stage_dgrad")
             res["dx"] = dx
         if need_dw:
-            npart = stage_wgrad_parts(B, Ho, Wo, cin, cout, ks, design)
+            npart = stage_wgrad_parts(B, Ho, Wo, cin, cout, ks, kind)
             nw = ks * ks * cin * cout
             part = torch.empty((npart, nw + cout), dtype=torch.float32, device=dev)
             dwdb = torch.empty((nw + cout,), dtype=torch.float32, device=dev)
@@ -355,7 +409,7 @@ def _bwd(fn, ks, x, w, out, g, act, slope, need_dx, need_dw) -> dict:
                                        stream)
             build.check(code, "esr_stage_wgrad")
             res["w"], res["b"] = dwdb[:nw].view(ks, ks, cin, cout), dwdb[nw:]
-    _count(fn, design)
+    _count(fn, kind)
     return res
 
 

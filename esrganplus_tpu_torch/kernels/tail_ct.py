@@ -9,10 +9,13 @@ round: the 2×2 dense fold of the upconv (weights folded in fp32, then cast),
 one rounding of each upconv output, conv0's activation rounded and zeroed
 outside the image before conv1, and conv1's output in the working dtype.
 
-Two designs, picked by dtype (:func:`tail_design`): bf16 runs on the tensor
+Two designs, picked by dtype (:func:`stage_ct.design`): bf16 runs on the tensor
 cores (``"mma"``: ``mma.sync`` implicit GEMMs, ``csrc/mma_tile.cuh``), fp32 on
-the CUDA cores (``"fma"``), whose 1e-4 bar TF32 would miss. ``upfold_ct``
-has the FMA design only. ``conv_hr_ct`` in bf16 is two launches
+the CUDA cores (``"fma"``), whose 1e-4 bar TF32 would miss. ``upfold_ct`` in
+bf16 is the phase fold of ``csrc/phase_fold.cuh`` (``upfold_mma_kernel``: a
+block stages its LR tile once and runs the four output phases as 2×2 convs
+of it, see :func:`esrganplus_tpu_torch.kernels.stage_ct.fold_tap_slot`);
+in fp32 one FMA block a phase. ``conv_hr_ct`` in bf16 is two launches
 (:func:`conv_hr_mma_steps`): the stage forward of ``csrc/stage_ct.cu`` writes
 conv0's activation, ``conv_hr_out_mma_kernel`` runs conv1 on it; in fp32 one
 fused FMA kernel keeps the activation in shared memory.
@@ -119,7 +122,11 @@ def upfold_ct(x: torch.Tensor, wf: torch.Tensor, bias: torch.Tensor, *,
               slope: float = 0.2) -> torch.Tensor:
     """Nearest-×2 + 3×3 conv + bias + lrelu: NHWC ``[B, H, W, C]`` →
     ``[B, 2H, 2W, CO]``. ``wf``/``bias`` from :func:`prepare_upfold_ct`.
-    ``upfold_ct.launches`` counts CUDA launches."""
+    bf16 runs the tensor-core design (``upfold_mma_kernel``, at any C: its
+    block restages the haloed LR tile in slices of 128 channels where all C
+    do not fit shared memory), fp32 the FMA kernel; no fallback between
+    them. ``upfold_ct.launches`` counts CUDA launches,
+    ``launches_by_design`` them by design."""
     if x.device.type == "cpu":
         return upfold_ct_plain(x, wf, bias, slope=slope)
     if x.dim() != 4:
@@ -132,32 +139,34 @@ def upfold_ct(x: torch.Tensor, wf: torch.Tensor, bias: torch.Tensor, *,
     build.require(x, "x", (B, H, W, C), dt, dev)
     build.require(wf, "wf", (2, 2, 2, 2, C, CO), dt, dev)
     build.require(bias, "bias", (CO,), torch.float32, dev)
-    lib = build.load("tail_ct")
-    out = torch.empty((B, 2 * H, 2 * W, CO), dtype=dt, device=dev)
-    with torch.cuda.device(dev):
-        code = lib.esr_upfold(build.dtype_code(x), C, CO, x.data_ptr(),
-                              wf.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                              B, H, W, slope,
-                              torch.cuda.current_stream(dev).cuda_stream)
-    build.check(code, "esr_upfold")
-    upfold_ct.launches += 1
+    launch, out = upfold_launch(x, wf, bias, slope=slope)
+    launch()
+    S._count(upfold_ct, S.design(dt))
     return out
 
 
-upfold_ct.launches = 0
+def upfold_launch(x: torch.Tensor, wf: torch.Tensor, bias: torch.Tensor, *,
+                  slope: float = 0.2):
+    """The launch of :func:`upfold_ct` over an output allocated here →
+    ``(launch, out)``: ``launch()`` calls the C entry with the design of x's
+    dtype; it may run again (for timing) and gives the same bits. Inputs as
+    :func:`upfold_ct` validates them; counts nothing."""
+    B, H, W, C = x.shape
+    CO = wf.shape[-1]
+    dev = x.device
+    x, wf = S._aligned(x), S._aligned(wf)  # held by the closure with out
+    lib = build.load("tail_ct")
+    out = torch.empty((B, 2 * H, 2 * W, CO), dtype=x.dtype, device=dev)
+    design = S.DESIGNS[S.design(x.dtype)]
 
+    def launch():
+        with torch.cuda.device(dev):
+            build.check(lib.esr_upfold(build.dtype_code(x), design, C, CO, x.data_ptr(),
+                                       wf.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, W,
+                                       slope, torch.cuda.current_stream(dev).cuda_stream),
+                        "esr_upfold")
 
-def tail_design(dtype: torch.dtype) -> str:
-    """Which design runs a two-design tail function on the card
-    (:func:`conv_hr_ct`, :func:`upfold_ct_bwd`, :func:`conv_hr_ct_bwd`):
-    ``"mma"`` (bf16 on the tensor cores) or ``"fma"`` (fp32 on the CUDA
-    cores, whose 1e-4 bar TF32 would miss)."""
-    if dtype not in build.DTYPE_CODES:
-        raise TypeError(f"CUDA kernels take float32 or bfloat16, got {dtype}")
-    return "mma" if dtype == torch.bfloat16 else "fma"
-
-
-conv_hr_design = upfold_bwd_design = conv_hr_bwd_design = tail_design
+    return launch, out
 
 CONV_HR_OUT_TILE = (8, 16)  # pixel rows × columns of a conv_hr_out_mma_kernel block
 
@@ -207,7 +216,7 @@ def conv_hr_ct(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
     B, H, W, C = x.shape
     CO2 = w1.shape[3]
     dt, dev = x.dtype, x.device
-    design = conv_hr_design(dt)
+    design = S.design(dt)
     build.require_width(C, "C")
     build.require_width(CO2, "CO2", range(1, 9))
     build.require(x, "x", (B, H, W, C), dt, dev)
@@ -535,7 +544,7 @@ def upfold_ct_bwd(x, wf, out, g, *, slope: float = 0.2) -> dict:
     B, H, W, C = x.shape
     CO = wf.shape[-1]
     dt, dev = x.dtype, x.device
-    design = upfold_bwd_design(dt)
+    design = S.design(dt)
     build.require_width(CO, "CO")
     if design == "mma":
         build.require_width(C, "C")
@@ -596,7 +605,7 @@ def conv_hr_ct_bwd(x, w0, b0, w1, g, *, slope: float = 0.2) -> dict:
     build.require(b0, "b0", (C,), torch.float32, dev)
     build.require(w1, "w1", (3, 3, C, CO2), dt, dev)
     build.require(g, "g", (B, H, W, CO2), dt, dev)
-    design = conv_hr_bwd_design(dt)
+    design = S.design(dt)
     with torch.cuda.device(dev):
         if design == "mma":
             steps, res = conv_hr_bwd_mma_steps(x, w0, b0, w1, g, slope=slope)
@@ -632,9 +641,10 @@ def _conv_hr_bwd_fma(x, w0, b0, w1, g, slope) -> dict:
 
 
 def reset_design_counts() -> None:
-    """Set ``launches`` and ``launches_by_design`` of :func:`conv_hr_ct`,
-    :func:`upfold_ct_bwd` and :func:`conv_hr_ct_bwd` to 0."""
-    for fn in (conv_hr_ct, upfold_ct_bwd, conv_hr_ct_bwd):
+    """Set ``launches`` and ``launches_by_design`` of :func:`upfold_ct`,
+    :func:`conv_hr_ct`, :func:`upfold_ct_bwd` and :func:`conv_hr_ct_bwd` to
+    0."""
+    for fn in (upfold_ct, conv_hr_ct, upfold_ct_bwd, conv_hr_ct_bwd):
         fn.launches = 0
         fn.launches_by_design = dict.fromkeys(S.DESIGNS, 0)
 

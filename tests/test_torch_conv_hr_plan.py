@@ -18,10 +18,10 @@ SHAPES = {"flagship": (16, 128, 128), "odd": (2, 37, 53), "one-tile": (1, 5, 9),
 
 
 def test_bf16_runs_on_the_tensor_cores_fp32_on_the_cuda_cores():
-    assert T.conv_hr_bwd_design(torch.bfloat16) == "mma"
-    assert T.conv_hr_bwd_design(torch.float32) == "fma"
+    assert T.S.design(torch.bfloat16) == "mma"
+    assert T.S.design(torch.float32) == "fma"
     with pytest.raises(TypeError):
-        T.conv_hr_bwd_design(torch.float16)
+        T.S.design(torch.float16)
 
 
 @pytest.mark.parametrize("name", list(SHAPES))

@@ -257,6 +257,40 @@ def test_cuda_conv_hr_design_and_repeat(C, co2, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C,CO", [(64, 64), (8, 8), (3, 16), (16, 32), (100, 64), (432, 64),
+                                  (448, 64), (457, 64), (512, 64), (520, 8)])
+@pytest.mark.parametrize("shape", [(2, 37, 53), (1, 128, 128)], ids=["odd", "bench"])
+def test_cuda_upfold_design_and_repeat(C, CO, shape):
+    """bf16 takes the tensor-core design (the phase fold), within the bf16
+    bar of the twin with at most 1 % of outputs differing at all, and a
+    second call and the launch alone give the same bits; fp32 stays on the
+    FMA design at 1e-4. The odd LR shape (37x53: neither a whole 8x16 tile)
+    and the width edges (C = CO = 8; C = 3, 100 and 457, staged a pixel at
+    a time; C = 432, the widest tile of all C that fits a block at CO = 64,
+    and 448, 457, 512 and 520, whose tile is restaged in slices of 128
+    channels)."""
+    _need_card()
+    rs = np.random.RandomState(C + CO)
+    for dtype, design in ((torch.bfloat16, "mma"), (torch.float32, "fma")):
+        c = _conv(rs, C, CO)
+        wf, bias = T.prepare_upfold_ct(c["w"], c["b"], dtype)
+        x = torch.from_numpy(rs.rand(*shape, C).astype(np.float32)).to("cuda", dtype)
+        T.reset_design_counts()
+        with fp32_exact():
+            got, want = T.upfold_ct(x, wf, bias), T.upfold_ct_plain(x, wf, bias)
+        again = T.upfold_ct(x, wf, bias)
+        launch, out = T.upfold_launch(x, wf, bias)
+        launch()
+        assert T.upfold_ct.launches_by_design == {"fma": 0, "mma": 0, design: 2}
+        assert got.shape == want.shape and torch.isfinite(got.float()).all()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= TOL[dtype] * max(1.0, want.float().abs().max().item())
+        if dtype == torch.bfloat16:
+            assert (got != want).float().mean().item() <= 0.01
+        assert torch.equal(again, got) and torch.equal(out, got)
+
+
+@pytest.mark.cuda
 def test_cuda_tail_wrappers_raise_for_widths_they_do_not_take():
     _need_card()
     bf = torch.bfloat16
@@ -265,6 +299,8 @@ def test_cuda_tail_wrappers_raise_for_widths_they_do_not_take():
         T.upfold_ct_bwd(z(1, 8, 8, 48), z(2, 2, 2, 2, 48, 64), z(1, 16, 16, 64), z(1, 16, 16, 64))
     with pytest.raises(ValueError, match="CO=24"):
         T.upfold_ct_bwd(z(1, 8, 8, 64), z(2, 2, 2, 2, 64, 24), z(1, 16, 16, 24), z(1, 16, 16, 24))
+    with pytest.raises(ValueError, match="CO=24"):
+        T.upfold_ct(z(1, 8, 8, 64), z(2, 2, 2, 2, 64, 24), z(24, dt=torch.float32))
     with pytest.raises(ValueError, match="C=48"):
         T.conv_hr_ct(z(1, 8, 8, 48), z(3, 3, 48, 48), z(48, dt=torch.float32), z(3, 3, 48, 3),
                      z(3, dt=torch.float32))
@@ -279,9 +315,9 @@ def test_cuda_tail_wrappers_raise_for_widths_they_do_not_take():
 
 @pytest.mark.cuda
 def test_cuda_tail_entries_refuse_another_design():
-    """Each C entry runs one design: the FMA conv_hr entry refuses the mma
-    code and bf16, the tensor-core entries refuse the fma code
-    (``build.check`` raises)."""
+    """Each C entry runs one design: the upconv's refuses fma in bf16 and mma
+    in fp32, the FMA conv_hr entry refuses the mma code and bf16, the
+    tensor-core entries refuse the fma code (``build.check`` raises)."""
     _need_card()
     from esrganplus_tpu_torch.kernels import build
 
@@ -294,6 +330,10 @@ def test_cuda_tail_entries_refuse_another_design():
     b, part, o = torch.zeros(64, device="cuda"), torch.zeros(4096, device="cuda"), torch.empty(
         4096, device="cuda")
     codes = [
+        lib.esr_upfold(build.dtype_code(x), fma, 16, 16, x.data_ptr(), x.data_ptr(), b.data_ptr(),
+                       o.data_ptr(), 1, 4, 4, 0.2, s),
+        lib.esr_upfold(build.dtype_code(xf), mma, 16, 16, xf.data_ptr(), xf.data_ptr(),
+                       b.data_ptr(), o.data_ptr(), 1, 4, 4, 0.2, s),
         lib.esr_conv_hr(build.dtype_code(xf), mma, 16, 3, xf.data_ptr(), w0.data_ptr(),
                         b.data_ptr(), w1.data_ptr(), b.data_ptr(), o.data_ptr(), 1, 8, 8, 0.2, s),
         lib.esr_conv_hr(build.dtype_code(x), fma, 16, 3, x.data_ptr(), w0.data_ptr(),
@@ -476,9 +516,10 @@ def _stage_case(case, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("case", list(STAGE_CASES))
 def test_cuda_stage_kernel_matches_plain_twin_forward_and_backward(case, dtype):
-    """Each stage kernel against its twin; the bf16 3x3 conv, its adjoint and
-    the bf16 4x4 forward launch the tensor-core design, everything else the
-    FMA design."""
+    """Each stage kernel against its twin; bf16 launches the tensor-core
+    design in both directions at both kernel sizes (the 4x4 adjoint: the
+    phase-fold data gradient and the 16-tap weight gradient), fp32 the FMA
+    design."""
     _need_card()
     from esrganplus_tpu_torch.kernels import stage_ct as S
 
@@ -503,11 +544,9 @@ def test_cuda_stage_kernel_matches_plain_twin_forward_and_backward(case, dtype):
         again = bwd(x, w, saved, g, act=act, need_dx=False)
         assert again["dx"] is None and torch.equal(again["w"], r["w"]) \
             and torch.equal(again["b"], r["b"])
-    bf16, ks = dtype == torch.bfloat16, STAGE_CASES[case][0]
-    fwd_design = "mma" if bf16 else "fma"
-    bwd_design = "mma" if bf16 and ks == 3 else "fma"
-    assert fwd.launches_by_design == {"fma": 0, "mma": 0, fwd_design: 1}
-    assert bwd.launches_by_design == {"fma": 0, "mma": 0, bwd_design: 3}
+    design = "mma" if dtype == torch.bfloat16 else "fma"
+    assert fwd.launches_by_design == {"fma": 0, "mma": 0, design: 1}
+    assert bwd.launches_by_design == {"fma": 0, "mma": 0, design: 3}
 
 
 @pytest.mark.cuda
@@ -530,10 +569,10 @@ def test_cuda_stage_kernels_raise_for_what_they_do_not_take():
 
 @pytest.mark.cuda
 def test_cuda_stage_entry_refuses_a_design_other_than_stage_design():
-    """The C entry takes one design per (dtype, kernel size, direction), the
-    one ``stage_design`` names: asked for mma in fp32 or for the 4x4 adjoint
-    in bf16, or for fma in bf16 at ks=3 or for the bf16 4x4 forward, it
-    returns an error code (``build.check`` raises)."""
+    """The C entries take one design per dtype, the one ``stage_ct.design``
+    names: asked for mma in fp32 or for fma in bf16, at either kernel size
+    and in every direction, they return an error code (``build.check``
+    raises)."""
     _need_card()
     from esrganplus_tpu_torch.kernels import build
     from esrganplus_tpu_torch.kernels import stage_ct as S
@@ -552,15 +591,64 @@ def test_cuda_stage_entry_refuses_a_design_other_than_stage_design():
                                  0.2, stream)
         with pytest.raises(RuntimeError, match="cudaError"):
             build.check(code, "esr_stage_fwd")
-    # the bf16 4x4 adjoint: the FMA kernels only
-    x = torch.zeros(1, 8, 8, 16, device="cuda", dtype=torch.bfloat16)
-    w = torch.zeros(4, 4, 16, 16, device="cuda", dtype=torch.bfloat16)
-    g = torch.zeros(1, 4, 4, 16, device="cuda", dtype=torch.bfloat16)
-    code = lib.esr_stage_dgrad(build.dtype_code(x), 4, S.DESIGNS["mma"], 16, g.data_ptr(), None,
-                               w.data_ptr(), torch.empty_like(x).data_ptr(), 1, 8, 8, 16, 16, 0,
-                               0.2, stream)
-    with pytest.raises(RuntimeError, match="cudaError"):
-        build.check(code, "esr_stage_dgrad")
+    # the 4x4 adjoint's halves: the tensor cores in bf16, the FMA kernels in fp32
+    for dtype, design in ((torch.bfloat16, "fma"), (torch.float32, "mma")):
+        x = torch.zeros(1, 8, 8, 16, device="cuda", dtype=dtype)
+        w = torch.zeros(4, 4, 16, 16, device="cuda", dtype=dtype)
+        g = torch.zeros(1, 4, 4, 16, device="cuda", dtype=dtype)
+        part = torch.empty(4 * 4 * 16 * 16 + 16, device="cuda")
+        dwdb = torch.empty_like(part)
+        codes = [
+            lib.esr_stage_dgrad(build.dtype_code(x), 4, S.DESIGNS[design], 16, g.data_ptr(),
+                                None, w.data_ptr(), torch.empty_like(x).data_ptr(), 1, 8, 8, 16,
+                                16, 0, 0.2, stream),
+            lib.esr_stage_wgrad(build.dtype_code(x), 4, S.DESIGNS[design], 16, x.data_ptr(),
+                                g.data_ptr(), None, part.data_ptr(), 1, dwdb.data_ptr(), 1, 8,
+                                8, 16, 16, 0, 0.2, stream)]
+        for code in codes:
+            with pytest.raises(RuntimeError, match="cudaError"):
+                build.check(code, f"esr_stage 4x4 adjoint {dtype} {design}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,act", [(3, 8, "lrelu"), (16, 16, None), (128, 128, "relu"),
+                                          (64, 64, None), (128, 64, "lrelu")])
+@pytest.mark.parametrize("shape", [(2, 36, 52), (16, 64, 64)], ids=["odd", "flagship"])
+def test_cuda_conv_s2_bwd_design_and_repeat(shape, cin, cout, act):
+    """The bf16 4x4 adjoint on the tensor cores (phase-fold dx, 16-tap dW):
+    within the bf16 bar of the twin, db 1e-4 of the twin's (the unrounded
+    dz's sum), each half alone and a second call bit-equal, every launch
+    counted as "mma"; at the odd stage shape (18x26 dz: neither a whole 8x16
+    nor a whole 4x16 tile) and the width edges cin 3 and 16."""
+    _need_card()
+    from esrganplus_tpu_torch.kernels import stage_ct as S
+
+    rs = np.random.RandomState(cin + cout)
+    t = lambda *s_: torch.from_numpy(rs.randn(*s_).astype(np.float32)).cuda()
+    B, H, W = shape
+    w, b = S.prepare_stage_ct(t(4, 4, cin, cout) * float(np.sqrt(2.0 / (16 * cin))),
+                              t(cout) * 0.1, torch.bfloat16)
+    x = t(B, H, W, cin).to(torch.bfloat16)
+    S.reset_launch_counts()
+    out = S.conv_s2_ct(x, w, b, act=act)
+    g = t(*out.shape).to(torch.bfloat16)
+    saved = None if act is None else out
+    with fp32_exact():
+        got = S.conv_s2_ct_bwd(x, w, saved, g, act=act)
+        want = S.conv_s2_ct_bwd_plain(x, w, saved, g, act=act)
+    for k in ("dx", "w", "b"):
+        a, r = got[k].float(), want[k].float()
+        assert torch.isfinite(a).all(), k
+        tol = 1e-4 if k == "b" else TOL[torch.bfloat16]
+        assert (a - r).abs().max().item() <= tol * r.abs().max().item(), k
+    dx_only = S.conv_s2_ct_bwd(x, w, saved, g, act=act, need_dw=False)
+    dw_only = S.conv_s2_ct_bwd(x, w, saved, g, act=act, need_dx=False)
+    again = S.conv_s2_ct_bwd(x, w, saved, g, act=act)
+    assert torch.equal(dx_only["dx"], got["dx"])
+    assert torch.equal(dw_only["w"], got["w"]) and torch.equal(dw_only["b"], got["b"])
+    assert all(torch.equal(again[k], got[k]) for k in ("dx", "w", "b"))
+    assert S.conv_s2_ct_bwd.launches_by_design == {"fma": 0, "mma": 4}
+    assert S.conv_s2_ct.launches_by_design == {"fma": 0, "mma": 1}
 
 
 @pytest.mark.cuda

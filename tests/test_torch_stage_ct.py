@@ -218,3 +218,34 @@ def test_wrappers_validate_their_arguments():
     # the weight-gradient split is a function of the shapes alone
     assert S.stage_wgrad_parts(16, 128, 128, 3, 64, 3) == S.stage_wgrad_parts(16, 128, 128, 3, 64, 3)
     assert 1 <= S.stage_wgrad_parts(2, 8, 8, 3, 8, 4) <= 128
+
+
+@pytest.fixture(scope="module")
+def s2_lrelu_vjp():
+    """The JAX 4×4 stride-2 kernel's custom VJP (interpret mode) of Σ sin(out)
+    at one small shape with an lrelu gate: inputs and (value, [dW, db, dx])."""
+    w, b, x = _mk(14, 8, 16, 4)
+    return (w, b, x), _jax_grads(4, w, b, x, 4, "lrelu")
+
+
+def test_phase_fold_dx_matches_pallas_vjp(s2_lrelu_vjp):
+    """dx as the tensor-core design folds it (four per-phase 2×2 convs of the
+    gated dz over w[3−a−2i][3−b−2j], ``s2_dgrad_fold_plain``) is the TPU
+    kernel's data gradient within 1e-4, in fp32."""
+    (w, b, x), (_, jg) = s2_lrelu_vjp
+    wt, bt, xt = (torch.from_numpy(a) for a in (w, b, x))
+    out = S.conv_s2_ct_plain(xt, wt, bt, act="lrelu")
+    dz = S._act_adj(torch.cos(out), out, "lrelu", 0.2)
+    got = S.s2_dgrad_fold_plain(dz, wt).numpy()
+    assert got.shape == jg[2].shape
+    assert np.abs(got - jg[2]).max() <= 1e-4 * np.abs(jg[2]).max()
+
+
+def test_s2_diff_grads_match_pallas_vjp_with_a_gate(s2_lrelu_vjp):
+    """The same VJP through the port's ``conv_s2_ct_diff`` (the twins on the
+    CPU): value 1e-5, dW / db / dx 1e-4 of max|ref|."""
+    (w, b, x), (jv, jg) = s2_lrelu_vjp
+    pv, pg = _port_grads(4, w, b, x, "lrelu")
+    assert abs(pv - jv) <= 1e-5 * max(1.0, abs(jv))
+    for name, got, want in zip(("dW", "db", "dx"), pg, jg):
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max(), name

@@ -1,8 +1,11 @@
 """Cheap CPU tests of the stage kernels' launch plan (no JAX, no card):
-which design ``stage_design`` picks per dtype, kernel size and direction,
+which design ``design`` picks (by dtype alone, at both kernel sizes and
+in both directions),
 the weight-gradient partition that fixes the reduction order, the 4×4
-tensor-core forward's parity-plane tap map, and the C interface's design
-codes and arities (``csrc/stage_ct.cu``) against ``kernels/build.py``."""
+tensor-core forward's parity-plane tap map, the 4×4 data gradient's phase
+fold (its taps, its tile rows, a pure-torch mirror against the twin), and
+the C interface's design codes, arities and tile constants
+(``csrc/stage_ct.cu``, ``csrc/phase_fold.cuh``) against the Python side."""
 
 import importlib.util
 import re
@@ -26,50 +29,57 @@ FLAGSHIP = {name: (ks, CS.GAN_BATCH, hw, hw, cin, cout)
 ODD = {f"odd_{ks}_{cin}_{cout}": (ks, *CS.STAGE_ODD, cin, cout)
        for ks in (3, 4) for cin, cout in ((3, 8), (16, 16))}
 SHAPES = {**FLAGSHIP, **ODD}
+OPS = ("fwd", "bwd")  # the directions the C entries launch
 S1 = [n for n, v in SHAPES.items() if v[0] == 3]
 
 
 @pytest.mark.parametrize("name", S1)
 def test_bf16_3x3_runs_on_the_tensor_cores(name):
     ks, _, _, _, cin, cout = SHAPES[name]
-    for op in S.OPS:
-        assert S.stage_design(torch.bfloat16, ks, cin, cout, op) == "mma"
-        assert S.stage_design(torch.float32, ks, cin, cout, op) == "fma"
+    S.require_stage_widths(cin, cout)
+    assert S.design(torch.bfloat16) == "mma"
+    assert S.design(torch.float32) == "fma"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("name", [n for n, v in SHAPES.items() if v[0] == 4])
 def test_4x4_stays_on_the_cuda_cores(name, dtype):
-    """The 4×4 adjoint stays on the FMA kernels in both dtypes, and so does
-    the fp32 forward; the bf16 forward runs on the tensor cores."""
+    """The 4×4 conv stays on the FMA kernels in fp32 only, in both
+    directions; in bf16 its forward and its adjoint (the phase-fold data
+    gradient and the 16-tap weight gradient) run on the tensor cores."""
     ks, _, _, _, cin, cout = SHAPES[name]
-    assert S.stage_design(dtype, ks, cin, cout, "bwd") == "fma"
-    assert S.stage_design(dtype, ks, cin, cout, "fwd") == (
-        "mma" if dtype == torch.bfloat16 else "fma")
+    want = "mma" if dtype == torch.bfloat16 else "fma"
+    S.require_stage_widths(cin, cout)
+    assert S.design(dtype) == want
+    src = (build.CSRC / "stage_ct.cu").read_text()
+    route = {"fma": r"kFloat32 && design == kFma\)\s*return ks == 3 \? [^:]*: dispatch_chunk<float, 4>",
+             "mma": r"if \(ks == 4\) \{\s*if \(op == kFwd\) return launch_fwd_s2_mma_w[^}]*"
+                    r"launch_dgrad_s2_mma_w[^}]*launch_wgrad_mma_w<4>"}[want]
+    assert re.search(route, src)  # the C dispatch sends the 4x4 both ways to that design
 
 
-@pytest.mark.parametrize("op", S.OPS)
+@pytest.mark.parametrize("op", OPS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("name", list(SHAPES))
 def test_design_is_a_function_of_dtype_kernel_size_and_op(name, dtype, op):
-    """bf16 3×3 (both directions) and the bf16 4×4 forward on the tensor
-    cores, everything else on the CUDA cores; the widths never decide."""
+    """bf16 on the tensor cores and fp32 on the CUDA cores, at both kernel
+    sizes and in both directions; the widths never decide."""
     ks, _, _, _, cin, cout = SHAPES[name]
-    want = "mma" if dtype == torch.bfloat16 and (ks == 3 or op == "fwd") else "fma"
-    assert S.stage_design(dtype, ks, cin, cout, op) == want
+    want = "mma" if dtype == torch.bfloat16 else "fma"
+    S.require_stage_widths(cin, cout)
+    assert S.design(dtype) == want
 
 
 def test_stage_design_refuses_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="cout"):
-        S.stage_design(torch.bfloat16, 3, 64, 24, "fwd")
+        S.require_stage_widths(64, 24)
     with pytest.raises(ValueError, match="input channels"):
-        S.stage_design(torch.bfloat16, 3, 129, 64, "bwd")
-    with pytest.raises(ValueError, match="op"):
-        S.stage_design(torch.bfloat16, 4, 64, 64, "dgrad")
+        S.require_stage_widths(129, 64)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        S.design(torch.float16)
 
 
-@pytest.mark.parametrize("name,design", [(n, d) for n, v in SHAPES.items()
-                                         for d in (("fma", "mma") if v[0] == 3 else ("fma",))])
+@pytest.mark.parametrize("name,design", [(n, d) for n in SHAPES for d in ("fma", "mma")])
 def test_wgrad_partition_covers_every_tile_once(name, design):
     """Every pixel tile is summed by exactly one workspace row, rows in
     tile order, none empty, at most 128; and the plan is the same on every
@@ -91,6 +101,128 @@ def test_wgrad_tiles_follow_the_design():
     assert S.stage_wgrad_tiles(2, 36, 52, 3, "fma") == 2 * 5 * 4
     assert S.stage_wgrad_tiles(2, 36, 52, 3, "mma") == 2 * 9 * 4
     assert S.stage_wgrad_tiles(2, 18, 26, 4, "fma") == 2 * 5 * 2
+    assert S.stage_wgrad_tiles(2, 18, 26, 4, "mma") == 2 * 5 * 2
+
+
+@pytest.mark.parametrize("ks", [3, 4])
+def test_mma_wgrad_blocks_cover_every_m16_tile(ks):
+    """A tensor-core weight-gradient block owns WG_MT[ks] m16 tiles of (16
+    input channels, tap) rows: from any block's first tile they span the
+    channel chunks it stages (two, 32 channels, at 3×3; one, 16, at 4×4),
+    and the partition's block count covers every tile once: at the flagship
+    widths (64→64, 128→128) and at the odd 3→8 and 16→16."""
+    mt, xc = S.WG_MT[ks], {3: 32, 4: 16}[ks]
+    for cin, cout in ((64, 64), (128, 128), (3, 8), (16, 16)):
+        mtiles = ks * ks * -(-cin // 16)
+        starts = range(0, mtiles, mt)
+        for m0 in starts:
+            chunks = {m // (ks * ks) for m in range(m0, min(mtiles, m0 + mt))}
+            assert min(chunks) == m0 // (ks * ks) and len(chunks) <= xc // 16
+        assert len(starts) * mt >= mtiles > (len(starts) - 1) * mt
+    src = (build.CSRC / "stage_ct.cu").read_text()
+    wg = src[src.index("struct Wg {"):]
+    assert "static constexpr int MT = KS == 3 ? %d : %d;" % (S.WG_MT[3], S.WG_MT[4]) in wg
+    assert "static constexpr int XC = KS == 3 ? 32 : 16;" in wg
+    if ks == 4:  # the flagship 4×4 weight gradients, rows to ~512 blocks: 128
+        # m16 tiles (16 taps × 8 chunks) at 128→128 are 8 blocks × 2 groups of
+        # 64 output channels, × 32 rows; 64→64's 64 tiles 4 blocks × 128 rows
+        assert S.stage_wgrad_parts(16, 32, 32, 128, 128, 4, "mma") == 32
+        assert S.stage_wgrad_parts(16, 64, 64, 64, 64, 4, "mma") == 128
+
+
+def _fold_gather(z: torch.Tensor, th: int, tw: int) -> torch.Tensor:
+    """The staged pixel each (phase, tap) of a phase-fold block reads, as the
+    kernel reads it: per block the haloed tile of z ``[B, H, W, C]`` (origin
+    (y0 − 1, x0 − 1), zero outside), flattened to rows, and for every block
+    pixel (u, v), phase (a, b) and tap (i, j) the row ``fold_tap_slot``
+    names → ``[B, H, W, 2, 2, 2, 2, C]`` (NaN nowhere once every block is
+    done)."""
+    B, H, W, C = z.shape
+    out = torch.full((B, H, W, 2, 2, 2, 2, C), float("nan"))
+    ty, tx = np.meshgrid(np.arange(th + 2), np.arange(tw + 2), indexing="ij")
+    u, v, a, b, i, j = np.meshgrid(*(np.arange(n) for n in (th, tw, 2, 2, 2, 2)), indexing="ij")
+    slots = torch.from_numpy(S.fold_tap_slot(u, v, a, b, i, j, tw).ravel())
+    for y0 in range(0, H, th):
+        for x0 in range(0, W, tw):
+            gy, gx = y0 - 1 + ty, x0 - 1 + tx
+            inside = torch.from_numpy((gy >= 0) & (gy < H) & (gx >= 0) & (gx < W))
+            tile = z[:, gy.clip(0, H - 1), gx.clip(0, W - 1)] * inside[..., None]
+            rows = tile.reshape(B, -1, C)[:, slots].reshape(B, th, tw, 2, 2, 2, 2, C)
+            h, w = min(th, H - y0), min(tw, W - x0)  # the ragged edge: stores masked
+            out[:, y0:y0 + h, x0:x0 + w] = rows[:, :h, :w]
+    return out
+
+
+@pytest.mark.parametrize("shape", [(2, 18, 26, 3), (1, 8, 16, 5), (2, 3, 35, 2)],
+                         ids=["stage-odd", "one-tile", "ragged"])
+def test_fold_tap_slot_names_the_staged_pixel(shape):
+    """Every tile row the phase fold reads for block pixel (u, v), phase
+    (a, b), tap (i, j) holds staged pixel (y + a − 1 + i, x + b − 1 + j)
+    of the block's image (zero outside it), bit for bit, at shapes whose
+    staged image is not a whole number of 8×16 tiles: the dz pixel that dx
+    (2y + a, 2x + b) receives through tap (3 − a − 2i, 3 − b − 2j)."""
+    z = torch.from_numpy(np.random.RandomState(0).randn(*shape).astype(np.float32))
+    B, H, W, C = shape
+    th, tw = S.FOLD_TILE
+    got = _fold_gather(z, th, tw)
+    zp = F.pad(z, (0, 0, 1, 1, 1, 1))
+    for a in range(2):
+        for b in range(2):
+            for i in range(2):
+                for j in range(2):
+                    want = zp[:, a + i:a + i + H, b + j:b + j + W]
+                    assert torch.equal(got[:, :, :, a, b, i, j], want), (a, b, i, j)
+
+
+def test_fold_shift_is_the_tile_offset_of_the_tap():
+    th, tw = S.FOLD_TILE
+    for a, b, i, j in np.ndindex(2, 2, 2, 2):
+        assert S.fold_shift(a, b, i, j) == (a + i) * (tw + 2) + b + j
+        assert S.fold_tap_slot(3, 5, a, b, i, j) == (3 + a + i) * (tw + 2) + 5 + b + j
+        ky, kx = S.s2_dgrad_tap(a, b, i, j)
+        # the forward's output row m + a − 1 + i reads input row 2(m + a − 1 + i) + ky − 1
+        assert 2 * (a - 1 + i) + ky - 1 == a and 2 * (b - 1 + j) + kx - 1 == b
+    taps = sorted(S.s2_dgrad_tap(a, b, i, j) for a, b, i, j in np.ndindex(2, 2, 2, 2))
+    assert taps == [(ky, kx) for ky in range(4) for kx in range(4)]  # each tap once
+
+
+@pytest.mark.parametrize("act", [None, "relu", "lrelu"])
+@pytest.mark.parametrize("cin,cout", [(3, 8), (16, 16), (8, 32)])
+def test_phase_fold_mirror_equals_the_plain_data_gradient(cin, cout, act):
+    """dx as four per-phase 2×2 convs of dz over the slices w[3−a−2i][3−b−2j]
+    (``s2_dgrad_fold_plain``) is the twin's dx in fp32, within 1e-5, at the
+    odd stage shape (B=2, 36×52 → 18×26); the slices are a permutation of
+    the 16 taps."""
+    rs = np.random.RandomState(cin + cout)
+    t = lambda *s_: torch.from_numpy(rs.randn(*s_).astype(np.float32))
+    B, H, W = CS.STAGE_ODD
+    x, w, b = t(B, H, W, cin), t(4, 4, cin, cout) * 0.2, t(cout) * 0.1
+    out = S.conv_s2_ct_plain(x, w, b, act=act)
+    g = t(*out.shape)
+    ref = S.conv_s2_ct_bwd_plain(x, w, None if act is None else out, g, act=act,
+                                 need_dw=False)["dx"]
+    dz = S._act_adj(g, out, act, 0.2)
+    got = S.s2_dgrad_fold_plain(dz, w)
+    assert got.shape == ref.shape == (B, H, W, cin)
+    assert (got - ref).abs().max() <= 1e-5 * max(1.0, ref.abs().max())
+    sl = S.s2_dgrad_slices(w)
+    assert sl.shape == (2, 2, 2, 2, cout, cin)
+    assert torch.equal(sl[0, 0, 0, 0], w[3, 3].T) and torch.equal(sl[1, 0, 1, 1], w[0, 1].T)
+
+
+def test_fold_smem_matches_the_header():
+    """The phase fold's shared-memory constants in ``csrc/phase_fold.cuh``:
+    a 3-slot ring of whole taps up to 128 K rows, the port's one opt-in limit
+    (``kernels/workbench/rdb.py`` MAX_SMEM), and a tile of all the staged
+    channels where the block fits, else of KCH channels restaged in turn, so
+    the upconv takes any C."""
+    from esrganplus_tpu_torch.kernels.workbench import rdb as R
+
+    hdr = (build.CSRC / "phase_fold.cuh").read_text()
+    assert re.search(r"constexpr int NSLOT = 3;", hdr) and re.search(r"constexpr int KCH = 128;", hdr)
+    assert int(re.search(r"constexpr int MAX_SMEM = (\d+);", hdr).group(1)) == R.MAX_SMEM
+    assert re.search(r"return fold_smem\(np, kp, bt\) <= MAX_SMEM \? kp : KCH;", hdr)
+    assert re.search(r"stage_x\(c0, min\(kt, kp - c0\), xp\);", hdr)  # the restage of a slice
 
 
 def _s2_gather(x: torch.Tensor, th: int, tw: int) -> torch.Tensor:
@@ -159,6 +291,10 @@ def _c_params(src: str, fn: str) -> int:
 
 def test_c_interface_matches_the_wrappers():
     src = (build.CSRC / "stage_ct.cu").read_text()
+    # one design per dtype: bf16 → mma, fp32 → fma, nothing else
+    assert "if (dtype == esr::kBFloat16 && design == kMma) return dispatch_mma" in src
+    assert "if (dtype == esr::kFloat32 && design == kFma)" in src
+    assert "dispatch_chunk<__nv_bfloat16" not in src  # no bf16 FMA path is left
     enum = dict(re.findall(r"k(Fma|Mma) = (\d)", re.search(r"enum Design[^}]*}", src).group(0)))
     assert {k.lower(): int(v) for k, v in enum.items()} == S.DESIGNS
     for fn, argtypes in build.SIGNATURES["stage_ct"].items():

@@ -1,9 +1,10 @@
 """Cheap CPU tests of the upsample tail's two designs (no JAX, no card):
-which design ``conv_hr_ct`` and ``upfold_ct_bwd`` take by dtype, a pure-torch
-mirror of the tensor-core upconv adjoint's 16 (shift, phase) blocks over the
-phase-stacked cotangent against ``upfold_ct_bwd_plain``, the fixed partitions
-of its dW and db workspaces, and the C entries and tile constants against
-``csrc/tail_ct.cu``."""
+which design ``upfold_ct``, ``conv_hr_ct`` and ``upfold_ct_bwd`` take by
+dtype, a pure-torch mirror of the tensor-core upconv's phase fold (the tile
+rows each phase and tap reads) against ``upfold_ct_plain``, a mirror of its
+adjoint's 16 (shift, phase) blocks over the phase-stacked cotangent against
+``upfold_ct_bwd_plain``, the fixed partitions of its dW and db workspaces,
+and the C entries and tile constants against ``csrc/tail_ct.cu``."""
 
 import re
 
@@ -26,18 +27,18 @@ SHAPES = {"1st": (16, 32, 32), "2nd": (16, 64, 64), "odd": (2, 37, 53), "one-til
 @pytest.mark.parametrize("dtype,design", [(torch.bfloat16, "mma"), (torch.float32, "fma")],
                          ids=["bf16", "fp32"])
 def test_design_by_dtype_at_every_width(dtype, design, C):
-    """bf16 runs both functions on the tensor cores, fp32 on the CUDA cores,
-    whatever the width; the C entries take every width in KERNEL_WIDTHS."""
-    assert T.upfold_bwd_design(dtype) == T.conv_hr_design(dtype) == design
-    assert T.conv_hr_bwd_design(dtype) == design
+    """bf16 runs every tail function on the tensor cores, fp32 on the CUDA
+    cores, whatever the width (one ``design`` for the stage and tail
+    modules); the C entries take every width in KERNEL_WIDTHS."""
+    assert T.S.design(dtype) == design
     assert re.search(rf"case {C}:", SRC)
     assert T.upfold_phase_width(C) == max(C, 16)
 
 
 def test_other_dtypes_are_refused():
-    for fn in (T.upfold_bwd_design, T.conv_hr_design):
+    for dtype in (torch.float16, torch.float64, torch.int8):
         with pytest.raises(TypeError):
-            fn(torch.float16)
+            T.S.design(dtype)
 
 
 def _case(C, CO, B, H, W, dtype, seed=0):
@@ -71,6 +72,54 @@ def _mirror(x, wf, out, g):
         dwf[a, b, i, j] = torch.einsum("nhwc,nhwo->co",
                                        xp[:, 1 + dy:1 + dy + H, 1 + dx_:1 + dx_ + W], d)
     return {"dx": dx[:, 1:-1, 1:-1], "wf": dwf, "b": db}
+
+
+def _fold_mirror(x, wf, bias, th=8, tw=16, slope=0.2):
+    """The tensor-core upconv's arithmetic in fp32, read the way
+    ``upfold_mma_kernel`` reads it: per 8×16 block the haloed LR tile
+    (origin (y0 − 1, x0 − 1), zero outside) as rows, and output phase (a, b)
+    of block pixel (u, v) the sum over taps (i, j) of tile row
+    ``fold_tap_slot(u, v, a, b, i, j)`` times ``wf[a, b, i, j]``; + bias,
+    lrelu, stored at HR pixel (2(y0 + u) + a, 2(x0 + v) + b)."""
+    B, H, W, C = x.shape
+    CO = wf.shape[-1]
+    xf, w = x.float(), wf.float()
+    out = torch.full((B, 2 * H, 2 * W, CO), float("nan"))
+    ty, tx = np.meshgrid(np.arange(th + 2), np.arange(tw + 2), indexing="ij")
+    u, v = np.meshgrid(np.arange(th), np.arange(tw), indexing="ij")
+    for y0 in range(0, H, th):
+        for x0 in range(0, W, tw):
+            gy, gx = y0 - 1 + ty, x0 - 1 + tx
+            inside = torch.from_numpy((gy >= 0) & (gy < H) & (gx >= 0) & (gx < W))
+            rows = (xf[:, gy.clip(0, H - 1), gx.clip(0, W - 1)] * inside[..., None]).reshape(
+                B, -1, C)
+            h, wd = min(th, H - y0), min(tw, W - x0)  # the ragged edge: stores masked
+            for a in range(2):
+                for b in range(2):
+                    acc = torch.zeros((B, th, tw, CO))
+                    for i in range(2):
+                        for j in range(2):
+                            sl = torch.from_numpy(T.S.fold_tap_slot(u, v, a, b, i, j, tw))
+                            acc += rows[:, sl] @ w[a, b, i, j]
+                    y = T._lrelu(acc + bias.float(), slope)
+                    out[:, 2 * y0 + a:2 * (y0 + h):2, 2 * x0 + b:2 * (x0 + wd):2] = y[:, :h, :wd]
+    return out
+
+
+@pytest.mark.parametrize("C,CO", [(8, 8), (16, 32), (3, 16)])
+@pytest.mark.parametrize("shape", [(2, 37, 53), (1, 8, 16), (1, 3, 5)],
+                         ids=["odd", "one-tile", "ragged"])
+def test_phase_fold_mirror_equals_the_plain_upconv(C, CO, shape):
+    """The phase fold's tile rows (``fold_tap_slot``) with the folded
+    weights give the twin's upconv in fp32, within 1e-5, everywhere: every
+    HR pixel is written once, at the odd LR shape (B=2, 37×53) and at the
+    width edges (C = CO = 8, and C = 3, staged a pixel at a time)."""
+    x, wf, out, _ = _case(C, CO, *shape, torch.float32)
+    bias = torch.from_numpy(np.random.RandomState(1).randn(CO).astype(np.float32) * 0.1)
+    ref = T.upfold_ct_plain(x, wf, bias)
+    got = _fold_mirror(x, wf, bias)
+    assert got.shape == ref.shape and not got.isnan().any()
+    assert (got - ref).abs().max() <= 1e-5 * max(1.0, ref.abs().max())
 
 
 @pytest.mark.parametrize("C,CO", [(8, 8), (16, 8), (8, 16), (16, 16)])
@@ -154,18 +203,19 @@ def _params(fn):
     return [p.split()[-1].lstrip("*") for p in m.group(1).split(",") if p.strip()]
 
 
-@pytest.mark.parametrize("fn", ["esr_conv_hr", "esr_conv_hr_out", "esr_upfold_dz",
+@pytest.mark.parametrize("fn", ["esr_upfold", "esr_conv_hr", "esr_conv_hr_out", "esr_upfold_dz",
                                 "esr_upfold_dgrad", "esr_upfold_wgrad"])
 def test_c_entries_take_a_design_code_and_match_the_wrapper(fn):
     """Each entry of a two-design function takes the design code (and refuses
     any other: the checks are in the C source), with one ctypes argument per
-    C parameter."""
+    C parameter; ``esr_upfold`` takes both designs, one per dtype."""
     params = _params(fn)
     assert len(params) == len(build.SIGNATURES["tail_ct"][fn])
     assert "design" in params[:2]
     body = SRC[SRC.index(f"int {fn}("):]
     body = body[:body.index("\n}\n")]
-    want = "kFma" if fn == "esr_conv_hr" else "kMma"
+    want = {"esr_conv_hr": "kFma",
+            "esr_upfold": r"\(dtype == esr::kBFloat16 \? kMma : kFma\)"}.get(fn, "kMma")
     assert re.search(rf"design != {want}", body)
 
 
@@ -185,5 +235,7 @@ def test_cpu_tensors_take_the_twins_and_count_nothing():
     got = T.upfold_ct_bwd(x, wf, out, g)
     ref = T.upfold_ct_bwd_plain(x, wf, out, g)
     assert all(torch.equal(got[k], ref[k]) for k in ref)
-    for fn in (T.conv_hr_ct, T.upfold_ct_bwd, T.conv_hr_ct_bwd):
+    bias = torch.zeros(8)
+    assert torch.equal(T.upfold_ct(x, wf, bias), T.upfold_ct_plain(x, wf, bias))
+    for fn in (T.upfold_ct, T.conv_hr_ct, T.upfold_ct_bwd, T.conv_hr_ct_bwd):
         assert fn.launches == 0 and fn.launches_by_design == {"fma": 0, "mma": 0}
