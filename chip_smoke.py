@@ -14,16 +14,20 @@ final result line:
                (B=16, 32×32 LR), fp32 (TF32 off) and bf16;
                CUDA-event times of the kernel, the twin and a PyTorch
                yardstick (cuDNN convolutions), and the bound for the work;
-               the rows of upfold_ct (both upconvs, and one of WIDE_C =
-               512 input channels, whose tile is staged in slices of 128
-               channels) and conv_hr_ct name
-               their design (bf16 on the tensor cores, "mma": upfold_ct's
+               the rows of rdb_ct, conv3x3_ct, upfold_ct (both upconvs, and
+               one of WIDE_C = 512 input channels, whose tile is staged in
+               slices of 128 channels) and conv_hr_ct name
+               their design (bf16 on the tensor cores, "mma": the dense
+               stages' dense_mma_kernel; upfold_ct's
                phase fold, upfold_mma_kernel; conv_hr_ct's stage forward,
                then conv_hr_out_mma_kernel; fp32 "fma"), are gated on it and
-               hold a second call bit-equal; bf16 upfold_ct rows at the main
+               hold a second call bit-equal; bf16 rows of the dense wrappers
+               and upfold_ct at the main
                path's shape also give the device time (calls queued behind a
-               spin kernel) of the wrapper call, its launch and the cuDNN
-               call; conv_hr_ct's time each launch and give the share of its
+               spin kernel) of the wrapper call and the cuDNN call (and of
+               upfold_ct's launch), rdb_ct's rows the time of each of its five
+               dense-stage launches;
+               conv_hr_ct's time each launch and give the share of its
                conv0 activations that differ from the twin's;
   3. main    — flagship ESRGAN+ ×4 (nb=23, nf=64, gc=32) with seeded random
                weights exported to a .pth, through the port's test_image CLI
@@ -31,12 +35,14 @@ final result line:
                launch counts per image (every upfold_ct and conv_hr_ct call
                through "mma"),
                and the bf16 kernel path against the
-               fp32 plain path (and the fp32 kernel path) on the card; then
+               fp32 plain path (and the fp32 kernel path) on the card (every
+               rdb_ct and conv3x3_ct call through "mma" too); then
                the small golden ESRGAN+ checkpoint (tests/golden) through the
                kernel path against the reference implementation's output;
   4. kernels-train-fwd — rdb_ct's training forward (saved l2|l4, the noise
                epilogue) at the training shape: its output and both saved
-               buffers against the plain twin's, fp32 and bf16;
+               buffers against the plain twin's, fp32 and bf16, gated on the
+               design;
      kernels-bwd — each backward wrapper (rdb_ct_bwd, conv3x3_ct_bwd,
                upfold_ct_bwd at both stages and at an odd shape,
                conv_hr_ct_bwd) against its plain twin at the training shape
@@ -47,6 +53,11 @@ final result line:
                (bf16 on the tensor cores, "mma"), time each of its launches
                and hold a second call bit-equal; upfold_ct_bwd's db is held
                to 1e-4 of the twin's (the sum of the unrounded dz);
+     kernels-dense-accuracy — one line: the share of rdb_ct's bf16 out,
+               x1..x4 and l2|l4 that differs from the twin at all, at the
+               odd, bench and train shapes with and without the RRDB fold,
+               for the tensor-core design (held to 1 %) and, as its
+               baseline, for the FMA design on the same inputs (reported);
      kernels-bwd-gate — bf16 conv_hr_ct_bwd on four seeded inputs: its lrelu
                gates whose sign differs from the twin's before and after the
                near-zero fix-up, and every gradient against the twin with
@@ -60,12 +71,13 @@ final result line:
   5. train-check — flagship width and depth, one batch: loss and every
                gradient leaf of the kernel path against autograd of the plain
                graph on the card, fp32 then bf16, the same noise fed to both;
+               every dense-stage call by design ("fma" in fp32, "mma" in bf16);
   6. train   — a seeded PNG dataset and an options file under build/smoke/,
                then ``esrganplus_tpu_torch.cli.train`` at the full flagship
                config (batch 16, HR 128, bf16, noise on) for 16 steps with the
                debug cadences; checks the logged losses, the launch counts of
-               all eight kernels (upfold_ct, conv_hr_ct, upfold_ct_bwd and
-               conv_hr_ct_bwd through "mma"), the
+               all eight kernels (rdb_ct, conv3x3_ct, upfold_ct, conv_hr_ct,
+               upfold_ct_bwd and conv_hr_ct_bwd through "mma"), the
                exported checkpoint, and a resume from step 8 that must end
                bit-equal to the uninterrupted run;
   7. train-steady — ``SRTrainer.train_step`` on one device-resident batch:
@@ -76,10 +88,13 @@ final result line:
                more; ms/step and peak memory of both modes;
      kernels-rdb-t — rdb_t (with and without the RRDB fold) and rdb_t_bwd
                against their twins, fp32 and bf16, at the odd, inference and
-               training shapes, with times, bounds and a cuDNN yardstick;
+               training shapes, with times, bounds and a cuDNN yardstick
+               (bf16: also the card alone); rdb_t's design and the design of
+               rdb_t_bwd's recompute gated, a second call bit-equal;
      rdb-t-path — three chained ``rdb_t_diff`` (one RRDB) forward and
                backward at the training shape in bf16, launch counts from
-               0, against autograd of the fp32 twins;
+               0 (every dense-stage launch, the recompute's too, through
+               "mma"), against autograd of the fp32 twins;
   8. kernels-stage — the GAN slice's four stage wrappers (conv_s1_ct,
                conv_s2_ct and their backwards) against their plain twins, fp32
                and bf16, at an odd shape (B=2, 36×52, 3→8 and 16→16 channels,
@@ -98,13 +113,15 @@ final result line:
                batch: every loss term and every gradient leaf of G and of D
                through the kernel path against autograd of the plain graph on
                the card, fp32 then bf16, the same noise fed to both; every
-               stage wrapper call by design ("mma" in bf16, "fma" in fp32);
+               stage and dense wrapper call by design ("mma" in bf16, "fma" in
+               fp32);
  10. gan-train — an options file with ``model: "srragan"`` at the recipe's
                shape (batch 16, HR 128, bf16, noise on, perceptual loss on)
                for 16 steps through ``esrganplus_tpu_torch.cli.train``; checks
                the logged terms, the launch counts of all twelve kernels
-               (every call of the four stage wrappers, upfold_ct, conv_hr_ct,
-               upfold_ct_bwd and conv_hr_ct_bwd through "mma"),
+               (every call of the four stage wrappers, rdb_ct, conv3x3_ct,
+               upfold_ct, conv_hr_ct, upfold_ct_bwd and conv_hr_ct_bwd
+               through "mma"),
                ``latest_G.pth`` / ``latest_D.pth``, and a resume from step 8
                that must end bit-equal;
  11. gan-steady — ``GANTrainer.train_step`` on one device-resident batch:
@@ -198,6 +215,9 @@ BWD_MMA_SOURCE = {"upfold_ct_bwd": "esrganplus_tpu_torch/csrc/tail_ct.cu",
                                      "esrganplus_tpu_torch/csrc/stage_ct.cu")}
 # the tail wrappers (stage_ct.design): bf16 "mma", fp32 "fma"
 DESIGNED = ("upfold_ct", "conv_hr_ct", "upfold_ct_bwd", "conv_hr_ct_bwd")
+# the dense-stage wrappers (launch.design; csrc/dense_conv.cuh): bf16 "mma",
+# fp32 "fma"
+DENSE_DESIGNED = ("rdb_ct", "conv3x3_ct")
 # csrc/tail_ct.cu's kernels, by name in a profile (the bf16 step runs all but
 # the fp32 upfold_kernel and conv_hr_kernel; the finishing passes are
 # wgrad_finish_kernel, shared)
@@ -287,10 +307,10 @@ def ptxas_summary(log: str) -> list:
     template arguments, registers, shared memory and spill bytes."""
     out, name, spill = [], None, "0"
     for line in log.splitlines():
-        m = re.search(r"(dense_conv3x3_kernel|upfold_kernel|conv_hr_kernel|stage_fwd_kernel|"
-                      r"stage_dgrad_kernel|stage_wgrad_kernel|stage_fwd_mma_kernel|"
-                      r"stage_fwd_s2_mma_kernel|stage_dgrad_mma_kernel|stage_wgrad_mma_kernel|"
-                      r"stage_dgrad_s2_mma_kernel|upfold_mma_kernel|"
+        m = re.search(r"(dense_conv3x3_kernel|dense_mma_kernel|upfold_kernel|conv_hr_kernel|"
+                      r"stage_fwd_kernel|stage_dgrad_kernel|stage_wgrad_kernel|"
+                      r"stage_fwd_mma_kernel|stage_fwd_s2_mma_kernel|stage_dgrad_mma_kernel|"
+                      r"stage_wgrad_mma_kernel|stage_dgrad_s2_mma_kernel|upfold_mma_kernel|"
                       r"conv_hr_hid_fix_kernel|conv_hr_adj_kernel|dgrad_kernel|wgrad_kernel|"
                       r"upfold_dz_kernel|upfold_dgrad_mma_kernel|upfold_wgrad_mma_kernel|"
                       r"conv_hr_out_mma_kernel|"
@@ -325,8 +345,10 @@ def rel_err(got, ref):
 def make_cases(dtype, B, H, W, gen):
     """Per kernel: (cuda call, plain call, yardstick call, MACs, bytes) on
     the tensors the main path hands it for a B×H×W LR input; conv_hr_ct's
-    inputs ``(x, w0, b0, w1, b1)``, for its bf16 launches one by one; and
-    each upconv's ``tail_ct.upfold_launch`` (its C entry alone)."""
+    inputs ``(x, w0, b0, w1, b1)``, for its bf16 launches one by one; each
+    upconv's ``tail_ct.upfold_launch`` (its C entry alone); and a function
+    giving rdb_ct's five dense-stage launches on its case
+    (``rdb_ct_steps``)."""
     import torch
     import torch.nn.functional as F
 
@@ -372,6 +394,7 @@ def make_cases(dtype, B, H, W, gen):
     cases["rdb_ct"] = (lambda: K.rdb_ct(x, wr, res, rrdb_scale=0.2),
                        lambda: K.rdb_ct_plain(x, wr, res, rrdb_scale=0.2),
                        rdb_lib, B * H * W * mac, 3 * B * H * W * NF * esz + wbytes)
+    rdb_steps = lambda: K.rdb_ct_steps(x, wr, res, rrdb_scale=0.2)[0]
 
     # conv3x3_ct: trunk conv + global residual
     tc = conv_w(NF, NF)
@@ -435,7 +458,7 @@ def make_cases(dtype, B, H, W, gen):
                                             w1o, b1o, padding=1),
                            npx * 9 * NF * (NF + OUT_NC),
                            npx * (NF + OUT_NC) * esz + (hw[0].numel() + hw[2].numel()) * esz)
-    return cases, (xh, *hw), up_launch
+    return cases, (xh, *hw), up_launch, rdb_steps
 
 
 def _hid_share_differing(x, w0, b0):
@@ -452,6 +475,7 @@ def _hid_share_differing(x, w0, b0):
 def check_kernels(failures):
     import torch
 
+    from esrganplus_tpu_torch.kernels import rdb_ct as K
     from esrganplus_tpu_torch.kernels import tail_ct as T
     from esrganplus_tpu_torch.models.layers import fp32_exact
 
@@ -460,13 +484,15 @@ def check_kernels(failures):
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         for sname, (B, H, W) in SHAPES.items():
-            cases, hr_inputs, up_launch = make_cases(dtype, B, H, W, gen)
+            cases, hr_inputs, up_launch, rdb_steps = make_cases(dtype, B, H, W, gen)
             for name, (kern, plain, lib, macs, nbytes) in cases.items():
                 with fp32_exact():
                     extra = {}
-                    if name in ("upfold_ct", "upfold_ct_2nd", "upfold_ct_wide", "conv_hr_ct"):
+                    if name in ("upfold_ct", "upfold_ct_2nd", "upfold_ct_wide", "conv_hr_ct",
+                                *DENSE_DESIGNED):
                         # bf16 on the tensor cores, fp32 on the FMA kernels
-                        fn = T.conv_hr_ct if name == "conv_hr_ct" else T.upfold_ct
+                        fn = (getattr(K, name) if name in DENSE_DESIGNED else
+                              T.conv_hr_ct if name == "conv_hr_ct" else T.upfold_ct)
                         got, design = _design_of(fn, kern)
                         extra = {"design": design,
                                  "repeat_bit_equal": torch.equal(kern(), got)}
@@ -508,6 +534,13 @@ def check_kernels(failures):
                             # the card alone: the wrapper call, its launch, cuDNN
                             _device_times(row, {"kern": kern, "lib": lib,
                                                 "launch": up_launch[name][0]})
+                        if name in DENSE_DESIGNED and dname == "bfloat16":
+                            # the card alone: the wrapper call and cuDNN
+                            row.update(device_ms=device_ms(kern), library_device_ms=device_ms(lib))
+                            if name == "rdb_ct":  # each of the five dense-stage launches
+                                steps = rdb_steps()
+                                row["step_ms"] = {k: time_ms(f) for k, f in steps.items()}
+                                row["step_device_ms"] = {k: device_ms(f) for k, f in steps.items()}
                         report[(name, dname)] = row
                 emit(row)
                 if not ok:
@@ -555,6 +588,7 @@ def main_path(failures, workdir):
     for fn in counted:
         fn.launches = 0
     T.reset_design_counts()
+    K.reset_design_counts()
     K.rdb_ct.device_launches = 0
     t0 = time.perf_counter()
     test_image.main([ckpt, "--input", lr_dir, "--output", out_dir, "--dtype", "bf16",
@@ -566,7 +600,7 @@ def main_path(failures, workdir):
     for k, per in PER_IMAGE.items():
         if launches[k] != per * n:
             failures.append(f"main path: {k} launched {launches[k]} times, expected {per * n}")
-    by_design = _tail_designs(failures, "main", launches)
+    by_design = _path_designs(failures, "main", launches)
     emit({"phase": "main", "images": n, "seconds_total": seconds, "launches": launches,
           "by_design": by_design, "rdb_ct_device_launches": K.rdb_ct.device_launches})
 
@@ -656,9 +690,10 @@ def make_bwd_cases(dtype, gen):
     tensors a training step hands it. The yardstick is ``torch.autograd.grad``
     through a cuDNN ``F.conv2d`` graph built once (the port never calls it).
     Also returns rdb_ct's training forward from the kernel and from the twin,
-    ``{"out" | "cat" | "lsv": (kernel's, twin's)}``, and per case of a
+    ``{"out" | "cat" | "lsv": (kernel's, twin's)}``, per case of a
     two-design tail wrapper a function giving its bf16 launches on the case
-    (``upfold_bwd_mma_steps``, ``conv_hr_bwd_mma_steps``)."""
+    (``upfold_bwd_mma_steps``, ``conv_hr_bwd_mma_steps``), and the design
+    the training forward's launches took."""
     import torch
     import torch.nn.functional as F
 
@@ -695,7 +730,8 @@ def make_bwd_cases(dtype, gen):
     wr = K.prepare_rdb_ct_weights(rdb, dtype)
     x, noise, g = act(H, W), act(H, W), act(H, W)
     with fp32_exact():
-        fwd_k = K._rdb_ct_cuda(x, wr, None, noise, sigma=0.1, save=True)
+        fwd_k, fwd_design = _design_of(
+            K.rdb_ct, lambda: K._rdb_ct_cuda(x, wr, None, noise, sigma=0.1, save=True))
         fwd_p = K._rdb_ct_train_plain(x, wr, None, noise, sigma=0.1)
     (_, cat, lsv), (_, cat_p, lsv_p) = fwd_k, fwd_p
     train_fwd = dict(zip(("out", "cat", "lsv"), zip(fwd_k, fwd_p)))
@@ -771,7 +807,7 @@ def make_bwd_cases(dtype, gen):
         B * 16 * H * W * 9 * NF * (NF + OUT_NC),
         fbytes(xh, gh, xh) + (w0.numel() + w1.numel()) * (esz + 4), None)
     steps["conv_hr_ct_bwd"] = lambda: T.conv_hr_bwd_mma_steps(xh, w0, b0, w1, gh)[0]
-    return cases, train_fwd, steps
+    return cases, train_fwd, steps, fwd_design
 
 
 def worst_err(got: dict, ref: dict):
@@ -801,10 +837,11 @@ def check_bwd_kernels(failures):
     report = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
-        cases, train_fwd, mma_steps = make_bwd_cases(dtype, gen)
+        cases, train_fwd, mma_steps, fwd_design = make_bwd_cases(dtype, gen)
         # rdb_ct's training forward: what the backward's masks and products read
         row = {"phase": "kernels-train-fwd", "kernel": "rdb_ct", "dtype": dname,
-               "lr": list(TRAIN_SHAPE), "noise_sigma": 0.1, "tol": TOL[dname], "ok": True}
+               "lr": list(TRAIN_SHAPE), "noise_sigma": 0.1, "tol": TOL[dname],
+               "design": fwd_design, "ok": fwd_design == T.S.design(dtype)}
         for key, (got, ref) in train_fwd.items():
             d, rel = rel_err(got, ref)
             differ = (got != ref).float().mean().item()
@@ -869,14 +906,63 @@ def check_bwd_kernels(failures):
     return report
 
 
+def check_dense_accuracy(failures):
+    """Phase kernels-dense-accuracy, one line: rdb_ct's bf16 training forward
+    (``out``, the saved x1..x4 ``cat`` and l2|l4 ``lsv``) at the odd, bench
+    and train shapes, with and without the RRDB fold: the share of each that
+    differs from the twin at all, for the tensor-core design the model paths
+    run (held to MAX_DIFFER_BF16 and the bf16 bar) and for the FMA design on
+    the same bf16 inputs, the baseline it is measured against (reported);
+    beside them the shares of the tensor cores and of the twin off the
+    twin's graph summed in float64 (``rdb_ct_fp64``; reported)."""
+    import torch
+
+    from esrganplus_tpu_torch.kernels import rdb_ct as K
+    from esrganplus_tpu_torch.models.layers import fp32_exact
+
+    gen = torch.Generator().manual_seed(3)
+    w = K.prepare_rdb_ct_weights(_rdb_params(gen), torch.bfloat16)
+    row = {"phase": "kernels-dense-accuracy", "kernel": "rdb_ct", "dtype": "bfloat16",
+           "tol": TOL["bfloat16"], "max_differ": MAX_DIFFER_BF16, "mma": {}, "fma_baseline": {},
+           "mma_rel_err": {}, "mma_vs_fp64": {}, "twin_vs_fp64": {}}
+    share = lambda got, want: {n: (a != b).float().mean().item()
+                               for n, a, b in zip(("out", "cat", "lsv"), got, want)}
+    ok = True
+    for sname, (B, H, W) in SHAPES.items():
+        x = torch.rand((B, H, W, NF), generator=gen).to("cuda", torch.bfloat16)
+        res = torch.rand((B, H, W, NF), generator=gen).to("cuda", torch.bfloat16)
+        for fold in (False, True):
+            kw = dict(res=res, rrdb_scale=0.2) if fold else {}
+            case = f"{sname}{'_fold' if fold else ''}"
+            with fp32_exact():
+                ref = K._rdb_ct_train_plain(x, w, **kw)
+                exact = K.rdb_ct_fp64(x, w, **kw)
+                row["twin_vs_fp64"][case] = share(ref, exact)
+                for kind, key in (("mma", "mma"), ("fma", "fma_baseline")):
+                    got = K._rdb_ct_cuda(x, w, save=True, kind=kind, **kw)
+                    torch.cuda.synchronize()
+                    row[key][case] = share(got, ref)
+                    if kind == "mma":
+                        row["mma_vs_fp64"][case] = share(got, exact)
+                        row["mma_rel_err"][case] = {n: rel_err(a, b)[1] for n, a, b in
+                                                    zip(("out", "cat", "lsv"), got, ref)}
+                        ok = ok and all(bool(torch.isfinite(a.float()).all()) for a in got)
+    ok = ok and all(v <= MAX_DIFFER_BF16 for c in row["mma"].values() for v in c.values())
+    ok = ok and all(v <= TOL["bfloat16"] for c in row["mma_rel_err"].values() for v in c.values())
+    row["ok"] = bool(ok)
+    emit(row)
+    if not ok:
+        failures.append(f"kernels-dense-accuracy: {row}")
+
+
 def check_conv_hr_gate(failures, seeds=4):
     """Phase kernels-bwd-gate: bf16 conv_hr_ct_bwd at the training shape on
     ``seeds`` seeded inputs. The lrelu gate is the sign of conv0's
     activation, which the kernel path and the twin recompute apart: per seed
     the share of the tensor-core recompute (``conv_s1_ct``, the same kernel)
     that differs from the twin's at all, the share ``fix_near_zero_hid``
-    rewrites, whether the FMA design's recompute (the fp32 path's dense
-    kernel) equals the twin's, the gates whose sign differs from the twin's
+    rewrites, whether the dense-stage kernel's bf16 recompute (its tensor-core
+    design, ``csrc/dense_conv.cuh``) equals the twin's, the gates whose sign differs from the twin's
     before and after the fix, and every gradient against the twin with the
     fix (the path; held to BWD_TOL) and without it (reported)."""
     import torch
@@ -910,8 +996,8 @@ def check_conv_hr_gate(failures, seeds=4):
             fixed = hid.clone()
             T.fix_near_zero_hid(fixed, x, w0, b0)
             flips_fixed = int(((fixed >= 0) != (hid_twin >= 0)).sum())
-            hid_fma = torch.empty_like(x)
-            _dense(build.load("rdb_ct"), x, None, NF, w0, b0, hid_fma.data_ptr(), NF,
+            hid_dense = torch.empty_like(x)
+            _dense(build.load("rdb_ct"), x, None, NF, w0, b0, hid_dense.data_ptr(), NF,
                    mode=launch.ACT, cout=NF, slope=0.2)
             got = T.conv_hr_ct_bwd(x, w0, b0, w1, g)
             steps, unfixed = T.conv_hr_bwd_mma_steps(x, w0, b0, w1, g)
@@ -922,7 +1008,7 @@ def check_conv_hr_gate(failures, seeds=4):
         err, _, finite = worst_err(got, ref)
         rows.append({"seed": seed, "hid_share_differing_from_twin": differ,
                      "hid_share_rewritten": near,
-                     "fma_hid_equals_twin": bool(torch.equal(hid_fma, hid_twin)),
+                     "dense_mma_hid_equals_twin": bool(torch.equal(hid_dense, hid_twin)),
                      "gate_sign_flips_tensor_cores": flips,
                      "gate_sign_flips_after_fix": flips_fixed, "rel_err": err,
                      "rel_err_without_fix": worst_err(unfixed, ref)[0], "finite": finite})
@@ -995,21 +1081,25 @@ def make_stage_case(dtype, gen, ks, B, H, W, cin, cout, act):
     }
 
 
-def _design_of(fn, call):
-    """The result of ``call()`` and the one design its launch of ``fn`` took."""
-    before = dict(fn.launches_by_design)
+def _design_of(fn, call, attr="launches_by_design"):
+    """The result of ``call()`` and the one design its launch of ``fn`` took
+    (by ``fn``'s counter ``attr``)."""
+    before = dict(getattr(fn, attr))
     out = call()
-    ran = [d for d, n in fn.launches_by_design.items() if n > before[d]]
+    ran = [d for d, n in getattr(fn, attr).items() if n > before[d]]
     return out, ran[0] if len(ran) == 1 else ran
 
 
-def _tail_designs(failures, phase, launches):
-    """``launches_by_design`` of the two-design tail wrappers that ``launches``
-    counts (since ``tail_ct.reset_design_counts()``); a bf16 path must have
-    run every call of each through "mma"."""
+def _path_designs(failures, phase, launches):
+    """``launches_by_design`` of the two-design wrappers that ``launches``
+    counts: the tail's (since ``tail_ct.reset_design_counts()``) and the
+    dense stages' (since ``rdb_ct.reset_design_counts()``); a bf16 path must
+    have run every call of each through "mma"."""
+    from esrganplus_tpu_torch.kernels import rdb_ct as K
     from esrganplus_tpu_torch.kernels import tail_ct as T
 
-    by_design = {k: dict(getattr(T, k).launches_by_design) for k in DESIGNED if k in launches}
+    fns = {**{k: getattr(T, k) for k in DESIGNED}, **{k: getattr(K, k) for k in DENSE_DESIGNED}}
+    by_design = {k: dict(fn.launches_by_design) for k, fn in fns.items() if k in launches}
     for k, got in by_design.items():
         if got != {"fma": 0, "mma": launches[k]}:
             failures.append(f"{phase}: {k} launched {got} by design, expected "
@@ -1142,6 +1232,7 @@ def train_check(failures):
     import torch
 
     from esrganplus_tpu_torch.infer import params_to
+    from esrganplus_tpu_torch.kernels import rdb_ct as K
     from esrganplus_tpu_torch.models.layers import fp32_exact
     from esrganplus_tpu_torch.models.rrdb import (RRDBNetConfig, draw_noise, init_rrdbnet,
                                                   rrdbnet_forward)
@@ -1168,7 +1259,13 @@ def train_check(failures):
     flat = lambda gs: torch.cat([g.flatten().float() for g in gs])
     l_ref, g_ref = run(plain, None)
     for dname, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        K.reset_design_counts()
         l_k, g_k = run(cfg, dtype)
+        # every dense-stage call by design: fp32 on the CUDA cores, bf16 on the tensor cores
+        want = "mma" if dtype else "fma"
+        by_design = {fn.__name__: dict(fn.launches_by_design) for fn in (K.rdb_ct, K.conv3x3_ct)}
+        designs_ok = all(d == {"fma": 0, "mma": 0, want: getattr(K, k).launches} and d[want] > 0
+                         for k, d in by_design.items())
         per_leaf = {n: ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
                     for (n, _), a, b in zip(named, g_k, g_ref)}
         worst = max(per_leaf, key=per_leaf.get)
@@ -1176,7 +1273,7 @@ def train_check(failures):
         row = {"phase": "train-check", "dtype": dname, "loss_plain_fp32": l_ref,
                "loss_kernel": l_k, "loss_rel_err": abs(l_k - l_ref) / abs(l_ref),
                "grad_worst_leaf": worst, "grad_worst_rel_err": per_leaf[worst],
-               "grad_cosine": cos, "leaves": len(named),
+               "grad_cosine": cos, "leaves": len(named), "dense_by_design": by_design,
                "finite": all(bool(torch.isfinite(g).all()) for g in g_k)}
         if dtype is None:
             row.update(tol_loss=1e-5, tol_grad=1e-3)
@@ -1188,7 +1285,7 @@ def train_check(failures):
                        plain_bf16_grad_cosine=torch.nn.functional.cosine_similarity(
                            flat(g_p), flat(g_ref), dim=0).item())
             ok = row["loss_rel_err"] <= 2e-2 and per_leaf[worst] <= 0.1 and cos >= 0.999
-        row["ok"] = bool(ok and row["finite"])
+        row["ok"] = bool(ok and row["finite"] and designs_ok)
         emit(row)
         if not row["ok"]:
             failures.append(f"train-check {dname}: {row}")
@@ -1286,6 +1383,7 @@ def train_path(failures, workdir, noise_kernel="input"):
     for fn in fwd + bwd:
         fn.launches = 0
     T.reset_design_counts()
+    K.reset_design_counts()
     K.rdb_ct.seeded_launches = K.rdb_ct_bwd.seeded_launches = 0
     t0 = time.perf_counter()
     train_cli.main(["-opt", opt_path, "--device", "cuda"])
@@ -1303,7 +1401,7 @@ def train_path(failures, workdir, noise_kernel="input"):
         if launches[k] != per * TRAIN_STEPS:
             failures.append(f"{phase}: {k} launched {launches[k]} times, expected "
                             f"{per * TRAIN_STEPS}")
-    by_design = _tail_designs(failures, phase, launches)  # bf16: the tensor cores
+    by_design = _path_designs(failures, phase, launches)  # bf16: the tensor cores
     want_seeded = 69 * TRAIN_STEPS if fused else 0  # validation forwards draw no noise
     if seeded != {"rdb_ct": want_seeded, "rdb_ct_bwd": want_seeded}:
         failures.append(f"{phase}: seeded rdb_ct launches {seeded}, expected {want_seeded} each")
@@ -1437,6 +1535,7 @@ def gan_check(failures):
 
     import torch
 
+    from esrganplus_tpu_torch.kernels import rdb_ct as K
     from esrganplus_tpu_torch.kernels import stage_ct as S
     from esrganplus_tpu_torch.models.discriminator import DiscriminatorVGGConfig
     from esrganplus_tpu_torch.models.layers import deterministic_convs, fp32_exact
@@ -1502,11 +1601,13 @@ def gan_check(failures):
         for fn in counted:
             fn.launches = 0
         S.reset_launch_counts()
+        K.reset_design_counts()
         t_k, gg_k, dg_k = run("auto", dtype)
         by_design = {fn.__name__: dict(fn.launches_by_design) for fn in stage}
+        dense = {fn.__name__: dict(fn.launches_by_design) for fn in (K.rdb_ct, K.conv3x3_ct)}
         want = "mma" if dtype else "fma"
-        designs_ok = all(d == {"fma": 0, "mma": 0, want: getattr(S, k).launches}
-                         for k, d in by_design.items())
+        designs_ok = all(fn.launches_by_design == {"fma": 0, "mma": 0, want: fn.launches}
+                         for fn in stage + (K.rdb_ct, K.conv3x3_ct))
         terr = term_errs(t_k, t_ref)
         g_err, d_err = leaf_errs(named_g, gg_k, gg_ref), leaf_errs(named_d, dg_k, dg_ref)
         d_l2 = leaf_errs(named_d, dg_k, dg_ref, norm=2)
@@ -1519,7 +1620,7 @@ def gan_check(failures):
                "d_cosine": cosine(dg_k, dg_ref),
                "leaves": [len(g_err), len(d_err)],
                "launches": {fn.__name__: fn.launches for fn in counted},
-               "stage_launches_by_design": by_design,
+               "stage_launches_by_design": by_design, "dense_launches_by_design": dense,
                "finite": all(bool(torch.isfinite(g).all()) for g in list(gg_k) + list(dg_k)
                              if g is not None)}
         if dtype is None:
@@ -1555,6 +1656,7 @@ def gan_train_path(failures, workdir):
     from esrganplus_tpu_torch.cli import train as train_cli
     from esrganplus_tpu_torch.convert import discriminator_from_state_dict, load_state_dict
     from esrganplus_tpu_torch.infer import load_generator
+    from esrganplus_tpu_torch.kernels import rdb_ct as K
     from esrganplus_tpu_torch.kernels import stage_ct as S
     from esrganplus_tpu_torch.kernels import tail_ct as T
     from esrganplus_tpu_torch.models.discriminator import DiscriminatorVGGConfig
@@ -1575,13 +1677,15 @@ def gan_train_path(failures, workdir):
         fn.launches = 0
     S.reset_launch_counts()
     T.reset_design_counts()
+    K.reset_design_counts()
     t0 = time.perf_counter()
     train_cli.main(["-opt", opt_path, "--device", "cuda"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counted}
-    # the bf16 step's stage convs (both sizes, both directions) and the tail's
-    # wrappers (upfold_ct, conv_hr_ct, upfold_ct_bwd, conv_hr_ct_bwd) on "mma"
+    # the bf16 step's stage convs (both sizes, both directions), the tail's
+    # wrappers (upfold_ct, conv_hr_ct, upfold_ct_bwd, conv_hr_ct_bwd) and the
+    # dense stages' (rdb_ct, conv3x3_ct) on "mma"
     by_design = {fn.__name__: dict(fn.launches_by_design)
                  for fn in (S.conv_s1_ct, S.conv_s1_ct_bwd, S.conv_s2_ct, S.conv_s2_ct_bwd)}
     per_step = {**GAN_FWD_PER_STEP, **GAN_BWD_PER_STEP}
@@ -1589,7 +1693,7 @@ def gan_train_path(failures, workdir):
         want = {"fma": 0, "mma": per_step[k] * TRAIN_STEPS}
         if by_design[k] != want:
             failures.append(f"gan-train: {k} launched {by_design[k]} by design, expected {want}")
-    by_design.update(_tail_designs(failures, "gan-train", launches))
+    by_design.update(_path_designs(failures, "gan-train", launches))
     # G's forward: every step, plus each validation image at steps 8 and 16
     n_val = VAL_IMAGES * (TRAIN_STEPS // 8)
     expected = {**{k: per * (TRAIN_STEPS + n_val) for k, per in PER_IMAGE.items()},
@@ -1808,6 +1912,7 @@ def check_noise_kernels(failures):
     import torch
 
     from esrganplus_tpu_torch.kernels import rdb_ct as K
+    from esrganplus_tpu_torch.kernels.launch import design
     from esrganplus_tpu_torch.kernels.philox import philox_normal, philox_normal_cuda
     from esrganplus_tpu_torch.models.layers import fp32_exact
 
@@ -1837,12 +1942,13 @@ def check_noise_kernels(failures):
         x, noise, g = act(), act(), act()
         kw = dict(seed=NOISE_SEED, sigma=NOISE_SIGMA)
         with fp32_exact():
-            fwd_k = K._rdb_ct_cuda(x, wr, save=True, **kw)
+            fwd_k, fwd_design = _design_of(K.rdb_ct, lambda: K._rdb_ct_cuda(x, wr, save=True, **kw))
             torch.cuda.synchronize()
             fwd_p = K._rdb_ct_train_plain(x, wr, **kw)
         row = {"phase": "kernels-noise", "kernel": "rdb_ct", "mode": "fused", "dtype": dname,
-               "lr": list(TRAIN_SHAPE), "noise_sigma": NOISE_SIGMA, "tol": TOL[dname]}
-        ok = True
+               "lr": list(TRAIN_SHAPE), "noise_sigma": NOISE_SIGMA, "tol": TOL[dname],
+               "design": fwd_design}
+        ok = fwd_design == design(dtype)
         for key, a, b in zip(("out", "cat", "lsv"), fwd_k, fwd_p):
             d, rel = rel_err(a, b)
             differ = (a != b).float().mean().item()
@@ -1966,6 +2072,8 @@ def check_rdb_t_kernels(failures):
     of stages 1–4 and the 1×1)."""
     import torch
 
+    from esrganplus_tpu_torch.kernels import rdb_t as R
+    from esrganplus_tpu_torch.kernels.launch import design
     from esrganplus_tpu_torch.models.layers import fp32_exact
 
     gen = torch.Generator().manual_seed(13)
@@ -1978,14 +2086,17 @@ def check_rdb_t_kernels(failures):
             with fp32_exact():
                 for tag in ("fwd", "fold"):
                     kern, plain = case[tag][:2]
-                    got = kern()
+                    got, kind = _design_of(R.rdb_t, kern)
+                    bits = torch.equal(kern(), got)
                     torch.cuda.synchronize()
                     ref = plain()
                     d, rel = rel_err(got, ref)
                     differ = (got != ref).float().mean().item()
                     ok = (bool(torch.isfinite(got.float()).all()) and rel <= TOL[dname]
-                          and (dname == "float32" or differ <= MAX_DIFFER_BF16))
+                          and (dname == "float32" or differ <= MAX_DIFFER_BF16)
+                          and kind == design(dtype) and bits)
                     row = {**base, "kernel": "rdb_t" if tag == "fwd" else "rdb_t_fold",
+                           "design": kind, "repeat_bit_equal": bits,
                            "max_abs_err": d, "rel_err": rel, "tol": TOL[dname],
                            "frac_differ": differ, "ok": ok}
                     if tag == "fwd":
@@ -1998,6 +2109,9 @@ def check_rdb_t_kernels(failures):
                                        library_ms=time_ms(case["fwd"][2]),
                                        bound_ms=max(ops_ms, bytes_ms),
                                        bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+                            if dname == "bfloat16":  # the card alone: the call and cuDNN
+                                row.update(device_ms=device_ms(kern),
+                                           library_device_ms=device_ms(case["fwd"][2]))
                             report[("rdb_t", sname, dname)] = row
                     emit(row)
                     if not ok:
@@ -2005,7 +2119,7 @@ def check_rdb_t_kernels(failures):
                                         f"differ {differ:.3g}")
 
                 kern, plain, lib = case["bwd"]
-                got = kern()
+                got, kind = _design_of(R.rdb_t_bwd, kern, "recompute_by_design")
                 again = kern()
                 torch.cuda.synchronize()
                 want = plain()
@@ -2013,8 +2127,9 @@ def check_rdb_t_kernels(failures):
                 worst, worst_abs, finite = worst_err(dict(zip(names, got)),
                                                      dict(zip(names, want)))
                 bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
-                ok = finite and worst <= BWD_TOL[dname] and bit_equal
-                row = {**base, "kernel": "rdb_t_bwd", "max_abs_err": worst_abs, "rel_err": worst,
+                ok = finite and worst <= BWD_TOL[dname] and bit_equal and kind == design(dtype)
+                row = {**base, "kernel": "rdb_t_bwd", "recompute_design": kind,
+                       "max_abs_err": worst_abs, "rel_err": worst,
                        "tol": BWD_TOL[dname], "bit_equal_second_call": bit_equal, "ok": bool(ok)}
                 if sname != "odd":
                     ops_ms = 2 * case["bwd_macs"] / PEAK_FLOPS[dname] * 1e3
@@ -2058,20 +2173,24 @@ def rdb_t_path(failures):
             loss = torch.sin(out).mean()
             return loss.item(), torch.autograd.grad(loss, leaves)
 
-    R.rdb_t.launches = R.rdb_t_bwd.launches = 0
+    R.reset_design_counts()
     loss_k, g_k = run(lambda h, ws: R.rdb_t_diff(h, *ws), torch.bfloat16)
     torch.cuda.synchronize()
     launches = {"rdb_t": R.rdb_t.launches, "rdb_t_bwd": R.rdb_t_bwd.launches}
+    # every dense-stage launch (forward and the backward's recompute) on "mma"
+    by_design = {"rdb_t": dict(R.rdb_t.launches_by_design),
+                 "rdb_t_bwd_recompute": dict(R.rdb_t_bwd.recompute_by_design)}
     loss_p, g_p = run(lambda h, ws: R.rdb_t_plain(h, *ws), torch.float32)
     flat = lambda gs: torch.cat([t.flatten() for t in gs])
     cos = torch.nn.functional.cosine_similarity(flat(g_k), flat(g_p), dim=0).item()
     row = {"phase": "rdb-t-path", "lr": list(TRAIN_SHAPE), "dtype": "bfloat16", "blocks": 3,
            "loss_kernel": loss_k, "loss_plain_fp32": loss_p,
            "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p), "grad_cosine": cos,
-           "launches": launches, "tol_loss": 2e-2, "tol_cosine": 0.999,
+           "launches": launches, "by_design": by_design, "tol_loss": 2e-2, "tol_cosine": 0.999,
            "finite": all(bool(torch.isfinite(t).all()) for t in g_k)}
     row["ok"] = bool(row["finite"] and row["loss_rel_err"] <= 2e-2 and cos >= 0.999
-                     and launches == {"rdb_t": 3, "rdb_t_bwd": 3})
+                     and launches == {"rdb_t": 3, "rdb_t_bwd": 3}
+                     and all(d == {"fma": 0, "mma": 3} for d in by_design.values()))
     emit(row)
     if not row["ok"]:
         failures.append(f"rdb-t-path: {row}")
@@ -2531,6 +2650,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
         launches = main_path(failures, tmp)
     bwd_report = check_bwd_kernels(failures)
+    check_dense_accuracy(failures)
     check_conv_hr_gate(failures)
     noise_report = check_noise_kernels(failures)
     train_check(failures)
@@ -2586,6 +2706,12 @@ def main() -> int:
                                frac_differ=row["frac_differ"],
                                fp32_design=report[(name, "float32")]["design"],
                                fp32_source="esrganplus_tpu_torch/csrc/tail_ct.cu")
+        if name in DENSE_DESIGNED:  # the design, the card alone (and rdb_ct's five launches)
+            kernels[-1].update(design=row["design"], frac_differ=row["frac_differ"],
+                               device_ms=row["device_ms"],
+                               library_device_ms=row["library_device_ms"],
+                               fp32_design=report[(name, "float32")]["design"],
+                               **{k: row[k] for k in ("step_ms", "step_device_ms") if k in row})
         if name == "rdb_ct":  # the training forward at batch 16, 32×32: fused beside input
             fused = noise_report[("rdb_ct", "bfloat16")]
             kernels[-1].update(fused_ms=fused["fused_ms"], fused_input_ms=fused["input_ms"],
@@ -2646,7 +2772,8 @@ def main() -> int:
     for name in RDB_T_REPLACES:
         row = rdb_t_report[(name, RDB_T_MAIN_SHAPE, "bfloat16")]
         fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
-                  "rel_err")
+                  "rel_err") + (("design", "frac_differ", "device_ms", "library_device_ms")
+                                if name == "rdb_t" else ("recompute_design",))
         kernels.append({
             "name": name, "route": "cuda", "source": RDB_T_SOURCE,
             "replaces": RDB_T_REPLACES[name], "launches": rdb_t_launches[name],

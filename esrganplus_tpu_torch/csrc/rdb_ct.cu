@@ -12,18 +12,21 @@
 //   * conv3x3_ct  (_conv_ct_kernel): the trunk conv plus the global residual,
 //     the same kernel in RESID mode with alpha = 1 (rdb_ct.py:556-566).
 //
-// The kernel, its bound on this card and what its design does about it are
+// The kernel's two designs (bf16 on the tensor cores, fp32 on the CUDA
+// cores), its bound on this card and what the designs do about it are
 // described in dense_conv.cuh.
 #include "dense_conv.cuh"
 
 extern "C" {
 
 // One dense-stage (or conv3x3_ct) launch on `stream`. With `seeded`, stage 5
-// draws its noise from (seed0, seed1) instead of reading `noise`. Returns the
-// cudaGetLastError() code after the launch (0 = launched).
-int esr_dense_conv3x3(int dtype, int cout, int mode, const void* x, int c0, const void* cat,
-                      int ccat, int cin, const void* w, const void* bias, const void* w11,
-                      void* out, int out_stride, const void* r1, int r1_stride,
+// draws its noise from (seed0, seed1) instead of reading `noise`. `design`:
+// 1 (the tensor-core kernel, bf16 only) or 0 (the FMA kernel, which the
+// wrappers ask for in fp32); any other value returns cudaErrorInvalidValue. Returns the cudaGetLastError()
+// code after the launch (0 = launched).
+int esr_dense_conv3x3(int dtype, int design, int cout, int mode, const void* x, int c0,
+                      const void* cat, int ccat, int cin, const void* w, const void* bias,
+                      const void* w11, void* out, int out_stride, const void* r1, int r1_stride,
                       const void* r2, int r2_stride, void* lsave, int lsave_stride,
                       const void* noise, float sigma, int seeded, unsigned seed0,
                       unsigned seed1, float alpha, float beta2, float slope,
@@ -32,7 +35,7 @@ int esr_dense_conv3x3(int dtype, int cout, int mode, const void* x, int c0, cons
   const esr::dense::DenseArgs a{x, cat, w, bias, w11, r1, r2, noise, out, lsave, c0, ccat, cin,
                                 out_stride, r1_stride, r2_stride, lsave_stride, B, H, W,
                                 sigma, alpha, beta2, slope, seeded, seed0, seed1};
-  return esr::dense::dispatch(dtype, cout, mode, a, esr::HwioLayout{},
+  return esr::dense::dispatch(dtype, design, cout, mode, a, esr::HwioLayout{},
                               static_cast<cudaStream_t>(stream));
 }
 

@@ -24,8 +24,10 @@
 //     fixed-order finishing pass: no atomics), dW11 as [gc, nf].
 //
 // The kernels are dense_conv.cuh's, dgrad.cuh's and wgrad.cuh's templates
-// with the by-target weight indexer; their bound on this card (operations,
-// fp32 on the CUDA cores) and design are described there. The backward does
+// with the by-target weight indexer; their bound on this card (operations)
+// and design are described there: the forward (and the backward's
+// recompute) runs bf16 on the tensor cores, fp32 on the CUDA cores; the
+// data and weight gradients run on the CUDA cores in fp32. The backward does
 // the forward's stage-1..4 products once more, then twice the forward's
 // products (dx and dW).
 #include "dense_conv.cuh"
@@ -37,8 +39,9 @@ extern "C" {
 // One dense-stage launch of rdb_t's forward (or of the backward's
 // recompute) with by-target weights `w` [cout, 9 * cin] and, in kAct1x1
 // mode, w11 [cout, nf]. `bias` points at the stage's rows of the packed
-// bias. Returns cudaGetLastError().
-int esr_rdb_t_stage(int dtype, int cout, int mode, int nf, int gc, const void* x,
+// bias. `design` as for esr_dense_conv3x3: 1 (tensor cores, bf16 only) or
+// 0 (FMA). Returns cudaGetLastError().
+int esr_rdb_t_stage(int dtype, int design, int cout, int mode, int nf, int gc, const void* x,
                     const void* cat, int ccat, int cin, const void* w, const void* bias,
                     const void* w11, void* out, int out_stride, const void* r1, int r1_stride,
                     const void* r2, int r2_stride, void* lsave, int lsave_stride, float alpha,
@@ -46,7 +49,7 @@ int esr_rdb_t_stage(int dtype, int cout, int mode, int nf, int gc, const void* x
   const esr::dense::DenseArgs a{x, cat, w, bias, w11, r1, r2, nullptr, out, lsave, nf, ccat,
                                 cin, out_stride, r1_stride, r2_stride, lsave_stride, B, H, W,
                                 0.f, alpha, beta2, slope, 0, 0u, 0u};
-  return esr::dense::dispatch(dtype, cout, mode, a, esr::ByTargetLayout{nf, gc},
+  return esr::dense::dispatch(dtype, design, cout, mode, a, esr::ByTargetLayout{nf, gc},
                               static_cast<cudaStream_t>(stream));
 }
 

@@ -1187,7 +1187,7 @@ int launch_fwd_s2_mma_w(int np, const StageArgs& a, cudaStream_t st) {
   }
 }
 
-enum Design : int { kFma = 0, kMma = 1 };  // kernels/stage_ct.py DESIGNS, design()
+enum Design : int { kFma = 0, kMma = 1 };  // kernels/launch.py DESIGNS, design()
 
 int dispatch_mma(int ks, int op, const StageArgs& a, cudaStream_t st) {
   if (a.cin < 1 || a.cin > 128) return (int)cudaErrorInvalidValue;

@@ -13,6 +13,10 @@
 //                   esrganplus_tpu/kernels/rdb_t.py's by-target matrix
 //                   (prepare_rdb_t_weights, :73-100); at taps = 1 with
 //                   cin = nf it is the [gc, nf] shortcut w11.
+// KN says how the bf16 tensor-core kernel (dense_conv.cuh dense_mma_kernel)
+// stages a ring slot of the layout: [k][n] rows, 8 output channels a 16-byte
+// vector, read by ldmatrix .trans (HWIO); or [n][k] rows, 8 input channels of
+// one source a vector, read plainly (by-target).
 #pragma once
 
 #include <cstddef>
@@ -20,6 +24,7 @@
 namespace esr {
 
 struct HwioLayout {
+  static constexpr bool KN = true;
   __device__ __forceinline__ size_t operator()(int taps, int t, int ci, int co, int cin,
                                                int cout) const {
     (void)taps;
@@ -28,6 +33,7 @@ struct HwioLayout {
 };
 
 struct ByTargetLayout {
+  static constexpr bool KN = false;
   int nf, gc;  // widths of the first source and of every later one
   __device__ __forceinline__ size_t operator()(int taps, int t, int ci, int co, int cin,
                                                int cout) const {

@@ -44,7 +44,7 @@ PDZ = ctypes.POINTER(DzSrc)
 # them to 32-bit ints); each function returns cudaGetLastError() as an int.
 SIGNATURES = {
     "rdb_ct": {
-        "esr_dense_conv3x3": [I, I, I, P, I, P, I, I, P, P, P, P, I, P, I, P, I,
+        "esr_dense_conv3x3": [I, I, I, I, P, I, P, I, I, P, P, P, P, I, P, I, P, I,
                               P, I, P, F, I, U, U, F, F, F, I, I, I, P],
     },
     "dgrad_ct": {
@@ -56,7 +56,7 @@ SIGNATURES = {
         "esr_dzsrc_size": [],
     },
     "rdb_t": {
-        "esr_rdb_t_stage": [I, I, I, I, I, P, P, I, I, P, P, P, P, I, P, I, P, I, P, I,
+        "esr_rdb_t_stage": [I, I, I, I, I, I, P, P, I, I, P, P, P, P, I, P, I, P, I, P, I,
                             F, F, F, I, I, I, P],
         "esr_rdb_t_dgrad": [I, I, I, I, I, PDZ, I, P, I, P, I, I, P, I, PDZ, I, P],
         "esr_rdb_t_wgrad": [I, I, I, I, P, P, I, I, PDZ, I, P, I, P, I, P],

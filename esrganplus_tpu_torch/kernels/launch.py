@@ -1,6 +1,8 @@
 """Launches shared by the wrappers of several kernel modules.
 
-The dense-stage epilogue modes (``csrc/dense_conv.cuh``), the cotangent
+The design a dtype runs on (:func:`design`, for the dense, stage and tail
+wrappers alike), the dense-stage epilogue modes and the mirror of the bf16
+dense kernel's tile and weight walk (``csrc/dense_conv.cuh``), the cotangent
 source the backward kernels read (``csrc/dz_src.cuh``, ``build.DzSrc``), and
 one data-gradient or weight-gradient launch (``csrc/dgrad.cuh``,
 ``csrc/wgrad.cuh``). The weight layout picks the library: HWIO weights go to
@@ -19,6 +21,107 @@ from esrganplus_tpu_torch.kernels import build
 
 # dense-stage epilogue modes (csrc/dense_conv.cuh)
 ACT, ACT_1X1, ACT_ADD, RESID = 0, 1, 2, 3
+DESIGNS = {"fma": 0, "mma": 1}  # csrc/dense_conv.cuh and csrc/stage_ct.cu Design
+
+
+def design(dtype: torch.dtype) -> str:
+    """Which CUDA design runs a dense, stage or tail kernel on a ``dtype``
+    tensor: ``"mma"`` (bf16 on the tensor cores) or ``"fma"`` (fp32 on the
+    CUDA cores, whose 1e-4 bar TF32 would miss). The widths are the
+    wrappers' to check."""
+    if dtype not in build.DTYPE_CODES:
+        raise TypeError(f"CUDA kernels take float32 or bfloat16, got {dtype}")
+    return "mma" if dtype == torch.bfloat16 else "fma"
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it whose data start on 16 bytes: the mma kernels
+    move 16-byte vectors (a fresh allocation always is aligned)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def count(fn, kind: str) -> None:
+    """One call of the wrapper ``fn`` on design ``kind``."""
+    fn.launches += 1
+    fn.launches_by_design[kind] += 1
+
+
+# ---------------------------------------------------------------------------
+# the bf16 dense kernel's tile and weight walk (csrc/dense_conv.cuh dmma),
+# mirrored for the CPU tests
+# ---------------------------------------------------------------------------
+
+DENSE_NSLOT = 3        # weight-ring depth
+DENSE_KCH = 192        # K rows of a ring slot at most, and a tile slice's channels
+MAX_SMEM = 232448      # opt-in shared memory per block on sm_90 (227 KB)
+HALO_PIX = 10 * 18     # the haloed 8×16 pixel tile
+
+
+def round16(c: int) -> int:
+    return -(-c // 16) * 16
+
+
+def ldsm_pitch(c: int) -> int:
+    """Bytes of a shared [row][c × bf16] row (``csrc/mma_bf16.cuh``): c
+    rounded up to 16-byte units, then to an odd count of them."""
+    return ((c + 7) // 8 | 1) * 16
+
+
+def dense_slot(n: int, kch: int, kn: bool) -> int:
+    """Bytes of a ring slot of ``kch`` K rows by ``n`` outputs: [k][n] rows
+    (HWIO, ``kn``) or [n][k] rows (by-target)."""
+    return kch * ldsm_pitch(n) if kn else n * ldsm_pitch(kch)
+
+
+def dense_smem(n: int, kt: int, kn: bool, c11: int = 0) -> int:
+    """A block's shared memory: the haloed tile of ``kt`` channels, the ring,
+    and the 1×1 shortcut's ``c11`` K rows (stage 2; else 0)."""
+    return (HALO_PIX * ldsm_pitch(kt) + DENSE_NSLOT * dense_slot(n, min(kt, DENSE_KCH), kn)
+            + (dense_slot(n, c11, kn) if c11 else 0))
+
+
+def dense_kt(n: int, kp: int, kn: bool, c11: int = 0) -> int:
+    """Channels the staged tile holds: all ``kp`` where the block fits, else
+    :data:`DENSE_KCH`, restaged in turn."""
+    return kp if dense_smem(n, kp, kn, c11) <= MAX_SMEM else DENSE_KCH
+
+
+def dense_stages(cin: int, n: int, kn: bool, c11: int = 0) -> list:
+    """The ring's stages of one launch in order (``tap_mma``'s walk: tile
+    slice, tap, K chunk) as ``(tap, first channel, K rows)``; rows past
+    ``cin`` are the zero padding to 16."""
+    kp = round16(cin)
+    kt = dense_kt(n, kp, kn, c11)
+    kch = min(kt, DENSE_KCH)
+    out = []
+    for sl in range(-(-kp // kt)):
+        for t in range(9):
+            for kc in range(-(-kt // kch)):
+                c = sl * kt + kc * kch
+                out.append((t, c, min(kch, min(kp, (sl + 1) * kt) - c)))
+    return out
+
+
+def dense_slot_reads(t: int, c: int, rows: int, cin: int, cout: int, *, taps: int = 9,
+                     by_target=None):
+    """The weight elements one ring slot of the bf16 dense kernel reads
+    (``csrc/dense_conv.cuh`` ``load_rows``; the layouts of
+    ``csrc/wlayout.cuh``) → (K row, output channel, flat index, -1 for a zero
+    row past ``cin``) as flat tensors, for slot rows ``c .. c+rows`` of tap
+    ``t``: HWIO ``[taps, cin, cout]``, or with ``by_target=(nf, gc)``
+    rdb_t's ``[cout, taps·cin]`` with K ordered source, tap, channel."""
+    r, n = torch.meshgrid(torch.arange(rows), torch.arange(cout), indexing="ij")
+    ci = c + r
+    if by_target is None:
+        idx = (t * cin + ci) * cout + n
+    else:
+        nf, gc = by_target
+        j = (ci - nf).clamp(min=0)
+        src = j // gc
+        k = torch.where(ci < nf, t * nf + ci, taps * (nf + src * gc) + t * gc + (j - src * gc))
+        idx = n * taps * cin + k
+    idx = torch.where(ci < cin, idx, torch.full_like(idx, -1))
+    return r.flatten(), n.flatten(), idx.flatten()
 
 
 def dz_src(H: int, W: int, mode: int, *, g=None, g_stride=0, noise=None, fac=None,

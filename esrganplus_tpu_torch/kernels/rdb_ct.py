@@ -34,6 +34,14 @@ fp32 buffer per call (``csrc/philox.cu``), which its kernels read where they
 read the cotangent, so nothing is saved from the forward. The two orders
 differ by one rounding per element.
 
+The forward kernel has two designs, picked by the dtype
+(:func:`~esrganplus_tpu_torch.kernels.launch.design`): bf16 runs every
+dense stage as an implicit GEMM on the tensor cores (``"mma"``:
+``mma.sync`` bf16 with fp32 accumulators over the haloed tile of both
+sources), fp32 on the CUDA cores (``"fma"``). Both end in one epilogue, so
+they round at the same points; ``launches_by_design`` counts the calls by
+design. The backward runs on the CUDA cores in both dtypes.
+
 Each CUDA wrapper has a plain PyTorch twin (``*_plain``) with the same
 rounding points. A CPU tensor goes to the twin; a CUDA tensor launches the
 kernel or raises.
@@ -47,8 +55,9 @@ import torch
 import torch.nn.functional as F
 
 from esrganplus_tpu_torch.kernels import build
-from esrganplus_tpu_torch.kernels.launch import (ACT, ACT_1X1, ACT_ADD, RESID, dgrad,
-                                                 dgrad_chunk, dz_src, wgrad)
+from esrganplus_tpu_torch.kernels.launch import (ACT, ACT_1X1, ACT_ADD, DESIGNS, RESID,
+                                                 aligned, count, design, dgrad, dgrad_chunk,
+                                                 dz_src, wgrad)
 from esrganplus_tpu_torch.kernels.philox import noise_factor_cuda, philox_normal
 from esrganplus_tpu_torch.models.layers import fp32_exact
 
@@ -85,18 +94,19 @@ def prepare_conv_ct_weights(w: torch.Tensor, b: Optional[torch.Tensor],
 # ---------------------------------------------------------------------------
 
 
-def _nchw(t: torch.Tensor) -> torch.Tensor:
-    return t.float().permute(0, 3, 1, 2)
+def _nchw(t: torch.Tensor, acc: torch.dtype = torch.float32) -> torch.Tensor:
+    return t.to(acc).permute(0, 3, 1, 2)
 
 
 def _conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
           padding: Optional[int] = None) -> torch.Tensor:
-    """fp32 conv (SAME unless ``padding`` is given) of NCHW ``x`` with HWIO
-    ``w`` whose values are already rounded to the working dtype: the
-    kernel's fp32 accumulation, TF32 off."""
+    """Conv in x's dtype, fp32 for the twins (SAME unless ``padding`` is
+    given), of NCHW ``x`` with HWIO ``w`` whose values are already rounded
+    to the working dtype: the kernel's fp32 accumulation, TF32 off."""
     pad = w.shape[0] // 2 if padding is None else padding
     with fp32_exact():
-        return F.conv2d(x, w.float().permute(3, 2, 0, 1), b, padding=pad)
+        return F.conv2d(x, w.to(x.dtype).permute(3, 2, 0, 1),
+                        None if b is None else b.to(x.dtype), padding=pad)
 
 
 def _lrelu(t: torch.Tensor, slope: float) -> torch.Tensor:
@@ -109,14 +119,14 @@ def _noise_factor(seed, sigma: float, shape, device) -> torch.Tensor:
 
 
 def _rdb_ct_train_plain(x, w, res=None, noise=None, *, seed=None, rrdb_scale=None,
-                         sigma=0.0, slope=0.2, res_scale=0.2):
+                         sigma=0.0, slope=0.2, res_scale=0.2, acc=torch.float32):
     """The RDB with the kernel's rounding points → (out, cat, lsv): ``cat``
     ``[B, H, W, 4·gc]`` holds x1|x2|x3|x4 and ``lsv`` ``[B, H, W, 2·gc]`` the
     pre-residual activations l2|l4, all in x's dtype. ``noise`` applies the
-    input mode's noise, ``seed`` the fused mode's."""
+    input mode's noise, ``seed`` the fused mode's. Sums in ``acc``."""
     dt = x.dtype
-    rnd = lambda t: t.to(dt).float()
-    xf = _nchw(x)
+    rnd = lambda t: t.to(dt).to(acc)
+    xf = _nchw(x, acc)
     x1 = rnd(_lrelu(_conv(xf, w["w1"], w["b1"]), slope))
     l2 = _lrelu(_conv(torch.cat([xf, x1], 1), w["w2"], w["b2"]), slope)
     x2 = l2
@@ -129,7 +139,7 @@ def _rdb_ct_train_plain(x, w, res=None, noise=None, *, seed=None, rrdb_scale=Non
     x5 = _conv(torch.cat([xf, x1, x2, x3, x4], 1), w["w5"], w["b5"])
     out = x5 * res_scale + xf
     if res is not None:
-        out = out * rrdb_scale + _nchw(res)
+        out = out * rrdb_scale + _nchw(res, acc)
     if seed is not None:  # fp32 product with the fp32 draw, then the one rounding
         out = out * _noise_factor(seed, sigma, x.shape, x.device)
     out = out.to(dt)
@@ -138,6 +148,15 @@ def _rdb_ct_train_plain(x, w, res=None, noise=None, *, seed=None, rrdb_scale=Non
         out = out + noise.permute(0, 3, 1, 2) * (torch.tensor(sigma, dtype=dt) * out)
     nhwc = lambda t: t.to(dt).permute(0, 2, 3, 1).contiguous()
     return nhwc(out), nhwc(torch.cat([x1, x2, x3, x4], 1)), nhwc(torch.cat([l2, l4], 1))
+
+
+def rdb_ct_fp64(x, w, res=None, noise=None, **kw):
+    """The training-mode twin's graph and rounding points with every sum in
+    float64 → (out, cat, lsv), keywords as :func:`rdb_ct`'s training forward.
+    The reference that both the twin's fp32 sums and the bf16 tensor-core
+    kernel's are off by their summation order: the twin shares cuDNN's
+    order with the FMA design, not the exact sum (PERF.md, Findings)."""
+    return _rdb_ct_train_plain(x, w, res, noise, acc=torch.float64, **kw)
 
 
 def rdb_ct_plain(x: torch.Tensor, w: dict, res: Optional[torch.Tensor] = None, *,
@@ -164,11 +183,12 @@ def conv3x3_ct_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 def _dense(lib, x, cat, cin, w, b, out_ptr, out_stride, *, mode, cout, w11=None,
            r1=0, r1_stride=0, r2=0, r2_stride=0, lsave=0, lsave_stride=0, noise=None,
-           seed=None, sigma=0.0, alpha=1.0, beta2=1.0, slope=0.2):
+           seed=None, sigma=0.0, alpha=1.0, beta2=1.0, slope=0.2, kind=None):
+    """One dense-stage launch on the design ``kind`` (default: x's dtype's)."""
     B, H, W, c0 = x.shape
     s0, s1 = (0, 0) if seed is None else seed
     code = lib.esr_dense_conv3x3(
-        build.dtype_code(x), cout, mode, x.data_ptr(), c0,
+        build.dtype_code(x), DESIGNS[kind or design(x.dtype)], cout, mode, x.data_ptr(), c0,
         None if cat is None else cat.data_ptr(),
         0 if cat is None else cat.shape[3], cin, w.data_ptr(), b.data_ptr(),
         None if w11 is None else w11.data_ptr(), out_ptr, out_stride,
@@ -178,10 +198,17 @@ def _dense(lib, x, cat, cin, w, b, out_ptr, out_stride, *, mode, cout, w11=None,
     build.check(code, "esr_dense_conv3x3")
 
 
-def _rdb_ct_cuda(x, w, res=None, noise=None, *, seed=None, rrdb_scale=None, sigma=0.0,
-                 slope=0.2, res_scale=0.2, save=False):
-    """Validate and launch the five dense stages → (out, cat, lsv); ``lsv``
-    (l2|l4) is kept only with ``save``."""
+def rdb_ct_steps(x, w, res=None, noise=None, *, seed=None, rrdb_scale=None, sigma=0.0,
+                 slope=0.2, res_scale=0.2, save=False, kind=None):
+    """Validate and plan the five dense-stage launches over outputs
+    allocated here → ``(steps, (out, cat, lsv))``: ``steps`` maps
+    ``"stage1"`` .. ``"stage5"`` to callables that launch them, in order
+    (each may be run again on its own, for timing, and gives the same bits).
+    ``lsv`` (l2|l4) is kept only with ``save``. ``kind`` names the design;
+    the default, x's dtype's, is the only one the model paths use (``"fma"``
+    on bf16 is the baseline ``chip_smoke.py`` holds the tensor cores'
+    accuracy against). Counts nothing: :func:`rdb_ct` and the training
+    forward run the steps and count the call."""
     if x.dim() != 4:
         raise ValueError(f"rdb_ct: x must be NHWC, got shape {tuple(x.shape)}")
     B, H, W, nf = x.shape
@@ -203,35 +230,48 @@ def _rdb_ct_cuda(x, w, res=None, noise=None, *, seed=None, rrdb_scale=None, sigm
         build.require(noise, "noise", (B, H, W, nf), dt, dev)
     if noise is not None and seed is not None:
         raise ValueError("rdb_ct: pre-drawn noise or a noise seed, not both")
+    kind = kind or design(dt)
+    x = aligned(x)
+    w = {k: None if v is None else aligned(v) for k, v in w.items()}
     lib = build.load("rdb_ct")
     cat = torch.empty((B, H, W, 4 * gc), dtype=dt, device=dev)
     lsv = torch.empty((B, H, W, 2 * gc), dtype=dt, device=dev) if save else None
     out = torch.empty_like(x)
     esz = x.element_size()
-    with torch.cuda.device(dev):
-        for k in range(1, 5):
-            if k == 2 and w["w11"] is not None:
-                extra = dict(mode=ACT_1X1, w11=w["w11"])
-            elif k == 4:  # x4 += x2, read back from the buffer
-                extra = dict(mode=ACT_ADD, r1=cat.data_ptr() + gc * esz,
-                             r1_stride=4 * gc)
-            else:
-                extra = dict(mode=ACT)
-            if save and k in (2, 4):
-                extra.update(lsave=lsv.data_ptr() + (k // 2 - 1) * gc * esz,
-                             lsave_stride=2 * gc)
-            _dense(lib, x, cat, nf + (k - 1) * gc, w[f"w{k}"], w[f"b{k}"],
-                   cat.data_ptr() + (k - 1) * gc * esz, 4 * gc, cout=gc,
-                   slope=slope, **extra)
-        _dense(lib, x, cat, nf + 4 * gc, w["w5"], w["b5"], out.data_ptr(), nf,
-               mode=RESID, cout=nf, r1=x.data_ptr(), r1_stride=nf,
-               r2=0 if res is None else res.data_ptr(), r2_stride=nf,
-               noise=noise, seed=seed, sigma=sigma, alpha=res_scale,
-               beta2=1.0 if rrdb_scale is None else rrdb_scale)
-    rdb_ct.launches += 1
+    steps = {}
+    for k in range(1, 5):
+        if k == 2 and w["w11"] is not None:
+            extra = dict(mode=ACT_1X1, w11=w["w11"])
+        elif k == 4:  # x4 += x2, read back from the buffer
+            extra = dict(mode=ACT_ADD, r1=cat.data_ptr() + gc * esz, r1_stride=4 * gc)
+        else:
+            extra = dict(mode=ACT)
+        if save and k in (2, 4):
+            extra.update(lsave=lsv.data_ptr() + (k // 2 - 1) * gc * esz, lsave_stride=2 * gc)
+        # the step holds lsv, which extra's raw address points into
+        steps[f"stage{k}"] = lambda k=k, extra=extra, held=lsv: _dense(
+            lib, x, cat, nf + (k - 1) * gc, w[f"w{k}"], w[f"b{k}"],
+            cat.data_ptr() + (k - 1) * gc * esz, 4 * gc, cout=gc, slope=slope, kind=kind,
+            **extra)
+    steps["stage5"] = lambda: _dense(
+        lib, x, cat, nf + 4 * gc, w["w5"], w["b5"], out.data_ptr(), nf, mode=RESID, cout=nf,
+        kind=kind, r1=x.data_ptr(), r1_stride=nf, r2=0 if res is None else res.data_ptr(),
+        r2_stride=nf, noise=noise, seed=seed, sigma=sigma, alpha=res_scale,
+        beta2=1.0 if rrdb_scale is None else rrdb_scale)
+    return steps, (out, cat, lsv)
+
+
+def _rdb_ct_cuda(x, w, res=None, noise=None, *, seed=None, kind=None, **kw):
+    """Launch the five dense stages (:func:`rdb_ct_steps`) and count the
+    call → (out, cat, lsv)."""
+    steps, result = rdb_ct_steps(x, w, res, noise, seed=seed, kind=kind, **kw)
+    with torch.cuda.device(x.device):
+        for step in steps.values():
+            step()
+    count(rdb_ct, kind or design(x.dtype))
     rdb_ct.device_launches += 5
     rdb_ct.seeded_launches += seed is not None
-    return out, cat, lsv
+    return result
 
 
 def rdb_ct(x: torch.Tensor, w: dict, res: Optional[torch.Tensor] = None, *,
@@ -242,9 +282,10 @@ def rdb_ct(x: torch.Tensor, w: dict, res: Optional[torch.Tensor] = None, *,
     ``w`` from :func:`prepare_rdb_ct_weights`. With ``res`` (the RRDB's
     input h0) and ``rrdb_scale`` the RRDB epilogue ``out·rrdb_scale + res``
     is folded in. ``rdb_ct.launches`` counts calls that launched the CUDA
-    kernel (training forwards included), ``rdb_ct.device_launches`` the
-    kernel launches (5 per call), ``rdb_ct.seeded_launches`` the calls that
-    drew the fused mode's noise in the kernel."""
+    kernel (training forwards included), ``rdb_ct.launches_by_design`` them
+    by design, ``rdb_ct.device_launches`` the kernel launches (5 per call),
+    ``rdb_ct.seeded_launches`` the calls that drew the fused mode's noise in
+    the kernel."""
     if (res is None) != (rrdb_scale is None):
         raise ValueError("rdb_ct: res and rrdb_scale go together")
     if x.device.type == "cpu":
@@ -255,6 +296,7 @@ def rdb_ct(x: torch.Tensor, w: dict, res: Optional[torch.Tensor] = None, *,
 
 
 rdb_ct.launches = 0
+rdb_ct.launches_by_design = dict.fromkeys(DESIGNS, 0)
 rdb_ct.device_launches = 0
 rdb_ct.seeded_launches = 0
 
@@ -264,7 +306,7 @@ def conv3x3_ct(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     """SAME 3×3 conv + bias (+ residual ``res``), NHWC ``[B, H, W, Cin]`` →
     ``[B, H, W, Cout]``, one rounding. ``w``/``bias`` from
     :func:`prepare_conv_ct_weights`. ``conv3x3_ct.launches`` counts CUDA
-    launches."""
+    launches, ``conv3x3_ct.launches_by_design`` them by design."""
     if x.device.type == "cpu":
         return conv3x3_ct_plain(x, w, bias, res)
     if x.dim() != 4:
@@ -279,17 +321,28 @@ def conv3x3_ct(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     build.require(bias, "bias", (cout,), torch.float32, dev)
     if res is not None:
         build.require(res, "res", (B, H, W, cout), dt, dev)
+    kind = design(dt)
+    x, w = aligned(x), aligned(w)
     lib = build.load("rdb_ct")
     out = torch.empty((B, H, W, cout), dtype=dt, device=dev)
     with torch.cuda.device(dev):
         _dense(lib, x, None, cin, w, bias, out.data_ptr(), cout, mode=RESID,
                cout=cout, r1=0 if res is None else res.data_ptr(),
                r1_stride=cout)
-    conv3x3_ct.launches += 1
+    count(conv3x3_ct, kind)
     return out
 
 
 conv3x3_ct.launches = 0
+conv3x3_ct.launches_by_design = dict.fromkeys(DESIGNS, 0)
+
+
+def reset_design_counts() -> None:
+    """Set ``launches`` and ``launches_by_design`` of :func:`rdb_ct` and
+    :func:`conv3x3_ct` to 0."""
+    for fn in (rdb_ct, conv3x3_ct):
+        fn.launches = 0
+        fn.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,10 @@ is public API of both. Activations here are NHWC, and the CUDA kernels
 launches over an NHWC concat buffer forward; backward a recompute of stages
 1..4 from x into a workspace freed at return, then a data-gradient and a
 weight-gradient launch per stage and for the 1×1 shortcut, dW written
-straight into rdb_t's layout.
+straight into rdb_t's layout. The dense-stage launches (forward and
+recompute) run bf16 on the tensor cores and fp32 on the CUDA cores
+(:func:`~esrganplus_tpu_torch.kernels.launch.design`, as ``rdb_ct``); the
+data and weight gradients run on the CUDA cores.
 
 Numerics are the TPU kernel's: fp32 accumulation, x1..x4 rounded to the
 activation dtype, ``β·x5 + x`` (and the RRDB fold ``·rrdb_scale + res``) in
@@ -36,8 +39,9 @@ import torch
 import torch.nn.functional as F
 
 from esrganplus_tpu_torch.kernels import build
-from esrganplus_tpu_torch.kernels.launch import (ACT, ACT_1X1, ACT_ADD, RESID, dgrad,
-                                                 dgrad_chunk, dz_src, wgrad)
+from esrganplus_tpu_torch.kernels.launch import (ACT, ACT_1X1, ACT_ADD, DESIGNS, RESID,
+                                                 aligned, count, design, dgrad, dgrad_chunk,
+                                                 dz_src, wgrad)
 from esrganplus_tpu_torch.models.layers import fp32_exact
 
 
@@ -220,6 +224,8 @@ def _stages(x, ws, *, slope, last=True, res=None, rrdb_scale=None, res_scale=0.2
     B, H, W, nf = x.shape
     gc = ws[0].shape[0]
     dt, dev, esz = x.dtype, x.device, x.element_size()
+    x, ws = aligned(x), tuple(aligned(t) for t in ws)
+    kind = DESIGNS[design(dt)]
     lib = build.load("rdb_t")
     cat = torch.empty((B, H, W, 4 * gc), dtype=dt, device=dev)
     lsv = None if last else torch.empty((B, H, W, 2 * gc), dtype=dt, device=dev)
@@ -229,7 +235,7 @@ def _stages(x, ws, *, slope, last=True, res=None, rrdb_scale=None, res_scale=0.2
 
     def launch(k, mode, out_ptr, out_stride, cout, r1=0, r1_stride=0, r2=0, r2_stride=0,
                lsave=0, lsave_stride=0, alpha=1.0, beta2=1.0):
-        code = lib.esr_rdb_t_stage(build.dtype_code(x), cout, mode, nf, gc, x.data_ptr(),
+        code = lib.esr_rdb_t_stage(build.dtype_code(x), kind, cout, mode, nf, gc, x.data_ptr(),
                                    cat.data_ptr(), 4 * gc, nf + (k - 1) * gc,
                                    ws[k - 1].data_ptr(), bias(k), ws[5].data_ptr(), out_ptr,
                                    out_stride, r1 or None, r1_stride, r2 or None, r2_stride,
@@ -261,7 +267,8 @@ def rdb_t(x: torch.Tensor, w1, w2, w3, w4, w5, w11, bias,
     (:func:`prepare_rdb_t_weights`): NHWC ``x`` ``[B, H, W, nf]`` → same
     shape. With ``res`` (the RRDB's input) and ``rrdb_scale`` the RRDB
     epilogue ``out·rrdb_scale + res`` is folded in. ``rdb_t.launches``
-    counts calls that launched the CUDA kernels (5 launches each)."""
+    counts calls that launched the CUDA kernels (5 launches each),
+    ``rdb_t.launches_by_design`` them by design."""
     if (res is None) != (rrdb_scale is None):
         raise ValueError("rdb_t: res and rrdb_scale go together")
     ws = (w1, w2, w3, w4, w5, w11, bias)
@@ -270,11 +277,12 @@ def rdb_t(x: torch.Tensor, w1, w2, w3, w4, w5, w11, bias,
                            rrdb_scale=rrdb_scale)
     _check(x, ws, res=res)
     out = _stages(x, ws, slope=slope, res=res, rrdb_scale=rrdb_scale, res_scale=res_scale)[0]
-    rdb_t.launches += 1
+    count(rdb_t, design(x.dtype))
     return out
 
 
 rdb_t.launches = 0
+rdb_t.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 def rdb_t_bwd(x, w1, w2, w3, w4, w5, w11, bias, g, *, slope: float = 0.2,
@@ -285,7 +293,9 @@ def rdb_t_bwd(x, w1, w2, w3, w4, w5, w11, bias, g, *, slope: float = 0.2,
     in x's dtype. Returns ``(dx, dw1, .., dw5, dw11, db)``: dx in x's dtype,
     fp32 ``dw_k`` ``[S_k, 9·C_prefix_k]``, ``dw11`` ``[gc, nf]`` and the
     packed ``db`` ``[nf + 4·gc, 1]``. On a CUDA tensor 4 + 12 launches, all
-    deterministic; ``rdb_t_bwd.launches`` counts CUDA calls."""
+    deterministic; ``rdb_t_bwd.launches`` counts CUDA calls,
+    ``rdb_t_bwd.recompute_by_design`` them by the design of their four
+    dense-stage launches."""
     ws = (w1, w2, w3, w4, w5, w11, bias)
     if x.device.type == "cpu":
         return rdb_t_bwd_plain(x, *ws, g, slope=slope, res_scale=res_scale)
@@ -294,6 +304,7 @@ def rdb_t_bwd(x, w1, w2, w3, w4, w5, w11, bias, g, *, slope: float = 0.2,
     dt, dev, esz = x.dtype, x.device, x.element_size()
     ctot = nf + 4 * gc
     _, cat, lsv = _stages(x, ws, slope=slope, last=False)
+    rdb_t_bwd.recompute_by_design[design(dt)] += 1
     chunk = dgrad_chunk(nf, gc)
     dcat = torch.empty((B, H, W, ctot), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
@@ -332,6 +343,15 @@ def rdb_t_bwd(x, w1, w2, w3, w4, w5, w11, bias, g, *, slope: float = 0.2,
 
 
 rdb_t_bwd.launches = 0
+rdb_t_bwd.recompute_by_design = dict.fromkeys(DESIGNS, 0)
+
+
+def reset_design_counts() -> None:
+    """Set ``launches`` of :func:`rdb_t` and :func:`rdb_t_bwd`,
+    ``rdb_t.launches_by_design`` and ``rdb_t_bwd.recompute_by_design`` to 0."""
+    rdb_t.launches = rdb_t_bwd.launches = 0
+    rdb_t.launches_by_design = dict.fromkeys(DESIGNS, 0)
+    rdb_t_bwd.recompute_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 def _cast(wb, dt) -> tuple:

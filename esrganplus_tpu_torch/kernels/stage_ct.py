@@ -50,11 +50,13 @@ import torch
 import torch.nn.functional as F
 
 from esrganplus_tpu_torch.kernels import build
+from esrganplus_tpu_torch.kernels.launch import DESIGNS, design
+from esrganplus_tpu_torch.kernels.launch import aligned as _aligned
+from esrganplus_tpu_torch.kernels.launch import count as _count
 from esrganplus_tpu_torch.kernels.rdb_ct import _nchw, prepare_conv_ct_weights
 from esrganplus_tpu_torch.models.layers import fp32_exact
 
 ACTS = {None: 0, "relu": 1, "lrelu": 2}  # csrc/stage_ct.cu Act
-DESIGNS = {"fma": 0, "mma": 1}            # csrc/stage_ct.cu Design
 STAGE_WIDTHS = (8, 16, 32, 64, 128)      # output-channel counts the kernels take
 MAX_CIN = 128
 S2_TILE = (8, 16)  # output rows × columns of a 4×4 tensor-core forward block (TH, TW)
@@ -180,16 +182,6 @@ def _dgrad_chunk(cin: int) -> int:
     return next(c for c in (8, 16, 32, 64) if c >= min(cin, 64))
 
 
-def design(dtype: torch.dtype) -> str:
-    """Which CUDA design runs a stage or tail kernel on a ``dtype`` tensor:
-    ``"mma"`` (bf16 on the tensor cores) or ``"fma"`` (fp32 on the CUDA
-    cores, whose 1e-4 bar TF32 would miss). The widths are the wrappers' to
-    check (:func:`require_stage_widths`)."""
-    if dtype not in build.DTYPE_CODES:
-        raise TypeError(f"CUDA kernels take float32 or bfloat16, got {dtype}")
-    return "mma" if dtype == torch.bfloat16 else "fma"
-
-
 def s2_plane_slot(dy, dx, th: int = S2_TILE[0], tw: int = S2_TILE[1]):
     """Shared-memory row of pixel (dy, dx) of a 4×4 tensor-core forward
     block's haloed ``(2·th + 2) × (2·tw + 2)`` input tile (its origin is input
@@ -296,17 +288,6 @@ def stage_wgrad_ranges(B: int, Ho: int, Wo: int, cin: int, cout: int, ks: int,
     parts = stage_wgrad_parts(B, Ho, Wo, cin, cout, ks, design)
     per = -(-tiles // parts)
     return [(p * per, min(tiles, (p + 1) * per)) for p in range(parts)]
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a copy of it whose data start on 16 bytes: the mma kernels
-    move 16-byte vectors (a fresh allocation always is aligned)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-def _count(fn, design: str) -> None:
-    fn.launches += 1
-    fn.launches_by_design[design] += 1
 
 
 def reset_launch_counts() -> None:

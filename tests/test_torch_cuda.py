@@ -1204,3 +1204,192 @@ def test_cuda_workbench_entries_refuse_other_designs():
                                     0.2, th, tw, stream)
         with pytest.raises(RuntimeError, match="cudaError"):
             build.check(code, f"esr_wb_rdb_fused {xdt} {wdt} {design} {nf} {gc} {th}x{tw}")
+
+
+# ---------------------------------------------------------------------------
+# the dense-stage kernel's two designs (csrc/dense_conv.cuh): bf16 rdb_ct,
+# conv3x3_ct and rdb_t on the tensor cores, fp32 on the CUDA cores
+# ---------------------------------------------------------------------------
+
+DENSE_ODD = (2, 37, 53)
+
+
+def _dense_params(rs, nf, gc, conv1x1):
+    p = {f"conv{k}": _conv(rs, nf + (k - 1) * gc, nf if k == 5 else gc) for k in range(1, 6)}
+    if conv1x1:
+        p["conv1x1"] = {"w": torch.from_numpy(
+            (rs.randn(1, 1, nf, gc) * np.sqrt(2.0 / nf)).astype(np.float32)).cuda()}
+    return p
+
+
+def _held_bf16(got, want, name, max_differ=0.01):
+    """The bf16 bar: within 2e-2 of max(1, max|ref|), at most 1 % off the
+    reference (``max_differ``)."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all(), name
+    assert (got - want).abs().max().item() <= TOL[torch.bfloat16] * max(
+        1.0, want.abs().max().item()), name
+    assert (got != want).float().mean().item() <= max_differ, name
+
+
+def _differ(a, b) -> float:
+    return (a != b).float().mean().item()
+
+
+def _counted(fn, call, attr="launches_by_design"):
+    """``call()`` and the design of every launch of ``fn`` it made."""
+    before = dict(getattr(fn, attr))
+    out = call()
+    return out, {k: n - before[k] for k, n in getattr(fn, attr).items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gc", [8, 16, 32, 64])
+@pytest.mark.parametrize("nf", [8, 16, 32, 64])
+def test_cuda_dense_mma_at_every_width(nf, gc):
+    """bf16 on the tensor cores at an odd shape: rdb_ct's training forward
+    (out, x1..x4, l2|l4) with and without the 1×1, with the RRDB fold and
+    in both noise modes; conv3x3_ct at nf → nf; rdb_t with and without the
+    fold. Every call counted as "mma", a second call bit-equal, every output
+    at the bf16 bar with at most 1 % of it off the reference. The dense
+    chains' reference is the twin's graph summed in float64
+    (``rdb_ct_fp64``): the twin's fp32 sums are themselves 0.4–0.5 % of out
+    off it at the flagship's widths and 0.8–1.5 % at gc = 64 (a flip early
+    in the chain cascades), and the tensor cores are nearer to it than the
+    twin (PERF.md, Findings). Past the flagship's gc = 32 the share is held as
+    ``kernels-workbench-wide`` holds rdb_fused past its widths: no more than
+    the twin's own share off the float64 graph plus 1 %. The share off the
+    twin is bounded at 2 %. conv3x3_ct, one stage, is held against the
+    twin."""
+    _need_card()
+    from esrganplus_tpu_torch.kernels import rdb_t as R
+
+    rs = np.random.RandomState(100 * nf + gc)
+    B, H, W = DENSE_ODD
+    act = lambda: torch.from_numpy(rs.randn(B, H, W, nf).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    x, res, noise = act(), act(), act()
+    for conv1x1 in (True, False):
+        w = K.prepare_rdb_ct_weights(_dense_params(rs, nf, gc, conv1x1), torch.bfloat16)
+        for tag, kw in (("plain", {}), ("fold", dict(res=res, rrdb_scale=0.2)),
+                        ("noise", dict(noise=noise, sigma=0.1)),
+                        ("seeded", dict(seed=(7, 9), sigma=0.1))):
+            with fp32_exact():
+                got, ran = _counted(K.rdb_ct, lambda: K._rdb_ct_cuda(x, w, save=True, **kw))
+                again = K._rdb_ct_cuda(x, w, save=True, **kw)
+                torch.cuda.synchronize()
+                twin = K._rdb_ct_train_plain(x, w, **kw)
+                ref = K.rdb_ct_fp64(x, w, **kw)
+            assert ran == {"fma": 0, "mma": 1}, tag
+            for name, a, b, c, d in zip(("out", "cat", "lsv"), got, again, twin, ref):
+                assert torch.equal(a, b), (tag, name)
+                wide = _differ(c, d) if gc > 32 else 0.0
+                _held_bf16(a, d, (conv1x1, tag, name), 0.01 + wide)
+                assert _differ(a, c) <= 0.02, (conv1x1, tag, name)
+    c = _conv(rs, nf, nf)
+    wc, bc = K.prepare_conv_ct_weights(c["w"], c["b"], torch.bfloat16)
+    with fp32_exact():
+        got, ran = _counted(K.conv3x3_ct, lambda: K.conv3x3_ct(x, wc, bc, res))
+        again = K.conv3x3_ct(x, wc, bc, res)
+        want = K.conv3x3_ct_plain(x, wc, bc, res)
+    assert ran == {"fma": 0, "mma": 1} and torch.equal(got, again)
+    _held_bf16(got, want, "conv3x3_ct")
+    p = _dense_params(rs, nf, gc, True)
+    ws = R.prepare_rdb_t_weights(p, nf, gc, True, torch.bfloat16)
+    w = K.prepare_rdb_ct_weights(p, torch.bfloat16)  # the same bf16 weights, HWIO
+    for fold in ({}, dict(rrdb_scale=0.2)):
+        r = res if fold else None
+        with fp32_exact():
+            got, ran = _counted(R.rdb_t, lambda: R.rdb_t(x, *ws, r, **fold))
+            again = R.rdb_t(x, *ws, r, **fold)
+            twin = R.rdb_t_plain(x, *ws, r, **fold)
+            ref = K.rdb_ct_fp64(x, w, r, **fold)[0]
+        assert ran == {"fma": 0, "mma": 1} and torch.equal(got, again)
+        wide = _differ(twin, ref) if gc > 32 else 0.0
+        _held_bf16(got, ref, ("rdb_t", bool(fold)), 0.01 + wide)
+        assert _differ(got, twin) <= 0.02
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(3, 64), (64, 64), (448, 64), (200, 16)])
+def test_cuda_conv3x3_ct_mma_takes_any_cin(cin, cout):
+    """bf16 conv3x3_ct on the tensor cores at any cin: 3 (staged a channel at
+    a time), 64, and 448 at 64 outputs, whose haloed tile is staged in slices
+    of 192 channels (launch.dense_kt); counted as "mma", bit-equal on a second
+    call, at the bf16 bar."""
+    _need_card()
+    from esrganplus_tpu_torch.kernels import launch
+
+    kp = launch.round16(cin)
+    assert (launch.dense_kt(cout, kp, True) != kp) == (cin == 448)
+    rs = np.random.RandomState(cin)
+    B, H, W = DENSE_ODD
+    x = torch.from_numpy(rs.randn(B, H, W, cin).astype(np.float32)).to("cuda", torch.bfloat16)
+    res = torch.from_numpy(rs.randn(B, H, W, cout).astype(np.float32)).to("cuda", torch.bfloat16)
+    c = _conv(rs, cin, cout)
+    w, b = K.prepare_conv_ct_weights(c["w"], c["b"], torch.bfloat16)
+    with fp32_exact():
+        got, ran = _counted(K.conv3x3_ct, lambda: K.conv3x3_ct(x, w, b, res))
+        again = K.conv3x3_ct(x, w, b, res)
+        want = K.conv3x3_ct_plain(x, w, b, res)
+    assert ran == {"fma": 0, "mma": 1} and torch.equal(got, again)
+    _held_bf16(got, want, "conv3x3_ct")
+
+
+@pytest.mark.cuda
+def test_cuda_dense_fp32_stays_on_fma_and_recompute_moves():
+    """fp32 rdb_ct, conv3x3_ct and rdb_t run the FMA kernel within the fp32
+    bar; rdb_t_bwd's stage 1–4 recompute runs on the dtype's design."""
+    _need_card()
+    from esrganplus_tpu_torch.kernels import rdb_t as R
+
+    rs = np.random.RandomState(11)
+    B, H, W = DENSE_ODD
+    for dtype, kind in ((torch.float32, "fma"), (torch.bfloat16, "mma")):
+        x = torch.from_numpy(rs.randn(B, H, W, 16).astype(np.float32)).to("cuda", dtype)
+        p = _dense_params(rs, 16, 8, True)
+        w = K.prepare_rdb_ct_weights(p, dtype)
+        ws = R.prepare_rdb_t_weights(p, 16, 8, True, dtype)
+        wc, bc = K.prepare_conv_ct_weights(p["conv1"]["w"][..., :8], None, dtype)
+        with fp32_exact():
+            for fn, call, plain in (
+                    (K.rdb_ct, lambda: K.rdb_ct(x, w), lambda: K.rdb_ct_plain(x, w)),
+                    (K.conv3x3_ct, lambda: K.conv3x3_ct(x, wc, bc),
+                     lambda: K.conv3x3_ct_plain(x, wc, bc)),
+                    (R.rdb_t, lambda: R.rdb_t(x, *ws), lambda: R.rdb_t_plain(x, *ws))):
+                got, ran = _counted(fn, call)
+                assert ran == {"fma": 0, "mma": 0, kind: 1}, fn.__name__
+                want = plain().float()
+                if dtype == torch.float32:
+                    assert (got - want).abs().max().item() <= 1e-4 * max(
+                        1.0, want.abs().max().item()), fn.__name__
+            g = torch.from_numpy(rs.randn(B, H, W, 16).astype(np.float32)).to("cuda", dtype)
+            _, ran = _counted(R.rdb_t_bwd, lambda: R.rdb_t_bwd(x, *ws, g), "recompute_by_design")
+        assert ran == {"fma": 0, "mma": 0, kind: 1}
+
+
+@pytest.mark.cuda
+def test_cuda_dense_entries_refuse_fp32_on_the_tensor_cores():
+    """The dense entries run bf16 on either design when asked by name (the
+    FMA one is the accuracy baseline) and refuse fp32 on the tensor cores."""
+    _need_card()
+    from esrganplus_tpu_torch.kernels import build
+    from esrganplus_tpu_torch.kernels.launch import DESIGNS
+
+    x = torch.zeros(1, 8, 16, 16, device="cuda")
+    w = torch.zeros(3, 3, 16, 16, device="cuda")
+    b, out = torch.zeros(16, device="cuda"), torch.empty_like(x)
+    s = torch.cuda.current_stream().cuda_stream
+    code = build.load("rdb_ct").esr_dense_conv3x3(
+        build.dtype_code(x), DESIGNS["mma"], 16, 0, x.data_ptr(), 16, None, 0, 16, w.data_ptr(),
+        b.data_ptr(), None, out.data_ptr(), 16, None, 0, None, 0, None, 0, None, 0.0, 0, 0, 0,
+        1.0, 1.0, 0.2, 1, 8, 16, s)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        build.check(code, "esr_dense_conv3x3")
+    wt = torch.zeros(16, 9 * 16, device="cuda")
+    code = build.load("rdb_t").esr_rdb_t_stage(
+        build.dtype_code(x), DESIGNS["mma"], 16, 0, 16, 8, x.data_ptr(), None, 0, 16,
+        wt.data_ptr(), b.data_ptr(), None, out.data_ptr(), 16, None, 0, None, 0, None, 0, 1.0,
+        1.0, 0.2, 1, 8, 16, s)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        build.check(code, "esr_rdb_t_stage")
