@@ -218,6 +218,8 @@ DESIGNED = ("upfold_ct", "conv_hr_ct", "upfold_ct_bwd", "conv_hr_ct_bwd")
 # the dense-stage wrappers (launch.design; csrc/dense_conv.cuh): bf16 "mma",
 # fp32 "fma"
 DENSE_DESIGNED = ("rdb_ct", "conv3x3_ct")
+# their adjoints (csrc/dgrad.cuh, csrc/wgrad.cuh): bf16 "mma", fp32 "fma"
+DENSE_BWD_DESIGNED = ("rdb_ct_bwd", "conv3x3_ct_bwd")
 # csrc/tail_ct.cu's kernels, by name in a profile (the bf16 step runs all but
 # the fp32 upfold_kernel and conv_hr_kernel; the finishing passes are
 # wgrad_finish_kernel, shared)
@@ -313,13 +315,15 @@ def ptxas_summary(log: str) -> list:
                       r"stage_wgrad_mma_kernel|stage_dgrad_s2_mma_kernel|upfold_mma_kernel|"
                       r"conv_hr_hid_fix_kernel|conv_hr_adj_kernel|dgrad_kernel|wgrad_kernel|"
                       r"upfold_dz_kernel|upfold_dgrad_mma_kernel|upfold_wgrad_mma_kernel|"
-                      r"conv_hr_out_mma_kernel|"
+                      r"conv_hr_out_mma_kernel|dgrad_mma_kernel|wgrad_mma_kernel|"
                       r"wb_conv3x3_kernel|wb_conv3x3_mma_kernel|wb_rdb_fused_kernel|"
                       r"wb_rdb_mma_kernel)"
                       r"I(\w+?)EE", line)
         if m:
-            args = (m.group(2).replace("13__nv_bfloat16", "bf16").replace("Li", ",")
-                    .replace("E", "").lstrip(","))
+            args = (m.group(2).replace("13__nv_bfloat16", "bf16")
+                    .replace("NS_10HwioLayout", ",HWIO")
+                    .replace("NS_14ByTargetLayout", ",by-target")
+                    .replace("Li", ",").replace("E", "").lstrip(","))
             name = f"{m.group(1)}<{args.replace('f,', 'f32,')}>"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -691,8 +695,9 @@ def make_bwd_cases(dtype, gen):
     through a cuDNN ``F.conv2d`` graph built once (the port never calls it).
     Also returns rdb_ct's training forward from the kernel and from the twin,
     ``{"out" | "cat" | "lsv": (kernel's, twin's)}``, per case of a
-    two-design tail wrapper a function giving its bf16 launches on the case
-    (``upfold_bwd_mma_steps``, ``conv_hr_bwd_mma_steps``), and the design
+    two-design wrapper a function giving its bf16 launches on the case
+    (``rdb_ct_bwd_mma_steps``, ``conv3x3_ct_bwd_mma_steps``,
+    ``upfold_bwd_mma_steps``, ``conv_hr_bwd_mma_steps``), and the design
     the training forward's launches took."""
     import torch
     import torch.nn.functional as F
@@ -753,6 +758,7 @@ def make_bwd_cases(dtype, gen):
     wcount = sum(t.numel() for k, t in wr.items() if t is not None and k.startswith("w"))
     args = (x, wr, cat, lsv, g, noise)
     args_p = (x, wr, cat_p, lsv_p, g, noise)
+    steps = {"rdb_ct_bwd": lambda: K.rdb_ct_bwd_mma_steps(*args, sigma=0.1)[0]}
     cases["rdb_ct_bwd"] = (
         lambda: K.rdb_ct_bwd(*args, sigma=0.1), lambda: K.rdb_ct_bwd_plain(*args, sigma=0.1),
         lib_grad(rdb_lib, [xn, w11] + [t for pair in ws for t in pair], g),
@@ -768,12 +774,12 @@ def make_bwd_cases(dtype, gen):
         lambda: K.conv3x3_ct_bwd(x, wc, g), lambda: K.conv3x3_ct_bwd_plain(x, wc, g),
         lib_grad(lambda: F.conv2d(xn, wco, bco, padding=1), [xn, wco, bco], g),
         B * H * W * 9 * NF * NF, fbytes(x, g, x) + wc.numel() * (esz + 4), None)
+    steps["conv3x3_ct_bwd"] = lambda: K.conv3x3_ct_bwd_mma_steps(x, wc, g)[0]
 
     # upfold_ct_bwd: both stages of the ×4 tail, and an odd shape
     up = conv_w(NF, NF)
     wf, bf = T.prepare_upfold_ct(up["w"], up["b"], dtype)
     wuo, buo = oihw(up["w"]), up["b"].to(dtype).requires_grad_()
-    steps = {}
     for tag, (b, h, w) in (("upfold_ct_bwd", (B, H, W)), ("upfold_ct_bwd_2nd", (B, 2 * H, 2 * W)),
                            ("upfold_ct_bwd_odd", (2, 37, 53))):
         xs = torch.randn((b, h, w, NF), generator=gen).to(dev, dtype)
@@ -830,6 +836,7 @@ def worst_err(got: dict, ref: dict):
 def check_bwd_kernels(failures):
     import torch
 
+    from esrganplus_tpu_torch.kernels import rdb_ct as K
     from esrganplus_tpu_torch.kernels import tail_ct as T
     from esrganplus_tpu_torch.models.layers import fp32_exact
 
@@ -857,10 +864,11 @@ def check_bwd_kernels(failures):
 
         for name, (kern, plain, lib, macs, nbytes, plain_own) in cases.items():
             with fp32_exact():
-                wrapper = name if name in DESIGNED else name.rsplit("_", 1)[0]
-                designed = wrapper in DESIGNED
+                wrapper = name if name in DESIGNED + DENSE_BWD_DESIGNED else name.rsplit("_", 1)[0]
+                dense = wrapper in DENSE_BWD_DESIGNED
+                designed = wrapper in DESIGNED or dense
                 if designed:  # bf16 on the tensor cores, fp32 on the FMA kernels
-                    got, design = _design_of(getattr(T, wrapper), kern)
+                    got, design = _design_of(getattr(K if dense else T, wrapper), kern)
                 else:
                     got = kern()
                 torch.cuda.synchronize()
@@ -870,11 +878,16 @@ def check_bwd_kernels(failures):
                 extra = {}
                 if designed:
                     again = kern()
-                    bits = all(torch.equal(again[k], got[k]) for k in got)
+                    bits = all(got[k] is None or torch.equal(again[k], got[k]) for k in got)
                     extra = {"design": design, "repeat_bit_equal": bits}
                     if design == "mma":  # ms of each launch (and its finishing pass)
-                        extra["step_ms"] = {k: time_ms(f, iters=10)
-                                            for k, f in mma_steps[name]().items()}
+                        steps = mma_steps[name]()
+                        extra["step_ms"] = {k: time_ms(f, iters=10) for k, f in steps.items()}
+                        if dense:  # the card alone: each launch, the call and cuDNN autograd
+                            extra.update(step_device_ms={k: device_ms(f, iters=10)
+                                                         for k, f in steps.items()},
+                                         device_ms=device_ms(kern, iters=10),
+                                         library_device_ms=device_ms(lib, iters=10))
                     ok = ok and bits and design == T.S.design(dtype)
                 if wrapper == "upfold_ct_bwd":  # db sums the unrounded dz, as the twin
                     extra["db_rel_err"] = worst_err({"b": got["b"]}, {"b": ref["b"]})[0]
@@ -953,6 +966,77 @@ def check_dense_accuracy(failures):
     emit(row)
     if not ok:
         failures.append(f"kernels-dense-accuracy: {row}")
+
+
+def check_dense_bwd_accuracy(failures):
+    """Phase kernels-dense-bwd-accuracy, one line: bf16 ``rdb_ct_bwd`` (input
+    noise on) at the odd and train shapes on the saved buffers of the
+    kernel's training forward, and ``conv3x3_ct_bwd`` at the train shape:
+    how far dx, the weight gradients (the worst of w1..w5, w11) and the bias
+    gradients (the worst of b1..b5) sit from the twin's graph summed in
+    float64 (``rdb_ct_bwd_plain(acc=float64)``; dx rounded once to bf16
+    there too), for the tensor cores (``mma``), for the FMA design on the
+    same bf16 inputs (``fma_baseline``) and for the twin itself: max|Δ| /
+    max|ref| per group, and the share of dx's entries that differ. Reported,
+    not gated (``kernels-bwd`` holds the bars); fails only on a non-finite
+    gradient."""
+    import torch
+
+    from esrganplus_tpu_torch.kernels import rdb_ct as K
+    from esrganplus_tpu_torch.models.layers import fp32_exact
+
+    gen = torch.Generator().manual_seed(15)
+    bf = torch.bfloat16
+    w = K.prepare_rdb_ct_weights(_rdb_params(gen), bf)
+    row = {"phase": "kernels-dense-bwd-accuracy", "dtype": "bfloat16", "mma": {},
+           "fma_baseline": {}, "twin": {}}
+    finite = True
+
+    def dist(got, ref):
+        out = {}
+        for grp in ("dx", "w", "b"):
+            errs = [(got[k].double() - r.double()).abs().max().item()
+                    / max(r.double().abs().max().item(), 1e-30)
+                    for k, r in ref.items() if r is not None and k[0] == grp[0]]
+            out[{"dx": "dx", "w": "dW", "b": "db"}[grp]] = max(errs)
+        out["dx_frac_differ"] = (got["dx"] != ref["dx"]).float().mean().item()
+        return out
+
+    for sname in ("odd", "train"):
+        B, H, W = SHAPES[sname]
+        act = lambda: torch.randn((B, H, W, NF), generator=gen).to("cuda", bf)
+        x, noise, g = act(), act(), act()
+        with fp32_exact():
+            _, cat, lsv = K._rdb_ct_cuda(x, w, None, noise, sigma=0.1, save=True)
+            args = (x, w, cat, lsv, g, noise)
+            exact = K.rdb_ct_bwd_plain(*args, sigma=0.1, acc=torch.float64)
+            calls = {"mma": lambda: K.rdb_ct_bwd(*args, sigma=0.1),
+                     "fma_baseline": lambda: K.rdb_ct_bwd(*args, sigma=0.1, kind="fma"),
+                     "twin": lambda: K.rdb_ct_bwd_plain(*args, sigma=0.1)}
+            for key, call in calls.items():
+                got = call()
+                finite = finite and all(bool(torch.isfinite(t.float()).all())
+                                        for t in got.values() if t is not None)
+                row[key][f"rdb_ct_bwd_{sname}"] = dist(got, exact)
+    B, H, W = TRAIN_SHAPE
+    x = torch.randn((B, H, W, NF), generator=gen).to("cuda", bf)
+    g = torch.randn((B, H, W, NF), generator=gen).to("cuda", bf)
+    wc = (torch.randn((3, 3, NF, NF), generator=gen) * (2.0 / (9 * NF)) ** 0.5).to("cuda", bf)
+    with fp32_exact():
+        x64, g64 = (t.double().permute(0, 3, 1, 2) for t in (x, g))
+        exact = {"dx": K._dgrad_plain(g64, wc).to(bf).permute(0, 2, 3, 1),
+                 "w": K._wgrad_plain(x64, g64), "b": g64.sum((0, 2, 3))}
+        calls = {"mma": lambda: K.conv3x3_ct_bwd(x, wc, g),
+                 "fma_baseline": lambda: K.conv3x3_ct_bwd(x, wc, g, kind="fma"),
+                 "twin": lambda: K.conv3x3_ct_bwd_plain(x, wc, g)}
+        for key, call in calls.items():
+            got = call()
+            finite = finite and all(bool(torch.isfinite(t.float()).all()) for t in got.values())
+            row[key]["conv3x3_ct_bwd_train"] = dist(got, exact)
+    row["ok"] = bool(finite)
+    emit(row)
+    if not finite:
+        failures.append(f"kernels-dense-bwd-accuracy: a gradient is not finite: {row}")
 
 
 def check_conv_hr_gate(failures, seeds=4):
@@ -1092,13 +1176,14 @@ def _design_of(fn, call, attr="launches_by_design"):
 
 def _path_designs(failures, phase, launches):
     """``launches_by_design`` of the two-design wrappers that ``launches``
-    counts: the tail's (since ``tail_ct.reset_design_counts()``) and the
-    dense stages' (since ``rdb_ct.reset_design_counts()``); a bf16 path must
-    have run every call of each through "mma"."""
+    counts: the tail's (since ``tail_ct.reset_design_counts()``), the dense
+    stages' and their adjoints' (since ``rdb_ct.reset_design_counts()``); a
+    bf16 path must have run every call of each through "mma"."""
     from esrganplus_tpu_torch.kernels import rdb_ct as K
     from esrganplus_tpu_torch.kernels import tail_ct as T
 
-    fns = {**{k: getattr(T, k) for k in DESIGNED}, **{k: getattr(K, k) for k in DENSE_DESIGNED}}
+    fns = {**{k: getattr(T, k) for k in DESIGNED},
+           **{k: getattr(K, k) for k in DENSE_DESIGNED + DENSE_BWD_DESIGNED}}
     by_design = {k: dict(fn.launches_by_design) for k, fn in fns.items() if k in launches}
     for k, got in by_design.items():
         if got != {"fma": 0, "mma": launches[k]}:
@@ -1261,9 +1346,11 @@ def train_check(failures):
     for dname, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
         K.reset_design_counts()
         l_k, g_k = run(cfg, dtype)
-        # every dense-stage call by design: fp32 on the CUDA cores, bf16 on the tensor cores
+        # every dense-stage call and adjoint by design: fp32 on the CUDA cores,
+        # bf16 on the tensor cores
         want = "mma" if dtype else "fma"
-        by_design = {fn.__name__: dict(fn.launches_by_design) for fn in (K.rdb_ct, K.conv3x3_ct)}
+        by_design = {k: dict(getattr(K, k).launches_by_design)
+                     for k in DENSE_DESIGNED + DENSE_BWD_DESIGNED}
         designs_ok = all(d == {"fma": 0, "mma": 0, want: getattr(K, k).launches} and d[want] > 0
                          for k, d in by_design.items())
         per_leaf = {n: ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
@@ -1604,10 +1691,11 @@ def gan_check(failures):
         K.reset_design_counts()
         t_k, gg_k, dg_k = run("auto", dtype)
         by_design = {fn.__name__: dict(fn.launches_by_design) for fn in stage}
-        dense = {fn.__name__: dict(fn.launches_by_design) for fn in (K.rdb_ct, K.conv3x3_ct)}
+        dense_fns = tuple(getattr(K, k) for k in DENSE_DESIGNED + DENSE_BWD_DESIGNED)
+        dense = {fn.__name__: dict(fn.launches_by_design) for fn in dense_fns}
         want = "mma" if dtype else "fma"
         designs_ok = all(fn.launches_by_design == {"fma": 0, "mma": 0, want: fn.launches}
-                         for fn in stage + (K.rdb_ct, K.conv3x3_ct))
+                         for fn in stage + dense_fns)
         terr = term_errs(t_k, t_ref)
         g_err, d_err = leaf_errs(named_g, gg_k, gg_ref), leaf_errs(named_d, dg_k, dg_ref)
         d_l2 = leaf_errs(named_d, dg_k, dg_ref, norm=2)
@@ -1908,7 +1996,7 @@ def check_noise_kernels(failures):
     its noise in the kernel and rdb_ct_bwd replaying it against their twins
     (fp32 1e-4, bf16 2e-2, detach on and off), two backward calls bit-equal;
     CUDA-event times beside the input mode's (a pre-drawn noise tensor) on
-    the same inputs."""
+    the same inputs. Every call held to its dtype's design."""
     import torch
 
     from esrganplus_tpu_torch.kernels import rdb_ct as K
@@ -1969,7 +2057,8 @@ def check_noise_kernels(failures):
         for detach in (False, True):
             seed = None if detach else NOISE_SEED
             with fp32_exact():
-                got = K.rdb_ct_bwd(x, wr, cat, lsv, g, seed=seed, sigma=NOISE_SIGMA)
+                got, bwd_design = _design_of(K.rdb_ct_bwd, lambda: K.rdb_ct_bwd(
+                    x, wr, cat, lsv, g, seed=seed, sigma=NOISE_SIGMA))
                 again = K.rdb_ct_bwd(x, wr, cat, lsv, g, seed=seed, sigma=NOISE_SIGMA)
                 torch.cuda.synchronize()
                 want = K.rdb_ct_bwd_plain(x, wr, cat, lsv, g, seed=seed, sigma=NOISE_SIGMA)
@@ -1978,8 +2067,10 @@ def check_noise_kernels(failures):
             row = {"phase": "kernels-noise", "kernel": "rdb_ct_bwd",
                    "mode": "fused_detach" if detach else "fused", "dtype": dname,
                    "lr": list(TRAIN_SHAPE), "max_abs_err": worst_abs, "rel_err": worst,
-                   "tol": BWD_TOL[dname], "bit_equal_second_call": bit_equal}
-            row["ok"] = bool(finite and worst <= BWD_TOL[dname] and bit_equal)
+                   "tol": BWD_TOL[dname], "bit_equal_second_call": bit_equal,
+                   "design": bwd_design}
+            row["ok"] = bool(finite and worst <= BWD_TOL[dname] and bit_equal
+                             and bwd_design == design(dtype))
             if not detach:
                 input_ms, fused_ms = _interleaved(
                     lambda: K.rdb_ct_bwd(x, wr, cat, lsv, g, noise, sigma=NOISE_SIGMA),
@@ -2054,6 +2145,7 @@ def make_rdb_t_case(dtype, B, H, W, gen):
         "bwd": (lambda: R.rdb_t_bwd(x, *ws, g), lambda: R.rdb_t_bwd_plain(x, *ws, g),
                 lambda: torch.autograd.grad(lib_out, [xn, w11] + [t for c in cw for t in c],
                                             gn, retain_graph=True)),
+        "bwd_steps": lambda: R.rdb_t_bwd_mma_steps(x, *ws, g)[0],
         "macs": B * H * W * RDB_MACS,
         "bwd_macs": B * H * W * RDB_T_BWD_MACS,
         # x in, out out; the weights in (the bias in fp32)
@@ -2069,7 +2161,9 @@ def check_rdb_t_kernels(failures):
     the inference (B=1, 128²) and the training (B=16, 32²) shapes; at the
     last two CUDA-event times of the kernel, the twin and cuDNN, and the
     bound (the backward's: twice the forward's products, plus the recompute
-    of stages 1–4 and the 1×1)."""
+    of stages 1–4 and the 1×1); in bf16 also the card alone and each of the
+    backward's launches. Every call held to its dtype's design, a second
+    call to the same bits."""
     import torch
 
     from esrganplus_tpu_torch.kernels import rdb_t as R
@@ -2119,7 +2213,9 @@ def check_rdb_t_kernels(failures):
                                         f"differ {differ:.3g}")
 
                 kern, plain, lib = case["bwd"]
-                got, kind = _design_of(R.rdb_t_bwd, kern, "recompute_by_design")
+                # the design of the data and weight gradients, and of the recompute
+                (got, kind), recompute = _design_of(
+                    R.rdb_t_bwd, lambda: _design_of(R.rdb_t_bwd, kern), "recompute_by_design")
                 again = kern()
                 torch.cuda.synchronize()
                 want = plain()
@@ -2127,16 +2223,22 @@ def check_rdb_t_kernels(failures):
                 worst, worst_abs, finite = worst_err(dict(zip(names, got)),
                                                      dict(zip(names, want)))
                 bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
-                ok = finite and worst <= BWD_TOL[dname] and bit_equal and kind == design(dtype)
-                row = {**base, "kernel": "rdb_t_bwd", "recompute_design": kind,
+                ok = (finite and worst <= BWD_TOL[dname] and bit_equal
+                      and kind == recompute == design(dtype))
+                row = {**base, "kernel": "rdb_t_bwd", "design": kind, "recompute_design": recompute,
                        "max_abs_err": worst_abs, "rel_err": worst,
-                       "tol": BWD_TOL[dname], "bit_equal_second_call": bit_equal, "ok": bool(ok)}
+                       "tol": BWD_TOL[dname], "repeat_bit_equal": bit_equal, "ok": bool(ok)}
                 if sname != "odd":
                     ops_ms = 2 * case["bwd_macs"] / PEAK_FLOPS[dname] * 1e3
                     bytes_ms = case["bwd_bytes"] / PEAK_BYTES * 1e3
                     row.update(ms=time_ms(kern, iters=10), plain_ms=time_ms(plain, iters=3),
                                library_ms=time_ms(lib, iters=10), bound_ms=max(ops_ms, bytes_ms),
                                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+                    if dname == "bfloat16":  # each launch; the card alone: the call and cuDNN
+                        steps = case["bwd_steps"]()
+                        row.update(step_ms={k: time_ms(f, iters=10) for k, f in steps.items()},
+                                   device_ms=device_ms(kern, iters=10),
+                                   library_device_ms=device_ms(lib, iters=10))
                     report[("rdb_t_bwd", sname, dname)] = row
             emit(row)
             if not ok:
@@ -2177,8 +2279,9 @@ def rdb_t_path(failures):
     loss_k, g_k = run(lambda h, ws: R.rdb_t_diff(h, *ws), torch.bfloat16)
     torch.cuda.synchronize()
     launches = {"rdb_t": R.rdb_t.launches, "rdb_t_bwd": R.rdb_t_bwd.launches}
-    # every dense-stage launch (forward and the backward's recompute) on "mma"
+    # every launch (forward, the backward's recompute, dx and dW) on "mma"
     by_design = {"rdb_t": dict(R.rdb_t.launches_by_design),
+                 "rdb_t_bwd": dict(R.rdb_t_bwd.launches_by_design),
                  "rdb_t_bwd_recompute": dict(R.rdb_t_bwd.recompute_by_design)}
     loss_p, g_p = run(lambda h, ws: R.rdb_t_plain(h, *ws), torch.float32)
     flat = lambda gs: torch.cat([t.flatten() for t in gs])
@@ -2651,6 +2754,7 @@ def main() -> int:
         launches = main_path(failures, tmp)
     bwd_report = check_bwd_kernels(failures)
     check_dense_accuracy(failures)
+    check_dense_bwd_accuracy(failures)
     check_conv_hr_gate(failures)
     noise_report = check_noise_kernels(failures)
     train_check(failures)
@@ -2741,6 +2845,10 @@ def main() -> int:
                      fp32_design=bwd_report[(name, "float32")]["design"],
                      fp32_source=BWD_SOURCE + (" + esrganplus_tpu_torch/csrc/rdb_ct.cu"
                                                if name == "conv_hr_ct_bwd" else ""))
+        if name in DENSE_BWD_DESIGNED:  # the design, each launch, the card alone
+            k.update(fp32_design=bwd_report[(name, "float32")]["design"],
+                     **{f: row[f] for f in ("design", "step_ms", "step_device_ms", "device_ms",
+                                            "library_device_ms")})
         if name == "upfold_ct_bwd":  # the 2nd stage (64² → 128²) beside the 1st
             second = bwd_report[("upfold_ct_bwd_2nd", "bfloat16")]
             k.update(db_rel_err=row["db_rel_err"],
@@ -2772,8 +2880,8 @@ def main() -> int:
     for name in RDB_T_REPLACES:
         row = rdb_t_report[(name, RDB_T_MAIN_SHAPE, "bfloat16")]
         fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
-                  "rel_err") + (("design", "frac_differ", "device_ms", "library_device_ms")
-                                if name == "rdb_t" else ("recompute_design",))
+                  "rel_err", "design", "device_ms", "library_device_ms") + (
+            ("frac_differ",) if name == "rdb_t" else ("recompute_design", "step_ms"))
         kernels.append({
             "name": name, "route": "cuda", "source": RDB_T_SOURCE,
             "replaces": RDB_T_REPLACES[name], "launches": rdb_t_launches[name],

@@ -25,11 +25,9 @@
 //
 // The kernels are dense_conv.cuh's, dgrad.cuh's and wgrad.cuh's templates
 // with the by-target weight indexer; their bound on this card (operations)
-// and design are described there: the forward (and the backward's
-// recompute) runs bf16 on the tensor cores, fp32 on the CUDA cores; the
-// data and weight gradients run on the CUDA cores in fp32. The backward does
-// the forward's stage-1..4 products once more, then twice the forward's
-// products (dx and dW).
+// and design are described there: each runs bf16 on the tensor cores and
+// fp32 on the CUDA cores. The backward does the forward's stage-1..4
+// products once more, then twice the forward's products (dx and dW).
 #include "dense_conv.cuh"
 #include "dgrad.cuh"
 #include "wgrad.cuh"
@@ -54,20 +52,21 @@ int esr_rdb_t_stage(int dtype, int design, int cout, int mode, int nf, int gc, c
 }
 
 // dx (+)= conv^T(dz, w) for one stage of rdb_t_bwd, by-target `w`
-// [s, taps * cin]; see esr::dgrad::run.
-int esr_rdb_t_dgrad(int dtype, int chunk, int taps, int nf, int gc, const esr::DzSrc* dz, int s,
-                    const void* w, int cin, float* out32, int o32_stride, int accumulate,
-                    void* outT, int oT_stride, const esr::DzSrc* addg, int B, void* stream) {
-  return esr::dgrad::run(dtype, chunk, taps, dz, s, w, esr::ByTargetLayout{nf, gc}, cin, out32,
-                         o32_stride, accumulate, outT, oT_stride, addg, B, stream);
+// [s, taps * cin]; `design` as for esr_rdb_t_stage; see esr::dgrad::run.
+int esr_rdb_t_dgrad(int dtype, int design, int chunk, int taps, int nf, int gc,
+                    const esr::DzSrc* dz, int s, const void* w, int cin, float* out32,
+                    int o32_stride, int accumulate, void* outT, int oT_stride,
+                    const esr::DzSrc* addg, int B, void* stream) {
+  return esr::dgrad::run(dtype, design, chunk, taps, dz, s, w, esr::ByTargetLayout{nf, gc}, cin,
+                         out32, o32_stride, accumulate, outT, oT_stride, addg, B, stream);
 }
 
 // out[0 : s*taps*cin] = dW as rdb_t's [s, taps * cin], out[s*taps*cin :] = db;
-// see esr::wgrad::run.
-int esr_rdb_t_wgrad(int dtype, int taps, int nf, int gc, const void* x, const void* cat,
-                    int ccat, int cin, const esr::DzSrc* dz, int s, float* part, int npart,
-                    float* out, int B, void* stream) {
-  return esr::wgrad::run(dtype, taps, x, nf, cat, ccat, cin, dz, s,
+// `design` as for esr_rdb_t_stage; see esr::wgrad::run.
+int esr_rdb_t_wgrad(int dtype, int design, int taps, int nf, int gc, const void* x,
+                    const void* cat, int ccat, int cin, const esr::DzSrc* dz, int s, float* part,
+                    int npart, float* out, int B, void* stream) {
+  return esr::wgrad::run(dtype, design, taps, x, nf, cat, ccat, cin, dz, s,
                          esr::ByTargetLayout{nf, gc}, part, npart, out, B, stream);
 }
 

@@ -16,7 +16,11 @@
 // KN says how the bf16 tensor-core kernel (dense_conv.cuh dense_mma_kernel)
 // stages a ring slot of the layout: [k][n] rows, 8 output channels a 16-byte
 // vector, read by ldmatrix .trans (HWIO); or [n][k] rows, 8 input channels of
-// one source a vector, read plainly (by-target).
+// one source a vector, read plainly (by-target). The data gradient
+// (dgrad.cuh dgrad_mma_kernel) swaps K and N, so there the same vectors make
+// HWIO slots [n][k] rows read plainly and by-target ones [k][n] rows read
+// .trans; the weight gradient (wgrad.cuh) writes HWIO rows two output
+// channels at a time.
 #pragma once
 
 #include <cstddef>

@@ -48,18 +48,18 @@ SIGNATURES = {
                               P, I, P, F, I, U, U, F, F, F, I, I, I, P],
     },
     "dgrad_ct": {
-        "esr_dgrad": [I, I, I, PDZ, I, P, I, P, I, I, P, I, PDZ, I, P],
+        "esr_dgrad": [I, I, I, I, PDZ, I, P, I, P, I, I, P, I, PDZ, I, P],
         "esr_dzsrc_size": [],
     },
     "wgrad_ct": {
-        "esr_wgrad": [I, I, P, I, P, I, I, PDZ, I, P, I, P, I, P],
+        "esr_wgrad": [I, I, I, P, I, P, I, I, PDZ, I, P, I, P, I, P],
         "esr_dzsrc_size": [],
     },
     "rdb_t": {
         "esr_rdb_t_stage": [I, I, I, I, I, I, P, P, I, I, P, P, P, P, I, P, I, P, I, P, I,
                             F, F, F, I, I, I, P],
-        "esr_rdb_t_dgrad": [I, I, I, I, I, PDZ, I, P, I, P, I, I, P, I, PDZ, I, P],
-        "esr_rdb_t_wgrad": [I, I, I, I, P, P, I, I, PDZ, I, P, I, P, I, P],
+        "esr_rdb_t_dgrad": [I, I, I, I, I, I, PDZ, I, P, I, P, I, I, P, I, PDZ, I, P],
+        "esr_rdb_t_wgrad": [I, I, I, I, I, P, P, I, I, PDZ, I, P, I, P, I, P],
         "esr_dzsrc_size": [],
     },
     "philox": {

@@ -40,7 +40,9 @@ dense stage as an implicit GEMM on the tensor cores (``"mma"``:
 ``mma.sync`` bf16 with fp32 accumulators over the haloed tile of both
 sources), fp32 on the CUDA cores (``"fma"``). Both end in one epilogue, so
 they round at the same points; ``launches_by_design`` counts the calls by
-design. The backward runs on the CUDA cores in both dtypes.
+design. The backward's data- and weight-gradient kernels have the same two
+designs (bf16 ``mma.sync`` implicit GEMMs, fp32 FMA), counted in the
+backward wrappers' ``launches_by_design``.
 
 Each CUDA wrapper has a plain PyTorch twin (``*_plain``) with the same
 rounding points. A CPU tensor goes to the twin; a CUDA tensor launches the
@@ -57,7 +59,7 @@ import torch.nn.functional as F
 from esrganplus_tpu_torch.kernels import build
 from esrganplus_tpu_torch.kernels.launch import (ACT, ACT_1X1, ACT_ADD, DESIGNS, RESID,
                                                  aligned, count, design, dgrad, dgrad_chunk,
-                                                 dz_src, wgrad)
+                                                 dz_src, wgrad_plan)
 from esrganplus_tpu_torch.kernels.philox import noise_factor_cuda, philox_normal
 from esrganplus_tpu_torch.models.layers import fp32_exact
 
@@ -338,9 +340,9 @@ conv3x3_ct.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 def reset_design_counts() -> None:
-    """Set ``launches`` and ``launches_by_design`` of :func:`rdb_ct` and
-    :func:`conv3x3_ct` to 0."""
-    for fn in (rdb_ct, conv3x3_ct):
+    """Set ``launches`` and ``launches_by_design`` of :func:`rdb_ct`,
+    :func:`conv3x3_ct`, :func:`rdb_ct_bwd` and :func:`conv3x3_ct_bwd` to 0."""
+    for fn in (rdb_ct, conv3x3_ct, rdb_ct_bwd, conv3x3_ct_bwd):
         fn.launches = 0
         fn.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
@@ -351,10 +353,10 @@ def reset_design_counts() -> None:
 
 
 def _dgrad_plain(dz: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Adjoint of the SAME conv wrt its input: NCHW fp32 ``dz`` (already
-    rounded) with HWIO ``w`` → ``[B, Cin, H, W]``."""
+    """Adjoint of the SAME conv wrt its input: NCHW ``dz`` (already rounded;
+    fp32 for the twins) with HWIO ``w`` → ``[B, Cin, H, W]`` in dz's dtype."""
     with fp32_exact():
-        return F.conv_transpose2d(dz, w.float().permute(3, 2, 0, 1),
+        return F.conv_transpose2d(dz, w.to(dz.dtype).permute(3, 2, 0, 1),
                                   padding=w.shape[0] // 2)
 
 
@@ -374,23 +376,28 @@ def _dlrelu(src: torch.Tensor, t: torch.Tensor, slope: float) -> torch.Tensor:
 
 
 def rdb_ct_bwd_plain(x, w, cat, lsv, g, noise=None, *, seed=None, sigma: float = 0.0,
-                     slope: float = 0.2, res_scale: float = 0.2) -> dict:
+                     slope: float = 0.2, res_scale: float = 0.2,
+                     acc: torch.dtype = torch.float32) -> dict:
     """Plain twin of :func:`rdb_ct_bwd`: the dense chain's adjoint walked
     5 → 1 with the kernels' rounding points. Each ``dz_k`` is rounded to the
     working dtype before a product, ``db_k`` sums it unrounded, dx is rounded
     once. The cotangent is scaled by ``1 + σ·n`` for the pre-drawn ``noise``
     or the fused mode's draw of ``seed``. Returns ``{"dx", "w1".."w5",
-    "b1".."b5", "w11"}`` (weights HWIO fp32, ``w11`` ``[nf, gc]`` or None)."""
+    "b1".."b5", "w11"}`` (weights HWIO in ``acc``, ``w11`` ``[nf, gc]`` or
+    None). Sums in ``acc``: float64 gives the graph that both the twin's
+    fp32 sums and the kernels' are off by their order (dx is still rounded
+    once to x's dtype), the reference of ``chip_smoke.py``'s accuracy
+    phase."""
     dt = x.dtype
-    rnd = lambda t: t.to(dt).float()
+    rnd = lambda t: t.to(dt).to(acc)
     nf, gc = x.shape[3], w["w1"].shape[3]
-    src = torch.cat([_nchw(x), _nchw(cat)], 1)
-    lf = _nchw(lsv)
-    gf = _nchw(g)
+    src = torch.cat([_nchw(x, acc), _nchw(cat, acc)], 1)
+    lf = _nchw(lsv, acc)
+    gf = _nchw(g, acc)
     if noise is not None:
-        gf = gf * (1.0 + sigma * _nchw(noise))
+        gf = gf * (1.0 + sigma * _nchw(noise, acc))
     elif seed is not None:
-        gf = gf * _noise_factor(seed, sigma, x.shape, x.device)
+        gf = gf * _noise_factor(seed, sigma, x.shape, x.device).to(acc)
     dcat = torch.zeros_like(src)
     out = {}
 
@@ -424,22 +431,16 @@ def conv3x3_ct_bwd_plain(x, w, g) -> dict:
             "w": _wgrad_plain(_nchw(x), gf), "b": gf.sum((0, 2, 3))}
 
 
-def rdb_ct_bwd(x, w, cat, lsv, g, noise=None, *, seed=None, sigma: float = 0.0,
-               slope: float = 0.2, res_scale: float = 0.2) -> dict:
-    """Adjoint of the training-mode :func:`rdb_ct` from its saved buffers.
-
-    ``w`` are the forward's cast weights, ``g`` the output cotangent in x's
-    dtype, ``noise`` the forward's noise tensor, or ``seed`` the fused
-    mode's site key, when the cotangent is to be scaled by ``1 + sigma·n``
-    (neither for no noise or a detached scale).
-    Returns ``{"dx", "w1".."w5", "b1".."b5", "w11"}``. On a CUDA tensor: 12
-    launches (a data- and a weight-gradient per stage and for the 1×1), all
-    deterministic, and with ``seed`` one more that fills the noise factor.
-    ``rdb_ct_bwd.launches`` counts CUDA calls, ``rdb_ct_bwd.seeded_launches``
-    those that replayed the fused noise."""
-    if x.device.type == "cpu":
-        return rdb_ct_bwd_plain(x, w, cat, lsv, g, noise, seed=seed, sigma=sigma,
-                                slope=slope, res_scale=res_scale)
+def _rdb_ct_bwd_steps(x, w, cat, lsv, g, noise=None, *, seed=None, sigma=0.0, slope=0.2,
+                      res_scale=0.2, kind=None):
+    """Validate and plan :func:`rdb_ct_bwd`'s launches on the design ``kind``
+    over outputs allocated here → ``(steps, out)``: ``steps`` maps ``"dw5"``,
+    ``"dx5"``, …, ``"dw11"``, ``"dx11"``, ``"dw2"``, ``"dx2"``, ``"dw1"``,
+    ``"dx1"`` to callables that launch the weight and data gradient of each
+    stage (and of the 1×1 shortcut), in that order; ``out`` is the result
+    dict they fill. A step may run again on its own for timing, but the data
+    gradients of stages 4 → 1 add into the cotangent buffer, so only the
+    whole walk in order gives the gradients."""
     B, H, W, nf = x.shape
     gc = w["w1"].shape[3]
     dt, dev = x.dtype, x.device
@@ -452,6 +453,11 @@ def rdb_ct_bwd(x, w, cat, lsv, g, noise=None, *, seed=None, sigma: float = 0.0,
         build.require(noise, "noise", (B, H, W, nf), dt, dev)
     if noise is not None and seed is not None:
         raise ValueError("rdb_ct_bwd: pre-drawn noise or a noise seed, not both")
+    kind = kind or design(dt)
+    # the mma kernels move 16-byte vectors of every tensor they read
+    x, g, cat, lsv = (aligned(t) for t in (x, g, cat, lsv))
+    noise = None if noise is None else aligned(noise)
+    w = {k: None if v is None else aligned(v) for k, v in w.items()}
     # the fused mode's 1 + σn, regenerated for this call and freed with it
     fac = None if seed is None else noise_factor_cuda(seed, sigma, x.shape, dev)
     chunk = dgrad_chunk(nf, gc)
@@ -471,38 +477,77 @@ def rdb_ct_bwd(x, w, cat, lsv, g, noise=None, *, seed=None, sigma: float = 0.0,
         1: gate(1, cat.data_ptr(), 4 * gc),
     }
     skip = dz_src(H, W, build.DZ_G, g=g, g_stride=nf, noise=noise, fac=fac, sigma=sigma)
-    with torch.cuda.device(dev):
-        for k in (5, 4, 3, 2, 1):
-            cin, s = nf + (k - 1) * gc, nf if k == 5 else gc
-            if k == 2 and w["w11"] is not None:  # the 1×1 shortcut: dx2, not gated
-                dz11 = dz_src(H, W, build.DZ_PLAIN, d32=dcat, d_stride=ctot, coff=nf + gc,
-                              coff2=nf + 3 * gc)
-                out["w11"] = wgrad(x, None, nf, dz11, gc, taps=1)[0][0]
-                dgrad(x, B, dz11, gc, w["w11"], nf, taps=1, chunk=chunk, out32=dcat,
-                      accumulate=True)
-            out[f"w{k}"], out[f"b{k}"] = wgrad(x, cat, cin, stages[k], s)
-            out[f"w{k}"] = out[f"w{k}"].view(3, 3, cin, s)
-            if k > 1:
-                dgrad(x, B, stages[k], s, w[f"w{k}"], cin, chunk=chunk, out32=dcat,
-                      accumulate=k < 5)
-            else:  # + the earlier stages' share, + the skip's cotangent, one rounding
-                dgrad(x, B, stages[k], s, w[f"w{k}"], cin, chunk=chunk, out32=dcat,
-                      accumulate=True, out=dx, addg=skip)
-    rdb_ct_bwd.launches += 1
+    held = (x, g, cat, lsv, noise, fac, dcat)  # the raw addresses above point into these
+    steps = {}
+    for k in (5, 4, 3, 2, 1):
+        cin, s = nf + (k - 1) * gc, nf if k == 5 else gc
+        if k == 2 and w["w11"] is not None:  # the 1×1 shortcut: dx2, not gated
+            dz11 = dz_src(H, W, build.DZ_PLAIN, d32=dcat, d_stride=ctot, coff=nf + gc,
+                          coff2=nf + 3 * gc)
+            steps["dw11"], dw11, _ = wgrad_plan(x, None, nf, dz11, gc, taps=1, kind=kind)
+            out["w11"] = dw11[0]
+            steps["dx11"] = lambda dz11=dz11, held=held: dgrad(
+                x, B, dz11, gc, w["w11"], nf, taps=1, chunk=chunk, out32=dcat, accumulate=True,
+                kind=kind)
+        steps[f"dw{k}"], dw, out[f"b{k}"] = wgrad_plan(x, cat, cin, stages[k], s, kind=kind)
+        out[f"w{k}"] = dw.view(3, 3, cin, s)
+        # the last launch: + the earlier stages' share, + the skip's cotangent, one rounding
+        last = dict(out=dx, addg=skip) if k == 1 else {}
+        steps[f"dx{k}"] = lambda k=k, cin=cin, s=s, last=last, held=held: dgrad(
+            x, B, stages[k], s, w[f"w{k}"], cin, chunk=chunk, out32=dcat, accumulate=k < 5,
+            kind=kind, **last)
+    return steps, out
+
+
+def rdb_ct_bwd_mma_steps(x, w, cat, lsv, g, noise=None, **kw):
+    """The named launches of bf16 :func:`rdb_ct_bwd` on the tensor cores
+    (:func:`_rdb_ct_bwd_steps`; keywords as :func:`rdb_ct_bwd`'s) →
+    ``(steps, out)``; counts nothing."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"rdb_ct_bwd_mma_steps: the tensor cores take bfloat16, got {x.dtype}")
+    return _rdb_ct_bwd_steps(x, w, cat, lsv, g, noise, kind="mma", **kw)
+
+
+def rdb_ct_bwd(x, w, cat, lsv, g, noise=None, *, seed=None, sigma: float = 0.0,
+               slope: float = 0.2, res_scale: float = 0.2, kind: Optional[str] = None) -> dict:
+    """Adjoint of the training-mode :func:`rdb_ct` from its saved buffers.
+
+    ``w`` are the forward's cast weights, ``g`` the output cotangent in x's
+    dtype, ``noise`` the forward's noise tensor, or ``seed`` the fused
+    mode's site key, when the cotangent is to be scaled by ``1 + sigma·n``
+    (neither for no noise or a detached scale).
+    Returns ``{"dx", "w1".."w5", "b1".."b5", "w11"}``. On a CUDA tensor: 12
+    launches (a data- and a weight-gradient per stage and for the 1×1), all
+    deterministic, and with ``seed`` one more that fills the noise factor.
+    bf16 runs them on the tensor cores, fp32 on the CUDA cores; ``kind``
+    names another design (``"fma"`` on bf16 is the baseline
+    ``chip_smoke.py`` holds the tensor cores' accuracy against).
+    ``rdb_ct_bwd.launches`` counts CUDA calls, ``launches_by_design`` them
+    by design, ``rdb_ct_bwd.seeded_launches`` those that replayed the fused
+    noise."""
+    if x.device.type == "cpu":
+        return rdb_ct_bwd_plain(x, w, cat, lsv, g, noise, seed=seed, sigma=sigma,
+                                slope=slope, res_scale=res_scale)
+    kind = kind or design(x.dtype)
+    steps, out = _rdb_ct_bwd_steps(x, w, cat, lsv, g, noise, seed=seed, sigma=sigma,
+                                   slope=slope, res_scale=res_scale, kind=kind)
+    with torch.cuda.device(x.device):
+        for step in steps.values():
+            step()
+    count(rdb_ct_bwd, kind)
     rdb_ct_bwd.seeded_launches += seed is not None
     return out
 
 
 rdb_ct_bwd.launches = 0
+rdb_ct_bwd.launches_by_design = dict.fromkeys(DESIGNS, 0)
 rdb_ct_bwd.seeded_launches = 0
 
 
-def conv3x3_ct_bwd(x, w, g) -> dict:
-    """Adjoint of :func:`conv3x3_ct` wrt x, w and bias → ``{"dx", "w", "b"}``
-    (the residual's cotangent is ``g`` itself). ``conv3x3_ct_bwd.launches``
-    counts CUDA calls."""
-    if x.device.type == "cpu":
-        return conv3x3_ct_bwd_plain(x, w, g)
+def _conv3x3_ct_bwd_steps(x, w, g, kind=None):
+    """Validate and plan :func:`conv3x3_ct_bwd`'s two launches on the design
+    ``kind`` → ``(steps, out)``: ``steps`` maps ``"dw"`` and ``"dx"`` to
+    callables that launch them (each may run again for the same bits)."""
     B, H, W, cin = x.shape
     cout = w.shape[3]
     dt, dev = x.dtype, x.device
@@ -510,16 +555,44 @@ def conv3x3_ct_bwd(x, w, g) -> dict:
     build.require(x, "x", (B, H, W, cin), dt, dev)
     build.require(w, "w", (3, 3, cin, cout), dt, dev)
     build.require(g, "g", (B, H, W, cout), dt, dev)
+    kind = kind or design(dt)
+    chunk = dgrad_chunk(cin)
+    x, w, g = aligned(x), aligned(w), aligned(g)
     dz = dz_src(H, W, build.DZ_G, g=g, g_stride=cout)
     dx = torch.empty_like(x)
-    with torch.cuda.device(dev):
-        dw, db = wgrad(x, None, cin, dz, cout)
-        dgrad(x, B, dz, cout, w, cin, chunk=dgrad_chunk(cin), out=dx)
-    conv3x3_ct_bwd.launches += 1
-    return {"dx": dx, "w": dw.view(3, 3, cin, cout), "b": db}
+    run, dw, db = wgrad_plan(x, None, cin, dz, cout, kind=kind)
+    steps = {"dw": run,
+             "dx": lambda held=g: dgrad(x, B, dz, cout, w, cin, chunk=chunk, out=dx, kind=kind)}
+    return steps, {"dx": dx, "w": dw.view(3, 3, cin, cout), "b": db}
+
+
+def conv3x3_ct_bwd_mma_steps(x, w, g):
+    """The named launches of bf16 :func:`conv3x3_ct_bwd` on the tensor cores
+    (:func:`_conv3x3_ct_bwd_steps`) → ``(steps, out)``; counts nothing."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"conv3x3_ct_bwd_mma_steps: the tensor cores take bfloat16, got {x.dtype}")
+    return _conv3x3_ct_bwd_steps(x, w, g, "mma")
+
+
+def conv3x3_ct_bwd(x, w, g, *, kind: Optional[str] = None) -> dict:
+    """Adjoint of :func:`conv3x3_ct` wrt x, w and bias → ``{"dx", "w", "b"}``
+    (the residual's cotangent is ``g`` itself): a weight- and a data-gradient
+    launch, bf16 on the tensor cores, fp32 on the CUDA cores (``kind`` as
+    for :func:`rdb_ct_bwd`). ``conv3x3_ct_bwd.launches`` counts CUDA calls,
+    ``launches_by_design`` them by design."""
+    if x.device.type == "cpu":
+        return conv3x3_ct_bwd_plain(x, w, g)
+    kind = kind or design(x.dtype)
+    steps, out = _conv3x3_ct_bwd_steps(x, w, g, kind)
+    with torch.cuda.device(x.device):
+        for step in steps.values():
+            step()
+    count(conv3x3_ct_bwd, kind)
+    return out
 
 
 conv3x3_ct_bwd.launches = 0
+conv3x3_ct_bwd.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 def _cast_masters(wb, dt) -> dict:

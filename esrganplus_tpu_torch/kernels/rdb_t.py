@@ -11,10 +11,9 @@ is public API of both. Activations here are NHWC, and the CUDA kernels
 launches over an NHWC concat buffer forward; backward a recompute of stages
 1..4 from x into a workspace freed at return, then a data-gradient and a
 weight-gradient launch per stage and for the 1×1 shortcut, dW written
-straight into rdb_t's layout. The dense-stage launches (forward and
-recompute) run bf16 on the tensor cores and fp32 on the CUDA cores
-(:func:`~esrganplus_tpu_torch.kernels.launch.design`, as ``rdb_ct``); the
-data and weight gradients run on the CUDA cores.
+straight into rdb_t's layout. Every launch runs bf16 on the tensor cores
+and fp32 on the CUDA cores
+(:func:`~esrganplus_tpu_torch.kernels.launch.design`, as ``rdb_ct``).
 
 Numerics are the TPU kernel's: fp32 accumulation, x1..x4 rounded to the
 activation dtype, ``β·x5 + x`` (and the RRDB fold ``·rrdb_scale + res``) in
@@ -41,7 +40,7 @@ import torch.nn.functional as F
 from esrganplus_tpu_torch.kernels import build
 from esrganplus_tpu_torch.kernels.launch import (ACT, ACT_1X1, ACT_ADD, DESIGNS, RESID,
                                                  aligned, count, design, dgrad, dgrad_chunk,
-                                                 dz_src, wgrad)
+                                                 dz_src, wgrad_plan)
 from esrganplus_tpu_torch.models.layers import fp32_exact
 
 
@@ -217,18 +216,22 @@ def _check(x, ws, g=None, res=None):
     return nf, gc
 
 
-def _stages(x, ws, *, slope, last=True, res=None, rrdb_scale=None, res_scale=0.2):
+def _stages(x, ws, *, slope, last=True, res=None, rrdb_scale=None, res_scale=0.2, cat=None,
+            lsv=None):
     """Launch stages 1..4 (and 5 with ``last``) of the forward → (out or
     None, cat, lsv): ``cat`` holds x1|x2|x3|x4, ``lsv`` (kept when stage 5
-    is skipped, for the backward's masks) l2|l4."""
+    is skipped, for the backward's masks) l2|l4; both allocated here unless
+    given."""
     B, H, W, nf = x.shape
     gc = ws[0].shape[0]
     dt, dev, esz = x.dtype, x.device, x.element_size()
     x, ws = aligned(x), tuple(aligned(t) for t in ws)
     kind = DESIGNS[design(dt)]
     lib = build.load("rdb_t")
-    cat = torch.empty((B, H, W, 4 * gc), dtype=dt, device=dev)
-    lsv = None if last else torch.empty((B, H, W, 2 * gc), dtype=dt, device=dev)
+    if cat is None:
+        cat = torch.empty((B, H, W, 4 * gc), dtype=dt, device=dev)
+    if lsv is None and not last:
+        lsv = torch.empty((B, H, W, 2 * gc), dtype=dt, device=dev)
     out = torch.empty_like(x) if last else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     bias = lambda k: ws[6].data_ptr() + 4 * _boff(k, nf, gc)
@@ -285,26 +288,25 @@ rdb_t.launches = 0
 rdb_t.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
-def rdb_t_bwd(x, w1, w2, w3, w4, w5, w11, bias, g, *, slope: float = 0.2,
-              res_scale: float = 0.2) -> tuple:
-    """Adjoint of :func:`rdb_t` (no fold) from x alone: the forward's
-    stages 1..4 are recomputed into a workspace that is freed at return.
-    ``w*`` and ``bias`` as the forward took them, ``g`` the output cotangent
-    in x's dtype. Returns ``(dx, dw1, .., dw5, dw11, db)``: dx in x's dtype,
-    fp32 ``dw_k`` ``[S_k, 9·C_prefix_k]``, ``dw11`` ``[gc, nf]`` and the
-    packed ``db`` ``[nf + 4·gc, 1]``. On a CUDA tensor 4 + 12 launches, all
-    deterministic; ``rdb_t_bwd.launches`` counts CUDA calls,
-    ``rdb_t_bwd.recompute_by_design`` them by the design of their four
-    dense-stage launches."""
-    ws = (w1, w2, w3, w4, w5, w11, bias)
-    if x.device.type == "cpu":
-        return rdb_t_bwd_plain(x, *ws, g, slope=slope, res_scale=res_scale)
+def _rdb_t_bwd_steps(x, ws, g, *, slope, res_scale, kind=None):
+    """Validate and plan :func:`rdb_t_bwd`'s launches on the design ``kind``
+    (its recompute on x's dtype's) → ``(steps, out)``: ``steps`` maps
+    ``"recompute"`` (the four dense-stage launches of stages 1..4), then
+    ``"dw5"``, ``"dx5"``, …, ``"dw11"``, ``"dx11"``, ``"dw2"``, ``"dx2"``,
+    ``"dw1"``, ``"dx1"`` to callables that launch them, in that order;
+    ``out`` is what they fill, ``(dx, dw1, .., dw5, dw11, {k: db_k})``. As
+    for rdb_ct's
+    (``_rdb_ct_bwd_steps``), only the whole walk in order gives the
+    gradients."""
     nf, gc = _check(x, ws, g=g)
     B, H, W, _ = x.shape
     dt, dev, esz = x.dtype, x.device, x.element_size()
+    kind = kind or design(dt)
+    x, g, ws = aligned(x), aligned(g), tuple(aligned(t) for t in ws)
     ctot = nf + 4 * gc
-    _, cat, lsv = _stages(x, ws, slope=slope, last=False)
-    rdb_t_bwd.recompute_by_design[design(dt)] += 1
+    cat = torch.empty((B, H, W, 4 * gc), dtype=dt, device=dev)
+    lsv = torch.empty((B, H, W, 2 * gc), dtype=dt, device=dev)
+    steps = {"recompute": lambda: _stages(x, ws, slope=slope, last=False, cat=cat, lsv=lsv)}
     chunk = dgrad_chunk(nf, gc)
     dcat = torch.empty((B, H, W, ctot), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
@@ -320,37 +322,78 @@ def rdb_t_bwd(x, w1, w2, w3, w4, w5, w11, bias, g, *, slope: float = 0.2,
         1: gate(1, cat.data_ptr(), 4 * gc),
     }
     skip = dz_src(H, W, build.DZ_G, g=g, g_stride=nf)
+    held = (g, cat, lsv, dcat)  # the raw addresses above point into these
     dws, dbs = {}, {}
-    with torch.cuda.device(dev):
-        for k in (5, 4, 3, 2, 1):
-            cin, s = nf + (k - 1) * gc, nf if k == 5 else gc
-            if k == 2:  # the 1×1 shortcut from the rounded dx2, not gated, always
-                dz11 = dz_src(H, W, build.DZ_PLAIN, d32=dcat, d_stride=ctot, coff=nf + gc,
-                              coff2=nf + 3 * gc)
-                dw11 = wgrad(x, None, nf, dz11, gc, taps=1, by_target=lay)[0]
-                dgrad(x, B, dz11, gc, w11, nf, taps=1, chunk=chunk, out32=dcat,
-                      accumulate=True, by_target=lay)
-            dws[k], dbs[k] = wgrad(x, cat, cin, stages[k], s, by_target=lay)
-            if k > 1:
-                dgrad(x, B, stages[k], s, ws[k - 1], cin, chunk=chunk, out32=dcat,
-                      accumulate=k < 5, by_target=lay)
-            else:  # + the earlier stages' share, + the skip's cotangent, one rounding
-                dgrad(x, B, stages[k], s, ws[k - 1], cin, chunk=chunk, out32=dcat,
-                      accumulate=True, out=dx, addg=skip, by_target=lay)
-    db = torch.cat([dbs[k] for k in (5, 4, 3, 2, 1)]).reshape(-1, 1)
-    rdb_t_bwd.launches += 1
-    return (dx, *(dws[k] for k in range(1, 6)), dw11, db)
+    for k in (5, 4, 3, 2, 1):
+        cin, s = nf + (k - 1) * gc, nf if k == 5 else gc
+        if k == 2:  # the 1×1 shortcut from the rounded dx2, not gated, always
+            dz11 = dz_src(H, W, build.DZ_PLAIN, d32=dcat, d_stride=ctot, coff=nf + gc,
+                          coff2=nf + 3 * gc)
+            steps["dw11"], dw11, _ = wgrad_plan(x, None, nf, dz11, gc, taps=1, by_target=lay,
+                                                kind=kind)
+            steps["dx11"] = lambda dz11=dz11, held=held: dgrad(
+                x, B, dz11, gc, ws[5], nf, taps=1, chunk=chunk, out32=dcat, accumulate=True,
+                by_target=lay, kind=kind)
+        steps[f"dw{k}"], dws[k], dbs[k] = wgrad_plan(x, cat, cin, stages[k], s, by_target=lay,
+                                                     kind=kind)
+        # the last launch: + the earlier stages' share, + the skip's cotangent, one rounding
+        last = dict(out=dx, addg=skip) if k == 1 else {}
+        steps[f"dx{k}"] = lambda k=k, cin=cin, s=s, last=last, held=held: dgrad(
+            x, B, stages[k], s, ws[k - 1], cin, chunk=chunk, out32=dcat, accumulate=k < 5,
+            by_target=lay, kind=kind, **last)
+    return steps, (dx, *(dws[k] for k in range(1, 6)), dw11, dbs)
+
+
+def rdb_t_bwd_mma_steps(x, w1, w2, w3, w4, w5, w11, bias, g, *, slope: float = 0.2,
+                        res_scale: float = 0.2):
+    """The named launches of bf16 :func:`rdb_t_bwd` on the tensor cores
+    (:func:`_rdb_t_bwd_steps`) → ``(steps, out)``; counts nothing."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"rdb_t_bwd_mma_steps: the tensor cores take bfloat16, got {x.dtype}")
+    return _rdb_t_bwd_steps(x, (w1, w2, w3, w4, w5, w11, bias), g, slope=slope,
+                            res_scale=res_scale, kind="mma")
+
+
+def rdb_t_bwd(x, w1, w2, w3, w4, w5, w11, bias, g, *, slope: float = 0.2,
+              res_scale: float = 0.2, kind: Optional[str] = None) -> tuple:
+    """Adjoint of :func:`rdb_t` (no fold) from x alone: the forward's
+    stages 1..4 are recomputed into a workspace that is freed at return.
+    ``w*`` and ``bias`` as the forward took them, ``g`` the output cotangent
+    in x's dtype. Returns ``(dx, dw1, .., dw5, dw11, db)``: dx in x's dtype,
+    fp32 ``dw_k`` ``[S_k, 9·C_prefix_k]``, ``dw11`` ``[gc, nf]`` and the
+    packed ``db`` ``[nf + 4·gc, 1]``. On a CUDA tensor 4 + 12 launches, all
+    deterministic, bf16 on the tensor cores and fp32 on the CUDA cores
+    (``kind`` names another design for the data and weight gradients, as for
+    ``rdb_ct_bwd``); ``rdb_t_bwd.launches`` counts CUDA calls,
+    ``launches_by_design`` them by the design of their data and weight
+    gradients, ``recompute_by_design`` by that of their four dense-stage
+    launches."""
+    ws = (w1, w2, w3, w4, w5, w11, bias)
+    if x.device.type == "cpu":
+        return rdb_t_bwd_plain(x, *ws, g, slope=slope, res_scale=res_scale)
+    kind = kind or design(x.dtype)
+    steps, out = _rdb_t_bwd_steps(x, ws, g, slope=slope, res_scale=res_scale, kind=kind)
+    with torch.cuda.device(x.device):
+        for step in steps.values():
+            step()
+        *grads, dbs = out
+        db = torch.cat([dbs[k] for k in (5, 4, 3, 2, 1)]).reshape(-1, 1)
+    rdb_t_bwd.recompute_by_design[design(x.dtype)] += 1
+    count(rdb_t_bwd, kind)
+    return (*grads, db)
 
 
 rdb_t_bwd.launches = 0
+rdb_t_bwd.launches_by_design = dict.fromkeys(DESIGNS, 0)
 rdb_t_bwd.recompute_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 def reset_design_counts() -> None:
-    """Set ``launches`` of :func:`rdb_t` and :func:`rdb_t_bwd`,
-    ``rdb_t.launches_by_design`` and ``rdb_t_bwd.recompute_by_design`` to 0."""
-    rdb_t.launches = rdb_t_bwd.launches = 0
-    rdb_t.launches_by_design = dict.fromkeys(DESIGNS, 0)
+    """Set ``launches`` and ``launches_by_design`` of :func:`rdb_t` and
+    :func:`rdb_t_bwd`, and ``rdb_t_bwd.recompute_by_design``, to 0."""
+    for fn in (rdb_t, rdb_t_bwd):
+        fn.launches = 0
+        fn.launches_by_design = dict.fromkeys(DESIGNS, 0)
     rdb_t_bwd.recompute_by_design = dict.fromkeys(DESIGNS, 0)
 
 

@@ -1393,3 +1393,188 @@ def test_cuda_dense_entries_refuse_fp32_on_the_tensor_cores():
         1.0, 0.2, 1, 8, 16, s)
     with pytest.raises(RuntimeError, match="cudaError"):
         build.check(code, "esr_rdb_t_stage")
+
+
+# ---------------------------------------------------------------------------
+# the RDB adjoints' two designs (csrc/dgrad.cuh, csrc/wgrad.cuh): bf16
+# rdb_ct_bwd, conv3x3_ct_bwd and rdb_t_bwd on the tensor cores, fp32 on the
+# CUDA cores
+# ---------------------------------------------------------------------------
+
+DENSE_TRAIN = (16, 32, 32)
+
+
+BWD_TOL_OWN_BUFFERS = 5e-2  # chip_smoke.py's: a twin that recomputes its own gates
+
+
+def _held_bwd(fn, call, plain, kind, tol, name, twin=None):
+    """``call()`` counted as one call on ``kind`` and bit-equal on a second
+    call; every gradient within ``tol`` of max|ref| of ``plain()``'s and,
+    where the twin recomputes the forward's gates itself (``twin``), within
+    BWD_TOL_OWN_BUFFERS of its."""
+    with fp32_exact():
+        got, ran = _counted(fn, call)
+        again = call()
+        torch.cuda.synchronize()
+        refs = [(plain(), tol)] + ([] if twin is None else [(twin(), BWD_TOL_OWN_BUFFERS)])
+    assert ran == {"fma": 0, "mma": 0, kind: 1}, name
+    for want, bar in refs:
+        got_, again_ = got, again
+        if isinstance(got, dict):
+            got_, again_, want = ([d[k] for k in sorted(want)] for d in (got, again, want))
+        for i, (a, b, c) in enumerate(zip(got_, again_, want)):
+            if c is None:
+                assert a is None and b is None, (name, i)
+                continue
+            assert torch.equal(a, b), (name, i)
+            a, c = a.float(), c.float()
+            assert a.shape == c.shape and torch.isfinite(a).all(), (name, i)
+            err = (a - c).abs().max().item() / max(c.abs().max().item(), 1e-30)
+            assert err <= bar, (name, i, err, bar)
+
+
+def _rdb_t_bwd_on_own_buffers(x, p, g, nf, gc):
+    """rdb_ct_bwd_plain on rdb_t's own recomputed buffers (x1..x4, l2|l4 from
+    the kernel: the gates rdb_t_bwd's launches read), in rdb_t's layout: the
+    twin of its data- and weight-gradient launches alone."""
+    from esrganplus_tpu_torch.kernels import rdb_t as R
+
+    ws = R.prepare_rdb_t_weights(p, nf, gc, True, x.dtype)
+    _, cat, lsv = R._stages(x, ws, slope=0.2, last=False)
+    r = K.rdb_ct_bwd_plain(x, K.prepare_rdb_ct_weights(p, x.dtype), cat, lsv, g)
+    q = {f"conv{k}": {"w": r[f"w{k}"], "b": r[f"b{k}"]} for k in range(1, 6)}
+    q["conv1x1"] = {"w": r["w11"][None, None]}
+    return (r["dx"], *R.prepare_rdb_t_weights(q, nf, gc, True, torch.float32))
+
+
+def _dense_bwd_cases(rs, nf, gc, shape, dtype):
+    """(name, wrapper, call, reference call, twin call or None) of rdb_ct_bwd
+    with and without the 1×1, with input and with fused noise, on the
+    kernel's saved training buffers, its twin the reference; and of
+    rdb_t_bwd, held to its adjoint's twin on its own recomputed buffers and
+    to its twin (:func:`_held_bwd`)."""
+    from esrganplus_tpu_torch.kernels import rdb_t as R
+
+    B, H, W = shape
+    act = lambda c=nf: torch.from_numpy(rs.randn(B, H, W, c).astype(np.float32)).to("cuda", dtype)
+    x, noise, g = act(), act(), act()
+    out = []
+    for tag, conv1x1, kw in (("1x1", True, {}), ("no1x1", False, {}),
+                             ("noise", True, dict(noise=noise, sigma=0.1)),
+                             ("fused", True, dict(seed=(7, 9), sigma=0.1))):
+        w = K.prepare_rdb_ct_weights(_dense_params(rs, nf, gc, conv1x1), dtype)
+        noise_t = kw.pop("noise", None)
+        _, cat, lsv = K._rdb_ct_cuda(x, w, None, noise_t, save=True, **kw)
+        args = (x, w, cat, lsv, g, noise_t)
+        out.append((f"rdb_ct_bwd_{tag}", K.rdb_ct_bwd,
+                    lambda args=args, kw=kw: K.rdb_ct_bwd(*args, **kw),
+                    lambda args=args, kw=kw: K.rdb_ct_bwd_plain(*args, **kw), None))
+    p = _dense_params(rs, nf, gc, True)
+    ws = R.prepare_rdb_t_weights(p, nf, gc, True, dtype)
+    out.append(("rdb_t_bwd", R.rdb_t_bwd, lambda: R.rdb_t_bwd(x, *ws, g),
+                lambda: _rdb_t_bwd_on_own_buffers(x, p, g, nf, gc),
+                lambda: R.rdb_t_bwd_plain(x, *ws, g)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gc", [8, 16, 32, 64])
+@pytest.mark.parametrize("nf", [8, 16, 32, 64])
+def test_cuda_dense_bwd_mma_at_every_width(nf, gc):
+    """bf16 rdb_ct_bwd (with and without the 1×1, input and fused noise) and
+    rdb_t_bwd at the odd shape: every call on "mma", a second call
+    bit-equal, every gradient within 2e-2 of the twin's max|ref| on the same
+    gates (rdb_t_bwd's recompute, on the tensor cores since PR 11's, may flip
+    a gate the twin's own recompute keeps: against that twin 5e-2)."""
+    _need_card()
+    rs = np.random.RandomState(10 * nf + gc)
+    for name, fn, call, plain, twin in _dense_bwd_cases(rs, nf, gc, DENSE_ODD, torch.bfloat16):
+        _held_bwd(fn, call, plain, "mma", BWD_TOL[torch.bfloat16], (nf, gc, name), twin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_cuda_dense_bwd_designs_at_the_train_shape(dtype):
+    """Flagship widths at the training shape (batch 16, 32²): bf16 on
+    "mma", fp32 on "fma" at its 1e-4 bar, each bit-equal on a second call."""
+    _need_card()
+    rs = np.random.RandomState(21)
+    kind = "mma" if dtype == torch.bfloat16 else "fma"
+    for name, fn, call, plain, twin in _dense_bwd_cases(rs, 64, 32, DENSE_TRAIN, dtype):
+        _held_bwd(fn, call, plain, kind, BWD_TOL[dtype], name, twin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nf,gc", [(8, 8), (64, 32)])
+def test_cuda_dense_bwd_mma_at_batch_one(nf, gc):
+    """bf16 at B = 1 with odd H and W (one partial pixel tile a row): the
+    same holds as at the other shapes."""
+    _need_card()
+    rs = np.random.RandomState(nf + 3 * gc)
+    for name, fn, call, plain, twin in _dense_bwd_cases(rs, nf, gc, (1, 13, 19), torch.bfloat16):
+        _held_bwd(fn, call, plain, "mma", BWD_TOL[torch.bfloat16], (nf, gc, name), twin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [DENSE_ODD, DENSE_TRAIN], ids=["odd", "train"])
+@pytest.mark.parametrize("cin", [64, 200, 448])
+def test_cuda_conv3x3_ct_bwd_designs_take_any_cin(cin, shape, dtype):
+    """conv3x3_ct_bwd at cin 64, 200 and 448 (64 outputs): bf16 on "mma"
+    (ragged channel chunks of the data gradient, two-chunk weight-gradient
+    blocks), fp32 on "fma"; bit-equal repeats; the dtype's bar."""
+    _need_card()
+    rs = np.random.RandomState(cin)
+    B, H, W = shape
+    x = torch.from_numpy(rs.randn(B, H, W, cin).astype(np.float32)).to("cuda", dtype)
+    g = torch.from_numpy(rs.randn(B, H, W, 64).astype(np.float32)).to("cuda", dtype)
+    c = _conv(rs, cin, 64)
+    w, _ = K.prepare_conv_ct_weights(c["w"], c["b"], dtype)
+    kind = "mma" if dtype == torch.bfloat16 else "fma"
+    _held_bwd(K.conv3x3_ct_bwd, lambda: K.conv3x3_ct_bwd(x, w, g),
+              lambda: K.conv3x3_ct_bwd_plain(x, w, g), kind, BWD_TOL[dtype], cin)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_bwd_fp32_stays_on_fma_at_every_width():
+    """fp32 rdb_ct_bwd and rdb_t_bwd run the FMA kernels within 1e-4 at the
+    width edges."""
+    _need_card()
+    for nf, gc in ((8, 8), (64, 64), (16, 32)):
+        rs = np.random.RandomState(nf + gc)
+        for name, fn, call, plain, twin in _dense_bwd_cases(rs, nf, gc, DENSE_ODD, torch.float32):
+            _held_bwd(fn, call, plain, "fma", BWD_TOL[torch.float32], (nf, gc, name), twin)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_bwd_entries_refuse_fp32_on_the_tensor_cores():
+    """The four backward entries refuse fp32 on the tensor cores, in both
+    layouts, and a design code they do not know: the launch raises, nothing
+    falls back."""
+    _need_card()
+    import ctypes
+
+    from esrganplus_tpu_torch.kernels import build
+    from esrganplus_tpu_torch.kernels import launch as L
+
+    x = torch.zeros(1, 8, 16, 16, device="cuda")
+    dz = L.dz_src(8, 16, build.DZ_G, g=x, g_stride=16)
+    hwio, byt = torch.zeros(3, 3, 16, 16, device="cuda"), torch.zeros(16, 9 * 16, device="cuda")
+    for lay, w in ((None, hwio), ((8, 8), byt)):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            L.dgrad(x, 1, dz, 16, w, 16, chunk=16, out=torch.empty_like(x), by_target=lay,
+                    kind="mma")
+        with pytest.raises(RuntimeError, match="cudaError"):
+            L.wgrad(x, None, 16, dz, 16, by_target=lay, kind="mma")
+    xb = x.to(torch.bfloat16)
+    s = torch.cuda.current_stream().cuda_stream
+    code = build.load("dgrad_ct").esr_dgrad(1, 7, 16, 9, ctypes.byref(dz), 16, hwio.data_ptr(), 16,
+                                            None, 0, 0, xb.data_ptr(), 16, None, 1, s)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        build.check(code, "esr_dgrad")
+    out = torch.empty(9 * 16 * 16 + 16, device="cuda")
+    code = build.load("wgrad_ct").esr_wgrad(1, 7, 9, xb.data_ptr(), 16, None, 0, 16,
+                                            ctypes.byref(dz), 16, out.data_ptr(), 1,
+                                            out.data_ptr(), 1, s)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        build.check(code, "esr_wgrad")
