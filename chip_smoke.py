@@ -968,6 +968,15 @@ def check_dense_accuracy(failures):
         failures.append(f"kernels-dense-accuracy: {row}")
 
 
+def _planned(plan):
+    """Run a backward's planned launches ``(steps, out)`` in order → ``out``
+    (uncounted: the FMA baseline of a bf16 call, which no wrapper takes)."""
+    steps, out = plan
+    for step in steps.values():
+        step()
+    return out
+
+
 def check_dense_bwd_accuracy(failures):
     """Phase kernels-dense-bwd-accuracy, one line: bf16 ``rdb_ct_bwd`` (input
     noise on) at the odd and train shapes on the saved buffers of the
@@ -1011,7 +1020,8 @@ def check_dense_bwd_accuracy(failures):
             args = (x, w, cat, lsv, g, noise)
             exact = K.rdb_ct_bwd_plain(*args, sigma=0.1, acc=torch.float64)
             calls = {"mma": lambda: K.rdb_ct_bwd(*args, sigma=0.1),
-                     "fma_baseline": lambda: K.rdb_ct_bwd(*args, sigma=0.1, kind="fma"),
+                     "fma_baseline": lambda: _planned(
+                         K._rdb_ct_bwd_steps(*args, sigma=0.1, kind="fma")),
                      "twin": lambda: K.rdb_ct_bwd_plain(*args, sigma=0.1)}
             for key, call in calls.items():
                 got = call()
@@ -1027,7 +1037,7 @@ def check_dense_bwd_accuracy(failures):
         exact = {"dx": K._dgrad_plain(g64, wc).to(bf).permute(0, 2, 3, 1),
                  "w": K._wgrad_plain(x64, g64), "b": g64.sum((0, 2, 3))}
         calls = {"mma": lambda: K.conv3x3_ct_bwd(x, wc, g),
-                 "fma_baseline": lambda: K.conv3x3_ct_bwd(x, wc, g, kind="fma"),
+                 "fma_baseline": lambda: _planned(K._conv3x3_ct_bwd_steps(x, wc, g, "fma")),
                  "twin": lambda: K.conv3x3_ct_bwd_plain(x, wc, g)}
         for key, call in calls.items():
             got = call()
@@ -1970,15 +1980,15 @@ def train_profile(step_ms, make_trainer=None, phase="train-profile"):
 # ---------------------------------------------------------------------------
 
 
-def _rdb_params(gen):
-    """One flagship-width RDB (nf=64, gc=32, conv1x1), HWIO, on the card."""
+def _rdb_params(gen, nf=NF, gc=GC):
+    """One RDB (flagship widths unless given, conv1x1), HWIO, on the card."""
     import torch
 
     rnd = lambda *shape, scale=1.0: (torch.randn(shape, generator=gen) * scale).to("cuda")
-    p = {f"conv{k}": {"w": rnd(3, 3, NF + (k - 1) * GC, NF if k == 5 else GC,
-                               scale=(2.0 / (9 * (NF + (k - 1) * GC))) ** 0.5),
-                      "b": rnd(NF if k == 5 else GC, scale=0.1)} for k in range(1, 6)}
-    p["conv1x1"] = {"w": rnd(1, 1, NF, GC, scale=(2.0 / NF) ** 0.5)}
+    p = {f"conv{k}": {"w": rnd(3, 3, nf + (k - 1) * gc, nf if k == 5 else gc,
+                               scale=(2.0 / (9 * (nf + (k - 1) * gc))) ** 0.5),
+                      "b": rnd(nf if k == 5 else gc, scale=0.1)} for k in range(1, 6)}
+    p["conv1x1"] = {"w": rnd(1, 1, nf, gc, scale=(2.0 / nf) ** 0.5)}
     return p
 
 
@@ -2245,6 +2255,104 @@ def check_rdb_t_kernels(failures):
                 failures.append(f"rdb_t_bwd {dname} {sname}: gradient rel err {worst:.3g}, "
                                 f"bit-equal {bit_equal}")
     return report
+
+
+RDB_T_GATE_CASES = ((32, 64, "odd"), (64, 64, "odd"), (64, 32, "odd"), (32, 64, "train"))
+
+
+def check_rdb_t_gate(failures, seeds=4):
+    """Phase kernels-rdb-t-gate: where bf16 rdb_t_bwd's distance to its twin
+    (``rdb_t_bwd_plain``, which recomputes the forward's gates itself) comes
+    from. At each (nf, gc, shape) of RDB_T_GATE_CASES, ``seeds`` seeded RDBs,
+    every gradient held as max|Δ| / max|ref| (the worst, and which): the
+    kernel to the twin (``to_twin``) and to the adjoint's twin
+    (``rdb_ct_bwd_plain``) on the kernel's own recomputed buffers
+    (``to_own_buffers``); that adjoint twin to the twin on the twin's own
+    buffers (``twin_buffers``, the check of the split), on the kernel's
+    (``recompute_alone``), on the kernel's with every gate whose sign differs
+    from the twin's set to the twin's entry (``gates_fixed``), and on those
+    of rdb_ct's fp32 twin, another summation order (``rdb_ct_twin_buffers``).
+    ``gate_flips`` per stage 1..4: the gates whose sign differs from the
+    twin's, of them those the float64 graph (``rdb_ct_fp64``) signs as the
+    kernel does, the gates rdb_ct's twin flips, and the largest |float64
+    value| of a flipped gate over its pixel's largest in that stage (the
+    margin a near-zero fix must catch); ``x_share_differing``, the share of
+    x1..x4 that differ at all. Reported, not gated; fails only on a
+    non-finite gradient."""
+    import torch
+
+    from esrganplus_tpu_torch.kernels import rdb_ct as K
+    from esrganplus_tpu_torch.kernels import rdb_t as R
+    from esrganplus_tpu_torch.models.layers import fp32_exact
+
+    bf = torch.bfloat16
+    names = ("dx", "w1", "w2", "w3", "w4", "w5", "w11", "b")
+    lrelu = lambda z: torch.where(z >= 0, z, z * 0.2)
+
+    def dist(got, ref):
+        errs = {n: (a.double() - r.double()).abs().max().item()
+                / max(r.double().abs().max().item(), 1e-30) for n, a, r in zip(names, got, ref)}
+        at = max(errs, key=errs.get)
+        return {"worst": errs[at], "at": at}
+
+    rows, finite = [], True
+    for nf, gc, sname in RDB_T_GATE_CASES:
+        B, H, W = SHAPES[sname]
+        # the gate of stage k: its slice of cat (x1, x3) or lsv (l2, l4)
+        gates = {1: ("cat", 0), 2: ("lsv", 0), 3: ("cat", 2 * gc), 4: ("lsv", gc)}
+        for seed in range(seeds):
+            gen = torch.Generator().manual_seed(100 * nf + gc + seed)
+            p = _rdb_params(gen, nf, gc)
+            ws = R.prepare_rdb_t_weights(p, nf, gc, True, bf)
+            wct = K.prepare_rdb_ct_weights(p, bf)
+            x, g = (torch.randn((B, H, W, nf), generator=gen).to("cuda", bf) for _ in range(2))
+
+            def adjoint(bufs):  # the adjoint's twin on (cat, lsv), in rdb_t's layout
+                r = K.rdb_ct_bwd_plain(x, wct, bufs["cat"], bufs["lsv"], g)
+                q = {f"conv{k}": {"w": r[f"w{k}"], "b": r[f"b{k}"]} for k in range(1, 6)}
+                q["conv1x1"] = {"w": r["w11"][None, None]}
+                return (r["dx"], *R.prepare_rdb_t_weights(q, nf, gc, True, torch.float32))
+
+            with fp32_exact():
+                got = R.rdb_t_bwd(x, *ws, g)
+                twin = R.rdb_t_bwd_plain(x, *ws, g)
+                # the twin's buffers: x1..x4 are the centre taps (4) of its im2col sources
+                im, zs, _ = R._forward_plain(x, ws, 0.2)
+                xk = lambda k: im[..., 9 * (nf + (k - 1) * gc) + 4 * gc:][..., :gc]
+                ref = {"cat": torch.cat([xk(k) for k in range(1, 5)], -1).to(bf),
+                       "lsv": torch.cat([lrelu(zs[1]), lrelu(zs[3])], -1).to(bf)}
+                own = dict(zip(("cat", "lsv"), R._stages(x, ws, slope=0.2, last=False)[1:]))
+                other = dict(zip(("cat", "lsv"), K._rdb_ct_train_plain(x, wct)[1:]))
+                exact = dict(zip(("cat", "lsv"), K.rdb_ct_fp64(x, wct)[1:]))
+                fixed = {n: t.clone() for n, t in own.items()}
+                flips = {}
+                for k, (buf, c0) in gates.items():
+                    sl = (..., slice(c0, c0 + gc))
+                    sign = lambda bufs: bufs[buf][sl] >= 0
+                    flip = sign(own) != sign(ref)
+                    mag = exact[buf][sl].float().abs()
+                    margin = (mag / mag.amax(-1, keepdim=True).clamp_min(1e-30))[flip]
+                    flips[k] = [int(flip.sum()), int((flip & (sign(exact) == sign(own))).sum()),
+                                int((sign(other) != sign(ref)).sum()),
+                                margin.max().item() if margin.numel() else 0.0]
+                    fixed[buf][sl] = torch.where(flip, ref[buf][sl], own[buf][sl])
+                on_own = adjoint(own)
+                torch.cuda.synchronize()
+                finite = finite and all(bool(torch.isfinite(t.float()).all()) for t in got)
+                rows.append({
+                    "nf": nf, "gc": gc, "shape": sname, "seed": seed,
+                    "to_twin": dist(got, twin), "to_own_buffers": dist(got, on_own),
+                    "twin_buffers": dist(adjoint(ref), twin),
+                    "recompute_alone": dist(on_own, twin),
+                    "gates_fixed": dist(adjoint(fixed), twin),
+                    "rdb_ct_twin_buffers": dist(adjoint(other), twin),
+                    "gate_flips": flips,
+                    "x_share_differing": (own["cat"] != ref["cat"]).float().mean().item()})
+    row = {"phase": "kernels-rdb-t-gate", "kernel": "rdb_t_bwd", "dtype": "bfloat16",
+           "tol": BWD_TOL["bfloat16"], "cases": rows, "ok": bool(finite)}
+    emit(row)
+    if not finite:
+        failures.append(f"kernels-rdb-t-gate: a gradient is not finite: {row}")
 
 
 def rdb_t_path(failures):
@@ -2764,6 +2872,7 @@ def main() -> int:
     step_ms = input_steady[0]
     fused_step_ms = train_fused(failures, workdir, input_steady)
     rdb_t_report = check_rdb_t_kernels(failures)
+    check_rdb_t_gate(failures)
     rdb_t_launches = rdb_t_path(failures)
     stage_report = check_stage_kernels(failures)
     gan_check(failures)

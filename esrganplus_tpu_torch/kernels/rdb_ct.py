@@ -509,7 +509,7 @@ def rdb_ct_bwd_mma_steps(x, w, cat, lsv, g, noise=None, **kw):
 
 
 def rdb_ct_bwd(x, w, cat, lsv, g, noise=None, *, seed=None, sigma: float = 0.0,
-               slope: float = 0.2, res_scale: float = 0.2, kind: Optional[str] = None) -> dict:
+               slope: float = 0.2, res_scale: float = 0.2) -> dict:
     """Adjoint of the training-mode :func:`rdb_ct` from its saved buffers.
 
     ``w`` are the forward's cast weights, ``g`` the output cotangent in x's
@@ -519,18 +519,16 @@ def rdb_ct_bwd(x, w, cat, lsv, g, noise=None, *, seed=None, sigma: float = 0.0,
     Returns ``{"dx", "w1".."w5", "b1".."b5", "w11"}``. On a CUDA tensor: 12
     launches (a data- and a weight-gradient per stage and for the 1×1), all
     deterministic, and with ``seed`` one more that fills the noise factor.
-    bf16 runs them on the tensor cores, fp32 on the CUDA cores; ``kind``
-    names another design (``"fma"`` on bf16 is the baseline
-    ``chip_smoke.py`` holds the tensor cores' accuracy against).
+    bf16 runs them on the tensor cores, fp32 on the CUDA cores.
     ``rdb_ct_bwd.launches`` counts CUDA calls, ``launches_by_design`` them
     by design, ``rdb_ct_bwd.seeded_launches`` those that replayed the fused
     noise."""
     if x.device.type == "cpu":
         return rdb_ct_bwd_plain(x, w, cat, lsv, g, noise, seed=seed, sigma=sigma,
                                 slope=slope, res_scale=res_scale)
-    kind = kind or design(x.dtype)
+    kind = design(x.dtype)
     steps, out = _rdb_ct_bwd_steps(x, w, cat, lsv, g, noise, seed=seed, sigma=sigma,
-                                   slope=slope, res_scale=res_scale, kind=kind)
+                                   slope=slope, res_scale=res_scale)
     with torch.cuda.device(x.device):
         for step in steps.values():
             step()
@@ -574,16 +572,16 @@ def conv3x3_ct_bwd_mma_steps(x, w, g):
     return _conv3x3_ct_bwd_steps(x, w, g, "mma")
 
 
-def conv3x3_ct_bwd(x, w, g, *, kind: Optional[str] = None) -> dict:
+def conv3x3_ct_bwd(x, w, g) -> dict:
     """Adjoint of :func:`conv3x3_ct` wrt x, w and bias → ``{"dx", "w", "b"}``
     (the residual's cotangent is ``g`` itself): a weight- and a data-gradient
-    launch, bf16 on the tensor cores, fp32 on the CUDA cores (``kind`` as
-    for :func:`rdb_ct_bwd`). ``conv3x3_ct_bwd.launches`` counts CUDA calls,
-    ``launches_by_design`` them by design."""
+    launch, bf16 on the tensor cores, fp32 on the CUDA cores.
+    ``conv3x3_ct_bwd.launches`` counts CUDA calls, ``launches_by_design``
+    them by design."""
     if x.device.type == "cpu":
         return conv3x3_ct_bwd_plain(x, w, g)
-    kind = kind or design(x.dtype)
-    steps, out = _conv3x3_ct_bwd_steps(x, w, g, kind)
+    kind = design(x.dtype)
+    steps, out = _conv3x3_ct_bwd_steps(x, w, g)
     with torch.cuda.device(x.device):
         for step in steps.values():
             step()

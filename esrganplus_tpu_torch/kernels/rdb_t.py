@@ -355,24 +355,23 @@ def rdb_t_bwd_mma_steps(x, w1, w2, w3, w4, w5, w11, bias, g, *, slope: float = 0
 
 
 def rdb_t_bwd(x, w1, w2, w3, w4, w5, w11, bias, g, *, slope: float = 0.2,
-              res_scale: float = 0.2, kind: Optional[str] = None) -> tuple:
+              res_scale: float = 0.2) -> tuple:
     """Adjoint of :func:`rdb_t` (no fold) from x alone: the forward's
     stages 1..4 are recomputed into a workspace that is freed at return.
     ``w*`` and ``bias`` as the forward took them, ``g`` the output cotangent
     in x's dtype. Returns ``(dx, dw1, .., dw5, dw11, db)``: dx in x's dtype,
     fp32 ``dw_k`` ``[S_k, 9·C_prefix_k]``, ``dw11`` ``[gc, nf]`` and the
     packed ``db`` ``[nf + 4·gc, 1]``. On a CUDA tensor 4 + 12 launches, all
-    deterministic, bf16 on the tensor cores and fp32 on the CUDA cores
-    (``kind`` names another design for the data and weight gradients, as for
-    ``rdb_ct_bwd``); ``rdb_t_bwd.launches`` counts CUDA calls,
+    deterministic, bf16 on the tensor cores and fp32 on the CUDA cores;
+    ``rdb_t_bwd.launches`` counts CUDA calls,
     ``launches_by_design`` them by the design of their data and weight
     gradients, ``recompute_by_design`` by that of their four dense-stage
     launches."""
     ws = (w1, w2, w3, w4, w5, w11, bias)
     if x.device.type == "cpu":
         return rdb_t_bwd_plain(x, *ws, g, slope=slope, res_scale=res_scale)
-    kind = kind or design(x.dtype)
-    steps, out = _rdb_t_bwd_steps(x, ws, g, slope=slope, res_scale=res_scale, kind=kind)
+    kind = design(x.dtype)
+    steps, out = _rdb_t_bwd_steps(x, ws, g, slope=slope, res_scale=res_scale)
     with torch.cuda.device(x.device):
         for step in steps.values():
             step()

@@ -78,6 +78,19 @@ def test_design_by_dtype(fn):
         steps(x, *([None] * {K.rdb_ct_bwd: 4, K.conv3x3_ct_bwd: 2, R.rdb_t_bwd: 8}[fn]))
 
 
+@pytest.mark.parametrize("fn", BWD, ids=lambda f: f.__name__)
+def test_public_wrappers_take_no_design(fn):
+    """The design follows the dtype alone: a public backward wrapper takes
+    no ``kind``, so a bf16 call cannot land on the FMA kernels (the FMA
+    baseline of a bf16 call is the private planners', uncounted)."""
+    import inspect
+
+    assert "kind" not in inspect.signature(fn).parameters
+    planner = {K.rdb_ct_bwd: K._rdb_ct_bwd_steps, K.conv3x3_ct_bwd: K._conv3x3_ct_bwd_steps,
+               R.rdb_t_bwd: R._rdb_t_bwd_steps}[fn]
+    assert "kind" in inspect.signature(planner).parameters
+
+
 def test_cpu_calls_run_the_twins_and_count_nothing():
     nf, gc = 8, 8
     p = _params(nf, gc)
