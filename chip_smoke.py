@@ -39,6 +39,22 @@ final result line:
                rdb_ct and conv3x3_ct call through "mma" too); then
                the small golden ESRGAN+ checkpoint (tests/golden) through the
                kernel path against the reference implementation's output;
+     eval    — a Set5-shaped set (five seeded smooth HR PNGs at Set5's HR
+               sizes, LR by ``prepare_data modlrbic``) through
+               ``esrganplus_tpu_torch.cli.test`` in bf16, one image at a time
+               and batched (``"eval_sharded": true``, four images a forward):
+               the launch counts of each run from 0, every call through
+               "mma"; each sequential PNG bit-equal to SRInferencer's
+               upscale; the batched 128² output within the bf16 bar of the
+               sequential one; psnr_torch / ssim_torch on the card against
+               the host metrics; ``cli.parity_check`` against the sequential
+               PNGs; seconds an image of both paths, output MPix/s, and
+               rdb_ct at batch 4 against batch 1 on the card alone;
+     serve   — ``esrganplus_tpu_torch.cli.serve`` in a thread (bf16, pad
+               multiple 32): /healthz, three requests answered bit-equal to
+               SRInferencer's upscale, 400 and 404, four concurrent requests
+               counted exactly, every rdb_ct call through "mma"; p50 / max
+               latency and output MPix/s;
   4. kernels-train-fwd — rdb_ct's training forward (saved l2|l4, the noise
                epilogue) at the training shape: its output and both saved
                buffers against the plain twin's, fp32 and bf16, gated on the
@@ -80,6 +96,10 @@ final result line:
                upfold_ct_bwd and conv_hr_ct_bwd through "mma"), the
                exported checkpoint, and a resume from step 8 that must end
                bit-equal to the uninterrupted run;
+     train-lmdb — the smoke dataset packed by ``prepare_data lmdb``: the
+               first batch of ``data_type: "lmdb"`` bit-equal to the image
+               folder's, then 4 flagship steps through the train CLI from the
+               LMDB (finite losses, every call of the eight kernels "mma");
   7. train-steady — ``SRTrainer.train_step`` on one device-resident batch:
                median ms/step and crops/s, twice from one seed (bit-equal);
      train-fused — phases 6 and 7 again with ``"noise_kernel": "fused"``
@@ -91,6 +111,11 @@ final result line:
                training shapes, with times, bounds and a cuDNN yardstick
                (bf16: also the card alone); rdb_t's design and the design of
                rdb_t_bwd's recompute gated, a second call bit-equal;
+     kernels-rdb-t-gate — bf16 rdb_t_bwd against its twin on four seeds at
+               nf/gc 32/64, 64/64, 64/32 (odd shape) and 32/64 (training
+               shape), split into its recompute's flipped lrelu gates and the
+               rest, with what each remedy of fault F3 would reach
+               (reported, not gated);
      rdb-t-path — three chained ``rdb_t_diff`` (one RRDB) forward and
                backward at the training shape in bf16, launch counts from
                0 (every dense-stage launch, the recompute's too, through
@@ -557,49 +582,83 @@ def check_kernels(failures):
 # ---------------------------------------------------------------------------
 
 
+INFER_SIZES = {"a_128x128": (128, 128), "b_96x160": (96, 160), "c_97x131": (97, 131)}
+
+
+def _flagship_checkpoint(workdir):
+    """The flagship's seeded weights as a reference ``.pth`` → (params, cfg,
+    path). Init scale 0.5 (not the training default 0.1) keeps the output
+    O(1), so a bf16-vs-fp32 comparison is not one between near-zero images."""
+    import torch
+
+    from esrganplus_tpu_torch.convert import rrdbnet_to_state_dict
+    from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig, init_rrdbnet
+
+    cfg = RRDBNetConfig()
+    params = init_rrdbnet(cfg, seed=0, init_scale=0.5)
+    path = os.path.join(workdir, "flagship_seed0.pth")
+    torch.save(rrdbnet_to_state_dict(params, cfg), path)
+    return params, cfg, path
+
+
+def _reset_inference_counts():
+    from esrganplus_tpu_torch.kernels import rdb_ct as K
+    from esrganplus_tpu_torch.kernels import tail_ct as T
+
+    for fn in (K.rdb_ct, K.conv3x3_ct, T.upfold_ct, T.conv_hr_ct):
+        fn.launches = 0
+    T.reset_design_counts()
+    K.reset_design_counts()
+
+
+def _inference_launches():
+    from esrganplus_tpu_torch.kernels import rdb_ct as K
+    from esrganplus_tpu_torch.kernels import tail_ct as T
+
+    return {fn.__name__: fn.launches for fn in (K.rdb_ct, K.conv3x3_ct, T.upfold_ct, T.conv_hr_ct)}
+
+
+def _profiled_device_ms(fn):
+    """Device time (ms) of every kernel one ``fn()`` launches, by
+    ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
 def main_path(failures, workdir):
     import torch
 
     from esrganplus_tpu_torch.cli import test_image
-    from esrganplus_tpu_torch.convert import rrdbnet_to_state_dict
     from esrganplus_tpu_torch.infer import SRInferencer
     from esrganplus_tpu_torch.kernels import rdb_ct as K
     from esrganplus_tpu_torch.kernels import tail_ct as T
     from esrganplus_tpu_torch.models import generator_forward
-    from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig, init_rrdbnet, prep_trunk_ct
+    from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig, prep_trunk_ct
     from esrganplus_tpu_torch.ops.image_io import read_img, save_img
 
-    cfg = RRDBNetConfig()  # flagship: nb=23, nf=64, gc=32, ×4, conv1x1
-    # init scale 0.5 (not the training default 0.1) keeps the output O(1), so
-    # the bf16-vs-fp32 comparison below is not one between near-zero images
-    params = init_rrdbnet(cfg, seed=0, init_scale=0.5)
-    ckpt = os.path.join(workdir, "flagship_seed0.pth")
-    torch.save(rrdbnet_to_state_dict(params, cfg), ckpt)
+    params, cfg, ckpt = _flagship_checkpoint(workdir)
     lr_dir, out_dir = os.path.join(workdir, "LR"), os.path.join(workdir, "results")
     rng = np.random.RandomState(0)
-    sizes = {"a_128x128": (128, 128), "b_96x160": (96, 160), "c_97x131": (97, 131)}
+    sizes = INFER_SIZES
     for name, (h, w) in sizes.items():
-        # smooth random content: bilinear blow-up of a coarse random grid
-        coarse = rng.rand(h // 8 + 2, w // 8 + 2, 3)
-        yy, xx = np.linspace(0, coarse.shape[0] - 1.001, h), np.linspace(0, coarse.shape[1] - 1.001, w)
-        y0, x0 = yy.astype(int), xx.astype(int)
-        fy, fx = (yy - y0)[:, None, None], (xx - x0)[None, :, None]
-        img = ((1 - fy) * ((1 - fx) * coarse[y0][:, x0] + fx * coarse[y0][:, x0 + 1])
-               + fy * ((1 - fx) * coarse[y0 + 1][:, x0] + fx * coarse[y0 + 1][:, x0 + 1]))
-        save_img((img * 255).round().astype(np.uint8), os.path.join(lr_dir, name + ".png"))
+        save_img(_smooth_image(rng, h, w), os.path.join(lr_dir, name + ".png"))
 
     counted = (K.rdb_ct, K.conv3x3_ct, T.upfold_ct, T.conv_hr_ct)
-    for fn in counted:
-        fn.launches = 0
-    T.reset_design_counts()
-    K.reset_design_counts()
+    _reset_inference_counts()
     K.rdb_ct.device_launches = 0
     t0 = time.perf_counter()
     test_image.main([ckpt, "--input", lr_dir, "--output", out_dir, "--dtype", "bf16",
                      "--device", "cuda"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counted}
+    launches = _inference_launches()
     n = len(sizes)
     for k, per in PER_IMAGE.items():
         if launches[k] != per * n:
@@ -681,6 +740,319 @@ def main_path(failures, workdir):
     emit({"phase": "main-steady", "lr": [128, 128], "dtype": "bf16", "seconds": times,
           "median_s": med, "mpix_per_s_out": 512 * 512 / 1e6 / med})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the evaluation, serving and training-data slice: cli/test.py (one image at a
+# time and batched), cli/parity_check.py, cli/serve.py, data_type "lmdb"
+# ---------------------------------------------------------------------------
+
+# Set5's HR sizes (height, width); the LR by prepare_data modlrbic ×1/4
+SET5_HR = {"baby": (512, 512), "bird": (288, 288), "butterfly": (256, 256),
+           "head": (280, 280), "woman": (344, 228)}
+EVAL_BATCH = 4  # images a forward on the batched path (BatchedEvaluator's default)
+METRIC_TOL = {"psnr_db": 1e-3, "ssim": 1e-4}  # device float32 against the host's float64
+SERVE_REPEATS = 10  # sequential 128² requests behind the latency numbers
+LMDB_STEPS = 4
+
+
+def eval_path(failures, workdir):
+    """Phase eval: a Set5-shaped set (five seeded smooth HR PNGs at Set5's
+    HR sizes, LR by ``prepare_data modlrbic``) through ``cli.test`` in bf16
+    on the card, one image at a time and then batched (``"eval_sharded":
+    true``: EVAL_BATCH images a forward), then ``parity_check`` against the
+    first run's PNGs. Gated: the launch counts of each run from 0, every
+    call on "mma"; each sequential PNG bit-equal to SRInferencer's upscale
+    through tensor2img; the batched 128² output (no padding) within the bf16
+    bar of the sequential one; psnr_torch / ssim_torch on the card within
+    METRIC_TOL of the host metrics; parity_check exits 0. Reported: PSNR_Y of
+    the other batched outputs against the sequential ones (the pad edge),
+    seconds an image of both paths (the CLI on the host clock, the forwards
+    on the host clock and by the profiler's device time), output MPix/s,
+    and rdb_ct at batch 4 against batch 1 on the card alone."""
+    import contextlib
+    import io
+
+    import cv2
+    import torch
+
+    from esrganplus_tpu_torch.cli import parity_check, prepare_data
+    from esrganplus_tpu_torch.cli import test as test_cli
+    from esrganplus_tpu_torch.infer import BatchedEvaluator, SRInferencer
+    from esrganplus_tpu_torch.kernels import rdb_ct as K
+    from esrganplus_tpu_torch.ops.color import bgr2ycbcr
+    from esrganplus_tpu_torch.ops.image_io import img2tensor, read_img, save_img, tensor2img
+    from esrganplus_tpu_torch.ops.metrics import (calculate_psnr, calculate_ssim, psnr_torch,
+                                                  ssim_torch)
+
+    params, cfg, ckpt = _flagship_checkpoint(workdir)
+    rng = np.random.RandomState(5)
+    src = os.path.join(workdir, "set5_src")
+    for name, (h, w) in SET5_HR.items():
+        save_img(_smooth_image(rng, h, w), os.path.join(src, name + ".png"))
+    prepare_data.main(["modlrbic", src, os.path.join(workdir, "set5"), "--scale", "4"])
+    hr_dir, lr_dir = (os.path.join(workdir, "set5", f"{k}_x4") for k in ("HR", "LR"))
+    n = len(SET5_HR)
+
+    def run(tag, **extra):
+        opt = {"name": f"eval_{tag}", "model": "sr", "scale": 4, "compute_dtype": "bfloat16",
+               "datasets": {"test_1": {"name": "set5", "mode": "LRHR", "dataroot_HR": hr_dir,
+                                       "dataroot_LR": lr_dir}},
+               "path": {"root": workdir, "pretrain_model_G": ckpt},
+               "network_G": {"which_model_G": "RRDB_net", "norm_type": None, "mode": "CNA",
+                             "nf": NF, "nb": 23, "in_nc": 3, "out_nc": OUT_NC, "gc": GC,
+                             "gaussian_noise": True}, **extra}
+        path = os.path.join(workdir, f"eval_{tag}.json")
+        with open(path, "w") as f:
+            json.dump(opt, f)
+        _reset_inference_counts()
+        t0 = time.perf_counter()
+        test_cli.main(["-opt", path, "--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _inference_launches()
+        return (os.path.join(workdir, "results", f"eval_{tag}", "set5"), seconds, launches,
+                _path_designs(failures, f"eval {tag}", launches))
+
+    forwards = {"sequential": n, "batched": -(-n // EVAL_BATCH)}
+    runs = {"sequential": run("sequential"), "batched": run("batched", eval_sharded=True)}
+    for tag, (_, _, launches, _) in runs.items():
+        for k, per in PER_IMAGE.items():
+            if launches[k] != per * forwards[tag]:
+                failures.append(f"eval {tag}: {k} launched {launches[k]} times, expected "
+                                f"{per * forwards[tag]}")
+    out = {tag: {name: cv2.imread(os.path.join(r[0], name + ".png"), cv2.IMREAD_UNCHANGED)
+                 for name in SET5_HR} for tag, r in runs.items()}
+
+    inf = SRInferencer(params, cfg, dtype=torch.bfloat16)
+    lrs = {name: img2tensor(read_img(os.path.join(lr_dir, name + ".png"))) for name in SET5_HR}
+    bit_equal = {name: bool(np.array_equal(out["sequential"][name],
+                                           tensor2img(inf.upscale(lrs[name]))))
+                 for name in SET5_HR}
+    seq128, bat128 = (out[t]["baby"].astype(np.float64) / 255 for t in ("sequential", "batched"))
+    batched_128_err = float(np.abs(bat128 - seq128).max())
+    y = lambda img: bgr2ycbcr(img.astype(np.float32) / 255.0, only_y=True)[4:-4, 4:-4] * 255
+    pad_edge_psnr_y = {name: calculate_psnr(y(out["batched"][name]), y(out["sequential"][name]))
+                       for name in SET5_HR if name != "baby"}
+    metrics = {}
+    for name in SET5_HR:  # cli.test's protocol: [0, 255], crop = scale
+        sr = out["sequential"][name][4:-4, 4:-4].astype(np.float64)
+        gt = cv2.imread(os.path.join(hr_dir, name + ".png"), cv2.IMREAD_UNCHANGED)[4:-4, 4:-4]
+        gt = gt.astype(np.float64)
+        ts, tg = (torch.from_numpy(a).float().cuda() for a in (sr, gt))
+        metrics[name] = {"psnr_host": calculate_psnr(sr, gt), "psnr_device": psnr_torch(ts, tg).item(),
+                         "ssim_host": calculate_ssim(sr, gt), "ssim_device": ssim_torch(ts, tg).item()}
+    metric_err = {"psnr_db": max(abs(m["psnr_device"] - m["psnr_host"]) for m in metrics.values()),
+                  "ssim": max(abs(m["ssim_device"] - m["ssim_host"]) for m in metrics.values())}
+
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        parity_rc = parity_check.main([ckpt, "--lr", lr_dir, "--hr", hr_dir, "--ref-results",
+                                       runs["sequential"][0], "--ref-suffix", "",
+                                       "--out", os.path.join(workdir, "parity"),
+                                       "--device", "cuda"])
+    parity_said = [l for l in said.getvalue().splitlines() if "delta" in l or "PARITY" in l]
+
+    # the forwards alone: each path over the set, then over four 128² images
+    bat = BatchedEvaluator(params, cfg, dtype=torch.bfloat16, batch=EVAL_BATCH)
+    imgs = list(lrs.values())
+    equal = [img2tensor(_smooth_image(rng, 128, 128).astype(np.float32) / 255.0)
+             for _ in range(EVAL_BATCH)]
+    paths = {"sequential": lambda s: [inf.upscale(i) for i in s], "batched": bat.upscale_batch}
+    timing = {}
+    for tag, fn in paths.items():
+        for set_name, images in (("set5", imgs), ("equal_128", equal)):
+            fn(images)
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                res = fn(images)
+                times.append(time.perf_counter() - t0)
+            host = float(np.median(times))
+            mpix = sum(r.shape[0] * r.shape[1] for r in res) / 1e6
+            timing[f"{tag}_{set_name}"] = {
+                "host_s_per_image": host / len(images),
+                "device_s_per_image": _profiled_device_ms(lambda: fn(images)) / 1e3 / len(images),
+                "mpix_per_s_out": mpix / host}
+    gen = torch.Generator().manual_seed(4)
+    w = K.prepare_rdb_ct_weights(_rdb_params(gen, NF, GC), torch.bfloat16)
+    rdb_ms = {b: device_ms(lambda x=torch.randn((b, 128, 128, NF), generator=gen).to(
+        "cuda", torch.bfloat16): K.rdb_ct(x, w)) for b in (1, EVAL_BATCH)}
+    row = {"phase": "eval", "images": n, "hr": SET5_HR, "dtype": "bfloat16",
+           # the batched path pads every LR to the set's largest (128², a multiple of 8)
+           "lr_pixels": {"sequential": int(sum(i.shape[0] * i.shape[1] for i in imgs)),
+                         "batched": n * 128 * 128},
+           "cli_seconds": {t: r[1] for t, r in runs.items()},
+           "cli_s_per_image": {t: r[1] / n for t, r in runs.items()},
+           "launches": {t: r[2] for t, r in runs.items()},
+           "by_design": {t: r[3] for t, r in runs.items()},
+           "sequential_bit_equal_to_upscale": bit_equal,
+           "batched_128_max_abs_err": batched_128_err, "tol_bf16": TOL["bfloat16"],
+           "batched_128_bit_equal": bool(np.array_equal(out["batched"]["baby"],
+                                                        out["sequential"]["baby"])),
+           "batched_vs_sequential_psnr_y_db": pad_edge_psnr_y,
+           "metrics": metrics, "metric_err": metric_err, "metric_tol": METRIC_TOL,
+           "parity_rc": parity_rc, "parity": parity_said, "forwards": timing,
+           "rdb_ct_device_ms_128": {f"b{b}": t for b, t in rdb_ms.items()},
+           "rdb_ct_b4_over_b1": (rdb_ms[EVAL_BATCH] / rdb_ms[1]
+                                 if rdb_ms[1] and rdb_ms[EVAL_BATCH] else None)}
+    row["ok"] = bool(all(bit_equal.values()) and batched_128_err <= TOL["bfloat16"]
+                     and all(metric_err[k] <= METRIC_TOL[k] for k in METRIC_TOL)
+                     and parity_rc == 0 and all(np.isfinite(list(pad_edge_psnr_y.values()))))
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"eval: {row}")
+
+
+def serve_path(failures, workdir):
+    """Phase serve: ``cli.serve.make_server`` on 127.0.0.1 (port 0) in a
+    thread, bf16, pad multiple 32, the flagship's seeded weights. Gated:
+    /healthz 200 after the warm-up; three POST /upscale (128², 96×160,
+    97×131) answered with PNGs bit-equal to SRInferencer(pad_multiple=32)'s
+    upscale through tensor2img; a bad payload 400, an unknown path 404; four
+    concurrent requests counted exactly in /stats; every rdb_ct call of the
+    requests from 0 on "mma". Reported: the latency of SERVE_REPEATS
+    sequential 128² requests (p50, max) and output MPix/s, host clock."""
+    import argparse
+    import http.client
+    import threading
+
+    import cv2
+    import torch
+
+    from esrganplus_tpu_torch.cli.serve import make_server
+    from esrganplus_tpu_torch.infer import SRInferencer
+    from esrganplus_tpu_torch.ops.image_io import decode_img, encode_png, img2tensor, tensor2img
+
+    params, cfg, ckpt = _flagship_checkpoint(workdir)
+    args = argparse.Namespace(model=ckpt, host="127.0.0.1", port=0, dtype="bf16",
+                              pad_multiple=32, tile=0, x8=False, noise_seed=None, device="cuda")
+    srv, _ = make_server(args)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    addr = srv.server_address
+
+    def call(method, path, body=None):
+        c = http.client.HTTPConnection(*addr, timeout=120)
+        c.request(method, path, body=body)
+        r = c.getresponse()
+        data = r.read()
+        c.close()
+        return r.status, data
+
+    try:
+        health = call("GET", "/healthz")[0]
+        rng = np.random.RandomState(6)
+        imgs = {name: _smooth_image(rng, h, w) for name, (h, w) in INFER_SIZES.items()}
+        ref = SRInferencer(params, cfg, dtype=torch.bfloat16, pad_multiple=32)
+        _reset_inference_counts()
+        answers = {name: call("POST", "/upscale", encode_png(img)) for name, img in imgs.items()}
+        launches = _inference_launches()
+        by_design = _path_designs(failures, "serve", launches)
+        bit_equal = {}
+        for name, (status, body) in answers.items():
+            want = tensor2img(ref.upscale(img2tensor(imgs[name].astype(np.float32) / 255.0)))
+            bit_equal[name] = bool(status == 200 and np.array_equal(
+                cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_UNCHANGED), want))
+        bad, unknown = call("POST", "/upscale", b"not an image")[0], call("GET", "/nope")[0]
+        before = json.loads(call("GET", "/stats")[1])["requests"]
+        png = encode_png(imgs["b_96x160"])
+        statuses = []
+        threads = [threading.Thread(target=lambda: statuses.append(
+            call("POST", "/upscale", png)[0])) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        counted = json.loads(call("GET", "/stats")[1])["requests"] - before
+        png = encode_png(imgs["a_128x128"])
+        lat = []
+        for _ in range(SERVE_REPEATS):
+            t0 = time.perf_counter()
+            status, body = call("POST", "/upscale", png)
+            lat.append(time.perf_counter() - t0)
+        out_shape = decode_img(body).shape
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=10)
+    p50 = float(np.median(lat))
+    row = {"phase": "serve", "dtype": "bfloat16", "pad_multiple": 32, "healthz": health,
+           "launches": launches, "by_design": by_design, "bit_equal_to_upscale": bit_equal,
+           "bad_payload": bad, "unknown_path": unknown, "concurrent": statuses,
+           "concurrent_counted": counted, "latency_s": lat, "p50_s": p50,
+           "max_s": float(max(lat)), "mpix_per_s_out": out_shape[0] * out_shape[1] / 1e6 / p50,
+           "last_shape": list(out_shape)}
+    row["ok"] = bool(health == 200 and all(bit_equal.values()) and bad == 400
+                     and unknown == 404 and statuses == [200] * 4 and counted == 4
+                     and status == 200 and out_shape == (512, 512, 3)
+                     and launches["rdb_ct"] == 69 * len(INFER_SIZES))
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"serve: {row}")
+
+
+def train_lmdb_path(failures, workdir):
+    """Phase train-lmdb: the train phase's smoke dataset packed by
+    ``prepare_data lmdb``; the first batch of the LMDB loader bit-equal to
+    the image folder's at one seed; then LMDB_STEPS flagship steps (batch
+    16, HR 128, bf16) through ``cli.train`` from the LMDB: finite losses,
+    every rdb_ct / rdb_ct_bwd call (and the other six kernels') from 0 on
+    "mma"."""
+    import torch
+
+    from esrganplus_tpu_torch.cli import prepare_data
+    from esrganplus_tpu_torch.cli import train as train_cli
+    from esrganplus_tpu_torch.data import TrainLoader, create_dataset
+    from esrganplus_tpu_torch.kernels import rdb_ct as K
+    from esrganplus_tpu_torch.kernels import tail_ct as T
+
+    dirs = _smoke_dataset(workdir)
+    for k in ("HR", "LR"):
+        prepare_data.main(["lmdb", dirs[k], os.path.join(workdir, f"{k}.lmdb")])
+    opt = _smoke_options(workdir, dirs, "debug_smoke_lmdb", "sr",
+                         {"lr_G": 2e-4, "pixel_weight": 1.0})
+    opt["train"]["niter"] = LMDB_STEPS
+    ds_img = dict(opt["datasets"]["train"], phase="train", scale=4)
+    opt["datasets"]["train"].update(dataroot_HR=os.path.join(workdir, "HR.lmdb"),
+                                    dataroot_LR=os.path.join(workdir, "LR.lmdb"),
+                                    data_type="lmdb")
+    ds_db = dict(opt["datasets"]["train"], phase="train", scale=4)
+    first = []
+    for ds_opt in (ds_img, ds_db):
+        loader = TrainLoader(create_dataset(ds_opt), batch_size=TRAIN_SHAPE[0], num_workers=1,
+                             seed=0)
+        first.append(next(iter(loader)))
+        loader.stop()
+    batch_equal = all(np.array_equal(first[0][k], first[1][k]) for k in ("LR", "HR"))
+    opt_path = os.path.join(workdir, "train_lmdb.json")
+    with open(opt_path, "w") as f:
+        json.dump(opt, f, indent=1)
+    fwd = (K.rdb_ct, K.conv3x3_ct, T.upfold_ct, T.conv_hr_ct)
+    bwd = (K.rdb_ct_bwd, K.conv3x3_ct_bwd, T.upfold_ct_bwd, T.conv_hr_ct_bwd)
+    for fn in fwd + bwd:
+        fn.launches = 0
+    T.reset_design_counts()
+    K.reset_design_counts()
+    t0 = time.perf_counter()
+    train_cli.main(["-opt", opt_path, "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in fwd + bwd}
+    want = {**{k: per * LMDB_STEPS for k, per in PER_IMAGE.items()},
+            **{k: per * LMDB_STEPS for k, per in BWD_PER_STEP.items()}}
+    by_design = _path_designs(failures, "train-lmdb", launches)
+    losses, _ = _logged_losses(os.path.join(workdir, "experiments", "debug_smoke_lmdb"))
+    finite = bool(losses) and all(np.isfinite(float(v)) for v in losses.values())
+    row = {"phase": "train-lmdb", "steps": LMDB_STEPS, "first_batch_equal": batch_equal,
+           "batch_shapes": {k: list(first[1][k].shape) for k in ("LR", "HR")},
+           "seconds_total": seconds, "launches": launches, "by_design": by_design,
+           "l_pix": losses, "finite": finite}
+    row["ok"] = bool(batch_equal and finite and launches == want
+                     and sorted(losses) == list(range(2, LMDB_STEPS + 1, 2)))
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"train-lmdb: {row}")
 
 
 # ---------------------------------------------------------------------------
@@ -2277,9 +2649,20 @@ def check_rdb_t_gate(failures, seeds=4):
     kernel does, the gates rdb_ct's twin flips, and the largest |float64
     value| of a flipped gate over its pixel's largest in that stage (the
     margin a near-zero fix must catch); ``x_share_differing``, the share of
-    x1..x4 that differ at all. Reported, not gated; fails only on a
-    non-finite gradient."""
+    x1..x4 that differ at all. Which remedy of fault F3 could close the
+    distance: ``flips_same_inputs`` per stage, the flipped gates whose
+    inputs (x and x1..x_{k-1} over the gate pixel's 3×3 window) are
+    bit-equal on both sides, so that only the order of stage k's own sum
+    differs; ``same_inputs_fixed``, the adjoint's twin on the kernel's
+    buffers with only those flips set to the twin's entry;
+    ``f64_own_fixed``, the adjoint's twin on the kernel's buffers against
+    the same on the twin's, each side's gates within 2⁻¹⁰ of its pixel's
+    largest decided by a float64 sum over that side's own inputs
+    (``f64_flips_left``: the gates whose sign still differs then).
+    Reported, not gated; fails only on a non-finite gradient."""
     import torch
+
+    import torch.nn.functional as F
 
     from esrganplus_tpu_torch.kernels import rdb_ct as K
     from esrganplus_tpu_torch.kernels import rdb_t as R
@@ -2325,7 +2708,15 @@ def check_rdb_t_gate(failures, seeds=4):
                 other = dict(zip(("cat", "lsv"), K._rdb_ct_train_plain(x, wct)[1:]))
                 exact = dict(zip(("cat", "lsv"), K.rdb_ct_fp64(x, wct)[1:]))
                 fixed = {n: t.clone() for n, t in own.items()}
-                flips = {}
+                same_fixed = {n: t.clone() for n, t in own.items()}
+                own64, ref64 = ({n: t.clone() for n, t in b.items()} for b in (own, ref))
+                flips, same, left = {}, {}, {}
+
+                def z64(bufs, k):  # stage k's z in float64 from one side's own inputs
+                    src = torch.cat([x, bufs["cat"][..., :(k - 1) * gc]], -1)
+                    return K._conv(K._nchw(src, torch.float64), wct[f"w{k}"],
+                                   wct[f"b{k}"]).permute(0, 2, 3, 1)
+
                 for k, (buf, c0) in gates.items():
                     sl = (..., slice(c0, c0 + gc))
                     sign = lambda bufs: bufs[buf][sl] >= 0
@@ -2336,6 +2727,17 @@ def check_rdb_t_gate(failures, seeds=4):
                                 int((sign(other) != sign(ref)).sum()),
                                 margin.max().item() if margin.numel() else 0.0]
                     fixed[buf][sl] = torch.where(flip, ref[buf][sl], own[buf][sl])
+                    # pixels whose 3×3 window of x1..x_{k-1} is bit-equal on both sides
+                    differ = (own["cat"][..., :(k - 1) * gc]
+                              != ref["cat"][..., :(k - 1) * gc]).any(-1).float()[:, None]
+                    window = F.max_pool2d(differ, 3, 1, 1)[:, 0, ..., None] == 0
+                    same[k] = int((flip & window).sum())
+                    same_fixed[buf][sl] = torch.where(flip & window, ref[buf][sl], own[buf][sl])
+                    for bufs, out in ((own, own64), (ref, ref64)):  # the remedy, each side alone
+                        z = z64(bufs, k)
+                        near = z.abs() <= z.abs().amax(-1, keepdim=True) * 2.0 ** -10
+                        out[buf][sl] = torch.where(near, lrelu(z).to(bf), bufs[buf][sl])
+                    left[k] = int(((own64[buf][sl] >= 0) != (ref64[buf][sl] >= 0)).sum())
                 on_own = adjoint(own)
                 torch.cuda.synchronize()
                 finite = finite and all(bool(torch.isfinite(t.float()).all()) for t in got)
@@ -2346,7 +2748,9 @@ def check_rdb_t_gate(failures, seeds=4):
                     "recompute_alone": dist(on_own, twin),
                     "gates_fixed": dist(adjoint(fixed), twin),
                     "rdb_ct_twin_buffers": dist(adjoint(other), twin),
-                    "gate_flips": flips,
+                    "same_inputs_fixed": dist(adjoint(same_fixed), twin),
+                    "f64_own_fixed": dist(adjoint(own64), adjoint(ref64)),
+                    "gate_flips": flips, "flips_same_inputs": same, "f64_flips_left": left,
                     "x_share_differing": (own["cat"] != ref["cat"]).float().mean().item()})
     row = {"phase": "kernels-rdb-t-gate", "kernel": "rdb_t_bwd", "dtype": "bfloat16",
            "tol": BWD_TOL["bfloat16"], "cases": rows, "ok": bool(finite)}
@@ -2860,6 +3264,10 @@ def main() -> int:
     os.makedirs(workdir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
         launches = main_path(failures, tmp)
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        eval_path(failures, tmp)
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        serve_path(failures, tmp)
     bwd_report = check_bwd_kernels(failures)
     check_dense_accuracy(failures)
     check_dense_bwd_accuracy(failures)
@@ -2868,6 +3276,8 @@ def main() -> int:
     train_check(failures)
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
         train_launches = train_path(failures, tmp)
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        train_lmdb_path(failures, tmp)
     input_steady = train_steady(failures)
     step_ms = input_steady[0]
     fused_step_ms = train_fused(failures, workdir, input_steady)

@@ -9,8 +9,10 @@ augmentation, BGR→RGB. Output here is NHWC float32 numpy (the layout of the
 port's public functions) rather than CHW tensors. Counterpart of
 ``esrganplus_tpu/data/datasets.py``.
 
-Only the ``img`` data type is ported: LMDB roots (the JAX package's pure-python
-reader, ``data/lmdb_io.py``) and the segmentation dataset are not yet.
+LMDB roots (``data_type: "lmdb"``) are read through the pure-python LMDB
+format reader (:mod:`esrganplus_tpu_torch.data.lmdb_io`), honouring the
+reference's ``_keys_cache.p`` pickled key cache — no lmdb C module required.
+The segmentation dataset comes with the SFT-GAN slice.
 """
 
 from __future__ import annotations
@@ -42,6 +44,38 @@ def _paired_augment(imgs, hflip: bool, rot: bool, rng: random.Random):
     return [aug(im) for im in imgs]
 
 
+class _LmdbReader:
+    """LMDB image source with the reference's key-cache semantics
+    (``codes/data/util.py:34-69``): keys come from ``_keys_cache.p`` when
+    present (creating it on first open otherwise), paths are the sorted
+    non-``.meta`` keys, and each image is raw uint8 bytes shaped by its
+    ``<key>.meta`` record."""
+
+    def __init__(self, root: str):
+        import os
+        import pickle
+
+        from esrganplus_tpu_torch.data.lmdb_io import LmdbReader
+
+        self.env = LmdbReader(root)
+        cache = os.path.join(root, "_keys_cache.p") if os.path.isdir(root) else None
+        if cache and os.path.isfile(cache):
+            with open(cache, "rb") as f:
+                keys = pickle.load(f)
+        else:
+            keys = [k.decode("ascii") for k in self.env.keys()]
+            if cache:
+                with open(cache, "wb") as f:
+                    pickle.dump(keys, f)
+        self.keys = sorted(k for k in keys if not k.endswith(".meta"))
+
+    def read(self, key: str) -> np.ndarray:
+        buf = self.env.get(key.encode("ascii"))
+        meta = self.env.get((key + ".meta").encode("ascii")).decode("ascii")
+        h, w, c = [int(s) for s in meta.split(",")]
+        return np.frombuffer(buf, np.uint8).reshape(h, w, c).astype(np.float32) / 255.0
+
+
 class LRHRDataset:
     """Paired LR/HR dataset. ``opt`` follows the reference schema
     (dataroot_HR, dataroot_LR, HR_size, scale, phase, use_flip, use_rot,
@@ -55,10 +89,14 @@ class LRHRDataset:
         self._rng = random.Random(opt.get("seed", 0))
 
         data_type = opt.get("data_type", "img")
+        self._read_hr = self._read_lr = read_img  # path or LMDB key → image
         if data_type == "lmdb":
-            raise NotImplementedError("data_type 'lmdb' is not ported yet (ROADMAP "
-                                      "queue 1: data/lmdb_io.py); use an image folder")
-        if opt.get("subset_file") and self.phase == "train":
+            hr = _LmdbReader(opt["dataroot_HR"])
+            self.paths_hr, self._read_hr, self.paths_lr = hr.keys, hr.read, None
+            if opt.get("dataroot_LR"):
+                lr = _LmdbReader(opt["dataroot_LR"])
+                self.paths_lr, self._read_lr = lr.keys, lr.read
+        elif opt.get("subset_file") and self.phase == "train":
             import os
 
             with open(opt["subset_file"]) as f:
@@ -95,13 +133,13 @@ class LRHRDataset:
             return self.hr_size
         return rlt
 
-    def _read(self, paths, idx):
+    def _read(self, read, paths, idx):
         key = (paths is self.paths_lr, idx) if self._cache is not None else None
         if key is not None:
             hit = self._cache.get(key)
             if hit is not None:
                 return hit
-        img = read_img(paths[idx])
+        img = read(paths[idx])
         if key is not None and self._cache_bytes + img.nbytes <= self._cache_cap:
             self._cache[key] = img
             self._cache_bytes += img.nbytes
@@ -114,14 +152,14 @@ class LRHRDataset:
         """Item ``idx`` with its training crop and augmentation drawn from
         ``rng`` (``ds[idx]`` draws from the dataset's own seeded stream)."""
         scale = self.scale
-        img_hr = self._read(self.paths_hr, idx)
+        img_hr = self._read(self._read_hr, self.paths_hr, idx)
         if self.phase != "train":
             img_hr = modcrop(img_hr, scale)
         if self.opt.get("color"):
             img_hr = channel_convert(img_hr.shape[2], self.opt["color"], [img_hr])[0]
 
         if self.paths_lr is not None:
-            img_lr = self._read(self.paths_lr, idx)
+            img_lr = self._read(self._read_lr, self.paths_lr, idx)
         else:
             if self.phase == "train":
                 # reference `_mod` semantics (LRHR_dataset.py:64-77): bilinear
@@ -179,13 +217,17 @@ class LRDataset:
 
     def __init__(self, opt: Dict):
         self.opt = opt
-        self.paths_lr = scan_images(opt["dataroot_LR"])
+        if opt.get("data_type", "img") == "lmdb":
+            lr = _LmdbReader(opt["dataroot_LR"])
+            self.paths_lr, self._read = lr.keys, lr.read
+        else:
+            self.paths_lr, self._read = scan_images(opt["dataroot_LR"]), read_img
 
     def __len__(self):
         return len(self.paths_lr)
 
     def __getitem__(self, idx: int) -> Dict:
-        img_lr = read_img(self.paths_lr[idx])
+        img_lr = self._read(self.paths_lr[idx])
         if self.opt.get("color"):
             img_lr = channel_convert(img_lr.shape[2], self.opt["color"], [img_lr])[0]
         lr_rgb = np.ascontiguousarray(img_lr[:, :, ::-1], np.float32)

@@ -8,7 +8,9 @@ it does not fall back. On the card the forward goes through the CUDA kernels
 Reference behaviour mirrored (``test_image/test.py:26-40``): BGR uint8 on disk →
 RGB [0,1] → forward → clamp(0,1) → BGR ×255 rounded PNG named ``<base>_rlt.png``.
 
-Not ported yet: ``ShardedEvaluator`` (mesh evaluation).
+``BatchedEvaluator`` takes the role of the JAX package's ``ShardedEvaluator``
+on one card: padded, batched evaluation of a test set. Its ``fwd_fn`` /
+``side_scale`` (SFT-GAN's segmentation side input) come with the SFT-GAN slice.
 """
 
 from __future__ import annotations
@@ -90,7 +92,10 @@ class SRInferencer:
         x = np.asarray(img_rgb, np.float32)
         squeeze = x.ndim == 3
         if squeeze:
-            x = x[None]
+            # not x[None]: its batch axis has stride 0, and cuDNN then takes
+            # another algorithm for fea_conv than for a stacked batch; in bf16
+            # one ulp there moves the output by up to 5e-2 (PERF.md, Findings)
+            x = x.reshape((1,) + x.shape)
         h, w = x.shape[1], x.shape[2]
         if self.pad_multiple:
             m = self.pad_multiple
@@ -238,3 +243,48 @@ class SRInferencer:
             for job, sr in zip(chunk, self.upscale(stack)):
                 paste(job, sr)
         return out
+
+
+class BatchedEvaluator:
+    """Batched evaluation of a test set on one device.
+
+    The reference evaluates strictly sequentially at batch 1
+    (``codes/test.py:49``). Here differently-sized images are edge-padded to
+    the set's max dims (rounded up to ``pad_multiple``), ``batch`` images
+    run per forward, and each output is cropped back and clipped to [0, 1].
+    Nothing is compiled per shape, so the last chunk runs short instead of
+    zero-padded. ``calls`` counts forwards.
+
+    Trade-off (as ``SRInferencer.pad_multiple``): edge padding perturbs the
+    convolutions within the network's effective receptive radius of the
+    right/bottom edges, so results are interior-exact but not bit-identical
+    to whole-image inference there. Use the sequential path when strict
+    border parity matters.
+    """
+
+    def __init__(self, params, cfg: RRDBNetConfig, dtype: Optional[torch.dtype] = None,
+                 pad_multiple: int = 8, batch: int = 4, device="cuda"):
+        self.inferencer = SRInferencer(params, cfg, dtype=dtype, device=device)
+        self.pad_multiple = pad_multiple
+        self.batch = batch
+        self.calls = 0
+
+    def upscale_batch(self, images) -> list:
+        """list of HWC RGB [0,1] arrays (any sizes) → list of float32 SR."""
+        s = self.inferencer.cfg.upscale
+        m = self.pad_multiple
+        hm = max(i.shape[0] for i in images)
+        wm = max(i.shape[1] for i in images)
+        hm += (-hm) % m
+        wm += (-wm) % m
+        outs = []
+        for i0 in range(0, len(images), self.batch):
+            chunk = images[i0:i0 + self.batch]
+            y = self.inferencer.upscale(np.stack([
+                np.pad(np.asarray(img, np.float32),
+                       ((0, hm - img.shape[0]), (0, wm - img.shape[1]), (0, 0)), mode="edge")
+                for img in chunk]))
+            self.calls += 1
+            outs.extend(np.ascontiguousarray(y[j, :img.shape[0] * s, :img.shape[1] * s])
+                        for j, img in enumerate(chunk))
+        return outs

@@ -219,9 +219,14 @@ def test_val_and_lr_datasets_match_jax(img_root):
 
 
 def test_unported_data_sources_are_refused(img_root):
+    """The segmentation dataset waits for the SFT-GAN slice. LMDB roots are
+    ported (tests/test_torch_data_prep.py); one that holds no LMDB
+    environment fails on open, as the JAX package's does."""
     hr_dir, lr_dir = img_root
-    with pytest.raises(NotImplementedError, match="lmdb"):
+    with pytest.raises(FileNotFoundError, match="data.mdb"):
         pdata.create_dataset(_train_opt(hr_dir, lr_dir, data_type="lmdb"))
+    with pytest.raises(FileNotFoundError, match="data.mdb"):
+        jdata.create_dataset(_train_opt(hr_dir, lr_dir, data_type="lmdb"))
     with pytest.raises(NotImplementedError):
         pdata.create_dataset({"mode": "LRHRseg_bg"})
 
