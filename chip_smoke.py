@@ -177,6 +177,41 @@ final result line:
                params, and conv3x3 as the first RDB's by-source stage 1;
                launch counts by design (all 70 through "mma") and the total
                ms of both chains;
+ 14. srresnet — SRResNet (cuDNN only): the golden ``srresnet_small_x4``
+               (tests/golden) on the card in fp32 within 1e-5 of the
+               reference's output, and through ``cli.test_image`` (its PNG
+               bit-equal to SRInferencer's); a seeded flagship SRResNet (nb
+               16, nf 64, ×4) ``.pth`` through ``cli.test_image`` in bf16
+               against fp32 at the bf16 bar, then through ``cli.test`` with a
+               ``test_SRResNet.json``-shaped options file on the Set5-shaped
+               set (each PNG bit-equal to SRInferencer's); no kernel
+               launched; ms an image and MPix/s;
+     train-srresnet — ``train_SRResNet.json`` as shipped (fp32, batch 16, HR
+               96, l2, 4096 resident crops) with ``steps_per_dispatch: 4``
+               (accepted; an eager step is one call) for 16 steps through
+               the train CLI (finite logged losses, a ``latest_G.pth`` read
+               back as SRResNet, a resume from step 8 bit-equal, no kernel
+               launched), then ``train_SRGAN.json`` as
+               shipped for 8 steps (finite terms; every call of the four
+               stage wrappers through its dtype's design, "fma" in the
+               recipe's fp32); the two recipes' steady resident ms/step and
+               device ms a step (srresnet-steady, reported);
+     train-resident — the flagship PSNR recipe's shape (batch 16, HR 128,
+               bf16, noise on) on a store of 4096 crops: one resident step
+               bit-equal to ``train_step`` on the sampled batch, 16 steps
+               through the train CLI with ``steps_per_dispatch: 4`` (launch
+               counts of the eight
+               kernels from 0, all "mma") and a resume from step 8 bit-equal;
+               4 resident ``srragan`` steps with all twelve wrappers through
+               "mma"; resident ms/step and crops/s beside train-steady's and
+               gan-steady's (reported);
+     train-profile-cli — ``cli.train --profile DIR --profile-steps 3`` on the
+               PSNR recipe, then ``cli.profile_summary DIR --steps 3``: the
+               per-step launches of dense_mma_kernel, dgrad_mma_kernel and
+               wgrad_mma_kernel in the trace equal to the launches counted
+               where each kernel is launched (``kernels/launch.py``
+               ``device_launches``); the table's top rows and the device ms a
+               step;
      with ``--profile`` also a ``torch.profiler`` trace of three steady steps
      of each trainer, the PSNR one in both noise modes (device time by
      kernel family, the stage kernels' sum, csrc/tail_ct.cu's kernels by
@@ -756,6 +791,19 @@ SERVE_REPEATS = 10  # sequential 128² requests behind the latency numbers
 LMDB_STEPS = 4
 
 
+def _set5_set(workdir, rng):
+    """Five smooth HR PNGs from ``rng`` at Set5's HR sizes and their LR by
+    ``prepare_data modlrbic`` → (HR dir, LR dir)."""
+    from esrganplus_tpu_torch.cli import prepare_data
+    from esrganplus_tpu_torch.ops.image_io import save_img
+
+    src = os.path.join(workdir, "set5_src")
+    for name, (h, w) in SET5_HR.items():
+        save_img(_smooth_image(rng, h, w), os.path.join(src, name + ".png"))
+    prepare_data.main(["modlrbic", src, os.path.join(workdir, "set5"), "--scale", "4"])
+    return tuple(os.path.join(workdir, "set5", f"{k}_x4") for k in ("HR", "LR"))
+
+
 def eval_path(failures, workdir):
     """Phase eval: a Set5-shaped set (five seeded smooth HR PNGs at Set5's
     HR sizes, LR by ``prepare_data modlrbic``) through ``cli.test`` in bf16
@@ -776,22 +824,18 @@ def eval_path(failures, workdir):
     import cv2
     import torch
 
-    from esrganplus_tpu_torch.cli import parity_check, prepare_data
+    from esrganplus_tpu_torch.cli import parity_check
     from esrganplus_tpu_torch.cli import test as test_cli
     from esrganplus_tpu_torch.infer import BatchedEvaluator, SRInferencer
     from esrganplus_tpu_torch.kernels import rdb_ct as K
     from esrganplus_tpu_torch.ops.color import bgr2ycbcr
-    from esrganplus_tpu_torch.ops.image_io import img2tensor, read_img, save_img, tensor2img
+    from esrganplus_tpu_torch.ops.image_io import img2tensor, read_img, tensor2img
     from esrganplus_tpu_torch.ops.metrics import (calculate_psnr, calculate_ssim, psnr_torch,
                                                   ssim_torch)
 
     params, cfg, ckpt = _flagship_checkpoint(workdir)
     rng = np.random.RandomState(5)
-    src = os.path.join(workdir, "set5_src")
-    for name, (h, w) in SET5_HR.items():
-        save_img(_smooth_image(rng, h, w), os.path.join(src, name + ".png"))
-    prepare_data.main(["modlrbic", src, os.path.join(workdir, "set5"), "--scale", "4"])
-    hr_dir, lr_dir = (os.path.join(workdir, "set5", f"{k}_x4") for k in ("HR", "LR"))
+    hr_dir, lr_dir = _set5_set(workdir, rng)
     n = len(SET5_HR)
 
     def run(tag, **extra):
@@ -2303,6 +2347,7 @@ def train_profile(step_ms, make_trainer=None, phase="train-profile"):
 
     from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig
     from esrganplus_tpu_torch.train import SRTrainConfig, SRTrainer
+    from esrganplus_tpu_torch.utils.trace import op_family
 
     B, H, W = TRAIN_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(9)
@@ -2326,8 +2371,7 @@ def train_profile(step_ms, make_trainer=None, phase="train-profile"):
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        name = re.sub(r"\(anonymous namespace\)::|^void ", "", e.name)
-        name = re.split(r"[<(]", name)[0].split("::")[-1] or e.name
+        name = op_family(e.name)
         fam[name] += e.time_range.elapsed_us() / 1e3 / steps
         count[name] += 1
     busy = sum(fam.values())
@@ -3241,6 +3285,477 @@ def workbench_rows(report, conv_launches, launches):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the fourteenth slice: the shipped training recipes as shipped — SRResNet,
+# the device-resident crop store with steps_per_dispatch, --profile with its
+# trace summary (resume from a JAX-written state is a CPU test)
+# ---------------------------------------------------------------------------
+
+SHIPPED = os.path.join(HERE, "esrganplus_tpu", "options")  # the recipes (JSON), read as data
+SRRESNET_GOLDEN = os.path.join(HERE, "tests", "golden", "srresnet_small_x4")
+RESIDENT_CROPS = 4096  # the shipped recipes' resident_crops
+DISPATCH = 4  # steps_per_dispatch of the resident runs (an eager step is one call)
+PRINT_FREQ = 4  # the resident runs log every PRINT_FREQ steps
+RDB_FAMILIES = ("dense_mma_kernel", "dgrad_mma_kernel", "wgrad_mma_kernel")
+PROFILE_STEPS = 3
+
+
+def _zero_counts():
+    """Set every counted wrapper's launches, designs and device launches to 0."""
+    from esrganplus_tpu_torch.kernels import launch as L
+    from esrganplus_tpu_torch.kernels import rdb_ct as K
+    from esrganplus_tpu_torch.kernels import stage_ct as S
+    from esrganplus_tpu_torch.kernels import tail_ct as T
+
+    for fn in _twelve():
+        fn.launches = 0
+    S.reset_launch_counts()
+    T.reset_design_counts()
+    K.reset_design_counts()
+    K.rdb_ct.device_launches = 0
+    L.device_launches.clear()
+
+
+def _shipped_options(workdir, recipe, name, dirs, niter, freqs, **train):
+    """A shipped recipe (``options/train/<recipe>``) with only its dataroots,
+    ``niter``, its cadences (``freqs``: print, val, save) and ``train``
+    changed."""
+    from esrganplus_tpu_torch.options.options import _strip_comments
+
+    with open(os.path.join(SHIPPED, "train", recipe)) as f:
+        opt = json.loads(_strip_comments(f.read()))
+    opt.update(name=name, use_tb_logger=False)
+    opt["path"]["root"] = workdir
+    ds = opt["datasets"]
+    ds["train"].update(dataroot_HR=dirs["HR"], dataroot_LR=dirs["LR"])
+    ds["val"].update(dataroot_HR=dirs["valHR"], dataroot_LR=dirs["valLR"])
+    opt["logger"]["print_freq"] = freqs[0]
+    opt["train"].update(niter=niter, val_freq=freqs[1], save_checkpoint_freq=freqs[2], **train)
+    return opt
+
+
+def _run_train_cli(workdir, opt, argv=()):
+    """Write ``opt``, run the train CLI on the card → (seconds, exp dir)."""
+    import torch
+
+    from esrganplus_tpu_torch.cli import train as train_cli
+
+    path = os.path.join(workdir, opt["name"] + ".json")
+    with open(path, "w") as f:
+        json.dump(opt, f, indent=1)
+    t0 = time.perf_counter()
+    train_cli.main(["-opt", path, "--device", "cuda", *argv])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, os.path.join(workdir, "experiments", opt["name"])
+
+
+def _pool_bytes(text):
+    m = re.search(r"resident crop store: (\d+) pairs on \S+ \(([\d,]+) bytes\)", text)
+    return (int(m.group(1)), int(m.group(2).replace(",", ""))) if m else (None, None)
+
+
+def _resume_row(failures, phase, workdir, opt, exp, losses, keys=("l_pix",)):
+    """Resume ``opt``'s run from step 8: its logged terms after step 8 and
+    its ``latest_*.pth`` must equal the uninterrupted run's."""
+    import shutil
+
+    import torch
+
+    nets = [n for n in "GD" if os.path.exists(os.path.join(exp, "models", f"latest_{n}.pth"))]
+    kept = {}
+    for n in nets:
+        kept[n] = os.path.join(workdir, f"{opt['name']}_latest_{n}.pth")
+        shutil.copy(os.path.join(exp, "models", f"latest_{n}.pth"), kept[n])
+    opt = dict(opt, path=dict(opt["path"], resume_state=os.path.join(
+        exp, "training_state", "8.state.npz")))
+    _run_train_cli(workdir, opt)
+    after = {k: _logged_losses(exp, k)[0] for k in keys}
+    text = _logged_losses(exp)[1]
+    diff = {}
+    for n in nets:
+        a, b = torch.load(kept[n]), torch.load(os.path.join(exp, "models", f"latest_{n}.pth"))
+        diff[n] = max((a[k].double() - b[k].double()).abs().max().item() for k in a)
+    later = [s for s in losses[keys[0]] if s > 8]
+    row = {"phase": phase + "-resume", "resumed": "resumed from" in text,
+           "logged_same_as_uninterrupted": bool(later) and all(
+               after[k].get(s) == losses[k][s] for k in keys for s in later),
+           "max_abs_weight_diff_vs_uninterrupted": diff}
+    row["ok"] = bool(row["resumed"] and row["logged_same_as_uninterrupted"]
+                     and all(d == 0.0 for d in diff.values()))
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"{phase}-resume: {row}")
+
+
+def _host_ms(fn, iters, warmup=2):
+    """Median host-clock ms of ``fn()`` followed by a synchronise."""
+    import torch
+
+    times = []
+    for i in range(warmup + iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), times
+
+
+def srresnet_path(failures, workdir):
+    """Phase srresnet (see the module docstring). SRResNet runs no kernel of
+    the port: every counter must stay 0."""
+    import contextlib
+    import io
+
+    import cv2
+    import torch
+
+    from esrganplus_tpu_torch.cli import test as test_cli
+    from esrganplus_tpu_torch.cli import test_image
+    from esrganplus_tpu_torch.convert import generator_to_state_dict
+    from esrganplus_tpu_torch.infer import SRInferencer, load_generator
+    from esrganplus_tpu_torch.models import SRResNetConfig, generator_forward, generator_init
+    from esrganplus_tpu_torch.models.layers import fp32_exact
+    from esrganplus_tpu_torch.options.options import _strip_comments
+    from esrganplus_tpu_torch.ops.image_io import read_img, save_img, tensor2img
+
+    _zero_counts()
+    row = {"phase": "srresnet"}
+    # the golden checkpoint against the reference implementation's output
+    params, cfg, _ = load_generator(SRRESNET_GOLDEN + ".pth", device="cuda")
+    io_ = np.load(SRRESNET_GOLDEN + "_io.npz")
+    x = torch.from_numpy(np.ascontiguousarray(io_["x"].transpose(0, 2, 3, 1))).cuda()
+    with torch.inference_mode(), fp32_exact():
+        y = generator_forward(params, x, cfg).cpu().numpy()
+    row["golden_max_abs_err"] = float(np.abs(y - io_["y"].transpose(0, 2, 3, 1)).max())
+    row["golden_cfg"] = [type(cfg).__name__, cfg.nb, cfg.nf, cfg.upscale]
+    g_in, g_out = os.path.join(workdir, "golden_LR"), os.path.join(workdir, "golden_out")
+    save_img(tensor2img(io_["x"][0].transpose(1, 2, 0)), os.path.join(g_in, "golden.png"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        test_image.main([SRRESNET_GOLDEN + ".pth", "--input", g_in, "--output", g_out,
+                         "--device", "cuda"])
+    got = cv2.imread(os.path.join(g_out, "golden_rlt.png"), cv2.IMREAD_UNCHANGED)
+    want = SRInferencer(params, cfg).upscale_bgr_to_png(read_img(os.path.join(g_in, "golden.png")))
+    row["golden_cli_png_equal"] = bool(np.array_equal(got, want))
+
+    # a seeded flagship SRResNet through the CLI, fp32 and bf16
+    fcfg = SRResNetConfig()
+    fparams = generator_init(0, fcfg, init_scale=0.5)
+    ckpt = os.path.join(workdir, "srresnet_flagship.pth")
+    torch.save(generator_to_state_dict(fparams, fcfg), ckpt)
+    lr_dir = os.path.join(workdir, "LR")
+    rng = np.random.RandomState(0)
+    for name, (h, w) in INFER_SIZES.items():
+        save_img(_smooth_image(rng, h, w), os.path.join(lr_dir, name + ".png"))
+    outs = {}
+    for dname in ("fp32", "bf16"):
+        out_dir = os.path.join(workdir, "out_" + dname)
+        with contextlib.redirect_stdout(io.StringIO()):
+            test_image.main([ckpt, "--input", lr_dir, "--output", out_dir, "--dtype", dname,
+                             "--device", "cuda"])
+        outs[dname] = {n: cv2.imread(os.path.join(out_dir, n + "_rlt.png"), cv2.IMREAD_UNCHANGED)
+                       for n in INFER_SIZES}
+    row["flagship_shapes"] = {n: list(o.shape) for n, o in outs["bf16"].items()}
+    row["flagship_bf16_vs_fp32_max_abs"] = max(
+        float(np.abs(outs["bf16"][n].astype(np.float64) - outs["fp32"][n]).max()) / 255.0
+        for n in INFER_SIZES)
+    shapes_ok = all(outs["bf16"][n].shape == (4 * h, 4 * w, 3)
+                    for n, (h, w) in INFER_SIZES.items())
+    img = read_img(os.path.join(lr_dir, "a_128x128.png"))[:, :, ::-1].copy()
+    fdev = load_generator(ckpt, device="cuda")[0]
+    for dname, dt in (("fp32", None), ("bf16", torch.bfloat16)):
+        inf = SRInferencer(fdev, fcfg, dtype=dt)
+        med, _ = _host_ms(lambda: inf.upscale(img), iters=10)
+        row[f"{dname}_ms_per_image_128"] = med
+        row[f"{dname}_mpix_per_s_out"] = 512 * 512 / 1e6 / (med / 1e3)
+
+    # cli.test with a test_SRResNet.json-shaped options file on the Set5-shaped set
+    hr_dir, set_lr = _set5_set(workdir, np.random.RandomState(5))
+    with open(os.path.join(SHIPPED, "test", "test_SRResNet.json")) as f:
+        topt = json.loads(_strip_comments(f.read()))
+    topt["path"].update(root=workdir, pretrain_model_G=ckpt)
+    topt["datasets"]["test_1"].update(dataroot_HR=hr_dir, dataroot_LR=set_lr)
+    tpath = os.path.join(workdir, "test_SRResNet.json")
+    with open(tpath, "w") as f:
+        json.dump(topt, f)
+    t0 = time.perf_counter()
+    test_cli.main(["-opt", tpath, "--device", "cuda"])
+    torch.cuda.synchronize()
+    row["eval_seconds_per_image"] = (time.perf_counter() - t0) / len(SET5_HR)
+    res = os.path.join(workdir, "results", topt["name"], "set5")
+    inf = SRInferencer(fdev, fcfg)
+    row["eval_png_equal"] = {
+        n: bool(np.array_equal(cv2.imread(os.path.join(res, n + ".png"), cv2.IMREAD_UNCHANGED),
+                               inf.upscale_bgr_to_png(read_img(os.path.join(set_lr, n + ".png")))))
+        for n in SET5_HR}
+    row["kernel_launches"] = {fn.__name__: fn.launches for fn in _twelve()}
+    row["ok"] = bool(row["golden_max_abs_err"] <= 1e-5 and row["golden_cli_png_equal"]
+                     and shapes_ok and row["flagship_bf16_vs_fp32_max_abs"] <= TOL["bfloat16"]
+                     and all(row["eval_png_equal"].values())
+                     and not any(row["kernel_launches"].values()))
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"srresnet: {row}")
+
+
+def train_srresnet_path(failures, workdir):
+    """Phase train-srresnet (see the module docstring)."""
+    from esrganplus_tpu_torch.convert import generator_from_state_dict, load_state_dict
+    from esrganplus_tpu_torch.kernels import stage_ct as S
+    from esrganplus_tpu_torch.models import SRResNetConfig
+
+    dirs = _smoke_dataset(workdir)
+    freqs = (PRINT_FREQ, 8, 8)
+    opt = _shipped_options(workdir, "train_SRResNet.json", "srresnet_smoke", dirs, TRAIN_STEPS,
+                           freqs, steps_per_dispatch=DISPATCH)
+    _zero_counts()
+    seconds, exp = _run_train_cli(workdir, opt)
+    launches = {fn.__name__: fn.launches for fn in _twelve()}
+    losses, text = _logged_losses(exp)
+    back, bcfg, _ = generator_from_state_dict(
+        load_state_dict(os.path.join(exp, "models", "latest_G.pth")))
+    n_pool, pool_bytes = _pool_bytes(text)
+    row = {"phase": "train-srresnet", "recipe": "train_SRResNet.json", "steps": TRAIN_STEPS,
+           "steps_per_dispatch": DISPATCH, "dtype": opt["train"].get("compute_dtype") or "float32",
+           "seconds_total": seconds, "l_pix": losses, "resident_pairs": n_pool,
+           "resident_bytes": pool_bytes, "reloaded": [type(bcfg).__name__, bcfg.nb, bcfg.nf],
+           "validations": text.count("Validation # PSNR"), "kernel_launches": launches}
+    row["ok"] = bool(sorted(losses) == list(range(PRINT_FREQ, TRAIN_STEPS + 1, PRINT_FREQ))
+                     and all(np.isfinite(float(v)) for v in losses.values())
+                     and isinstance(bcfg, SRResNetConfig) and (bcfg.nb, bcfg.nf) == (16, 64)
+                     and n_pool == RESIDENT_CROPS and pool_bytes == RESIDENT_CROPS * 3 * (
+                         96 * 96 + 24 * 24)
+                     and row["validations"] == TRAIN_STEPS // 8 and not any(launches.values()))
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"train-srresnet: {row}")
+    _resume_row(failures, "train-srresnet", workdir, opt, exp, {"l_pix": losses})
+
+    # SRGAN as shipped: fp32, so every stage call runs the FMA design
+    steps = 8
+    gopt = _shipped_options(workdir, "train_SRGAN.json", "srgan_smoke", dirs, steps, freqs,
+                            steps_per_dispatch=DISPATCH)
+    _zero_counts()
+    seconds, exp = _run_train_cli(workdir, gopt)
+    logged = {k: _logged_losses(exp, k)[0] for k in GAN_LOG_KEYS}
+    text = _logged_losses(exp)[1]
+    dname = gopt["train"].get("compute_dtype") or "float32"
+    want_design = "mma" if dname == "bfloat16" else "fma"
+    per_step = {**GAN_FWD_PER_STEP, **GAN_BWD_PER_STEP}
+    by_design = {fn.__name__: dict(fn.launches_by_design)
+                 for fn in (S.conv_s1_ct, S.conv_s1_ct_bwd, S.conv_s2_ct, S.conv_s2_ct_bwd)}
+    designs_ok = all(d == {"fma": 0, "mma": 0, want_design: per_step[k] * steps}
+                     for k, d in by_design.items())
+    row = {"phase": "train-srgan", "recipe": "train_SRGAN.json", "steps": steps,
+           "dtype": dname, "seconds_total": seconds, "ms_per_step": seconds / steps * 1e3,
+           "logged": logged, "stage_launches_by_design": by_design,
+           "stage_design_expected": want_design,
+           "random_vgg_warning": "VGG19 weights not provided" in text,
+           "resident_pairs": _pool_bytes(text)[0]}
+    row["ok"] = bool(designs_ok and all(
+        sorted(v) == list(range(PRINT_FREQ, steps + 1, PRINT_FREQ))
+        and all(np.isfinite(float(t)) for t in v.values()) for v in logged.values())
+        and row["resident_pairs"] == RESIDENT_CROPS)
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"train-srgan: {row}")
+    srresnet_steady(dirs)
+
+
+def srresnet_steady(dirs):
+    """The two SRResNet recipes' steps as shipped (fp32) on a store of their
+    HR size: median resident ms/step and crops/s (host clock around a
+    synchronised step), and the device ms a step by ``torch.profiler`` (three
+    steps) with the card's idle share of the host step. Reported, not
+    gated."""
+    from esrganplus_tpu_torch.models import SRResNetConfig
+    from esrganplus_tpu_torch.models.discriminator import DiscriminatorVGGConfig
+    from esrganplus_tpu_torch.train import GANTrainConfig, GANTrainer, SRTrainConfig, SRTrainer
+
+    B = 16
+    row = {"phase": "srresnet-steady", "batch": B, "dtype": "float32"}
+    for name, hr, make in (
+            ("psnr", 96, lambda: SRTrainer(SRResNetConfig(), SRTrainConfig(pixel_criterion="l2"),
+                                           device="cuda")),
+            ("srgan", 128, lambda: GANTrainer(SRResNetConfig(), DiscriminatorVGGConfig(),
+                                              GANTrainConfig(variant="srgan"), device="cuda"))):
+        store = _resident_store(dirs, hr)
+        trainer = make()
+        state = trainer.init_state(0)
+        med, times = _host_ms(lambda: trainer.train_step_resident(state, store, 1, B), iters=8)
+        dev = _profiled_device_ms(lambda: [trainer.train_step_resident(state, store, 1, B)
+                                           for _ in range(3)]) / 3
+        row.update({f"{name}_hr": hr, f"{name}_ms_per_step": med,
+                    f"{name}_crops_per_s": B / med * 1e3, f"{name}_ms_runs": times,
+                    f"{name}_device_ms_per_step": dev, f"{name}_device_idle_share": 1 - dev / med})
+        del trainer, state, store
+    emit(row)
+
+
+def _resident_store(dirs, hr_size):
+    from esrganplus_tpu_torch.data import create_dataset
+    from esrganplus_tpu_torch.data.resident import ResidentCropStore
+
+    ds = create_dataset({"name": "smoke", "mode": "LRHR", "phase": "train", "scale": 4,
+                         "dataroot_HR": dirs["HR"], "dataroot_LR": dirs["LR"],
+                         "HR_size": hr_size, "use_flip": True, "use_rot": True,
+                         "cache_images": True})
+    return ResidentCropStore(ds, "cuda", n_crops=RESIDENT_CROPS, refresh_steps=1000, seed=0)
+
+
+def _states_equal(a, b):
+    import torch
+
+    from esrganplus_tpu_torch.train.sr_model import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if torch.is_tensor(x) else x == y for x, y in zip(la, lb))
+
+
+def train_resident_path(failures, workdir, host_fed_ms, gan_host_fed_ms):
+    """Phase train-resident (see the module docstring); ``host_fed_ms`` /
+    ``gan_host_fed_ms`` are train-steady's and gan-steady's medians."""
+    import torch
+
+    from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig
+    from esrganplus_tpu_torch.train import SRTrainConfig, SRTrainer
+    from esrganplus_tpu_torch.train.rng import sample_seed
+
+    B, H, _ = TRAIN_SHAPE
+    dirs = _smoke_dataset(workdir)
+    t0 = time.perf_counter()
+    store = _resident_store(dirs, 4 * H)
+    build_s = time.perf_counter() - t0
+    make = lambda: SRTrainer(RRDBNetConfig(), SRTrainConfig(compute_dtype="bfloat16"),
+                             device="cuda")
+    a, b = make(), make()
+    sa, sb = a.init_state(0), b.init_state(0)
+    sa, la = a.train_step_resident(sa, store, 1, B)
+    batch = store.make_sampler(B)(sample_seed(1, 0))
+    on_card = all(t.is_cuda for t in batch)
+    sb, lb = b.train_step(sb, batch, 1)
+    single_equal = _states_equal(sa, sb) and all(torch.equal(la[k], lb[k]) for k in la)
+    del b, sb
+    step_ms, _ = _host_ms(lambda: a.train_step_resident(sa, store, 1, B), iters=10)
+    del a, sa
+    row = {"phase": "train-resident", "pairs": store.n_crops,
+           "pool_bytes": store.lr.nbytes + store.hr.nbytes, "pool_build_s": build_s,
+           "batch_on_card": on_card, "single_step_bit_equal": single_equal,
+           "resident_ms_per_step": step_ms, "resident_crops_per_s": B / step_ms * 1e3,
+           "host_fed_ms_per_step": host_fed_ms,
+           "host_fed_crops_per_s": B / host_fed_ms * 1e3}
+
+    # 16 steps through the CLI, then a resume
+    opt = _smoke_options(workdir, dirs, "resident_smoke", "sr", {"lr_G": 2e-4,
+                                                                 "pixel_weight": 1.0})
+    opt["datasets"]["train"].update(resident_crops=RESIDENT_CROPS, resident_refresh=1000,
+                                    cache_images=True)
+    opt["train"].update(steps_per_dispatch=DISPATCH, val_freq=8, save_checkpoint_freq=8)
+    opt["logger"]["print_freq"] = PRINT_FREQ
+    _zero_counts()
+    seconds, exp = _run_train_cli(workdir, opt)
+    counted = _twelve()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    n_val = VAL_IMAGES * (TRAIN_STEPS // 8)
+    expected = {**{k: per * (TRAIN_STEPS + n_val) for k, per in PER_IMAGE.items()},
+                **{k: per * TRAIN_STEPS for k, per in BWD_PER_STEP.items()}}
+    counts_ok = all(launches[k] == n for k, n in expected.items())
+    n_fail = len(failures)
+    by_design = _path_designs(failures, "train-resident", launches)
+    losses, text = _logged_losses(exp)
+    row.update(cli_seconds=seconds, cli_launches={k: launches[k] for k in expected},
+               cli_expected=expected, cli_by_design=by_design, l_pix=losses,
+               cli_pool=_pool_bytes(text))
+    row["ok"] = bool(on_card and single_equal and counts_ok
+                     and len(failures) == n_fail
+                     and sorted(losses) == list(range(PRINT_FREQ, TRAIN_STEPS + 1, PRINT_FREQ))
+                     and all(np.isfinite(float(v)) for v in losses.values())
+                     and row["cli_pool"][0] == RESIDENT_CROPS)
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"train-resident: {row}")
+    _resume_row(failures, "train-resident", workdir, opt, exp, {"l_pix": losses})
+
+    # srragan (train_ESRGANplus.json's shape) on the same store
+    gan = _gan_trainer()
+    state = gan.init_state(0)
+    _zero_counts()
+    gan_steps = 4
+    for _ in range(gan_steps):
+        state, logs = gan.train_step_resident(state, store, 1, B)
+    torch.cuda.synchronize()
+    glaunches = {fn.__name__: fn.launches for fn in counted}
+    gexpected = {k: per * gan_steps for k, per in {**PER_IMAGE, **BWD_PER_STEP,
+                                                   **GAN_FWD_PER_STEP,
+                                                   **GAN_BWD_PER_STEP}.items()}
+    designs = {fn.__name__: dict(fn.launches_by_design) for fn in counted}
+    gan_ok = all(glaunches[k] == n and designs[k] == {"fma": 0, "mma": n}
+                 for k, n in gexpected.items())
+    gan_ms, _ = _host_ms(lambda: gan.train_step_resident(state, store, 1, B), iters=6)
+    grow = {"phase": "train-resident-gan", "steps": gan_steps, "launches": glaunches,
+            "expected": gexpected, "by_design": designs,
+            "finite": all(bool(torch.isfinite(v)) for v in logs.values()),
+            "resident_ms_per_step": gan_ms, "resident_crops_per_s": B / gan_ms * 1e3,
+            "host_fed_ms_per_step": gan_host_fed_ms,
+            "host_fed_crops_per_s": B / gan_host_fed_ms * 1e3}
+    grow["ok"] = bool(gan_ok and grow["finite"])
+    emit(grow)
+    if not grow["ok"]:
+        failures.append(f"train-resident-gan: {grow}")
+
+
+def train_profile_cli(failures, workdir):
+    """Phase train-profile-cli (see the module docstring): the trace's
+    per-step launches of the RDB kernel families against the launches
+    counted where each kernel is launched, over the same run (every step
+    launches the same: no validation, no checkpoint inside it)."""
+    import contextlib
+    import io
+
+    from esrganplus_tpu_torch.cli import profile_summary
+    from esrganplus_tpu_torch.kernels import launch as L
+    from esrganplus_tpu_torch.utils.trace import (aggregate_exclusive, device_rows,
+                                                  find_trace_file, load_trace_events)
+
+    dirs = _smoke_dataset(workdir)
+    niter = 10 + PROFILE_STEPS
+    opt = _smoke_options(workdir, dirs, "profile_smoke", "sr", {"lr_G": 2e-4,
+                                                                "pixel_weight": 1.0})
+    opt["datasets"]["train"].update(resident_crops=RESIDENT_CROPS, cache_images=True)
+    opt["train"].update(niter=niter, val_freq=10 ** 6, save_checkpoint_freq=10 ** 6)
+    opt["logger"]["print_freq"] = 10 ** 6
+    trace_dir = os.path.join(workdir, "trace")
+    _zero_counts()
+    seconds, exp = _run_train_cli(workdir, opt, ["--profile", trace_dir, "--profile-steps",
+                                                 str(PROFILE_STEPS)])
+    per_step = {f: L.device_launches[f] / niter for f in RDB_FAMILIES}
+    path = find_trace_file(trace_dir)
+    events = load_trace_events(path)
+    rows_kind = device_rows(events)[0]
+    device_ms, agg = aggregate_exclusive(events, steps=PROFILE_STEPS)
+    traced = {f: agg.get(f, (0.0, 0))[1] for f in RDB_FAMILIES}
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        profile_summary.main([trace_dir, "--steps", str(PROFILE_STEPS), "--top", "12"])
+    table = out.getvalue().splitlines()
+    row = {"phase": "train-profile-cli", "steps_traced": PROFILE_STEPS, "niter": niter,
+           "seconds_total": seconds, "trace_bytes": os.path.getsize(path), "rows": rows_kind,
+           "device_ms_per_step": device_ms,
+           "device_launches_per_step": sum(c for _, c in agg.values()),
+           "rdb_families_per_step_trace": traced, "rdb_families_per_step_counters": per_step,
+           "counted_per_step": {f: n / niter for f, n in sorted(L.device_launches.items())},
+           "rdb_families_ms_per_step": {f: agg.get(f, (0.0, 0))[0] for f in RDB_FAMILIES},
+           "summary_top": table[:14]}
+    row["ok"] = bool(rows_kind == "kernel" and traced == per_step
+                     and all(v > 0 for v in traced.values())
+                     and table[1].startswith("device total:"))
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"train-profile-cli: {row}")
+
+
 def main() -> int:
     import torch
 
@@ -3292,6 +3807,14 @@ def main() -> int:
     wb_report, wb_conv_launches = check_workbench_kernels(failures)
     check_workbench_wide(failures)
     wb_launches = workbench_path(failures)
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        srresnet_path(failures, tmp)
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        train_srresnet_path(failures, tmp)
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        train_resident_path(failures, tmp, step_ms, gan_step_ms)
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        train_profile_cli(failures, tmp)
     if "--profile" in sys.argv[1:]:
         train_profile(step_ms)
         train_profile(fused_step_ms, _fused_trainer, "train-fused-profile")

@@ -61,7 +61,7 @@ def build_handler(inferencer, mode, stats: dict, lock: threading.Lock):
                 cfg = inferencer.cfg
                 self._json(200, {
                     "status": "ok",
-                    "model": {"nb": cfg.nb, "nf": cfg.nf, "gc": cfg.gc,
+                    "model": {"nb": cfg.nb, "nf": cfg.nf, "gc": getattr(cfg, "gc", None),
                               "upscale": cfg.upscale},
                     "device": str(inferencer.device),
                     "requests": stats["requests"],
@@ -138,7 +138,7 @@ def make_server(args):
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="ESRGAN+ inference service (PyTorch/CUDA)")
-    ap.add_argument("model", help="path to RRDBNet .pth checkpoint")
+    ap.add_argument("model", help="path to an RRDBNet or SRResNet .pth checkpoint")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8971)
     ap.add_argument("--dtype", default="bf16", choices=["bf16", "fp32"])

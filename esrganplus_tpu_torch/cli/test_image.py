@@ -20,7 +20,7 @@ import numpy as np
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="ESRGAN+ one-shot inference (PyTorch/CUDA)")
-    ap.add_argument("model", help="path to RRDBNet .pth checkpoint")
+    ap.add_argument("model", help="path to an RRDBNet or SRResNet .pth checkpoint")
     ap.add_argument("--input", default="LR", help="input image dir")
     ap.add_argument("--output", default="results", help="output dir")
     ap.add_argument("--dtype", default="fp32", choices=["fp32", "bf16"])
@@ -47,18 +47,23 @@ def main(argv=None):
     import torch
 
     from esrganplus_tpu_torch.infer import SRInferencer, load_generator
-    from esrganplus_tpu_torch.models.rrdb import rrdbnet_activations
+    from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig, rrdbnet_activations
     from esrganplus_tpu_torch.ops.image_io import img2tensor, read_img, save_img, scan_images
 
     params, cfg, info = load_generator(args.model, device=args.device)
+    rrdb = isinstance(cfg, RRDBNetConfig)
+    if args.dump_activations and not rrdb:
+        ap.error("--dump-activations names RRDBNet stages; this checkpoint is "
+                 f"{type(cfg).__name__}")
     if info["missing_conv1x1_blocks"]:
         print(f"note: checkpoint lacks conv1x1 weights for "
               f"{len(info['missing_conv1x1_blocks'])} RDBs (vanilla-ESRGAN ckpt); using zeros")
     dtype = torch.bfloat16 if args.dtype == "bf16" else None
     inf = SRInferencer(params, cfg, dtype=dtype, pad_multiple=args.pad_multiple,
                        noise_rng=args.noise_seed, device=args.device)
-    print(f"model: nb={cfg.nb} nf={cfg.nf} gc={cfg.gc} x{cfg.upscale} "
-          f"conv1x1={cfg.conv1x1} dtype={args.dtype} device={inf.device}")
+    arch = f"gc={cfg.gc} x{cfg.upscale} conv1x1={cfg.conv1x1}" if rrdb \
+        else f"SRResNet x{cfg.upscale}"
+    print(f"model: nb={cfg.nb} nf={cfg.nf} {arch} dtype={args.dtype} device={inf.device}")
 
     os.makedirs(args.output, exist_ok=True)
     dumps = {}

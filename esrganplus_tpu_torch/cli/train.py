@@ -1,16 +1,28 @@
 """Training entry point (reference ``codes/train.py`` surface).
 
     python -m esrganplus_tpu_torch.cli.train -opt path/to/options.json [--device cuda|cpu]
+        [--profile DIR [--profile-steps N]]
 
 Counterpart of ``esrganplus_tpu/cli/train.py`` for PSNR pretraining
-(``model: "sr"``) and GAN fine-tuning (``model: "srgan" | "srragan"``):
-experiment-dir management, dual loggers, periodic validation with PSNR and
-saved val images, checkpoint/resume with optimizer state, reference-layout
-.pth weight export (G and, for the GAN models, D), optional TensorBoard
-scalars. Runs on the card (``--device cuda``, the default), forward and
-backward through the CUDA kernels; ``--device cpu`` runs the plain graph.
-SFT-GAN, multi-process launch, the resident crop store and profiling are not
-ported yet and exit saying so.
+(``model: "sr"``) and GAN fine-tuning (``model: "srgan" | "srragan"``) of
+an RRDBNet or SRResNet generator: experiment-dir management, dual loggers,
+periodic validation with PSNR and saved val images, checkpoint/resume with
+optimizer state (from a state this package or the JAX package wrote,
+``train/checkpoint.py::load_state_auto``), reference-layout .pth weight export
+(G and, for the GAN models, D), optional TensorBoard scalars. Runs on the
+card (``--device cuda``, the default), an RRDBNet forward and backward
+through the CUDA kernels; ``--device cpu`` runs the plain graph.
+
+``datasets.train.resident_crops: N`` keeps N aligned crop pairs in device
+memory and samples, augments and casts each batch there
+(``data/resident.py``; ``resident_refresh`` re-crops every N steps,
+``resident_async_refresh`` builds the new pool in a background thread).
+``train.steps_per_dispatch: K`` (an integer >= 1) is accepted: the JAX package
+runs K resident steps per compiled call, an eager step here is one call
+whatever K is. ``--profile DIR`` traces ``--profile-steps`` steps
+from the 10th after the start with ``torch.profiler`` into DIR
+(``cli/profile_summary.py`` reads it). SFT-GAN and multi-process launch are
+not ported yet and exit saying so.
 """
 
 from __future__ import annotations
@@ -46,14 +58,15 @@ def main(argv=None):
     ap.add_argument("-opt", required=True, help="path to option JSON file")
     ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="profiler trace of the training loop (not yet ported)")
+                    help="write a torch.profiler trace of the steady-state training "
+                         "loop into DIR (cli.profile_summary reads it)")
+    ap.add_argument("--profile-steps", type=int, default=20,
+                    help="how many steps to trace (after 10 warm-up steps)")
     ap.add_argument("--dist-coordinator", default=None, metavar="HOST:PORT",
                     help="multi-process launch (not yet ported)")
     ap.add_argument("--dist-num-processes", type=int, default=None)
     ap.add_argument("--dist-process-id", type=int, default=None)
     args = ap.parse_args(argv)
-    if args.profile is not None:
-        ap.error("--profile is not yet ported to the PyTorch package")
     if args.dist_coordinator is not None or args.dist_num_processes is not None \
             or args.dist_process_id is not None:
         ap.error("--dist-*: multi-process training is not yet ported to the PyTorch package")
@@ -68,7 +81,7 @@ def main(argv=None):
                                                       build_train_config, check_resume,
                                                       dict2str, parse)
     from esrganplus_tpu_torch.train.checkpoint import (STATE_SUFFIX, AsyncCheckpointer,
-                                                       load_state)
+                                                       load_state_auto)
     from esrganplus_tpu_torch.utils import mkdir_and_rename, set_random_seed, setup_logger
 
     device = resolve_device(args.device)
@@ -76,6 +89,10 @@ def main(argv=None):
     model_kind = opt["model"]
     net_g = build_net_g_config(opt)        # raise for what is not ported
     train_cfg = build_train_config(opt)    # before any directory is touched
+    dispatch = opt["train"].get("steps_per_dispatch")
+    if dispatch is not None and (isinstance(dispatch, bool) or not isinstance(dispatch, int)
+                                 or dispatch < 1):
+        raise ValueError(f"train.steps_per_dispatch must be an integer >= 1, got {dispatch!r}")
     net_d = build_net_d_config(opt) if model_kind != "sr" else None
     train_opt_ds = val_opt_ds = None
     for ds_opt in opt["datasets"].values():
@@ -84,12 +101,6 @@ def main(argv=None):
         elif ds_opt["phase"] == "val":
             val_opt_ds = ds_opt
     assert train_opt_ds is not None, "no train dataset in options"
-    if train_opt_ds.get("resident_crops"):
-        raise SystemExit("datasets.train.resident_crops: the resident crop store is not "
-                         "yet ported to the PyTorch package")
-    if int(opt["train"].get("steps_per_dispatch", 1) or 1) > 1:
-        raise SystemExit("train.steps_per_dispatch: multi-step dispatch is not yet ported "
-                         "to the PyTorch package")
 
     resume_path = opt["path"].get("resume_state")
     if resume_path:
@@ -156,27 +167,80 @@ def main(argv=None):
             logger.info(f"loaded pretrained D from {opt['path']['pretrain_model_D']}")
     start_step = 0
     if resume_path:
-        state = load_state(resume_path, state)
+        # also a state the JAX package's trainer wrote (its prepared-trunk
+        # layout and a GAN state's f_params included)
+        state = load_state_auto(resume_path, state, net_g)
         start_step = int(state["step"])
         logger.info(f"resumed from {resume_path} at step {start_step}")
 
     # ---- loop ----
-    # a resumed run continues the batch stream where the checkpoint left it
-    train_loader = create_dataloader(train_ds, train_opt_ds, seed=seed,
-                                     start_batch=start_step)
-    feeder_obj = DeviceFeeder(train_loader, device, keys=("LR", "HR"))
-    feeder = iter(feeder_obj)
     print_freq = opt["logger"].get("print_freq", 100)
     val_freq = opt["train"].get("val_freq", 5000)
     save_freq = opt["train"].get("save_checkpoint_freq", 5000)
-    rng = seed + 1  # the run's noise seed; the trainer folds the step in
+    rng = seed + 1  # the run's seed for noise and sampling; the trainer folds the step in
     ckpt = AsyncCheckpointer()
+    resident_n = train_opt_ds.get("resident_crops")
+    train_loader = feeder_obj = store = None
+    if resident_n:
+        # the crop pool lives on the device; each batch is sampled there
+        from esrganplus_tpu_torch.data.resident import ResidentCropStore
+
+        store = ResidentCropStore(
+            train_ds, device, n_crops=int(resident_n),
+            refresh_steps=int(train_opt_ds.get("resident_refresh", 1000)),
+            async_refresh=bool(train_opt_ds.get("resident_async_refresh", True)),
+            seed=seed, use_flip=train_opt_ds.get("use_flip", True),
+            use_rot=train_opt_ds.get("use_rot", True), start_step=start_step)
+        logger.info(f"resident crop store: {store.n_crops} pairs on {device} "
+                    f"({store.lr.nbytes + store.hr.nbytes:,} bytes), refresh every "
+                    f"{store.refresh_steps} steps")
+    else:
+        # a resumed run continues the batch stream where the checkpoint left it
+        train_loader = create_dataloader(train_ds, train_opt_ds, seed=seed,
+                                         start_batch=start_step)
+        feeder_obj = DeviceFeeder(train_loader, device, keys=("LR", "HR"))
+        feeder = iter(feeder_obj)
+    if store is not None and (dispatch or 1) > 1:
+        logger.info(f"steps_per_dispatch {dispatch}: an eager step is one call; "
+                    "the steps run one at a time")
+
+    # --profile: trace [start+10, start+10+profile_steps), past the warm-up
+    prof_start = start_step + 10 if args.profile and args.profile_steps > 0 else None
+    prof_stop = prof_start + args.profile_steps if prof_start is not None else None
+    prof = None
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def stop_profile(why: str):
+        sync()
+        prof.stop()  # writes the trace through its handler
+        logger.info(f"profiler trace written to {args.profile}{why}")
 
     t_last = time.time()
     step = start_step
     while step < niter:
-        batch_dev, _ = next(feeder)
-        state, logs = trainer.train_step(state, batch_dev, rng)
+        if step == prof_start:
+            from torch.profiler import (ProfilerActivity, profile,
+                                        tensorboard_trace_handler)
+
+            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                             if device.type == "cuda" else [])
+            sync()
+            prof = profile(activities=acts, on_trace_ready=tensorboard_trace_handler(
+                args.profile))
+            prof.start()
+            logger.info(f"profiler trace started -> {args.profile}")
+        if store is not None:
+            store.maybe_refresh(step)
+            state, logs = trainer.train_step_resident(state, store, rng, batch_size)
+        else:
+            batch_dev, _ = next(feeder)
+            state, logs = trainer.train_step(state, batch_dev, rng)
+        if prof is not None and step + 1 >= prof_stop:
+            stop_profile("")
+            prof = None
 
         if (step + 1) % print_freq == 0:
             logs_h = {k: float(v) for k, v in logs.items()}  # waits for the device
@@ -220,12 +284,16 @@ def main(argv=None):
                     opt["path"]["models"], tag, model_kind, snap, net_g, net_d, trainer))
         step += 1
 
+    if prof is not None:
+        # the window reached past niter: close it so the trace is written
+        stop_profile(" (the run ended inside the profile window)")
     ckpt.wait()  # flush any in-flight periodic save before the final one
     logger.info("Saving the final model.")
     _export_networks(opt["path"]["models"], "latest", model_kind, state, net_g, net_d, trainer)
     logger.info("End of training.")
-    feeder_obj.stop()
-    train_loader.stop()
+    if feeder_obj is not None:
+        feeder_obj.stop()
+        train_loader.stop()
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Carry parameters across from the JAX package.
 
-``esrganplus_tpu``'s ``init_rrdbnet`` pytree (HWIO weights, the ``trunk``
-subtree stacked over nb) is the port's layout too, so the conversion is a
+``esrganplus_tpu``'s ``init_rrdbnet`` and ``init_srresnet`` pytrees (HWIO
+weights, the ``trunk`` subtree stacked over nb) are the port's layouts too, so the conversion is a
 tree walk from numpy arrays to fp32 CPU tensors plus a shape check against
 the config. The caller turns JAX arrays into numpy first
 (``jax.tree.map(np.asarray, params)``); this module imports no JAX. A whole
@@ -60,6 +60,43 @@ def from_jax_params(tree: dict, cfg: RRDBNetConfig) -> dict:
     return params
 
 
+def srresnet_from_jax(tree: dict, cfg) -> dict:
+    """JAX SRResNet parameter pytree (numpy leaves: the stacked
+    ``trunk.conv0`` / ``trunk.conv1`` and the list of ``upconvs``) → the
+    port's params, shape-checked against ``cfg`` (an ``SRResNetConfig``)."""
+    params = _to_torch(tree)
+    nf, nb, r = cfg.nf, cfg.nb, cfg.shuffle
+    expect = {
+        ("fea_conv",): (3, 3, cfg.in_nc, nf),
+        ("trunk", "conv0"): (nb, 3, 3, nf, nf),
+        ("trunk", "conv1"): (nb, 3, 3, nf, nf),
+        ("trunk_conv",): (3, 3, nf, nf),
+        ("hr_conv0",): (3, 3, nf, nf),
+        ("hr_conv1",): (3, 3, nf, cfg.out_nc),
+    }
+    for path, shape in expect.items():
+        node = params
+        for k in path:
+            node = node[k]
+        if tuple(node["w"].shape) != shape:
+            raise ValueError(f"{'/'.join(path)}: weight {tuple(node['w'].shape)}, "
+                             f"config expects {shape}")
+    if len(params["upconvs"]) != cfg.n_upscale_stages or any(
+            tuple(up["w"].shape) != (3, 3, nf, nf * r * r) for up in params["upconvs"]):
+        raise ValueError(f"upconvs {[tuple(up['w'].shape) for up in params['upconvs']]}, "
+                         f"config expects {cfg.n_upscale_stages} of (3, 3, {nf}, {nf * r * r})")
+    return params
+
+
+def generator_from_jax(tree: dict, cfg) -> dict:
+    """A JAX generator pytree → the port's params, by the config's type."""
+    from esrganplus_tpu_torch.models.srresnet import SRResNetConfig
+
+    if isinstance(cfg, SRResNetConfig):
+        return srresnet_from_jax(tree, cfg)
+    return from_jax_params(tree, cfg)
+
+
 def _find_adam(opt_state):
     """The ``ScaleByAdamState(count, mu, nu)`` inside an optax state: the
     state itself, or one element of a chain's tuple."""
@@ -73,8 +110,9 @@ def _find_adam(opt_state):
     return None
 
 
-def trainer_state_from_jax(state: dict, cfg: RRDBNetConfig) -> dict:
-    """A JAX ``SRTrainer`` state with numpy leaves (``params`` canonical,
+def trainer_state_from_jax(state: dict, cfg) -> dict:
+    """A JAX ``SRTrainer`` state with numpy leaves (``params`` canonical
+    RRDBNet or SRResNet,
     ``opt_state`` optax's ``ScaleByAdamState`` possibly inside a chain,
     ``step``) → the port's trainer state on the CPU: ``{"params",
     "opt_state": {"count", "mu", "nu"}, "step"}``. Hand the result's
@@ -82,19 +120,22 @@ def trainer_state_from_jax(state: dict, cfg: RRDBNetConfig) -> dict:
     to continue the run (``tests/test_torch_trainer.py`` shows it).
 
     A state that holds the JAX package's prepared ``trunk_ct`` masters is
-    refused: convert it there first, with ``unprep_trunk_ct``."""
+    refused: convert it first with ``models.rrdb.jax_master_unprep_trunk``
+    (params and both Adam moments), or read the saved file with
+    ``train.checkpoint.load_state_auto``."""
     if "trunk_ct" in state["params"]:
         raise ValueError("this state holds prepared trunk_ct masters (the JAX package's "
                          "kernel layout); convert it with "
-                         "esrganplus_tpu.models.rrdb.unprep_trunk_ct (params and both "
+                         "esrganplus_tpu_torch.models.rrdb.jax_master_unprep_trunk (the "
+                         "counterpart of the JAX package's unprep_trunk_ct; params and both "
                          "Adam moments) before carrying it across")
     adam = _find_adam(state["opt_state"])
     if adam is None:
         raise ValueError("no ScaleByAdamState(count, mu, nu) in opt_state")
-    return {"params": from_jax_params(state["params"], cfg),
+    return {"params": generator_from_jax(state["params"], cfg),
             "opt_state": {"count": int(np.asarray(adam.count)),
-                          "mu": from_jax_params(adam.mu, cfg),
-                          "nu": from_jax_params(adam.nu, cfg)},
+                          "mu": generator_from_jax(adam.mu, cfg),
+                          "nu": generator_from_jax(adam.nu, cfg)},
             "step": int(np.asarray(state["step"]))}
 
 
@@ -127,7 +168,7 @@ def vgg_feat_from_jax(tree: dict) -> dict:
     return {"layers": _to_torch(list(tree["layers"])), "pretrained": bool(tree["pretrained"])}
 
 
-def gan_trainer_state_from_jax(state: dict, net_g: RRDBNetConfig, net_d) -> dict:
+def gan_trainer_state_from_jax(state: dict, net_g, net_d) -> dict:
     """A JAX ``GANTrainer`` state with numpy leaves (``g_params`` canonical,
     ``d_params``, ``g_opt`` / ``d_opt`` optax ``ScaleByAdamState``s, ``step``)
     → the port's GAN trainer state on the CPU. ``f_params``, if present,
@@ -136,10 +177,11 @@ def gan_trainer_state_from_jax(state: dict, net_g: RRDBNetConfig, net_d) -> dict
     if "trunk_ct" in state["g_params"]:
         raise ValueError("this state holds prepared trunk_ct masters (the JAX package's "
                          "kernel layout); convert it with "
-                         "esrganplus_tpu.models.rrdb.unprep_trunk_ct (params and both "
+                         "esrganplus_tpu_torch.models.rrdb.jax_master_unprep_trunk (the "
+                         "counterpart of the JAX package's unprep_trunk_ct; params and both "
                          "Adam moments) before carrying it across")
     out = {"step": int(np.asarray(state["step"]))}
-    for key, opt_key, conv in (("g_params", "g_opt", lambda t: from_jax_params(t, net_g)),
+    for key, opt_key, conv in (("g_params", "g_opt", lambda t: generator_from_jax(t, net_g)),
                                ("d_params", "d_opt", lambda t: discriminator_from_jax(t, net_d))):
         adam = _find_adam(state[opt_key])
         if adam is None:

@@ -1,5 +1,6 @@
-"""Torch ``.pth`` checkpoint ↔ the port's parameter trees (RRDBNet generator
-and the VGG-style discriminators).
+"""Torch ``.pth`` checkpoint ↔ the port's parameter trees (RRDBNet and
+SRResNet generators, the VGG-style discriminators; SRResNet's own key layout
+is in ``models/srresnet.py``).
 
 Counterpart of ``esrganplus_tpu/convert/pth.py``. The reference saves
 flattened ``nn.Sequential`` state dicts:
@@ -40,6 +41,7 @@ __all__ = [
     "discriminator_sn_to_state_dict",
     "discriminator_to_state_dict",
     "generator_from_state_dict",
+    "generator_to_state_dict",
     "infer_rrdbnet_config",
     "load_state_dict",
     "rrdbnet_from_state_dict",
@@ -182,12 +184,28 @@ def rrdbnet_to_state_dict(params: dict, cfg: RRDBNetConfig) -> Dict[str, torch.T
 
 
 def generator_from_state_dict(sd: Dict[str, torch.Tensor], cfg=None, **kw):
-    """Dispatch on the checkpoint's keys → (params, cfg, info). RRDBNet only
-    so far; SRResNet (``.res.`` keys) and SFT-GAN (``sft_branch.``) checkpoints
-    are not ported yet."""
-    if any(k.startswith("sft_branch.") or ".res.0.weight" in k for k in sd):
-        raise NotImplementedError("SRResNet / SFT-GAN checkpoints are not ported yet")
+    """Dispatch on the checkpoint's keys → (params, cfg, info): RRDBNet
+    checkpoints have RDB keys, SRResNet ones ``.res`` keys. SFT-GAN
+    checkpoints (``sft_branch.``) are not ported yet."""
+    from esrganplus_tpu_torch.models.srresnet import (SRResNetConfig, is_srresnet_state_dict,
+                                                      srresnet_from_state_dict)
+
+    if any(k.startswith("sft_branch.") for k in sd):
+        raise NotImplementedError("SFT-GAN checkpoints are not ported yet "
+                                  "(ROADMAP queue 1: SFT-GAN)")
+    if is_srresnet_state_dict(sd) or isinstance(cfg, SRResNetConfig):
+        params, cfg = srresnet_from_state_dict(sd, cfg, dtype=kw.get("dtype", torch.float32))
+        return params, cfg, {"missing_conv1x1_blocks": []}
     return rrdbnet_from_state_dict(sd, cfg, **kw)
+
+
+def generator_to_state_dict(params: dict, cfg) -> Dict[str, torch.Tensor]:
+    """Export generator params (RRDBNet or SRResNet) → reference state dict."""
+    from esrganplus_tpu_torch.models.srresnet import SRResNetConfig, srresnet_to_state_dict
+
+    if isinstance(cfg, SRResNetConfig):
+        return srresnet_to_state_dict(params, cfg)
+    return rrdbnet_to_state_dict(params, cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from esrganplus_tpu_torch.convert import generator_from_state_dict, load_state_dict
-from esrganplus_tpu_torch.models import RRDBNetConfig, generator_forward
+from esrganplus_tpu_torch.models import generator_forward
 from esrganplus_tpu_torch.models.rrdb import needs_kernel_weights, prep_trunk_ct
 from esrganplus_tpu_torch.ops.image_io import img2tensor, tensor2img
 
@@ -44,9 +44,9 @@ def params_to(params, device):
     return params.to(device) if isinstance(params, torch.Tensor) else params
 
 
-def load_generator(path: str, cfg: Optional[RRDBNetConfig] = None,
-                   missing_conv1x1: str = "zeros", device="cuda"):
-    """Load a reference RRDBNet ``.pth`` → (params on ``device``, cfg, info)."""
+def load_generator(path: str, cfg=None, missing_conv1x1: str = "zeros", device="cuda"):
+    """Load a reference RRDBNet or SRResNet ``.pth`` → (params on
+    ``device``, cfg, info)."""
     dev = resolve_device(device)
     params, cfg, info = generator_from_state_dict(load_state_dict(path), cfg,
                                                   missing_conv1x1=missing_conv1x1)
@@ -56,6 +56,8 @@ def load_generator(path: str, cfg: Optional[RRDBNetConfig] = None,
 class SRInferencer:
     """×scale SR on arbitrary-size images.
 
+    ``cfg`` is an ``RRDBNetConfig`` or an ``SRResNetConfig``; SRResNet runs
+    no kernel, so its weights stay as given (cuDNN on the card).
     ``dtype=None`` is the fp32 parity path; ``torch.bfloat16`` the
     throughput path.
 
@@ -67,7 +69,7 @@ class SRInferencer:
     mode without gradients, on the card through the training kernels' forward.
     None = standard deterministic inference."""
 
-    def __init__(self, params, cfg: RRDBNetConfig, dtype: Optional[torch.dtype] = None,
+    def __init__(self, params, cfg, dtype: Optional[torch.dtype] = None,
                  pad_multiple: Optional[int] = None, noise_rng: Optional[int] = None,
                  device="cuda"):
         self.device = resolve_device(device)
@@ -262,7 +264,7 @@ class BatchedEvaluator:
     border parity matters.
     """
 
-    def __init__(self, params, cfg: RRDBNetConfig, dtype: Optional[torch.dtype] = None,
+    def __init__(self, params, cfg, dtype: Optional[torch.dtype] = None,
                  pad_multiple: int = 8, batch: int = 4, device="cuda"):
         self.inferencer = SRInferencer(params, cfg, dtype=dtype, device=device)
         self.pad_multiple = pad_multiple

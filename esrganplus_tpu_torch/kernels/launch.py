@@ -14,6 +14,7 @@ matrices ``[s, taps·cin]`` through the ``rdb_t`` library.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional
 
@@ -46,6 +47,24 @@ def count(fn, kind: str) -> None:
     """One call of the wrapper ``fn`` on design ``kind``."""
     fn.launches += 1
     fn.launches_by_design[kind] += 1
+
+
+# the dense, data-gradient and weight-gradient kernels launched, counted where
+# they are launched, by the name a profiler trace gives them
+# (utils/trace.op_family): "dense_mma_kernel", "dgrad_kernel", ...;
+# device_launches.clear() zeroes them
+device_launches = collections.Counter()
+_FAMILY = {("dense", "mma"): "dense_mma_kernel", ("dense", "fma"): "dense_conv3x3_kernel",
+           ("dgrad", "mma"): "dgrad_mma_kernel", ("dgrad", "fma"): "dgrad_kernel",
+           ("wgrad", "mma"): "wgrad_mma_kernel", ("wgrad", "fma"): "wgrad_kernel"}
+
+
+def launched(op: str, kind: str) -> None:
+    """One launch of the ``op`` kernel ("dense", "dgrad", "wgrad") on design
+    ``kind``; a weight gradient also launches its finishing pass."""
+    device_launches[_FAMILY[op, kind]] += 1
+    if op == "wgrad":
+        device_launches["wgrad_finish_kernel"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -161,12 +180,14 @@ def dgrad(x_like: torch.Tensor, B: int, dz: build.DzSrc, s: int, w: torch.Tensor
             0 if out32 is None else out32.shape[-1], int(accumulate),
             None if out is None else out.data_ptr(), 0 if out is None else out.shape[-1],
             None if addg is None else ctypes.byref(addg), B, stream)
-    head = (build.dtype_code(x_like), DESIGNS[kind or design(x_like.dtype)], chunk, taps)
+    kind = kind or design(x_like.dtype)
+    head = (build.dtype_code(x_like), DESIGNS[kind], chunk, taps)
     if by_target is None:
         code = build.load("dgrad_ct").esr_dgrad(*head, *args)
     else:
         code = build.load("rdb_t").esr_rdb_t_dgrad(*head, *by_target, *args)
     build.check(code, "esr_dgrad")
+    launched("dgrad", kind)
 
 
 def wgrad_tiles(B: int, H: int, W: int, kind: str = "fma") -> int:
@@ -226,8 +247,10 @@ def wgrad_plan(x: torch.Tensor, cat: Optional[torch.Tensor], cin: int, dz: build
     else:
         fn = lambda: build.load("rdb_t").esr_rdb_t_wgrad(*head, *by_target, x.data_ptr(), *rest)
         shape = (s, taps * cin)
-    # the launch holds the tensors and the DzSrc whose raw addresses it passes
-    run = lambda held=(x, cat, dz, part): build.check(fn(), "esr_wgrad")
+    def run(held=(x, cat, dz, part)):  # holds what the raw addresses point at
+        build.check(fn(), "esr_wgrad")
+        launched("wgrad", kind)
+
     return run, out[:taps * cin * s].view(shape), out[taps * cin * s:]
 
 

@@ -56,7 +56,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from esrganplus_tpu_torch.kernels import build
+from esrganplus_tpu_torch.kernels import build, launch
 from esrganplus_tpu_torch.kernels.launch import (ACT, ACT_1X1, ACT_ADD, DESIGNS, RESID,
                                                  aligned, count, design, dgrad, dgrad_chunk,
                                                  dz_src, wgrad_plan)
@@ -189,8 +189,9 @@ def _dense(lib, x, cat, cin, w, b, out_ptr, out_stride, *, mode, cout, w11=None,
     """One dense-stage launch on the design ``kind`` (default: x's dtype's)."""
     B, H, W, c0 = x.shape
     s0, s1 = (0, 0) if seed is None else seed
+    kind = kind or design(x.dtype)
     code = lib.esr_dense_conv3x3(
-        build.dtype_code(x), DESIGNS[kind or design(x.dtype)], cout, mode, x.data_ptr(), c0,
+        build.dtype_code(x), DESIGNS[kind], cout, mode, x.data_ptr(), c0,
         None if cat is None else cat.data_ptr(),
         0 if cat is None else cat.shape[3], cin, w.data_ptr(), b.data_ptr(),
         None if w11 is None else w11.data_ptr(), out_ptr, out_stride,
@@ -198,6 +199,7 @@ def _dense(lib, x, cat, cin, w, b, out_ptr, out_stride, *, mode, cout, w11=None,
         None if noise is None else noise.data_ptr(), sigma, int(seed is not None), s0, s1,
         alpha, beta2, slope, B, H, W, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(code, "esr_dense_conv3x3")
+    launch.launched("dense", kind)
 
 
 def rdb_ct_steps(x, w, res=None, noise=None, *, seed=None, rrdb_scale=None, sigma=0.0,

@@ -324,9 +324,12 @@ def use_cuda_tail(cfg: RRDBNetConfig, device, dtype) -> bool:
     return True
 
 
-def needs_kernel_weights(cfg: RRDBNetConfig, device, dtype) -> bool:
+def needs_kernel_weights(cfg, device, dtype) -> bool:
     """Whether a forward on ``device`` at ``dtype`` runs a kernel, and so
-    needs :func:`prep_trunk_ct`'s weights."""
+    needs :func:`prep_trunk_ct`'s weights. Only an RRDBNet does: another
+    generator (SRResNet) runs no kernel."""
+    if not isinstance(cfg, RRDBNetConfig):
+        return False
     return use_cuda_trunk(cfg, device, dtype) or use_cuda_tail(cfg, device, dtype)
 
 
@@ -524,3 +527,109 @@ def rrdbnet_activations(params: dict, x: torch.Tensor, cfg: RRDBNetConfig, *,
         acts["hr_conv0"] = fea
         acts["hr_conv1"] = conv2d(fea, params["hr_conv1"], dtype=dtype).float()
     return acts
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's trainer-master layout ("trunk_ct" of its prep_trunk_ct)
+# ---------------------------------------------------------------------------
+#
+# The JAX trainers may keep their fp32 masters, and Adam's moments with them,
+# in the TPU kernel's column-merged layout (``esrganplus_tpu/models/rrdb.py``
+# ``prep_trunk_ct`` / ``unprep_trunk_ct``, ``kernels/rdb_ct.py``
+# ``prepare_rdb_ct_weights``): per RDB the matrices w1..w5 ``[3·S_k (+gc at
+# k=2), 3·C_prefix_k]`` and a packed bias, stacked over nb, and the trunk conv
+# as ``lr_conv``. That layout is NOT this package's kernel weights
+# (:func:`prep_trunk_ct` above); these two functions exist only to read states
+# the JAX package wrote (``train/checkpoint.py::load_state_auto``). The layout
+# is a permutation of the canonical entries plus structural zeros (stage 2's
+# 1×1-shortcut rows outside x's centre-tap columns), which the inverse drops.
+
+
+def _jax_master_prep_rdb(p: dict, nf: int, gc: int, conv1x1: bool) -> tuple:
+    """One (unstacked) RDB → (w1, .., w5, bias) of ``prepare_rdb_ct_weights``
+    in fp32."""
+    def wk(k):
+        w = p[f"conv{k}"]["w"].float()  # [3, 3, C_prefix, S]
+        cp, s = w.shape[2], w.shape[3]
+        blocks, off = [], 0
+        for c in [nf] + [gc] * ((cp - nf) // gc):
+            blocks.append(w[:, :, off:off + c, :].permute(1, 3, 0, 2).reshape(3 * s, 3 * c))
+            off += c
+        out = torch.cat(blocks, 1)
+        if k == 2:
+            extra = torch.zeros((gc, out.shape[1]), dtype=out.dtype, device=out.device)
+            if conv1x1:
+                extra[:, nf:2 * nf] = p["conv1x1"]["w"][0, 0].float().T
+            out = torch.cat([out, extra], 0)
+        return out
+
+    bias = torch.cat([p["conv5"]["b"]] + [p[f"conv{t}"]["b"] for t in (4, 3, 2, 1)])
+    return (*(wk(k) for k in range(1, 6)), bias.float().reshape(-1, 1))
+
+
+def _jax_master_unprep_rdb(mats, cfg: RRDBNetConfig) -> dict:
+    """Exact inverse of :func:`_jax_master_prep_rdb` for one RDB (the JAX
+    package's ``_unprep_rdb_ct``)."""
+    nf, gc = cfg.nf, cfg.gc
+    w1, w2, w3, w4, w5, bias = mats
+    bias = bias.reshape(-1).float()
+    biases, off = {}, 0
+    for k in (5, 4, 3, 2, 1):  # packed (b5|b4|b3|b2|b1)
+        n = nf if k == 5 else gc
+        biases[k] = bias[off:off + n]
+        off += n
+    rdb = {}
+    for k, m in ((1, w1), (2, w2), (3, w3), (4, w4), (5, w5)):
+        s = nf if k == 5 else gc
+        if k == 2:
+            extra, m = m[3 * s:], m[:3 * s]
+            if cfg.conv1x1:
+                rdb["conv1x1"] = {"w": extra[:, nf:2 * nf].T.reshape(1, 1, nf, gc).float()}
+        blocks, coff = [], 0
+        for c in [nf] + [gc] * (k - 1):
+            blocks.append(m[:, coff:coff + 3 * c].reshape(3, s, 3, c).permute(2, 0, 3, 1))
+            coff += 3 * c
+        rdb[f"conv{k}"] = {"w": torch.cat(blocks, 2).float(), "b": biases[k]}
+    return rdb
+
+
+def jax_master_prep_trunk(params: dict, cfg: RRDBNetConfig) -> dict:
+    """Canonical params → the JAX trainers' prepared-master tree (``trunk``
+    and ``trunk_conv`` replaced by ``trunk_ct``), as its ``prep_trunk_ct``
+    builds it. Works on a parameter tree and on an Adam moment tree alike."""
+    if "trunk_ct" in params:
+        return params
+    trunk_ct = {}
+    for name in ("rdb1", "rdb2", "rdb3"):
+        per_block = [_jax_master_prep_rdb(block_params(params["trunk"][name], i), cfg.nf,
+                                          cfg.gc, cfg.conv1x1) for i in range(cfg.nb)]
+        trunk_ct[name] = [torch.stack([blk[j] for blk in per_block]) for j in range(6)]
+    tc = params["trunk_conv"]
+    cin, cout = tc["w"].shape[2], tc["w"].shape[3]
+    trunk_ct["lr_conv"] = {"w": tc["w"].float().permute(1, 3, 0, 2).reshape(3 * cout, 3 * cin)}
+    if "b" in tc:
+        trunk_ct["lr_conv"]["b"] = tc["b"].float().reshape(-1, 1)
+    out = {k: v for k, v in params.items() if k not in ("trunk", "trunk_conv")}
+    out["trunk_ct"] = trunk_ct
+    return out
+
+
+def jax_master_unprep_trunk(params: dict, cfg: RRDBNetConfig) -> dict:
+    """The JAX trainers' prepared-master tree → canonical params (the JAX
+    package's ``unprep_trunk_ct``); exact, the structural zeros dropped."""
+    if "trunk_ct" not in params:
+        return params
+    ct = params["trunk_ct"]
+    trunk = {}
+    for name in ("rdb1", "rdb2", "rdb3"):
+        per_block = [_jax_master_unprep_rdb([m[i] for m in ct[name]], cfg)
+                     for i in range(cfg.nb)]
+        trunk[name] = _stack(per_block)
+    wm = ct["lr_conv"]["w"]
+    trunk_conv = {"w": wm.reshape(3, cfg.nf, 3, cfg.nf).permute(2, 0, 3, 1).float()}
+    if "b" in ct["lr_conv"]:
+        trunk_conv["b"] = ct["lr_conv"]["b"].reshape(-1).float()
+    out = {k: v for k, v in params.items() if k != "trunk_ct"}
+    out["trunk"] = trunk
+    out["trunk_conv"] = trunk_conv
+    return out

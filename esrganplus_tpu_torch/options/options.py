@@ -122,8 +122,8 @@ def check_resume(opt, resume_iter: Optional[int] = None) -> None:
 
 
 def build_net_g_config(opt):
-    """network_G options → RRDBNetConfig. The other generators wait for
-    their slices of the port."""
+    """network_G options → RRDBNetConfig or SRResNetConfig. SFT-GAN waits
+    for its slice of the port."""
     from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig
 
     g = opt["network_G"]
@@ -144,8 +144,15 @@ def build_net_g_config(opt):
             noise_kernel=g.get("noise_kernel", "input"),
         )
     if which in ("sr_resnet", "srresnet"):
-        raise NotImplementedError(f"Generator model [{which}] is not ported yet "
-                                  "(ROADMAP queue 1: SRResNet)")
+        from esrganplus_tpu_torch.models.srresnet import SRResNetConfig
+
+        return SRResNetConfig(
+            in_nc=g.get("in_nc", 3),
+            out_nc=g.get("out_nc", 3),
+            nf=g.get("nf", 64),
+            nb=g.get("nb", 16),
+            upscale=g.get("scale", 4),
+        )
     if which == "sft_arch":
         raise NotImplementedError(f"Generator model [{which}] is not ported yet "
                                   "(ROADMAP queue 1: SFT-GAN)")

@@ -11,9 +11,16 @@ fixed order (dict keys sorted, the order ``jax.tree_util.tree_flatten`` gives
 the JAX package's files), restored against a template state from
 ``trainer.init_state``. Generator (and, for the GAN trainers, discriminator)
 weights are additionally exported as reference-layout ``.pth`` so the upstream tools and both packages can consume
-the checkpoints. The JAX package's ``load_state_auto`` toggles between its
-canonical and prepared-trunk layouts; this port has one layout, so
-:func:`load_state` is all there is.
+the checkpoints.
+
+The port's trainers keep one layout, the canonical tree. :func:`load_state`
+reads what they wrote; :func:`load_state_auto` also reads what the JAX
+package's trainers wrote: a canonical state (the same leaf order), a state
+whose generator masters and Adam moments are in its prepared-trunk layout
+(converted back exactly), and a GAN state that carries ``f_params``, the
+frozen VGG19, which the port keeps on the trainer (dropped by the template's
+structure: where that key sorts among its keys, as many leaves as the file
+has beyond it).
 """
 
 from __future__ import annotations
@@ -105,9 +112,22 @@ def load_state(path: str, template_state):
     """Restore into the structure of ``template_state`` (shape-checked):
     tensors land on the template leaf's device with its dtype and
     ``requires_grad``, integers stay integers."""
+    return _restore(_read_leaves(path)[0], template_state)
+
+
+# Top-level state entries a JAX trainer saves and the port keeps elsewhere:
+# the GAN trainer's frozen perceptual net (the port's ``GANTrainer.f_params``).
+HELD_ON_TRAINER = ("f_params",)
+
+
+def _read_leaves(path: str):
     with np.load(path, allow_pickle=False) as data:
         meta = json.loads(str(data["__meta__"]))
         leaves = [data[f"leaf_{i}"] for i in range(meta["n_leaves"])]
+    return leaves, meta
+
+
+def _restore(leaves, template_state):
     t_leaves = tree_leaves(template_state)
     if len(t_leaves) != len(leaves):
         raise ValueError(
@@ -125,16 +145,89 @@ def load_state(path: str, template_state):
     return tree_unflatten_like(template_state, iter(restored))
 
 
+def _toggle_g_repr(tree, net_cfg):
+    """Every generator-shaped subtree (params and Adam moments alike) to the
+    JAX trainers' prepared-master layout, or back from it."""
+    from esrganplus_tpu_torch.models.rrdb import jax_master_prep_trunk, jax_master_unprep_trunk
+
+    if isinstance(tree, dict):
+        if "trunk" in tree and "trunk_conv" in tree:
+            return jax_master_prep_trunk(tree, net_cfg)
+        if "trunk_ct" in tree:
+            return jax_master_unprep_trunk(tree, net_cfg)
+        return {k: _toggle_g_repr(v, net_cfg) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_toggle_g_repr(v, net_cfg) for v in tree]
+    return tree
+
+
+def _without_held(leaves, template):
+    """``leaves`` less the block of the top-level entry a JAX trainer saves
+    and the template lacks (``HELD_ON_TRAINER``), or None where there is
+    none. Leaves are flattened with sorted keys, so the block starts after
+    the template's leaves under keys that sort before it, and its length is
+    the file's surplus over the template."""
+    held = [k for k in HELD_ON_TRAINER if k not in template] if isinstance(template, dict) else []
+    surplus = len(leaves) - len(tree_leaves(template))
+    if len(held) != 1 or surplus <= 0:
+        return None
+    off = sum(len(tree_leaves(v)) for k, v in template.items() if k < held[0])
+    return leaves[:off] + leaves[off + surplus:]
+
+
+def load_state_auto(path: str, template_state, net_cfg=None):
+    """:func:`load_state` that also reads the states the JAX package's
+    trainers write (the role of its ``load_state_auto``):
+
+    * top-level entries the port holds on the trainer (``HELD_ON_TRAINER``:
+      a GAN state's ``f_params``) are dropped where the template lacks them
+      (:func:`_without_held`);
+    * a state saved with prepared-trunk masters (an RRDBNet ``net_cfg``) is
+      restored into the template toggled to that layout and converted back,
+      Adam moments included; the result lands on the template's devices,
+      dtypes and ``requires_grad``.
+
+    A genuine config mismatch raises the plain restore's error."""
+    from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig
+
+    leaves, _ = _read_leaves(path)
+    try:
+        return _restore(leaves, template_state)
+    except ValueError as orig:
+        plain_error = orig
+    dropped = _without_held(leaves, template_state)
+    if dropped is not None:
+        try:
+            return _restore(dropped, template_state)
+        except ValueError:
+            pass
+    if isinstance(net_cfg, RRDBNetConfig):
+        with torch.no_grad():
+            alt = _toggle_g_repr(template_state, net_cfg)
+        for cand in (leaves, _without_held(leaves, alt)):
+            if cand is None:
+                continue
+            try:
+                loaded = _toggle_g_repr(_restore(cand, alt), net_cfg)
+            except ValueError:
+                continue
+            back = [a.detach().to(b.device, b.dtype).contiguous()
+                    .requires_grad_(b.requires_grad) if torch.is_tensor(b) else a
+                    for a, b in zip(tree_leaves(loaded), tree_leaves(template_state))]
+            return tree_unflatten_like(template_state, iter(back))
+    raise plain_error
+
+
 def save_networks_pth(models_dir: str, tag, g_params, g_cfg, d_params=None, d_cfg=None) -> None:
     """Export network weights in reference-layout .pth: ``<tag>_G.pth`` and,
     with a discriminator, ``<tag>_D.pth``."""
     from esrganplus_tpu_torch.convert.pth import (discriminator_sn_to_state_dict,
                                                   discriminator_to_state_dict,
-                                                  rrdbnet_to_state_dict)
+                                                  generator_to_state_dict)
 
     os.makedirs(models_dir, exist_ok=True)
     cpu = lambda tree: tree_map(lambda p: p.detach().cpu(), tree)
-    sd = {k: v.clone() for k, v in rrdbnet_to_state_dict(cpu(g_params), g_cfg).items()}
+    sd = {k: v.clone() for k, v in generator_to_state_dict(cpu(g_params), g_cfg).items()}
     torch.save(sd, os.path.join(models_dir, f"{tag}_G.pth"))
     if d_params is not None and d_cfg is not None:
         to_sd = (discriminator_sn_to_state_dict if d_cfg.spectral_norm

@@ -48,7 +48,6 @@ from esrganplus_tpu_torch.models.discriminator import (DiscriminatorVGGConfig,
                                                        init_discriminator,
                                                        merge_sequential_bn)
 from esrganplus_tpu_torch.models.layers import deterministic_convs, fp32_exact
-from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig
 from esrganplus_tpu_torch.models.vgg import VGGFeatConfig, load_vgg_feat, vgg_feat_forward
 from esrganplus_tpu_torch.train.rng import noise_generator
 from esrganplus_tpu_torch.train.schedule import multistep_lr
@@ -88,9 +87,10 @@ class GANTrainConfig:
 
 
 class GANTrainer(GeneratorTrainerBase):
-    """ESRGAN+/SRGAN trainer on one device (the card unless ``device="cpu"``)."""
+    """ESRGAN+/SRGAN trainer on one device (the card unless ``device="cpu"``);
+    ``net_g`` an ``RRDBNetConfig`` or an ``SRResNetConfig``."""
 
-    def __init__(self, net_g: RRDBNetConfig, net_d: DiscriminatorVGGConfig,
+    def __init__(self, net_g, net_d: DiscriminatorVGGConfig,
                  cfg: GANTrainConfig = GANTrainConfig(), device="cuda",
                  vgg_cfg: VGGFeatConfig = VGGFeatConfig()):
         super().__init__(net_g, cfg.compute_dtype, device)

@@ -60,3 +60,10 @@ def site_seeds(seed: int, step: int, nb: int) -> list:
             row.append((z & 0xFFFFFFFF, z >> 32))
         out.append(row)
     return out
+
+
+def sample_seed(seed: int, step: int) -> int:
+    """A 63-bit seed for the device-resident sampler's draws of optimizer
+    step ``step`` (``data/resident.py``), independent of the noise stream
+    :func:`step_seed` gives the same (seed, step)."""
+    return _splitmix64(step_seed(seed, step) ^ 0xD1B54A32D192ED03) & (2 ** 63 - 1)

@@ -1,4 +1,4 @@
-"""PSNR-oriented L1/L2 trainer for the RRDB generator.
+"""PSNR-oriented L1/L2 trainer for the RRDB and SRResNet generators.
 
 Counterpart of ``esrganplus_tpu/train/sr_model.py`` (the reference's
 ``SRModel``, ``codes/models/SR_model.py:15-151``): pixel loss (L1 or MSE),
@@ -14,6 +14,10 @@ What differs from the JAX trainer, by design:
     "prepared master" layout: ``prep_trunk`` is carried in the config and read
     by nothing, ``mask_trunk_ct_grads`` has no counterpart, and
     ``ingest_params`` / ``canonical_params`` only place the tree on the device.
+  * ``train_step_resident`` (both trainers) samples the step's batch on the
+    device from a ``data.resident.ResidentCropStore`` and runs ``train_step``
+    on it: one step a call, where the JAX package runs a burst of
+    ``steps_per_dispatch`` steps in one compiled loop.
   * ``rng`` is the run's integer noise seed; the trainer folds the step into
     a device generator (``train/rng.py``) where JAX folds it into a key. With
     ``noise_kernel="fused"`` under ``noise_prng: "rbg"`` it also derives each
@@ -34,7 +38,7 @@ from esrganplus_tpu_torch.models import generator_forward, generator_init
 from esrganplus_tpu_torch.models.layers import deterministic_convs, fp32_exact
 from esrganplus_tpu_torch.models.rrdb import (RRDBNetConfig, needs_kernel_weights,
                                               prep_trunk_ct)
-from esrganplus_tpu_torch.train.rng import noise_generator, site_seeds
+from esrganplus_tpu_torch.train.rng import noise_generator, sample_seed, site_seeds
 from esrganplus_tpu_torch.train.schedule import multistep_lr
 
 
@@ -159,7 +163,7 @@ class GeneratorTrainerBase:
     dtype, the per-step noise generator, and the generator's parameter
     representation and eval-mode forward."""
 
-    def __init__(self, net_cfg: RRDBNetConfig, compute_dtype: Optional[str], device):
+    def __init__(self, net_cfg, compute_dtype: Optional[str], device):
         self.net_cfg = net_cfg
         self.device = resolve_device(device)
         if compute_dtype not in (None, "float32", "bfloat16"):
@@ -189,15 +193,25 @@ class GeneratorTrainerBase:
     def _site_seeds(self, seed: int, step: int, impl: str):
         """The fused noise mode's per-RDB Philox keys for ``step`` (Python
         ints, no device work), or None where the mode does not draw
-        in-kernel: another ``noise_kernel``, or the "threefry" contract."""
-        if self.net_cfg.noise_kernel != "fused" or impl != "rbg":
+        in-kernel: another ``noise_kernel``, the "threefry" contract, or a
+        generator without noise sites (SRResNet)."""
+        if (not isinstance(self.net_cfg, RRDBNetConfig) or self.net_cfg.noise_kernel != "fused"
+                or impl != "rbg"):
             return None
         return site_seeds(seed, step, self.net_cfg.nb)
+
+    def train_step_resident(self, state: dict, store, rng: int, batch_size: int):
+        """``train_step`` on a batch sampled on the device from ``store``
+        (``data/resident.py``) with a generator seeded from (``rng``, the
+        state's step) → (state, logs). The batch never leaves the device."""
+        batch = store.make_sampler(batch_size)(sample_seed(rng, int(state["step"])))
+        return self.train_step(state, batch, rng)
 
     def predict(self, params, lr_img) -> torch.Tensor:
         """Eval-mode forward of NHWC [0,1] input (numpy or tensor) → fp32
         tensor on the device. On the card this is the inference kernel path;
-        its weights are converted once per parameter version."""
+        its weights are converted once per parameter version (an RRDBNet's
+        only: SRResNet runs no kernel)."""
         x = torch.as_tensor(lr_img, dtype=torch.float32).to(self.device)
         kdt = self._dtype or torch.float32
         with torch.inference_mode():
@@ -210,9 +224,10 @@ class GeneratorTrainerBase:
 
 
 class SRTrainer(GeneratorTrainerBase):
-    """PSNR pretrainer on one device (the card unless ``device="cpu"``)."""
+    """PSNR pretrainer on one device (the card unless ``device="cpu"``);
+    ``net_cfg`` an ``RRDBNetConfig`` or an ``SRResNetConfig``."""
 
-    def __init__(self, net_cfg: RRDBNetConfig, train_cfg: SRTrainConfig = SRTrainConfig(),
+    def __init__(self, net_cfg, train_cfg: SRTrainConfig = SRTrainConfig(),
                  device="cuda"):
         super().__init__(net_cfg, train_cfg.compute_dtype, device)
         self.train_cfg = train_cfg

@@ -116,9 +116,13 @@ def test_from_jax_params_rejects_mismatched_config():
 
 
 def test_unported_generators_are_refused():
+    """SFT-GAN checkpoints are refused; SRResNet ones, ported since, load
+    (tests/test_torch_srresnet.py holds them against the reference)."""
     sd = load_state_dict(os.path.join(GOLDEN, "srresnet_small_x4.pth"))
-    with pytest.raises(NotImplementedError):
-        generator_from_state_dict(sd)
+    _, cfg, _ = generator_from_state_dict(sd)
+    assert type(cfg).__name__ == "SRResNetConfig"
+    with pytest.raises(NotImplementedError, match="SFT-GAN"):
+        generator_from_state_dict({"sft_branch.0.weight": torch.zeros(1), **sd})
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

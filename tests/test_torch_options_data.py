@@ -98,6 +98,9 @@ def test_unported_models_name_the_roadmap(tmp_path, model, which):
     if model in ("srgan", "srragan"):  # ported with the GAN slice: no longer refused
         assert popt.build_train_config(opt).variant == model
         return
+    if which == "sr_resnet":  # ported with SRResNet: no longer refused
+        assert type(popt.build_net_g_config(opt)).__name__ == "SRResNetConfig"
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         popt.build_net_g_config(opt)
         popt.build_train_config(opt)

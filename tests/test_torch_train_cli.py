@@ -136,31 +136,40 @@ def test_state_file_roundtrip(tmp_path):
 
 @pytest.mark.parametrize("case", ["profile", "dist", "resident", "dispatch", "srragan"])
 def test_unported_training_options_exit_saying_so(tmp_path, case, capsys):
+    """The multi-process launch is still refused, before anything starts.
+    The options ported since (``--profile``, the resident crop store,
+    ``steps_per_dispatch``, the resident store under a GAN model) now run."""
     root = str(tmp_path)
-    opt = _options(root, os.path.join(root, "HR"), os.path.join(root, "LR"))
+    opt = _options(root, *_make_dataset(root, n=2, hr=96 if case == "srragan" else 64), niter=2)
     argv = []
     if case == "profile":
-        argv = ["--profile", root]
+        argv = ["--profile", os.path.join(root, "trace"), "--profile-steps", "1"]
     elif case == "dist":
         argv = ["--dist-coordinator", "localhost:1234"]
     elif case == "resident":
         opt["datasets"]["train"]["resident_crops"] = 64
     elif case == "dispatch":
+        opt["datasets"]["train"]["resident_crops"] = 16
         opt["train"]["steps_per_dispatch"] = 4
     else:
-        # GAN fine-tuning itself is ported (tests/test_torch_gan_cli.py); what
-        # is not ported is refused under it too
         opt["model"] = "srragan"
         opt["network_D"] = {"which_model_D": "discriminator_vgg_96", "nf": 8}
-        opt["datasets"]["train"]["resident_crops"] = 64
+        opt["datasets"]["train"].update(resident_crops=8, batch_size=2, HR_size=96)
+        opt["train"]["feature_weight"] = 0
     path = os.path.join(root, "opt.json")
     with open(path, "w") as f:
         json.dump(opt, f)
-    with pytest.raises((SystemExit, NotImplementedError)) as e:
-        main(["-opt", path, "--device", "cpu", *argv])
-    said = str(e.value) + capsys.readouterr().err
-    assert "not yet ported" in said or "not ported yet" in said
-    assert not os.path.exists(os.path.join(root, "experiments"))  # nothing was started
+    if case == "dist":
+        with pytest.raises((SystemExit, NotImplementedError)) as e:
+            main(["-opt", path, "--device", "cpu", *argv])
+        said = str(e.value) + capsys.readouterr().err
+        assert "not yet ported" in said or "not ported yet" in said
+        assert not os.path.exists(os.path.join(root, "experiments"))  # nothing was started
+        return
+    main(["-opt", path, "--device", "cpu", *argv])
+    text = _log_text(os.path.join(root, "experiments", "debug_e2e"))
+    assert "End of training." in text and "<step:       2," in text
+    assert ("resident crop store" in text) == (case != "profile")
 
 
 def test_cli_needs_a_card_unless_asked_for_cpu(tmp_path):
