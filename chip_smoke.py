@@ -212,13 +212,51 @@ final result line:
                where each kernel is launched (``kernels/launch.py``
                ``device_launches``); the table's top rows and the device ms a
                step;
+ 15. seg     — OutdoorSceneSeg (published widths and depth, seeded) through
+               ``cli.test_seg --device cuda`` on two synthetic 384×512 HR
+               images: each probability map within 1e-4 of the port's CPU
+               forward, summing to 1 within 1e-5, the three output folders
+               written; the forward's ms an image (host clock, and the
+               card's kernel time by the profiler) and the CLI's s an image;
+               no kernel launched;
+     sft     — the shipped SFT_Net (nb 16, nf 64, cond_nf 32, ×4; seeded, the
+               trunk ×0.1) exported to .pth (read back bit-exact) and run
+               through ``cli.test_sftgan --device cuda`` on the seg phase's
+               maps: each output within 1e-4 of max|ref| of the port's fp32
+               CPU forward, its PNG equal to the card output's; ms an image
+               at a 128² LR, fp32 and bf16, host clock and the card's kernel
+               time by the profiler, MPix/s out; no kernel launched;
+     featex  — MINC and ResNet-101 (seeded, published depth) at 96², batch
+               16, on the card within 1e-4 of the CPU; ms of each;
+     sftgan-check — one SFT-GAN step's G and D losses and gradients
+               (batch 16, HR 96, SFT nb 16, the ACD, VGG19 to features[34])
+               through the stage kernels (VGG19's ≤128-channel convs) against
+               the plain graph on the card, fp32 then bf16, at gan-check's
+               bars; every conv_s1_ct / conv_s1_ct_bwd call through "fma" in
+               fp32 and "mma" in bf16, no other wrapper launched; the fp32
+               step's launches are what train-sftgan expects a step;
+     train-sftgan — ``train_sftgan.json`` as shipped (fp32, batch 16, HR 96,
+               ACD, VGG19 seeded) on a synthetic OST tree (``img/`` named by
+               category, ``bicseg/`` seg maps, a background folder, a val set
+               of two) for 16 steps through the train CLI, host-fed and with
+               1024 resident crops (``resident_async_refresh: false``), each
+               resumed from step 8 bit-equal: the launches of conv_s1_ct and
+               conv_s1_ct_bwd equal to 16 × sftgan-check's, all "fma"; the
+               other group (``other_start_iter`` 20 000) bit-unchanged with
+               its Adam state, the sft group moved; then a trainer with
+               ``other_start_iter`` 4 moves the other group at step 5 only;
+               the steady step's host ms and crops/s host-fed (the recipe's
+               8-worker loader through DeviceFeeder), on one batch already on
+               the card, and resident (train-sftgan-steady);
      with ``--profile`` also a ``torch.profiler`` trace of three steady steps
-     of each trainer, the PSNR one in both noise modes (device time by
-     kernel family, the stage kernels' sum, csrc/tail_ct.cu's kernels by
-     name, the card's busy share).
+     of each trainer, the PSNR one in both noise modes, and SFT-GAN's as
+     shipped (sftgan-profile; device time by kernel family, the stage
+     kernels' sum, csrc/tail_ct.cu's kernels by name, the card's busy share).
 
-Then one ``{"kernels": [...]}`` line (sixteen kernels), the card's name and power limit, and
-as the last line ``{"ok": true, "device": {...}}``.
+Then one ``{"kernels": [...]}`` line (sixteen kernels; the rows of conv_s1_ct and
+conv_s1_ct_bwd also give ``sftgan_launches``, their launches in train-sftgan's
+host-fed run), the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2333,9 +2371,10 @@ def gan_steady(failures):
     return med
 
 
-def train_profile(step_ms, make_trainer=None, phase="train-profile"):
+def train_profile(step_ms, make_trainer=None, phase="train-profile", batch=None):
     """``--profile`` only: ``torch.profiler`` over three steady training steps
-    (bf16, batch 16; the PSNR trainer, or the one ``make_trainer`` builds):
+    (bf16, batch 16; the PSNR trainer, or the one ``make_trainer`` builds, on
+    ``batch`` where given):
     device time per step by kernel family, and the card's
     busy share of an untraced step (``step_ms``, train-steady's median; the
     traced steps themselves are slowed by the profiler). Reports; holds
@@ -2351,8 +2390,9 @@ def train_profile(step_ms, make_trainer=None, phase="train-profile"):
 
     B, H, W = TRAIN_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(9)
-    batch = (torch.rand((B, H, W, 3), generator=gen, device="cuda"),
-             torch.rand((B, 4 * H, 4 * W, 3), generator=gen, device="cuda"))
+    if batch is None:
+        batch = (torch.rand((B, H, W, 3), generator=gen, device="cuda"),
+                 torch.rand((B, 4 * H, 4 * W, 3), generator=gen, device="cuda"))
     trainer = (make_trainer() if make_trainer is not None else
                SRTrainer(RRDBNetConfig(), SRTrainConfig(compute_dtype="bfloat16"), device="cuda"))
     state = trainer.init_state(0)
@@ -3614,9 +3654,10 @@ def _states_equal(a, b):
         torch.equal(x, y) if torch.is_tensor(x) else x == y for x, y in zip(la, lb))
 
 
-def train_resident_path(failures, workdir, host_fed_ms, gan_host_fed_ms):
-    """Phase train-resident (see the module docstring); ``host_fed_ms`` /
-    ``gan_host_fed_ms`` are train-steady's and gan-steady's medians."""
+def train_resident_path(failures, workdir, preloaded_ms, gan_preloaded_ms):
+    """Phase train-resident (see the module docstring); ``preloaded_ms`` /
+    ``gan_preloaded_ms`` are train-steady's and gan-steady's medians, a step
+    on one batch already on the card."""
     import torch
 
     from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig
@@ -3644,8 +3685,8 @@ def train_resident_path(failures, workdir, host_fed_ms, gan_host_fed_ms):
            "pool_bytes": store.lr.nbytes + store.hr.nbytes, "pool_build_s": build_s,
            "batch_on_card": on_card, "single_step_bit_equal": single_equal,
            "resident_ms_per_step": step_ms, "resident_crops_per_s": B / step_ms * 1e3,
-           "host_fed_ms_per_step": host_fed_ms,
-           "host_fed_crops_per_s": B / host_fed_ms * 1e3}
+           "preloaded_ms_per_step": preloaded_ms,
+           "preloaded_crops_per_s": B / preloaded_ms * 1e3}
 
     # 16 steps through the CLI, then a resume
     opt = _smoke_options(workdir, dirs, "resident_smoke", "sr", {"lr_G": 2e-4,
@@ -3698,8 +3739,8 @@ def train_resident_path(failures, workdir, host_fed_ms, gan_host_fed_ms):
             "expected": gexpected, "by_design": designs,
             "finite": all(bool(torch.isfinite(v)) for v in logs.values()),
             "resident_ms_per_step": gan_ms, "resident_crops_per_s": B / gan_ms * 1e3,
-            "host_fed_ms_per_step": gan_host_fed_ms,
-            "host_fed_crops_per_s": B / gan_host_fed_ms * 1e3}
+            "preloaded_ms_per_step": gan_preloaded_ms,
+            "preloaded_crops_per_s": B / gan_preloaded_ms * 1e3}
     grow["ok"] = bool(gan_ok and grow["finite"])
     emit(grow)
     if not grow["ok"]:
@@ -3754,6 +3795,591 @@ def train_profile_cli(failures, workdir):
     emit(row)
     if not row["ok"]:
         failures.append(f"train-profile-cli: {row}")
+
+
+# ---------------------------------------------------------------------------
+# the SFT-GAN slice: OutdoorSceneSeg, SFT_Net ×4, MINC / ResNet-101 features,
+# the SFT-GAN step and train_sftgan.json as shipped (cuDNN on every model;
+# VGG19's ≤128-channel stages of the perceptual loss on #11 / #12)
+# ---------------------------------------------------------------------------
+
+SFT_HR = (384, 512)  # the two synthetic HR images of the sft and seg phases
+SFT_LR_BENCH = 128  # the LR side of the timed ×4 forward
+SFT_BATCH, SFT_HR_SIZE = 16, 96  # train_sftgan.json's batch and HR crop
+SFT_RESIDENT = 1024
+SFT_STAGE = ("conv_s1_ct", "conv_s1_ct_bwd")  # the two kernels an SFT-GAN step runs
+SFT_LOG_KEYS = ("l_g_pix", "l_g_fea", "l_g_gan", "l_g_cls", "l_d_total", "D_real", "D_fake")
+OST_CATEGORIES = ("building", "plant", "mountain", "water", "sky", "grass", "animal")
+
+
+def _seeded_seg_params(seed=0):
+    """OutdoorSceneSeg at its published widths from a seed: He-normal convs,
+    batch norms near identity with each bottleneck's last scaled by 0.2 (33
+    residual adds stay bounded), a random ×8 transposed conv (the init's is
+    zero, which would make every probability 1/8)."""
+    import torch
+
+    from esrganplus_tpu_torch.models.seg import init_seg
+
+    params = init_seg(seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    u = lambda t, lo, hi: t.copy_(lo + (hi - lo) * torch.rand(t.shape, generator=gen))
+    for layer in params["layers"]:
+        if layer is None:
+            continue
+        for name, p in (layer.items() if "conv" not in layer else [("c", layer)]):
+            bn = p["bn"]
+            u(bn["scale"], 0.5, 1.0).mul_(0.2 if name == "c2" else 1.0)
+            u(bn["var"], 0.5, 1.5)
+            bn["bias"].copy_(0.1 * torch.randn(bn["bias"].shape, generator=gen))
+            bn["mean"].copy_(0.1 * torch.randn(bn["mean"].shape, generator=gen))
+    params["deconv_w"] = torch.randn(params["deconv_w"].shape, generator=gen) / 16
+    return params
+
+
+def _seeded_sft(cfg, seed=0, trunk_scale=0.1):
+    """SFT_Net parameters from a seed with the trunk (the blocks, the final
+    SFT layer and conv) scaled by ``trunk_scale``, as the RRDB trunk's init
+    is: the unscaled He init the JAX package's trainer starts from grows
+    ×2 a block, to outputs of 1e5 at nb 16, which clip to 0 or 1."""
+    import torch
+
+    from esrganplus_tpu_torch.models import generator_init
+
+    params = generator_init(seed, cfg)
+
+    def scale(tree):
+        for k, v in tree.items():
+            if k == "w":
+                v.mul_(trunk_scale)
+            elif isinstance(v, dict):
+                scale(v)
+
+    with torch.no_grad():
+        for name in ("blocks", "final_sft", "final_conv"):
+            scale(params[name])
+    return params
+
+
+def _sft_images(workdir):
+    """Two smooth synthetic HR PNGs of SFT_HR → their folder."""
+    from esrganplus_tpu_torch.ops.image_io import save_img
+
+    hr_dir = os.path.join(workdir, "sft_hr")
+    rng = np.random.RandomState(15)
+    for name in ("scene_sky", "scene_building"):
+        save_img(_smooth_image(rng, *SFT_HR), os.path.join(hr_dir, name + ".png"))
+    return hr_dir
+
+
+def seg_path(failures, workdir, hr_dir):
+    """Phase seg: the seeded OutdoorSceneSeg through ``cli.test_seg --device
+    cuda`` on the two HR images; each probability map against the port's
+    CPU forward on the same input within 1e-4, each pixel's summing to 1
+    within 1e-5, the three output folders written; the forward's ms an
+    image (host clock, and the card's kernel time by ``torch.profiler``) and
+    the CLI's s an image. Returns the prob folder."""
+    import contextlib
+    import io
+
+    import cv2
+    import torch
+
+    from esrganplus_tpu_torch.cli import test_seg
+    from esrganplus_tpu_torch.infer import params_to
+    from esrganplus_tpu_torch.models.layers import fp32_exact
+    from esrganplus_tpu_torch.models.seg import seg_forward, seg_to_state_dict
+    from esrganplus_tpu_torch.ops.image_io import read_img
+
+    _zero_counts()
+    params = _seeded_seg_params()
+    ckpt = os.path.join(workdir, "seg_seeded.pth")
+    torch.save(seg_to_state_dict(params), ckpt)
+    out = os.path.join(workdir, "ost")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        test_seg.main([ckpt, "--input", hr_dir, "--output", out, "--device", "cuda"])
+    torch.cuda.synchronize()
+    names = sorted(os.path.splitext(f)[0] for f in os.listdir(hr_dir))
+    row = {"phase": "seg", "images": len(names), "hr": list(SFT_HR),
+           "cli_seconds_per_image": (time.perf_counter() - t0) / len(names)}
+    errs, sums, written = {}, {}, {}
+    dev = params_to(params, "cuda")
+    for n in names:
+        x = test_seg.seg_input(read_img(os.path.join(hr_dir, n + ".png")))[None]
+        with torch.inference_mode():
+            ref = seg_forward(params, torch.from_numpy(x))[0].numpy()
+        prob = np.transpose(torch.load(os.path.join(out + "_segprob", n + "_bic.pth"),
+                                       weights_only=True).numpy(), (1, 2, 0))
+        errs[n] = float(np.abs(prob - ref).max())
+        sums[n] = float(np.abs(prob.sum(-1) - 1.0).max())
+        written[n] = all(os.path.exists(os.path.join(out + d, n + ".png"))
+                         for d in ("_byteimg", "_colorimg")) and bool(np.array_equal(
+            cv2.imread(os.path.join(out + "_byteimg", n + ".png"), cv2.IMREAD_UNCHANGED),
+            prob.argmax(-1).astype(np.uint8)))
+    xt = torch.from_numpy(x).cuda()
+    with torch.inference_mode(), fp32_exact():
+        fwd = lambda: seg_forward(dev, xt)
+        row["forward_ms_per_image"] = _host_ms(fwd, iters=3)[0]
+        # its ~450 launches overrun device_ms's queue behind a spin: profiler
+        row["forward_device_ms_per_image"] = _profiled_device_ms(fwd)
+    row.update(max_abs_err_vs_cpu=errs, max_prob_sum_err=sums, outputs_written=written,
+               mean_max_prob=float(ref.max(-1).mean()), tol=1e-4, tol_sum=1e-5,
+               kernel_launches={fn.__name__: fn.launches for fn in _twelve()})
+    row["ok"] = bool(all(e <= 1e-4 for e in errs.values())
+                     and all(s <= 1e-5 for s in sums.values()) and all(written.values())
+                     and prob.shape == SFT_HR + (8,)
+                     and not any(row["kernel_launches"].values()))
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"seg: {row}")
+    return out + "_segprob"
+
+
+def sft_path(failures, workdir, hr_dir, segprob):
+    """Phase sft: the shipped SFT_Net (nb 16, nf 64, cond_nf 32, ×4) from a
+    seed, exported to .pth (read back bit-exact), through ``cli.test_sftgan
+    --device cuda`` on the seg phase's maps; each output against the port's
+    fp32 forward on the CPU within 1e-4 of max|ref| and its PNG equal to the
+    card output's; ms an image at a 128² LR in fp32 and bf16 (host clock,
+    and the card's kernel time by ``torch.profiler``) and MPix/s out."""
+    import contextlib
+    import io
+
+    import cv2
+    import torch
+
+    from esrganplus_tpu_torch.cli import test_sftgan
+    from esrganplus_tpu_torch.convert import generator_from_state_dict, load_state_dict
+    from esrganplus_tpu_torch.infer import SRInferencer, params_to
+    from esrganplus_tpu_torch.models import SFTNetConfig
+    from esrganplus_tpu_torch.models.layers import fp32_exact
+    from esrganplus_tpu_torch.models.sft import sftnet_forward, sftnet_to_state_dict
+    from esrganplus_tpu_torch.ops.color import modcrop
+    from esrganplus_tpu_torch.ops.image_io import img2tensor, read_img, tensor2img
+    from esrganplus_tpu_torch.ops.resize import imresize_np
+    from esrganplus_tpu_torch.train.sr_model import tree_leaves
+
+    _zero_counts()
+    cfg = SFTNetConfig()
+    params = _seeded_sft(cfg)
+    ckpt = os.path.join(workdir, "sft_seeded.pth")
+    torch.save(sftnet_to_state_dict(params, cfg), ckpt)
+    back, bcfg, _ = generator_from_state_dict(load_state_dict(ckpt))
+    round_trip = bcfg == cfg and all(torch.equal(a, b) for a, b in
+                                     zip(tree_leaves(back), tree_leaves(params)))
+    out = os.path.join(workdir, "sft_out")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        test_sftgan.main([ckpt, "--input", hr_dir, "--segprob", segprob, "--output", out,
+                          "--device", "cuda"])
+    torch.cuda.synchronize()
+    names = sorted(os.path.splitext(f)[0] for f in os.listdir(hr_dir))
+    row = {"phase": "sft", "cfg": [cfg.nb, cfg.nf, cfg.cond_nf, cfg.upscale],
+           "pth_round_trip_bit_exact": round_trip,
+           "cli_seconds_per_image": (time.perf_counter() - t0) / len(names)}
+    inf = SRInferencer(params, cfg, device="cuda")
+    errs, png_equal = {}, {}
+    for n in names:
+        lr = img2tensor(np.clip(imresize_np(modcrop(read_img(os.path.join(hr_dir, n + ".png")),
+                                                    8), 0.25), 0, 1))
+        seg = np.transpose(torch.load(os.path.join(segprob, n + "_bic.pth"),
+                                      weights_only=True).numpy(), (1, 2, 0))
+        got = inf.upscale(lr, side=seg)
+        with torch.inference_mode():
+            ref = sftnet_forward(params, torch.from_numpy(lr[None]), torch.from_numpy(seg[None]),
+                                 cfg)[0].clamp(0, 1).numpy()
+        errs[n] = float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+        png_equal[n] = bool(np.array_equal(
+            cv2.imread(os.path.join(out, n + "_rlt.png"), cv2.IMREAD_UNCHANGED), tensor2img(got)))
+    row.update(rel_err_vs_cpu=errs, png_equal=png_equal, out_shape=list(got.shape), tol=1e-4)
+    # the ×4 forward at a 128² LR, fp32 and bf16
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    s = SFT_LR_BENCH
+    x = torch.rand((1, s, s, 3), generator=gen, device="cuda")
+    side = torch.softmax(torch.randn((1, 4 * s, 4 * s, 8), generator=gen, device="cuda"), -1)
+    dev = params_to(params, "cuda")
+    for dname, dt in (("fp32", None), ("bf16", torch.bfloat16)):
+        with torch.inference_mode(), fp32_exact():
+            fwd = lambda: sftnet_forward(dev, x, side, cfg, dtype=dt)
+            med, _ = _host_ms(fwd, iters=10)
+            row[f"{dname}_ms_per_image_{s}"] = med
+            row[f"{dname}_device_ms_per_image_{s}"] = _profiled_device_ms(fwd)
+            row[f"{dname}_mpix_per_s_out"] = (4 * s) ** 2 / 1e6 / (med / 1e3)
+    row["gflop_per_image"] = 2 * _sft_macs_per_lr_pixel(cfg) * s * s / 1e9
+    row["kernel_launches"] = {fn.__name__: fn.launches for fn in _twelve()}
+    row["ok"] = bool(round_trip and all(e <= 1e-4 for e in errs.values())
+                     and all(png_equal.values()) and got.shape == (SFT_HR[0], SFT_HR[1], 3)
+                     and not any(row["kernel_launches"].values()))
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"sft: {row}")
+
+
+def _sft_macs_per_lr_pixel(cfg):
+    """Multiply-adds of one SFT_Net ×4 forward per LR pixel, from its shapes."""
+    nf, c = cfg.nf, cfg.cond_nf
+    sft_layer = 2 * (c * c + c * nf)
+    block = 2 * sft_layer + 2 * 9 * nf * nf
+    cond = 16 * cfg.cond_in * 128 + 3 * 128 * 128 + 128 * c
+    tail = 9 * nf * 4 * nf * (1 + 4) + 9 * nf * nf * 16 + 9 * nf * cfg.out_nc * 16
+    return 9 * cfg.in_nc * nf + cfg.nb * block + sft_layer + 9 * nf * nf + cond + tail
+
+
+def featex_path(failures):
+    """Phase featex: MINC and ResNet-101 (published widths and depth, seeded
+    weights through their converters) at 96², batch 16, on the card against
+    the CPU within 1e-4 of max|ref|; ms of each forward on the card."""
+    import torch
+
+    from esrganplus_tpu_torch.infer import params_to
+    from esrganplus_tpu_torch.models import feature_extractors as fe
+    from esrganplus_tpu_torch.models.layers import fp32_exact
+
+    gen = torch.Generator().manual_seed(21)
+    he = lambda cout, cin, k: torch.randn((cout, cin, k, k), generator=gen) * (
+        2.0 / (k * k * cin)) ** 0.5
+    minc_sd = {}
+    for name, cin, cout in (e for e in fe.MINC_PLAN if e != "M"):
+        minc_sd[name + ".weight"], minc_sd[name + ".bias"] = he(cout, cin, 3), 0.1 * torch.randn(
+            cout, generator=gen)
+    res_sd = {"conv1.weight": he(64, 3, 7)}
+
+    def bn(name, c, scale=1.0):
+        res_sd.update({name + ".weight": scale * (0.5 + 0.5 * torch.rand(c, generator=gen)),
+                       name + ".bias": 0.1 * torch.randn(c, generator=gen),
+                       name + ".running_mean": 0.1 * torch.randn(c, generator=gen),
+                       name + ".running_var": 0.5 + torch.rand(c, generator=gen)})
+
+    bn("bn1", 64)
+    inplanes = 64
+    for stage, (planes, depth) in enumerate(zip((64, 128, 256, 512), (3, 4, 23, 3)), start=1):
+        for i in range(depth):
+            base = f"layer{stage}.{i}"
+            for j, (cout, cin, k) in enumerate(((planes, inplanes, 1), (planes, planes, 3),
+                                                (4 * planes, planes, 1)), start=1):
+                res_sd[f"{base}.conv{j}.weight"] = he(cout, cin, k)
+                bn(f"{base}.bn{j}", cout, 0.2 if j == 3 else 1.0)
+            if i == 0:
+                res_sd[base + ".downsample.0.weight"] = he(4 * planes, inplanes, 1)
+                bn(base + ".downsample.1", 4 * planes)
+            inplanes = 4 * planes
+    x = torch.rand((SFT_BATCH, SFT_HR_SIZE, SFT_HR_SIZE, 3), generator=gen)
+    row = {"phase": "featex", "batch": SFT_BATCH, "hr": SFT_HR_SIZE}
+    ok = True
+    for name, params, fwd in (
+            ("minc", fe.minc_from_state_dict(minc_sd), fe.minc_forward),
+            ("resnet101", fe.resnet101_from_state_dict(res_sd), fe.resnet101_feat_forward)):
+        with torch.inference_mode(), fp32_exact():
+            ref = fwd(params, x)
+            dev, xd = params_to(params, "cuda"), x.cuda()
+            got = fwd(dev, xd).cpu()
+            ms = time_ms(lambda: fwd(dev, xd), iters=5, warmup=2)
+        err = ((got - ref).abs().max() / ref.abs().max()).item()
+        row.update({f"{name}_out": list(got.shape), f"{name}_rel_err": err,
+                    f"{name}_ms": ms})
+        ok = ok and err <= 1e-4 and bool(torch.isfinite(got).all())
+    row["tol"] = 1e-4
+    row["ok"] = bool(ok)
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"featex: {row}")
+
+
+def _sft_batch(gen, batch=SFT_BATCH, hr=SFT_HR_SIZE):
+    """(LR, seg, HR, category) of train_sftgan.json's shape on the card."""
+    import torch
+
+    lr = torch.rand((batch, hr // 4, hr // 4, 3), generator=gen, device="cuda")
+    seg = torch.softmax(3 * torch.randn((batch, hr, hr, 8), generator=gen, device="cuda"), -1)
+    hr_img = torch.rand((batch, hr, hr, 3), generator=gen, device="cuda")
+    cat = torch.randint(0, 8, (batch,), generator=gen, device="cuda")
+    return lr, seg, hr_img, cat
+
+
+def sftgan_check(failures):
+    """Phase sftgan-check: one SFT-GAN step's G and D losses and gradients
+    (train_sftgan.json's shape: batch 16, HR 96; SFT nb 16; the ACD; VGG19 to
+    features[34] from a seed) through ``SFTGANTrainer``'s own loss functions,
+    the perceptual net on the stage kernels (``stage_kernel="auto"``)
+    against the plain graph (``"plain"``) on the card, fp32 then bf16, at
+    gan-check's bars. Every stage call must have taken its dtype's design.
+    Returns the fp32 launches of one step's G and D losses by wrapper."""
+    import torch
+
+    from esrganplus_tpu_torch.kernels import stage_ct as S
+    from esrganplus_tpu_torch.models import SFTNetConfig
+    from esrganplus_tpu_torch.models.layers import deterministic_convs, fp32_exact
+    from esrganplus_tpu_torch.models.vgg import VGGFeatConfig
+    from esrganplus_tpu_torch.train import SFTGANTrainConfig, SFTGANTrainer
+    from esrganplus_tpu_torch.train.sr_model import tree_leaves, tree_map
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    lr, seg, hr, cat = _sft_batch(gen)
+
+    def trainer(kind, dtype):
+        return SFTGANTrainer(SFTNetConfig(), SFTGANTrainConfig(compute_dtype=dtype),
+                             device="cuda", vgg_cfg=VGGFeatConfig(stage_kernel=kind))
+
+    t0 = trainer("plain", None)
+    state = t0.init_state(0)
+    g_params, d_params = t0.ingest_params(_seeded_sft(t0.net_g)), state["d_params"]
+    named_g, named_d = _leaves(g_params), [kv for kv in _leaves(d_params) if kv[1] is not None]
+
+    def run(kind, dtype):
+        t = trainer(kind, dtype)
+        with fp32_exact(), deterministic_convs():
+            frozen = tree_map(lambda p: p.detach(), d_params)
+            g_total, fake, logs = t._g_loss(g_params, frozen, lr, seg, hr, cat)
+            g_grads = torch.autograd.grad(g_total, tree_leaves(g_params))
+            d_total, _, d_logs = t._d_loss(d_params, fake.detach(), hr, cat)
+            d_grads = torch.autograd.grad(d_total, tree_leaves(d_params), allow_unused=True)
+        return {k: v.item() for k, v in {**logs, **d_logs}.items()}, g_grads, d_grads
+
+    flat = lambda gs: torch.cat([g.flatten().float() for g in gs if g is not None])
+    cosine = lambda a, b: torch.nn.functional.cosine_similarity(flat(a), flat(b), dim=0).item()
+
+    def leaf_errs(named, got, ref, norm=float("inf")):
+        size = lambda t: torch.linalg.vector_norm(t.float().flatten(), norm)
+        floor = 1e-3 * max(size(b).item() for b in ref if b is not None)
+        return {n: (size(a - b) / size(b).clamp_min(floor)).item()
+                for (n, _), a, b in zip(named, got, ref) if b is not None}
+
+    def term_errs(got, ref):
+        return {k: abs(got[k] - ref[k]) / (max(1.0, abs(ref[k])) if k.startswith("D_")
+                                           else max(abs(ref[k]), 1e-30)) for k in ref}
+
+    stage = (S.conv_s1_ct, S.conv_s1_ct_bwd)
+    t_ref, gg_ref, dg_ref = run("plain", None)
+    per_step = None
+    for dname, dtype in (("float32", None), ("bfloat16", "bfloat16")):
+        _zero_counts()
+        t_k, gg_k, dg_k = run("auto", dtype)
+        launches = {fn.__name__: fn.launches for fn in _twelve()}
+        want = "mma" if dtype else "fma"
+        by_design = {fn.__name__: dict(fn.launches_by_design) for fn in stage}
+        designs_ok = all(fn.launches > 0 and fn.launches_by_design == {
+            "fma": 0, "mma": 0, want: fn.launches} for fn in stage)
+        terr = term_errs(t_k, t_ref)
+        g_err = leaf_errs(named_g, gg_k, gg_ref)
+        d_l2 = leaf_errs(named_d, dg_k, dg_ref, norm=2)
+        wg, wd2 = max(g_err, key=g_err.get), max(d_l2, key=d_l2.get)
+        row = {"phase": "sftgan-check", "dtype": dname, "terms_plain_fp32": t_ref,
+               "terms_kernel": t_k, "term_rel_err": terr, "g_worst_leaf": wg,
+               "g_worst_rel_err": g_err[wg], "g_cosine": cosine(gg_k, gg_ref),
+               "d_worst_leaf_l2": wd2, "d_worst_rel_err_l2": d_l2[wd2],
+               "d_cosine": cosine(dg_k, dg_ref), "leaves": [len(g_err), len(d_l2)],
+               "launches": launches, "stage_launches_by_design": by_design,
+               "finite": all(bool(torch.isfinite(g).all()) for g in list(gg_k) + list(dg_k)
+                             if g is not None)}
+        if dtype is None:
+            per_step = {k: launches[k] for k in SFT_STAGE}
+            row.update(tol_terms=1e-4, tol_g_grad=5e-3, tol_d_grad_l2=2e-2, tol_cosine=0.9999)
+            ok = (max(terr.values()) <= 1e-4 and g_err[wg] <= 5e-3 and d_l2[wd2] <= 2e-2
+                  and row["g_cosine"] >= 0.9999 and row["d_cosine"] >= 0.9999)
+        else:
+            t_p, gg_p, dg_p = run("plain", dtype)
+            row.update(tol_terms=5e-2, tol_g_cosine=0.999, tol_d_cosine=0.95,
+                       plain_bf16_term_rel_err=term_errs(t_p, t_ref),
+                       plain_bf16_g_cosine=cosine(gg_p, gg_ref),
+                       plain_bf16_d_cosine=cosine(dg_p, dg_ref))
+            ok = (max(terr.values()) <= 5e-2 and row["g_cosine"] >= 0.999
+                  and row["d_cosine"] >= 0.95)
+        # only the two stage wrappers of the perceptual net launch
+        others = {k: n for k, n in launches.items() if k not in SFT_STAGE}
+        row["ok"] = bool(ok and designs_ok and row["finite"] and not any(others.values()))
+        emit(row)
+        if not row["ok"]:
+            failures.append(f"sftgan-check {dname}: {row}")
+    return per_step
+
+
+def _ost_tree(workdir):
+    """A synthetic OST tree: ``img/`` (8 smooth PNGs named by category),
+    ``bicseg/`` their [8, H, W] seg probabilities (``torch.save``), a
+    DIV2K-like background folder and a two-image val set laid out the same
+    way → {"train" | "bg" | "val": directory}."""
+    import torch
+
+    from esrganplus_tpu_torch.ops.image_io import save_img
+
+    rng = np.random.RandomState(17)
+    dirs = {}
+    for part, n, size in (("train", 8, (120, 160)), ("val", 2, (96, 128))):
+        img_dir = os.path.join(workdir, "OST", part, "img")
+        seg_dir = os.path.join(workdir, "OST", part, "bicseg")
+        os.makedirs(seg_dir)
+        for i in range(n):
+            name = f"{OST_CATEGORIES[i % len(OST_CATEGORIES)]}_{i:03d}"
+            save_img(_smooth_image(rng, *size), os.path.join(img_dir, name + ".png"))
+            logits = 4 * _smooth_image(rng, *size)[..., :1].astype(np.float32) / 255 \
+                + rng.randn(8, 1, 1).astype(np.float32).transpose(1, 2, 0)
+            prob = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+            torch.save(torch.from_numpy(np.ascontiguousarray(prob.transpose(2, 0, 1))),
+                       os.path.join(seg_dir, name + ".pth"))
+        dirs[part] = img_dir
+    dirs["bg"] = os.path.join(workdir, "DIV2K_sub")
+    for i in range(4):
+        save_img(_smooth_image(rng, 128, 128), os.path.join(dirs["bg"], f"{i:04d}.png"))
+    return dirs
+
+
+def _sftgan_options(workdir, dirs, name, **train_ds):
+    """train_sftgan.json as shipped with its dataroots, niter, cadences and
+    a val set of two images changed (and ``train_ds`` added)."""
+    from esrganplus_tpu_torch.options.options import _strip_comments
+
+    with open(os.path.join(SHIPPED, "train", "train_sftgan.json")) as f:
+        opt = json.loads(_strip_comments(f.read()))
+    opt.update(name=name, use_tb_logger=False)
+    opt["path"]["root"] = workdir
+    opt["datasets"]["train"].update(dataroot_HR=dirs["train"], dataroot_HR_bg=dirs["bg"],
+                                    **train_ds)
+    opt["datasets"]["val"] = {"name": "ost_val", "mode": "LRHRseg_bg",
+                              "dataroot_HR": dirs["val"]}
+    opt["logger"]["print_freq"] = PRINT_FREQ
+    opt["train"].update(niter=TRAIN_STEPS, val_freq=8, save_checkpoint_freq=8)
+    return opt
+
+
+def _groups_after(exp, net_g, trainer):
+    """The saved state after TRAIN_STEPS steps against the trainer's initial
+    one: whether the other group's parameters and Adam state are bit-equal
+    to init and the sft group's parameters moved."""
+    import torch
+
+    from esrganplus_tpu_torch.train.checkpoint import load_state
+    from esrganplus_tpu_torch.train.sftgan_model import group_mask
+    from esrganplus_tpu_torch.train.sr_model import tree_leaves
+
+    init = trainer.init_state(0)
+    end = load_state(os.path.join(exp, "training_state", f"{TRAIN_STEPS}.state.npz"), init)
+    same = lambda a, b: all(torch.equal(x, y) if torch.is_tensor(x) else x == y
+                            for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    return {"other_params_unchanged": same(group_mask(end["g_params"], "other"),
+                                           group_mask(init["g_params"], "other")),
+            "other_moments_unchanged": same(end["g_opt"]["other"], init["g_opt"]["other"])
+            and end["g_opt"]["other"]["count"] == 0,
+            "sft_params_moved": not any(torch.equal(x, y) for x, y in zip(
+                tree_leaves(group_mask(end["g_params"], "sft")),
+                tree_leaves(group_mask(init["g_params"], "sft")))),
+            "sft_count": end["g_opt"]["sft"]["count"]}
+
+
+def train_sftgan_path(failures, workdir, per_step):
+    """Phase train-sftgan: train_sftgan.json as shipped (fp32, batch 16,
+    HR 96, VGG19 seeded) for TRAIN_STEPS steps through the train CLI, host-fed
+    then from SFT_RESIDENT resident crops, each resumed from step 8 bit-equal;
+    the launches of #11 / #12 equal to TRAIN_STEPS × ``per_step`` (what
+    sftgan-check counted for one step), all by the fp32 design; the other
+    group (other_start_iter 20 000) bit-unchanged, the sft group moved; a
+    trainer with other_start_iter 4 moves both within 5 steps; host ms/step
+    and crops/s of the steady step host-fed (the recipe's loader and
+    DeviceFeeder), on one batch already on the card, and resident. Returns
+    the host-fed run's launches by wrapper, the ms/step on the batch already
+    on the card, and (trainer, that batch)."""
+    import torch
+
+    from esrganplus_tpu_torch.data import DeviceFeeder, create_dataloader, create_dataset
+    from esrganplus_tpu_torch.data.resident import ResidentSegStore
+    from esrganplus_tpu_torch.kernels import stage_ct as S
+    from esrganplus_tpu_torch.models import SFTNetConfig
+    from esrganplus_tpu_torch.train import SFTGANTrainConfig, SFTGANTrainer
+    from esrganplus_tpu_torch.train.sftgan_model import group_mask
+    from esrganplus_tpu_torch.train.sr_model import tree_leaves
+
+    dirs = _ost_tree(workdir)
+    trainer = SFTGANTrainer(SFTNetConfig(), SFTGANTrainConfig(), device="cuda")
+    runs = {}
+    for mode, extra in (("host", {}), ("resident", dict(
+            resident_crops=SFT_RESIDENT, resident_async_refresh=False))):
+        opt = _sftgan_options(workdir, dirs, f"sftgan_{mode}", **extra)
+        _zero_counts()
+        seconds, exp = _run_train_cli(workdir, opt)
+        launches = {fn.__name__: fn.launches for fn in _twelve()}
+        by_design = {fn.__name__: dict(fn.launches_by_design)
+                     for fn in (S.conv_s1_ct, S.conv_s1_ct_bwd)}
+        logged = {k: _logged_losses(exp, k)[0] for k in SFT_LOG_KEYS}
+        text = _logged_losses(exp)[1]
+        expected = {k: per_step[k] * TRAIN_STEPS for k in SFT_STAGE}
+        groups = _groups_after(exp, trainer.net_g, trainer)
+        row = {"phase": "train-sftgan", "mode": mode, "recipe": "train_sftgan.json",
+               "steps": TRAIN_STEPS, "dtype": opt["train"].get("compute_dtype") or "float32",
+               "seconds_total": seconds, "logged": logged, "launches": launches,
+               "expected": expected, "stage_launches_by_design": by_design, **groups,
+               "validations": text.count("Validation # PSNR"),
+               "random_vgg_warning": "VGG19 weights not provided" in text,
+               "resident_pool": _pool_bytes(text)}
+        row["ok"] = bool(
+            all(launches[k] == n and by_design[k] == {"fma": n, "mma": 0}
+                for k, n in expected.items())
+            and not any(n for k, n in launches.items() if k not in SFT_STAGE)
+            and all(sorted(v) == list(range(PRINT_FREQ, TRAIN_STEPS + 1, PRINT_FREQ))
+                    and all(np.isfinite(float(t)) for t in v.values())
+                    for v in logged.values())
+            and groups["other_params_unchanged"] and groups["other_moments_unchanged"]
+            and groups["sft_params_moved"] and groups["sft_count"] == TRAIN_STEPS
+            and row["validations"] == TRAIN_STEPS // 8
+            and (mode == "host" or row["resident_pool"] == (
+                SFT_RESIDENT, SFT_RESIDENT * (24 * 24 * 3 * 4 + 96 * 96 * 8 + 96 * 96 * 3 + 8))))
+        emit(row)
+        if not row["ok"]:
+            failures.append(f"train-sftgan {mode}: {row}")
+        _resume_row(failures, f"train-sftgan-{mode}", workdir, opt, exp, logged,
+                    keys=SFT_LOG_KEYS)
+        runs[mode] = launches
+
+    # the gate: a trainer with other_start_iter 4 moves both groups by step 5;
+    # then the steady step
+    ds = create_dataset({"name": "OST", "mode": "LRHRseg_bg", "phase": "train", "scale": 4,
+                         "dataroot_HR": dirs["train"], "dataroot_HR_bg": dirs["bg"],
+                         "HR_size": SFT_HR_SIZE, "use_flip": True, "use_rot": False})
+    t0 = time.perf_counter()
+    store = ResidentSegStore(ds, "cuda", n_crops=256, seed=0, use_rot=False)
+    build_s = time.perf_counter() - t0
+    gated = SFTGANTrainer(SFTNetConfig(), SFTGANTrainConfig(other_start_iter=4), device="cuda")
+    state = gated.init_state(0)
+    other0 = [t.detach().clone() for t in tree_leaves(group_mask(state["g_params"], "other"))]
+    moved = []
+    for _ in range(5):
+        state, logs = gated.train_step_resident(state, store, 1, SFT_BATCH)
+        moved.append(not all(torch.equal(a, b.detach()) for a, b in zip(
+            other0, tree_leaves(group_mask(state["g_params"], "other")))))
+    gate_ok = moved == [False] * 4 + [True] and state["g_opt"]["other"]["count"] == 1 \
+        and state["g_opt"]["sft"]["count"] == 5
+    batch = store.make_sampler(SFT_BATCH)(7)
+    st = trainer.init_state(0)
+    # host-fed as cli.train feeds it: the recipe's loader (8 workers) and
+    # DeviceFeeder; then one batch already on the card (the step alone); then
+    # the resident store
+    dso = dict(_sftgan_options(workdir, dirs, "sftgan_steady")["datasets"]["train"],
+               phase="train", scale=4)
+    loader = create_dataloader(create_dataset(dso), dso, seed=0)
+    feeder = DeviceFeeder(loader, "cuda", keys=("LR", "seg", "HR", "category"))
+    fed = iter(feeder)
+    try:
+        host_ms, host_runs = _host_ms(lambda: trainer.train_step(st, next(fed)[0], 1), iters=8)
+    finally:
+        feeder.stop()
+        loader.stop()
+    pre_ms, pre_runs = _host_ms(lambda: trainer.train_step(st, batch, 1), iters=8)
+    res_ms, res_runs = _host_ms(lambda: trainer.train_step_resident(st, store, 1, SFT_BATCH),
+                                iters=8)
+    row = {"phase": "train-sftgan-steady", "batch": SFT_BATCH, "hr": SFT_HR_SIZE,
+           "dtype": "float32", "other_start_iter_4_moved_by_step": moved,
+           "gate_ok": bool(gate_ok), "pool_crops": store.n_crops, "pool_bytes": store.nbytes,
+           "pool_build_s": build_s, "loader_workers": loader.num_workers,
+           "host_fed_ms_per_step": host_ms,
+           "host_fed_crops_per_s": loader.batch_size / host_ms * 1e3,
+           "host_fed_ms_runs": host_runs,
+           "preloaded_ms_per_step": pre_ms, "preloaded_ms_runs": pre_runs,
+           "resident_ms_per_step": res_ms, "resident_crops_per_s": SFT_BATCH / res_ms * 1e3,
+           "resident_ms_runs": res_runs}
+    row["ok"] = bool(gate_ok and all(bool(torch.isfinite(v)) for v in logs.values()))
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"train-sftgan-steady: {row}")
+    return runs["host"], pre_ms, (trainer, batch)
 
 
 def main() -> int:
@@ -3815,10 +4441,20 @@ def main() -> int:
         train_resident_path(failures, tmp, step_ms, gan_step_ms)
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
         train_profile_cli(failures, tmp)
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        hr_dir = _sft_images(tmp)
+        segprob = seg_path(failures, tmp, hr_dir)
+        sft_path(failures, tmp, hr_dir, segprob)
+    featex_path(failures)
+    sft_per_step = sftgan_check(failures)
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        sft_launches, sft_step_ms, (sft_trainer, sft_batch) = train_sftgan_path(
+            failures, tmp, sft_per_step)
     if "--profile" in sys.argv[1:]:
         train_profile(step_ms)
         train_profile(fused_step_ms, _fused_trainer, "train-fused-profile")
         train_profile(gan_step_ms, _gan_trainer, "gan-profile")
+        train_profile(sft_step_ms, lambda: sft_trainer, "sftgan-profile", sft_batch)
 
     kernels = []
     for name in PER_IMAGE:
@@ -3919,6 +4555,8 @@ def main() -> int:
                                "fp32_ms": stage_report[(kn, sname, "float32")]["ms"]}
                        for (kn, sname, dn), r in stage_report.items()
                        if kn == name and dn == "bfloat16"}})
+        if name in SFT_STAGE:  # VGG19's early stages in train_sftgan.json's 16 steps
+            kernels[-1]["sftgan_launches"] = sft_launches[name]
     for name in RDB_T_REPLACES:
         row = rdb_t_report[(name, RDB_T_MAIN_SHAPE, "bfloat16")]
         fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",

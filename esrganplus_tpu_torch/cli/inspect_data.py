@@ -4,9 +4,9 @@
         [--batches 3] [--out tmp_data]
 
 Iterates a few batches of the configured train dataset and writes LR/HR grids
-as PNGs for visual inspection. Host work only: no device is touched.
-Counterpart of ``esrganplus_tpu/cli/inspect_data.py``; the seg datasets'
-colourised grids come with the SFT-GAN slice.
+(and colourised seg maps for seg datasets) as PNGs for visual inspection.
+Host work only: no device is touched. Counterpart of
+``esrganplus_tpu/cli/inspect_data.py``.
 """
 
 from __future__ import annotations
@@ -34,15 +34,13 @@ def main(argv=None):
     ap.add_argument("--out", default="tmp_data")
     args = ap.parse_args(argv)
 
+    from esrganplus_tpu_torch.cli.test_seg import LOOKUP
     from esrganplus_tpu_torch.data import create_dataloader, create_dataset
     from esrganplus_tpu_torch.ops.image_io import save_img
     from esrganplus_tpu_torch.options.options import parse
 
     opt = parse(args.opt, is_train=True)
     ds_opt = next(d for d in opt["datasets"].values() if d["phase"] == "train")
-    if ds_opt.get("mode") == "LRHRseg_bg":
-        raise NotImplementedError("inspect_data: segmentation datasets (mode LRHRseg_bg) "
-                                  "are not ported yet (ROADMAP queue 1: SFT-GAN)")
     ds = create_dataset(ds_opt)
     loader = create_dataloader(ds, ds_opt, seed=0)
     os.makedirs(args.out, exist_ok=True)
@@ -53,6 +51,11 @@ def main(argv=None):
             grid = _grid(batch[key][..., ::-1])  # RGB → BGR for cv2
             save_img((np.clip(grid, 0, 1) * 255).round().astype(np.uint8),
                      os.path.join(args.out, f"batch{i}_{key}.png"))
+        if "seg" in batch:
+            argmax = batch["seg"].argmax(-1).astype(np.uint8)
+            color = LOOKUP[np.minimum(argmax, 8)][..., ::-1]
+            save_img((_grid(color) * 255).round().astype(np.uint8),
+                     os.path.join(args.out, f"batch{i}_seg.png"))
         print(f"batch {i}: " + " ".join(
             f"{k}:{tuple(v.shape)}" for k, v in batch.items() if isinstance(v, np.ndarray)))
     if hasattr(loader, "stop"):

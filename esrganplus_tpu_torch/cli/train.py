@@ -5,15 +5,21 @@
 
 Counterpart of ``esrganplus_tpu/cli/train.py`` for PSNR pretraining
 (``model: "sr"``) and GAN fine-tuning (``model: "srgan" | "srragan"``) of
-an RRDBNet or SRResNet generator: experiment-dir management, dual loggers,
+an RRDBNet or SRResNet generator, and SFT-GAN (``model: "sftgan"``: the
+seg-conditioned SFT_Net against the ACD discriminator, fed (LR, seg, HR,
+category) by mode ``LRHRseg_bg``): experiment-dir management, dual loggers,
 periodic validation with PSNR and saved val images, checkpoint/resume with
 optimizer state (from a state this package or the JAX package wrote,
 ``train/checkpoint.py::load_state_auto``), reference-layout .pth weight export
-(G and, for the GAN models, D), optional TensorBoard scalars. Runs on the
+(G and, for the GAN models, D: the ACD for SFT-GAN), optional TensorBoard
+scalars. Validation runs one image at a time, or with ``"eval_sharded":
+true`` batched through ``infer.BatchedEvaluator`` (SFT-GAN's seg map as its
+side input). Runs on the
 card (``--device cuda``, the default), an RRDBNet forward and backward
 through the CUDA kernels; ``--device cpu`` runs the plain graph.
 
-``datasets.train.resident_crops: N`` keeps N aligned crop pairs in device
+``datasets.train.resident_crops: N`` keeps N aligned crop pairs (SFT-GAN:
+(LR, seg, HR, category) crops) in device
 memory and samples, augments and casts each batch there
 (``data/resident.py``; ``resident_refresh`` re-crops every N steps,
 ``resident_async_refresh`` builds the new pool in a background thread).
@@ -21,8 +27,8 @@ memory and samples, augments and casts each batch there
 runs K resident steps per compiled call, an eager step here is one call
 whatever K is. ``--profile DIR`` traces ``--profile-steps`` steps
 from the 10th after the start with ``torch.profiler`` into DIR
-(``cli/profile_summary.py`` reads it). SFT-GAN and multi-process launch are
-not ported yet and exit saying so.
+(``cli/profile_summary.py`` reads it). Multi-process launch is not ported
+yet and exits saying so.
 """
 
 from __future__ import annotations
@@ -75,6 +81,7 @@ def main(argv=None):
 
     from esrganplus_tpu_torch.data import DeviceFeeder, create_dataloader, create_dataset
     from esrganplus_tpu_torch.infer import resolve_device
+    from esrganplus_tpu_torch.models.sft import SFTNetConfig
     from esrganplus_tpu_torch.ops.image_io import save_img, tensor2img
     from esrganplus_tpu_torch.ops.metrics import calculate_psnr
     from esrganplus_tpu_torch.options.options import (build_net_d_config, build_net_g_config,
@@ -89,11 +96,17 @@ def main(argv=None):
     model_kind = opt["model"]
     net_g = build_net_g_config(opt)        # raise for what is not ported
     train_cfg = build_train_config(opt)    # before any directory is touched
+    if (model_kind == "sftgan") != isinstance(net_g, SFTNetConfig):
+        raise ValueError(f"model {model_kind!r} cannot train a {type(net_g).__name__}: "
+                         "model 'sftgan' trains an SFT_Net (network_G.which_model_G: "
+                         "sft_arch), and only it does")
     dispatch = opt["train"].get("steps_per_dispatch")
     if dispatch is not None and (isinstance(dispatch, bool) or not isinstance(dispatch, int)
                                  or dispatch < 1):
         raise ValueError(f"train.steps_per_dispatch must be an integer >= 1, got {dispatch!r}")
-    net_d = build_net_d_config(opt) if model_kind != "sr" else None
+    # SFT-GAN's ACD has no config ("dis_acd" is fixed by the model), so
+    # build_net_d_config is not asked for it, as in the JAX package
+    net_d = build_net_d_config(opt) if model_kind in ("srgan", "srragan") else None
     train_opt_ds = val_opt_ds = None
     for ds_opt in opt["datasets"].values():
         if ds_opt["phase"] == "train":
@@ -126,12 +139,14 @@ def main(argv=None):
     logger.info(f"train images: {len(train_ds)}, batch {batch_size}, iters {niter:,}")
 
     # ---- trainer ----
-    from esrganplus_tpu_torch.train import GANTrainer, SRTrainer
+    from esrganplus_tpu_torch.train import GANTrainer, SFTGANTrainer, SRTrainer
 
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     logger.info(f"device: {device} ({name})")
     if model_kind == "sr":
         trainer = SRTrainer(net_g, train_cfg, device=device)
+    elif model_kind == "sftgan":
+        trainer = SFTGANTrainer(net_g, train_cfg, device=device)
     else:
         trainer = GANTrainer(net_g, net_d, train_cfg, device=device)
     if getattr(trainer, "use_feature", False) and not trainer.f_params.get("pretrained"):
@@ -159,11 +174,16 @@ def main(argv=None):
             from esrganplus_tpu_torch.convert import (discriminator_from_state_dict,
                                                       discriminator_sn_from_state_dict,
                                                       load_state_dict)
+            from esrganplus_tpu_torch.models.sft import acd_from_state_dict
 
-            conv_fn = (discriminator_sn_from_state_dict if net_d.spectral_norm
-                       else discriminator_from_state_dict)
-            state["d_params"] = trainer.ingest_d_params(
-                conv_fn(load_state_dict(opt["path"]["pretrain_model_D"]), net_d))
+            sd_d = load_state_dict(opt["path"]["pretrain_model_D"])
+            if model_kind == "sftgan":  # SFTGAN_ACD_model.py:254
+                d_params = acd_from_state_dict(sd_d)
+            elif net_d.spectral_norm:
+                d_params = discriminator_sn_from_state_dict(sd_d, net_d)
+            else:
+                d_params = discriminator_from_state_dict(sd_d, net_d)
+            state["d_params"] = trainer.ingest_d_params(d_params)
             logger.info(f"loaded pretrained D from {opt['path']['pretrain_model_D']}")
     start_step = 0
     if resume_path:
@@ -180,25 +200,27 @@ def main(argv=None):
     rng = seed + 1  # the run's seed for noise and sampling; the trainer folds the step in
     ckpt = AsyncCheckpointer()
     resident_n = train_opt_ds.get("resident_crops")
+    sft = model_kind == "sftgan"
     train_loader = feeder_obj = store = None
     if resident_n:
         # the crop pool lives on the device; each batch is sampled there
-        from esrganplus_tpu_torch.data.resident import ResidentCropStore
+        from esrganplus_tpu_torch.data.resident import ResidentCropStore, ResidentSegStore
 
-        store = ResidentCropStore(
+        store = (ResidentSegStore if sft else ResidentCropStore)(
             train_ds, device, n_crops=int(resident_n),
             refresh_steps=int(train_opt_ds.get("resident_refresh", 1000)),
             async_refresh=bool(train_opt_ds.get("resident_async_refresh", True)),
             seed=seed, use_flip=train_opt_ds.get("use_flip", True),
             use_rot=train_opt_ds.get("use_rot", True), start_step=start_step)
         logger.info(f"resident crop store: {store.n_crops} pairs on {device} "
-                    f"({store.lr.nbytes + store.hr.nbytes:,} bytes), refresh every "
+                    f"({store.nbytes:,} bytes), refresh every "
                     f"{store.refresh_steps} steps")
     else:
         # a resumed run continues the batch stream where the checkpoint left it
         train_loader = create_dataloader(train_ds, train_opt_ds, seed=seed,
                                          start_batch=start_step)
-        feeder_obj = DeviceFeeder(train_loader, device, keys=("LR", "HR"))
+        feeder_obj = DeviceFeeder(train_loader, device, keys=(
+            ("LR", "seg", "HR", "category") if sft else ("LR", "HR")))
         feeder = iter(feeder_obj)
     if store is not None and (dispatch or 1) > 1:
         logger.info(f"steps_per_dispatch {dispatch}: an eager step is one call; "
@@ -256,8 +278,23 @@ def main(argv=None):
         if val_ds is not None and (step + 1) % val_freq == 0:
             psnrs = []
             scale = net_g.upscale
-            for sample in val_ds:  # sequential whole-image protocol
-                sr = trainer.predict(state[g_key], sample["LR"][None])[0].cpu().numpy()
+            samples = [val_ds[i] for i in range(len(val_ds))]
+            if opt.get("eval_sharded"):
+                # batched, the set edge-padded to its largest image (interior-
+                # exact; see infer.BatchedEvaluator)
+                from esrganplus_tpu_torch.infer import BatchedEvaluator
+
+                evaluator = BatchedEvaluator(
+                    trainer.canonical_params(state[g_key]), net_g,
+                    dtype=None if sft else trainer._dtype, device=device,
+                    side_scale=net_g.upscale if sft else 0)
+                srs = evaluator.upscale_batch([s["LR"] for s in samples],
+                                              sides=[s["seg"] for s in samples] if sft else None)
+            else:  # the sequential whole-image protocol
+                side = (lambda s: (s["seg"][None],)) if sft else (lambda s: ())
+                srs = [trainer.predict(state[g_key], s["LR"][None], *side(s))[0].cpu().numpy()
+                       for s in samples]
+            for sample, sr in zip(samples, srs):
                 sr_img = tensor2img(sr)
                 gt_img = tensor2img(sample["HR"])
                 base = os.path.splitext(os.path.basename(sample["HR_path"]))[0]

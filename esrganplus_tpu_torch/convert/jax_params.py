@@ -9,7 +9,10 @@ trainer state (parameters, Adam moments, step) crosses through
 :func:`trainer_state_from_jax` (PSNR trainer) or
 :func:`gan_trainer_state_from_jax` (GAN trainer: generator, discriminator,
 both Adam states); the discriminator's and the perceptual net's trees
-through :func:`discriminator_from_jax` and :func:`vgg_feat_from_jax`; the
+through :func:`discriminator_from_jax` and :func:`vgg_feat_from_jax`; an
+SFT-GAN generator, its ACD discriminator and a whole SFT-GAN trainer state
+(the two-group generator optimizer included) through :func:`sftnet_from_jax`,
+:func:`acd_from_jax` and :func:`sftgan_trainer_state_from_jax`; the
 matrices of ``esrganplus_tpu.kernels.rdb_t.prepare_rdb_t_weights`` through
 :func:`rdb_t_weights_from_jax`; the by-source weights of
 ``esrganplus_tpu.kernels.workbench.rdb.prepare_rdb_weights`` through
@@ -34,24 +37,27 @@ def _to_torch(tree):
     return torch.from_numpy(np.array(tree, dtype=np.float32))
 
 
-def from_jax_params(tree: dict, cfg: RRDBNetConfig) -> dict:
-    """JAX RRDBNet parameter pytree (numpy leaves) → the port's params."""
-    params = _to_torch(tree)
-    nf, gc, nb = cfg.nf, cfg.gc, cfg.nb
-    expect = {
-        ("fea_conv",): (3, 3, cfg.in_nc, nf),
-        ("trunk_conv",): (3, 3, nf, nf),
-        ("hr_conv1",): (3, 3, nf, cfg.out_nc),
-        ("trunk", "rdb1", "conv1"): (nb, 3, 3, nf, gc),
-        ("trunk", "rdb3", "conv5"): (nb, 3, 3, nf + 4 * gc, nf),
-    }
+def _check_shapes(params: dict, expect: dict) -> None:
     for path, shape in expect.items():
         node = params
         for k in path:
             node = node[k]
         if tuple(node["w"].shape) != shape:
-            raise ValueError(f"{'/'.join(path)}: weight {tuple(node['w'].shape)}, "
+            raise ValueError(f"{'/'.join(map(str, path))}: weight {tuple(node['w'].shape)}, "
                              f"config expects {shape}")
+
+
+def from_jax_params(tree: dict, cfg: RRDBNetConfig) -> dict:
+    """JAX RRDBNet parameter pytree (numpy leaves) → the port's params."""
+    params = _to_torch(tree)
+    nf, gc, nb = cfg.nf, cfg.gc, cfg.nb
+    _check_shapes(params, {
+        ("fea_conv",): (3, 3, cfg.in_nc, nf),
+        ("trunk_conv",): (3, 3, nf, nf),
+        ("hr_conv1",): (3, 3, nf, cfg.out_nc),
+        ("trunk", "rdb1", "conv1"): (nb, 3, 3, nf, gc),
+        ("trunk", "rdb3", "conv5"): (nb, 3, 3, nf + 4 * gc, nf),
+    })
     if len(params["upconvs"]) != cfg.n_upscale_stages:
         raise ValueError(f"{len(params['upconvs'])} upconvs, config expects "
                          f"{cfg.n_upscale_stages}")
@@ -66,21 +72,14 @@ def srresnet_from_jax(tree: dict, cfg) -> dict:
     port's params, shape-checked against ``cfg`` (an ``SRResNetConfig``)."""
     params = _to_torch(tree)
     nf, nb, r = cfg.nf, cfg.nb, cfg.shuffle
-    expect = {
+    _check_shapes(params, {
         ("fea_conv",): (3, 3, cfg.in_nc, nf),
         ("trunk", "conv0"): (nb, 3, 3, nf, nf),
         ("trunk", "conv1"): (nb, 3, 3, nf, nf),
         ("trunk_conv",): (3, 3, nf, nf),
         ("hr_conv0",): (3, 3, nf, nf),
         ("hr_conv1",): (3, 3, nf, cfg.out_nc),
-    }
-    for path, shape in expect.items():
-        node = params
-        for k in path:
-            node = node[k]
-        if tuple(node["w"].shape) != shape:
-            raise ValueError(f"{'/'.join(path)}: weight {tuple(node['w'].shape)}, "
-                             f"config expects {shape}")
+    })
     if len(params["upconvs"]) != cfg.n_upscale_stages or any(
             tuple(up["w"].shape) != (3, 3, nf, nf * r * r) for up in params["upconvs"]):
         raise ValueError(f"upconvs {[tuple(up['w'].shape) for up in params['upconvs']]}, "
@@ -189,6 +188,86 @@ def gan_trainer_state_from_jax(state: dict, net_g, net_d) -> dict:
         out[key] = conv(state[key])
         out[opt_key] = {"count": int(np.asarray(adam.count)), "mu": conv(adam.mu),
                         "nu": conv(adam.nu)}
+    if "f_params" in state:
+        out["f_params"] = vgg_feat_from_jax(state["f_params"])
+    return out
+
+
+def sftnet_from_jax(tree: dict, cfg) -> dict:
+    """JAX SFT_Net parameter pytree (numpy leaves; ``blocks`` stacked over
+    nb) → the port's params, shape-checked against ``cfg`` (an
+    ``SFTNetConfig``)."""
+    params = _to_torch(tree)
+    nf, nb, c = cfg.nf, cfg.nb, cfg.cond_nf
+    _check_shapes(params, {
+        ("conv0",): (3, 3, cfg.in_nc, nf),
+        ("blocks", "conv0"): (nb, 3, 3, nf, nf),
+        ("blocks", "sft1", "shift1"): (nb, 1, 1, c, nf),
+        ("final_sft", "scale0"): (1, 1, c, c),
+        ("final_conv",): (3, 3, nf, nf),
+        ("hr", "up0"): (3, 3, nf, 4 * nf),
+        ("hr", "conv1"): (3, 3, nf, cfg.out_nc),
+        ("cond", "c0"): (4, 4, cfg.cond_in, 128),
+        ("cond", "c4"): (1, 1, 128, c),
+    })
+    return params
+
+
+def acd_from_jax(tree: dict) -> dict:
+    """JAX ACD discriminator pytree (numpy leaves; ``bn[0]`` is None) → the
+    port's params, shape-checked against the fixed 96×96 plan."""
+    from esrganplus_tpu_torch.models.sft import ACD_CLASSES, ACD_PLAN
+
+    params = _to_torch(tree)
+    cin = 3
+    for i, (k, _s, cout, has_bn) in enumerate(ACD_PLAN):
+        got = tuple(params["convs"][i]["w"].shape)
+        if got != (k, k, cin, cout) or (params["bn"][i] is not None) != has_bn:
+            raise ValueError(f"convs/{i}: weight {got} (bn {params['bn'][i] is not None}), "
+                             f"the plan has {(k, k, cin, cout)} (bn {has_bn})")
+        cin = cout
+    _check_shapes(params, {("gan0",): (512 * 6 * 6, 100), ("gan1",): (100, 1),
+                           ("cls0",): (512 * 6 * 6, 100), ("cls1",): (100, ACD_CLASSES)})
+    return params
+
+
+def _unmask(tree):
+    """An optax masked tree → the same tree with None where optax put a
+    ``MaskedNode`` (an empty named tuple: a leaf of the other group)."""
+    if isinstance(tree, dict):
+        return {k: _unmask(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and len(tree) == 0 and hasattr(tree, "_fields"):
+        return None
+    if isinstance(tree, (list, tuple)):
+        return [_unmask(v) for v in tree]
+    return tree
+
+
+def sftgan_trainer_state_from_jax(state: dict, net_g) -> dict:
+    """A JAX ``SFTGANTrainer`` state with numpy leaves → the port's SFT-GAN
+    trainer state on the CPU: ``g_params``, ``d_params``, ``g_opt`` =
+    ``{"other": adam, "sft": adam}`` (optax's ``multi_transform`` inner
+    states, each a masked ``ScaleByAdamState`` with its own ``count``; the
+    other group's leaves are None in each moment tree), ``d_opt``, ``step``;
+    ``f_params`` crosses through :func:`vgg_feat_from_jax` where present.
+    Hand the parameter trees to the trainer's ``ingest_params`` /
+    ``ingest_d_params`` to continue the run."""
+    conv_g = lambda t: sftnet_from_jax(t, net_g)
+    groups = {}
+    for name, inner in state["g_opt"].inner_states.items():
+        adam = _find_adam(inner)
+        if adam is None:
+            raise ValueError(f"no ScaleByAdamState(count, mu, nu) in g_opt group {name!r}")
+        groups[name] = {"count": int(np.asarray(adam.count)),
+                        "mu": _to_torch(_unmask(adam.mu)), "nu": _to_torch(_unmask(adam.nu))}
+    d_adam = _find_adam(state["d_opt"])
+    if d_adam is None:
+        raise ValueError("no ScaleByAdamState(count, mu, nu) in d_opt")
+    out = {"g_params": conv_g(state["g_params"]), "d_params": acd_from_jax(state["d_params"]),
+           "g_opt": groups,
+           "d_opt": {"count": int(np.asarray(d_adam.count)), "mu": acd_from_jax(d_adam.mu),
+                     "nu": acd_from_jax(d_adam.nu)},
+           "step": int(np.asarray(state["step"]))}
     if "f_params" in state:
         out["f_params"] = vgg_feat_from_jax(state["f_params"])
     return out

@@ -1,6 +1,7 @@
-"""Torch ``.pth`` checkpoint ↔ the port's parameter trees (RRDBNet and
-SRResNet generators, the VGG-style discriminators; SRResNet's own key layout
-is in ``models/srresnet.py``).
+"""Torch ``.pth`` checkpoint ↔ the port's parameter trees (RRDBNet,
+SRResNet and SFT_Net generators, the VGG-style discriminators; SRResNet's
+and SFT-GAN's own key layouts, the ACD's included, are in
+``models/srresnet.py`` and ``models/sft.py``).
 
 Counterpart of ``esrganplus_tpu/convert/pth.py``. The reference saves
 flattened ``nn.Sequential`` state dicts:
@@ -185,24 +186,33 @@ def rrdbnet_to_state_dict(params: dict, cfg: RRDBNetConfig) -> Dict[str, torch.T
 
 def generator_from_state_dict(sd: Dict[str, torch.Tensor], cfg=None, **kw):
     """Dispatch on the checkpoint's keys → (params, cfg, info): RRDBNet
-    checkpoints have RDB keys, SRResNet ones ``.res`` keys. SFT-GAN
-    checkpoints (``sft_branch.``) are not ported yet."""
+    checkpoints have RDB keys, SRResNet ones ``.res`` keys, SFT_Net ones
+    ``sft_branch.`` keys (an ``SFTNetConfig`` ``cfg`` gives ``legacy``;
+    the depth is the checkpoint's, and info is empty, as in the JAX
+    package)."""
+    from esrganplus_tpu_torch.models.sft import SFTNetConfig, sftnet_from_state_dict
     from esrganplus_tpu_torch.models.srresnet import (SRResNetConfig, is_srresnet_state_dict,
                                                       srresnet_from_state_dict)
 
-    if any(k.startswith("sft_branch.") for k in sd):
-        raise NotImplementedError("SFT-GAN checkpoints are not ported yet "
-                                  "(ROADMAP queue 1: SFT-GAN)")
+    dtype = kw.get("dtype", torch.float32)
+    if any(k.startswith("sft_branch.") for k in sd) or isinstance(cfg, SFTNetConfig):
+        params, cfg = sftnet_from_state_dict(sd, cfg if cfg is not None else SFTNetConfig(),
+                                             dtype=dtype)
+        return params, cfg, {}
     if is_srresnet_state_dict(sd) or isinstance(cfg, SRResNetConfig):
-        params, cfg = srresnet_from_state_dict(sd, cfg, dtype=kw.get("dtype", torch.float32))
+        params, cfg = srresnet_from_state_dict(sd, cfg, dtype=dtype)
         return params, cfg, {"missing_conv1x1_blocks": []}
     return rrdbnet_from_state_dict(sd, cfg, **kw)
 
 
 def generator_to_state_dict(params: dict, cfg) -> Dict[str, torch.Tensor]:
-    """Export generator params (RRDBNet or SRResNet) → reference state dict."""
+    """Export generator params (RRDBNet, SRResNet or SFT_Net) → reference
+    state dict."""
+    from esrganplus_tpu_torch.models.sft import SFTNetConfig, sftnet_to_state_dict
     from esrganplus_tpu_torch.models.srresnet import SRResNetConfig, srresnet_to_state_dict
 
+    if isinstance(cfg, SFTNetConfig):
+        return sftnet_to_state_dict(params, cfg)
     if isinstance(cfg, SRResNetConfig):
         return srresnet_to_state_dict(params, cfg)
     return rrdbnet_to_state_dict(params, cfg)

@@ -12,7 +12,8 @@ port's public functions) rather than CHW tensors. Counterpart of
 LMDB roots (``data_type: "lmdb"``) are read through the pure-python LMDB
 format reader (:mod:`esrganplus_tpu_torch.data.lmdb_io`), honouring the
 reference's ``_keys_cache.p`` pickled key cache — no lmdb C module required.
-The segmentation dataset comes with the SFT-GAN slice.
+SFT-GAN's segmentation dataset (mode ``LRHRseg_bg``) is
+``data/seg_dataset.py``.
 """
 
 from __future__ import annotations
@@ -241,6 +242,7 @@ def create_dataset(opt: Dict):
     if mode == "LRHR":
         return LRHRDataset(opt)
     if mode == "LRHRseg_bg":
-        raise NotImplementedError("Dataset mode [LRHRseg_bg] is not ported yet "
-                                  "(ROADMAP queue 1: SFT-GAN)")
+        from esrganplus_tpu_torch.data.seg_dataset import LRHRSegBGDataset
+
+        return LRHRSegBGDataset(opt)
     raise NotImplementedError(f"Dataset mode [{mode}] not recognized")

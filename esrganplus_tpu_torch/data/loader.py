@@ -38,9 +38,9 @@ class TrainLoader:
     drop_last semantics (reference ``data/__init__.py:14``): only full batches
     are emitted. Batch ``k`` is a function of ``(seed, k)`` alone: epoch ``e``
     is a permutation drawn from ``(seed, e)``, and the crops and flips of
-    batch ``k`` from ``(seed, k)``. So the content of every batch is the same
-    for any number of workers (with more than one, batches may arrive out of
-    order), and ``start_batch=N`` begins the stream at batch N without
+    batch ``k`` from ``(seed, k)``, and batches are handed out in the order
+    of ``k`` whichever worker finished first. So the stream is the same for
+    any number of workers, and ``start_batch=N`` begins it at batch N without
     producing the batches before it: a run resumed at step N sees what an
     uninterrupted run would. (The JAX package draws the whole stream from one
     sequential generator and restarts it on resume.)
@@ -54,6 +54,10 @@ class TrainLoader:
         self.seed = seed
         self.start_batch = int(start_batch)
         self._q: queue.Queue = queue.Queue(maxsize=queue_depth)
+        # batches handed to the workers and not yet yielded, those held back
+        # for their turn included, stay within the queue's depth plus one in
+        # the making per worker
+        self._slots = threading.Semaphore(queue_depth + self.num_workers)
         self._stop = threading.Event()
         self._threads = []
         self._started = False
@@ -86,11 +90,13 @@ class TrainLoader:
             except queue.Empty:
                 continue
             rng = random.Random(f"{self.seed}/batch/{k}")
-            samples = [self.dataset.sample(i, rng) for i in idxs]
-            batch = collate(samples)
+            try:
+                batch = collate([self.dataset.sample(i, rng) for i in idxs])
+            except Exception as e:  # raised on the consumer's thread at batch k
+                batch = e
             while not self._stop.is_set():
                 try:
-                    self._q.put(batch, timeout=0.2)
+                    self._q.put((k, batch), timeout=0.2)
                     break
                 except queue.Full:
                     continue
@@ -101,8 +107,9 @@ class TrainLoader:
 
         def feeder():
             for item in self._index_stream():
-                if self._stop.is_set():
-                    return
+                while not self._slots.acquire(timeout=0.2):
+                    if self._stop.is_set():
+                        return
                 while not self._stop.is_set():
                     try:
                         self._idx_q.put(item, timeout=0.2)
@@ -120,8 +127,22 @@ class TrainLoader:
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         if not self._started:
             self._start()
+        # batches finish in any order across workers: hold the early ones
+        # until their turn (the queue keeps draining, so no worker waits on
+        # a full queue while the next batch is still being made; the feeder's
+        # slots bound how many are held)
+        early: Dict[int, Dict[str, np.ndarray]] = {}
+        k = self.start_batch
         while True:
-            yield self._q.get()
+            while k not in early:
+                done, batch = self._q.get()
+                early[done] = batch
+            batch = early.pop(k)
+            self._slots.release()
+            if isinstance(batch, Exception):
+                raise batch
+            yield batch
+            k += 1
 
     def stop(self):
         self._stop.set()
@@ -149,10 +170,20 @@ class EvalLoader:
         return len(self.dataset)
 
 
+def _as_feed_array(a) -> np.ndarray:
+    """A batch entry as the device receives it: integer labels (SFT-GAN's
+    category) as int64, everything else as float32."""
+    a = np.asarray(a)
+    if np.issubdtype(a.dtype, np.integer):
+        return np.ascontiguousarray(a, dtype=np.int64)
+    return np.ascontiguousarray(a, dtype=np.float32)
+
+
 class DeviceFeeder:
     """Wraps a host batch iterator; a background thread keeps up to
     ``prefetch`` batches already on ``device``. Yields
-    ``(tuple of float32 tensors for keys, host batch)``.
+    ``(tuple of tensors for keys, host batch)``: float32, and int64 for
+    integer entries (SFT-GAN's category).
 
     On a CUDA device each array is staged in pinned memory and copied with
     ``non_blocking=True`` on a side stream; the consumer's stream waits on the
@@ -182,8 +213,7 @@ class DeviceFeeder:
         try:
             while not self._stop.is_set():
                 batch = next(self._host)
-                arrs = [torch.from_numpy(np.ascontiguousarray(batch[k], dtype=np.float32))
-                        for k in self._keys]
+                arrs = [torch.from_numpy(_as_feed_array(batch[k])) for k in self._keys]
                 event = None
                 if cuda:
                     with torch.cuda.stream(stream):

@@ -1,7 +1,7 @@
 """Device-resident training crops: no host→device copy of a batch.
 
-Counterpart of ``esrganplus_tpu/data/resident.py`` (``ResidentCropStore``;
-the SFT-GAN ``ResidentSegStore`` comes with the SFT-GAN slice). Instead of
+Counterpart of ``esrganplus_tpu/data/resident.py`` (``ResidentCropStore``
+and SFT-GAN's ``ResidentSegStore``). Instead of
 cropping and augmenting on the host and copying every batch to the card, a
 pool of aligned uint8 LR/HR crop pairs lives in device memory, and each train
 step samples, augments and casts its batch on the device (the trainers'
@@ -18,6 +18,9 @@ Storage is uint8: images are 8-bit on disk and the host crops are lossless
 re-slices of them. When the LR is synthesised on the fly (no
 ``dataroot_LR``), its float values are quantised to uint8 in the pool, so
 resident training then sees a slightly different LR than host-fed training.
+SFT-GAN's pool (:class:`ResidentSegStore`) keeps its LR in float32 instead
+(the bicubic LR of a randomly rescaled HR has no 8-bit form), the seg map as
+uint8 ·255 and the HR as uint8; the category rides along untouched.
 
 Reproducibility. Pool ``r`` (the one in use from step ``r·refresh_steps``
 on) is a function of (seed, r) alone: its source order and its crop
@@ -149,6 +152,11 @@ class ResidentCropStore:
         self.hr = torch.from_numpy(hr_u8).to(self.device)
         self.pool_index = index
 
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the pool."""
+        return self.lr.nbytes + self.hr.nbytes
+
     def _start_build(self, index: int):
         out = []
 
@@ -207,5 +215,73 @@ class ResidentCropStore:
             lr = _apply_augment(self.lr[idx], *dec).float() / 255.0
             hr = _apply_augment(self.hr[idx], *dec).float() / 255.0
             return lr, hr
+
+        return sample
+
+
+# ---------------------------------------------------------------------------
+# SFT-GAN: (LR, seg, HR, category) crops
+# ---------------------------------------------------------------------------
+
+
+def build_seg_crop_pool(dataset, n_crops: int, rng: np.random.RandomState,
+                        crop_rng: random.Random):
+    """``n_crops`` (LR, seg, HR, category) crops of an ``LRHRSegBGDataset``
+    (``data/seg_dataset.py``) through its own sampling with host
+    augmentation bypassed → ``(lr float32 [N, h, w, 3], seg uint8 [N, H, W,
+    8], hr uint8 [N, H, W, 3], category int64 [N])``. HR is 8-bit at the
+    source; the seg map is stored ·255 (a one-hot map survives the nearest
+    rescale exactly); the LR stays float32. ``rng`` orders the sources,
+    ``crop_rng`` draws the background coins, rescales and crops."""
+    restore = _bypass_host_augment(dataset)
+    try:
+        lrs, segs, hrs, cats = [], [], [], []
+        n_src = len(dataset)
+        order = rng.permutation(n_src)
+        for i in range(n_crops):
+            s = dataset.sample(int(order[i % n_src]), crop_rng)
+            lrs.append(s["LR"].astype(np.float32))
+            segs.append(np.clip(s["seg"] * 255.0, 0, 255).round().astype(np.uint8))
+            hrs.append(np.clip(s["HR"] * 255.0, 0, 255).round().astype(np.uint8))
+            cats.append(int(s["category"]))
+        return np.stack(lrs), np.stack(segs), np.stack(hrs), np.asarray(cats, np.int64)
+    finally:
+        restore()
+
+
+class ResidentSegStore(ResidentCropStore):
+    """SFT-GAN's (LR, seg, HR, category) crop pool in device memory: the
+    design and the reproducibility contract of :class:`ResidentCropStore`;
+    the three images of a sample share its flip / vflip / transpose
+    decision."""
+
+    def _build(self, index: int):
+        return build_seg_crop_pool(self._dataset, self.n_crops,
+                                   *pool_generators(self.seed, index))
+
+    def _upload(self, pools, index: int):
+        self.lr, self.seg, self.hr, self.cat = (torch.from_numpy(a).to(self.device)
+                                                for a in pools)
+        self.pool_index = index
+
+    @property
+    def nbytes(self) -> int:
+        return self.lr.nbytes + self.seg.nbytes + self.hr.nbytes + self.cat.nbytes
+
+    def make_sampler(self, batch_size: int):
+        """``sample(seed) -> (lr, seg, hr, category)``: LR / HR float32
+        [0, 1] and the seg map float32 NHWC, the category int64, drawn on
+        the device from the current pool as :class:`ResidentCropStore`
+        draws (indices first, then the augment coins)."""
+        n, flip, rot = self.n_crops, self.use_flip, self.use_rot
+
+        def sample(seed: int):
+            gen = self._gen.manual_seed(seed)
+            idx = torch.randint(0, n, (batch_size,), generator=gen, device=self.device)
+            dec = _augment_decisions(gen, batch_size, flip, rot, self.device)
+            lr = _apply_augment(self.lr[idx], *dec)
+            seg = _apply_augment(self.seg[idx], *dec).float() / 255.0
+            hr = _apply_augment(self.hr[idx], *dec).float() / 255.0
+            return lr, seg, hr, self.cat[idx]
 
         return sample

@@ -74,10 +74,12 @@ def batchnorm_init(c: int, dtype: torch.dtype = torch.float32) -> dict:
 
 
 def conv2d(x: torch.Tensor, p: dict, stride: int = 1, pad="same",
-           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Zero-padded convolution, NHWC × HWIO → NHWC. ``pad``: "same" (odd
-    kernels, stride 1) or an explicit symmetric int (the discriminator's
-    4×4 stride-2 conv pads 1 on both sides, as torch does).
+           dtype: Optional[torch.dtype] = None, dilation: int = 1) -> torch.Tensor:
+    """Zero-padded convolution, NHWC × HWIO → NHWC. ``pad``: "same" (the
+    dilated kernel's extent ``(k−1)·dilation + 1`` halved, the extra pixel
+    of an even extent after the image as in the JAX package), "valid", or
+    an explicit symmetric int (the discriminator's 4×4 stride-2 conv pads 1
+    on both sides, as torch does).
 
     ``dtype`` casts input and weights (the bf16 compute policy) and the
     output stays in ``dtype``, with the bias added in ``dtype`` as the JAX
@@ -85,11 +87,20 @@ def conv2d(x: torch.Tensor, p: dict, stride: int = 1, pad="same",
     w = p["w"]
     if dtype is not None:
         x, w = x.to(dtype), w.to(dtype)
+    xc = x.permute(0, 3, 1, 2)
     if pad == "same":
-        pad = w.shape[0] // 2
+        eh, ew = ((k - 1) * dilation + 1 for k in w.shape[:2])
+        lo_h, hi_h, lo_w, hi_w = eh // 2, (eh - 1) // 2, ew // 2, (ew - 1) // 2
+        if (lo_h, lo_w) == (hi_h, hi_w):
+            pad = (lo_h, lo_w)
+        else:
+            xc = F.pad(xc, (lo_w, hi_w, lo_h, hi_h))
+            pad = 0
+    elif pad == "valid":
+        pad = 0
     with fp32_exact():
-        out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=stride,
-                       padding=pad)
+        out = F.conv2d(xc, w.permute(3, 2, 0, 1), stride=stride, padding=pad,
+                       dilation=dilation)
     out = out.permute(0, 2, 3, 1)
     if "b" in p:
         out = out + p["b"].to(out.dtype)

@@ -122,8 +122,7 @@ def check_resume(opt, resume_iter: Optional[int] = None) -> None:
 
 
 def build_net_g_config(opt):
-    """network_G options → RRDBNetConfig or SRResNetConfig. SFT-GAN waits
-    for its slice of the port."""
+    """network_G options → RRDBNetConfig, SRResNetConfig or SFTNetConfig."""
     from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig
 
     g = opt["network_G"]
@@ -154,13 +153,20 @@ def build_net_g_config(opt):
             upscale=g.get("scale", 4),
         )
     if which == "sft_arch":
-        raise NotImplementedError(f"Generator model [{which}] is not ported yet "
-                                  "(ROADMAP queue 1: SFT-GAN)")
+        from esrganplus_tpu_torch.models.sft import SFTNetConfig
+
+        return SFTNetConfig(
+            nb=g.get("nb", 16) or 16,
+            legacy=bool(g.get("legacy", False)),
+        )
     raise NotImplementedError(f"Generator model [{which}] not recognized")
 
 
 def build_net_d_config(opt):
-    """network_D options → DiscriminatorVGGConfig."""
+    """network_D options → DiscriminatorVGGConfig. SFT-GAN's ACD
+    (``"dis_acd"``) is fixed by the model and has no config: the train
+    CLI does not call this for ``model: "sftgan"``, as the JAX package's
+    does not."""
     from esrganplus_tpu_torch.models.discriminator import DiscriminatorVGGConfig
 
     d = opt["network_D"]
@@ -179,8 +185,8 @@ def build_net_d_config(opt):
 
 
 def build_train_config(opt):
-    """train options → SRTrainConfig (``model: "sr"``) or GANTrainConfig
-    (``"srgan"`` | ``"srragan"``). SFT-GAN waits for its slice of the port."""
+    """train options → SRTrainConfig (``model: "sr"``), GANTrainConfig
+    (``"srgan"`` | ``"srragan"``) or SFTGANTrainConfig (``"sftgan"``)."""
     t = opt["train"] or {}
     model = opt["model"]
     if model == "sr":
@@ -222,6 +228,23 @@ def build_train_config(opt):
             noise_prng=t.get("noise_prng") or "rbg",
         )
     if model == "sftgan":
-        raise NotImplementedError(f"Model [{model}] is not ported yet "
-                                  "(ROADMAP queue 1: SFT-GAN)")
+        from esrganplus_tpu_torch.train.sftgan_model import SFTGANTrainConfig
+
+        return SFTGANTrainConfig(
+            lr_g=t.get("lr_G", 1e-4),
+            lr_d=t.get("lr_D", 1e-4),
+            beta1_g=t.get("beta1_G", 0.9),
+            beta1_d=t.get("beta1_D", 0.9),
+            milestones=tuple(t.get("lr_steps", (50_000, 100_000, 200_000, 300_000))),
+            lr_gamma=t.get("lr_gamma", 0.5),
+            pixel_criterion=t.get("pixel_criterion", "l1"),
+            pixel_weight=t.get("pixel_weight", 1e-2),
+            feature_weight=t.get("feature_weight", 1.0),
+            gan_type=t.get("gan_type", "vanilla"),
+            gan_weight=t.get("gan_weight", 5e-3),
+            d_update_ratio=t.get("D_update_ratio", 1),
+            d_init_iters=t.get("D_init_iters", 0),
+            vgg_path=(opt["path"] or {}).get("vgg19"),
+            compute_dtype=t.get("compute_dtype"),
+        )
     raise NotImplementedError(f"Model [{model}] not recognized")

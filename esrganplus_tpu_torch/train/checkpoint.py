@@ -20,7 +20,10 @@ whose generator masters and Adam moments are in its prepared-trunk layout
 (converted back exactly), and a GAN state that carries ``f_params``, the
 frozen VGG19, which the port keeps on the trainer (dropped by the template's
 structure: where that key sorts among its keys, as many leaves as the file
-has beyond it).
+has beyond it). An SFT-GAN state crosses the same way: the port's two-group
+``g_opt`` (``{"other", "sft"}``, each ``{"count", "mu", "nu"}`` with None at
+the other group's leaves) flattens in the order of the JAX package's
+``multi_transform`` state, whose masked leaves have no entries.
 """
 
 from __future__ import annotations
@@ -220,20 +223,28 @@ def load_state_auto(path: str, template_state, net_cfg=None):
 
 def save_networks_pth(models_dir: str, tag, g_params, g_cfg, d_params=None, d_cfg=None) -> None:
     """Export network weights in reference-layout .pth: ``<tag>_G.pth`` and,
-    with a discriminator, ``<tag>_D.pth``."""
+    with a discriminator, ``<tag>_D.pth`` (by ``d_cfg``; SFT-GAN's ACD,
+    which has no config, where ``g_cfg`` is an ``SFTNetConfig``)."""
     from esrganplus_tpu_torch.convert.pth import (discriminator_sn_to_state_dict,
                                                   discriminator_to_state_dict,
                                                   generator_to_state_dict)
+    from esrganplus_tpu_torch.models.sft import SFTNetConfig, acd_to_state_dict
 
     os.makedirs(models_dir, exist_ok=True)
     cpu = lambda tree: tree_map(lambda p: p.detach().cpu(), tree)
     sd = {k: v.clone() for k, v in generator_to_state_dict(cpu(g_params), g_cfg).items()}
     torch.save(sd, os.path.join(models_dir, f"{tag}_G.pth"))
-    if d_params is not None and d_cfg is not None:
+    if d_params is None:
+        return
+    if isinstance(g_cfg, SFTNetConfig):
+        sd_d = acd_to_state_dict(cpu(d_params))
+    elif d_cfg is not None:
         to_sd = (discriminator_sn_to_state_dict if d_cfg.spectral_norm
                  else discriminator_to_state_dict)
-        sd_d = {k: v.clone() for k, v in to_sd(cpu(d_params), d_cfg).items()}
-        torch.save(sd_d, os.path.join(models_dir, f"{tag}_D.pth"))
+        sd_d = to_sd(cpu(d_params), d_cfg)
+    else:
+        return
+    torch.save({k: v.clone() for k, v in sd_d.items()}, os.path.join(models_dir, f"{tag}_D.pth"))
 
 
 def latest_state_path(state_dir: str) -> Optional[str]:

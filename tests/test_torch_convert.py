@@ -116,13 +116,19 @@ def test_from_jax_params_rejects_mismatched_config():
 
 
 def test_unported_generators_are_refused():
-    """SFT-GAN checkpoints are refused; SRResNet ones, ported since, load
-    (tests/test_torch_srresnet.py holds them against the reference)."""
+    """No generator family is refused any more: SRResNet checkpoints load
+    (tests/test_torch_srresnet.py holds them against the reference) and so
+    do SFT_Net ones, recognised by their ``sft_branch.`` keys
+    (tests/test_torch_sft.py holds them against the JAX package)."""
+    from esrganplus_tpu_torch.models.sft import SFTNetConfig, init_sftnet, sftnet_to_state_dict
+
     sd = load_state_dict(os.path.join(GOLDEN, "srresnet_small_x4.pth"))
     _, cfg, _ = generator_from_state_dict(sd)
     assert type(cfg).__name__ == "SRResNetConfig"
-    with pytest.raises(NotImplementedError, match="SFT-GAN"):
-        generator_from_state_dict({"sft_branch.0.weight": torch.zeros(1), **sd})
+    small = SFTNetConfig(nb=1, nf=8, cond_nf=4)
+    sft_sd = sftnet_to_state_dict(init_sftnet(small), small)
+    _, cfg, info = generator_from_state_dict(sft_sd, SFTNetConfig(nf=8, cond_nf=4))
+    assert cfg == small and info == {}
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

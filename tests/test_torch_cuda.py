@@ -1691,3 +1691,152 @@ def test_cuda_serve_round_trip(tmp_path):
                       .upscale(img2tensor(img.astype(np.float32) / 255.0)))
     assert got.shape == want.shape == (148, 180, 3)
     assert np.array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# SFT-GAN and OutdoorSceneSeg (cuDNN models; VGG19's early stages of the
+# SFT-GAN perceptual loss on the stage kernels)
+# ---------------------------------------------------------------------------
+
+
+def _sft_inputs(gen, b=2, h=12, w=16, device="cpu"):
+    img = torch.rand((b, h, w, 3), generator=gen).to(device)
+    seg = torch.softmax(3 * torch.randn((b, 4 * h, 4 * w, 8), generator=gen), -1).to(device)
+    return img, seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("legacy", [False, True])
+def test_cuda_sft_forward_matches_cpu(legacy):
+    """SFT_Net at the shipped widths (nf 64, cond_nf 32, nb 2, trunk init
+    ×0.1) on the card against the CPU: fp32 within 1e-4 of max(1, max|ref|),
+    bf16 on the card within 2e-2 of the fp32 CPU output."""
+    _need_card()
+    from esrganplus_tpu_torch.models.sft import SFTNetConfig, init_sftnet, sftnet_forward
+
+    cfg = SFTNetConfig(nb=2, legacy=legacy)
+    params = init_sftnet(cfg, seed=1)
+    for name in ("blocks", "final_sft", "final_conv"):
+        for _, leaf in _leaves_of(params[name]):
+            leaf.mul_(0.1)
+    img, seg = _sft_inputs(torch.Generator().manual_seed(2))
+    with torch.inference_mode(), fp32_exact():
+        ref = sftnet_forward(params, img, seg, cfg)
+        dev = params_to(params, "cuda")
+        got = sftnet_forward(dev, img.cuda(), seg.cuda(), cfg).cpu()
+        bf = sftnet_forward(dev, img.cuda(), seg.cuda(), cfg, dtype=torch.bfloat16).cpu()
+    assert got.shape == ref.shape == (2, 48, 64, 3)
+    scale = max(1.0, ref.abs().max().item())
+    assert (got - ref).abs().max().item() <= TOL[torch.float32] * scale
+    assert (bf - ref).abs().max().item() <= TOL[torch.bfloat16] * scale
+
+
+def _leaves_of(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in _leaves_of(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree) for kv in _leaves_of(v, f"{prefix}/{i}")]
+    return [] if tree is None else [(prefix, tree)]
+
+
+@pytest.mark.cuda
+def test_cuda_acd_forward_and_backward_match_cpu():
+    """The ACD discriminator at 96², batch 4, train mode, fp32: both heads
+    within 1e-4 of the CPU's, the BN updates within 1e-4, and the parameter
+    and input gradients of BCE + CE with cosine ≥ 0.9999 against the CPU's
+    (an lrelu gate behind a batch norm may flip at a near-zero activation,
+    which moves single entries, so the cosine is held)."""
+    _need_card()
+    from esrganplus_tpu_torch.models.sft import acd_forward, init_acd
+    from esrganplus_tpu_torch.train.sftgan_model import masked_cross_entropy
+
+    params = init_acd(seed=3)
+    gen = torch.Generator().manual_seed(4)
+    x = torch.rand((4, 96, 96, 3), generator=gen)
+    cat = torch.tensor([0, 2, 5, 7])
+
+    def run(device):
+        from esrganplus_tpu_torch.train.sr_model import tree_map
+
+        p = tree_map(lambda t: t.detach().to(device).clone().requires_grad_(True), params)
+        leaves = [t for _, t in _leaves_of(p)]
+        xi = x.to(device).requires_grad_(True)
+        with fp32_exact():
+            gan, cls, upd = acd_forward(p, xi, train=True)
+            loss = torch.nn.functional.softplus(-gan).mean() + masked_cross_entropy(
+                cls, cat.to(device))
+            grads = torch.autograd.grad(loss, leaves + [xi], allow_unused=True)
+        flat = torch.cat([g.flatten().cpu() for g in grads if g is not None])
+        return gan.detach().cpu(), cls.detach().cpu(), [
+            {k: v.cpu() for k, v in u.items()} for u in upd if u is not None], flat
+
+    g_ref, c_ref, u_ref, d_ref = run("cpu")
+    g_got, c_got, u_got, d_got = run("cuda")
+    for got, ref in ((g_got, g_ref), (c_got, c_ref)):
+        assert (got - ref).abs().max().item() <= TOL[torch.float32] * max(1.0, ref.abs().max())
+    for a, b in zip(u_got, u_ref):
+        for k in ("mean", "var"):
+            assert (a[k] - b[k]).abs().max().item() <= 1e-4 * max(1.0, b[k].abs().max())
+    cos = torch.nn.functional.cosine_similarity(d_got.double(), d_ref.double(), dim=0)
+    assert cos.item() >= 0.9999
+
+
+@pytest.mark.cuda
+def test_cuda_seg_forward_matches_cpu():
+    """OutdoorSceneSeg (published widths and depth, seeded: near-identity
+    batch norms, a random ×8 transposed conv) at 40×56 on the card against
+    the CPU: probabilities within 1e-4, each pixel's summing to 1 within
+    1e-5."""
+    _need_card()
+    from esrganplus_tpu_torch.models.seg import init_seg, seg_forward
+
+    params = init_seg(seed=0)
+    gen = torch.Generator().manual_seed(1)
+    for layer in params["layers"]:
+        for name, p in ((layer or {}).items() if "conv" not in (layer or {})
+                        else [("c", layer)]):
+            p["bn"]["scale"].copy_(0.5 + 0.5 * torch.rand(p["bn"]["scale"].shape, generator=gen))
+            if name == "c2":
+                p["bn"]["scale"].mul_(0.2)
+    params["deconv_w"] = torch.randn(params["deconv_w"].shape, generator=gen) / 16
+    x = 255 * torch.rand((1, 40, 56, 3), generator=gen) - 110
+    with torch.inference_mode(), fp32_exact():
+        ref = seg_forward(params, x)
+        got = seg_forward(params_to(params, "cuda"), x.cuda()).cpu()
+    assert got.shape == ref.shape == (1, 40, 56, 8)
+    assert (got - ref).abs().max().item() <= 1e-4
+    assert (got.sum(-1) - 1).abs().max().item() <= 1e-5
+    assert 0.2 < ref.max(-1).values.mean().item() < 0.99
+
+
+@pytest.mark.cuda
+def test_sftgan_trainer_steps_on_the_card_repeat_bit_for_bit():
+    """Two SFT-GAN steps (SFT nb 1, the ACD, VGG19 to features[34] seeded;
+    batch 2, HR 96, fp32) twice from one state: bit-equal; each step
+    launched conv_s1_ct 8 times and conv_s1_ct_bwd 4 times (VGG19's four
+    ≤128-channel convs on the fake and the real, the fake's adjoint), all
+    on the fp32 design."""
+    _need_card()
+    from esrganplus_tpu_torch.kernels import stage_ct as S
+    from esrganplus_tpu_torch.models.sft import SFTNetConfig
+    from esrganplus_tpu_torch.train import SFTGANTrainConfig, SFTGANTrainer
+
+    gen = torch.Generator().manual_seed(5)
+    img, seg = _sft_inputs(gen, b=2, h=24, w=24, device="cuda")
+    batch = (img, seg, torch.rand((2, 96, 96, 3), generator=gen).cuda(),
+             torch.tensor([0, 4]).cuda())
+    runs = []
+    for _ in range(2):
+        t = SFTGANTrainer(SFTNetConfig(nb=1), SFTGANTrainConfig(other_start_iter=1),
+                          device="cuda")
+        state = t.init_state(0)
+        before = {fn: dict(fn.launches_by_design) for fn in (S.conv_s1_ct, S.conv_s1_ct_bwd)}
+        for _ in range(2):
+            state, logs = t.train_step(state, batch, 0)
+        ran = {fn.__name__: {k: n - before[fn][k] for k, n in fn.launches_by_design.items()}
+               for fn in before}
+        assert ran == {"conv_s1_ct": {"fma": 16, "mma": 0},
+                       "conv_s1_ct_bwd": {"fma": 8, "mma": 0}}
+        runs.append([t.detach().cpu() for _, t in _leaves_of(state)
+                     if torch.is_tensor(t)] + [logs[k].cpu() for k in sorted(logs)])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

@@ -192,9 +192,13 @@ def test_inspect_data_writes_its_grids(prepared, capsys):
 
 
 def test_inspect_data_refuses_seg_datasets(prepared):
+    """Seg datasets are ported (``cli.inspect_data`` writes their grids:
+    tests/test_torch_sftgan_trainer.py); one whose images have no seg map
+    beside them is refused, naming the map it looked for, from the loader's
+    worker thread on the caller's."""
     from esrganplus_tpu_torch.cli.inspect_data import main
 
     base = prepared["port"]
-    with pytest.raises(NotImplementedError, match="SFT-GAN"):
+    with pytest.raises(FileNotFoundError, match="no seg map"):
         main(["-opt", _inspect_options(base, base, base, mode="LRHRseg_bg"),
               "--out", os.path.join(base, "nope")])

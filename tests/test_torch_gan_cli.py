@@ -132,12 +132,15 @@ def test_pretrain_model_d_is_loaded(tmp_path):
 
 
 def test_sftgan_still_exits_saying_so(tmp_path):
+    """``model: "sftgan"`` is ported (tests/test_torch_sftgan_trainer.py
+    trains it through this CLI); with an RRDBNet generator it exits saying
+    it trains an SFT_Net, before any directory is made."""
     root = str(tmp_path)
     opt = _options(root, root, root, model="sftgan")
     path = os.path.join(root, "opt.json")
     with open(path, "w") as f:
         json.dump(opt, f)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="sft_arch"):
         main(["-opt", path, "--device", "cpu"])
     assert not os.path.exists(os.path.join(root, "experiments"))
 

@@ -101,8 +101,14 @@ def test_unported_models_name_the_roadmap(tmp_path, model, which):
     if which == "sr_resnet":  # ported with SRResNet: no longer refused
         assert type(popt.build_net_g_config(opt)).__name__ == "SRResNetConfig"
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        popt.build_net_g_config(opt)
+    # SFT-GAN ported with its slice: no longer refused; a name neither
+    # package knows still is
+    if model == "sftgan":
+        assert type(popt.build_train_config(opt)).__name__ == "SFTGANTrainConfig"
+    else:
+        assert type(popt.build_net_g_config(opt)).__name__ == "SFTNetConfig"
+    opt["model"] = "sftgan_v2"
+    with pytest.raises(NotImplementedError, match="not recognized"):
         popt.build_train_config(opt)
 
 
@@ -222,16 +228,22 @@ def test_val_and_lr_datasets_match_jax(img_root):
 
 
 def test_unported_data_sources_are_refused(img_root):
-    """The segmentation dataset waits for the SFT-GAN slice. LMDB roots are
-    ported (tests/test_torch_data_prep.py); one that holds no LMDB
+    """Nothing is refused any more: the segmentation dataset (mode
+    ``LRHRseg_bg``) is the SFT-GAN slice's (tests/test_torch_sftgan_trainer.py
+    holds it against the JAX package) and builds as JAX's does. LMDB roots
+    are ported (tests/test_torch_data_prep.py); one that holds no LMDB
     environment fails on open, as the JAX package's does."""
     hr_dir, lr_dir = img_root
     with pytest.raises(FileNotFoundError, match="data.mdb"):
         pdata.create_dataset(_train_opt(hr_dir, lr_dir, data_type="lmdb"))
     with pytest.raises(FileNotFoundError, match="data.mdb"):
         jdata.create_dataset(_train_opt(hr_dir, lr_dir, data_type="lmdb"))
+    seg_opt = {"mode": "LRHRseg_bg", "phase": "val", "dataroot_HR": hr_dir}
+    got, want = pdata.create_dataset(seg_opt), jdata.create_dataset(seg_opt)
+    assert type(got).__name__ == type(want).__name__ == "LRHRSegBGDataset"
+    assert len(got) == len(want) > 0
     with pytest.raises(NotImplementedError):
-        pdata.create_dataset({"mode": "LRHRseg_bg"})
+        pdata.create_dataset({"mode": "LRHRseg"})
 
 
 def _first_batches(hr_dir, lr_dir, n, start=0, workers=1):
@@ -248,7 +260,7 @@ def test_train_loader_batches_are_a_function_of_seed_and_index(img_root):
     """Same seed, same stream; every epoch (2 batches of 2 over 4 images)
     visits each image once, as the JAX loader's epochs do; a loader started
     at batch 3 yields batch 3 on, without producing the first three; and
-    three workers produce the same batches (in whatever order)."""
+    three workers hand out the same batches in the same order."""
     hr_dir, lr_dir = img_root
     a, b = _first_batches(hr_dir, lr_dir, 6), _first_batches(hr_dir, lr_dir, 6)
     for x, y in zip(a, b):
@@ -262,11 +274,49 @@ def test_train_loader_batches_are_a_function_of_seed_and_index(img_root):
     for x, y in zip(a[3:], _first_batches(hr_dir, lr_dir, 3, start=3)):
         np.testing.assert_array_equal(x["LR"], y["LR"])
         np.testing.assert_array_equal(x["HR"], y["HR"])
-    key = lambda x: x["HR"].tobytes()
-    # three workers may overtake one another: the first 6 to arrive are of
-    # batches 0..7 (at most two others are in flight), so 4 are among a's
-    many = {key(x) for x in _first_batches(hr_dir, lr_dir, 6, workers=3)}
-    assert len(many & {key(x) for x in a}) >= 4
+    # three workers may finish out of turn; the loader hands batches out in
+    # the order of their index all the same
+    for x, y in zip(a, _first_batches(hr_dir, lr_dir, 6, workers=3)):
+        np.testing.assert_array_equal(x["HR"], y["HR"])
+        assert x["HR_path"] == y["HR_path"]
+
+
+@pytest.mark.parametrize("workers", [1, 3])
+def test_train_loader_holds_back_a_bounded_number_of_batches(workers):
+    """While the consumer waits on one slow batch, the workers make no more
+    than the queue's depth plus one batch each beyond the batches yielded:
+    the batches held back for their turn do not grow without bound."""
+    import itertools
+    import threading
+    import time
+
+    release, lock, calls = threading.Event(), threading.Lock(), [0]
+
+    class SlowFirst:
+        def __len__(self):
+            return 64
+
+        def sample(self, i, rng):
+            with lock:
+                calls[0] += 1
+                first = calls[0] == 1
+            if first:
+                release.wait(10)
+            return {"x": np.zeros(1, np.float32)}
+
+    loader = pdata.TrainLoader(SlowFirst(), batch_size=1, num_workers=workers, queue_depth=2)
+    got = []
+    consumer = threading.Thread(target=lambda: got.extend(itertools.islice(loader, 3)),
+                                daemon=True)
+    consumer.start()
+    time.sleep(1.0)
+    made = calls[0]
+    release.set()
+    consumer.join(10)
+    loader.stop()
+    assert len(got) == 3
+    # the slow batch is batch 0, or batch 1 when another worker started first
+    assert made <= 2 + workers + 1, made
 
 
 def test_collate_eval_loader_and_device_feeder(img_root):
