@@ -188,7 +188,7 @@ final result line:
                launched; ms an image and MPix/s;
      train-srresnet — ``train_SRResNet.json`` as shipped (fp32, batch 16, HR
                96, l2, 4096 resident crops) with ``steps_per_dispatch: 4``
-               (accepted; an eager step is one call) for 16 steps through
+               (bursts of four graph replays) for 16 steps through
                the train CLI (finite logged losses, a ``latest_G.pth`` read
                back as SRResNet, a resume from step 8 bit-equal, no kernel
                launched), then ``train_SRGAN.json`` as
@@ -198,20 +198,32 @@ final result line:
                device ms a step (srresnet-steady, reported);
      train-resident — the flagship PSNR recipe's shape (batch 16, HR 128,
                bf16, noise on) on a store of 4096 crops: one resident step
-               bit-equal to ``train_step`` on the sampled batch, 16 steps
-               through the train CLI with ``steps_per_dispatch: 4`` (launch
-               counts of the eight
-               kernels from 0, all "mma") and a resume from step 8 bit-equal;
-               4 resident ``srragan`` steps with all twelve wrappers through
-               "mma"; resident ms/step and crops/s beside train-steady's and
-               gan-steady's (reported);
-     train-profile-cli — ``cli.train --profile DIR --profile-steps 3`` on the
-               PSNR recipe, then ``cli.profile_summary DIR --steps 3``: the
-               per-step launches of dense_mma_kernel, dgrad_mma_kernel and
-               wgrad_mma_kernel in the trace equal to the launches counted
-               where each kernel is launched (``kernels/launch.py``
-               ``device_launches``); the table's top rows and the device ms a
-               step;
+               (a captured CUDA graph) bit-equal to ``train_step`` on the
+               sampled batch, 16 steps through the train CLI with
+               ``steps_per_dispatch: 4`` (one capture logged; the eight
+               kernels' and the Philox wrappers' counts from 0 those of the
+               capture's warm-up and recording, GRAPH_CALLS steps, and of the
+               validations, all "mma") and a resume from step 8 bit-equal; a
+               burst of 4 resident ``srragan`` steps, its capture's counts
+               likewise; resident ms/step and crops/s beside train-steady's
+               and gan-steady's (reported);
+     train-burst — the PSNR and ``srragan`` steps as captured graphs: a
+               burst of 8 replays and 2 more, traced, bit-equal to as many
+               eager steps; what the traced replays launch, read from the
+               captured graphs, equal by kernel family to what the profiler
+               saw the card run in them and in the eager steps; host ms a
+               step (CUDA events around bursts of K = 1 and 8), device ms,
+               idle share, capture s and pool bytes beside eager resident
+               steps (reported); train-burst-equal the same checks for the
+               fused noise mode, SRResNet and ``D_update_ratio`` 2;
+     train-profile-cli — ``cli.train --profile DIR --profile-steps 4`` on the
+               PSNR recipe in bursts of 4, then ``cli.profile_summary DIR
+               --steps 4``: the per-step launches of dense_mma_kernel,
+               dgrad_mma_kernel and wgrad_mma_kernel in the replays' trace
+               equal to the launches counted where each kernel is launched
+               (``kernels/launch.py`` ``device_launches``) by the one
+               capture, per GRAPH_CALLS; the table's top rows and the device
+               ms a step;
  15. seg     — OutdoorSceneSeg (published widths and depth, seeded) through
                ``cli.test_seg --device cuda`` on two synthetic 384×512 HR
                images: each probability map within 1e-4 of the port's CPU
@@ -241,13 +253,17 @@ final result line:
                of two) for 16 steps through the train CLI, host-fed and with
                1024 resident crops (``resident_async_refresh: false``), each
                resumed from step 8 bit-equal: the launches of conv_s1_ct and
-               conv_s1_ct_bwd equal to 16 × sftgan-check's, all "fma"; the
+               conv_s1_ct_bwd equal to 16 × sftgan-check's host-fed and
+               GRAPH_CALLS × its one capture's resident, all "fma"; the
                other group (``other_start_iter`` 20 000) bit-unchanged with
                its Adam state, the sft group moved; then a trainer with
                ``other_start_iter`` 4 moves the other group at step 5 only;
-               the steady step's host ms and crops/s host-fed (the recipe's
-               8-worker loader through DeviceFeeder), on one batch already on
-               the card, and resident (train-sftgan-steady);
+               train-resident-sftgan the train-burst checks and times for its
+               step over a seg store, the traced burst across
+               ``other_start_iter``; the steady step's host ms and crops/s
+               host-fed (the recipe's 8-worker loader through DeviceFeeder),
+               on one batch already on the card, and resident
+               (train-sftgan-steady);
      with ``--profile`` also a ``torch.profiler`` trace of three steady steps
      of each trainer, the PSNR one in both noise modes, and SFT-GAN's as
      shipped (sftgan-profile; device time by kernel family, the stage
@@ -272,6 +288,7 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # H100 SXM: fp32 CUDA cores, bf16 dense
 PEAK_BYTES = 3.35e12
 NF, GC, OUT_NC = 64, 32, 3
@@ -384,6 +401,10 @@ RDB_T_BWD_MACS = 2 * RDB_MACS + 9 * sum((NF + (k - 1) * GC) * GC for k in range(
 
 
 def emit(obj):
+    """Print ``obj`` as one JSON line; a phase's row with ``t_s``, the
+    script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -2118,8 +2139,8 @@ def gan_check(failures):
         with fp32_exact(), deterministic_convs():
             real = t._d_logits(d_params, hr)
             frozen = tree_map(lambda p: p.detach(), d_params)
-            g_total, fake, logs = t._g_loss(g_params, frozen, x, hr, None, real[0].detach(),
-                                            noise=noise)
+            g_total, fake, logs = t._g_loss(g_params, frozen, x, hr, real[0].detach(),
+                                            {"noise": noise})
             g_grads = torch.autograd.grad(g_total, tree_leaves(g_params))
             d_total, _, d_logs = t._d_loss(d_params, fake.detach(), hr, None, real)
             d_grads = torch.autograd.grad(d_total, tree_leaves(d_params), allow_unused=True)
@@ -2467,24 +2488,42 @@ def check_noise_kernels(failures):
 
     from esrganplus_tpu_torch.kernels import rdb_ct as K
     from esrganplus_tpu_torch.kernels.launch import design
-    from esrganplus_tpu_torch.kernels.philox import philox_normal, philox_normal_cuda
+    from esrganplus_tpu_torch.kernels.philox import (key_words, philox_bits, philox_bits_cuda,
+                                                     philox_normal, philox_normal_cuda)
     from esrganplus_tpu_torch.models.layers import fp32_exact
 
     B, H, W = TRAIN_SHAPE
     shape = (B, H, W, NF)
-    got = philox_normal_cuda(NOISE_SEED, shape)
+    # the kernels read the two seed words through a pointer: the key lives on
+    # the card, as a training step's row holds it
+    site = key_words(NOISE_SEED, "cuda")
+    got = philox_normal_cuda(site, shape)
     torch.cuda.synchronize()
     errs = {dev: (got.cpu() - philox_normal(NOISE_SEED, shape, dev).cpu()).abs().max().item()
             for dev in ("cpu", "cuda")}
     row = {"phase": "kernels-noise", "kernel": "philox_normal", "shape": list(shape),
            "max_abs_err_vs_twin": errs, "tol": PHILOX_TOL,
            "mean": got.mean().item(), "std": got.std().item(),
-           "ms": time_ms(lambda: philox_normal_cuda(NOISE_SEED, shape)),
-           "plain_ms": time_ms(lambda: philox_normal(NOISE_SEED, shape, "cuda"), iters=5)}
+           "ms": time_ms(lambda: philox_normal_cuda(site, shape)),
+           "plain_ms": time_ms(lambda: philox_normal(site, shape, "cuda"), iters=5)}
     row["ok"] = bool(torch.isfinite(got).all() and max(errs.values()) <= PHILOX_TOL)
     emit(row)
     if not row["ok"]:
         failures.append(f"philox_normal_cuda: {row}")
+    # the resident sampler's words (a batch's indices and coins; and many)
+    for n in (B, 1 << 16):
+        bits = philox_bits_cuda(site, n)
+        torch.cuda.synchronize()
+        row = {"phase": "kernels-noise", "kernel": "philox_bits", "n": n,
+               "bit_equal_to_twin": torch.equal(bits, philox_bits(site, n, device="cuda"))
+               and torch.equal(bits.cpu(), philox_bits(NOISE_SEED, n)),
+               "ms": time_ms(lambda: philox_bits_cuda(site, n)),
+               "plain_ms": time_ms(lambda: philox_bits(site, n, device="cuda"), iters=5),
+               "bound_ms": n * 16 / PEAK_BYTES * 1e3, "bound_by": "bytes"}
+        row["ok"] = bool(row["bit_equal_to_twin"])
+        emit(row)
+        if not row["ok"]:
+            failures.append(f"philox_bits_cuda: {row}")
 
     gen = torch.Generator().manual_seed(12)
     p = _rdb_params(gen)
@@ -2494,7 +2533,7 @@ def check_noise_kernels(failures):
         wr = K.prepare_rdb_ct_weights(p, dtype)
         act = lambda: torch.randn(shape, generator=gen).to("cuda", dtype)
         x, noise, g = act(), act(), act()
-        kw = dict(seed=NOISE_SEED, sigma=NOISE_SIGMA)
+        kw = dict(seed=site, sigma=NOISE_SIGMA)
         with fp32_exact():
             fwd_k, fwd_design = _design_of(K.rdb_ct, lambda: K._rdb_ct_cuda(x, wr, save=True, **kw))
             torch.cuda.synchronize()
@@ -2521,7 +2560,7 @@ def check_noise_kernels(failures):
 
         _, cat, lsv = fwd_k
         for detach in (False, True):
-            seed = None if detach else NOISE_SEED
+            seed = None if detach else site
             with fp32_exact():
                 got, bwd_design = _design_of(K.rdb_ct_bwd, lambda: K.rdb_ct_bwd(
                     x, wr, cat, lsv, g, seed=seed, sigma=NOISE_SIGMA))
@@ -2540,7 +2579,7 @@ def check_noise_kernels(failures):
             if not detach:
                 input_ms, fused_ms = _interleaved(
                     lambda: K.rdb_ct_bwd(x, wr, cat, lsv, g, noise, sigma=NOISE_SIGMA),
-                    lambda: K.rdb_ct_bwd(x, wr, cat, lsv, g, seed=NOISE_SEED,
+                    lambda: K.rdb_ct_bwd(x, wr, cat, lsv, g, seed=site,
                                          sigma=NOISE_SIGMA), iters=10)
                 row.update(fused_ms=fused_ms, input_ms=input_ms)
                 report[("rdb_ct_bwd", dname)] = row
@@ -3334,10 +3373,15 @@ def workbench_rows(report, conv_launches, launches):
 SHIPPED = os.path.join(HERE, "esrganplus_tpu", "options")  # the recipes (JSON), read as data
 SRRESNET_GOLDEN = os.path.join(HERE, "tests", "golden", "srresnet_small_x4")
 RESIDENT_CROPS = 4096  # the shipped recipes' resident_crops
-DISPATCH = 4  # steps_per_dispatch of the resident runs (an eager step is one call)
+DISPATCH = 4  # steps_per_dispatch of the resident runs (bursts of 4 graph replays)
 PRINT_FREQ = 4  # the resident runs log every PRINT_FREQ steps
 RDB_FAMILIES = ("dense_mma_kernel", "dgrad_mma_kernel", "wgrad_mma_kernel")
-PROFILE_STEPS = 3
+PROFILE_STEPS = 4  # one burst of DISPATCH replays inside train-profile-cli's trace
+BURST_KS = (1, 8)  # the burst lengths train-burst times
+BURST_STEPS = 16  # steps behind each of its host times
+BURST_PROFILED = 8  # graph steps behind each of its device times
+EAGER_PROFILED = 2  # eager steps behind a device time or a trace (the host's ops make it long)
+GRAPH_CALLS = 2  # wrapper calls a capture makes per launch a step: its warm-up, its recording
 
 
 def _zero_counts():
@@ -3347,12 +3391,15 @@ def _zero_counts():
     from esrganplus_tpu_torch.kernels import stage_ct as S
     from esrganplus_tpu_torch.kernels import tail_ct as T
 
-    for fn in _twelve():
+    from esrganplus_tpu_torch.kernels import philox as X
+
+    for fn in _twelve() + (X.philox_bits_cuda, X.philox_normal_cuda):
         fn.launches = 0
     S.reset_launch_counts()
     T.reset_design_counts()
     K.reset_design_counts()
     K.rdb_ct.device_launches = 0
+    K.rdb_ct.seeded_launches = K.rdb_ct_bwd.seeded_launches = 0
     L.device_launches.clear()
 
 
@@ -3585,11 +3632,13 @@ def train_srresnet_path(failures, workdir):
     per_step = {**GAN_FWD_PER_STEP, **GAN_BWD_PER_STEP}
     by_design = {fn.__name__: dict(fn.launches_by_design)
                  for fn in (S.conv_s1_ct, S.conv_s1_ct_bwd, S.conv_s2_ct, S.conv_s2_ct_bwd)}
-    designs_ok = all(d == {"fma": 0, "mma": 0, want_design: per_step[k] * steps}
-                     for k, d in by_design.items())
+    captures = _captures(text)  # each counted as GRAPH_CALLS steps; a replay runs no wrapper
+    designs_ok = captures == 1 and all(
+        d == {"fma": 0, "mma": 0, want_design: per_step[k] * GRAPH_CALLS}
+        for k, d in by_design.items())
     row = {"phase": "train-srgan", "recipe": "train_SRGAN.json", "steps": steps,
            "dtype": dname, "seconds_total": seconds, "ms_per_step": seconds / steps * 1e3,
-           "logged": logged, "stage_launches_by_design": by_design,
+           "captures": captures, "logged": logged, "stage_launches_by_design": by_design,
            "stage_design_expected": want_design,
            "random_vgg_warning": "VGG19 weights not provided" in text,
            "resident_pairs": _pool_bytes(text)[0]}
@@ -3654,12 +3703,105 @@ def _states_equal(a, b):
         torch.equal(x, y) if torch.is_tensor(x) else x == y for x, y in zip(la, lb))
 
 
+def _bursts_logged(text):
+    """The burst lengths the train CLI logged (``bursts: ...`` lines)."""
+    return [int(n) for line in text.splitlines() if "bursts: " in line
+            for n in line.split("bursts: ")[1].split()]
+
+
+def _counted():
+    """The counted wrappers' launches (and rdb_ct's seeded ones) by name."""
+    from esrganplus_tpu_torch.kernels import philox as X
+    from esrganplus_tpu_torch.kernels import rdb_ct as K
+
+    out = {fn.__name__: fn.launches for fn in _twelve() + (X.philox_bits_cuda,
+                                                          X.philox_normal_cuda)}
+    out.update({f"{fn.__name__}.seeded": fn.seeded_launches for fn in (K.rdb_ct, K.rdb_ct_bwd)})
+    return out
+
+
+def _captures(text):
+    """The graphs the train CLI logged it captured (None when it logged none)."""
+    m = re.search(r"resident step graphs: (\d+) captured", text)
+    return int(m.group(1)) if m else None
+
+
+def _graph_vs_eager(make, store, batch_size, k, rng=1):
+    """A burst of ``k`` replays of the captured resident step against ``k``
+    eager steps on the batches the sampler draws, from one init (one
+    trainer, two states); then EAGER_PROFILED more of each, traced → dict:
+    ``equal`` (the states and the last logs bit-equal), ``finite``; the
+    port's kernels by family that the traced replays launch, read from the
+    captured graphs (``nodes``), and that the card ran in them and in the
+    traced eager steps, by the profiler (``graph``, ``eager``); ``counted``,
+    the traced eager steps' launches counted by the wrappers (no wrapper
+    runs at a replay); ``a`` / ``b``, (trainer, graph state) and (trainer,
+    eager state). Each burst's captures are made before it."""
+    import collections
+
+    import torch
+
+    from esrganplus_tpu_torch.kernels import build
+    from esrganplus_tpu_torch.train.resident_exec import burst_gates, executor
+    from esrganplus_tpu_torch.train.rng import sample_seed
+    from esrganplus_tpu_torch.utils.trace import kernel_counts
+
+    own = build.kernel_names()
+    t = make()
+    sa, sb = t.init_state(0), t.init_state(0)
+    ex = executor(t)
+    out = {}
+
+    def graph(n):
+        ex.capture(sa, store, rng, batch_size, n)
+        nodes = collections.Counter()
+        for g in burst_gates(t, sa, n):
+            nodes.update({f: c for f, c in ex.kernel_nodes(g).items() if f in own})
+        return nodes, lambda: out.update(
+            la=t.train_step_resident(sa, store, rng, batch_size, n_steps=n)[1])
+
+    def eager(n):
+        for _ in range(n):
+            out["lb"] = t.train_step(sb, store.make_sampler(batch_size)(
+                sample_seed(rng, sb["step"])), rng)[1]
+
+    graph(k)[1]()
+    eager(k)
+    n = EAGER_PROFILED
+    nodes, replays = graph(n)
+    traced = kernel_counts(replays, own)
+    _zero_counts()
+    eager_trace = kernel_counts(lambda: eager(n), own)
+    la, lb = out["la"], out["lb"]
+    equal = (sa["step"] == sb["step"] == k + n and _states_equal(sa, sb)
+             and set(la) == set(lb) and all(torch.equal(la[n], lb[n]) for n in la))
+    finite = all(bool(torch.isfinite(v).all()) for v in la.values())
+    return {"equal": equal, "finite": finite, "nodes": nodes, "graph": traced,
+            "eager": eager_trace, "counted": _counted(), "a": (t, sa), "b": (t, sb)}
+
+
+def _replay_row(r):
+    """The JSON fields of a ``_graph_vs_eager`` result ``r``, and whether the
+    traced replays launch, and the card ran in them, what it ran in the
+    traced eager steps (the port's kernels by family, nonzero)."""
+    k = EAGER_PROFILED
+    per = lambda c: {f: n / k for f, n in sorted(c.items())}
+    same = r["nodes"] == r["graph"] == r["eager"] and sum(r["nodes"].values()) > 0
+    return {"bit_equal_to_eager": r["equal"], "finite": r["finite"],
+            "replay_kernels_equal_to_eager": same,
+            "replay_nodes_per_step": per(r["nodes"]),
+            "replay_traced_per_step": per(r["graph"]),
+            "eager_traced_per_step": per(r["eager"]),
+            "eager_counted_per_step": {f: n / k for f, n in r["counted"].items() if n}}, same
+
+
 def train_resident_path(failures, workdir, preloaded_ms, gan_preloaded_ms):
     """Phase train-resident (see the module docstring); ``preloaded_ms`` /
     ``gan_preloaded_ms`` are train-steady's and gan-steady's medians, a step
-    on one batch already on the card."""
+    on one batch already on the card. Returns the store (train-burst's)."""
     import torch
 
+    from esrganplus_tpu_torch.kernels import philox as X
     from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig
     from esrganplus_tpu_torch.train import SRTrainConfig, SRTrainer
     from esrganplus_tpu_torch.train.rng import sample_seed
@@ -3688,7 +3830,7 @@ def train_resident_path(failures, workdir, preloaded_ms, gan_preloaded_ms):
            "preloaded_ms_per_step": preloaded_ms,
            "preloaded_crops_per_s": B / preloaded_ms * 1e3}
 
-    # 16 steps through the CLI, then a resume
+    # 16 steps through the CLI (bursts of DISPATCH replays), then a resume
     opt = _smoke_options(workdir, dirs, "resident_smoke", "sr", {"lr_G": 2e-4,
                                                                  "pixel_weight": 1.0})
     opt["datasets"]["train"].update(resident_crops=RESIDENT_CROPS, resident_refresh=1000,
@@ -3699,52 +3841,177 @@ def train_resident_path(failures, workdir, preloaded_ms, gan_preloaded_ms):
     seconds, exp = _run_train_cli(workdir, opt)
     counted = _twelve()
     launches = {fn.__name__: fn.launches for fn in counted}
+    # the sampler's draw and the input mode's 69 noise sites a step, by the
+    # Philox kernels (csrc/philox.cu)
+    philox = {"philox_bits_cuda": X.philox_bits_cuda.launches,
+              "philox_normal_cuda": X.philox_normal_cuda.launches}
+    # the wrappers count the capture's warm-up and recording (GRAPH_CALLS
+    # steps a capture) and each validation image; a replay runs no wrapper
+    losses, text = _logged_losses(exp)
+    captures = _captures(text)
     n_val = VAL_IMAGES * (TRAIN_STEPS // 8)
-    expected = {**{k: per * (TRAIN_STEPS + n_val) for k, per in PER_IMAGE.items()},
-                **{k: per * TRAIN_STEPS for k, per in BWD_PER_STEP.items()}}
-    counts_ok = all(launches[k] == n for k, n in expected.items())
+    calls = GRAPH_CALLS * (captures or 0)
+    expected = {**{k: per * (calls + n_val) for k, per in PER_IMAGE.items()},
+                **{k: per * calls for k, per in BWD_PER_STEP.items()}}
+    counts_ok = captures == 1 and all(launches[k] == n for k, n in expected.items()) and (
+        philox == {"philox_bits_cuda": calls, "philox_normal_cuda": 69 * calls})
     n_fail = len(failures)
     by_design = _path_designs(failures, "train-resident", launches)
-    losses, text = _logged_losses(exp)
+    bursts = _bursts_logged(text)
     row.update(cli_seconds=seconds, cli_launches={k: launches[k] for k in expected},
-               cli_expected=expected, cli_by_design=by_design, l_pix=losses,
-               cli_pool=_pool_bytes(text))
+               cli_expected=expected, cli_philox_launches=philox, cli_by_design=by_design,
+               cli_captures=captures, l_pix=losses, cli_pool=_pool_bytes(text),
+               cli_bursts=bursts)
     row["ok"] = bool(on_card and single_equal and counts_ok
                      and len(failures) == n_fail
                      and sorted(losses) == list(range(PRINT_FREQ, TRAIN_STEPS + 1, PRINT_FREQ))
                      and all(np.isfinite(float(v)) for v in losses.values())
-                     and row["cli_pool"][0] == RESIDENT_CROPS)
+                     and row["cli_pool"][0] == RESIDENT_CROPS
+                     and bursts == [DISPATCH] * (TRAIN_STEPS // DISPATCH))
     emit(row)
     if not row["ok"]:
         failures.append(f"train-resident: {row}")
     _resume_row(failures, "train-resident", workdir, opt, exp, {"l_pix": losses})
 
-    # srragan (train_ESRGANplus.json's shape) on the same store
+    # srragan (train_ESRGANplus.json's shape) on the same store: one burst
     gan = _gan_trainer()
     state = gan.init_state(0)
     _zero_counts()
     gan_steps = 4
-    for _ in range(gan_steps):
-        state, logs = gan.train_step_resident(state, store, 1, B)
+    state, logs = gan.train_step_resident(state, store, 1, B, n_steps=gan_steps)
     torch.cuda.synchronize()
     glaunches = {fn.__name__: fn.launches for fn in counted}
-    gexpected = {k: per * gan_steps for k, per in {**PER_IMAGE, **BWD_PER_STEP,
-                                                   **GAN_FWD_PER_STEP,
-                                                   **GAN_BWD_PER_STEP}.items()}
+    gcalls = GRAPH_CALLS * gan._resident.captures
+    gexpected = {k: per * gcalls for k, per in {**PER_IMAGE, **BWD_PER_STEP,
+                                                **GAN_FWD_PER_STEP,
+                                                **GAN_BWD_PER_STEP}.items()}
     designs = {fn.__name__: dict(fn.launches_by_design) for fn in counted}
     gan_ok = all(glaunches[k] == n and designs[k] == {"fma": 0, "mma": n}
                  for k, n in gexpected.items())
     gan_ms, _ = _host_ms(lambda: gan.train_step_resident(state, store, 1, B), iters=6)
-    grow = {"phase": "train-resident-gan", "steps": gan_steps, "launches": glaunches,
+    grow = {"phase": "train-resident-gan", "steps": gan_steps,
+            "captures": gan._resident.captures, "launches": glaunches,
             "expected": gexpected, "by_design": designs,
             "finite": all(bool(torch.isfinite(v)) for v in logs.values()),
             "resident_ms_per_step": gan_ms, "resident_crops_per_s": B / gan_ms * 1e3,
             "preloaded_ms_per_step": gan_preloaded_ms,
             "preloaded_crops_per_s": B / gan_preloaded_ms * 1e3}
-    grow["ok"] = bool(gan_ok and grow["finite"])
+    grow["ok"] = bool(gan_ok and grow["finite"] and grow["captures"] == 1)
     emit(grow)
     if not grow["ok"]:
         failures.append(f"train-resident-gan: {grow}")
+    return store
+
+
+def _burst_times(fn, steps_per_call, calls, profiled):
+    """(ms a step by CUDA events around ``calls`` calls of ``fn``, each of
+    ``steps_per_call`` steps, queued back to back; device ms a step of
+    ``profiled`` steps by the profiler)."""
+    import torch
+
+    fn()  # warm: a capture or the eager step's first call
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    host = start.elapsed_time(end) / (calls * steps_per_call)
+    dev = _profiled_device_ms(
+        lambda: [fn() for _ in range(profiled // steps_per_call)]) / profiled
+    return host, dev
+
+
+def _burst_timed(graph, eager, store, batch_size):
+    """Going on from the states of ``_graph_vs_eager``: for each K in
+    BURST_KS the graph's host and device ms a step, idle share and crops/s
+    in bursts of K, and the same for eager resident steps."""
+    from esrganplus_tpu_torch.train.resident_exec import run_eager
+
+    (a, sa), (b, sb) = graph, eager
+    out = {}
+
+    def timed(fn, k, profiled):
+        host, dev = _burst_times(fn, k, BURST_STEPS // k, profiled)
+        return {"host_ms_per_step": host, "device_ms_per_step": dev,
+                "device_idle_share": 1 - dev / host, "crops_per_s": batch_size / host * 1e3}
+
+    for k in BURST_KS:
+        out[f"graph_k{k}"] = timed(
+            lambda: a.train_step_resident(sa, store, 1, batch_size, n_steps=k), k,
+            BURST_PROFILED)
+    out["eager"] = timed(lambda: run_eager(b, sb, store, 1, batch_size, 1), 1, EAGER_PROFILED)
+    return out
+
+
+def train_burst(failures, store):
+    """Phase train-burst: the PSNR step (bf16, batch 16, HR 128, input noise)
+    and the srragan step as captured CUDA graphs. First a burst of
+    max(BURST_KS) replays against as many eager steps on the sampled batches,
+    then EAGER_PROFILED more of each, traced (``_graph_vs_eager``: bit-equal,
+    finite; the port's kernels by family that the replays launch, read from
+    the captured graphs, equal to what the profiler saw the card run in
+    them and in the eager steps); then, going on from there, ms a step by CUDA events around BURST_STEPS steps in
+    bursts of K for each K in BURST_KS, the device ms a step by the profiler,
+    the idle share, and the same for eager resident steps (the batch sampled,
+    then ``train_step``); the captures' time and pool. Then the same checks
+    alone for the fused noise mode, SRResNet and srragan with
+    D_update_ratio 2 (its two captures switching inside each burst), at K =
+    4 (train-burst-equal)."""
+    import torch
+
+    from esrganplus_tpu_torch.models import SRResNetConfig
+    from esrganplus_tpu_torch.models.discriminator import DiscriminatorVGGConfig
+    from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig
+    from esrganplus_tpu_torch.train import GANTrainConfig, GANTrainer, SRTrainConfig, SRTrainer
+
+    B, H, _ = TRAIN_SHAPE
+    kmax = max(BURST_KS)
+    psnr = lambda: SRTrainer(RRDBNetConfig(), SRTrainConfig(compute_dtype="bfloat16"),
+                             device="cuda")
+    for name, make in (("psnr", psnr), ("srragan", _gan_trainer)):
+        r = _graph_vs_eager(make, store, B, kmax)
+        ex = r["a"][0]._resident
+        fields, same = _replay_row(r)
+        row = {"phase": "train-burst", "step": name, "batch": B, "hr": 4 * H,
+               "dtype": "bfloat16", "noise_kernel": "input", "first_burst": kmax, **fields,
+               "captures": ex.captures, "capture_s": ex.capture_seconds,
+               "graph_pool_bytes": ex.pool_bytes(),
+               "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        row.update(_burst_timed(r["a"], r["b"], store, B))
+        row["ok"] = bool(r["equal"] and r["finite"] and same and row["captures"] == 1)
+        emit(row)
+        if not row["ok"]:
+            failures.append(f"train-burst {name}: {row}")
+        del r, ex
+        torch.cuda.empty_cache()
+
+    cases = (("fused", lambda: SRTrainer(RRDBNetConfig(noise_kernel="fused"),
+                                         SRTrainConfig(compute_dtype="bfloat16"), device="cuda"),
+              1),
+             ("srresnet", lambda: SRTrainer(SRResNetConfig(), SRTrainConfig(), device="cuda"),
+              1),
+             ("srragan_d_update_ratio_2", lambda: GANTrainer(
+                 RRDBNetConfig(), DiscriminatorVGGConfig(),
+                 GANTrainConfig(compute_dtype="bfloat16", d_update_ratio=2), device="cuda"), 2))
+    k = 4
+    for name, make, captures in cases:
+        r = _graph_vs_eager(make, store, B, k)
+        ex = r["a"][0]._resident
+        fields, same = _replay_row(r)
+        row = {"phase": "train-burst-equal", "step": name, "k": k, **fields,
+               "captures": ex.captures, "capture_s": ex.capture_seconds}
+        if name == "fused":  # every rdb_ct call of each step drew its noise in the kernel
+            row["seeded_ok"] = (r["counted"]["rdb_ct.seeded"] == EAGER_PROFILED * 69
+                                == r["counted"]["rdb_ct_bwd.seeded"])
+        row["ok"] = bool(r["equal"] and r["finite"] and same and row["captures"] == captures
+                         and row.get("seeded_ok", True))
+        emit(row)
+        if not row["ok"]:
+            failures.append(f"train-burst-equal {name}: {row}")
+        del r, ex
+        torch.cuda.empty_cache()
 
 
 def train_profile_cli(failures, workdir):
@@ -3765,13 +4032,18 @@ def train_profile_cli(failures, workdir):
     opt = _smoke_options(workdir, dirs, "profile_smoke", "sr", {"lr_G": 2e-4,
                                                                 "pixel_weight": 1.0})
     opt["datasets"]["train"].update(resident_crops=RESIDENT_CROPS, cache_images=True)
-    opt["train"].update(niter=niter, val_freq=10 ** 6, save_checkpoint_freq=10 ** 6)
+    opt["train"].update(niter=niter, val_freq=10 ** 6, save_checkpoint_freq=10 ** 6,
+                        steps_per_dispatch=DISPATCH)
     opt["logger"]["print_freq"] = 10 ** 6
     trace_dir = os.path.join(workdir, "trace")
     _zero_counts()
     seconds, exp = _run_train_cli(workdir, opt, ["--profile", trace_dir, "--profile-steps",
                                                  str(PROFILE_STEPS)])
-    per_step = {f: L.device_launches[f] / niter for f in RDB_FAMILIES}
+    text = _logged_losses(exp)[1]
+    captures = _captures(text)
+    # the counters hold what the capture's warm-up and recording launched
+    # (GRAPH_CALLS steps); the trace holds what the replays launched
+    per_step = {f: L.device_launches[f] / (GRAPH_CALLS * (captures or 1)) for f in RDB_FAMILIES}
     path = find_trace_file(trace_dir)
     events = load_trace_events(path)
     rows_kind = device_rows(events)[0]
@@ -3782,16 +4054,20 @@ def train_profile_cli(failures, workdir):
         profile_summary.main([trace_dir, "--steps", str(PROFILE_STEPS), "--top", "12"])
     table = out.getvalue().splitlines()
     row = {"phase": "train-profile-cli", "steps_traced": PROFILE_STEPS, "niter": niter,
+           "steps_per_dispatch": DISPATCH,
+           "bursts": _bursts_logged(text), "captures": captures,
            "seconds_total": seconds, "trace_bytes": os.path.getsize(path), "rows": rows_kind,
            "device_ms_per_step": device_ms,
            "device_launches_per_step": sum(c for _, c in agg.values()),
            "rdb_families_per_step_trace": traced, "rdb_families_per_step_counters": per_step,
-           "counted_per_step": {f: n / niter for f, n in sorted(L.device_launches.items())},
+           "counted_per_capture": {f: n / GRAPH_CALLS for f, n in
+                                   sorted(L.device_launches.items())},
            "rdb_families_ms_per_step": {f: agg.get(f, (0.0, 0))[0] for f in RDB_FAMILIES},
            "summary_top": table[:14]}
-    row["ok"] = bool(rows_kind == "kernel" and traced == per_step
+    row["ok"] = bool(rows_kind == "kernel" and traced == per_step and captures == 1
                      and all(v > 0 for v in traced.values())
-                     and table[1].startswith("device total:"))
+                     and table[1].startswith("device total:")
+                     and row["bursts"] == [DISPATCH, DISPATCH, 1, 1, DISPATCH])
     emit(row)
     if not row["ok"]:
         failures.append(f"train-profile-cli: {row}")
@@ -4301,11 +4577,15 @@ def train_sftgan_path(failures, workdir, per_step):
                      for fn in (S.conv_s1_ct, S.conv_s1_ct_bwd)}
         logged = {k: _logged_losses(exp, k)[0] for k in SFT_LOG_KEYS}
         text = _logged_losses(exp)[1]
-        expected = {k: per_step[k] * TRAIN_STEPS for k in SFT_STAGE}
+        # resident: each capture counted as GRAPH_CALLS steps; a replay runs no wrapper
+        captures = _captures(text)
+        calls = TRAIN_STEPS if mode == "host" else GRAPH_CALLS * (captures or 0)
+        expected = {k: per_step[k] * calls for k in SFT_STAGE}
         groups = _groups_after(exp, trainer.net_g, trainer)
         row = {"phase": "train-sftgan", "mode": mode, "recipe": "train_sftgan.json",
                "steps": TRAIN_STEPS, "dtype": opt["train"].get("compute_dtype") or "float32",
-               "seconds_total": seconds, "logged": logged, "launches": launches,
+               "seconds_total": seconds, "captures": captures, "logged": logged,
+               "launches": launches,
                "expected": expected, "stage_launches_by_design": by_design, **groups,
                "validations": text.count("Validation # PSNR"),
                "random_vgg_warning": "VGG19 weights not provided" in text,
@@ -4320,6 +4600,7 @@ def train_sftgan_path(failures, workdir, per_step):
             and groups["other_params_unchanged"] and groups["other_moments_unchanged"]
             and groups["sft_params_moved"] and groups["sft_count"] == TRAIN_STEPS
             and row["validations"] == TRAIN_STEPS // 8
+            and captures == (None if mode == "host" else 1)
             and (mode == "host" or row["resident_pool"] == (
                 SFT_RESIDENT, SFT_RESIDENT * (24 * 24 * 3 * 4 + 96 * 96 * 8 + 96 * 96 * 3 + 8))))
         emit(row)
@@ -4347,6 +4628,29 @@ def train_sftgan_path(failures, workdir, per_step):
             other0, tree_leaves(group_mask(state["g_params"], "other")))))
     gate_ok = moved == [False] * 4 + [True] and state["g_opt"]["other"]["count"] == 1 \
         and state["g_opt"]["sft"]["count"] == 5
+    del gated, state
+
+    # the captured step over the seg store: a burst of 4, then a traced burst
+    # of 2 across other_start_iter (two captures), against eager steps; then
+    # both timed as train-burst times
+    r = _graph_vs_eager(
+        lambda: SFTGANTrainer(SFTNetConfig(), SFTGANTrainConfig(other_start_iter=5),
+                              device="cuda"), store, SFT_BATCH, 4)
+    ex = r["a"][0]._resident
+    fields, same = _replay_row(r)
+    per = {k: r["counted"][k] / EAGER_PROFILED for k in SFT_STAGE}
+    row = {"phase": "train-resident-sftgan", "batch": SFT_BATCH, "hr": SFT_HR_SIZE,
+           "dtype": "float32", "k": 4, "other_start_iter": 5, **fields,
+           "launches_per_step": per, "expected_per_step": {k: per_step[k] for k in SFT_STAGE},
+           "captures": sorted(map(list, ex._graphs)), "capture_s": ex.capture_seconds,
+           "graph_pool_bytes": ex.pool_bytes()}
+    row.update(_burst_timed(r["a"], r["b"], store, SFT_BATCH))
+    row["ok"] = bool(r["equal"] and r["finite"] and same and per == row["expected_per_step"]
+                     and len(row["captures"]) == 2)
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"train-resident-sftgan: {row}")
+    del r, ex
     batch = store.make_sampler(SFT_BATCH)(7)
     st = trainer.init_state(0)
     # host-fed as cli.train feeds it: the recipe's loader (8 workers) and
@@ -4438,7 +4742,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
         train_srresnet_path(failures, tmp)
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
-        train_resident_path(failures, tmp, step_ms, gan_step_ms)
+        store = train_resident_path(failures, tmp, step_ms, gan_step_ms)
+        train_burst(failures, store)
+        del store
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
         train_profile_cli(failures, tmp)
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:

@@ -23,9 +23,13 @@ through the CUDA kernels; ``--device cpu`` runs the plain graph.
 memory and samples, augments and casts each batch there
 (``data/resident.py``; ``resident_refresh`` re-crops every N steps,
 ``resident_async_refresh`` builds the new pool in a background thread).
-``train.steps_per_dispatch: K`` (an integer >= 1) is accepted: the JAX package
-runs K resident steps per compiled call, an eager step here is one call
-whatever K is. ``--profile DIR`` traces ``--profile-steps`` steps
+``train.steps_per_dispatch: K`` (an integer >= 1, resident mode only) runs up
+to K resident steps per dispatch (:func:`compute_burst_len`, as the JAX
+package's): on the card each step is a replay of a captured CUDA graph
+(``train/resident_exec.py``; a burst of K is K replays with no host
+synchronisation between them, and K = 1 is one replay a step), on the CPU
+K eager calls. A step that cannot be captured raises. ``--profile DIR``
+traces ``--profile-steps`` steps
 from the 10th after the start with ``torch.profiler`` into DIR
 (``cli/profile_summary.py`` reads it). Multi-process launch is not ported
 yet and exits saying so.
@@ -48,6 +52,22 @@ def _export_networks(models_dir, tag, model_kind, state, net_g, net_d, trainer):
     else:
         save_networks_pth(models_dir, tag, trainer.canonical_params(state["g_params"]), net_g,
                           state["d_params"], net_d)
+
+
+def compute_burst_len(step: int, burst: int, niter: int, freqs, prof_points) -> int:
+    """Length of the next resident step burst starting at ``step``, as the
+    JAX package's (``esrganplus_tpu/cli/train.py``): quantised to {burst,
+    1}, so boundary remainders run as single steps; a burst never crosses a
+    periodic boundary in ``freqs`` (print/val/save/refresh; 0 or None: no
+    boundary), a profiler start/stop point, or ``niter``."""
+    n = min(burst, niter - step)
+    for f in freqs:
+        if f and f > 0:
+            n = min(n, f - step % f)
+    for p in prof_points:
+        if p is not None and step < p:
+            n = min(n, p - step)
+    return n if n == burst else 1
 
 
 def _get_tb_writer(log_dir: str):
@@ -222,9 +242,12 @@ def main(argv=None):
         feeder_obj = DeviceFeeder(train_loader, device, keys=(
             ("LR", "seg", "HR", "category") if sft else ("LR", "HR")))
         feeder = iter(feeder_obj)
-    if store is not None and (dispatch or 1) > 1:
-        logger.info(f"steps_per_dispatch {dispatch}: an eager step is one call; "
-                    "the steps run one at a time")
+    # train.steps_per_dispatch (resident mode only): up to K steps a dispatch,
+    # never across a print/val/save/refresh/profile/niter boundary, so every
+    # host cadence behaves as with K = 1
+    burst = (dispatch or 1) if store is not None else 1
+    if burst > 1:
+        logger.info(f"steps_per_dispatch {burst}: resident bursts of {burst} steps")
 
     # --profile: trace [start+10, start+10+profile_steps), past the warm-up
     prof_start = start_step + 10 if args.profile and args.profile_steps > 0 else None
@@ -240,6 +263,19 @@ def main(argv=None):
         prof.stop()  # writes the trace through its handler
         logger.info(f"profiler trace written to {args.profile}{why}")
 
+    def burst_len(step: int) -> int:
+        return compute_burst_len(step, burst, niter,
+                                 (print_freq, val_freq, save_freq,
+                                  store.refresh_steps if store is not None else 0),
+                                 (prof_start, prof_stop))
+
+    def log_bursts():
+        # the burst lengths since the last such line (printed with K > 1)
+        if burst > 1 and bursts:
+            logger.info(f"bursts: {' '.join(map(str, bursts))}")
+        bursts.clear()
+
+    bursts = []
     t_last = time.time()
     step = start_step
     while step < niter:
@@ -256,7 +292,11 @@ def main(argv=None):
             logger.info(f"profiler trace started -> {args.profile}")
         if store is not None:
             store.maybe_refresh(step)
-            state, logs = trainer.train_step_resident(state, store, rng, batch_size)
+            n_burst = burst_len(step)
+            bursts.append(n_burst)
+            state, logs = trainer.train_step_resident(state, store, rng, batch_size,
+                                                      n_steps=n_burst)
+            step += n_burst - 1  # the loop's tail accounts for one step
         else:
             batch_dev, _ = next(feeder)
             state, logs = trainer.train_step(state, batch_dev, rng)
@@ -271,6 +311,7 @@ def main(argv=None):
             msg = f"<step:{step + 1:8,d}, {dt*1000:6.1f} ms/it> " + " ".join(
                 f"{k}: {v:.4e}" for k, v in logs_h.items())
             logger.info(msg)
+            log_bursts()
             if tb:
                 for k, v in logs_h.items():
                     tb.add_scalar(k, v, step + 1)
@@ -321,6 +362,10 @@ def main(argv=None):
                     opt["path"]["models"], tag, model_kind, snap, net_g, net_d, trainer))
         step += 1
 
+    log_bursts()
+    if trainer._resident is not None:  # the captured steps (on the card)
+        logger.info(f"resident step graphs: {trainer._resident.captures} captured in "
+                    f"{trainer._resident.capture_seconds:.2f} s")
     if prof is not None:
         # the window reached past niter: close it so the trace is written
         stop_profile(" (the run ended inside the profile window)")

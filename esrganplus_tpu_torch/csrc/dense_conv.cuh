@@ -16,7 +16,9 @@
 //          as the T-typed XLA ops of esrganplus_tpu/kernels/rdb_ct.py:267-271;
 //   seeded the draw made here (noise_kernel "fused", philox.cuh):
 //          out * (1 + sigma*n) in fp32 with n in fp32, then the one rounding,
-//          as rdb_ct.py:258-266.
+//          as rdb_ct.py:258-266. The site's two seed words are read through
+//          a device pointer (`seed`), so a captured CUDA graph replays the
+//          launch with the words of each step's row.
 // The two orders differ by a T rounding per element, so they stay apart.
 //
 // Bound on this card: operations. One RDB is 241,664 MAC per pixel against
@@ -84,8 +86,7 @@ struct DenseArgs {
   void *out, *lsave;
   int c0, ccat, cin, out_stride, r1_stride, r2_stride, lsave_stride, B, H, W;
   float sigma, alpha, beta2, slope;
-  int seeded;
-  uint32_t seed0, seed1;
+  const uint32_t* seed;  // the fused mode's (seed0, seed1) on the device; nullptr: not seeded
 };
 
 // The stage epilogue of output channel c of pixel pix = (b, gy, gx) from
@@ -95,9 +96,9 @@ struct DenseArgs {
 //   noise  a pre-drawn T tensor (noise_kernel "input"): out + n*(sigma*out)
 //          with every product and the sum rounded to T, after the rounding,
 //          as the T-typed XLA ops of esrganplus_tpu/kernels/rdb_ct.py:267-271;
-//   seeded the draw made here (noise_kernel "fused", philox.cuh):
+//   seed   the draw made here (noise_kernel "fused", philox.cuh):
 //          out * (1 + sigma*n) in fp32 with n in fp32, then the one rounding,
-//          as rdb_ct.py:258-266.
+//          as rdb_ct.py:258-266, keyed by the two words at `seed`.
 // The two orders differ by a T rounding per element, so they stay apart.
 template <typename T, int COUT, int MODE>
 __device__ __forceinline__ float epilogue(const DenseArgs& a, float acc, float acc11, int b,
@@ -113,8 +114,8 @@ __device__ __forceinline__ float epilogue(const DenseArgs& a, float acc, float a
       const float o = round_to<T>(v);
       const float t = round_to<T>(round_to<T>(a.sigma) * o);
       v = o + round_to<T>(to_f(noise[pix * COUT + c]) * t);
-    } else if (a.seeded) {  // fp32 product with the fp32 draw, rounded once by the caller
-      v = __fmul_rn(v, noise_factor(a.sigma, a.seed0, a.seed1, b, gy, gx, c));
+    } else if (a.seed) {  // fp32 product with the fp32 draw, rounded once by the caller
+      v = __fmul_rn(v, noise_factor(a.sigma, __ldg(a.seed), __ldg(a.seed + 1), b, gy, gx, c));
     }
   } else {
     v = lrelu(v, a.slope);

@@ -8,7 +8,8 @@
 //     the nESRGAN+ relative noise in stage 5's epilogue: pre-drawn
 //     (rdb_ct.py:267-271) or drawn in the kernel from the site's two seed
 //     words (the `fused` mode, rdb_ct.py:158-161 and :261-266, with
-//     philox.cuh in place of the TPU's hardware PRNG).
+//     philox.cuh in place of the TPU's hardware PRNG), read from device
+//     memory so that a captured CUDA graph draws each step's own noise.
 //   * conv3x3_ct  (_conv_ct_kernel): the trunk conv plus the global residual,
 //     the same kernel in RESID mode with alpha = 1 (rdb_ct.py:556-566).
 //
@@ -19,8 +20,9 @@
 
 extern "C" {
 
-// One dense-stage (or conv3x3_ct) launch on `stream`. With `seeded`, stage 5
-// draws its noise from (seed0, seed1) instead of reading `noise`. `design`:
+// One dense-stage (or conv3x3_ct) launch on `stream`. With `seed` (a device
+// pointer to the site's two words, seed0 then seed1), stage 5 draws its noise
+// instead of reading `noise`. `design`:
 // 1 (the tensor-core kernel, bf16 only) or 0 (the FMA kernel, which the
 // wrappers ask for in fp32); any other value returns cudaErrorInvalidValue. Returns the cudaGetLastError()
 // code after the launch (0 = launched).
@@ -28,13 +30,12 @@ int esr_dense_conv3x3(int dtype, int design, int cout, int mode, const void* x, 
                       const void* cat, int ccat, int cin, const void* w, const void* bias,
                       const void* w11, void* out, int out_stride, const void* r1, int r1_stride,
                       const void* r2, int r2_stride, void* lsave, int lsave_stride,
-                      const void* noise, float sigma, int seeded, unsigned seed0,
-                      unsigned seed1, float alpha, float beta2, float slope,
-                      int B, int H, int W, void* stream) {
-  if (seeded && noise) return (int)cudaErrorInvalidValue;
+                      const void* noise, float sigma, const unsigned* seed, float alpha,
+                      float beta2, float slope, int B, int H, int W, void* stream) {
+  if (seed && noise) return (int)cudaErrorInvalidValue;
   const esr::dense::DenseArgs a{x, cat, w, bias, w11, r1, r2, noise, out, lsave, c0, ccat, cin,
                                 out_stride, r1_stride, r2_stride, lsave_stride, B, H, W,
-                                sigma, alpha, beta2, slope, seeded, seed0, seed1};
+                                sigma, alpha, beta2, slope, seed};
   return esr::dense::dispatch(dtype, design, cout, mode, a, esr::HwioLayout{},
                               static_cast<cudaStream_t>(stream));
 }

@@ -46,7 +46,7 @@ int esr_rdb_t_stage(int dtype, int design, int cout, int mode, int nf, int gc, c
                     float beta2, float slope, int B, int H, int W, void* stream) {
   const esr::dense::DenseArgs a{x, cat, w, bias, w11, r1, r2, nullptr, out, lsave, nf, ccat,
                                 cin, out_stride, r1_stride, r2_stride, lsave_stride, B, H, W,
-                                0.f, alpha, beta2, slope, 0, 0u, 0u};
+                                0.f, alpha, beta2, slope, nullptr};
   return esr::dense::dispatch(dtype, design, cout, mode, a, esr::ByTargetLayout{nf, gc},
                               static_cast<cudaStream_t>(stream));
 }

@@ -8,7 +8,8 @@ step samples, augments and casts its batch on the device (the trainers'
 ``train_step_resident``).
 
 The pool is re-cropped from the source images every ``refresh_steps``
-optimizer steps and swapped in with one bulk upload. Augmentation is the host
+optimizer steps and copied into the same device buffers with one bulk upload
+each (never rebound: a captured training step keeps reading them). Augmentation is the host
 pipeline's ``_paired_augment`` (``data/datasets.py``): per sample hflip,
 vflip and transpose at p = 0.5 each, the same decision for LR and HR, on the
 uint8 crops, with the cast to float32 / 255 after it (flips and transposes
@@ -26,12 +27,16 @@ Reproducibility. Pool ``r`` (the one in use from step ``r·refresh_steps``
 on) is a function of (seed, r) alone: its source order and its crop
 positions come from generators seeded from them, so a run resumed at step N
 rebuilds the pool the uninterrupted run held at step N. The batch of step
-``s`` is drawn on the device from a ``torch.Generator`` seeded from (run
-seed, s) (``train.rng.sample_seed``), as the JAX package folds its key by
-the step. The JAX package builds its pools from one running generator (the
-dataset's own crop stream); ``build_crop_pool`` takes the crop generator as
-an argument, so given the dataset's stream it is bit for bit JAX's. An
-asynchronous refresh swaps in at the first poll after its build finishes, a
+``s`` is drawn on the device by Philox under a key of two words derived from
+(run seed, s) (``train.rng.sample_seed``), as the JAX package folds its key
+by the step: sample i's words are Philox4x32-10 of counter (i, 0, 0, 0)
+(``kernels/philox.py``, ``csrc/philox.cu`` ``esr_philox_bits``); the first
+gives its crop index ⌊w₀·n / 2³²⌋, the top bits of the other three its
+hflip, vflip and transpose coins at p = 1/2. The key is read on the device,
+so a captured step draws each replay's batch. The JAX package builds its
+pools from one running generator (the dataset's own crop stream);
+``build_crop_pool`` takes the crop generator as an argument, so given the
+dataset's stream it is bit for bit JAX's. An asynchronous refresh swaps in at the first poll after its build finishes, a
 few steps late, which no resume reproduces; a resume that must be
 bit-equal runs with ``resident_async_refresh: false`` (or a refresh period
 longer than the run).
@@ -45,14 +50,20 @@ import threading
 import numpy as np
 import torch
 
+from esrganplus_tpu_torch.kernels.philox import key_words, random_bits
+from esrganplus_tpu_torch.train.rng import split_words
 
-def _augment_decisions(gen: torch.Generator, batch_size: int, flip: bool, rot: bool,
-                       device) -> tuple:
-    """Per-sample (hflip, vflip, transpose) coins at p = 0.5 on the device;
-    a disabled axis is all False."""
-    coins = torch.rand((3, batch_size), generator=gen, device=device) < 0.5
-    off = torch.zeros((batch_size,), dtype=torch.bool, device=device)
-    return (coins[0] if flip else off, coins[1] if rot else off, coins[2] if rot else off)
+
+def draw(key: torch.Tensor, batch_size: int, n: int, flip: bool, rot: bool) -> tuple:
+    """The crop indices (int64 ``[batch_size]`` in [0, n)) and the
+    (hflip, vflip, transpose) coins (bool; a disabled axis is all False) of
+    the sampler's draw under ``key`` (an int32 ``[2]`` tensor), on its
+    device."""
+    bits = random_bits(key, batch_size)
+    idx = (bits[:, 0] * n) >> 32
+    off = torch.zeros_like(idx, dtype=torch.bool)
+    coin = lambda k, on: (bits[:, k] >> 31).bool() if on else off
+    return idx, (coin(1, flip), coin(2, rot), coin(3, rot))
 
 
 def _apply_augment(img: torch.Tensor, do_h, do_v, do_r) -> torch.Tensor:
@@ -136,7 +147,6 @@ class ResidentCropStore:
         # steps if done in line
         self.async_refresh = bool(async_refresh)
         self._pending = None  # (thread, one-element result list, pool index)
-        self._gen = torch.Generator(device=self.device)
         self.pool_index = self._index_at(int(start_step))
         self._upload(self._build(self.pool_index), self.pool_index)
 
@@ -146,16 +156,28 @@ class ResidentCropStore:
     def _build(self, index: int):
         return build_crop_pool(self._dataset, self.n_crops, *pool_generators(self.seed, index))
 
+    POOLS = ("lr", "hr")
+
     def _upload(self, pools, index: int):
-        lr_u8, hr_u8 = pools
-        self.lr = torch.from_numpy(lr_u8).to(self.device)
-        self.hr = torch.from_numpy(hr_u8).to(self.device)
+        """Copy the host pools into the device buffers, made at the first
+        upload and kept after (a refresh lands in the same memory)."""
+        for name, a in zip(self.POOLS, pools):
+            t = torch.from_numpy(a)
+            buf = getattr(self, name, None)
+            if buf is None:
+                setattr(self, name, t.to(self.device))
+            else:
+                buf.copy_(t)
         self.pool_index = index
+
+    def pools(self) -> tuple:
+        """The device pool tensors, in ``POOLS`` order."""
+        return tuple(getattr(self, name) for name in self.POOLS)
 
     @property
     def nbytes(self) -> int:
         """Device bytes of the pool."""
-        return self.lr.nbytes + self.hr.nbytes
+        return sum(t.nbytes for t in self.pools())
 
     def _start_build(self, index: int):
         out = []
@@ -203,20 +225,23 @@ class ResidentCropStore:
         self._harvest(block=True)
 
     def make_sampler(self, batch_size: int):
-        """``sample(seed) -> (lr, hr)``: float32 [0, 1] NHWC batches on the
-        device, drawn from the current pool with a generator seeded from
-        ``seed`` (indices first, then the augment coins)."""
+        """``sample(key) -> (lr, hr)``: float32 [0, 1] NHWC batches on the
+        device, drawn from the current pool under ``key`` (the step's int32
+        ``[2]`` key tensor, or an int seed: :func:`draw`)."""
         n, flip, rot = self.n_crops, self.use_flip, self.use_rot
 
-        def sample(seed: int):
-            gen = self._gen.manual_seed(seed)
-            idx = torch.randint(0, n, (batch_size,), generator=gen, device=self.device)
-            dec = _augment_decisions(gen, batch_size, flip, rot, self.device)
+        def sample(key):
+            idx, dec = draw(key_on(key, self.device), batch_size, n, flip, rot)
             lr = _apply_augment(self.lr[idx], *dec).float() / 255.0
             hr = _apply_augment(self.hr[idx], *dec).float() / 255.0
             return lr, hr
 
         return sample
+
+
+def key_on(key, device):
+    """A sampler key as a tensor on ``device``: an int seed's two words."""
+    return key if torch.is_tensor(key) else key_words(split_words(key), device)
 
 
 # ---------------------------------------------------------------------------
@@ -259,26 +284,17 @@ class ResidentSegStore(ResidentCropStore):
         return build_seg_crop_pool(self._dataset, self.n_crops,
                                    *pool_generators(self.seed, index))
 
-    def _upload(self, pools, index: int):
-        self.lr, self.seg, self.hr, self.cat = (torch.from_numpy(a).to(self.device)
-                                                for a in pools)
-        self.pool_index = index
-
-    @property
-    def nbytes(self) -> int:
-        return self.lr.nbytes + self.seg.nbytes + self.hr.nbytes + self.cat.nbytes
+    POOLS = ("lr", "seg", "hr", "cat")
 
     def make_sampler(self, batch_size: int):
-        """``sample(seed) -> (lr, seg, hr, category)``: LR / HR float32
+        """``sample(key) -> (lr, seg, hr, category)``: LR / HR float32
         [0, 1] and the seg map float32 NHWC, the category int64, drawn on
         the device from the current pool as :class:`ResidentCropStore`
-        draws (indices first, then the augment coins)."""
+        draws, one index and one augment decision for all four."""
         n, flip, rot = self.n_crops, self.use_flip, self.use_rot
 
-        def sample(seed: int):
-            gen = self._gen.manual_seed(seed)
-            idx = torch.randint(0, n, (batch_size,), generator=gen, device=self.device)
-            dec = _augment_decisions(gen, batch_size, flip, rot, self.device)
+        def sample(key):
+            idx, dec = draw(key_on(key, self.device), batch_size, n, flip, rot)
             lr = _apply_augment(self.lr[idx], *dec)
             seg = _apply_augment(self.seg[idx], *dec).float() / 255.0
             hr = _apply_augment(self.hr[idx], *dec).float() / 255.0

@@ -45,7 +45,7 @@ PDZ = ctypes.POINTER(DzSrc)
 SIGNATURES = {
     "rdb_ct": {
         "esr_dense_conv3x3": [I, I, I, I, P, I, P, I, I, P, P, P, P, I, P, I, P, I,
-                              P, I, P, F, I, U, U, F, F, F, I, I, I, P],
+                              P, I, P, F, P, F, F, F, I, I, I, P],
     },
     "dgrad_ct": {
         "esr_dgrad": [I, I, I, I, PDZ, I, P, I, P, I, I, P, I, PDZ, I, P],
@@ -63,8 +63,9 @@ SIGNATURES = {
         "esr_dzsrc_size": [],
     },
     "philox": {
-        "esr_philox_normal": [P, U, U, I, I, I, I, P],
-        "esr_philox_factor": [P, U, U, F, I, I, I, I, P],
+        "esr_philox_normal": [P, P, I, I, I, I, P],
+        "esr_philox_factor": [P, P, F, I, I, I, I, P],
+        "esr_philox_bits": [P, P, I, U, P],
     },
     "tail_ct": {
         "esr_upfold": [I, I, I, I, P, P, P, P, I, I, I, F, P],
@@ -102,6 +103,18 @@ def _nvcc() -> str:
             return cand
     raise RuntimeError("nvcc not found: the CUDA kernels are built on first "
                        "use and need the CUDA toolkit (set CUDA_HOME)")
+
+
+def kernel_names() -> frozenset:
+    """The names of the ``__global__`` functions ``csrc/`` defines: the
+    kernels of this package, as a profiler trace names them (less their
+    template arguments and parameters, ``utils/trace.op_family``)."""
+    import re
+
+    pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\s*\((?:[^()]|\([^()]*\))*\)"
+                         r"\s*)?(\w+)")
+    return frozenset(m.group(1) for p in sorted(CSRC.glob("*.cu*"))
+                     for m in pattern.finditer(p.read_text()))
 
 
 def _lib_path(name: str) -> Path:

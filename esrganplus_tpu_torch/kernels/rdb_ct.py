@@ -27,7 +27,8 @@ and are cast inside; gradients come back fp32.
 The nESRGAN+ noise comes in two modes. ``noise`` (``noise_kernel="input"``)
 is a pre-drawn tensor: ``out + n·(σ·out)`` after the rounding, every op in the
 working dtype, and the backward reads the tensor again. ``noise_seed``
-(``"fused"``) is a site's two Philox seed words: the kernel draws n in fp32
+(``"fused"``) is a site's two Philox seed words, which the kernels read on
+the device (so a captured step draws each replay's own): the kernel draws n in fp32
 (``csrc/philox.cuh``) and applies ``out·(1 + σn)`` before the single
 rounding; the backward regenerates the same factor from the seed into one
 fp32 buffer per call (``csrc/philox.cu``), which its kernels read where they
@@ -60,7 +61,7 @@ from esrganplus_tpu_torch.kernels import build, launch
 from esrganplus_tpu_torch.kernels.launch import (ACT, ACT_1X1, ACT_ADD, DESIGNS, RESID,
                                                  aligned, count, design, dgrad, dgrad_chunk,
                                                  dz_src, wgrad_plan)
-from esrganplus_tpu_torch.kernels.philox import noise_factor_cuda, philox_normal
+from esrganplus_tpu_torch.kernels.philox import key_words, noise_factor_cuda, philox_normal
 from esrganplus_tpu_torch.models.layers import fp32_exact
 
 def _bias(b: Optional[torch.Tensor], n: int, device) -> torch.Tensor:
@@ -188,7 +189,6 @@ def _dense(lib, x, cat, cin, w, b, out_ptr, out_stride, *, mode, cout, w11=None,
            seed=None, sigma=0.0, alpha=1.0, beta2=1.0, slope=0.2, kind=None):
     """One dense-stage launch on the design ``kind`` (default: x's dtype's)."""
     B, H, W, c0 = x.shape
-    s0, s1 = (0, 0) if seed is None else seed
     kind = kind or design(x.dtype)
     code = lib.esr_dense_conv3x3(
         build.dtype_code(x), DESIGNS[kind], cout, mode, x.data_ptr(), c0,
@@ -196,8 +196,9 @@ def _dense(lib, x, cat, cin, w, b, out_ptr, out_stride, *, mode, cout, w11=None,
         0 if cat is None else cat.shape[3], cin, w.data_ptr(), b.data_ptr(),
         None if w11 is None else w11.data_ptr(), out_ptr, out_stride,
         r1 or None, r1_stride, r2 or None, r2_stride, lsave or None, lsave_stride,
-        None if noise is None else noise.data_ptr(), sigma, int(seed is not None), s0, s1,
-        alpha, beta2, slope, B, H, W, torch.cuda.current_stream(x.device).cuda_stream)
+        None if noise is None else noise.data_ptr(), sigma,
+        None if seed is None else seed.data_ptr(), alpha, beta2, slope, B, H, W,
+        torch.cuda.current_stream(x.device).cuda_stream)
     build.check(code, "esr_dense_conv3x3")
     launch.launched("dense", kind)
 
@@ -235,6 +236,7 @@ def rdb_ct_steps(x, w, res=None, noise=None, *, seed=None, rrdb_scale=None, sigm
     if noise is not None and seed is not None:
         raise ValueError("rdb_ct: pre-drawn noise or a noise seed, not both")
     kind = kind or design(dt)
+    seed = None if seed is None else key_words(seed, dev)  # the kernel reads it on the device
     x = aligned(x)
     w = {k: None if v is None else aligned(v) for k, v in w.items()}
     lib = build.load("rdb_ct")
@@ -616,7 +618,8 @@ class _RdbCtDiff(torch.autograd.Function):
         extra = {} if x.device.type == "cpu" else {"save": True}
         out, cat, lsv = fwd(x, w, None, noise, seed=seed, sigma=sigma, slope=slope,
                             res_scale=res_scale, **extra)
-        # the fused mode keeps its two seed words (in opts), not a tensor
+        # the fused mode keeps its key tensor (in opts): the backward reads
+        # the same two words on the device
         ctx.save_for_backward(x, cat, lsv, noise, *wb)
         ctx.opts = opts
         return out
@@ -650,8 +653,10 @@ def rdb_ct_diff(x: torch.Tensor, p: dict, noise: Optional[torch.Tensor] = None, 
     inside and their gradients come back in the masters' dtype. ``noise``
     (x's shape and dtype, pre-drawn standard normals) applies the nESRGAN+
     relative noise ``out + n·(σ·out)`` in the kernel's epilogue (the JAX
-    package's ``noise_input=True``). ``noise_seed`` = (s0, s1) instead draws n
-    in the kernel from that site key (its ``noise_input=False``, the fused
+    package's ``noise_input=True``). ``noise_seed`` = (s0, s1) (ints, or the
+    int32 ``[2]`` device tensor of ``kernels.philox.key_words``, which the
+    kernels read through a pointer) instead draws n in the kernel from that
+    site key (its ``noise_input=False``, the fused
     mode): ``out·(1 + σn)`` in fp32 before the one rounding, and the backward
     regenerates n. Either way the backward scales the cotangent by
     ``1 + σ·n``, or not at all with ``noise_detach``."""
@@ -664,7 +669,7 @@ def rdb_ct_diff(x: torch.Tensor, p: dict, noise: Optional[torch.Tensor] = None, 
         wb.append(p["conv1x1"]["w"][0, 0])
     if noise is not None:
         noise = noise.to(x.dtype).contiguous()
-    seed = None if noise_seed is None else (int(noise_seed[0]), int(noise_seed[1]))
+    seed = None if noise_seed is None else key_words(noise_seed, x.device)
     return _RdbCtDiff.apply(x.contiguous(), noise,
                             (float(noise_sigma), bool(noise_detach), slope, res_scale, seed),
                             *wb)

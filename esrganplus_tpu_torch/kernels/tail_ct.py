@@ -56,6 +56,24 @@ from esrganplus_tpu_torch.kernels.rdb_ct import (_bias, _conv, _dense, _dgrad_pl
 from esrganplus_tpu_torch.models.layers import fp32_exact
 
 
+_PHASE_MAPS = {}  # device → the 0/1 map: made once, outside any captured step
+
+
+def _phase_map(device) -> torch.Tensor:
+    """``pm[a, i, r]`` = 1 where HR tap r of output phase a reads LR offset i
+    (a normal tensor, whatever mode the first caller runs in: training saves
+    it for the backward)."""
+    device = torch.device(device)
+    if device not in _PHASE_MAPS:
+        with torch.inference_mode(False):
+            pm = torch.zeros(2, 2, 3, dtype=torch.float32)
+            for a in range(2):
+                for r in range(3):
+                    pm[a, (a + r - 1) // 2 - (a - 1), r] = 1.0
+            _PHASE_MAPS[device] = pm.to(device)
+    return _PHASE_MAPS[device]
+
+
 def prepare_upfold_ct(w: torch.Tensor, b: Optional[torch.Tensor],
                       dtype: torch.dtype):
     """Upconv weights ``[3, 3, C, CO]`` (HWIO) → folded
@@ -65,10 +83,7 @@ def prepare_upfold_ct(w: torch.Tensor, b: Optional[torch.Tensor],
     and columns ``x + b - 1 + j``; entry (a, b, i, j) sums the HR taps
     (r, s) that land there: ``⌊(a + r - 1)/2⌋ = a - 1 + i``. Folded in fp32
     and cast once, as the JAX tail does (``models/rrdb.py:448``)."""
-    pm = torch.zeros(2, 2, 3, dtype=torch.float32, device=w.device)
-    for a in range(2):
-        for r in range(3):
-            pm[a, (a + r - 1) // 2 - (a - 1), r] = 1.0
+    pm = _phase_map(w.device)
     wf = torch.einsum("air,bjs,rsco->abijco", pm, pm, w.float())
     return wf.to(dtype).contiguous(), _bias(b, w.shape[3], w.device)
 

@@ -24,8 +24,9 @@ twins: three ``rdb_ct_diff`` per RRDB, the RRDB epilogue ``h·β + h0`` as a
 plain tensor op between them (the fold is inference-only, as in the JAX
 package), ``conv3x3_ct_diff`` with the global residual, then
 ``upfold_ct_diff`` and ``conv_hr_ct_diff``. The canonical fp32 masters cross
-every kernel boundary and are cast inside. Noise comes from a
-``torch.Generator`` (``rng``) or is handed in pre-drawn (``noise``, see
+every kernel boundary and are cast inside. Noise is drawn under the step's
+site keys (``rng``: the trainers'; ``train.rng.noise_site_words``) or from a
+``torch.Generator``, or is handed in pre-drawn (``noise``, see
 :func:`draw_noise`), and ``noise_kernel`` says where the kernel path applies
 the per-RDB sites, as in the JAX package:
 
@@ -51,7 +52,7 @@ from typing import Optional
 import torch
 
 from esrganplus_tpu_torch.kernels.build import KERNEL_WIDTHS
-from esrganplus_tpu_torch.kernels.philox import philox_normal
+from esrganplus_tpu_torch.kernels.philox import philox_normal, standard_normal
 from esrganplus_tpu_torch.models.layers import (
     act,
     conv2d,
@@ -221,17 +222,24 @@ def noise_active(cfg: RRDBNetConfig, train: bool) -> bool:
     return train and cfg.noise_sigma > 0 and (cfg.rdb_noise or cfg.rrdb_noise)
 
 
-def draw_noise(cfg: RRDBNetConfig, shape, rng: torch.Generator, dtype: torch.dtype,
-               device, *, rdb_sites: bool = True) -> list:
+def draw_noise(cfg: RRDBNetConfig, shape, rng, dtype: torch.dtype, device, *,
+               rdb_sites: bool = True) -> list:
     """Standard normals for every active noise site of one train-mode
     forward: ``[nb][4]`` tensors of ``shape`` = (B, H, W, nf) (sites rdb1,
-    rdb2, rdb3, rrdb; None where a site is off), drawn from ``rng`` in
-    forward order on ``device``. ``rdb_sites=False`` leaves the per-RDB
-    sites to the fused mode's in-kernel draws."""
-    draw = lambda on: (torch.randn(shape, generator=rng, device=device,
-                                   dtype=torch.float32).to(dtype) if on else None)
+    rdb2, rdb3, rrdb; None where a site is off) on ``device``. ``rng`` is a
+    ``torch.Generator`` (drawn in forward order) or the step's site keys,
+    an int32 tensor ``[nb, 4, 2]`` (``train.rng.noise_site_words``): each
+    site then is Philox of its key (``kernels/philox.py``, the kernel on a
+    CUDA tensor), what the trainers draw. ``rdb_sites=False`` leaves the
+    per-RDB sites to the fused mode's in-kernel draws."""
+    if isinstance(rng, torch.Generator):
+        draw = lambda on, b, i: (torch.randn(shape, generator=rng, device=device,
+                                             dtype=torch.float32).to(dtype) if on else None)
+    else:
+        draw = lambda on, b, i: standard_normal(rng[b, i], shape).to(dtype) if on else None
     rdb = cfg.rdb_noise and rdb_sites
-    return [[draw(rdb), draw(rdb), draw(rdb), draw(cfg.rrdb_noise)] for _ in range(cfg.nb)]
+    return [[draw(rdb, b, 0), draw(rdb, b, 1), draw(rdb, b, 2), draw(cfg.rrdb_noise, b, 3)]
+            for b in range(cfg.nb)]
 
 
 def fused_noise_active(cfg: RRDBNetConfig, train: bool, noise_prng: str) -> bool:
@@ -438,8 +446,8 @@ def _tail_cuda_train(params: dict, fea, cfg: RRDBNetConfig):
 
 
 def rrdbnet_forward(params: dict, x: torch.Tensor, cfg: RRDBNetConfig, *,
-                    train: bool = False, rng: Optional[torch.Generator] = None,
-                    noise: Optional[list] = None, noise_seeds: Optional[list] = None,
+                    train: bool = False, rng=None,
+                    noise: Optional[list] = None, noise_seeds=None,
                     noise_prng: str = "rbg",
                     dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """×``cfg.upscale`` super-resolution of NHWC RGB [0,1] input → fp32.
@@ -449,9 +457,11 @@ def rrdbnet_forward(params: dict, x: torch.Tensor, cfg: RRDBNetConfig, *,
     that runs a kernel needs ``params`` from :func:`prep_trunk_ct` at that
     precision; a training forward (``train=True``, differentiable on both
     paths) takes the canonical fp32 masters. Train-mode noise needs ``rng``
-    (a generator on x's device) or pre-drawn ``noise`` (:func:`draw_noise`);
+    (a generator on x's device, or the step's site keys: see
+    :func:`draw_noise`) or pre-drawn ``noise``;
     with ``noise_kernel="fused"`` under ``noise_prng="rbg"``, ``noise_seeds``
-    (``[nb][3]`` pairs of uint32 words, ``train.rng.site_seeds``) key the
+    (``[nb][3]`` pairs of uint32 words, ``train.rng.site_seeds``, or the
+    keys' int32 tensor ``[nb, 3, 2]`` on x's device) key the
     per-RDB sites and must be given; under ``"threefry"`` the fused mode
     applies them between kernel calls, as ``"xla"``, and reads no seeds."""
     kdt = dtype or x.dtype
@@ -474,7 +484,7 @@ def rrdbnet_forward(params: dict, x: torch.Tensor, cfg: RRDBNetConfig, *,
         if noise is None:
             if rng is None and not (fused and not cfg.rrdb_noise):
                 raise ValueError("rrdbnet_forward: train-mode noise needs an rng "
-                                 "(torch.Generator) or pre-drawn noise")
+                                 "(torch.Generator or site keys) or pre-drawn noise")
             noise = draw_noise(cfg, (*x.shape[:3], cfg.nf), rng, kdt, x.device,
                                rdb_sites=not fused)
         elif fused and any(n is not None for sites in noise for n in sites[:3]):

@@ -37,6 +37,18 @@ VGG19_LAYOUT: Tuple = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
+_NORM = {}  # (device, dtype) → (mean, std): made once, outside any captured step
+
+
+def _imagenet_norm(x: torch.Tensor):
+    """(mean, std) on x's device in x's dtype: normal tensors, whatever mode
+    the first caller runs in (training saves std for the backward)."""
+    key = (x.device, x.dtype)
+    if key not in _NORM:
+        with torch.inference_mode(False):
+            _NORM[key] = tuple(torch.tensor(v, dtype=x.dtype, device=x.device)
+                               for v in (_IMAGENET_MEAN, _IMAGENET_STD))
+    return _NORM[key]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,8 +187,7 @@ def vgg_feat_forward(params: dict, x: torch.Tensor, cfg: VGGFeatConfig = VGGFeat
     frozen: callers hand in parameters that do not require gradients, and the
     stage kernel's backward then launches no weight gradient."""
     if cfg.use_input_norm:
-        mean = torch.tensor(_IMAGENET_MEAN, dtype=x.dtype, device=x.device)
-        std = torch.tensor(_IMAGENET_STD, dtype=x.dtype, device=x.device)
+        mean, std = _imagenet_norm(x)
         x = (x - mean) / std
     plan = _torchvision_plan(cfg)[: cfg.feature_layer + 1]
     h = x

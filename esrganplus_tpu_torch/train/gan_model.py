@@ -27,9 +27,12 @@ G-phase one; train-mode BN uses batch statistics, so the training math is the
 reference's.
 
 What differs from the JAX trainer, by design: the state is updated in place
-(``sr_model.py``); ``rng`` is the run's integer noise seed; the perceptual
-net's parameters live on the trainer (``f_params``), not in the state, so a
-checkpoint does not carry the frozen VGG19.
+and every step-dependent value is read from the step's row of device scalars
+(``sr_model.py``); ``rng`` is the run's integer seed; the gate ``do_g`` is
+known on the host, so a gated step does not compute G's update at all (and
+on the card it is its own captured step); the perceptual net's parameters
+live on the trainer (``f_params``), not in the state, so a checkpoint does
+not carry the frozen VGG19.
 """
 
 from __future__ import annotations
@@ -48,12 +51,12 @@ from esrganplus_tpu_torch.models.discriminator import (DiscriminatorVGGConfig,
                                                        init_discriminator,
                                                        merge_sequential_bn)
 from esrganplus_tpu_torch.models.layers import deterministic_convs, fp32_exact
+from esrganplus_tpu_torch.kernels.philox import random_bits
 from esrganplus_tpu_torch.models.vgg import VGGFeatConfig, load_vgg_feat, vgg_feat_forward
-from esrganplus_tpu_torch.train.rng import noise_generator
 from esrganplus_tpu_torch.train.schedule import multistep_lr
 from esrganplus_tpu_torch.train.sr_model import (AdamTransform, GeneratorTrainerBase,
-                                                 pixel_loss, tree_leaves, tree_map,
-                                                 tree_unflatten_like)
+                                                 apply_updates, pixel_loss, tree_leaves,
+                                                 tree_map, tree_unflatten_like)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +92,8 @@ class GANTrainConfig:
 class GANTrainer(GeneratorTrainerBase):
     """ESRGAN+/SRGAN trainer on one device (the card unless ``device="cpu"``);
     ``net_g`` an ``RRDBNetConfig`` or an ``SRResNetConfig``."""
+
+    GROUPS = ("g", "d")
 
     def __init__(self, net_g, net_d: DiscriminatorVGGConfig,
                  cfg: GANTrainConfig = GANTrainConfig(), device="cuda",
@@ -139,6 +144,19 @@ class GANTrainer(GeneratorTrainerBase):
         """Discriminator params → fp32 leaf tensors on the device."""
         return self._as_leaves(params)
 
+    def _group(self, state: dict, group: str) -> tuple:
+        if group == "g":
+            return self.tx_g, self.sched_g, state["g_opt"]
+        return self.tx_d, self.sched_d, state["d_opt"]
+
+    def gates(self, gstep: int) -> tuple:
+        """(do_g,): G updates on every ``D_update_ratio``-th 1-based step past
+        ``D_init_iters``; D updates every step."""
+        return (gstep % self.cfg.d_update_ratio == 0 and gstep > self.cfg.d_init_iters,)
+
+    def open_groups(self, gates: tuple) -> tuple:
+        return ("g", "d") if gates[0] else ("d",)
+
     # -- loss pieces -------------------------------------------------------
 
     def _d_logits(self, d_params, x, train=True):
@@ -147,16 +165,14 @@ class GANTrainer(GeneratorTrainerBase):
     def _features(self, x):
         return vgg_feat_forward(self.f_params, x, self.vgg_cfg, dtype=self._dtype)
 
-    def _g_loss(self, g_params, d_params, lr_img, hr_img, rng, d_real, noise=None,
-                noise_seeds=None):
+    def _g_loss(self, g_params, d_params, lr_img, hr_img, d_real, noise: dict):
         """(total, fake, logs). ``d_params`` are frozen (detached) here;
         ``d_real`` is D(real)'s detached value for the RaGAN pairing;
-        ``noise`` hands the generator pre-drawn noise instead of ``rng``,
-        ``noise_seeds`` the fused mode's site keys."""
+        ``noise`` the generator's noise keywords (``rng`` and the fused
+        mode's ``noise_seeds``, or pre-drawn ``noise``)."""
         cfg = self.cfg
-        fake = generator_forward(g_params, lr_img, self.net_g, train=True, rng=rng,
-                                 noise=noise, noise_seeds=noise_seeds,
-                                 noise_prng=cfg.noise_prng, dtype=self._dtype)
+        fake = generator_forward(g_params, lr_img, self.net_g, train=True,
+                                 noise_prng=cfg.noise_prng, dtype=self._dtype, **noise)
         logs = {}
         total = 0.0
         if cfg.pixel_weight > 0:
@@ -179,9 +195,11 @@ class GANTrainer(GeneratorTrainerBase):
         logs["l_g_gan"] = l_gan
         return total, fake, logs
 
-    def _d_loss(self, d_params, fake, hr_img, rng, real=None):
+    def _d_loss(self, d_params, fake, hr_img, key, real=None):
         """(loss, (st_real, st_fake), logs); ``real`` = (logits, new_state)
-        of a D(real) forward already made from these ``d_params``."""
+        of a D(real) forward already made from these ``d_params``; ``key``
+        the step's sampler key, whose counter stream 1 gives WGAN-GP's
+        interpolation weights."""
         cfg = self.cfg
         d_real, st_real = real if real is not None else self._d_logits(d_params, hr_img)
         d_fake, st_fake = self._d_logits(d_params, fake)
@@ -191,7 +209,8 @@ class GANTrainer(GeneratorTrainerBase):
             loss = (gan_loss(d_real, True, cfg.gan_type)
                     + gan_loss(d_fake, False, cfg.gan_type))
         if cfg.gan_type == "wgan-gp":
-            eps = torch.rand((hr_img.shape[0], 1, 1, 1), generator=rng, device=self.device)
+            bits = random_bits(key, hr_img.shape[0], stream=1)[:, 0]
+            eps = ((bits >> 8).float() * 2.0 ** -24).view(-1, 1, 1, 1)  # U[0, 1)
             loss = loss + cfg.gp_weight * gradient_penalty(
                 lambda p, x: self._d_logits(p, x)[0], d_params, hr_img, fake, eps)
         logs = {"l_d_total": loss, "D_real": d_real.mean(), "D_fake": d_fake.mean()}
@@ -200,31 +219,24 @@ class GANTrainer(GeneratorTrainerBase):
     # -- step --------------------------------------------------------------
 
     @staticmethod
-    def _apply(tx, params, opt_state, flat_grads, lr):
-        """One Adam step on ``params`` in place → the new optimizer state.
-        A leaf the loss does not reach (BN running statistics, SN vectors)
-        has a zero gradient."""
+    def _apply(tx, params, opt_state, flat_grads, sc, group):
+        """One Adam step on ``params`` in place, at ``group``'s lr and bias
+        corrections of the step's scalars ``sc``. A leaf the loss does not
+        reach (BN running statistics, SN vectors) has a zero gradient."""
         flat = [torch.zeros_like(p) if g is None else g
                 for g, p in zip(flat_grads, tree_leaves(params))]
         grads = tree_unflatten_like(params, iter(flat))
-        updates, new_opt = tx.update(grads, opt_state, params)
-        with torch.no_grad():
-            tree_map(lambda p, u: p.add_(u, alpha=-lr), params, updates)
-        return new_opt
+        apply_updates(params, tx.moments(grads, opt_state, params, *sc.bias(group)),
+                      sc.lr(group))
 
-    def train_step(self, state: dict, batch, rng: int):
-        """One G+D step, in place. ``batch`` = (LR NHWC, HR NHWC) float32
-        [0,1] (tensors or numpy); ``rng`` the run's noise seed. Returns
-        (state, logs); the logs are 0-dim tensors on the device."""
+    def _step(self, state: dict, batch: tuple, sc, gates: tuple) -> dict:
+        """One G+D step's body on device tensors (LR, HR NHWC float32 [0,1]),
+        in place, every step-dependent value read from the scalars ``sc``;
+        ``gates`` = (do_g,). → logs, 0-dim tensors on the device."""
         cfg = self.cfg
-        lr_img, hr_img = (torch.as_tensor(a, dtype=torch.float32).to(self.device)
-                          for a in batch)
-        step = int(state["step"])
-        gen = noise_generator(self._noise_gen, rng, step, cfg.noise_prng)
-        seeds = self._site_seeds(rng, step, cfg.noise_prng)
-        gstep = step + 1  # 1-based, the reference's current_step
-        lr_g, lr_d = self.sched_g(gstep), self.sched_d(gstep)
-        do_g = gstep % cfg.d_update_ratio == 0 and gstep > cfg.d_init_iters
+        lr_img, hr_img = batch
+        (do_g,) = gates
+        noise = self._noise(sc, cfg.noise_prng)
         g_params, d_params = state["g_params"], state["d_params"]
 
         # cuDNN runs the deep stages of D and F and fea_conv, forward and
@@ -238,33 +250,29 @@ class GANTrainer(GeneratorTrainerBase):
                     real = self._d_logits(d_params, hr_img)
                     d_real_value = real[0].detach()
                 frozen = tree_map(lambda p: p.detach(), d_params)
-                g_total, fake, g_logs = self._g_loss(g_params, frozen, lr_img, hr_img, gen,
-                                                     d_real_value, noise_seeds=seeds)
+                g_total, fake, g_logs = self._g_loss(g_params, frozen, lr_img, hr_img,
+                                                     d_real_value, noise)
                 g_grads = torch.autograd.grad(g_total, tree_leaves(g_params))
-                state["g_opt"] = self._apply(self.tx_g, g_params, state["g_opt"], g_grads, lr_g)
-                self._version += 1
+                self._apply(self.tx_g, g_params, state["g_opt"], g_grads, sc, "g")
                 g_logs = {k: v.detach() for k, v in g_logs.items()}
                 g_logs["l_g_total"] = g_total.detach()
             else:
                 with torch.no_grad():
-                    fake = generator_forward(g_params, lr_img, self.net_g, train=True, rng=gen,
-                                             noise_seeds=seeds, noise_prng=cfg.noise_prng,
-                                             dtype=self._dtype)
+                    fake = generator_forward(g_params, lr_img, self.net_g, train=True,
+                                             noise_prng=cfg.noise_prng, dtype=self._dtype,
+                                             **noise)
                 keys = (["l_g_pix"] if cfg.pixel_weight > 0 else []) \
                     + (["l_g_fea"] if self.use_feature else []) + ["l_g_gan", "l_g_total"]
                 g_logs = {k: torch.zeros((), device=self.device) for k in keys}
 
             # ---- D update (every step; fake detached) ----
             d_total, (st_real, st_fake), d_logs = self._d_loss(d_params, fake.detach(), hr_img,
-                                                               gen, real)
+                                                               sc.sample_key, real)
             d_grads = torch.autograd.grad(d_total, tree_leaves(d_params), allow_unused=True)
-            state["d_opt"] = self._apply(self.tx_d, d_params, state["d_opt"], d_grads, lr_d)
+            self._apply(self.tx_d, d_params, state["d_opt"], d_grads, sc, "d")
         # running statistics as torch leaves them after D(real) then D(fake)
         with torch.no_grad():
             merged = merge_sequential_bn(d_params, st_real, st_fake, self.net_d)
             tree_map(lambda p, m: p if p is m else p.copy_(m), d_params, merged)
 
-        logs = {**g_logs, **{k: v.detach() for k, v in d_logs.items()},
-                "lr": torch.tensor(lr_g)}
-        state["step"] = step + 1
-        return state, logs
+        return {**g_logs, **{k: v.detach() for k, v in d_logs.items()}, "lr": sc.lr("g")}

@@ -1,41 +1,40 @@
-"""Per-step noise generator for the nESRGAN+ noise sites.
+"""The keys of a training step's random draws.
 
 Counterpart of ``esrganplus_tpu/train/rng.py``. The JAX trainer folds the
 step into its key (``train/sr_model.py``: ``fold_in(rng, step)``), so a
-resumed run draws what an uninterrupted one would. Here a device
-``torch.Generator`` is re-seeded from (seed, step) before every step, which
-gives the same property. ``noise_prng`` ("rbg" | "threefry") is carried in
-the training config so option files carry across; both values map to this
-generator (torch's Philox), and the draws differ from either JAX
+resumed run draws what an uninterrupted one would. Here every draw of a
+step is Philox4x32-10 (``kernels/philox.py``, ``csrc/philox.cuh``) under a
+key of two uint32 words that these functions derive from (run seed, step)
+on the host, with Python ints: the trainers write them into the step's row
+of device scalars (``train/step_scalars.py``) and the kernels read them
+there, so a captured CUDA graph draws each replay's own. ``noise_prng``
+("rbg" | "threefry") is carried in the training config so option files
+carry across; both values key the same draws, which differ from either JAX
 implementation's.
 
-The fused noise mode (``noise_kernel="fused"``) draws its per-RDB sites inside
-the kernels from two seed words per site instead (``kernels/philox.py``);
-:func:`site_seeds` derives them from (seed, step) on the host, with Python
-ints, so no device work is needed and a resumed run gets the same words.
+  * :func:`site_seeds` / :func:`noise_site_words`: one key per noise site
+    (the fused mode's per-RDB sites, drawn inside the kernels; the input
+    mode's pre-drawn sites and the per-RRDB sites);
+  * :func:`sample_seed`: the resident sampler's crop indices and augment
+    coins (counter stream 0) and WGAN-GP's interpolation weights (stream 1).
 """
 
 from __future__ import annotations
 
-import torch
-
 NOISE_PRNGS = ("rbg", "threefry")
 _MIX = 0x9E3779B97F4A7C15  # odd 64-bit constant: spreads consecutive steps
 _M64 = 2 ** 64 - 1
+_RRDB_SALT = 0x94D049BB133111EB  # separates the per-RRDB sites from the per-RDB ones
 
 
 def step_seed(seed: int, step: int) -> int:
-    """A 63-bit generator seed from (run seed, 0-based step)."""
+    """A 63-bit seed from (run seed, 0-based step)."""
     return ((int(seed) + 1) * _MIX + int(step) * 0xBF58476D1CE4E5B9) & (2 ** 63 - 1)
 
 
-def noise_generator(gen: torch.Generator, seed: int, step: int,
-                    impl: str = "rbg") -> torch.Generator:
-    """Re-seed ``gen`` for optimizer step ``step`` of the run seeded ``seed``."""
-    if impl not in NOISE_PRNGS:
-        raise ValueError(f"noise_prng must be one of {NOISE_PRNGS}, got {impl!r}")
-    gen.manual_seed(step_seed(seed, step))
-    return gen
+def split_words(v: int) -> tuple:
+    """A 64-bit value as its (low, high) uint32 words: a Philox key."""
+    return int(v) & 0xFFFFFFFF, (int(v) >> 32) & 0xFFFFFFFF
 
 
 def _splitmix64(z: int) -> int:
@@ -60,6 +59,16 @@ def site_seeds(seed: int, step: int, nb: int) -> list:
             row.append((z & 0xFFFFFFFF, z >> 32))
         out.append(row)
     return out
+
+
+def noise_site_words(seed: int, step: int, nb: int) -> list:
+    """Every noise site's key for optimizer step ``step``: ``[nb][4]`` pairs
+    of uint32 words, sites rdb1, rdb2, rdb3 (:func:`site_seeds`, the fused
+    mode's keys too) and the RRDB's own, a pure function of (seed, step,
+    site)."""
+    base = step_seed(seed, step)
+    return [row + [split_words(_splitmix64(((base ^ _RRDB_SALT) + (b + 1) * _MIX) & _M64))]
+            for b, row in enumerate(site_seeds(seed, step, nb))]
 
 
 def sample_seed(seed: int, step: int) -> int:

@@ -22,7 +22,9 @@ Counterpart of ``esrganplus_tpu/train/sftgan_model.py`` (reference
 
 As in the port's other trainers: the gates are known on the host, so a
 gated group's update is not computed at all where the JAX step selects
-with ``jnp.where``; the state is updated in place; the frozen VGG19 lives on
+with ``jnp.where`` (on the card each gate pattern is its own captured step);
+the state is updated in place and every step-dependent value is read from
+the step's row of device scalars (``sr_model.py``); the frozen VGG19 lives on
 the trainer (``f_params``), not in the state. SFT-GAN has no noise site, so
 a step is deterministic given its batch (``deterministic_convs`` covers the
 whole step). On the card the SFT net, the ACD and VGG19's deeper stages run
@@ -47,8 +49,8 @@ from esrganplus_tpu_torch.models.sft import (SFTNetConfig, acd_forward, acd_merg
 from esrganplus_tpu_torch.models.vgg import VGGFeatConfig, load_vgg_feat, vgg_feat_forward
 from esrganplus_tpu_torch.train.schedule import multistep_lr
 from esrganplus_tpu_torch.train.sr_model import (AdamTransform, GeneratorTrainerBase,
-                                                 pixel_loss, tree_leaves, tree_map,
-                                                 tree_unflatten_like)
+                                                 apply_updates, pixel_loss, tree_leaves,
+                                                 tree_map, tree_unflatten_like)
 
 G_GROUPS = ("other", "sft")
 
@@ -101,6 +103,9 @@ def group_mask(tree, group: str, path: str = ""):
 class SFTGANTrainer(GeneratorTrainerBase):
     """SFT-GAN trainer on one device (the card unless ``device="cpu"``)."""
 
+    GROUPS = G_GROUPS + ("d",)
+    G_GROUPS = G_GROUPS
+
     def __init__(self, net_g: SFTNetConfig = SFTNetConfig(),
                  cfg: SFTGANTrainConfig = SFTGANTrainConfig(), device="cuda",
                  vgg_cfg: VGGFeatConfig = VGGFeatConfig()):
@@ -130,6 +135,26 @@ class SFTGANTrainer(GeneratorTrainerBase):
     def ingest_d_params(self, params):
         """ACD params → fp32 leaf tensors on the device."""
         return self._as_leaves(params)
+
+    def _group(self, state: dict, group: str) -> tuple:
+        if group == "d":
+            return self.tx_d, self.sched_d, state["d_opt"]
+        return self.tx_g, self.sched_sft if group == "sft" else self.sched_g, \
+            state["g_opt"][group]
+
+    def gates(self, gstep: int) -> tuple:
+        """(sft open, other open) of the 1-based step ``gstep``."""
+        cfg = self.cfg
+        return (gstep % cfg.d_update_ratio == 0 and gstep > cfg.d_init_iters,
+                gstep > cfg.other_start_iter)
+
+    def open_groups(self, gates: tuple) -> tuple:
+        return tuple(g for g, o in zip(("sft", "other"), gates) if o) + ("d",)
+
+    def _to_device(self, batch) -> tuple:
+        """(LR, seg, HR float32, category int64) on the device."""
+        return (*(torch.as_tensor(a, dtype=torch.float32).to(self.device) for a in batch[:3]),
+                torch.as_tensor(batch[3]).to(self.device, torch.int64))
 
     # -- loss pieces -------------------------------------------------------
 
@@ -173,59 +198,45 @@ class SFTGANTrainer(GeneratorTrainerBase):
     # -- step --------------------------------------------------------------
 
     @staticmethod
-    def _adam_step(tx, params, opt_state, grads, lr):
-        """One Adam step on ``params`` (None leaves skipped) in place → the
-        new optimizer state. A leaf the loss does not reach (BN running
-        statistics) has a zero gradient."""
+    def _adam_step(tx, params, opt_state, grads, sc, group):
+        """One Adam step on ``params`` (None leaves skipped) in place, at
+        ``group``'s lr and bias corrections of the step's scalars ``sc``. A
+        leaf the loss does not reach (BN running statistics) has a zero
+        gradient."""
         grads = tree_map(lambda p, g: torch.zeros_like(p) if g is None else g, params, grads)
-        updates, new_opt = tx.update(grads, opt_state, params)
-        with torch.no_grad():
-            tree_map(lambda p, u: p.add_(u, alpha=-lr), params, updates)
-        return new_opt
+        apply_updates(params, tx.moments(grads, opt_state, params, *sc.bias(group)),
+                      sc.lr(group))
 
-    def train_step(self, state: dict, batch, rng: int = 0):
-        """One G+D step, in place. ``batch`` = (LR, seg HR, HR NHWC float32,
-        category int) as tensors or numpy; ``rng`` is accepted for the
-        trainers' common signature (SFT-GAN draws nothing). Returns (state,
-        logs); the logs are 0-dim tensors on the device."""
-        cfg = self.cfg
-        lr_img, seg, hr_img = (torch.as_tensor(a, dtype=torch.float32).to(self.device)
-                               for a in batch[:3])
-        cat = torch.as_tensor(batch[3]).to(self.device, torch.int64)
-        step = int(state["step"])
-        gstep = step + 1  # 1-based, the reference's current_step
-        lrs = {"sft": self.sched_sft(gstep), "other": self.sched_g(gstep)}
-        lr_d = self.sched_d(gstep)
-        open_ = {"sft": gstep % cfg.d_update_ratio == 0 and gstep > cfg.d_init_iters,
-                 "other": gstep > cfg.other_start_iter}
+    def _step(self, state: dict, batch: tuple, sc, gates: tuple) -> dict:
+        """One G+D step's body on device tensors (LR, seg, HR, category), in
+        place, every step-dependent value read from the scalars ``sc``;
+        ``gates`` = (sft open, other open). → logs, 0-dim tensors."""
+        lr_img, seg, hr_img, cat = batch
+        open_ = dict(zip(("sft", "other"), gates))
         g_params, d_params = state["g_params"], state["d_params"]
 
         with fp32_exact(), deterministic_convs():
             frozen = tree_map(lambda p: p.detach(), d_params)
-            with torch.set_grad_enabled(any(open_.values())):
+            with torch.set_grad_enabled(any(gates)):
                 g_total, fake, g_logs = self._g_loss(g_params, frozen, lr_img, seg, hr_img, cat)
-            if any(open_.values()):
+            if any(gates):
                 flat = torch.autograd.grad(g_total, tree_leaves(g_params))
                 grads = tree_unflatten_like(g_params, iter(flat))
                 for g in G_GROUPS:
                     if open_[g]:
-                        state["g_opt"][g] = self._adam_step(
-                            self.tx_g, group_mask(g_params, g), state["g_opt"][g],
-                            group_mask(grads, g), lrs[g])
-                self._version += 1
+                        self._adam_step(self.tx_g, group_mask(g_params, g), state["g_opt"][g],
+                                        group_mask(grads, g), sc, g)
 
             d_total, (upd_r, upd_f), d_logs = self._d_loss(d_params, fake.detach(), hr_img, cat)
             d_flat = torch.autograd.grad(d_total, tree_leaves(d_params), allow_unused=True)
-            state["d_opt"] = self._adam_step(self.tx_d, d_params, state["d_opt"],
-                                             tree_unflatten_like(d_params, iter(d_flat)), lr_d)
+            self._adam_step(self.tx_d, d_params, state["d_opt"],
+                            tree_unflatten_like(d_params, iter(d_flat)), sc, "d")
         with torch.no_grad():
             merged = acd_merge_sequential(d_params, upd_r, upd_f)
             tree_map(lambda p, m: p if p is m else p.copy_(m), d_params, merged)
 
-        logs = {**{k: v.detach() for k, v in g_logs.items()},
-                **{k: v.detach() for k, v in d_logs.items()}, "lr": torch.tensor(lrs["other"])}
-        state["step"] = step + 1
-        return state, logs
+        return {**{k: v.detach() for k, v in g_logs.items()},
+                **{k: v.detach() for k, v in d_logs.items()}, "lr": sc.lr("other")}
 
     def predict(self, params, lr_img, seg) -> torch.Tensor:
         """Eval-mode fp32 forward (as the JAX trainer's ``predict``) of NHWC

@@ -14,16 +14,24 @@ What differs from the JAX trainer, by design:
     "prepared master" layout: ``prep_trunk`` is carried in the config and read
     by nothing, ``mask_trunk_ct_grads`` has no counterpart, and
     ``ingest_params`` / ``canonical_params`` only place the tree on the device.
-  * ``train_step_resident`` (both trainers) samples the step's batch on the
-    device from a ``data.resident.ResidentCropStore`` and runs ``train_step``
-    on it: one step a call, where the JAX package runs a burst of
-    ``steps_per_dispatch`` steps in one compiled loop.
-  * ``rng`` is the run's integer noise seed; the trainer folds the step into
-    a device generator (``train/rng.py``) where JAX folds it into a key. With
-    ``noise_kernel="fused"`` under ``noise_prng: "rbg"`` it also derives each
-    per-RDB site's Philox key from (seed, step) (``site_seeds``), which the
-    kernels draw from; under "threefry" the fused mode takes the
-    between-kernels path, as the JAX gate does for threefry keys.
+  * Every value of a step that varies by step (the learning rates, Adam's
+    bias corrections, the keys of every random draw) is read from one row of
+    device scalars (``train/step_scalars.py``) that the host fills and
+    uploads; the host keeps ``state["step"]``, each Adam ``count`` and the
+    parameter version as Python ints and advances them itself
+    (:meth:`GeneratorTrainerBase.advance`). The eager ``train_step`` and the
+    resident step, which on the card is a replay of a captured CUDA graph
+    (``train/resident_exec.py``), run the same body (``_step``).
+  * ``train_step_resident`` (all three trainers) samples each step's batch
+    on the device from a ``data.resident.ResidentCropStore`` and runs a burst
+    of ``n_steps`` steps: one dispatch of a captured graph a step on the card,
+    where the JAX package runs the burst in one compiled loop.
+  * ``rng`` is the run's integer seed. Every draw of step s is Philox under a
+    key derived from (seed, s) (``train/rng.py``) where JAX folds s into a
+    key. With ``noise_kernel="fused"`` under ``noise_prng: "rbg"`` the
+    per-RDB sites are drawn inside the kernels from their keys; under
+    "threefry" the fused mode takes the between-kernels path, as the JAX
+    gate does for threefry keys.
 """
 
 from __future__ import annotations
@@ -36,10 +44,11 @@ import torch
 from esrganplus_tpu_torch.infer import resolve_device
 from esrganplus_tpu_torch.models import generator_forward, generator_init
 from esrganplus_tpu_torch.models.layers import deterministic_convs, fp32_exact
-from esrganplus_tpu_torch.models.rrdb import (RRDBNetConfig, needs_kernel_weights,
+from esrganplus_tpu_torch.models.rrdb import (RRDBNetConfig, fused_noise_active,
+                                              needs_kernel_weights, noise_active,
                                               prep_trunk_ct)
-from esrganplus_tpu_torch.train.rng import noise_generator, sample_seed, site_seeds
 from esrganplus_tpu_torch.train.schedule import multistep_lr
+from esrganplus_tpu_torch.train.step_scalars import RowUploader, ScalarLayout, adam_bias
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,9 +134,15 @@ class AdamTransform:
         zeros = lambda p: torch.zeros_like(p, requires_grad=False)
         return {"count": 0, "mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
 
+    def bias(self, count: int) -> tuple:
+        """The fp32 bias corrections of the ``count``-th update."""
+        return adam_bias(self.b1, self.b2, count)
+
     @torch.no_grad()
-    def update(self, grads, opt_state: dict, params):
-        """→ (updates, new_opt_state). The moments are advanced in place."""
+    def moments(self, grads, opt_state: dict, params, c1, c2):
+        """Advance the moments in place → the updates, with the bias
+        corrections ``c1``, ``c2`` (0-dim fp32 tensors on the device, or
+        floats) of this update. The count is the caller's to advance."""
         if self.weight_decay:
             grads = tree_map(lambda g, p: g + self.weight_decay * p, grads, params)
         if self.grad_clip:
@@ -135,16 +150,20 @@ class AdamTransform:
             scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
                                 self.grad_clip / norm)
             grads = tree_map(lambda g: g * scale, grads)
-        count = opt_state["count"] + 1
-        c1, c2 = 1.0 - self.b1 ** count, 1.0 - self.b2 ** count
 
         def one(g, mu, nu):
             mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
             nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
             return (mu / c1) / ((nu / c2).sqrt() + self.eps)
 
-        updates = tree_map(one, grads, opt_state["mu"], opt_state["nu"])
-        return updates, {"count": count, "mu": opt_state["mu"], "nu": opt_state["nu"]}
+        return tree_map(one, grads, opt_state["mu"], opt_state["nu"])
+
+
+@torch.no_grad()
+def apply_updates(params, updates, lr: torch.Tensor) -> None:
+    """``p ← p − lr·u`` in place (optax's ``-lr·u`` added: the same bits);
+    ``lr`` a 0-dim tensor on the device."""
+    tree_map(lambda p, u: p.sub_(u.mul_(lr)), params, updates)
 
 
 def make_optimizer(cfg: SRTrainConfig):
@@ -159,9 +178,19 @@ def make_optimizer(cfg: SRTrainConfig):
 
 
 class GeneratorTrainerBase:
-    """What the PSNR and the GAN trainer share: the device, the compute
-    dtype, the per-step noise generator, and the generator's parameter
-    representation and eval-mode forward."""
+    """What the three trainers share: the device, the compute dtype, the
+    host's side of a step (its row of device scalars, the gates, the Adam
+    counts, the step), the eager and the resident step around the body each
+    trainer writes (``_step``), and the generator's parameter representation
+    and eval-mode forward.
+
+    A subclass names its optimizer groups (``GROUPS``), their Adam transform,
+    lr schedule and state (:meth:`_group`), the gates of a 1-based step
+    (:meth:`gates`, a tuple of bools: part of a captured step's key) and the
+    groups a step with those gates updates (:meth:`open_groups`)."""
+
+    GROUPS = ("g",)
+    G_GROUPS = ("g",)  # the groups whose update changes the generator
 
     def __init__(self, net_cfg, compute_dtype: Optional[str], device):
         self.net_cfg = net_cfg
@@ -169,9 +198,12 @@ class GeneratorTrainerBase:
         if compute_dtype not in (None, "float32", "bfloat16"):
             raise ValueError(f"compute_dtype {compute_dtype!r}: None or 'bfloat16'")
         self._dtype = torch.bfloat16 if compute_dtype == "bfloat16" else None
-        self._noise_gen = torch.Generator(device=self.device)
         self._eval_weights = None  # (params version, kernels' inference weights)
         self._version = 0
+        self._uploader = RowUploader(self.device)
+        self._resident = None  # train/resident_exec.ResidentExecutor, at first use
+        noisy = isinstance(net_cfg, RRDBNetConfig) and noise_active(net_cfg, True)
+        self.scalars = ScalarLayout(self.GROUPS, net_cfg.nb if noisy else 0)
 
     def _as_leaves(self, params):
         """A parameter tree as fp32 leaf tensors on the device."""
@@ -190,22 +222,89 @@ class GeneratorTrainerBase:
         otherwise)."""
         return tree_map(lambda p: p.detach(), params)
 
-    def _site_seeds(self, seed: int, step: int, impl: str):
-        """The fused noise mode's per-RDB Philox keys for ``step`` (Python
-        ints, no device work), or None where the mode does not draw
-        in-kernel: another ``noise_kernel``, the "threefry" contract, or a
-        generator without noise sites (SRResNet)."""
-        if (not isinstance(self.net_cfg, RRDBNetConfig) or self.net_cfg.noise_kernel != "fused"
-                or impl != "rbg"):
-            return None
-        return site_seeds(seed, step, self.net_cfg.nb)
+    # -- the host's side of a step ----------------------------------------
 
-    def train_step_resident(self, state: dict, store, rng: int, batch_size: int):
-        """``train_step`` on a batch sampled on the device from ``store``
-        (``data/resident.py``) with a generator seeded from (``rng``, the
-        state's step) → (state, logs). The batch never leaves the device."""
-        batch = store.make_sampler(batch_size)(sample_seed(rng, int(state["step"])))
-        return self.train_step(state, batch, rng)
+    def _group(self, state: dict, group: str) -> tuple:
+        """(Adam transform, lr schedule, its optimizer state) of ``group``."""
+        return self.tx, self.lr_schedule, state["opt_state"]
+
+    def gates(self, gstep: int) -> tuple:
+        """The host gates of the 1-based step ``gstep``."""
+        return ()
+
+    def open_groups(self, gates: tuple) -> tuple:
+        """The groups a step with ``gates`` updates."""
+        return self.GROUPS
+
+    def plan(self, state: dict, rng: int) -> tuple:
+        """The row of device scalars of the state's next step and its gates →
+        (int32 row, gates), from (``rng``, the step, each open group's next
+        Adam count): nothing is advanced."""
+        step = int(state["step"])
+        gates = self.gates(step + 1)
+        lrs, bias = {}, {}
+        for g in self.GROUPS:
+            tx, sched, opt = self._group(state, g)
+            lrs[g] = sched(step + 1)
+            if g in self.open_groups(gates):
+                bias[g] = tx.bias(int(opt["count"]) + 1)
+        return self.scalars.row(rng, step, lrs, bias), gates
+
+    def advance(self, state: dict, gates: tuple) -> None:
+        """The host's mirror of one step with ``gates``: the step, each open
+        group's Adam count and the generator's parameter version."""
+        opened = self.open_groups(gates)
+        for g in opened:
+            opt = self._group(state, g)[2]
+            opt["count"] = int(opt["count"]) + 1
+        if any(g in self.G_GROUPS for g in opened):
+            self._version += 1
+        state["step"] = int(state["step"]) + 1
+
+    def _fused(self, impl: str) -> bool:
+        """The fused noise mode draws the per-RDB sites in the kernels: an
+        RRDBNet with ``noise_kernel="fused"`` under the "rbg" contract (under
+        "threefry" it takes the between-kernels path, as the JAX gate does)."""
+        return (isinstance(self.net_cfg, RRDBNetConfig) and self.scalars.n_blocks > 0
+                and fused_noise_active(self.net_cfg, True, impl))
+
+    def _noise(self, sc, impl: str) -> dict:
+        """The generator's noise keywords from the step's scalars ``sc``:
+        the site keys as its ``rng``, and under the fused mode the per-RDB
+        ones as ``noise_seeds``."""
+        if not self.scalars.n_blocks:
+            return {}
+        keys = sc.site_keys
+        return {"rng": keys, "noise_seeds": keys[:, :3] if self._fused(impl) else None}
+
+    # -- steps ---------------------------------------------------------------
+
+    def _to_device(self, batch) -> tuple:
+        """A host-fed batch (LR, HR) as float32 tensors on the device."""
+        return tuple(torch.as_tensor(a, dtype=torch.float32).to(self.device) for a in batch)
+
+    def train_step(self, state: dict, batch, rng: int = 0):
+        """One optimizer step, in place, on ``batch`` (tensors or numpy, as
+        :meth:`_to_device` takes them); ``rng`` the run's seed. Its scalars
+        are uploaded as one row, then the body runs eagerly. Returns (state,
+        logs); the logs are 0-dim tensors on the device, so nothing here
+        waits for the card."""
+        batch = self._to_device(batch)
+        row, gates = self.plan(state, rng)
+        logs = self._step(state, batch, self.scalars.view(self._uploader.upload(row)), gates)
+        self.advance(state, gates)
+        return state, logs
+
+    def train_step_resident(self, state: dict, store, rng: int, batch_size: int,
+                            n_steps: int = 1):
+        """``n_steps`` steps, each on a batch sampled on the device from
+        ``store`` (``data/resident.py``) under the step's key → (state, the
+        last step's logs). On the card each step is a replay of a captured
+        CUDA graph (``train/resident_exec.py``); on the CPU the same body
+        runs eagerly. The batch never leaves the device."""
+        from esrganplus_tpu_torch.train.resident_exec import train_step_resident
+
+        return train_step_resident(self, state, store, rng, batch_size, n_steps)
 
     def predict(self, params, lr_img) -> torch.Tensor:
         """Eval-mode forward of NHWC [0,1] input (numpy or tensor) → fp32
@@ -242,39 +341,30 @@ class SRTrainer(GeneratorTrainerBase):
 
     # -- steps -------------------------------------------------------------
 
-    def _loss_fn(self, params, lr_img, hr_img, rng, noise_seeds=None):
-        fake = generator_forward(params, lr_img, self.net_cfg, train=True, rng=rng,
-                                 noise_seeds=noise_seeds,
-                                 noise_prng=self.train_cfg.noise_prng, dtype=self._dtype)
+    def _loss_fn(self, params, lr_img, hr_img, noise: dict):
+        fake = generator_forward(params, lr_img, self.net_cfg, train=True,
+                                 noise_prng=self.train_cfg.noise_prng, dtype=self._dtype,
+                                 **noise)
         l_pix = self.train_cfg.pixel_weight * pixel_loss(
             fake.float(), hr_img.float(), self.train_cfg.pixel_criterion)
         return l_pix, fake
 
-    def train_step(self, state: dict, batch, rng: int):
-        """One optimizer step, in place. ``batch`` = (LR NHWC, HR NHWC)
-        float32 [0,1] (tensors or numpy); ``rng`` the run's noise seed.
-        Returns (state, logs); the logs are 0-dim tensors on the device, so
-        nothing here waits for the card."""
-        lr_img, hr_img = (torch.as_tensor(a, dtype=torch.float32).to(self.device)
-                          for a in batch)
-        step = int(state["step"])
-        gen = noise_generator(self._noise_gen, rng, step, self.train_cfg.noise_prng)
-        seeds = self._site_seeds(rng, step, self.train_cfg.noise_prng)
-        gstep = step + 1  # 1-based, the reference's current_step
+    def _step(self, state: dict, batch: tuple, sc, gates: tuple) -> dict:
+        """The step's body on device tensors (LR, HR NHWC float32 [0,1]),
+        its every step-dependent value read from the scalars ``sc``: the
+        parameters and the moments advance in place; nothing on the host
+        changes (:meth:`advance` does that). → logs, 0-dim tensors."""
+        lr_img, hr_img = batch
         leaves = tree_leaves(state["params"])
         # fea_conv is cuDNN's, forward and backward: full fp32 where fp32 is
         # asked for, and algorithms that repeat bit for bit
         with fp32_exact(), deterministic_convs():
-            loss, _ = self._loss_fn(state["params"], lr_img, hr_img, gen, seeds)
+            loss, _ = self._loss_fn(state["params"], lr_img, hr_img,
+                                    self._noise(sc, self.train_cfg.noise_prng))
             flat = torch.autograd.grad(loss, leaves)
         grads = tree_unflatten_like(state["params"], iter(flat))
-        updates, new_opt = self.tx.update(grads, state["opt_state"], state["params"])
-        lr = self.lr_schedule(gstep)
+        updates = self.tx.moments(grads, state["opt_state"], state["params"], *sc.bias("g"))
+        apply_updates(state["params"], updates, sc.lr("g"))
         with torch.no_grad():
-            tree_map(lambda p, u: p.add_(u, alpha=-lr), state["params"], updates)
             grad_norm = global_norm(grads)
-        self._version += 1
-        logs = {"l_pix": loss.detach(), "lr": torch.tensor(lr), "grad_norm": grad_norm}
-        state["opt_state"] = new_opt
-        state["step"] = step + 1
-        return state, logs
+        return {"l_pix": loss.detach(), "lr": sc.lr("g"), "grad_norm": grad_norm}

@@ -12,6 +12,7 @@ to their parent.
 
 from __future__ import annotations
 
+import collections
 import glob
 import gzip
 import json
@@ -50,6 +51,100 @@ def op_family(name: str) -> str:
     fam = re.sub(r"\(anonymous namespace\)::|^void ", "", name)
     fam = re.split(r"[<(]", fam)[0].split("::")[-1].strip()
     return fam or name
+
+
+LEAD_IN = 32  # throwaway kernels that open a window of kernel_counts
+
+
+def kernel_counts(fn, names) -> collections.Counter:
+    """Run ``fn()`` under ``torch.profiler`` (host and device activity, the
+    device's work waited for) → the kernels the card ran whose
+    :func:`op_family` is in ``names``, counted by family. A captured graph's
+    replays show here, where no Python wrapper runs. One of the first device
+    activities after the profiler starts is at times missing from its trace,
+    so LEAD_IN throwaway kernels open the window; with the host's activity
+    off, many more go missing. Empty without a CUDA device."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        fn()
+        return collections.Counter()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lead = torch.zeros(1, device="cuda")
+        for _ in range(LEAD_IN):
+            lead.add_(1)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    return collections.Counter(
+        f for f in (op_family(e.name) for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) if f in names)
+
+
+def mangled_family(name: str) -> str:
+    """A kernel's family from its mangled (Itanium) name, as :func:`op_family`
+    gives it from the demangled one: the last name of the nested name, before
+    its template arguments (``_ZN12_GLOBAL__N_116dense_mma_kernelILi64E...``
+    → ``dense_mma_kernel``); a name that is not mangled goes to
+    :func:`op_family`."""
+    m = re.match(r"_Z(N?)", name)
+    if not m:
+        return op_family(name)
+    i, last = m.end(), None
+    while i < len(name) and name[i].isdigit():
+        j = i
+        while name[j].isdigit():
+            j += 1
+        n = int(name[i:j])
+        last, i = name[j:j + n], j + n
+        if not m.group(1):  # an unnested name is one identifier
+            break
+    return last or name
+
+
+def graph_kernels(graph) -> collections.Counter:
+    """The kernel nodes of a captured ``torch.cuda.CUDAGraph`` (made with
+    ``keep_graph=True``), counted by family: what each replay of it
+    launches, read from the graph through libcuda (``cuGraphGetNodes``,
+    ``cuGraphKernelNodeGetParams``, ``cuFuncGetName``)."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    class Params(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p)] + [(f, ctypes.c_uint) for f in (
+            "gx", "gy", "gz", "bx", "by", "bz", "smem")] + [
+            ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+            ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    def check(code, what):
+        if code:
+            raise RuntimeError(f"{what} failed with CUresult {code}")
+
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    out = collections.Counter()
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        p, name = Params(), ctypes.c_char_p()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(p)),
+              "cuGraphKernelNodeGetParams")
+        if p.func:
+            check(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func)), "cuFuncGetName")
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(p.kern)),
+                  "cuKernelGetName")
+        out[mangled_family(name.value.decode())] += 1
+    return out
 
 
 def device_rows(events) -> Tuple[str, List[dict]]:

@@ -1382,7 +1382,7 @@ def test_cuda_dense_entries_refuse_fp32_on_the_tensor_cores():
     s = torch.cuda.current_stream().cuda_stream
     code = build.load("rdb_ct").esr_dense_conv3x3(
         build.dtype_code(x), DESIGNS["mma"], 16, 0, x.data_ptr(), 16, None, 0, 16, w.data_ptr(),
-        b.data_ptr(), None, out.data_ptr(), 16, None, 0, None, 0, None, 0, None, 0.0, 0, 0, 0,
+        b.data_ptr(), None, out.data_ptr(), 16, None, 0, None, 0, None, 0, None, 0.0, None,
         1.0, 1.0, 0.2, 1, 8, 16, s)
     with pytest.raises(RuntimeError, match="cudaError"):
         build.check(code, "esr_dense_conv3x3")
@@ -1840,3 +1840,228 @@ def test_sftgan_trainer_steps_on_the_card_repeat_bit_for_bit():
         runs.append([t.detach().cpu() for _, t in _leaves_of(state)
                      if torch.is_tensor(t)] + [logs[k].cpu() for k in sorted(logs)])
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# ---------------------------------------------------------------------------
+# the resident step as a captured CUDA graph (train/resident_exec.py)
+# ---------------------------------------------------------------------------
+
+
+def _card_store(n=16, lr=32, scale=4, seed=0):
+    """A resident crop store on the card holding seeded uint8 pools."""
+    from esrganplus_tpu_torch.data.resident import ResidentCropStore
+
+    rs = np.random.RandomState(seed)
+    s = ResidentCropStore.__new__(ResidentCropStore)
+    s.device, s.n_crops, s.use_flip, s.use_rot = torch.device("cuda"), n, True, True
+    s.lr = torch.from_numpy(rs.randint(0, 256, (n, lr, lr, 3)).astype(np.uint8)).cuda()
+    s.hr = torch.from_numpy(rs.randint(0, 256, (n, scale * lr, scale * lr, 3))
+                            .astype(np.uint8)).cuda()
+    return s
+
+
+def _card_seg_store(n=8, seed=0):
+    from esrganplus_tpu_torch.data.resident import ResidentSegStore
+
+    rs = np.random.RandomState(seed)
+    s = ResidentSegStore.__new__(ResidentSegStore)
+    s.device, s.n_crops, s.use_flip, s.use_rot = torch.device("cuda"), n, True, False
+    logits = rs.randn(n, 96, 96, 8)
+    seg = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    s.lr = torch.from_numpy(rs.rand(n, 24, 24, 3).astype(np.float32)).cuda()
+    s.seg = torch.from_numpy((seg * 255).round().astype(np.uint8)).cuda()
+    s.hr = torch.from_numpy(rs.randint(0, 256, (n, 96, 96, 3)).astype(np.uint8)).cuda()
+    s.cat = torch.from_numpy(rs.randint(0, 8, n)).cuda()
+    return s
+
+
+def _graph_vs_eager(make, store, batch_size, k=4, rng=3, between=None):
+    """A burst of ``k`` graph replays against ``k`` eager steps on the
+    batches the sampler draws, from one init: states and logs bit-equal, and
+    the port's kernels by family the same in what the replays launch (read
+    from the captured graphs), in what the card ran in them and in what it
+    ran in the eager steps (by the profiler: no wrapper runs at a replay).
+    The captures are made before the profiled bursts. ``between`` (a
+    callable) runs after the first half of the steps of both. The eager
+    steps' trace also holds, by family, what ``kernels/launch.py`` counted
+    where the dense, data- and weight-gradient kernels launch. → (trainer a,
+    [(replays' kernels, eager steps')], rdb_ct's seeded launches in the last
+    eager half)."""
+    import collections
+
+    from esrganplus_tpu_torch.kernels import build, launch
+    from esrganplus_tpu_torch.train.resident_exec import burst_gates, executor
+    from esrganplus_tpu_torch.train.rng import sample_seed
+    from esrganplus_tpu_torch.utils.trace import kernel_counts
+
+    own = build.kernel_names()
+    a, b = make(), make()
+    sa, sb = a.init_state(0), b.init_state(0)
+    halves = (k // 2, k - k // 2) if between else (k,)
+    traces, logs = [], {}
+    for i, n in enumerate(halves):
+        executor(a).capture(sa, store, rng, batch_size, n)
+        nodes = collections.Counter()
+        for g in burst_gates(a, sa, n):
+            nodes.update({f: c for f, c in a._resident.kernel_nodes(g).items() if f in own})
+        graph = kernel_counts(lambda: logs.update(
+            a=a.train_step_resident(sa, store, rng, batch_size, n_steps=n)[1]), own)
+        assert graph == nodes
+
+        def eager():
+            for _ in range(n):
+                logs["b"] = b.train_step(sb, store.make_sampler(batch_size)(
+                    sample_seed(rng, sb["step"])), rng)[1]
+
+        launch.device_launches.clear()
+        K.rdb_ct.seeded_launches = 0
+        traces.append((graph, kernel_counts(eager, own)))
+        # (wgrad_finish_kernel also runs for the tail's weight gradients,
+        # which launch.py does not count)
+        assert all(traces[-1][1].get(f, 0) == launch.device_launches[f]
+                   for f in launch._FAMILY.values())
+        if between and i == 0:
+            between()
+    la, lb = logs["a"], logs["b"]
+    assert sa["step"] == sb["step"] == k
+    la_, lb_ = [t for _, t in _leaves_of(sa)], [t for _, t in _leaves_of(sb)]
+    assert len(la_) == len(lb_)
+    for x, y in zip(la_, lb_):
+        assert torch.equal(x, y) if torch.is_tensor(x) else x == y
+    assert set(la) == set(lb) and all(torch.equal(la[n], lb[n]) for n in la)
+    assert all(torch.isfinite(v).all() for v in la.values())
+    for graph, eager in traces:
+        assert graph == eager and sum(graph.values()) > 0
+    return a, traces, K.rdb_ct.seeded_launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["rrdb-input", "rrdb-fused", "srresnet"])
+def test_cuda_graph_burst_is_eager_steps_sr(net):
+    """K = 4 replays of the captured PSNR step equal 4 eager steps bit for
+    bit (RRDBNet bf16 with the input and the fused noise mode; SRResNet
+    fp32), and the wrappers' counters advance by the same launches."""
+    _need_card()
+    from esrganplus_tpu_torch.models import SRResNetConfig
+    from esrganplus_tpu_torch.train import SRTrainConfig, SRTrainer
+
+    if net == "srresnet":
+        make = lambda: SRTrainer(SRResNetConfig(nf=64, nb=2), SRTrainConfig(), device="cuda")
+    else:
+        cfg = RRDBNetConfig(nb=2, noise_kernel=net.split("-")[1])
+        make = lambda: SRTrainer(cfg, SRTrainConfig(compute_dtype="bfloat16"), device="cuda")
+    a, traces, seeded = _graph_vs_eager(make, _card_store(lr=16), 2)
+    fams = traces[0][0]
+    assert fams["philox_bits_kernel"] == 4  # the sampler's draw, once a step
+    if net != "srresnet":
+        assert fams["dense_mma_kernel"] > 0
+    # every rdb_ct call of the eager steps drew its noise in the kernel (fused)
+    assert seeded == (4 * 6 if net == "rrdb-fused" else 0)
+    assert len(a._resident._graphs) == 1 and a._resident.captures == 1
+
+
+@pytest.mark.cuda
+def test_cuda_graph_burst_switches_gan_captures():
+    """srragan with D_update_ratio 2: the gated and the open step are two
+    captures, replayed in turn inside one burst, bit-equal to eager steps."""
+    _need_card()
+    from esrganplus_tpu_torch.models.discriminator import DiscriminatorVGGConfig
+    from esrganplus_tpu_torch.train import GANTrainConfig, GANTrainer
+
+    make = lambda: GANTrainer(RRDBNetConfig(nb=1), DiscriminatorVGGConfig(),
+                              GANTrainConfig(compute_dtype="bfloat16", d_update_ratio=2),
+                              device="cuda")
+    a, _, _ = _graph_vs_eager(make, _card_store(lr=32), 2)
+    assert set(a._resident._graphs) == {(False,), (True,)}
+
+
+@pytest.mark.cuda
+def test_cuda_graph_burst_sftgan_across_other_start_iter():
+    """SFT-GAN (fp32) over a seg store: the step before and after
+    ``other_start_iter`` are two captures, and the burst equals eager."""
+    _need_card()
+    from esrganplus_tpu_torch.models.sft import SFTNetConfig
+    from esrganplus_tpu_torch.train import SFTGANTrainConfig, SFTGANTrainer
+
+    make = lambda: SFTGANTrainer(SFTNetConfig(nb=1), SFTGANTrainConfig(other_start_iter=2),
+                                 device="cuda")
+    a, _, _ = _graph_vs_eager(make, _card_seg_store(), 2)
+    assert set(a._resident._graphs) == {(True, False), (True, True)}
+
+
+@pytest.mark.cuda
+def test_cuda_refresh_lands_in_the_captured_step():
+    """A pool refreshed between two bursts is what the captured step reads:
+    the run stays bit-equal to eager steps on the new pool."""
+    _need_card()
+    from esrganplus_tpu_torch.models import SRResNetConfig
+    from esrganplus_tpu_torch.train import SRTrainConfig, SRTrainer
+
+    store = _card_store(lr=16)
+    fresh = _card_store(lr=16, seed=1)
+    ptrs = [t.data_ptr() for t in store.pools()]
+
+    def refresh():
+        store._upload((fresh.lr.cpu().numpy(), fresh.hr.cpu().numpy()), 1)
+        assert [t.data_ptr() for t in store.pools()] == ptrs
+        assert torch.equal(store.hr, fresh.hr)
+
+    make = lambda: SRTrainer(SRResNetConfig(nf=64, nb=2), SRTrainConfig(), device="cuda")
+    _graph_vs_eager(make, store, 2, k=4, between=refresh)
+
+
+@pytest.mark.cuda
+def test_cuda_broken_capture_raises():
+    """A step that reads a value back to the host cannot be captured: the
+    resident step raises, naming the trainer and the capture, and does not
+    run eagerly instead."""
+    _need_card()
+    from esrganplus_tpu_torch.models import SRResNetConfig
+    from esrganplus_tpu_torch.train import SRTrainConfig, SRTrainer
+
+    class HostRead(SRTrainer):
+        def _step(self, state, batch, sc, gates):
+            logs = super()._step(state, batch, sc, gates)
+            logs["l_pix"].item()  # a host synchronisation: illegal while capturing
+            return logs
+
+    t = HostRead(SRResNetConfig(nf=64, nb=1), SRTrainConfig(), device="cuda")
+    state = t.init_state(0)
+    with pytest.raises(RuntimeError, match="could not be captured as a CUDA graph"):
+        t.train_step_resident(state, _card_store(lr=16), 0, 2, n_steps=2)
+
+
+@pytest.mark.cuda
+def test_cuda_capture_survives_a_dead_trainers_graphs():
+    """A trainer dropped while still held by a reference cycle keeps its
+    captured graphs until a cyclic collection. That collection must not run
+    while another trainer's step is captured (a graph destroyed on the
+    capturing thread invalidates the capture): the next capture collects
+    first, and none runs during it."""
+    _need_card()
+    import gc
+    import weakref
+
+    from esrganplus_tpu_torch.models import SRResNetConfig
+    from esrganplus_tpu_torch.train import SRTrainConfig, SRTrainer
+
+    seen = []
+
+    class Watched(SRTrainer):
+        def _step(self, state, batch, sc, gates):
+            if torch.cuda.is_current_stream_capturing():
+                seen.append(gc.isenabled())
+            return super()._step(state, batch, sc, gates)
+
+    store = _card_store(lr=16)
+    dead = Watched(SRResNetConfig(nf=64, nb=1), SRTrainConfig(), device="cuda")
+    dead.cycle = dead  # only a cyclic collection frees it
+    dead.train_step_resident(dead.init_state(0), store, 0, 2, n_steps=2)
+    assert dead._resident._graphs
+    gone = weakref.ref(dead)
+    del dead
+    t = Watched(SRResNetConfig(nf=64, nb=1), SRTrainConfig(), device="cuda")
+    state, logs = t.train_step_resident(t.init_state(0), store, 0, 2, n_steps=2)
+    assert gone() is None
+    assert seen == [False, False] and gc.isenabled()
+    assert state["step"] == 2 and bool(torch.isfinite(logs["l_pix"]))

@@ -21,6 +21,7 @@ from esrganplus_tpu_torch.kernels import launch as L
 from esrganplus_tpu_torch.kernels import rdb_ct as K
 from esrganplus_tpu_torch.kernels import rdb_t as R
 from esrganplus_tpu_torch.models.layers import fp32_exact
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 WIDTHS = build.KERNEL_WIDTHS
 PAIRS = [(nf, gc) for nf in WIDTHS for gc in WIDTHS]

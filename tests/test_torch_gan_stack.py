@@ -31,6 +31,7 @@ from esrganplus_tpu_torch.convert import (discriminator_from_jax,
 from esrganplus_tpu_torch.models import discriminator as pd
 from esrganplus_tpu_torch.models import vgg as pv
 from esrganplus_tpu_torch.train.sr_model import tree_leaves
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NF = 8
 SMALL_VGG = (8, 8, "M", 16, 16, "M", 32, 32, 32, 32, "M", 32, 32, 32, 32, "M", 32, 32, 32, 32, "M")

@@ -49,6 +49,7 @@ from esrganplus_tpu_torch.models.discriminator import DiscriminatorVGGConfig as 
 from esrganplus_tpu_torch.models.vgg import VGGFeatConfig as PVCfg
 from esrganplus_tpu_torch.train import GANTrainConfig, GANTrainer
 from esrganplus_tpu_torch.train.sr_model import tree_leaves, tree_map
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NET_G = dict(nf=8, nb=1, gc=4, upscale=4, rdb_noise=False)
 NET_D = dict(input_size=96, base_nf=8)

@@ -13,6 +13,7 @@ from esrganplus_tpu import infer as jinfer
 from esrganplus_tpu.cli import test_image as jcli
 from esrganplus_tpu_torch import infer as pinfer
 from esrganplus_tpu_torch.cli import test_image as pcli
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 CKPT = os.path.join(GOLDEN, "rrdb_small_x4.pth")

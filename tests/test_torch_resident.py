@@ -16,8 +16,9 @@ generators):
       ``flush_refresh``, a build error surfaces there, and a store started at
       a step past a refresh holds the pool a refreshed store holds;
   (e) ``cli.train --device cpu`` with ``resident_crops`` and
-      ``steps_per_dispatch: 2`` (one step a call), and a resume from step 8 (past a
-      synchronous refresh at step 6) bit-equal to the uninterrupted run.
+      ``steps_per_dispatch: 2`` (the bursts JAX's ``compute_burst_len`` cuts,
+      logged), and a resume from step 8 (past a synchronous refresh at step
+      6) bit-equal to the uninterrupted run.
 """
 
 import itertools
@@ -30,13 +31,15 @@ import pytest
 import torch
 
 from esrganplus_tpu.data import datasets as jds
+from esrganplus_tpu.cli.train import compute_burst_len as jax_burst_len
 from esrganplus_tpu.data import resident as jres
 from esrganplus_tpu_torch.data import datasets as pds
 from esrganplus_tpu_torch.data import resident as pres
 from esrganplus_tpu_torch.data.resident import ResidentCropStore
 from esrganplus_tpu_torch.ops.image_io import save_img
 from esrganplus_tpu_torch.ops.resize import imresize_np
-from esrganplus_tpu_torch.train.rng import sample_seed
+from esrganplus_tpu_torch.kernels.philox import philox_bits
+from esrganplus_tpu_torch.train.rng import sample_seed, split_words
 from esrganplus_tpu_torch.train.sr_model import tree_leaves
 
 NET = dict(nf=8, nb=1, gc=4, upscale=4, rdb_noise=False)
@@ -101,9 +104,10 @@ def test_bypass_host_augment_restores_as_jax(before):
 def test_sampler_is_the_pool_gathered_augmented_and_cast(dirs):
     store = ResidentCropStore(pds.LRHRDataset(_opt(*dirs)), "cpu", n_crops=12, refresh_steps=0)
     lr, hr = store.make_sampler(16)(1234)
-    gen = torch.Generator().manual_seed(1234)
-    idx = torch.randint(0, 12, (16,), generator=gen)
-    dec = pres._augment_decisions(gen, 16, True, True, "cpu")
+    # sample i: Philox of counter (i, 0, 0, 0) under the seed's two words
+    bits = philox_bits(split_words(1234), 16)
+    idx = (bits[:, 0] * 12) >> 32
+    dec = tuple((bits[:, k] >> 31).bool() for k in (1, 2, 3))
     assert lr.dtype == hr.dtype == torch.float32
     assert torch.equal(lr, pres._apply_augment(store.lr[idx], *dec).float() / 255.0)
     assert torch.equal(hr, pres._apply_augment(store.hr[idx], *dec).float() / 255.0)
@@ -121,7 +125,7 @@ def test_sampler_is_the_pool_gathered_augmented_and_cast(dirs):
     off = ResidentCropStore(pds.LRHRDataset(_opt(*dirs)), "cpu", n_crops=12, refresh_steps=0,
                             use_flip=False, use_rot=False)
     lr, hr = off.make_sampler(4)(9)
-    idx = torch.randint(0, 12, (4,), generator=torch.Generator().manual_seed(9))
+    idx = (philox_bits(split_words(9), 4)[:, 0] * 12) >> 32
     assert torch.equal(hr, off.hr[idx].float() / 255.0)
 
 
@@ -236,7 +240,14 @@ def test_cli_resident_and_bit_equal_resume(tmp_path, dirs):
     want = torch.load(os.path.join(full, "models", "latest_G.pth"))
     text = open(os.path.join(full, sorted(f for f in os.listdir(full) if f.endswith(".log"))[-1])).read()
     assert "resident crop store: 16 pairs" in text and "<step:      12," in text
-    assert "steps_per_dispatch 2: an eager step is one call" in text
+    # steps_per_dispatch 2: bursts of 2, none across the print (2), the debug
+    # run's val and save (8) or the refresh (6) boundaries, as the JAX
+    # package's compute_burst_len cuts them
+    assert "steps_per_dispatch 2: resident bursts of 2 steps" in text
+    bursts = [int(n) for line in text.splitlines() if "bursts: " in line
+              for n in line.split("bursts: ")[1].split()]
+    assert bursts == [jax_burst_len(s, 2, 12, (2, 8, 8, 6), (None, None))
+                      for s in range(0, 12, 2)] == [2] * 6
     os.rename(full, full + "_uninterrupted")
 
     opt = _cli_options(root, *dirs, niter=8)

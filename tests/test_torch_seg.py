@@ -39,7 +39,7 @@ from esrganplus_tpu_torch.models import feature_extractors as pfe
 from esrganplus_tpu_torch.models import seg as pseg
 from esrganplus_tpu_torch.models import sft as psft
 from esrganplus_tpu_torch.ops.image_io import read_img
-from test_torch_sft import one_torch_thread  # noqa: F401 (autouse)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SEG_TOL = 1e-4
 TOL = 1e-5

@@ -41,24 +41,13 @@ from esrganplus_tpu_torch.models import layers as pl
 from esrganplus_tpu_torch.models import sft as psft
 from esrganplus_tpu_torch.options import options as popt
 from esrganplus_tpu_torch.train.sr_model import tree_leaves
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NET = dict(nb=2, nf=16, cond_nf=8)
 FP32_TOL = 1e-5
 BF16_TOL = 2e-2
 ACD_BF16_TOL = 5e-2  # see (b) above
 OPTDIR = os.path.join(os.path.dirname(__file__), "..", "esrganplus_tpu", "options")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """Torch ops on one thread while the module runs. The test workers share
-    the machine's cores, and a torch thread pool as wide as the machine in
-    each of them spins against the others': six workers ran one of these
-    files 7× slower with it than on one thread each."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):

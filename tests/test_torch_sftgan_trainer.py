@@ -62,7 +62,7 @@ from esrganplus_tpu_torch.train import SFTGANTrainConfig, SFTGANTrainer
 from esrganplus_tpu_torch.train.rng import sample_seed
 from esrganplus_tpu_torch.train.sftgan_model import masked_cross_entropy
 from esrganplus_tpu_torch.train.sr_model import tree_leaves
-from test_torch_sft import one_torch_thread  # noqa: F401 (autouse)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NET = dict(nb=2, nf=16, cond_nf=8)
 LR = 1e-4

@@ -31,6 +31,7 @@ from esrganplus_tpu_torch.convert import from_jax_params, trainer_state_from_jax
 from esrganplus_tpu_torch.models import RRDBNetConfig as PCfg
 from esrganplus_tpu_torch.train import SRTrainConfig, SRTrainer, make_optimizer, multistep_lr
 from esrganplus_tpu_torch.train.sr_model import tree_leaves, tree_map
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NET = dict(nf=16, nb=2, gc=8, upscale=4)
 LR = 1e-3
@@ -66,7 +67,8 @@ def test_optimizer_alone_matches_optax():
         g = init()
         ju, jstate = jtx.update(jax.tree.map(jnp.asarray, g), jstate, jp)
         jp = optax.apply_updates(jp, jax.tree.map(lambda u: -jsched(step) * u, ju))
-        pu, pstate = ptx.update(tree_map(torch.from_numpy, g), pstate, pp)
+        pstate["count"] += 1
+        pu = ptx.moments(tree_map(torch.from_numpy, g), pstate, pp, *ptx.bias(pstate["count"]))
         tree_map(lambda p, u: p.add_(u, alpha=-psched(step)), pp, pu)
         np.testing.assert_allclose(psched(step), float(jsched(step)), rtol=1e-6)
     for a, b in zip(tree_leaves(pp), jax.tree.leaves(jp)):
