@@ -264,6 +264,44 @@ final result line:
                host-fed (the recipe's 8-worker loader through DeviceFeeder),
                on one batch already on the card, and resident
                (train-sftgan-steady);
+16. dist-kernels — Philox's batch offset: with b0 = 8 at batch 8 the
+               normals (philox_normal_cuda), rdb_ct's fused training forward
+               and rdb_ct_bwd's replayed factor and dx equal rows 8–15 of the
+               batch-16 launch bit for bit (bf16, 32²); b0 = 0 unchanged;
+     dist-nccl-1 — ``cli.train --dist-coordinator localhost:PORT
+               --dist-num-processes 1 --dist-process-id 0`` (a world-size-1
+               NCCL group) on the PSNR recipe's shape (batch 16, HR 128,
+               bf16, 4096 resident crops, ``steps_per_dispatch`` 8) for 16
+               steps: logged losses and ``latest_G.pth`` bit-equal to the
+               same run without ``--dist-*``, the kernels' counts of its one
+               capture and validation; then the step captured under the group
+               records its two collectives (the gradients', the logs'; NCCL
+               makes an in-place SUM over one rank no node of the graph),
+               host and device ms a step in bursts of 8 beside the same step
+               captured without a group; then one captured resident step of
+               ``srragan`` (bf16, D 128, seeded VGG19) and of SFT-GAN (fp32,
+               seg store) under the group, with their batch norms', RaGAN's,
+               masked CE's and logs' collectives captured, bit-equal to the
+               same step without a group;
+     dist-gloo-2 — two processes (``chip_smoke.py --gloo-worker``) share the
+               card in a gloo group, eager host-fed fp32 steps at a global
+               batch of 16: ``sr`` at full width and ``srragan`` (D 128,
+               seeded VGG19); both ranks' logs and states bit-equal, every
+               kernel of the step launched on each, the terms within 1e-5 of
+               the one-process step on the global batch and every state
+               leaf held to it by ``esrganplus_tpu_torch/parallel/held.py``
+               (Adam's first step allowed for, a random D's own rounding
+               noise — under a 1e-7 perturbation and across cuDNN's and
+               PyTorch's own convolutions — up to a cap, the rounding-level
+               biases left out and printed); ms a step and the all-reduces'
+               share of it
+               (profiler);
+     tools   — back_projection and reverse_filter (20 iterations, a 128² LR
+               and 512² SR pair) on the card within 1e-5 of the CPU, timed;
+               net_interp → transfer_params --sft → auto_test on seeded
+               SRResNet / SFT_Net checkpoints (the blend and the seeded keys
+               exact, cli.test's images written, a missing checkpoint
+               skipped);
      with ``--profile`` also a ``torch.profiler`` trace of three steady steps
      of each trainer, the PSNR one in both noise modes, and SFT-GAN's as
      shipped (sftgan-profile; device time by kernel family, the stage
@@ -4686,6 +4724,532 @@ def train_sftgan_path(failures, workdir, per_step):
     return runs["host"], pre_ms, (trainer, batch)
 
 
+# ---------------------------------------------------------------------------
+# data parallelism (parallel/mesh.py) and the offline tools
+# ---------------------------------------------------------------------------
+
+DIST_DISPATCH = 8  # train_sr.json's steps_per_dispatch in dist-nccl-1
+B0 = 8  # the batch offset of dist-kernels: rank 1 of two at a global batch of 16
+DIST_TOL = 1e-5  # dist-gloo-2: of max|leaf|, and relative for the logged terms
+DIST_MOMENT_TOL = 1e-4  # relative L2 of a moment leaf (a batch sum in another order)
+GLOO_STEPS = 3  # timed steps a rank in dist-gloo-2 (after the compared one)
+BP_SIZES = (128, 512)  # tools: the LR and SR sides of the back-projection pair
+BP_ITERS = 20
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def check_dist_kernels(failures):
+    """Phase dist-kernels: with the batch offset b0 = B0 at batch B0, the
+    Philox normals (philox_normal_cuda), the fused rdb_ct training forward's
+    output and saved buffers, and rdb_ct_bwd's replayed noise factor and data
+    gradient equal rows B0..2·B0-1 of the batch-2·B0 launch bit for bit (bf16,
+    the training shape's 32×32); b0 = 0 draws what the call without it draws;
+    the half batch's weight gradients against their twin at the bf16 bar."""
+    import torch
+
+    from esrganplus_tpu_torch.kernels import rdb_ct as K
+    from esrganplus_tpu_torch.kernels.philox import (key_words, noise_factor_cuda,
+                                                     philox_normal_cuda)
+
+    _, H, W = TRAIN_SHAPE
+    B = 2 * B0
+    site = key_words(NOISE_SEED, "cuda")
+    whole = philox_normal_cuda(site, (B, H, W, NF))
+    half = philox_normal_cuda(site, (B0, H, W, NF), b0=B0)
+    zero = philox_normal_cuda(site, (B0, H, W, NF), b0=0)
+    fac = noise_factor_cuda(site, NOISE_SIGMA, (B0, H, W, NF), "cuda", b0=B0)
+    fac_whole = noise_factor_cuda(site, NOISE_SIGMA, (B, H, W, NF), "cuda")
+    gen = torch.Generator().manual_seed(17)
+    wr = K.prepare_rdb_ct_weights(_rdb_params(gen), torch.bfloat16)
+    act = lambda: torch.randn((B, H, W, NF), generator=gen).to("cuda", torch.bfloat16)
+    x, g = act(), act()
+    kw = dict(seed=site, sigma=NOISE_SIGMA, save=True)
+    full = K._rdb_ct_cuda(x, wr, **kw)
+    part = K._rdb_ct_cuda(x[B0:].contiguous(), wr, b0=B0, **kw)
+    bwd = K.rdb_ct_bwd(x[B0:].contiguous(), wr, part[1], part[2], g[B0:].contiguous(),
+                       seed=site, b0=B0, sigma=NOISE_SIGMA)
+    bwd_full = K.rdb_ct_bwd(x, wr, full[1], full[2], g, seed=site, sigma=NOISE_SIGMA)
+    torch.cuda.synchronize()
+    twin = K.rdb_ct_bwd_plain(x[B0:], wr, part[1], part[2], g[B0:], seed=site, b0=B0,
+                              sigma=NOISE_SIGMA)
+    worst, _, finite = worst_err({k: v for k, v in bwd.items() if k != "dx"},
+                                 {k: v for k, v in twin.items() if k != "dx"})
+    row = {"phase": "dist-kernels", "b0": B0, "batch": B0, "of_batch": B, "lr": [H, W],
+           "philox_rows_bit_equal": torch.equal(half, whole[B0:]),
+           "philox_b0_zero_unchanged": torch.equal(zero, whole[:B0]),
+           "factor_rows_bit_equal": torch.equal(fac, fac_whole[B0:]),
+           "rdb_ct_rows_bit_equal": all(torch.equal(a, b[B0:]) for a, b in zip(part, full)),
+           "rdb_ct_bwd_dx_rows_bit_equal": torch.equal(bwd["dx"], bwd_full["dx"][B0:]),
+           "rdb_ct_bwd_weights_rel_err_vs_twin": worst, "tol": BWD_TOL["bfloat16"]}
+    row["ok"] = bool(row["philox_rows_bit_equal"] and row["philox_b0_zero_unchanged"]
+                     and row["factor_rows_bit_equal"] and row["rdb_ct_rows_bit_equal"]
+                     and row["rdb_ct_bwd_dx_rows_bit_equal"] and finite
+                     and worst <= BWD_TOL["bfloat16"])
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"dist-kernels: {row}")
+
+
+def _nccl_nodes(counter) -> dict:
+    """The kernel families of a captured graph that NCCL launched."""
+    return {f: n for f, n in counter.items() if "nccl" in f.lower() or "onerank" in f.lower()}
+
+
+def _first_graph(trainer):
+    """The trainer's one captured resident step's graph."""
+    return next(iter(trainer._resident._graphs.values()))[0]
+
+
+def _dist_gan_steps(workdir, dirs, store):
+    """One captured resident step of ``srragan`` (train_ESRGANplus.json's
+    shape: bf16, D 128, seeded VGG19, batch 16 of 128² crops) and of SFT-GAN
+    (train_sftgan.json's: fp32, batch 16 of 96² crops over a seg store),
+    each from its seeded state without a group and under a world-size-1 NCCL
+    group → {model: {"plain" | "nccl": (state on the host, logs, collectives
+    captured, graph kernel families)}}."""
+    import torch
+
+    from esrganplus_tpu_torch.data import create_dataset
+    from esrganplus_tpu_torch.data.resident import ResidentSegStore
+    from esrganplus_tpu_torch.models import SFTNetConfig
+    from esrganplus_tpu_torch.parallel import mesh
+    from esrganplus_tpu_torch.train import SFTGANTrainConfig, SFTGANTrainer
+    from esrganplus_tpu_torch.utils.trace import graph_kernels
+
+    ost = _ost_tree(workdir)
+    ds = create_dataset({"name": "OST", "mode": "LRHRseg_bg", "phase": "train", "scale": 4,
+                         "dataroot_HR": ost["train"], "dataroot_HR_bg": ost["bg"],
+                         "HR_size": SFT_HR_SIZE, "use_flip": True, "use_rot": False})
+    seg_store = ResidentSegStore(ds, "cuda", n_crops=256, seed=0, use_rot=False)
+    cases = (("srragan", _gan_trainer, store, TRAIN_SHAPE[0]),
+             ("sftgan", lambda: SFTGANTrainer(SFTNetConfig(), SFTGANTrainConfig(),
+                                              device="cuda"), seg_store, SFT_BATCH))
+    out = {}
+    for model, make, st, batch in cases:
+        out[model] = {}
+        for name in ("plain", "nccl"):
+            if name == "nccl":
+                mesh.init_process_group(f"localhost:{_free_port()}", 1, 0, "cuda")
+            try:
+                t = make()
+                state = mesh.replicate_tree(t.init_state(0))
+                before = mesh.captured
+                state, logs = t.train_step_resident(state, st, 1, batch)
+                torch.cuda.synchronize()
+                out[model][name] = (_tensors(state), {k: float(v) for k, v in logs.items()},
+                                    mesh.captured - before, graph_kernels(_first_graph(t)))
+                del t, state
+            finally:
+                mesh.destroy_process_group()
+            torch.cuda.empty_cache()
+    del seg_store
+    return out
+
+
+def dist_nccl_1(failures, workdir):
+    """Phase dist-nccl-1: ``cli.train`` with ``--dist-*`` as a world-size-1
+    NCCL group on ``train_sr.json``'s shape at full width (nb 23, nf 64, gc 32,
+    batch 16, HR 128, bf16, input noise, 4096 resident crops,
+    ``steps_per_dispatch`` 8) for 16 steps: its logged losses and
+    ``latest_G.pth`` bit-equal to the same run without ``--dist-*``. Then the
+    resident step captured under the group: the collectives recorded in the
+    capture (``mesh.captured``), its graph's nodes beyond the same step
+    captured without a group, NCCL's kernels among them (none at world size
+    1: NCCL makes an in-place SUM over one rank no operation), and host /
+    device ms a step in bursts of 8 beside the capture without a group
+    (train-burst's ``graph_k8``). Then one captured resident step of
+    ``srragan`` and of SFT-GAN under the group, bit-equal to the same step
+    without one (:func:`_dist_gan_steps`), with its collectives captured."""
+    import torch
+
+    from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig
+    from esrganplus_tpu_torch.parallel import mesh
+    from esrganplus_tpu_torch.train import SRTrainConfig, SRTrainer
+    from esrganplus_tpu_torch.utils.trace import graph_kernels
+
+    B, H, _ = TRAIN_SHAPE
+    dirs = _smoke_dataset(workdir)
+    from esrganplus_tpu_torch.kernels import philox as X
+
+    runs = {}
+    for name, argv in (("dist_plain", ()),
+                       ("dist_nccl", ("--dist-coordinator", f"localhost:{_free_port()}",
+                                      "--dist-num-processes", "1", "--dist-process-id", "0"))):
+        opt = _smoke_options(workdir, dirs, name, "sr", {"lr_G": 2e-4, "pixel_weight": 1.0})
+        opt["datasets"]["train"].update(resident_crops=RESIDENT_CROPS, resident_refresh=1000,
+                                        cache_images=True)
+        opt["train"].update(steps_per_dispatch=DIST_DISPATCH, val_freq=TRAIN_STEPS,
+                            save_checkpoint_freq=TRAIN_STEPS)
+        opt["logger"]["print_freq"] = DIST_DISPATCH
+        _zero_counts()
+        seconds, exp = _run_train_cli(workdir, opt, argv)
+        launches = {fn.__name__: fn.launches for fn in _twelve()}
+        philox = {"philox_bits_cuda": X.philox_bits_cuda.launches,
+                  "philox_normal_cuda": X.philox_normal_cuda.launches}
+        losses, text = _logged_losses(exp)
+        runs[name] = (seconds, losses, text,
+                      torch.load(os.path.join(exp, "models", "latest_G.pth")))
+    # the --dist run's launches (the last one counted): its one capture's
+    # warm-up and recording and the validation of step 16, as train-resident
+    calls = GRAPH_CALLS * (_captures(text) or 0)
+    expected = {**{k: per * (calls + VAL_IMAGES) for k, per in PER_IMAGE.items()},
+                **{k: per * calls for k, per in BWD_PER_STEP.items()}}
+    counts_ok = _captures(text) == 1 and all(launches[k] == n for k, n in expected.items()) \
+        and philox == {"philox_bits_cuda": calls, "philox_normal_cuda": 69 * calls}
+    (s0, l0, _, g0), (s1, l1, t1, g1) = runs["dist_plain"], runs["dist_nccl"]
+    weights_equal = g0.keys() == g1.keys() and all(torch.equal(g0[k], g1[k]) for k in g0)
+    row = {"phase": "dist-nccl-1", "batch": B, "hr": 4 * H, "dtype": "bfloat16",
+           "steps": TRAIN_STEPS, "steps_per_dispatch": DIST_DISPATCH,
+           "cli_seconds": {"plain": s0, "nccl": s1}, "l_pix": {"plain": l0, "nccl": l1},
+           "losses_bit_equal": bool(l0) and l0 == l1, "latest_G_bit_equal": weights_equal,
+           "group_logged": "process 0 of 1 (nccl)" in t1, "bursts": _bursts_logged(t1),
+           "cli_launches": {k: launches[k] for k in expected}, "cli_expected": expected,
+           "cli_philox_launches": philox, "counts_ok": counts_ok}
+
+    # the resident step captured under a world-size-1 NCCL group, and without
+    store = _resident_store(dirs, 4 * H)
+    make = lambda: SRTrainer(RRDBNetConfig(), SRTrainConfig(compute_dtype="bfloat16"),
+                             device="cuda")
+    graphs = {}
+    for name in ("nccl", "plain"):
+        if name == "nccl":
+            mesh.init_process_group(f"localhost:{_free_port()}", 1, 0, "cuda")
+        try:
+            t = make()
+            state = mesh.replicate_tree(t.init_state(0))  # the first collective: eager
+            before = mesh.captured
+            burst = lambda: t.train_step_resident(state, store, 1, B, n_steps=DIST_DISPATCH)
+            host, dev = _burst_times(burst, DIST_DISPATCH, BURST_STEPS // DIST_DISPATCH,
+                                     BURST_PROFILED)
+            graphs[name] = {"nodes": graph_kernels(_first_graph(t)),
+                            "host_ms_per_step": host, "device_ms_per_step": dev,
+                            "captures": t._resident.captures,
+                            "collectives_captured": mesh.captured - before}
+            del t, state, burst
+        finally:
+            mesh.destroy_process_group()
+        torch.cuda.empty_cache()
+    beyond = lambda a, b: {f: n - b.get(f, 0) for f, n in a.items() if n != b.get(f, 0)}
+    row.update(
+        collectives_captured=graphs["nccl"]["collectives_captured"],
+        nccl_graph_nodes=_nccl_nodes(graphs["nccl"]["nodes"]),
+        graph_nodes_beyond_plain=beyond(graphs["nccl"]["nodes"], graphs["plain"]["nodes"]),
+        graph_kernel_nodes={k: sum(g["nodes"].values()) for k, g in graphs.items()},
+        **{f"{k}_{f}": g[f] for k, g in graphs.items()
+           for f in ("host_ms_per_step", "device_ms_per_step", "captures")},
+        perf_md_graph_k8_host_ms=28.75)
+    row["nccl_host_overhead"] = (row["nccl_host_ms_per_step"]
+                                 / row["plain_host_ms_per_step"] - 1)
+    # sr's step captures two collectives: the gradients' and the logs'
+    sr_ok = bool(row["collectives_captured"] == 2 and row["nccl_captures"] == 1
+                 and graphs["plain"]["collectives_captured"] == 0)
+
+    gan = _dist_gan_steps(workdir, dirs, store)
+    del store
+    for model, r in gan.items():
+        (sp, lp, cp, kp), (sn, ln, cn, kn) = r["plain"], r["nccl"]
+        err = max(float((sn[k].double() - v.double()).abs().max()
+                        / max(float(v.double().abs().max()), 1e-30)) for k, v in sp.items())
+        row[model] = {"state_bit_equal": sp.keys() == sn.keys()
+                      and all(torch.equal(sp[k], sn[k]) for k in sp),
+                      "logs_bit_equal": lp == ln, "max_leaf_err_of_max": err,
+                      "collectives_captured": cn, "plain_collectives_captured": cp,
+                      "nccl_graph_nodes": _nccl_nodes(kn),
+                      "graph_nodes_beyond_plain": beyond(kn, kp)}
+    row["ok"] = bool(row["losses_bit_equal"] and weights_equal and row["group_logged"]
+                     and counts_ok and sr_ok
+                     and row["bursts"] == [DIST_DISPATCH] * (TRAIN_STEPS // DIST_DISPATCH)
+                     and all(row[m]["state_bit_equal"] and row[m]["logs_bit_equal"]
+                             and row[m]["collectives_captured"] > 2
+                             and row[m]["plain_collectives_captured"] == 0 for m in gan))
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"dist-nccl-1: {row}")
+
+
+def _gloo_case(model):
+    """(trainer, the global batch on the card) of a dist-gloo-2 case: fp32,
+    the global batch of TRAIN_SHAPE[0] from a seed; ``sr`` the flagship
+    PSNR net with input noise, ``srragan`` it against discriminator_vgg_128
+    and a seeded VGG19."""
+    import torch
+
+    from esrganplus_tpu_torch.models.discriminator import DiscriminatorVGGConfig
+    from esrganplus_tpu_torch.models.rrdb import RRDBNetConfig
+    from esrganplus_tpu_torch.train import GANTrainConfig, GANTrainer, SRTrainConfig, SRTrainer
+
+    B, H, W = TRAIN_SHAPE
+    if model == "sr":
+        t = SRTrainer(RRDBNetConfig(), SRTrainConfig(), device="cuda")
+    else:
+        t = GANTrainer(RRDBNetConfig(), DiscriminatorVGGConfig(input_size=4 * H),
+                       GANTrainConfig(), device="cuda")
+    gen = torch.Generator().manual_seed(23)
+    batch = (torch.rand((B, H, W, 3), generator=gen).cuda(),
+             torch.rand((B, 4 * H, 4 * W, 3), generator=gen).cuda())
+    return t, batch
+
+
+def _tensors(state) -> dict:
+    """A state's tensor leaves by path, copied to the host."""
+    import torch
+
+    return {n: v.detach().cpu().clone() for n, v in _leaves(state) if torch.is_tensor(v)}
+
+
+def gloo_worker(rank, port, out):
+    """One rank of dist-gloo-2 (``chip_smoke.py --gloo-worker RANK PORT OUT``):
+    joins a two-process gloo group on the one card; for each case one step on
+    its rows of the global batch (logs and the state after it kept), then
+    GLOO_STEPS timed steps, the last traced for the all-reduces' share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, HERE)
+    from esrganplus_tpu_torch.parallel import mesh
+
+    mesh.init_process_group(f"localhost:{port}", 2, int(rank), "cuda", backend="gloo")
+    res = {}
+    try:
+        for model in ("sr", "srragan"):
+            t, batch = _gloo_case(model)
+            state = mesh.replicate_tree(t.init_state(0))
+            local = tuple(mesh.local_rows(b).contiguous() for b in batch)
+            _zero_counts()
+            state, logs = t.train_step(state, local, 1)
+            torch.cuda.synchronize()
+            res[model] = {"logs": {k: float(v) for k, v in logs.items()},
+                          "launches": _counted(),
+                          "state": _tensors(state)}
+            step = lambda: t.train_step(state, local, 1)
+            ms, _ = _host_ms(step, iters=GLOO_STEPS, warmup=0)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            # gloo's collectives run on its own thread: each "gloo:all_reduce"
+            # record spans one, the copies through the host included
+            reduce_us = sum(e.cpu_time_total for e in prof.key_averages()
+                            if e.key.startswith("gloo:"))
+            res[model].update(ms_per_step=ms, allreduce_ms=reduce_us / 1e3,
+                              profiled_host_ms=wall * 1e3)
+            del t, state, local, batch
+            torch.cuda.empty_cache()
+        torch.save(res, out)
+    finally:
+        mesh.destroy_process_group()
+
+
+def dist_gloo_2(failures, workdir):
+    """Phase dist-gloo-2: two processes share the card in a gloo group
+    (``gloo_worker``), eager host-fed fp32 steps at a global batch of 16
+    (8 a rank): ``sr`` at full width (input noise) and ``srragan`` (D 128,
+    seeded VGG19). After one step, both ranks' logs equal, each term within
+    DIST_TOL of the one-process step's on the global batch, and every state
+    leaf held to it by ``esrganplus_tpu_torch/parallel/held.py`` (tol
+    DIST_TOL, floor DIST_MOMENT_TOL; the leaves it leaves out printed with
+    the reason); ms a step and the all-reduces' share of the traced step's
+    host time (profiler) beside the one-process step's. A leaf's noise is
+    the larger of two motions of the one-process step: under a 1e-7
+    relative perturbation of its batch, and with PyTorch's own fp32
+    convolutions in place of cuDNN's (whose algorithm changes with the
+    batch: the random D's last stage moves its gradients by up to 0.75 %,
+    relative L2, between them, while a 1e-7 perturbation moves them 5e-6)."""
+    import torch
+
+    from esrganplus_tpu_torch.parallel import held
+
+    port = _free_port()
+    outs = [os.path.join(workdir, f"gloo{r}.pt") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                               "--gloo-worker", str(r), str(port), outs[r]],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    if any(p.returncode for p in procs):
+        row = {"phase": "dist-gloo-2", "ok": False, "returncodes": [p.returncode for p in procs],
+               "tail": [t[-1500:] for t in texts]}
+        emit(row)
+        failures.append(f"dist-gloo-2: {row}")
+        return
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    for model in ("sr", "srragan"):
+        t, batch = _gloo_case(model)
+        gen = torch.Generator().manual_seed(5)
+        moved = tuple((b * (1 + 1e-7 * torch.randn(b.shape, generator=gen).to(b.device)))
+                      for b in batch)
+        host = lambda st: {n: v.numpy() for n, v in _tensors(st).items()}
+        pert = host(t.train_step(t.init_state(0), moved, 1)[0])
+        torch.backends.cudnn.enabled = False  # PyTorch's own convolutions
+        try:
+            native = host(t.train_step(t.init_state(0), batch, 1)[0])
+        finally:
+            torch.backends.cudnn.enabled = True
+        state = t.init_state(0)
+        state, logs = t.train_step(state, batch, 1)
+        want = host(state)
+        sources = {"perturbed": held.noise_of(pert, want),
+                   "native_convs": held.noise_of(native, want)}
+        noise = {n: max(v[n] for v in sources.values()) for n in want}
+        ref_logs = {k: float(v) for k, v in logs.items()}
+        one_ms, _ = _host_ms(lambda: t.train_step(state, batch, 1), iters=GLOO_STEPS)
+        lr = t.lr_schedule(1)
+        r0, r1 = ranks[0][model], ranks[1][model]
+        ranks_equal = r0["logs"] == r1["logs"] and all(
+            torch.equal(r0["state"][n], r1["state"][n]) for n in r0["state"])
+        term_err = {k: abs(r0["logs"][k] - v) / max(abs(v), 1.0 if k.startswith("D_") else 1e-12)
+                    for k, v in ref_logs.items()}
+        got = {n: v.numpy() for n, v in r0["state"].items()}
+        res = held.held_state(got, want, DIST_TOL, lr, lambda: noise, DIST_MOMENT_TOL)
+        kept = [n for n in want if n not in res["left_out"]]
+        leaf_err = max((float(np.abs(got[n].astype(np.float64) - want[n]).max()
+                              / max(float(np.abs(want[n]).max(initial=0.0)), 1e-30)), n)
+                       for n in kept)
+        barred = res["barred"] or kept
+        # every kernel of the step ran on each rank: G's eight (and the
+        # input noise's Philox draws), D's and VGG19's four stage wrappers
+        need = [fn.__name__ for fn in _twelve()
+                if model == "srragan" or not fn.__name__.startswith("conv_s")]
+        need.append("philox_normal_cuda")
+        launched = {r: {k: ranks[r][model]["launches"][k] for k in need} for r in range(2)}
+        row = {"phase": "dist-gloo-2", "model": model, "dtype": "float32",
+               "launches": launched,
+               "global_batch": TRAIN_SHAPE[0], "per_rank": TRAIN_SHAPE[0] // 2,
+               "ranks_bit_equal": ranks_equal, "term_rel_err": term_err,
+               "max_leaf_err_of_max": leaf_err[0], "max_leaf_err_leaf": leaf_err[1],
+               "max_leaf_err_held_by_rule": res["held_by"].get(leaf_err[1]),
+               "leaves_past_bar": res["bad"],
+               "barred_leaves": len(res["barred"]), "worst_barred_of_bar": res["worst"],
+               "noise_cap": held.NOISE_CAP, "left_out": res["left_out"],
+               "barred_max_noise_by_source": {k: max(v[n] for n in barred)
+                                              for k, v in sources.items()},
+               "barred_max_rel_l2_to_native_convs": max(
+                   held.rel_l2(got[n], native[n]) for n in barred),
+               "ms_per_step": {r: ranks[r][model]["ms_per_step"] for r in range(2)},
+               "one_process_ms_per_step": one_ms,
+               "allreduce_ms": {r: ranks[r][model]["allreduce_ms"] for r in range(2)},
+               "allreduce_share": {r: ranks[r][model]["allreduce_ms"]
+                                   / ranks[r][model]["profiled_host_ms"] for r in range(2)},
+               "profiled_host_ms": {r: ranks[r][model]["profiled_host_ms"] for r in range(2)}}
+        row["ok"] = bool(ranks_equal and max(term_err.values()) <= DIST_TOL and not res["bad"]
+                         and set(r0["logs"]) == set(ref_logs)
+                         and all(n > 0 for c in launched.values() for n in c.values()))
+        emit(row)
+        if not row["ok"]:
+            failures.append(f"dist-gloo-2 {model}: {row}")
+        del t, state, batch
+        torch.cuda.empty_cache()
+
+
+def tools_path(failures, workdir):
+    """Phase tools: ``back_projection`` and ``reverse_filter`` on a seeded
+    BP_SIZES[0]² LR / BP_SIZES[1]² SR pair on the card against the CPU
+    (within 1e-5), with their times; then a round trip on seeded checkpoints:
+    ``cli.net_interp`` blends two SRResNet checkpoints, ``cli.transfer_params
+    --sft`` seeds a shipped-width SFT_Net template from the blend (every
+    mapped key equal to the blend's), and ``cli.auto_test`` sweeps
+    ``cli.test`` on the card over the blend and a missing iteration."""
+    import contextlib
+    import io
+
+    import torch
+
+    from esrganplus_tpu_torch.cli import auto_test, net_interp, transfer_params
+    from esrganplus_tpu_torch.convert import generator_to_state_dict, load_state_dict
+    from esrganplus_tpu_torch.models import SRResNetConfig, generator_init
+    from esrganplus_tpu_torch.models.sft import SFTNetConfig
+    from esrganplus_tpu_torch.ops.back_projection import back_projection, reverse_filter
+    from esrganplus_tpu_torch.ops.image_io import save_img
+    from esrganplus_tpu_torch.ops.resize import imresize_np
+
+    rng = np.random.RandomState(31)
+    lr_side, sr_side = BP_SIZES
+    hr = _smooth_image(rng, sr_side, sr_side).astype(np.float32) / 255.0
+    lr = imresize_np(hr, lr_side / sr_side)
+    sr = np.clip(hr + rng.randn(*hr.shape).astype(np.float32) * 0.03, 0, 1)
+    row = {"phase": "tools", "lr": lr_side, "sr": sr_side, "iters": BP_ITERS, "tol": 1e-5}
+    ok = True
+    for fn in (back_projection, reverse_filter):
+        scale = sr_side // lr_side
+        got = fn(sr, lr, scale, BP_ITERS, device="cuda")
+        torch.cuda.synchronize()
+        want = fn(sr, lr, scale, BP_ITERS, device="cpu")
+        err = float((got.cpu() - want).abs().max())
+        row[fn.__name__] = {"max_abs_err_vs_cpu": err,
+                            "ms": time_ms(lambda: fn(sr, lr, scale, BP_ITERS, device="cuda"),
+                                          iters=3, warmup=1),
+                            "cpu_ms": time_ms(lambda: fn(sr, lr, scale, BP_ITERS, device="cpu"),
+                                              iters=1, warmup=0)}
+        ok = ok and err <= 1e-5 and bool(torch.isfinite(got).all())
+
+    cfg = SRResNetConfig()
+    paths = {}
+    for name, seed in (("psnr", 1), ("gan", 2)):
+        paths[name] = os.path.join(workdir, f"{name}.pth")
+        torch.save(generator_to_state_dict(generator_init(seed, cfg), cfg), paths[name])
+    models = os.path.join(workdir, "experiments", "interp", "models")
+    os.makedirs(models)
+    blend = os.path.join(models, "8_G.pth")
+    template = os.path.join(workdir, "sft_template.pth")
+    sft_cfg = SFTNetConfig()
+    torch.save(generator_to_state_dict(generator_init(3, sft_cfg), sft_cfg), template)
+    seeded = os.path.join(workdir, "sft_seeded.pth")
+    dirs = _smoke_dataset(os.path.join(workdir, "data"))
+    opt = {"name": "base", "model": "sr", "scale": 4,
+           "datasets": {"test_1": {"name": "smoke_val", "mode": "LRHR",
+                                   "dataroot_HR": dirs["valHR"], "dataroot_LR": dirs["valLR"]}},
+           "path": {"root": workdir},
+           "network_G": {"which_model_G": "sr_resnet", "norm_type": None, "mode": "CNA",
+                         "nf": cfg.nf, "nb": cfg.nb, "in_nc": 3, "out_nc": 3}}
+    with open(os.path.join(workdir, "test.json"), "w") as f:
+        json.dump(opt, f)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        net_interp.main(["0.3", paths["psnr"], paths["gan"], blend])
+        transfer_params.main([blend, template, seeded, "--sft"])
+        auto_test.main(["-opt", os.path.join(workdir, "test.json"), "--models-root",
+                        os.path.join(workdir, "experiments"), "--names", "interp",
+                        "--iters", "8", "16", "--device", "cuda"])
+    a, b = load_state_dict(paths["psnr"]), load_state_dict(paths["gan"])
+    mixed = load_state_dict(blend)
+    blend_ok = mixed.keys() == a.keys() and all(
+        torch.equal(mixed[k], torch.from_numpy(0.7 * a[k].numpy() + 0.3 * b[k].numpy()))
+        for k in a)
+    sft = load_state_dict(seeded)
+    mapped = {d + s: k + s for d, k in transfer_params.srgan_to_sft_map().items()
+              for s in (".weight", ".bias")}
+    moved = [d for d, k in mapped.items() if d in sft and k in mixed
+             and sft[d].shape == mixed[k].shape]
+    transfer_ok = bool(moved) and all(torch.equal(sft[d], mixed[mapped[d]]) for d in moved)
+    results = os.path.join(workdir, "results", "interp_8", "smoke_val")
+    pngs = sorted(f for f in os.listdir(results) if f.endswith(".png")) \
+        if os.path.isdir(results) else []
+    printed = out.getvalue()
+    row.update(blend_exact=blend_ok, sft_keys_seeded=len(moved), transfer_exact=transfer_ok,
+               auto_test_images=len(pngs),
+               auto_test_skipped_missing="skip interp@16" in printed)
+    row["ok"] = bool(ok and blend_ok and transfer_ok and len(pngs) == VAL_IMAGES
+                     and row["auto_test_skipped_missing"])
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"tools: {row}")
+
+
 def main() -> int:
     import torch
 
@@ -4756,6 +5320,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
         sft_launches, sft_step_ms, (sft_trainer, sft_batch) = train_sftgan_path(
             failures, tmp, sft_per_step)
+    check_dist_kernels(failures)
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        dist_nccl_1(failures, tmp)
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        dist_gloo_2(failures, tmp)
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        tools_path(failures, tmp)
     if "--profile" in sys.argv[1:]:
         train_profile(step_ms)
         train_profile(fused_step_ms, _fused_trainer, "train-fused-profile")
@@ -4894,4 +5465,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gloo-worker"]:
+        gloo_worker(*sys.argv[2:5])
+        sys.exit(0)
     sys.exit(main())

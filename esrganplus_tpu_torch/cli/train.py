@@ -2,6 +2,7 @@
 
     python -m esrganplus_tpu_torch.cli.train -opt path/to/options.json [--device cuda|cpu]
         [--profile DIR [--profile-steps N]]
+        [--dist-coordinator HOST:PORT --dist-num-processes N --dist-process-id I]
 
 Counterpart of ``esrganplus_tpu/cli/train.py`` for PSNR pretraining
 (``model: "sr"``) and GAN fine-tuning (``model: "srgan" | "srragan"``) of
@@ -31,8 +32,19 @@ synchronisation between them, and K = 1 is one replay a step), on the CPU
 K eager calls. A step that cannot be captured raises. ``--profile DIR``
 traces ``--profile-steps`` steps
 from the 10th after the start with ``torch.profiler`` into DIR
-(``cli/profile_summary.py`` reads it). Multi-process launch is not ported
-yet and exits saying so.
+(``cli/profile_summary.py`` reads it).
+
+Data parallelism: run N processes with the same ``-opt`` and
+``--dist-coordinator HOST:PORT --dist-num-processes N --dist-process-id
+I`` (I = 0 .. N-1; rank 0 listens at HOST:PORT). Each process trains on
+``cuda:{I % device_count}`` under NCCL (``--device cpu``: gloo), its rows of
+every global batch (``parallel/mesh.py``). In host-fed mode ``batch_size``
+is PER PROCESS (the loader interleaves the processes over one seeded batch
+stream, so a step consumes N × batch_size samples); in resident mode it is
+GLOBAL (every rank draws the whole batch and keeps its rows). Process 0
+owns the experiment directory, validation and checkpoints; the others log
+to ``train_rank{I}`` and not to the screen. Every rank starts from rank 0's
+state (one broadcast), and a resume loads the same file on every rank.
 """
 
 from __future__ import annotations
@@ -88,14 +100,15 @@ def main(argv=None):
                          "loop into DIR (cli.profile_summary reads it)")
     ap.add_argument("--profile-steps", type=int, default=20,
                     help="how many steps to trace (after 10 warm-up steps)")
+    # multi-process data parallelism: one process per card (module docstring)
     ap.add_argument("--dist-coordinator", default=None, metavar="HOST:PORT",
-                    help="multi-process launch (not yet ported)")
+                    help="rank 0's address for torch.distributed (multi-process)")
     ap.add_argument("--dist-num-processes", type=int, default=None)
     ap.add_argument("--dist-process-id", type=int, default=None)
     args = ap.parse_args(argv)
-    if args.dist_coordinator is not None or args.dist_num_processes is not None \
-            or args.dist_process_id is not None:
-        ap.error("--dist-*: multi-process training is not yet ported to the PyTorch package")
+    dist_args = (args.dist_coordinator, args.dist_num_processes, args.dist_process_id)
+    if any(a is not None for a in dist_args) and any(a is None for a in dist_args):
+        ap.error("--dist-coordinator, --dist-num-processes and --dist-process-id go together")
 
     import torch
 
@@ -104,6 +117,7 @@ def main(argv=None):
     from esrganplus_tpu_torch.models.sft import SFTNetConfig
     from esrganplus_tpu_torch.ops.image_io import save_img, tensor2img
     from esrganplus_tpu_torch.ops.metrics import calculate_psnr
+    from esrganplus_tpu_torch.parallel import mesh
     from esrganplus_tpu_torch.options.options import (build_net_d_config, build_net_g_config,
                                                       build_train_config, check_resume,
                                                       dict2str, parse)
@@ -112,6 +126,9 @@ def main(argv=None):
     from esrganplus_tpu_torch.utils import mkdir_and_rename, set_random_seed, setup_logger
 
     device = resolve_device(args.device)
+    if args.dist_coordinator is not None:
+        device = mesh.init_process_group(args.dist_coordinator, args.dist_num_processes,
+                                         args.dist_process_id, device)
     opt = parse(args.opt, is_train=True)
     model_kind = opt["model"]
     net_g = build_net_g_config(opt)        # raise for what is not ported
@@ -135,18 +152,23 @@ def main(argv=None):
             val_opt_ds = ds_opt
     assert train_opt_ds is not None, "no train dataset in options"
 
+    # process 0 owns the experiment dir, validation output and checkpoints;
+    # the others train the same steps and log to rank-tagged files
+    is_lead = mesh.rank() == 0
     resume_path = opt["path"].get("resume_state")
     if resume_path:
         check_resume(opt)
-    else:
+    elif is_lead:
         mkdir_and_rename(opt["path"]["experiments_root"])
+    mesh.barrier()  # the others must not race the lead's archival rename
     for key in ("models", "training_state", "val_images", "log"):
         os.makedirs(opt["path"][key], exist_ok=True)
 
-    logger = setup_logger("base", opt["path"]["log"], "train", screen=True)
+    log_tag = "train" if is_lead else f"train_rank{mesh.rank()}"
+    logger = setup_logger("base", opt["path"]["log"], log_tag, screen=is_lead)
     logger.info(dict2str(opt))
     tb = _get_tb_writer(os.path.join(opt["path"]["log"], "tb")) \
-        if (opt.get("use_tb_logger") and "debug" not in opt["name"]) else None
+        if (is_lead and opt.get("use_tb_logger") and "debug" not in opt["name"]) else None
 
     seed = opt["train"].get("manual_seed") or 0
     set_random_seed(seed)
@@ -163,6 +185,12 @@ def main(argv=None):
 
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     logger.info(f"device: {device} ({name})")
+    if mesh.is_initialized():
+        resident = bool(train_opt_ds.get("resident_crops"))
+        if resident:
+            mesh.local_batch_size(batch_size)  # a global batch must split evenly
+        logger.info(f"process {mesh.rank()} of {mesh.world_size()} ({mesh.backend()}); batch "
+                    f"{batch_size} {'global' if resident else 'per process'}")
     if model_kind == "sr":
         trainer = SRTrainer(net_g, train_cfg, device=device)
     elif model_kind == "sftgan":
@@ -212,6 +240,10 @@ def main(argv=None):
         state = load_state_auto(resume_path, state, net_g)
         start_step = int(state["step"])
         logger.info(f"resumed from {resume_path} at step {start_step}")
+    # every rank starts from rank 0's values (each built them from the seed)
+    mesh.replicate_tree(state)
+    if getattr(trainer, "f_params", None) is not None:
+        mesh.replicate_tree(trainer.f_params)
 
     # ---- loop ----
     print_freq = opt["logger"].get("print_freq", 100)
@@ -316,7 +348,7 @@ def main(argv=None):
                 for k, v in logs_h.items():
                     tb.add_scalar(k, v, step + 1)
 
-        if val_ds is not None and (step + 1) % val_freq == 0:
+        if val_ds is not None and (step + 1) % val_freq == 0 and is_lead:
             psnrs = []
             scale = net_g.upscale
             samples = [val_ds[i] for i in range(len(val_ds))]
@@ -350,8 +382,10 @@ def main(argv=None):
             logger.info(f"# Validation # PSNR: {mean_psnr:.4e}")
             if tb:
                 tb.add_scalar("val_psnr", mean_psnr, step + 1)
+        if val_ds is not None and (step + 1) % val_freq == 0:
+            mesh.barrier()
 
-        if (step + 1) % save_freq == 0:
+        if (step + 1) % save_freq == 0 and is_lead:
             logger.info("Saving models and training states.")
             tag = step + 1
             # async: snapshot on the device now, fetch+write in the background
@@ -360,6 +394,8 @@ def main(argv=None):
                 state,
                 export_fn=lambda snap, tag=tag: _export_networks(
                     opt["path"]["models"], tag, model_kind, snap, net_g, net_d, trainer))
+        if (step + 1) % save_freq == 0:
+            mesh.barrier()
         step += 1
 
     log_bursts()
@@ -369,13 +405,17 @@ def main(argv=None):
     if prof is not None:
         # the window reached past niter: close it so the trace is written
         stop_profile(" (the run ended inside the profile window)")
-    ckpt.wait()  # flush any in-flight periodic save before the final one
-    logger.info("Saving the final model.")
-    _export_networks(opt["path"]["models"], "latest", model_kind, state, net_g, net_d, trainer)
+    if is_lead:
+        ckpt.wait()  # flush any in-flight periodic save before the final one
+        logger.info("Saving the final model.")
+        _export_networks(opt["path"]["models"], "latest", model_kind, state, net_g, net_d,
+                         trainer)
+    mesh.barrier()
     logger.info("End of training.")
     if feeder_obj is not None:
         feeder_obj.stop()
         train_loader.stop()
+    mesh.destroy_process_group()
 
 
 if __name__ == "__main__":

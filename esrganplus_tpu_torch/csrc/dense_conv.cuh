@@ -87,6 +87,7 @@ struct DenseArgs {
   int c0, ccat, cin, out_stride, r1_stride, r2_stride, lsave_stride, B, H, W;
   float sigma, alpha, beta2, slope;
   const uint32_t* seed;  // the fused mode's (seed0, seed1) on the device; nullptr: not seeded
+  int b0;  // the draw's batch offset: local row b draws the global row b0 + b
 };
 
 // The stage epilogue of output channel c of pixel pix = (b, gy, gx) from
@@ -98,7 +99,9 @@ struct DenseArgs {
 //          as the T-typed XLA ops of esrganplus_tpu/kernels/rdb_ct.py:267-271;
 //   seed   the draw made here (noise_kernel "fused", philox.cuh):
 //          out * (1 + sigma*n) in fp32 with n in fp32, then the one rounding,
-//          as rdb_ct.py:258-266, keyed by the two words at `seed`.
+//          as rdb_ct.py:258-266, keyed by the two words at `seed`, row b
+//          drawing the counter of row b0 + b (a rank's rows of the global
+//          batch under data parallelism; 0 in one process).
 // The two orders differ by a T rounding per element, so they stay apart.
 template <typename T, int COUT, int MODE>
 __device__ __forceinline__ float epilogue(const DenseArgs& a, float acc, float acc11, int b,
@@ -115,7 +118,7 @@ __device__ __forceinline__ float epilogue(const DenseArgs& a, float acc, float a
       const float t = round_to<T>(round_to<T>(a.sigma) * o);
       v = o + round_to<T>(to_f(noise[pix * COUT + c]) * t);
     } else if (a.seed) {  // fp32 product with the fp32 draw, rounded once by the caller
-      v = __fmul_rn(v, noise_factor(a.sigma, __ldg(a.seed), __ldg(a.seed + 1), b, gy, gx, c));
+      v = __fmul_rn(v, noise_factor(a.sigma, __ldg(a.seed), __ldg(a.seed + 1), a.b0 + b, gy, gx, c));
     }
   } else {
     v = lrelu(v, a.slope);

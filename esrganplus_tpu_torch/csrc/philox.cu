@@ -19,6 +19,9 @@
 //                      noise mode's pre-drawn sites of a training step, and
 //                      what the tests and chip_smoke.py hold against the plain
 //                      twin (kernels/philox.py).
+// Every fill takes a batch offset b0: local row b of the output is the draw
+// of global row b0 + b, so a rank of a data-parallel run that holds rows
+// [b0, b0 + B) of the global batch draws exactly those rows (0 in one process).
 //   esr_philox_bits    the four raw output words of counter (i, stream, 0, 0)
 //                      for i < n: the resident sampler's crop indices and
 //                      augment coins (stream 0) and WGAN-GP's interpolation
@@ -34,7 +37,7 @@ namespace {
 
 template <bool FACTOR>
 __global__ void philox_fill_kernel(float* __restrict__ out, const uint32_t* __restrict__ seed,
-                                   float sigma, int B, int H, int W, int C) {
+                                   float sigma, int b0, int B, int H, int W, int C) {
   const uint32_t seed0 = __ldg(seed), seed1 = __ldg(seed + 1);
   const size_t n = (size_t)B * H * W * C;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
@@ -42,8 +45,8 @@ __global__ void philox_fill_kernel(float* __restrict__ out, const uint32_t* __re
     const int c = (int)(i % C);
     const size_t p = i / C;
     const int x = (int)(p % W), y = (int)(p / W % H), b = (int)(p / ((size_t)W * H));
-    out[i] = FACTOR ? esr::noise_factor(sigma, seed0, seed1, b, y, x, c)
-                    : esr::philox_normal(seed0, seed1, b, y, x, c);
+    out[i] = FACTOR ? esr::noise_factor(sigma, seed0, seed1, b0 + b, y, x, c)
+                    : esr::philox_normal(seed0, seed1, b0 + b, y, x, c);
   }
 }
 
@@ -57,12 +60,12 @@ __global__ void philox_bits_kernel(uint4* __restrict__ out, const uint32_t* __re
 int grid(size_t n) { return (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096); }
 
 template <bool FACTOR>
-int fill(float* out, const uint32_t* seed, float sigma, int B, int H, int W, int C,
+int fill(float* out, const uint32_t* seed, float sigma, int b0, int B, int H, int W, int C,
          void* stream) {
   const size_t n = (size_t)B * H * W * C;
   if (n == 0) return 0;
   philox_fill_kernel<FACTOR><<<grid(n), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      out, seed, sigma, B, H, W, C);
+      out, seed, sigma, b0, B, H, W, C);
   return (int)cudaGetLastError();
 }
 
@@ -70,18 +73,18 @@ int fill(float* out, const uint32_t* seed, float sigma, int B, int H, int W, int
 
 extern "C" {
 
-// out[B, H, W, C] (fp32) = the standard normals of the site seed[0..1].
-// Returns cudaGetLastError().
-int esr_philox_normal(float* out, const unsigned* seed, int B, int H, int W, int C,
+// out[B, H, W, C] (fp32) = the standard normals of the site seed[0..1], rows
+// b0 .. b0 + B - 1 of its draw. Returns cudaGetLastError().
+int esr_philox_normal(float* out, const unsigned* seed, int b0, int B, int H, int W, int C,
                       void* stream) {
-  return fill<false>(out, seed, 0.f, B, H, W, C, stream);
+  return fill<false>(out, seed, 0.f, b0, B, H, W, C, stream);
 }
 
-// out[B, H, W, C] (fp32) = 1 + sigma * n for the site seed[0..1].
-// Returns cudaGetLastError().
-int esr_philox_factor(float* out, const unsigned* seed, float sigma, int B, int H, int W,
-                      int C, void* stream) {
-  return fill<true>(out, seed, sigma, B, H, W, C, stream);
+// out[B, H, W, C] (fp32) = 1 + sigma * n for the site seed[0..1], rows
+// b0 .. b0 + B - 1 of its draw. Returns cudaGetLastError().
+int esr_philox_factor(float* out, const unsigned* seed, float sigma, int b0, int B, int H,
+                      int W, int C, void* stream) {
+  return fill<true>(out, seed, sigma, b0, B, H, W, C, stream);
 }
 
 // out[n][4] (uint32) = Philox4x32-10 of counter (i, stream, 0, 0) under the

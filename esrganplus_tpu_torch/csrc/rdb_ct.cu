@@ -22,7 +22,7 @@ extern "C" {
 
 // One dense-stage (or conv3x3_ct) launch on `stream`. With `seed` (a device
 // pointer to the site's two words, seed0 then seed1), stage 5 draws its noise
-// instead of reading `noise`. `design`:
+// instead of reading `noise`, local row b drawing global row b0 + b. `design`:
 // 1 (the tensor-core kernel, bf16 only) or 0 (the FMA kernel, which the
 // wrappers ask for in fp32); any other value returns cudaErrorInvalidValue. Returns the cudaGetLastError()
 // code after the launch (0 = launched).
@@ -30,12 +30,12 @@ int esr_dense_conv3x3(int dtype, int design, int cout, int mode, const void* x, 
                       const void* cat, int ccat, int cin, const void* w, const void* bias,
                       const void* w11, void* out, int out_stride, const void* r1, int r1_stride,
                       const void* r2, int r2_stride, void* lsave, int lsave_stride,
-                      const void* noise, float sigma, const unsigned* seed, float alpha,
+                      const void* noise, float sigma, const unsigned* seed, int b0, float alpha,
                       float beta2, float slope, int B, int H, int W, void* stream) {
   if (seed && noise) return (int)cudaErrorInvalidValue;
   const esr::dense::DenseArgs a{x, cat, w, bias, w11, r1, r2, noise, out, lsave, c0, ccat, cin,
                                 out_stride, r1_stride, r2_stride, lsave_stride, B, H, W,
-                                sigma, alpha, beta2, slope, seed};
+                                sigma, alpha, beta2, slope, seed, b0};
   return esr::dense::dispatch(dtype, design, cout, mode, a, esr::HwioLayout{},
                               static_cast<cudaStream_t>(stream));
 }

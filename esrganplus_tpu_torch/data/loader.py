@@ -18,6 +18,8 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from esrganplus_tpu_torch.parallel import mesh
+
 
 def collate(samples) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
@@ -44,15 +46,28 @@ class TrainLoader:
     producing the batches before it: a run resumed at step N sees what an
     uninterrupted run would. (The JAX package draws the whole stream from one
     sequential generator and restarts it on resume.)
+
+    Several processes (``host_index`` of ``host_count``; by default this
+    process's rank and the world size of ``parallel/mesh.py``) draw disjoint
+    interleaved streams from the one seeded stream: host i takes the batches
+    k ≡ i (mod host_count), so a global step consumes host_count ×
+    batch_size distinct samples, and ``start_batch=N`` begins each host at
+    its own N-th batch.
     """
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4,
-                 seed: int = 0, queue_depth: int = 8, start_batch: int = 0):
+                 seed: int = 0, queue_depth: int = 8, start_batch: int = 0,
+                 host_index: Optional[int] = None, host_count: Optional[int] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.seed = seed
-        self.start_batch = int(start_batch)
+        self.host_index = mesh.rank() if host_index is None else int(host_index)
+        self.host_count = max(1, mesh.world_size() if host_count is None else int(host_count))
+        if not 0 <= self.host_index < self.host_count:
+            raise ValueError(f"host_index {self.host_index} of {self.host_count} hosts")
+        # this host's N-th batch is batch k = N·host_count + host_index of the stream
+        self._k0 = int(start_batch) * self.host_count + self.host_index
         self._q: queue.Queue = queue.Queue(maxsize=queue_depth)
         # batches handed to the workers and not yet yielded, those held back
         # for their turn included, stay within the queue's depth plus one in
@@ -63,13 +78,14 @@ class TrainLoader:
         self._started = False
 
     def _index_stream(self):
-        """(k, sample indices of batch k) from ``start_batch`` on."""
+        """(k, sample indices of batch k) of this host's batches k from
+        its ``start_batch``-th on, ``host_count`` apart."""
         n = len(self.dataset)
         # Repeat the shuffled epoch enough times that at least one full batch
         # exists even when the dataset is smaller than the batch (debug runs).
         reps = max(1, -(-self.batch_size // n))
         per_epoch = reps * n // self.batch_size
-        k = self.start_batch
+        k = self._k0
         while True:
             epoch = k // per_epoch
             rng = random.Random(f"{self.seed}/epoch/{epoch}")
@@ -81,7 +97,7 @@ class TrainLoader:
             while k // per_epoch == epoch:
                 i = (k % per_epoch) * self.batch_size
                 yield k, order[i:i + self.batch_size]
-                k += 1
+                k += self.host_count
 
     def _worker(self, batches_q):
         while not self._stop.is_set():
@@ -132,7 +148,7 @@ class TrainLoader:
         # a full queue while the next batch is still being made; the feeder's
         # slots bound how many are held)
         early: Dict[int, Dict[str, np.ndarray]] = {}
-        k = self.start_batch
+        k = self._k0
         while True:
             while k not in early:
                 done, batch = self._q.get()
@@ -142,7 +158,7 @@ class TrainLoader:
             if isinstance(batch, Exception):
                 raise batch
             yield batch
-            k += 1
+            k += self.host_count
 
     def stop(self):
         self._stop.set()
@@ -256,8 +272,10 @@ class DeviceFeeder:
             self._thread.join(timeout=2.0)
 
 
-def create_dataloader(dataset, dataset_opt: Dict, seed: int = 0, start_batch: int = 0):
-    """Reference factory surface (``codes/data/__init__.py:6-19``)."""
+def create_dataloader(dataset, dataset_opt: Dict, seed: int = 0, start_batch: int = 0,
+                      host_index: Optional[int] = None, host_count: Optional[int] = None):
+    """Reference factory surface (``codes/data/__init__.py:6-19``); a train
+    loader's ``batch_size`` is per process (:class:`TrainLoader`)."""
     if dataset_opt.get("phase") == "train":
         return TrainLoader(
             dataset,
@@ -265,5 +283,7 @@ def create_dataloader(dataset, dataset_opt: Dict, seed: int = 0, start_batch: in
             num_workers=dataset_opt.get("n_workers", 4),
             seed=seed,
             start_batch=start_batch,
+            host_index=host_index,
+            host_count=host_count,
         )
     return EvalLoader(dataset)

@@ -51,15 +51,19 @@ import numpy as np
 import torch
 
 from esrganplus_tpu_torch.kernels.philox import key_words, random_bits
+from esrganplus_tpu_torch.parallel import mesh
 from esrganplus_tpu_torch.train.rng import split_words
 
 
 def draw(key: torch.Tensor, batch_size: int, n: int, flip: bool, rot: bool) -> tuple:
-    """The crop indices (int64 ``[batch_size]`` in [0, n)) and the
-    (hflip, vflip, transpose) coins (bool; a disabled axis is all False) of
-    the sampler's draw under ``key`` (an int32 ``[2]`` tensor), on its
-    device."""
-    bits = random_bits(key, batch_size)
+    """The crop indices (int64 in [0, n)) and the (hflip, vflip, transpose)
+    coins (bool; a disabled axis is all False) of the sampler's draw of a
+    batch of ``batch_size`` under ``key`` (an int32 ``[2]`` tensor), on its
+    device. ``batch_size`` is the GLOBAL batch: under a process group every
+    rank draws the whole batch under the one key and keeps its own rows
+    (``parallel/mesh.py`` ``local_rows``), as the JAX package draws the
+    global batch and shards it over its data axis."""
+    bits = mesh.local_rows(random_bits(key, batch_size))
     idx = (bits[:, 0] * n) >> 32
     off = torch.zeros_like(idx, dtype=torch.bool)
     coin = lambda k, on: (bits[:, k] >> 31).bool() if on else off
@@ -145,7 +149,9 @@ class ResidentCropStore:
         # at the first maybe_refresh() poll after it finished: re-cropping
         # thousands of pairs is seconds of PNG decode, a stall of hundreds of
         # steps if done in line
-        self.async_refresh = bool(async_refresh)
+        # (off under a process group, as in the JAX package: every rank must
+        # swap the new pool in at the same step)
+        self.async_refresh = bool(async_refresh) and mesh.world_size() == 1
         self._pending = None  # (thread, one-element result list, pool index)
         self.pool_index = self._index_at(int(start_step))
         self._upload(self._build(self.pool_index), self.pool_index)

@@ -45,7 +45,7 @@ PDZ = ctypes.POINTER(DzSrc)
 SIGNATURES = {
     "rdb_ct": {
         "esr_dense_conv3x3": [I, I, I, I, P, I, P, I, I, P, P, P, P, I, P, I, P, I,
-                              P, I, P, F, P, F, F, F, I, I, I, P],
+                              P, I, P, F, P, I, F, F, F, I, I, I, P],
     },
     "dgrad_ct": {
         "esr_dgrad": [I, I, I, I, PDZ, I, P, I, P, I, I, P, I, PDZ, I, P],
@@ -63,8 +63,8 @@ SIGNATURES = {
         "esr_dzsrc_size": [],
     },
     "philox": {
-        "esr_philox_normal": [P, P, I, I, I, I, P],
-        "esr_philox_factor": [P, P, F, I, I, I, I, P],
+        "esr_philox_normal": [P, P, I, I, I, I, I, P],
+        "esr_philox_factor": [P, P, F, I, I, I, I, I, P],
         "esr_philox_bits": [P, P, I, U, P],
     },
     "tail_ct": {

@@ -82,27 +82,30 @@ def philox4x32_10(ctr, key):
     return c0, c1, c2, c3
 
 
-def philox_normal(seed, shape, device=None) -> torch.Tensor:
+def philox_normal(seed, shape, device=None, b0: int = 0) -> torch.Tensor:
     """The fp32 standard normals of the noise site keyed ``seed`` = (s0, s1)
     (ints or a :func:`key_words` tensor) over the NHWC ``shape`` (B, H, W,
-    C): element (b, y, x, c) is Philox of counter (c, x, y, b), so it does
-    not depend on the rest of the shape."""
+    C): element (b, y, x, c) is Philox of counter (c, x, y, b0 + b), so it
+    does not depend on the rest of the shape, and with ``b0`` = r·B it is
+    rows [r·B, (r+1)·B) of the draw over a larger batch (a rank's rows of
+    the global batch, ``parallel/mesh.py``)."""
     B, H, W, C = shape
-    ar = lambda n, view: torch.arange(n, dtype=torch.int64, device=device).view(view)
+    ar = lambda n, view, s=0: torch.arange(s, s + n, dtype=torch.int64,
+                                           device=device).view(view)
     ctr = (ar(C, (1, 1, 1, C)), ar(W, (1, 1, W, 1)), ar(H, (1, H, 1, 1)),
-           ar(B, (B, 1, 1, 1)))
+           ar(B, (B, 1, 1, 1), int(b0)))
     r0, r1, _, _ = philox4x32_10([c.expand(B, H, W, C) for c in ctr], seed)
     u1 = (r0 >> 8).float() * 2.0 ** -24 + 2.0 ** -25
     u2 = (r1 >> 8).float() * 2.0 ** -24
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(6.283185307179586 * u2)
 
 
-def standard_normal(key: torch.Tensor, shape) -> torch.Tensor:
-    """:func:`philox_normal` of the key tensor's site on its device: the
-    kernel on a CUDA tensor, the twin on the CPU."""
+def standard_normal(key: torch.Tensor, shape, b0: int = 0) -> torch.Tensor:
+    """:func:`philox_normal` of the key tensor's site on its device (rows from
+    ``b0`` on): the kernel on a CUDA tensor, the twin on the CPU."""
     if key.device.type == "cpu":
-        return philox_normal(key, shape)
-    return philox_normal_cuda(key, shape, key.device)
+        return philox_normal(key, shape, b0=b0)
+    return philox_normal_cuda(key, shape, key.device, b0=b0)
 
 
 def philox_bits(key, n: int, stream: int = 0, device=None) -> torch.Tensor:
@@ -138,29 +141,31 @@ def philox_bits_cuda(key: torch.Tensor, n: int, stream: int = 0) -> torch.Tensor
 philox_bits_cuda.launches = 0
 
 
-def noise_factor_cuda(seed, sigma: float, shape, device) -> torch.Tensor:
+def noise_factor_cuda(seed, sigma: float, shape, device, b0: int = 0) -> torch.Tensor:
     """The fused mode's ``1 + σ·n`` of the site ``seed`` over the NHWC
-    ``shape``, fp32 on ``device``, filled by the device function that
-    ``rdb_ct``'s epilogue multiplies by (the same values, bit for bit)."""
+    ``shape`` (rows from ``b0`` on, as :func:`philox_normal`), fp32 on
+    ``device``, filled by the device function that ``rdb_ct``'s epilogue
+    multiplies by (the same values, bit for bit)."""
     B, H, W, C = shape
     key = key_words(seed, device)
     out = torch.empty((B, H, W, C), dtype=torch.float32, device=device)
     code = build.load("philox").esr_philox_factor(
-        out.data_ptr(), key.data_ptr(), float(sigma), B, H, W, C,
+        out.data_ptr(), key.data_ptr(), float(sigma), int(b0), B, H, W, C,
         torch.cuda.current_stream(out.device).cuda_stream)
     build.check(code, "esr_philox_factor")
     return out
 
 
-def philox_normal_cuda(seed, shape, device="cuda") -> torch.Tensor:
+def philox_normal_cuda(seed, shape, device="cuda", b0: int = 0) -> torch.Tensor:
     """The same draws from the device function the kernels call
-    (``csrc/philox.cu``), as an fp32 CUDA tensor: the input noise mode's
-    sites of a training step (:func:`models.rrdb.draw_noise` with keys)."""
+    (``csrc/philox.cu``), as an fp32 CUDA tensor, rows from ``b0`` on: the
+    input noise mode's sites of a training step
+    (:func:`models.rrdb.draw_noise` with keys)."""
     B, H, W, C = shape
     key = key_words(seed, device)
     out = torch.empty((B, H, W, C), dtype=torch.float32, device=device)
     lib = build.load("philox")
-    code = lib.esr_philox_normal(out.data_ptr(), key.data_ptr(), B, H, W, C,
+    code = lib.esr_philox_normal(out.data_ptr(), key.data_ptr(), int(b0), B, H, W, C,
                                  torch.cuda.current_stream(out.device).cuda_stream)
     build.check(code, "esr_philox_normal")
     philox_normal_cuda.launches += 1

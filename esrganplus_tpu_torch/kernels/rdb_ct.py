@@ -116,17 +116,19 @@ def _lrelu(t: torch.Tensor, slope: float) -> torch.Tensor:
     return torch.where(t >= 0, t, t * slope)
 
 
-def _noise_factor(seed, sigma: float, shape, device) -> torch.Tensor:
-    """The fused mode's fp32 ``1 + σ·n`` for the site ``seed``, NCHW."""
-    return (1.0 + sigma * philox_normal(seed, shape, device)).permute(0, 3, 1, 2)
+def _noise_factor(seed, sigma: float, shape, device, b0: int = 0) -> torch.Tensor:
+    """The fused mode's fp32 ``1 + σ·n`` for the site ``seed`` (rows from
+    ``b0`` on), NCHW."""
+    return (1.0 + sigma * philox_normal(seed, shape, device, b0)).permute(0, 3, 1, 2)
 
 
-def _rdb_ct_train_plain(x, w, res=None, noise=None, *, seed=None, rrdb_scale=None,
+def _rdb_ct_train_plain(x, w, res=None, noise=None, *, seed=None, b0=0, rrdb_scale=None,
                          sigma=0.0, slope=0.2, res_scale=0.2, acc=torch.float32):
     """The RDB with the kernel's rounding points → (out, cat, lsv): ``cat``
     ``[B, H, W, 4·gc]`` holds x1|x2|x3|x4 and ``lsv`` ``[B, H, W, 2·gc]`` the
     pre-residual activations l2|l4, all in x's dtype. ``noise`` applies the
-    input mode's noise, ``seed`` the fused mode's. Sums in ``acc``."""
+    input mode's noise, ``seed`` the fused mode's (its rows from ``b0``
+    on). Sums in ``acc``."""
     dt = x.dtype
     rnd = lambda t: t.to(dt).to(acc)
     xf = _nchw(x, acc)
@@ -144,7 +146,7 @@ def _rdb_ct_train_plain(x, w, res=None, noise=None, *, seed=None, rrdb_scale=Non
     if res is not None:
         out = out * rrdb_scale + _nchw(res, acc)
     if seed is not None:  # fp32 product with the fp32 draw, then the one rounding
-        out = out * _noise_factor(seed, sigma, x.shape, x.device)
+        out = out * _noise_factor(seed, sigma, x.shape, x.device, b0)
     out = out.to(dt)
     if noise is not None:
         # out + n·(σ·out), every op in the working dtype (σ rounded to it too)
@@ -186,7 +188,7 @@ def conv3x3_ct_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 def _dense(lib, x, cat, cin, w, b, out_ptr, out_stride, *, mode, cout, w11=None,
            r1=0, r1_stride=0, r2=0, r2_stride=0, lsave=0, lsave_stride=0, noise=None,
-           seed=None, sigma=0.0, alpha=1.0, beta2=1.0, slope=0.2, kind=None):
+           seed=None, b0=0, sigma=0.0, alpha=1.0, beta2=1.0, slope=0.2, kind=None):
     """One dense-stage launch on the design ``kind`` (default: x's dtype's)."""
     B, H, W, c0 = x.shape
     kind = kind or design(x.dtype)
@@ -197,13 +199,13 @@ def _dense(lib, x, cat, cin, w, b, out_ptr, out_stride, *, mode, cout, w11=None,
         None if w11 is None else w11.data_ptr(), out_ptr, out_stride,
         r1 or None, r1_stride, r2 or None, r2_stride, lsave or None, lsave_stride,
         None if noise is None else noise.data_ptr(), sigma,
-        None if seed is None else seed.data_ptr(), alpha, beta2, slope, B, H, W,
+        None if seed is None else seed.data_ptr(), int(b0), alpha, beta2, slope, B, H, W,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(code, "esr_dense_conv3x3")
     launch.launched("dense", kind)
 
 
-def rdb_ct_steps(x, w, res=None, noise=None, *, seed=None, rrdb_scale=None, sigma=0.0,
+def rdb_ct_steps(x, w, res=None, noise=None, *, seed=None, b0=0, rrdb_scale=None, sigma=0.0,
                  slope=0.2, res_scale=0.2, save=False, kind=None):
     """Validate and plan the five dense-stage launches over outputs
     allocated here → ``(steps, (out, cat, lsv))``: ``steps`` maps
@@ -262,7 +264,7 @@ def rdb_ct_steps(x, w, res=None, noise=None, *, seed=None, rrdb_scale=None, sigm
     steps["stage5"] = lambda: _dense(
         lib, x, cat, nf + 4 * gc, w["w5"], w["b5"], out.data_ptr(), nf, mode=RESID, cout=nf,
         kind=kind, r1=x.data_ptr(), r1_stride=nf, r2=0 if res is None else res.data_ptr(),
-        r2_stride=nf, noise=noise, seed=seed, sigma=sigma, alpha=res_scale,
+        r2_stride=nf, noise=noise, seed=seed, b0=b0, sigma=sigma, alpha=res_scale,
         beta2=1.0 if rrdb_scale is None else rrdb_scale)
     return steps, (out, cat, lsv)
 
@@ -379,8 +381,8 @@ def _dlrelu(src: torch.Tensor, t: torch.Tensor, slope: float) -> torch.Tensor:
     return torch.where(src >= 0, t, t * slope)
 
 
-def rdb_ct_bwd_plain(x, w, cat, lsv, g, noise=None, *, seed=None, sigma: float = 0.0,
-                     slope: float = 0.2, res_scale: float = 0.2,
+def rdb_ct_bwd_plain(x, w, cat, lsv, g, noise=None, *, seed=None, b0: int = 0,
+                     sigma: float = 0.0, slope: float = 0.2, res_scale: float = 0.2,
                      acc: torch.dtype = torch.float32) -> dict:
     """Plain twin of :func:`rdb_ct_bwd`: the dense chain's adjoint walked
     5 → 1 with the kernels' rounding points. Each ``dz_k`` is rounded to the
@@ -401,7 +403,7 @@ def rdb_ct_bwd_plain(x, w, cat, lsv, g, noise=None, *, seed=None, sigma: float =
     if noise is not None:
         gf = gf * (1.0 + sigma * _nchw(noise, acc))
     elif seed is not None:
-        gf = gf * _noise_factor(seed, sigma, x.shape, x.device).to(acc)
+        gf = gf * _noise_factor(seed, sigma, x.shape, x.device, b0).to(acc)
     dcat = torch.zeros_like(src)
     out = {}
 
@@ -435,8 +437,8 @@ def conv3x3_ct_bwd_plain(x, w, g) -> dict:
             "w": _wgrad_plain(_nchw(x), gf), "b": gf.sum((0, 2, 3))}
 
 
-def _rdb_ct_bwd_steps(x, w, cat, lsv, g, noise=None, *, seed=None, sigma=0.0, slope=0.2,
-                      res_scale=0.2, kind=None):
+def _rdb_ct_bwd_steps(x, w, cat, lsv, g, noise=None, *, seed=None, b0=0, sigma=0.0,
+                      slope=0.2, res_scale=0.2, kind=None):
     """Validate and plan :func:`rdb_ct_bwd`'s launches on the design ``kind``
     over outputs allocated here → ``(steps, out)``: ``steps`` maps ``"dw5"``,
     ``"dx5"``, …, ``"dw11"``, ``"dx11"``, ``"dw2"``, ``"dx2"``, ``"dw1"``,
@@ -463,7 +465,7 @@ def _rdb_ct_bwd_steps(x, w, cat, lsv, g, noise=None, *, seed=None, sigma=0.0, sl
     noise = None if noise is None else aligned(noise)
     w = {k: None if v is None else aligned(v) for k, v in w.items()}
     # the fused mode's 1 + σn, regenerated for this call and freed with it
-    fac = None if seed is None else noise_factor_cuda(seed, sigma, x.shape, dev)
+    fac = None if seed is None else noise_factor_cuda(seed, sigma, x.shape, dev, b0)
     chunk = dgrad_chunk(nf, gc)
     esz = x.element_size()
     dcat = torch.empty((B, H, W, ctot), dtype=torch.float32, device=dev)
@@ -512,14 +514,14 @@ def rdb_ct_bwd_mma_steps(x, w, cat, lsv, g, noise=None, **kw):
     return _rdb_ct_bwd_steps(x, w, cat, lsv, g, noise, kind="mma", **kw)
 
 
-def rdb_ct_bwd(x, w, cat, lsv, g, noise=None, *, seed=None, sigma: float = 0.0,
-               slope: float = 0.2, res_scale: float = 0.2) -> dict:
+def rdb_ct_bwd(x, w, cat, lsv, g, noise=None, *, seed=None, b0: int = 0,
+               sigma: float = 0.0, slope: float = 0.2, res_scale: float = 0.2) -> dict:
     """Adjoint of the training-mode :func:`rdb_ct` from its saved buffers.
 
     ``w`` are the forward's cast weights, ``g`` the output cotangent in x's
     dtype, ``noise`` the forward's noise tensor, or ``seed`` the fused
-    mode's site key, when the cotangent is to be scaled by ``1 + sigma·n``
-    (neither for no noise or a detached scale).
+    mode's site key (its rows from ``b0`` on), when the cotangent is to be
+    scaled by ``1 + sigma·n`` (neither for no noise or a detached scale).
     Returns ``{"dx", "w1".."w5", "b1".."b5", "w11"}``. On a CUDA tensor: 12
     launches (a data- and a weight-gradient per stage and for the 1×1), all
     deterministic, and with ``seed`` one more that fills the noise factor.
@@ -528,10 +530,10 @@ def rdb_ct_bwd(x, w, cat, lsv, g, noise=None, *, seed=None, sigma: float = 0.0,
     by design, ``rdb_ct_bwd.seeded_launches`` those that replayed the fused
     noise."""
     if x.device.type == "cpu":
-        return rdb_ct_bwd_plain(x, w, cat, lsv, g, noise, seed=seed, sigma=sigma,
+        return rdb_ct_bwd_plain(x, w, cat, lsv, g, noise, seed=seed, b0=b0, sigma=sigma,
                                 slope=slope, res_scale=res_scale)
     kind = design(x.dtype)
-    steps, out = _rdb_ct_bwd_steps(x, w, cat, lsv, g, noise, seed=seed, sigma=sigma,
+    steps, out = _rdb_ct_bwd_steps(x, w, cat, lsv, g, noise, seed=seed, b0=b0, sigma=sigma,
                                    slope=slope, res_scale=res_scale)
     with torch.cuda.device(x.device):
         for step in steps.values():
@@ -608,15 +610,16 @@ def _cast_masters(wb, dt) -> dict:
 
 class _RdbCtDiff(torch.autograd.Function):
     """``wb`` = (w1, b1, …, w5, b5[, w11]) fp32 masters; ``opts`` = (σ,
-    detach, slope, β, the fused mode's seed words or None)."""
+    detach, slope, β, the fused mode's seed words or None, its batch
+    offset)."""
 
     @staticmethod
     def forward(ctx, x, noise, opts, *wb):
-        sigma, detach, slope, res_scale, seed = opts
+        sigma, detach, slope, res_scale, seed, b0 = opts
         w = _cast_masters(wb, x.dtype)
         fwd = _rdb_ct_train_plain if x.device.type == "cpu" else _rdb_ct_cuda
         extra = {} if x.device.type == "cpu" else {"save": True}
-        out, cat, lsv = fwd(x, w, None, noise, seed=seed, sigma=sigma, slope=slope,
+        out, cat, lsv = fwd(x, w, None, noise, seed=seed, b0=b0, sigma=sigma, slope=slope,
                             res_scale=res_scale, **extra)
         # the fused mode keeps its key tensor (in opts): the backward reads
         # the same two words on the device
@@ -628,10 +631,10 @@ class _RdbCtDiff(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x, cat, lsv, noise, *wb = ctx.saved_tensors
-        sigma, detach, slope, res_scale, seed = ctx.opts
+        sigma, detach, slope, res_scale, seed, b0 = ctx.opts
         # recast from the masters, as the forward did (no cast copy is kept)
         r = rdb_ct_bwd(x, _cast_masters(wb, x.dtype), cat, lsv, g.to(x.dtype).contiguous(),
-                       None if detach else noise, seed=None if detach else seed,
+                       None if detach else noise, seed=None if detach else seed, b0=b0,
                        sigma=sigma, slope=slope, res_scale=res_scale)
         grads = []
         for k in range(1, 6):
@@ -642,8 +645,8 @@ class _RdbCtDiff(torch.autograd.Function):
 
 
 def rdb_ct_diff(x: torch.Tensor, p: dict, noise: Optional[torch.Tensor] = None, *,
-                noise_seed: Optional[tuple] = None, noise_sigma: float = 0.0,
-                noise_detach: bool = False, slope: float = 0.2,
+                noise_seed: Optional[tuple] = None, noise_b0: int = 0,
+                noise_sigma: float = 0.0, noise_detach: bool = False, slope: float = 0.2,
                 res_scale: float = 0.2) -> torch.Tensor:
     """Differentiable :func:`rdb_ct`: forward the training-mode kernel,
     backward :func:`rdb_ct_bwd`.
@@ -658,8 +661,9 @@ def rdb_ct_diff(x: torch.Tensor, p: dict, noise: Optional[torch.Tensor] = None, 
     kernels read through a pointer) instead draws n in the kernel from that
     site key (its ``noise_input=False``, the fused
     mode): ``out·(1 + σn)`` in fp32 before the one rounding, and the backward
-    regenerates n. Either way the backward scales the cotangent by
-    ``1 + σ·n``, or not at all with ``noise_detach``."""
+    regenerates n; local row b draws the site's row ``noise_b0`` + b (a
+    rank's rows of the global batch). Either way the backward scales the
+    cotangent by ``1 + σ·n``, or not at all with ``noise_detach``."""
     if noise is not None and noise_seed is not None:
         raise ValueError("rdb_ct_diff: pre-drawn noise or a noise seed, not both")
     wb = []
@@ -671,7 +675,8 @@ def rdb_ct_diff(x: torch.Tensor, p: dict, noise: Optional[torch.Tensor] = None, 
         noise = noise.to(x.dtype).contiguous()
     seed = None if noise_seed is None else key_words(noise_seed, x.device)
     return _RdbCtDiff.apply(x.contiguous(), noise,
-                            (float(noise_sigma), bool(noise_detach), slope, res_scale, seed),
+                            (float(noise_sigma), bool(noise_detach), slope, res_scale, seed,
+                             int(noise_b0)),
                             *wb)
 
 

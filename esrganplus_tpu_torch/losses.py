@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from esrganplus_tpu_torch.parallel import mesh
+
 
 def gan_loss(logits: torch.Tensor, target_is_real: bool, kind: str = "vanilla",
              real_label: float = 1.0, fake_label: float = 0.0) -> torch.Tensor:
@@ -29,20 +31,29 @@ def gan_loss(logits: torch.Tensor, target_is_real: bool, kind: str = "vanilla",
     raise NotImplementedError(f"gan type [{kind}]")
 
 
+def batch_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean of ``t`` over the GLOBAL batch: ``t.mean()`` in one process;
+    under a process group the mean of the ranks' means (equal shards), all-
+    reduced with its gradient."""
+    return mesh.all_reduce(t.mean(), "mean")
+
+
 def ragan_g_loss(d_real: torch.Tensor, d_fake: torch.Tensor,
                  kind: str = "vanilla") -> torch.Tensor:
     """Relativistic-average generator loss:
-    (L(D(real) − E[D(fake)], fake) + L(D(fake) − E[D(real)], real)) / 2."""
-    return (gan_loss(d_real - d_fake.mean(), False, kind)
-            + gan_loss(d_fake - d_real.mean(), True, kind)) / 2.0
+    (L(D(real) − E[D(fake)], fake) + L(D(fake) − E[D(real)], real)) / 2,
+    the expectations over the global batch (:func:`batch_mean`)."""
+    return (gan_loss(d_real - batch_mean(d_fake), False, kind)
+            + gan_loss(d_fake - batch_mean(d_real), True, kind)) / 2.0
 
 
 def ragan_d_loss(d_real: torch.Tensor, d_fake: torch.Tensor,
                  kind: str = "vanilla") -> torch.Tensor:
     """Relativistic-average discriminator loss:
-    (L(D(real) − E[D(fake)], real) + L(D(fake) − E[D(real)], fake)) / 2."""
-    return (gan_loss(d_real - d_fake.mean(), True, kind)
-            + gan_loss(d_fake - d_real.mean(), False, kind)) / 2.0
+    (L(D(real) − E[D(fake)], real) + L(D(fake) − E[D(real)], fake)) / 2,
+    the expectations over the global batch (:func:`batch_mean`)."""
+    return (gan_loss(d_real - batch_mean(d_fake), True, kind)
+            + gan_loss(d_fake - batch_mean(d_real), False, kind)) / 2.0
 
 
 def gradient_penalty(d_apply, params, real: torch.Tensor, fake: torch.Tensor,

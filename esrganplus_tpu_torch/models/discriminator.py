@@ -37,6 +37,7 @@ from esrganplus_tpu_torch.models.layers import (
     batchnorm,
     batchnorm_init,
     conv2d,
+    global_moments,
     kaiming_conv_init,
     kaiming_linear_init,
     linear,
@@ -147,13 +148,14 @@ def _batchnorm_stage(h: torch.Tensor, p: dict, train: bool, momentum: float = 0.
                      eps: float = 1e-5):
     """The batch norm between two stage kernel calls: statistics and the
     affine map in fp32 on the working-dtype activations, one rounding back
-    (torch semantics as :func:`layers.batchnorm`)."""
+    (torch semantics and the global batch's statistics, as
+    :func:`layers.batchnorm`)."""
     dt = h.dtype
     hf = h.float()
     if train:
-        n = h.shape[0] * h.shape[1] * h.shape[2]
-        mean = hf.mean((0, 1, 2))
-        var = (hf * hf).mean((0, 1, 2)) - mean * mean
+        # within a rank the one-pass E[x²] − E[x]² the stage path has always
+        # taken; across the ranks the centred combination of global_moments
+        mean, var, n = global_moments(hf, lambda x, m: (x * x).mean((0, 1, 2)) - m * m)
         with torch.no_grad():
             new_stats = {
                 "mean": (momentum * p["mean"] + (1 - momentum) * mean).to(p["mean"].dtype),

@@ -21,6 +21,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from esrganplus_tpu_torch.parallel import mesh
+
 
 @contextlib.contextmanager
 def fp32_exact():
@@ -120,6 +122,27 @@ def linear(x: torch.Tensor, p: dict, dtype: Optional[torch.dtype] = None) -> tor
     return out if dtype is None else out.to(dtype)
 
 
+def global_moments(xf: torch.Tensor, local_var=None) -> tuple:
+    """(mean, biased variance, count) of fp32 NHWC ``xf`` per channel over NHW
+    of the GLOBAL batch, differentiably: each rank's mean and variance
+    (``local_var(xf, mean)``, by default ``xf.var``'s centred Welford
+    reduction, the centred form of ``jnp.var``) combined over the ranks by
+    the law of total variance, as all-reduced sums each weighted by the
+    rank's share of the count: the mean of the ranks' means, and the mean of
+    their variances plus each rank mean's squared distance to the global one
+    (centred across the ranks, not E[x²] − E[x]²). Without a process group
+    the all-reduces are the identity (``parallel/mesh.py``) and the share is
+    1.0, so one process computes ``xf.mean`` and its local variance bit for
+    bit, and a group of one rounds alike."""
+    n = mesh.global_rows(xf.shape[0]) * xf.shape[1] * xf.shape[2]
+    share = xf.shape[0] * xf.shape[1] * xf.shape[2] / n
+    m = xf.mean((0, 1, 2))
+    v = xf.var((0, 1, 2), unbiased=False) if local_var is None else local_var(xf, m)
+    mean = mesh.all_reduce(m * share)
+    var = mesh.all_reduce((v + (m - mean) ** 2) * share)
+    return mean, var, n
+
+
 def batchnorm(x: torch.Tensor, p: dict, train: bool, momentum: float = 0.9,
               eps: float = 1e-5):
     """BatchNorm over NHW → (y, updated running statistics). torch semantics:
@@ -127,12 +150,12 @@ def batchnorm(x: torch.Tensor, p: dict, train: bool, momentum: float = 0.9,
     for the running update), running statistics in eval. ``momentum`` is the
     share of the old running value that is KEPT (torch's ``1 - momentum``).
     The statistics are reduced in fp32 and held in x's dtype, as
-    ``jnp.mean`` / ``jnp.var`` hold them."""
+    ``jnp.mean`` / ``jnp.var`` hold them, over the global batch
+    (:func:`global_moments`), as the JAX package's SPMD reduction over its
+    sharded batch axis."""
     if train:
         xf = x.float()
-        mean = xf.mean((0, 1, 2))
-        var = xf.var((0, 1, 2), unbiased=False)
-        n = x.shape[0] * x.shape[1] * x.shape[2]
+        mean, var, n = global_moments(xf)
         mean, var = mean.to(x.dtype), var.to(x.dtype)
         with torch.no_grad():
             new_stats = {"mean": momentum * p["mean"] + (1 - momentum) * mean,

@@ -53,6 +53,7 @@ import torch
 
 from esrganplus_tpu_torch.kernels.build import KERNEL_WIDTHS
 from esrganplus_tpu_torch.kernels.philox import philox_normal, standard_normal
+from esrganplus_tpu_torch.parallel import mesh
 from esrganplus_tpu_torch.models.layers import (
     act,
     conv2d,
@@ -200,7 +201,8 @@ def _rdb_forward(x, p: dict, cfg: RRDBNetConfig, dtype, noise=None, seed=None):
     x5 = conv2d(torch.cat([x, x1, x2, x3, x4], -1), p["conv5"], dtype=dtype)
     out = x5 * cfg.res_scale + x
     if seed is not None:
-        out = fused_relative_noise(out, philox_normal(seed, out.shape, out.device),
+        b0 = mesh.row_offset(out.shape[0])  # this rank's rows of the global draw
+        out = fused_relative_noise(out, philox_normal(seed, out.shape, out.device, b0),
                                    cfg.noise_sigma, cfg.noise_relative_detach)
     elif noise is not None:
         out = gaussian_noise(out, noise, cfg.noise_sigma, cfg.noise_relative_detach)
@@ -230,13 +232,16 @@ def draw_noise(cfg: RRDBNetConfig, shape, rng, dtype: torch.dtype, device, *,
     ``torch.Generator`` (drawn in forward order) or the step's site keys,
     an int32 tensor ``[nb, 4, 2]`` (``train.rng.noise_site_words``): each
     site then is Philox of its key (``kernels/philox.py``, the kernel on a
-    CUDA tensor), what the trainers draw. ``rdb_sites=False`` leaves the
+    CUDA tensor), what the trainers draw; under a process group each rank
+    draws its rows of the global batch's sites (``parallel/mesh.py``
+    ``row_offset``). ``rdb_sites=False`` leaves the
     per-RDB sites to the fused mode's in-kernel draws."""
     if isinstance(rng, torch.Generator):
         draw = lambda on, b, i: (torch.randn(shape, generator=rng, device=device,
                                              dtype=torch.float32).to(dtype) if on else None)
     else:
-        draw = lambda on, b, i: standard_normal(rng[b, i], shape).to(dtype) if on else None
+        b0 = mesh.row_offset(shape[0])  # this rank's rows of the global draw
+        draw = lambda on, b, i: standard_normal(rng[b, i], shape, b0).to(dtype) if on else None
     rdb = cfg.rdb_noise and rdb_sites
     return [[draw(rdb, b, 0), draw(rdb, b, 1), draw(rdb, b, 2), draw(cfg.rrdb_noise, b, 3)]
             for b in range(cfg.nb)]
@@ -417,7 +422,8 @@ def _trunk_cuda_train(params: dict, fea, cfg: RRDBNetConfig, noise, seeds):
         h0 = h
         for name, n, key in zip(("rdb1", "rdb2", "rdb3"), sites, keys):
             if key is not None:
-                h = rdb_ct_diff(h, bp[name], noise_seed=key, **kw)
+                h = rdb_ct_diff(h, bp[name], noise_seed=key,
+                                noise_b0=mesh.row_offset(h.shape[0]), **kw)
             elif in_kernel:
                 h = rdb_ct_diff(h, bp[name], n, **kw)
             else:

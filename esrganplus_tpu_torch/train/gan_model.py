@@ -1,8 +1,10 @@
 """GAN trainers: standard SRGAN and the ESRGAN+ relativistic-average (SRRaGAN).
 
 Counterpart of ``esrganplus_tpu/train/gan_model.py`` (the reference wrappers
-``codes/models/SRGAN_model.py``, ``codes/models/SRRaGAN_model.py``) on one
-device:
+``codes/models/SRGAN_model.py``, ``codes/models/SRRaGAN_model.py``), one
+device a process (data parallelism as in ``train/sr_model.py``: the RaGAN
+pairing's means, D's batch statistics and WGAN-GP's draws are the global
+batch's):
 
   * G loss = pixel (L1/L2) + VGG-perceptual L1 (real features detached) + GAN
     term: relativistic pairing for srragan, plain D(fake)-vs-real for srgan;
@@ -53,6 +55,7 @@ from esrganplus_tpu_torch.models.discriminator import (DiscriminatorVGGConfig,
 from esrganplus_tpu_torch.models.layers import deterministic_convs, fp32_exact
 from esrganplus_tpu_torch.kernels.philox import random_bits
 from esrganplus_tpu_torch.models.vgg import VGGFeatConfig, load_vgg_feat, vgg_feat_forward
+from esrganplus_tpu_torch.parallel import mesh
 from esrganplus_tpu_torch.train.schedule import multistep_lr
 from esrganplus_tpu_torch.train.sr_model import (AdamTransform, GeneratorTrainerBase,
                                                  apply_updates, pixel_loss, tree_leaves,
@@ -90,7 +93,8 @@ class GANTrainConfig:
 
 
 class GANTrainer(GeneratorTrainerBase):
-    """ESRGAN+/SRGAN trainer on one device (the card unless ``device="cpu"``);
+    """ESRGAN+/SRGAN trainer on one device a process (the card unless
+    ``device="cpu"``);
     ``net_g`` an ``RRDBNetConfig`` or an ``SRResNetConfig``."""
 
     GROUPS = ("g", "d")
@@ -209,7 +213,9 @@ class GANTrainer(GeneratorTrainerBase):
             loss = (gan_loss(d_real, True, cfg.gan_type)
                     + gan_loss(d_fake, False, cfg.gan_type))
         if cfg.gan_type == "wgan-gp":
-            bits = random_bits(key, hr_img.shape[0], stream=1)[:, 0]
+            # the global batch's draw, this rank's rows of it
+            bits = mesh.local_rows(random_bits(key, mesh.global_rows(hr_img.shape[0]),
+                                               stream=1))[:, 0]
             eps = ((bits >> 8).float() * 2.0 ** -24).view(-1, 1, 1, 1)  # U[0, 1)
             loss = loss + cfg.gp_weight * gradient_penalty(
                 lambda p, x: self._d_logits(p, x)[0], d_params, hr_img, fake, eps)
@@ -223,8 +229,8 @@ class GANTrainer(GeneratorTrainerBase):
         """One Adam step on ``params`` in place, at ``group``'s lr and bias
         corrections of the step's scalars ``sc``. A leaf the loss does not
         reach (BN running statistics, SN vectors) has a zero gradient."""
-        flat = [torch.zeros_like(p) if g is None else g
-                for g, p in zip(flat_grads, tree_leaves(params))]
+        flat = mesh.all_reduce_grads([torch.zeros_like(p) if g is None else g
+                                      for g, p in zip(flat_grads, tree_leaves(params))])
         grads = tree_unflatten_like(params, iter(flat))
         apply_updates(params, tx.moments(grads, opt_state, params, *sc.bias(group)),
                       sc.lr(group))
@@ -275,4 +281,5 @@ class GANTrainer(GeneratorTrainerBase):
             merged = merge_sequential_bn(d_params, st_real, st_fake, self.net_d)
             tree_map(lambda p, m: p if p is m else p.copy_(m), d_params, merged)
 
-        return {**g_logs, **{k: v.detach() for k, v in d_logs.items()}, "lr": sc.lr("g")}
+        return mesh.reduce_logs({**g_logs, **{k: v.detach() for k, v in d_logs.items()},
+                                 "lr": sc.lr("g")})

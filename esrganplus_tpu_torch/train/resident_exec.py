@@ -34,6 +34,17 @@ a capture adds two steps' launches to their counters (the warm-up and the
 recording) and a replay adds none: what a replay launches is read from the
 captured graph itself (:meth:`ResidentExecutor.kernel_nodes`).
 
+Under a process group (``parallel/mesh.py``) the step's collectives (the
+gradients' all-reduces, the batch norms' and the RaGAN pairing's, the logs')
+are captured with it: over two ranks or more NCCL's kernels are nodes of
+the graph like the step's own (:meth:`ResidentExecutor.kernel_nodes` counts
+them; over one rank NCCL records nothing for an in-place SUM, and
+``mesh.captured`` counts the collectives the capture issued). The first
+collective, which creates the NCCL communicator, runs eagerly in the
+warm-up before the first capture. A backend whose collectives cannot be
+captured (gloo: it copies through the host) raises at the resident step on
+the card; :func:`run_eager` runs such a group's steps eagerly when asked.
+
 On a CUDA device this is the only path of a resident step: a step that
 cannot be captured raises, naming what broke the capture. On the CPU a
 burst of n steps is n eager calls of the same body.
@@ -47,6 +58,7 @@ import weakref
 import numpy as np
 import torch
 
+from esrganplus_tpu_torch.parallel import mesh
 from esrganplus_tpu_torch.train.sr_model import tree_leaves
 
 
@@ -133,6 +145,8 @@ class ResidentExecutor:
 
         t0 = time.perf_counter()
         trainer = self.trainer
+        # the warm-up runs every collective of the step eagerly: the first
+        # creates the NCCL communicator, which a capture cannot
         kept = [t.detach().clone() for t in tree_leaves(state) if torch.is_tensor(t)]
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
@@ -220,6 +234,10 @@ def train_step_resident(trainer, state: dict, store, rng: int, batch_size: int,
         raise ValueError(f"n_steps must be >= 1, got {n_steps!r}")
     if trainer.device.type != "cuda":
         return run_eager(trainer, state, store, rng, batch_size, int(n_steps))
+    if mesh.is_initialized() and mesh.backend() != "nccl":
+        raise RuntimeError(f"the resident step is a captured CUDA graph, and the {mesh.backend()} "
+                           "backend's collectives cannot be captured: train under NCCL, or "
+                           "step eagerly with train.resident_exec.run_eager")
     return executor(trainer).run(state, store, rng, batch_size, int(n_steps))
 
 

@@ -1,7 +1,9 @@
 """SFT-GAN trainer with the auxiliary-classifier discriminator.
 
 Counterpart of ``esrganplus_tpu/train/sftgan_model.py`` (reference
-``codes/models/SFTGAN_ACD_model.py``) on one device:
+``codes/models/SFTGAN_ACD_model.py``), one device a process (data
+parallelism as in ``train/sr_model.py``: the ACD's batch statistics and the
+masked cross entropy's count are the global batch's):
 
   * two generator parameter groups, each with its own Adam state: ``sft``
     (every leaf whose tree path holds ``sft`` or ``cond``: the SFT layers
@@ -47,6 +49,7 @@ from esrganplus_tpu_torch.models.layers import deterministic_convs, fp32_exact
 from esrganplus_tpu_torch.models.sft import (SFTNetConfig, acd_forward, acd_merge_sequential,
                                              init_acd, is_sft_param, sftnet_forward)
 from esrganplus_tpu_torch.models.vgg import VGGFeatConfig, load_vgg_feat, vgg_feat_forward
+from esrganplus_tpu_torch.parallel import mesh
 from esrganplus_tpu_torch.train.schedule import multistep_lr
 from esrganplus_tpu_torch.train.sr_model import (AdamTransform, GeneratorTrainerBase,
                                                  apply_updates, pixel_loss, tree_leaves,
@@ -79,13 +82,16 @@ class SFTGANTrainConfig:
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                          ignore_index: int = 0) -> torch.Tensor:
     """Cross entropy over classes with torch's ``ignore_index`` semantics,
-    the mean over the kept entries; 0 where every label is ignored (a
-    background-only batch), where ``F.cross_entropy`` gives NaN."""
+    the mean over the kept entries of the global batch; 0 where every label
+    is ignored (a background-only batch), where ``F.cross_entropy`` gives
+    NaN. Under a process group the sum and the count of kept entries are
+    all-reduced (the sum with its gradient): the ranks keep unequal counts,
+    so a mean of the ranks' means would be another loss."""
     logp = F.log_softmax(logits.float(), dim=-1)
     keep = labels != ignore_index
     picked = logp.gather(-1, torch.where(keep, labels, 0).long()[:, None])[:, 0]
     kept = keep.float()
-    return -(picked * kept).sum() / kept.sum().clamp_min(1.0)
+    return -mesh.all_reduce((picked * kept).sum()) / mesh.all_reduce(kept.sum()).clamp_min(1.0)
 
 
 def group_mask(tree, group: str, path: str = ""):
@@ -101,7 +107,8 @@ def group_mask(tree, group: str, path: str = ""):
 
 
 class SFTGANTrainer(GeneratorTrainerBase):
-    """SFT-GAN trainer on one device (the card unless ``device="cpu"``)."""
+    """SFT-GAN trainer on one device a process (the card unless
+    ``device="cpu"``)."""
 
     GROUPS = G_GROUPS + ("d",)
     G_GROUPS = G_GROUPS
@@ -204,6 +211,7 @@ class SFTGANTrainer(GeneratorTrainerBase):
         leaf the loss does not reach (BN running statistics) has a zero
         gradient."""
         grads = tree_map(lambda p, g: torch.zeros_like(p) if g is None else g, params, grads)
+        grads = tree_unflatten_like(grads, iter(mesh.all_reduce_grads(tree_leaves(grads))))
         apply_updates(params, tx.moments(grads, opt_state, params, *sc.bias(group)),
                       sc.lr(group))
 
@@ -235,8 +243,9 @@ class SFTGANTrainer(GeneratorTrainerBase):
             merged = acd_merge_sequential(d_params, upd_r, upd_f)
             tree_map(lambda p, m: p if p is m else p.copy_(m), d_params, merged)
 
-        return {**{k: v.detach() for k, v in g_logs.items()},
-                **{k: v.detach() for k, v in d_logs.items()}, "lr": sc.lr("other")}
+        return mesh.reduce_logs({**{k: v.detach() for k, v in g_logs.items()},
+                                 **{k: v.detach() for k, v in d_logs.items()},
+                                 "lr": sc.lr("other")})
 
     def predict(self, params, lr_img, seg) -> torch.Tensor:
         """Eval-mode fp32 forward (as the JAX trainer's ``predict``) of NHWC

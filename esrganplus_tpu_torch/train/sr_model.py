@@ -3,7 +3,9 @@
 Counterpart of ``esrganplus_tpu/train/sr_model.py`` (the reference's
 ``SRModel``, ``codes/models/SR_model.py:15-151``): pixel loss (L1 or MSE),
 Adam, MultiStepLR, the nESRGAN+ noise sites active during training. One
-device; data parallelism comes with the DDP slice.
+device a process; under a process group (``parallel/mesh.py``) each rank
+steps on its rows of the global batch, the gradients are all-reduced
+before the clip and Adam, and the logs are the global batch's.
 
 What differs from the JAX trainer, by design:
 
@@ -44,6 +46,7 @@ import torch
 from esrganplus_tpu_torch.infer import resolve_device
 from esrganplus_tpu_torch.models import generator_forward, generator_init
 from esrganplus_tpu_torch.models.layers import deterministic_convs, fp32_exact
+from esrganplus_tpu_torch.parallel import mesh
 from esrganplus_tpu_torch.models.rrdb import (RRDBNetConfig, fused_noise_active,
                                               needs_kernel_weights, noise_active,
                                               prep_trunk_ct)
@@ -323,7 +326,7 @@ class GeneratorTrainerBase:
 
 
 class SRTrainer(GeneratorTrainerBase):
-    """PSNR pretrainer on one device (the card unless ``device="cpu"``);
+    """PSNR pretrainer on one device a process (the card unless ``device="cpu"``);
     ``net_cfg`` an ``RRDBNetConfig`` or an ``SRResNetConfig``."""
 
     def __init__(self, net_cfg, train_cfg: SRTrainConfig = SRTrainConfig(),
@@ -362,9 +365,10 @@ class SRTrainer(GeneratorTrainerBase):
             loss, _ = self._loss_fn(state["params"], lr_img, hr_img,
                                     self._noise(sc, self.train_cfg.noise_prng))
             flat = torch.autograd.grad(loss, leaves)
-        grads = tree_unflatten_like(state["params"], iter(flat))
+        grads = tree_unflatten_like(state["params"], iter(mesh.all_reduce_grads(list(flat))))
         updates = self.tx.moments(grads, state["opt_state"], state["params"], *sc.bias("g"))
         apply_updates(state["params"], updates, sc.lr("g"))
         with torch.no_grad():
             grad_norm = global_norm(grads)
-        return {"l_pix": loss.detach(), "lr": sc.lr("g"), "grad_norm": grad_norm}
+        return mesh.reduce_logs({"l_pix": loss.detach(), "lr": sc.lr("g"),
+                                 "grad_norm": grad_norm})

@@ -87,8 +87,11 @@ def mangled_family(name: str) -> str:
     """A kernel's family from its mangled (Itanium) name, as :func:`op_family`
     gives it from the demangled one: the last name of the nested name, before
     its template arguments (``_ZN12_GLOBAL__N_116dense_mma_kernelILi64E...``
-    → ``dense_mma_kernel``); a name that is not mangled goes to
+    → ``dense_mma_kernel``, also behind nvcc's ``__nv_static_..._`` prefix);
+    a name that is not mangled goes to
     :func:`op_family`."""
+    # a kernel of a file-static namespace (NCCL's) carries nvcc's prefix
+    name = re.sub(r"^__nv_static_\w*?_(?=_Z)", "", name)
     m = re.match(r"_Z(N?)", name)
     if not m:
         return op_family(name)

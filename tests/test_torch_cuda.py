@@ -823,6 +823,53 @@ def test_cuda_philox_draw_matches_twin():
     assert torch.equal(noise_factor_cuda(SEED, 0.1, shape, "cuda"), 1.0 + 0.1 * got)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("b0", [0, 5])
+def test_cuda_philox_batch_offset_draws_rows_of_the_global_draw(b0):
+    """With the batch offset b0, the normals, the fused mode's factor and its
+    forward in rdb_ct are rows b0.. of the larger batch's, bit for bit: a
+    rank of a data-parallel run draws its rows of the global batch."""
+    _need_card()
+    from esrganplus_tpu_torch.kernels.philox import noise_factor_cuda, philox_normal_cuda
+
+    shape = (3, 9, 23, 64)
+    whole = philox_normal_cuda(SEED, (b0 + 3, 9, 23, 64))
+    assert torch.equal(philox_normal_cuda(SEED, shape, b0=b0), whole[b0:])
+    assert torch.equal(noise_factor_cuda(SEED, 0.1, shape, "cuda", b0=b0),
+                       noise_factor_cuda(SEED, 0.1, whole.shape, "cuda")[b0:])
+    rs = np.random.RandomState(3)
+    p = {f"conv{k}": _conv(rs, 64 + (k - 1) * 32, 64 if k == 5 else 32) for k in range(1, 6)}
+    w = K.prepare_rdb_ct_weights(p, torch.bfloat16)
+    x = torch.from_numpy(rs.randn(b0 + 3, 8, 16, 64).astype(np.float32)).to("cuda",
+                                                                         torch.bfloat16)
+    full = K._rdb_ct_cuda(x, w, seed=SEED, sigma=0.1, save=True)
+    part = K._rdb_ct_cuda(x[b0:].contiguous(), w, seed=SEED, b0=b0, sigma=0.1, save=True)
+    assert all(torch.equal(a, b[b0:]) for a, b in zip(part, full))
+
+
+@pytest.mark.cuda
+def test_cuda_resident_step_under_gloo_raises():
+    """A resident step on the card is a captured graph, and gloo's
+    collectives cannot be captured: under a gloo group it raises; it does not
+    fall back to eager steps."""
+    _need_card()
+    import socket
+
+    from esrganplus_tpu_torch.parallel import mesh
+    from esrganplus_tpu_torch.train import SRTrainConfig, SRTrainer
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    mesh.init_process_group(f"localhost:{port}", 1, 0, "cuda", backend="gloo")
+    try:
+        t = SRTrainer(RRDBNetConfig(nf=8, nb=1, gc=4), SRTrainConfig(), device="cuda")
+        with pytest.raises(RuntimeError, match="gloo backend's collectives cannot be captured"):
+            t.train_step_resident(t.init_state(0), None, 1, 2)
+    finally:
+        mesh.destroy_process_group()
+
+
 def _rdb_ct_case(dtype, shape, rs):
     B, H, W = shape
     act = lambda: torch.from_numpy(rs.randn(B, H, W, 64).astype(np.float32)).to("cuda", dtype)
@@ -1383,7 +1430,7 @@ def test_cuda_dense_entries_refuse_fp32_on_the_tensor_cores():
     code = build.load("rdb_ct").esr_dense_conv3x3(
         build.dtype_code(x), DESIGNS["mma"], 16, 0, x.data_ptr(), 16, None, 0, 16, w.data_ptr(),
         b.data_ptr(), None, out.data_ptr(), 16, None, 0, None, 0, None, 0, None, 0.0, None,
-        1.0, 1.0, 0.2, 1, 8, 16, s)
+        0, 1.0, 1.0, 0.2, 1, 8, 16, s)
     with pytest.raises(RuntimeError, match="cudaError"):
         build.check(code, "esr_dense_conv3x3")
     wt = torch.zeros(16, 9 * 16, device="cuda")

@@ -482,6 +482,11 @@ def test_kernel_names_are_the_sources_kernels():
      "<float>, std::array<char*, 1ul> >(int, at::native::FillFunctor<float>, std::array<char*, "
      "1ul>)"),
     ("Memcpy HtoD (Pageable -> Device)", "Memcpy HtoD (Pageable -> Device)"),
+    # NCCL's one-rank AVG in a captured step (nvcc's prefix for a file-static name)
+    ("__nv_static_32__b4148644_10_onerank_cu_fdf47990__ZN43_GLOBAL__N__b4148644_10_onerank_cu_"
+     "fdf4799013oneRankReduceI13FuncPreMulSumIfEEEvPvS3_mmb",
+     "void (anonymous namespace)::oneRankReduce<FuncPreMulSum<float> >(void*, void*, "
+     "unsigned long, unsigned long, bool)"),
 ])
 def test_graph_node_names_give_the_traces_families(mangled, demangled):
     """A captured graph's kernel nodes are named mangled, a profiler trace's

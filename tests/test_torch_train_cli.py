@@ -136,16 +136,24 @@ def test_state_file_roundtrip(tmp_path):
 
 @pytest.mark.parametrize("case", ["profile", "dist", "resident", "dispatch", "srragan"])
 def test_unported_training_options_exit_saying_so(tmp_path, case, capsys):
-    """The multi-process launch is still refused, before anything starts.
-    The options ported since (``--profile``, the resident crop store,
-    ``steps_per_dispatch``, the resident store under a GAN model) now run."""
+    """Every option once refused here now runs: ``--profile``, the resident
+    crop store, ``steps_per_dispatch``, the resident store under a GAN
+    model, and the multi-process launch (``--dist-*``: here a world-size-1
+    gloo group), whose three flags are refused, before anything starts,
+    when one is given without the others."""
     root = str(tmp_path)
     opt = _options(root, *_make_dataset(root, n=2, hr=96 if case == "srragan" else 64), niter=2)
     argv = []
     if case == "profile":
         argv = ["--profile", os.path.join(root, "trace"), "--profile-steps", "1"]
     elif case == "dist":
-        argv = ["--dist-coordinator", "localhost:1234"]
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        argv = ["--dist-coordinator", f"localhost:{port}", "--dist-num-processes", "1",
+                "--dist-process-id", "0"]
     elif case == "resident":
         opt["datasets"]["train"]["resident_crops"] = 64
     elif case == "dispatch":
@@ -160,16 +168,15 @@ def test_unported_training_options_exit_saying_so(tmp_path, case, capsys):
     with open(path, "w") as f:
         json.dump(opt, f)
     if case == "dist":
-        with pytest.raises((SystemExit, NotImplementedError)) as e:
-            main(["-opt", path, "--device", "cpu", *argv])
-        said = str(e.value) + capsys.readouterr().err
-        assert "not yet ported" in said or "not ported yet" in said
+        with pytest.raises(SystemExit):
+            main(["-opt", path, "--device", "cpu", *argv[:2]])
+        assert "go together" in capsys.readouterr().err
         assert not os.path.exists(os.path.join(root, "experiments"))  # nothing was started
-        return
     main(["-opt", path, "--device", "cpu", *argv])
     text = _log_text(os.path.join(root, "experiments", "debug_e2e"))
     assert "End of training." in text and "<step:       2," in text
-    assert ("resident crop store" in text) == (case != "profile")
+    assert ("resident crop store" in text) == (case not in ("profile", "dist"))
+    assert ("process 0 of 1 (gloo)" in text) == (case == "dist")
 
 
 def test_cli_needs_a_card_unless_asked_for_cpu(tmp_path):
