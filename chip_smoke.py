@@ -213,7 +213,7 @@ final result line:
                captured graphs, equal by kernel family to what the profiler
                saw the card run in them and in the eager steps; host ms a
                step (CUDA events around bursts of K = 1 and 8), device ms,
-               idle share, capture s and pool bytes beside eager resident
+               idle share and capture s beside eager resident
                steps (reported); train-burst-equal the same checks for the
                fused noise mode, SRResNet and ``D_update_ratio`` 2;
      train-profile-cli — ``cli.train --profile DIR --profile-steps 4`` on the
@@ -223,7 +223,8 @@ final result line:
                equal to the launches counted where each kernel is launched
                (``kernels/launch.py`` ``device_launches``) by the one
                capture, per GRAPH_CALLS; the table's top rows and the device
-               ms a step;
+               ms a step; ``phases.json`` beside the trace and the summary's
+               device ms a step by phase (``g.bwd`` among them);
  15. seg     — OutdoorSceneSeg (published widths and depth, seeded) through
                ``cli.test_seg --device cuda`` on two synthetic 384×512 HR
                images: each probability map within 1e-4 of the port's CPU
@@ -4015,7 +4016,6 @@ def train_burst(failures, store):
         row = {"phase": "train-burst", "step": name, "batch": B, "hr": 4 * H,
                "dtype": "bfloat16", "noise_kernel": "input", "first_burst": kmax, **fields,
                "captures": ex.captures, "capture_s": ex.capture_seconds,
-               "graph_pool_bytes": ex.pool_bytes(),
                "peak_memory_bytes": torch.cuda.max_memory_allocated()}
         row.update(_burst_timed(r["a"], r["b"], store, B))
         row["ok"] = bool(r["equal"] and r["finite"] and same and row["captures"] == 1)
@@ -4091,6 +4091,10 @@ def train_profile_cli(failures, workdir):
     with contextlib.redirect_stdout(out):
         profile_summary.main([trace_dir, "--steps", str(PROFILE_STEPS), "--top", "12"])
     table = out.getvalue().splitlines()
+    # the captured step's kernels by phase (phases.json beside the trace)
+    at = next((i for i, line in enumerate(table) if line.startswith("device ms/step by phase")),
+              len(table))
+    by_phase = table[at + 1:]
     row = {"phase": "train-profile-cli", "steps_traced": PROFILE_STEPS, "niter": niter,
            "steps_per_dispatch": DISPATCH,
            "bursts": _bursts_logged(text), "captures": captures,
@@ -4101,10 +4105,12 @@ def train_profile_cli(failures, workdir):
            "counted_per_capture": {f: n / GRAPH_CALLS for f, n in
                                    sorted(L.device_launches.items())},
            "rdb_families_ms_per_step": {f: agg.get(f, (0.0, 0))[0] for f in RDB_FAMILIES},
-           "summary_top": table[:14]}
+           "summary_top": table[:14], "summary_phases": by_phase,
+           "phases_json": os.path.isfile(os.path.join(trace_dir, "phases.json"))}
     row["ok"] = bool(rows_kind == "kernel" and traced == per_step and captures == 1
                      and all(v > 0 for v in traced.values())
-                     and table[1].startswith("device total:")
+                     and table[1].startswith("device total:") and row["phases_json"]
+                     and any(line.endswith(" g.bwd") for line in by_phase)
                      and row["bursts"] == [DISPATCH, DISPATCH, 1, 1, DISPATCH])
     emit(row)
     if not row["ok"]:
@@ -4680,8 +4686,7 @@ def train_sftgan_path(failures, workdir, per_step):
     row = {"phase": "train-resident-sftgan", "batch": SFT_BATCH, "hr": SFT_HR_SIZE,
            "dtype": "float32", "k": 4, "other_start_iter": 5, **fields,
            "launches_per_step": per, "expected_per_step": {k: per_step[k] for k in SFT_STAGE},
-           "captures": sorted(map(list, ex._graphs)), "capture_s": ex.capture_seconds,
-           "graph_pool_bytes": ex.pool_bytes()}
+           "captures": sorted(map(list, ex._graphs)), "capture_s": ex.capture_seconds}
     row.update(_burst_timed(r["a"], r["b"], store, SFT_BATCH))
     row["ok"] = bool(r["equal"] and r["finite"] and same and per == row["expected_per_step"]
                      and len(row["captures"]) == 2)

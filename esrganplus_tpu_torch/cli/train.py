@@ -31,8 +31,9 @@ package's): on the card each step is a replay of a captured CUDA graph
 synchronisation between them, and K = 1 is one replay a step), on the CPU
 K eager calls. A step that cannot be captured raises. ``--profile DIR``
 traces ``--profile-steps`` steps
-from the 10th after the start with ``torch.profiler`` into DIR
-(``cli/profile_summary.py`` reads it).
+from the 10th after the start with ``torch.profiler`` into DIR, with the
+captured steps' kernels by phase beside it as ``phases.json``
+(``utils/trace.phase_lists``; ``cli/profile_summary.py`` reads both).
 
 Data parallelism: run N processes with the same ``-opt`` and
 ``--dist-coordinator HOST:PORT --dist-num-processes N --dist-process-id
@@ -50,6 +51,7 @@ state (one broadcast), and a resume loads the same file on every rank.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import time
 
@@ -293,6 +295,11 @@ def main(argv=None):
     def stop_profile(why: str):
         sync()
         prof.stop()  # writes the trace through its handler
+        if trainer._resident is not None:  # what each captured step's replay launched
+            from esrganplus_tpu_torch.utils.trace import phase_lists
+
+            with open(os.path.join(args.profile, "phases.json"), "w") as f:
+                json.dump(phase_lists(), f)
         logger.info(f"profiler trace written to {args.profile}{why}")
 
     def burst_len(step: int) -> int:

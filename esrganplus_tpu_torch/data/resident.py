@@ -53,6 +53,7 @@ import torch
 from esrganplus_tpu_torch.kernels.philox import key_words, random_bits
 from esrganplus_tpu_torch.parallel import mesh
 from esrganplus_tpu_torch.train.rng import split_words
+from esrganplus_tpu_torch.utils.trace import span
 
 
 def draw(key: torch.Tensor, batch_size: int, n: int, flip: bool, rot: bool) -> tuple:
@@ -154,7 +155,7 @@ class ResidentCropStore:
         self.async_refresh = bool(async_refresh) and mesh.world_size() == 1
         self._pending = None  # (thread, one-element result list, pool index)
         self.pool_index = self._index_at(int(start_step))
-        self._upload(self._build(self.pool_index), self.pool_index)
+        self._upload(self._crop(self.pool_index), self.pool_index)
 
     def _index_at(self, step: int) -> int:
         return step // self.refresh_steps if self.refresh_steps > 0 else 0
@@ -162,18 +163,26 @@ class ResidentCropStore:
     def _build(self, index: int):
         return build_crop_pool(self._dataset, self.n_crops, *pool_generators(self.seed, index))
 
+    def _crop(self, index: int):
+        """The host pools of pool ``index`` (the span ``store.build``, on
+        whichever thread builds them)."""
+        with span("store.build"):
+            return self._build(index)
+
     POOLS = ("lr", "hr")
 
     def _upload(self, pools, index: int):
         """Copy the host pools into the device buffers, made at the first
-        upload and kept after (a refresh lands in the same memory)."""
-        for name, a in zip(self.POOLS, pools):
-            t = torch.from_numpy(a)
-            buf = getattr(self, name, None)
-            if buf is None:
-                setattr(self, name, t.to(self.device))
-            else:
-                buf.copy_(t)
+        upload and kept after (a refresh lands in the same memory; the span
+        ``store.upload``)."""
+        with span("store.upload"):
+            for name, a in zip(self.POOLS, pools):
+                t = torch.from_numpy(a)
+                buf = getattr(self, name, None)
+                if buf is None:
+                    setattr(self, name, t.to(self.device))
+                else:
+                    buf.copy_(t)
         self.pool_index = index
 
     def pools(self) -> tuple:
@@ -190,7 +199,7 @@ class ResidentCropStore:
 
         def work():
             try:
-                out.append(("ok", self._build(index)))
+                out.append(("ok", self._crop(index)))
             except BaseException as e:  # re-raised at the swap point
                 out.append(("err", e))
 
@@ -222,7 +231,7 @@ class ResidentCropStore:
         index = self._index_at(step)
         if step > 0 and step % self.refresh_steps == 0 and index != self.pool_index:
             if not self.async_refresh:
-                self._upload(self._build(index), index)
+                self._upload(self._crop(index), index)
             elif self._pending is None:
                 self._start_build(index)
 

@@ -24,6 +24,7 @@ from esrganplus_tpu_torch.convert import generator_from_state_dict, load_state_d
 from esrganplus_tpu_torch.models import generator_forward
 from esrganplus_tpu_torch.models.rrdb import needs_kernel_weights, prep_trunk_ct
 from esrganplus_tpu_torch.ops.image_io import img2tensor, tensor2img
+from esrganplus_tpu_torch.utils.trace import span
 
 
 def resolve_device(device) -> torch.device:
@@ -92,42 +93,49 @@ class SRInferencer:
         In the noise mode ``noise`` may hand in the pre-drawn realisation
         (``models.rrdb.draw_noise`` layout) instead of the seeded draw.
         ``side`` is SFT-GAN's HR seg map (HWC or NHWC, ``upscale``× the
-        image), padded with the image."""
-        x = np.asarray(img_rgb, np.float32)
-        squeeze = x.ndim == 3
-        if squeeze:
-            # not x[None]: its batch axis has stride 0, and cuDNN then takes
-            # another algorithm for fea_conv than for a stacked batch; in bf16
-            # one ulp there moves the output by up to 5e-2 (PERF.md, Findings)
-            x = x.reshape((1,) + x.shape)
-        if side is not None:
-            side = np.asarray(side, np.float32)
-            side = side.reshape((1,) + side.shape) if side.ndim == 3 else side
-        h, w = x.shape[1], x.shape[2]
-        if self.pad_multiple:
-            m, s = self.pad_multiple, self.cfg.upscale
-            ph, pw = (-h) % m, (-w) % m
-            if ph or pw:
-                x = np.pad(x, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="edge")
-                if side is not None:
-                    side = np.pad(side, ((0, 0), (0, ph * s), (0, pw * s), (0, 0)),
-                                  mode="edge")
-        xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-        st = None if side is None else torch.from_numpy(np.ascontiguousarray(side)).to(
-            self.device)
-        if self.noise_active:
-            rng = self._noise_gen.manual_seed(self._noise_seed)
-            with torch.no_grad():
-                # threefry, as JAX's inferencer key: a fused-noise config
-                # applies the noise between kernel calls and needs no site seeds
-                y = generator_forward(self.params, xt, self.cfg, train=True, rng=rng,
-                                      noise=noise, noise_prng="threefry", dtype=self.dtype)
-        else:
-            with torch.inference_mode():
-                y = generator_forward(self.params, xt, self.cfg, dtype=self.dtype, side=st)
-        s = self.cfg.upscale
-        out = y[:, : h * s, : w * s, :].clamp(0.0, 1.0).cpu().numpy()
-        return out[0] if squeeze else out
+        image), padded with the image. Its parts are the spans ``sr.prepare``
+        (a contiguous, padded batch), ``sr.copy_in``, ``sr.forward`` (the
+        forward's launch) and ``sr.copy_out`` (clamp, copy, host array)."""
+        with span("sr.prepare"):
+            x = np.asarray(img_rgb, np.float32)
+            squeeze = x.ndim == 3
+            if squeeze:
+                # not x[None]: its batch axis has stride 0, and cuDNN then takes
+                # another algorithm for fea_conv than for a stacked batch; in bf16
+                # one ulp there moves the output by up to 5e-2 (PERF.md, Findings)
+                x = x.reshape((1,) + x.shape)
+            if side is not None:
+                side = np.asarray(side, np.float32)
+                side = side.reshape((1,) + side.shape) if side.ndim == 3 else side
+            h, w = x.shape[1], x.shape[2]
+            if self.pad_multiple:
+                m, s = self.pad_multiple, self.cfg.upscale
+                ph, pw = (-h) % m, (-w) % m
+                if ph or pw:
+                    x = np.pad(x, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="edge")
+                    if side is not None:
+                        side = np.pad(side, ((0, 0), (0, ph * s), (0, pw * s), (0, 0)),
+                                      mode="edge")
+            x = np.ascontiguousarray(x)
+            side = None if side is None else np.ascontiguousarray(side)
+        with span("sr.copy_in"):
+            xt = torch.from_numpy(x).to(self.device)
+            st = None if side is None else torch.from_numpy(side).to(self.device)
+        with span("sr.forward"):
+            if self.noise_active:
+                rng = self._noise_gen.manual_seed(self._noise_seed)
+                with torch.no_grad():
+                    # threefry, as JAX's inferencer key: a fused-noise config
+                    # applies the noise between kernel calls and needs no site seeds
+                    y = generator_forward(self.params, xt, self.cfg, train=True, rng=rng,
+                                          noise=noise, noise_prng="threefry", dtype=self.dtype)
+            else:
+                with torch.inference_mode():
+                    y = generator_forward(self.params, xt, self.cfg, dtype=self.dtype, side=st)
+        with span("sr.copy_out"):
+            s = self.cfg.upscale
+            out = y[:, : h * s, : w * s, :].clamp(0.0, 1.0).cpu().numpy()
+            return out[0] if squeeze else out
 
     def upscale_bgr_to_png(self, img_bgr01: np.ndarray) -> np.ndarray:
         """HWC BGR [0,1] → HWC BGR uint8 result (file-format ready)."""
@@ -307,13 +315,16 @@ class BatchedEvaluator:
         outs = []
         for i0 in range(0, len(images), self.batch):
             chunk = images[i0:i0 + self.batch]
-            x = np.stack([edge(img, hm, wm) for img in chunk])
-            side = None
-            if sides is not None:
-                r = self.side_scale
-                side = np.stack([edge(sd, hm * r, wm * r) for sd in sides[i0:i0 + self.batch]])
+            with span("sr.prepare"):
+                x = np.stack([edge(img, hm, wm) for img in chunk])
+                side = None
+                if sides is not None:
+                    r = self.side_scale
+                    side = np.stack([edge(sd, hm * r, wm * r)
+                                     for sd in sides[i0:i0 + self.batch]])
             y = self.inferencer.upscale(x, side=side)
             self.calls += 1
-            outs.extend(np.ascontiguousarray(y[j, :img.shape[0] * s, :img.shape[1] * s])
-                        for j, img in enumerate(chunk))
+            with span("sr.copy_out"):
+                outs.extend(np.ascontiguousarray(y[j, :img.shape[0] * s, :img.shape[1] * s])
+                            for j, img in enumerate(chunk))
         return outs

@@ -60,6 +60,7 @@ from esrganplus_tpu_torch.train.schedule import multistep_lr
 from esrganplus_tpu_torch.train.sr_model import (AdamTransform, GeneratorTrainerBase,
                                                  apply_updates, pixel_loss, tree_leaves,
                                                  tree_map, tree_unflatten_like)
+from esrganplus_tpu_torch.utils.trace import phase, phase_at_grad
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,22 +176,30 @@ class GANTrainer(GeneratorTrainerBase):
         ``noise`` the generator's noise keywords (``rng`` and the fused
         mode's ``noise_seeds``, or pre-drawn ``noise``)."""
         cfg = self.cfg
-        fake = generator_forward(g_params, lr_img, self.net_g, train=True,
-                                 noise_prng=cfg.noise_prng, dtype=self._dtype, **noise)
+        phase("g.fwd")
+        fake = phase_at_grad(generator_forward(g_params, lr_img, self.net_g, train=True,
+                                               noise_prng=cfg.noise_prng, dtype=self._dtype,
+                                               **noise), "g.bwd")
         logs = {}
         total = 0.0
         if cfg.pixel_weight > 0:
+            phase("loss")
             l_pix = cfg.pixel_weight * pixel_loss(fake.float(), hr_img, cfg.pixel_criterion)
             total = total + l_pix
             logs["l_g_pix"] = l_pix
         if self.use_feature:
+            phase("f.fwd")
             with torch.no_grad():
                 real_fea = self._features(hr_img)
+            fake_fea = phase_at_grad(self._features(fake), "f.bwd")
+            phase("loss")
             l_fea = cfg.feature_weight * pixel_loss(
-                self._features(fake).float(), real_fea.float(), cfg.feature_criterion)
+                fake_fea.float(), real_fea.float(), cfg.feature_criterion)
             total = total + l_fea
             logs["l_g_fea"] = l_fea
-        d_fake, _ = self._d_logits(d_params, fake)
+        phase("d.fwd")
+        d_fake = phase_at_grad(self._d_logits(d_params, fake)[0], "d.bwd")
+        phase("loss")
         if cfg.variant == "srragan":
             l_gan = cfg.gan_weight * ragan_g_loss(d_real, d_fake, cfg.gan_type)
         else:
@@ -205,8 +214,11 @@ class GANTrainer(GeneratorTrainerBase):
         the step's sampler key, whose counter stream 1 gives WGAN-GP's
         interpolation weights."""
         cfg = self.cfg
+        phase("d.fwd")
         d_real, st_real = real if real is not None else self._d_logits(d_params, hr_img)
         d_fake, st_fake = self._d_logits(d_params, fake)
+        d_real, d_fake = (phase_at_grad(t, "d.bwd") for t in (d_real, d_fake))
+        phase("loss")
         if cfg.variant == "srragan":
             loss = ragan_d_loss(d_real, d_fake, cfg.gan_type)
         else:
@@ -253,16 +265,19 @@ class GANTrainer(GeneratorTrainerBase):
             if do_g:
                 d_real_value = None
                 if cfg.variant == "srragan":
+                    phase("d.fwd")
                     real = self._d_logits(d_params, hr_img)
                     d_real_value = real[0].detach()
                 frozen = tree_map(lambda p: p.detach(), d_params)
                 g_total, fake, g_logs = self._g_loss(g_params, frozen, lr_img, hr_img,
                                                      d_real_value, noise)
                 g_grads = torch.autograd.grad(g_total, tree_leaves(g_params))
+                phase("g.opt")
                 self._apply(self.tx_g, g_params, state["g_opt"], g_grads, sc, "g")
                 g_logs = {k: v.detach() for k, v in g_logs.items()}
                 g_logs["l_g_total"] = g_total.detach()
             else:
+                phase("g.fwd")
                 with torch.no_grad():
                     fake = generator_forward(g_params, lr_img, self.net_g, train=True,
                                              noise_prng=cfg.noise_prng, dtype=self._dtype,
@@ -275,11 +290,14 @@ class GANTrainer(GeneratorTrainerBase):
             d_total, (st_real, st_fake), d_logs = self._d_loss(d_params, fake.detach(), hr_img,
                                                                sc.sample_key, real)
             d_grads = torch.autograd.grad(d_total, tree_leaves(d_params), allow_unused=True)
+            phase("d.opt")
             self._apply(self.tx_d, d_params, state["d_opt"], d_grads, sc, "d")
         # running statistics as torch leaves them after D(real) then D(fake)
+        phase("bn")
         with torch.no_grad():
             merged = merge_sequential_bn(d_params, st_real, st_fake, self.net_d)
             tree_map(lambda p, m: p if p is m else p.copy_(m), d_params, merged)
 
+        phase("logs")
         return mesh.reduce_logs({**g_logs, **{k: v.detach() for k, v in d_logs.items()},
                                  "lr": sc.lr("g")})

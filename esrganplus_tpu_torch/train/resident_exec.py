@@ -32,7 +32,12 @@ the executor holds its trainer weakly, so a dropped trainer's graphs go with
 it). The kernel wrappers count their calls, so
 a capture adds two steps' launches to their counters (the warm-up and the
 recording) and a replay adds none: what a replay launches is read from the
-captured graph itself (:meth:`ResidentExecutor.kernel_nodes`).
+captured graph itself (:meth:`ResidentExecutor.kernel_nodes`). While a
+step is captured, its body's phase marks (``utils/trace.phase``) record
+where each phase's nodes begin, so each kernel a replay launches has its
+phase (:meth:`ResidentExecutor.phase_nodes`), kept process-wide under the
+id that the mark ``exec.replay:<id>`` before the replay's launch names
+(``utils/trace.phase_lists``); the marks cost the capture, not a replay.
 
 Under a process group (``parallel/mesh.py``) the step's collectives (the
 gradients' all-reduces, the batch norms' and the RaGAN pairing's, the logs')
@@ -53,6 +58,8 @@ burst of n steps is n eager calls of the same body.
 from __future__ import annotations
 
 import gc
+import itertools
+import time
 import weakref
 
 import numpy as np
@@ -60,18 +67,20 @@ import torch
 
 from esrganplus_tpu_torch.parallel import mesh
 from esrganplus_tpu_torch.train.sr_model import tree_leaves
+from esrganplus_tpu_torch.utils import trace
 
 
 def plan_burst(trainer, state: dict, rng: int, n_steps: int) -> tuple:
     """The rows and gates of the next ``n_steps`` steps → (int32 ``[n,
     width]``, [gates]); the host mirror advances by them."""
     rows, gates = [], []
-    for _ in range(n_steps):
-        row, g = trainer.plan(state, rng)
-        trainer.advance(state, g)
-        rows.append(row)
-        gates.append(g)
-    return np.stack(rows), gates
+    with trace.span("exec.plan"):
+        for _ in range(n_steps):
+            row, g = trainer.plan(state, rng)
+            trainer.advance(state, g)
+            rows.append(row)
+            gates.append(g)
+        return np.stack(rows), gates
 
 
 def burst_gates(trainer, state: dict, n_steps: int) -> list:
@@ -83,20 +92,25 @@ def burst_gates(trainer, state: dict, n_steps: int) -> list:
 
 def _step(trainer, state: dict, store, batch_size: int, sc, gates: tuple) -> dict:
     """One resident step: the batch sampled under the step's key, then the
-    trainer's body."""
-    batch = store.make_sampler(batch_size)(sc.sample_key)
-    return trainer._step(state, batch, sc, gates)
+    trainer's body, each part marked as a phase (``utils/trace.phase``)."""
+    try:
+        trace.phase("sample")
+        batch = store.make_sampler(batch_size)(sc.sample_key)
+        return trainer._step(state, batch, sc, gates)
+    finally:
+        trace.end_phase()
 
 
 class ResidentExecutor:
     """The captured resident steps of one trainer on the card."""
 
     MIN_ROWS = 256  # the table's rows at first use (more are made for a longer burst)
+    _ids = itertools.count()  # the process's captured graphs, numbered for their marks
 
     def __init__(self, trainer):
         self._trainer = weakref.ref(trainer)  # the trainer holds the executor
         self.device = trainer.device
-        self._graphs = {}  # gates → (CUDAGraph, static logs)
+        self._graphs = {}  # gates → (CUDAGraph, static logs, its replay mark's name)
         self._fingerprint = None
         self._pool = None
         self._table = None  # int32 [rows, width]: the burst's rows
@@ -107,13 +121,6 @@ class ResidentExecutor:
     @property
     def trainer(self):
         return self._trainer()
-
-    def pool_bytes(self) -> int:
-        """Bytes the captures' private pool holds (reserved by the allocator)."""
-        if self._pool is None:
-            return 0
-        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
-                   if tuple(s.get("segment_pool_id", ())) == tuple(self._pool))
 
     def _prepare(self, state: dict, store, batch_size: int, n_rows: int) -> None:
         """Drop the captures that hold other tensors than this state's,
@@ -139,10 +146,13 @@ class ResidentExecutor:
 
     def _capture(self, state: dict, store, batch_size: int, gates: tuple) -> None:
         """Warm the step up on a side stream, put the state back, capture it
-        → ``self._graphs[gates]``. The table holds a valid row and the index
-        0."""
-        import time
+        → ``self._graphs[gates]``, its (phase, kernel) list registered under
+        the graph's id (``utils/trace.register_phases``). The table holds a
+        valid row and the index 0."""
+        with trace.span("exec.capture"):
+            self._record(state, store, batch_size, gates)
 
+    def _record(self, state: dict, store, batch_size: int, gates: tuple) -> None:
         t0 = time.perf_counter()
         trainer = self.trainer
         # the warm-up runs every collective of the step eagerly: the first
@@ -168,7 +178,8 @@ class ResidentExecutor:
             # thread_local: the checkpoint writer's copies on its own thread
             # may run while a step is captured (a gate opening mid-run)
             with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
-                logs = self._captured_step(state, store, batch_size, gates)
+                with trace.capture_marks(torch.cuda.current_stream(self.device)) as marks:
+                    logs = self._captured_step(state, store, batch_size, gates)
         except RuntimeError as e:
             raise RuntimeError(
                 f"{type(trainer).__name__}: the resident step (gates {gates}) could not be "
@@ -177,7 +188,9 @@ class ResidentExecutor:
             if collecting:
                 gc.enable()
         graph.instantiate()
-        self._graphs[gates] = (graph, logs)
+        gid = str(next(self._ids))
+        trace.register_phases(gid, trace.node_phases(trace.graph_node_families(graph), marks))
+        self._graphs[gates] = (graph, logs, trace.REPLAY + gid)
         torch.cuda.synchronize(self.device)
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t0
@@ -189,6 +202,12 @@ class ResidentExecutor:
 
         return graph_kernels(self._graphs[gates][0])
 
+    def phase_nodes(self, gates: tuple) -> list:
+        """The kernels a replay of the ``gates`` step launches, in order, each
+        as (phase, family): the phase whose mark the capture had passed when
+        it added the kernel (``utils/trace.node_phases``)."""
+        return trace.phase_lists()[self._graphs[gates][2][len(trace.REPLAY):]]
+
     def capture(self, state: dict, store, rng: int, batch_size: int, n_steps: int) -> None:
         """Capture the steps the next ``n_steps`` need and this executor
         lacks (one per gate pattern); the state and its host mirror are left
@@ -197,7 +216,9 @@ class ResidentExecutor:
         self._prepare(state, store, batch_size, n_steps)
         missing = [g for g in dict.fromkeys(gates) if g not in self._graphs]
         if missing:  # the warm-ups read the state's next row (any row would do)
-            self.trainer._uploader.upload(self.trainer.plan(state, rng)[0][None], self._table)
+            with trace.span("exec.upload"):
+                self.trainer._uploader.upload(self.trainer.plan(state, rng)[0][None],
+                                              self._table)
         for g in missing:
             self._capture(state, store, batch_size, g)
 
@@ -206,10 +227,13 @@ class ResidentExecutor:
         last step's logs, copied out of the graph's buffers)."""
         self.capture(state, store, rng, batch_size, n_steps)
         rows, gates = plan_burst(self.trainer, state, rng, n_steps)
-        self.trainer._uploader.upload(rows, self._table)
-        self._index.zero_()
+        with trace.span("exec.upload"):
+            self.trainer._uploader.upload(rows, self._table)
+            self._index.zero_()
         for g in gates:
-            self._graphs[g][0].replay()
+            graph, _, name = self._graphs[g]
+            trace.mark(name)
+            graph.replay()
         return state, {k: v.clone() for k, v in self._graphs[gates[-1]][1].items()}
 
 

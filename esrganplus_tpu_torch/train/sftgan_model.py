@@ -54,6 +54,7 @@ from esrganplus_tpu_torch.train.schedule import multistep_lr
 from esrganplus_tpu_torch.train.sr_model import (AdamTransform, GeneratorTrainerBase,
                                                  apply_updates, pixel_loss, tree_leaves,
                                                  tree_map, tree_unflatten_like)
+from esrganplus_tpu_torch.utils.trace import phase, phase_at_grad
 
 G_GROUPS = ("other", "sft")
 
@@ -172,21 +173,29 @@ class SFTGANTrainer(GeneratorTrainerBase):
         """(total, fake, logs); ``d_params`` enter detached (D is frozen in
         the G phase; its BN updates of this forward are dropped)."""
         cfg = self.cfg
-        fake = sftnet_forward(g_params, lr_img, seg, self.net_g, dtype=self._dtype)
+        phase("g.fwd")
+        fake = phase_at_grad(sftnet_forward(g_params, lr_img, seg, self.net_g, dtype=self._dtype),
+                             "g.bwd")
         logs = {}
         total = 0.0
         if cfg.pixel_weight > 0:
+            phase("loss")
             l_pix = cfg.pixel_weight * pixel_loss(fake, hr_img, cfg.pixel_criterion)
             total = total + l_pix
             logs["l_g_pix"] = l_pix
         if self.use_feature:
+            phase("f.fwd")
             with torch.no_grad():
                 real_fea = self._features(hr_img)
-            l_fea = cfg.feature_weight * pixel_loss(self._features(fake).float(),
-                                                    real_fea.float(), "l1")
+            fake_fea = phase_at_grad(self._features(fake), "f.bwd")
+            phase("loss")
+            l_fea = cfg.feature_weight * pixel_loss(fake_fea.float(), real_fea.float(), "l1")
             total = total + l_fea
             logs["l_g_fea"] = l_fea
+        phase("d.fwd")
         gan_logits, cls_logits, _ = acd_forward(d_params, fake, train=True, dtype=self._dtype)
+        gan_logits, cls_logits = (phase_at_grad(t, "d.bwd") for t in (gan_logits, cls_logits))
+        phase("loss")
         l_gan = cfg.gan_weight * gan_loss(gan_logits, True, cfg.gan_type)
         l_cls = cfg.gan_weight * masked_cross_entropy(cls_logits, cat)
         total = total + l_gan + l_cls
@@ -195,8 +204,12 @@ class SFTGANTrainer(GeneratorTrainerBase):
 
     def _d_loss(self, d_params, fake, hr_img, cat):
         cfg = self.cfg
+        phase("d.fwd")
         gan_r, cls_r, upd_r = acd_forward(d_params, hr_img, train=True, dtype=self._dtype)
         gan_f, cls_f, upd_f = acd_forward(d_params, fake, train=True, dtype=self._dtype)
+        gan_r, cls_r, gan_f, cls_f = (phase_at_grad(t, "d.bwd")
+                                      for t in (gan_r, cls_r, gan_f, cls_f))
+        phase("loss")
         loss = (gan_loss(gan_r, True, cfg.gan_type) + masked_cross_entropy(cls_r, cat)
                 + gan_loss(gan_f, False, cfg.gan_type) + masked_cross_entropy(cls_f, cat))
         logs = {"l_d_total": loss, "D_real": gan_r.mean(), "D_fake": gan_f.mean()}
@@ -229,6 +242,7 @@ class SFTGANTrainer(GeneratorTrainerBase):
                 g_total, fake, g_logs = self._g_loss(g_params, frozen, lr_img, seg, hr_img, cat)
             if any(gates):
                 flat = torch.autograd.grad(g_total, tree_leaves(g_params))
+                phase("g.opt")
                 grads = tree_unflatten_like(g_params, iter(flat))
                 for g in G_GROUPS:
                     if open_[g]:
@@ -237,12 +251,15 @@ class SFTGANTrainer(GeneratorTrainerBase):
 
             d_total, (upd_r, upd_f), d_logs = self._d_loss(d_params, fake.detach(), hr_img, cat)
             d_flat = torch.autograd.grad(d_total, tree_leaves(d_params), allow_unused=True)
+            phase("d.opt")
             self._adam_step(self.tx_d, d_params, state["d_opt"],
                             tree_unflatten_like(d_params, iter(d_flat)), sc, "d")
+        phase("bn")
         with torch.no_grad():
             merged = acd_merge_sequential(d_params, upd_r, upd_f)
             tree_map(lambda p, m: p if p is m else p.copy_(m), d_params, merged)
 
+        phase("logs")
         return mesh.reduce_logs({**{k: v.detach() for k, v in g_logs.items()},
                                  **{k: v.detach() for k, v in d_logs.items()},
                                  "lr": sc.lr("other")})

@@ -52,6 +52,7 @@ from esrganplus_tpu_torch.models.rrdb import (RRDBNetConfig, fused_noise_active,
                                               prep_trunk_ct)
 from esrganplus_tpu_torch.train.schedule import multistep_lr
 from esrganplus_tpu_torch.train.step_scalars import RowUploader, ScalarLayout, adam_bias
+from esrganplus_tpu_torch.utils.trace import end_phase, phase, phase_at_grad
 
 
 @dataclasses.dataclass(frozen=True)
@@ -294,7 +295,10 @@ class GeneratorTrainerBase:
         waits for the card."""
         batch = self._to_device(batch)
         row, gates = self.plan(state, rng)
-        logs = self._step(state, batch, self.scalars.view(self._uploader.upload(row)), gates)
+        try:
+            logs = self._step(state, batch, self.scalars.view(self._uploader.upload(row)), gates)
+        finally:
+            end_phase()
         self.advance(state, gates)
         return state, logs
 
@@ -345,9 +349,11 @@ class SRTrainer(GeneratorTrainerBase):
     # -- steps -------------------------------------------------------------
 
     def _loss_fn(self, params, lr_img, hr_img, noise: dict):
-        fake = generator_forward(params, lr_img, self.net_cfg, train=True,
-                                 noise_prng=self.train_cfg.noise_prng, dtype=self._dtype,
-                                 **noise)
+        phase("g.fwd")
+        fake = phase_at_grad(generator_forward(params, lr_img, self.net_cfg, train=True,
+                                               noise_prng=self.train_cfg.noise_prng,
+                                               dtype=self._dtype, **noise), "g.bwd")
+        phase("loss")
         l_pix = self.train_cfg.pixel_weight * pixel_loss(
             fake.float(), hr_img.float(), self.train_cfg.pixel_criterion)
         return l_pix, fake
@@ -365,9 +371,11 @@ class SRTrainer(GeneratorTrainerBase):
             loss, _ = self._loss_fn(state["params"], lr_img, hr_img,
                                     self._noise(sc, self.train_cfg.noise_prng))
             flat = torch.autograd.grad(loss, leaves)
+        phase("g.opt")
         grads = tree_unflatten_like(state["params"], iter(mesh.all_reduce_grads(list(flat))))
         updates = self.tx.moments(grads, state["opt_state"], state["params"], *sc.bias("g"))
         apply_updates(state["params"], updates, sc.lr("g"))
+        phase("logs")
         with torch.no_grad():
             grad_norm = global_norm(grads)
         return mesh.reduce_logs({"l_pix": loss.detach(), "lr": sc.lr("g"),

@@ -8,17 +8,29 @@ trace's GPU kernel rows (``"cat": "kernel"``) when it has any, so it sums to
 the card's busy time; a trace of a CPU run has none, and then its CPU op rows
 (``"cat": "cpu_op"``) are used, with nested ops charged to themselves, not
 to their parent.
+
+It also holds the program's own tracing, whose sink is whatever
+``torch.profiler`` records (the benchmark's ``--trace 1``, ``cli/train.py
+--profile``): :func:`span` around host work, and :func:`phase` marks where
+a training step's phases begin. A captured step's marks record which of its
+graph's kernel nodes each phase added (:func:`capture_marks`,
+:func:`node_phases`), so that :func:`phase_times` can charge each kernel row
+of a trace of its replays to its phase; nothing runs at a replay.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import functools
 import glob
 import gzip
 import json
 import os
 import re
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
+
+import torch
 
 TRACE_PATTERNS = ("*.pt.trace.json", "*.pt.trace.json.gz", "*.json.gz", "*.trace.json")
 
@@ -64,7 +76,6 @@ def kernel_counts(fn, names) -> collections.Counter:
     activities after the profiler starts is at times missing from its trace,
     so LEAD_IN throwaway kernels open the window; with the host's activity
     off, many more go missing. Empty without a CUDA device."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
@@ -107,14 +118,38 @@ def mangled_family(name: str) -> str:
     return last or name
 
 
-def graph_kernels(graph) -> collections.Counter:
-    """The kernel nodes of a captured ``torch.cuda.CUDAGraph`` (made with
-    ``keep_graph=True``), counted by family: what each replay of it
-    launches, read from the graph through libcuda (``cuGraphGetNodes``,
-    ``cuGraphKernelNodeGetParams``, ``cuFuncGetName``)."""
+@functools.lru_cache(maxsize=None)
+def _libcuda():
     import ctypes
 
-    cu = ctypes.CDLL("libcuda.so.1")
+    return ctypes.CDLL("libcuda.so.1")
+
+
+def _check(code, what):
+    if code:
+        raise RuntimeError(f"{what} failed with CUresult {code}")
+
+
+def _graph_nodes(cu, raw) -> list:
+    """The nodes of the CUDA graph ``raw`` (a ``CUgraph``), in the order the
+    graph holds them: the order its capture added them."""
+    import ctypes
+
+    n = ctypes.c_size_t(0)
+    _check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    return list(nodes)
+
+
+def graph_node_families(graph) -> list:
+    """Every node of a captured ``torch.cuda.CUDAGraph`` (made with
+    ``keep_graph=True``) in the graph's order: a kernel node's family
+    (:func:`mangled_family`), None for any other node. Read through libcuda
+    (``cuGraphGetNodes``, ``cuGraphKernelNodeGetParams``, ``cuFuncGetName``)."""
+    import ctypes
+
+    cu = _libcuda()
 
     class Params(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
         _fields_ = [("func", ctypes.c_void_p)] + [(f, ctypes.c_uint) for f in (
@@ -122,32 +157,36 @@ def graph_kernels(graph) -> collections.Counter:
             ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
             ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
 
-    def check(code, what):
-        if code:
-            raise RuntimeError(f"{what} failed with CUresult {code}")
-
-    raw = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
-    nodes = (ctypes.c_void_p * n.value)()
-    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
-    out = collections.Counter()
-    for node in nodes:
+    out, names = [], {}
+    for node in _graph_nodes(cu, ctypes.c_void_p(graph.raw_cuda_graph())):
         kind = ctypes.c_int(-1)
-        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
-              "cuGraphNodeGetType")
+        _check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+               "cuGraphNodeGetType")
         if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            out.append(None)
             continue
-        p, name = Params(), ctypes.c_char_p()
-        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(p)),
-              "cuGraphKernelNodeGetParams")
-        if p.func:
-            check(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func)), "cuFuncGetName")
-        else:
-            check(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(p.kern)),
-                  "cuKernelGetName")
-        out[mangled_family(name.value.decode())] += 1
+        p = Params()
+        _check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(p)),
+               "cuGraphKernelNodeGetParams")
+        key = (p.func, p.kern)
+        if key not in names:
+            name = ctypes.c_char_p()
+            if p.func:
+                _check(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func)),
+                       "cuFuncGetName")
+            else:
+                _check(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(p.kern)),
+                       "cuKernelGetName")
+            names[key] = mangled_family(name.value.decode())
+        out.append(names[key])
     return out
+
+
+def graph_kernels(graph) -> collections.Counter:
+    """The kernel nodes of a captured ``torch.cuda.CUDAGraph`` (made with
+    ``keep_graph=True``), counted by family: what each replay of it
+    launches (:func:`graph_node_families`)."""
+    return collections.Counter(f for f in graph_node_families(graph) if f is not None)
 
 
 def device_rows(events) -> Tuple[str, List[dict]]:
@@ -207,3 +246,220 @@ def format_table(total_ms: float, agg: Dict[str, Tuple[float, float]],
             break
         lines.append(f"{dur:9.3f} ms  x{cnt:<7g} {fam}")
     return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# Spans and the phases of a step, on the profiler's clock
+# ---------------------------------------------------------------------------
+
+recording = torch._C._autograd._profiler_enabled  # whether a profiler records
+# a span's host row: a record function of the profiler's op scope, not
+# ``torch.profiler.record_function``'s user annotation, which the profiler
+# also lays over the device's timeline as a row spanning the span's kernels
+record = torch._C._profiler._RecordFunctionFast
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A host span ``name``: while a ``torch.profiler`` records, a host row
+    on the clock of the device rows (:data:`record`); otherwise nothing but
+    the one check of whether one records."""
+    if not recording():
+        return _NO_SPAN
+    return record(name)
+
+
+def mark(name: str) -> None:
+    """A host row ``name`` of no length where the program passes it (while
+    a profiler records; otherwise the one check). The executor marks each
+    replay so, just before its launch: a span around the launch makes the
+    profiler link every kernel of the graph to it, and reading the trace
+    (``prof.events()``) then took 2 to 10 times as long on the card."""
+    if recording():
+        with record(name):
+            pass
+
+
+PHASES = ("sample", "g.fwd", "f.fwd", "d.fwd", "loss", "d.bwd", "f.bwd", "g.bwd",
+          "g.opt", "d.opt", "bn", "logs")  # the marks a step body makes
+EXEC = "exec"  # a replay's nodes before the first mark, and rows between replays
+REPLAY = "exec.replay:"  # a replay's launch mark; the captured graph's id follows
+
+
+def is_span(name: str) -> bool:
+    """Whether a host row is one of the program's spans: a phase, or a
+    span of the front end (``sr.``), the executor (``exec.``) or the store
+    (``store.``)."""
+    return name in PHASES or name.startswith(("sr.", "exec.", "store."))
+
+
+_capture = None  # (stream, [(phase, graph nodes before it)]) while a step is captured
+_open = []  # the phase span open outside a capture: [(name, its record)]
+
+
+def phase(name: str) -> None:
+    """Mark where the step's phase ``name`` (:data:`PHASES`) begins; it
+    lasts to the next mark. While a step is captured as a CUDA graph
+    (:func:`capture_marks`) the mark records the graph's node count; outside
+    a capture, while a profiler records, it closes the open phase span and
+    opens one named ``name``; otherwise it is the two checks."""
+    cap = _capture
+    if cap is not None:
+        stream, marks = cap
+        if not marks or marks[-1][0] != name:
+            marks.append((name, _capture_node_count(stream)))
+    elif recording():
+        if _open and _open[0][0] == name:
+            return
+        end_phase()
+        rf = record(name)
+        rf.__enter__()
+        _open.append((name, rf))
+
+
+def phase_at_grad(t: torch.Tensor, name: str) -> torch.Tensor:
+    """``t``, with the phase ``name`` marked when the backward pass computes
+    its gradient (a backward phase inside one ``torch.autograd.grad``: the
+    engine's order decides which opens first)."""
+    if t.requires_grad and (_capture is not None or recording()):
+        t.register_hook(lambda g: phase(name))
+    return t
+
+
+def end_phase() -> None:
+    """Close the phase span a step's body left open (a no-op in a capture
+    and while no profiler records)."""
+    while _open:
+        _open.pop()[1].__exit__(None, None, None)
+
+
+@contextlib.contextmanager
+def capture_marks(stream):
+    """Around the capture of a step on ``stream`` (a ``torch.cuda.Stream``)
+    → the list the step's :func:`phase` marks fill, each (phase, the number
+    of nodes the graph held when it was made)."""
+    global _capture
+    marks = []
+    _capture = (stream.cuda_stream, marks)
+    try:
+        yield marks
+    finally:
+        _capture = None
+
+
+def _capture_node_count(stream: int) -> int:
+    """The nodes the graph under capture on the ``cudaStream_t`` ``stream``
+    holds so far (``cuStreamGetCaptureInfo``, ``cuGraphGetNodes``: a graph
+    being captured may be read)."""
+    import ctypes
+
+    cu = _libcuda()
+    status, cid, graph = ctypes.c_int(0), ctypes.c_ulonglong(0), ctypes.c_void_p()
+    deps, ndeps = ctypes.c_void_p(), ctypes.c_size_t(0)
+    if hasattr(cu, "cuStreamGetCaptureInfo_v2"):
+        code = cu.cuStreamGetCaptureInfo_v2(
+            ctypes.c_void_p(stream), ctypes.byref(status), ctypes.byref(cid),
+            ctypes.byref(graph), ctypes.byref(deps), ctypes.byref(ndeps))
+    else:  # a libcuda with the v3 entry alone (edge data before the count)
+        code = cu.cuStreamGetCaptureInfo_v3(
+            ctypes.c_void_p(stream), ctypes.byref(status), ctypes.byref(cid),
+            ctypes.byref(graph), ctypes.byref(deps), None, ctypes.byref(ndeps))
+    _check(code, "cuStreamGetCaptureInfo")
+    if status.value != 1:  # CU_STREAM_CAPTURE_STATUS_ACTIVE
+        raise RuntimeError(f"stream {stream:#x} is not capturing (status {status.value})")
+    n = ctypes.c_size_t(0)
+    _check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    return n.value
+
+
+def node_phases(families: list, marks: list) -> List[Tuple[str, str]]:
+    """The (phase, family) of each kernel node of a captured step, in the
+    graph's order (``families``: :func:`graph_node_families`), each node in
+    the phase whose mark (``marks``: :func:`capture_marks`) came last before
+    the capture added it; nodes before the first mark are :data:`EXEC`'s."""
+    out, k, cur = [], 0, EXEC
+    for i, fam in enumerate(families):
+        while k < len(marks) and marks[k][1] <= i:
+            cur = marks[k][0]
+            k += 1
+        if fam is not None:
+            out.append((cur, fam))
+    return out
+
+
+_PHASE_LISTS: Dict[str, List[Tuple[str, str]]] = {}  # graph id → its (phase, family) list
+
+
+def register_phases(graph_id: str, nodes: List[Tuple[str, str]]) -> None:
+    """Keep what a replay of the captured graph ``graph_id`` launches, in
+    order, for a reader of its ``exec.replay:<graph_id>`` marks."""
+    _PHASE_LISTS[str(graph_id)] = list(nodes)
+
+
+def phase_lists() -> Dict[str, List[Tuple[str, str]]]:
+    """{graph id: [(phase, kernel family)]} of every step this process
+    captured (the registry itself: read it, do not change it)."""
+    return _PHASE_LISTS
+
+
+MATCH_SLACK = 4096  # rows of the executor's own a replay's first row may follow
+
+
+def phase_times(kernel_rows, host_spans, lists: Optional[dict] = None,
+                own=None) -> Optional[Dict[str, dict]]:
+    """Device time by phase of a trace of replayed steps.
+
+    ``kernel_rows``: (family, start, end) of the trace's kernel rows, µs on
+    the profiler's clock; ``host_spans``: (name, start, end) of its host rows,
+    of which the ``exec.replay:<id>`` marks are read; ``lists``: {id: [(phase,
+    family)]} (:func:`phase_lists` by default). The rows are walked in time
+    order: each replay's rows are the first run of rows that matches its
+    list, each of the program's own kernels (``own``: ``kernels/build
+    .kernel_names()`` by default) by family and any other kernel by being
+    one (a library kernel may be named otherwise in a graph node than in a
+    trace row: cuBLAS's by its return type, cuDNN's mangled); rows before
+    it, between replays and after the last are :data:`EXEC`'s. → {phase:
+    {"ms": device ms, "kernels": rows, "idle_ms": the gaps before its rows
+    since the end of the rows before them}}; None where a replay's list is
+    unknown or its rows do not match within :data:`MATCH_SLACK` rows."""
+    if own is None:
+        from esrganplus_tpu_torch.kernels.build import kernel_names
+
+        own = kernel_names()
+    lists = _PHASE_LISTS if lists is None else lists
+    rows = sorted(kernel_rows, key=lambda r: r[1])
+    replays = sorted((s, n[len(REPLAY):]) for n, s, _ in host_spans if n.startswith(REPLAY))
+    same = lambda got, want: got == want or (got not in own and want not in own)
+    out: Dict[str, dict] = {}
+    last_end = None
+
+    def charge(ph, row):
+        nonlocal last_end
+        t = out.setdefault(ph, {"ms": 0.0, "kernels": 0, "idle_ms": 0.0})
+        t["ms"] += (row[2] - row[1]) / 1e3
+        t["kernels"] += 1
+        if last_end is not None and row[1] > last_end:
+            t["idle_ms"] += (row[1] - last_end) / 1e3
+        last_end = row[2] if last_end is None else max(last_end, row[2])
+
+    i = 0
+    for _, gid in replays:
+        want = lists.get(gid)
+        if not want:
+            return None
+        n, k = len(want), i
+        while True:
+            if k + n > len(rows) or k - i > MATCH_SLACK:
+                return None
+            if all(same(rows[k + j][0], want[j][1]) for j in range(n)):
+                break
+            k += 1
+        for r in rows[i:k]:
+            charge(EXEC, r)
+        for (ph, _), r in zip(want, rows[k:k + n]):
+            charge(ph, r)
+        i = k + n
+    for r in rows[i:]:
+        charge(EXEC, r)
+    return out

@@ -2112,3 +2112,131 @@ def test_cuda_capture_survives_a_dead_trainers_graphs():
     assert gone() is None
     assert seen == [False, False] and gc.isenabled()
     assert state["step"] == 2 and bool(torch.isfinite(logs["l_pix"]))
+
+
+# ---------------------------------------------------------------------------
+# the captured step's phases (utils/trace.capture_marks, phase_times)
+# ---------------------------------------------------------------------------
+
+
+def _replay_rows(replays):
+    """Run ``replays`` ((graph, its span's name)) under the profiler after
+    LEAD_IN throwaway kernels → (kernel rows (family, start, end), host
+    spans (name, start, end))."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from esrganplus_tpu_torch.utils import trace as tr
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lead = torch.zeros(1, device="cuda")
+        for _ in range(tr.LEAD_IN):
+            lead.add_(1)
+        torch.cuda.synchronize()
+        for graph, name in replays:
+            tr.mark(name)
+            graph.replay()
+        torch.cuda.synchronize()
+    rows, spans = [], []
+    for e in prof.events():
+        r = (e.name, e.time_range.start, e.time_range.end)
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if not e.name.lower().startswith(("memcpy", "memset")):
+                rows.append((tr.op_family(e.name),) + r[1:])
+        else:
+            spans.append(r)
+    return rows, spans
+
+
+@pytest.mark.cuda
+def test_cuda_capture_marks_charge_each_node_to_its_phase():
+    """A toy step of three phases, each launching kernels of families of
+    its own (elementwise, reductions, a scan), captured with its marks:
+    every kernel node carries its phase, a replay runs the nodes in the
+    order the graph holds them (the profiler's rows, replay by replay), and
+    ``phase_times`` charges every row of two replays to its phase and the
+    lead-in to ``exec``."""
+    _need_card()
+    from esrganplus_tpu_torch.utils import trace as tr
+
+    x = torch.rand(1 << 16, device="cuda")
+    out = torch.empty_like(x)
+
+    def body():
+        tr.phase("g.fwd")
+        x.add_(1.0)
+        x.mul_(0.5)
+        tr.phase("loss")
+        s = x.sum() + x.amax()
+        tr.phase("g.opt")
+        out.copy_(torch.cumsum(x, 0) * 0 + s)
+
+    body()  # the libraries set up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        with tr.capture_marks(torch.cuda.current_stream()) as marks:
+            body()
+    graph.instantiate()
+    assert [m[0] for m in marks] == ["g.fwd", "loss", "g.opt"]
+    nodes = tr.node_phases(tr.graph_node_families(graph), marks)
+    assert sum(tr.graph_kernels(graph).values()) == len(nodes)
+    by_phase = {}
+    for ph, fam in nodes:
+        by_phase.setdefault(ph, set()).add(fam)
+    assert by_phase["g.fwd"] == {"vectorized_elementwise_kernel"}
+    assert by_phase["loss"] >= {"reduce_kernel"}
+    assert not by_phase["g.opt"] & {"reduce_kernel"}
+    assert [p for p, _ in nodes] == sorted((p for p, _ in nodes),
+                                           key=["g.fwd", "loss", "g.opt"].index)
+
+    gid = "toy-capture"
+    rows, spans = _replay_rows([(graph, tr.REPLAY + gid)] * 2)
+    fams = [f for f, _, _ in sorted(rows, key=lambda r: r[1])]
+    assert fams[-2 * len(nodes):] == [f for _, f in nodes] * 2
+    got = tr.phase_times(rows, spans, {gid: nodes})
+    assert got is not None
+    for ph in ("g.fwd", "loss", "g.opt"):
+        assert got[ph]["kernels"] == 2 * sum(1 for p, _ in nodes if p == ph)
+    assert got[tr.EXEC]["kernels"] == len(rows) - 2 * len(nodes)
+    assert abs(sum(t["ms"] for t in got.values())
+               - sum(e - s for _, s, e in rows) / 1e3) < 1e-9
+
+
+@pytest.mark.cuda
+def test_cuda_gan_step_phase_nodes_sum_to_its_kernel_nodes():
+    """The captured srragan step (bf16, D and VGG19 features on): its
+    kernels by phase, summed by family, are the graph's kernel nodes; the
+    backward phases open in the engine's order on the card (D's, then F's,
+    then G's); and ``phase_times`` matches two replays of it row for row."""
+    _need_card()
+    import collections
+
+    from esrganplus_tpu_torch.models.discriminator import DiscriminatorVGGConfig
+    from esrganplus_tpu_torch.train import GANTrainConfig, GANTrainer
+    from esrganplus_tpu_torch.train.resident_exec import executor
+    from esrganplus_tpu_torch.utils import trace as tr
+
+    t = GANTrainer(RRDBNetConfig(nb=1), DiscriminatorVGGConfig(),
+                   GANTrainConfig(compute_dtype="bfloat16"), device="cuda")
+    state, store = t.init_state(0), _card_store(lr=32)
+    t.train_step_resident(state, store, 3, 2, n_steps=1)
+    ex = executor(t)
+    gates = t.gates(int(state["step"]) + 1)
+    nodes = ex.phase_nodes(gates)
+    summed = collections.Counter(f for _, f in nodes)
+    assert summed == ex.kernel_nodes(gates)
+    first = list(dict.fromkeys(p for p, _ in nodes))
+    for ph in ("sample", "d.fwd", "g.fwd", "f.fwd", "loss", "d.bwd", "f.bwd", "g.bwd",
+               "g.opt", "d.opt", "bn"):
+        assert ph in first, ph
+    assert first.index("d.bwd") < first.index("f.bwd") < first.index("g.bwd") \
+        < first.index("g.opt") < first.index("d.opt")
+    graph, _, name = ex._graphs[gates]
+    ex._index.zero_()
+    rows, spans = _replay_rows([(graph, name)] * 2)
+    got = tr.phase_times(rows, spans)
+    assert got is not None and sum(v["kernels"] for v in got.values()) == len(rows)
+    for ph in first:
+        if ph != tr.EXEC:
+            assert got[ph]["kernels"] == 2 * sum(1 for p, _ in nodes if p == ph), ph

@@ -247,6 +247,20 @@ def test_refresh_lands_in_the_same_buffers(dirs):
     assert not torch.equal(s.hr, before)
 
 
+def test_store_marks_its_build_and_upload(dirs):
+    """Under a CPU profile a store built and refreshed in line shows the
+    spans ``store.build`` (the host crop loop) and ``store.upload``, in turn."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        s = ResidentCropStore(pds.LRHRDataset(_ds_opt(*dirs)), "cpu", n_crops=4,
+                              refresh_steps=2, seed=3, async_refresh=False)
+        s.maybe_refresh(2)
+    names = [e.name for e in sorted(prof.events(), key=lambda e: e.time_range.start)
+             if e.name.startswith("store.")]
+    assert names == ["store.build", "store.upload"] * 2
+
+
 # ---------------------------------------------------------------------------
 # (d) the plain twins keyed by a tensor
 # ---------------------------------------------------------------------------
