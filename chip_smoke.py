@@ -59,6 +59,11 @@ final result line:
                epilogue) at the training shape: its output and both saved
                buffers against the plain twin's, fp32 and bf16, gated on the
                design;
+     kernels-div2k — bf16 rdb_ct at the div2k_sr cell's commonest LR
+               photo (B = 1, 339×510): at the bf16 bars, a second call
+               bit-equal, the card alone beside its bound and cuDNN's, each
+               dense-stage launch and the plan it launched with, and the
+               weight bytes staged;
      kernels-bwd — each backward wrapper (rdb_ct_bwd, conv3x3_ct_bwd,
                upfold_ct_bwd at both stages and at an odd shape,
                conv_hr_ct_bwd) against its plain twin at the training shape
@@ -708,6 +713,52 @@ def check_kernels(failures):
                 if not ok:
                     failures.append(f"{name} {dname} {sname}: rel err {rel:.3g}, differ {differ:.3g}")
     return report
+
+
+PHOTO_SHAPE = (1, 339, 510)  # the div2k_sr cell's commonest LR photo (3 of 7)
+
+
+def check_dense_photo(failures):
+    """Phase kernels-div2k: bf16 rdb_ct (the RRDB's third call) at
+    PHOTO_SHAPE against its twin at the bf16 bars and bit-equal on a second
+    call (gated), on the card alone beside its bound and cuDNN's yardstick,
+    each of its five dense-stage launches with the plan the C launch takes
+    (``esr_dense_plan``), and the weight bytes they stage
+    (``rdb_ct.weight_bytes_staged``)."""
+    import torch
+
+    from esrganplus_tpu_torch.kernels import launch as L
+    from esrganplus_tpu_torch.kernels import rdb_ct as K
+    from esrganplus_tpu_torch.models.layers import fp32_exact
+
+    B, H, W = PHOTO_SHAPE
+    cases, _, _, rdb_steps = make_cases(torch.bfloat16, B, H, W,
+                                        torch.Generator().manual_seed(21))
+    kern, plain, lib, macs, nbytes = cases["rdb_ct"]
+    with fp32_exact():
+        got = kern()
+        torch.cuda.synchronize()
+        row = _held({"phase": "kernels-div2k", "kernel": "rdb_ct", "dtype": "bfloat16",
+                     "lr": [B, H, W]}, got, plain(), "bfloat16")
+    row["repeat_bit_equal"] = bool(torch.equal(kern(), got))
+    _bound(row, macs, nbytes, "bfloat16")
+    before = K.rdb_ct.weight_bytes_staged
+    kern()
+    row["weight_bytes_staged"] = K.rdb_ct.weight_bytes_staged - before
+    plans = {}
+    for k in range(1, 6):
+        cin, cout = NF + (k - 1) * GC, NF if k == 5 else GC
+        c = L.dense_c_plan(cout, cin, NF, k == 2, B, H, W, torch.cuda.current_device())
+        plans[f"stage{k}"] = dict(zip(L.DensePlan._fields + ("weight_bytes",), c))
+    row.update(plans=plans, device_ms=device_ms(kern), library_device_ms=device_ms(lib),
+               step_device_ms={k: device_ms(f) for k, f in rdb_steps().items()})
+    row["pct_of_bound"] = (100 * row["bound_ms"] / row["device_ms"]
+                           if row["device_ms"] else None)
+    row["ok"] = row["ok"] and row["repeat_bit_equal"]
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"kernels-div2k: {row}")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -5274,6 +5325,7 @@ def main() -> int:
             print(f"ptxas[{src}] {line}")
 
     report = check_kernels(failures)
+    photo = check_dense_photo(failures)
     workdir = os.path.join(HERE, "build", "smoke")
     os.makedirs(workdir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
@@ -5377,6 +5429,9 @@ def main() -> int:
                                fp32_design=report[(name, "float32")]["design"],
                                **{k: row[k] for k in ("step_ms", "step_device_ms") if k in row})
         if name == "rdb_ct":  # the training forward at batch 16, 32×32: fused beside input
+            kernels[-1]["photo"] = {f: photo[f] for f in (
+                "lr", "device_ms", "bound_ms", "pct_of_bound", "library_device_ms",
+                "step_device_ms", "weight_bytes_staged", "rel_err", "frac_differ")}
             fused = noise_report[("rdb_ct", "bfloat16")]
             kernels[-1].update(fused_ms=fused["fused_ms"], fused_input_ms=fused["input_ms"],
                                fused_rel_err=fused["out"]["rel_err"],

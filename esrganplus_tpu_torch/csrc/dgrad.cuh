@@ -37,8 +37,7 @@
 //     channels a vector, read plainly; by-target [co][t*cin..] is [k][n]
 //     rows, 8 input channels of one source a vector, read with .trans. Each
 //     tap's product sums from zero and joins the total by an fp32 add, in a
-//     fixed order (chained mma.sync accumulation drifts: dense_conv.cuh
-//     tap_mma).
+//     fixed order (chained mma.sync accumulation drifts: dense_conv.cuh).
 //   * "fma" (fp32, whose 1e-4 bar TF32 would miss): dgrad_kernel on the CUDA
 //     cores: a 256-thread block owns an 8x16 pixel tile and CO of the conv's
 //     input channels, stages 16 dz channels of the haloed tile (rounded to

@@ -40,4 +40,20 @@ int esr_dense_conv3x3(int dtype, int design, int cout, int mode, const void* x, 
                               static_cast<cudaStream_t>(stream));
 }
 
+// The bf16 design's plan of a launch on `nsm` SMs (kernels/launch.py
+// dense_plan mirrors it): out[0..6] = tile width, outputs a block owns,
+// tile slots, tiles, blocks, dynamic shared memory, and the weight bytes
+// the launch stages into shared memory; returns cudaErrorInvalidValue where
+// no plan fits.
+int esr_dense_plan(int cout, int cin, int c0, int mode, int B, int H, int W, int nsm,
+                   int* out) {
+  namespace dm = esr::dense::dmma;
+  const bool s11 = mode == esr::dense::kAct1x1;
+  const dm::Plan p = dm::plan(cout, cin, c0, s11, B, H, W, nsm);
+  const int v[7] = {p.tw, p.nb, p.nbuf, p.tiles, p.blocks, p.smem,
+                    dm::staged_bytes(p, cin, c0, s11)};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return p.nb ? 0 : (int)cudaErrorInvalidValue;
+}
+
 }  // extern "C"

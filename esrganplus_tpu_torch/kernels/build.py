@@ -46,6 +46,7 @@ SIGNATURES = {
     "rdb_ct": {
         "esr_dense_conv3x3": [I, I, I, I, P, I, P, I, I, P, P, P, P, I, P, I, P, I,
                               P, I, P, F, P, I, F, F, F, I, I, I, P],
+        "esr_dense_plan": [I, I, I, I, I, I, I, I, P],
     },
     "dgrad_ct": {
         "esr_dgrad": [I, I, I, I, PDZ, I, P, I, P, I, I, P, I, PDZ, I, P],

@@ -2,7 +2,8 @@
 
 The design a dtype runs on (:func:`design`, for the dense, stage, tail and
 backward wrappers alike), the dense-stage epilogue modes and the mirror of
-the bf16 dense kernel's tile and weight walk (``csrc/dense_conv.cuh``), the
+the bf16 dense kernel's plan, tile walk and weight staging
+(``csrc/dense_conv.cuh``), the
 cotangent source the backward kernels read (``csrc/dz_src.cuh``,
 ``build.DzSrc``), one data-gradient or weight-gradient launch
 (``csrc/dgrad.cuh``, ``csrc/wgrad.cuh``), and the mirrors of the bf16
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -68,14 +70,17 @@ def launched(op: str, kind: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the bf16 dense kernel's tile and weight walk (csrc/dense_conv.cuh dmma),
-# mirrored for the CPU tests
+# the bf16 dense kernel's plan, tile walk and weight staging
+# (csrc/dense_conv.cuh dmma), mirrored for the CPU tests and the counters
 # ---------------------------------------------------------------------------
 
-DENSE_NSLOT = 3        # weight-ring depth
-DENSE_KCH = 192        # K rows of a ring slot at most, and a tile slice's channels
+DENSE_TH = 8           # tile rows: a wgmma M block is 8 rows × 8 columns
+DENSE_GCH = 32         # channels of a group: one 64-byte swizzled row a pixel
+DENSE_SLICE_G = 6      # groups a tile slot holds at most (192 channels: one partial's K)
+DENSE_NWG = 2          # consumer warpgroups a block, each its own stream of tiles
+DENSE_MAX_BUF = 4      # tile slots at most
 MAX_SMEM = 232448      # opt-in shared memory per block on sm_90 (227 KB)
-HALO_PIX = 10 * 18     # the haloed 8×16 pixel tile
+HALO_PIX = 10 * 18     # the haloed 8×16 pixel tile (the data-gradient kernel's)
 
 
 def round16(c: int) -> int:
@@ -88,49 +93,144 @@ def ldsm_pitch(c: int) -> int:
     return ((c + 7) // 8 | 1) * 16
 
 
-def dense_slot(n: int, kch: int, kn: bool) -> int:
-    """Bytes of a ring slot of ``kch`` K rows by ``n`` outputs: [k][n] rows
-    (HWIO, ``kn``) or [n][k] rows (by-target)."""
-    return kch * ldsm_pitch(n) if kn else n * ldsm_pitch(kch)
+def dense_group_bytes(tw: int) -> int:
+    """Bytes of one haloed (8+2) × (tw+2) group of 32 channels, 64 bytes a
+    pixel, padded to 1024."""
+    return -(-(DENSE_TH + 2) * (tw + 2) * DENSE_GCH * 2 // 1024) * 1024
 
 
-def dense_smem(n: int, kt: int, kn: bool, c11: int = 0) -> int:
-    """A block's shared memory: the haloed tile of ``kt`` channels, the ring,
-    and the 1×1 shortcut's ``c11`` K rows (stage 2; else 0)."""
-    return (HALO_PIX * ldsm_pitch(kt) + DENSE_NSLOT * dense_slot(n, min(kt, DENSE_KCH), kn)
-            + (dense_slot(n, c11, kn) if c11 else 0))
+def dense_groups(cin: int, c0: int) -> tuple:
+    """``(groups of x, all groups)`` of the K walk: x's c0 channels, then the
+    concat prefix's cin - c0, each source padded to whole 32-channel
+    groups."""
+    gx = -(-c0 // DENSE_GCH)
+    return gx, gx + -(-(cin - c0) // DENSE_GCH)
 
 
-def dense_kt(n: int, kp: int, kn: bool, c11: int = 0) -> int:
-    """Channels the staged tile holds: all ``kp`` where the block fits, else
-    :data:`DENSE_KCH`, restaged in turn."""
-    return kp if dense_smem(n, kp, kn, c11) <= MAX_SMEM else DENSE_KCH
-
-
-def dense_stages(cin: int, n: int, kn: bool, c11: int = 0) -> list:
-    """The ring's stages of one launch in order (``tap_mma``'s walk: tile
-    slice, tap, K chunk) as ``(tap, first channel, K rows)``; rows past
-    ``cin`` are the zero padding to 16."""
-    kp = round16(cin)
-    kt = dense_kt(n, kp, kn, c11)
-    kch = min(kt, DENSE_KCH)
+def dense_k_channels(cin: int, c0: int) -> list:
+    """The source channel of each K row of the group walk, None for a
+    padding row (``csrc/dense_conv.cuh`` ``k_channel``)."""
+    gx, ng = dense_groups(cin, c0)
     out = []
-    for sl in range(-(-kp // kt)):
-        for t in range(9):
-            for kc in range(-(-kt // kch)):
-                c = sl * kt + kc * kch
-                out.append((t, c, min(kch, min(kp, (sl + 1) * kt) - c)))
+    for k in range(ng * DENSE_GCH):
+        g, w = divmod(k, DENSE_GCH)
+        c = g * DENSE_GCH + w if g < gx else c0 + (g - gx) * DENSE_GCH + w
+        out.append(c if (c < c0 if g < gx else c < cin) else None)
     return out
 
 
-def dense_slot_reads(t: int, c: int, rows: int, cin: int, cout: int, *, taps: int = 9,
-                     by_target=None):
-    """The weight elements one ring slot of the bf16 dense kernel reads
-    (``csrc/dense_conv.cuh`` ``load_rows``; the layouts of
-    ``csrc/wlayout.cuh``) → (K row, output channel, flat index, -1 for a zero
-    row past ``cin``) as flat tensors, for slot rows ``c .. c+rows`` of tap
-    ``t``: HWIO ``[taps, cin, cout]``, or with ``by_target=(nf, gc)``
-    rdb_t's ``[cout, taps·cin]`` with K ordered source, tap, channel."""
+def dense_w_bytes(ng: int, nb: int) -> int:
+    """Bytes of a block's resident weights: ``nb`` outputs × ``ng`` groups ×
+    9 taps."""
+    return 9 * ng * DENSE_GCH * nb * 2
+
+
+def dense_smem(tw: int, nb: int, nbuf: int, ng: int, gx: int, s11: bool = False) -> int:
+    """A block's shared memory: ``nbuf`` tile slots of up to 6 groups, the
+    weights, the 1×1 shortcut's x groups (stage 2) and two 8-byte barriers
+    a slot."""
+    return (nbuf * min(ng, DENSE_SLICE_G) * dense_group_bytes(tw) + dense_w_bytes(ng, nb)
+            + (gx * DENSE_GCH * nb * 2 if s11 else 0) + 16 * nbuf)
+
+
+DensePlan = collections.namedtuple("DensePlan", "tw nb nbuf tiles blocks smem")
+
+
+def dense_plan(cout: int, cin: int, c0: int, s11: bool, B: int, H: int, W: int, nsm: int):
+    """A launch's plan (``csrc/dense_conv.cuh`` ``dmma::plan``), or None where
+    none fits: the outputs a block owns ``nb`` (cout, else halved down to 8),
+    the tile width ``tw`` (16 where nb ≤ 32, two slots fit and every
+    warpgroup gets a tile, else 8), 4 tile slots where they fit, else 2 (one
+    or two a warpgroup's stream), the tiles and the blocks (at most one an
+    SM, a multiple of cout/nb)."""
+    gx, ng = dense_groups(cin, c0)
+    nb = cout
+    while nb >= 8:
+        fit16 = nb <= 32 and dense_smem(16, nb, DENSE_NWG, ng, gx, s11) <= MAX_SMEM
+        if fit16 or dense_smem(8, nb, DENSE_NWG, ng, gx, s11) <= MAX_SMEM:
+            np_ = cout // nb
+            tiles16 = B * -(-H // DENSE_TH) * -(-W // 16)
+            tw = 16 if fit16 and tiles16 * np_ >= DENSE_NWG * nsm else 8
+            nbuf = (DENSE_MAX_BUF if dense_smem(tw, nb, DENSE_MAX_BUF, ng, gx, s11) <= MAX_SMEM
+                    else DENSE_NWG)
+            tiles = B * -(-H // DENSE_TH) * -(-W // tw)
+            blocks = max(np_, min(tiles * np_, nsm) // np_ * np_)
+            return DensePlan(tw, nb, nbuf, tiles, blocks,
+                             dense_smem(tw, nb, nbuf, ng, gx, s11))
+        nb //= 2
+    return None
+
+
+def dense_walk(plan: DensePlan, cout: int, B: int, H: int, W: int) -> list:
+    """Each block's work in order, ``[(outputs, [(b, y0, x0), ...])]``: block
+    k owns outputs ``part·nb .. +nb`` (part = k mod cout/nb) of the tiles
+    g, g + G, ... (g = k div cout/nb, G = blocks·nb/cout), tiles numbered
+    column-fastest, then row, then image; its warpgroups take them in turn."""
+    np_ = cout // plan.nb
+    G = plan.blocks // np_
+    ntx, nty = -(-W // plan.tw), -(-H // DENSE_TH)
+    out = []
+    for k in range(plan.blocks):
+        part, g = k % np_, k // np_
+        tiles = []
+        for i in range(g, plan.tiles, G):
+            r = i // ntx
+            tiles.append((r // nty, (r % nty) * DENSE_TH, (i % ntx) * plan.tw))
+        out.append((range(part * plan.nb, (part + 1) * plan.nb), tiles))
+    return out
+
+
+def dense_joins(cin: int, c0: int) -> list:
+    """The order in which an output's partial sums join its fp32 total:
+    ``(tap, source channels)``, slice by slice of at most 6 groups (192
+    channels), tap by tap within one; each partial runs over its slice's
+    channels from zero."""
+    k = dense_k_channels(cin, c0)
+    step = DENSE_SLICE_G * DENSE_GCH
+    out = []
+    for lo in range(0, len(k), step):
+        chans = [c for c in k[lo:lo + step] if c is not None]
+        out += [(t, chans) for t in range(9)]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def dense_staged_bytes(cout: int, cin: int, c0: int, s11: bool, B: int, H: int, W: int,
+                       nsm: int) -> int:
+    """Weight bytes one bf16 dense-stage launch stages into shared memory by
+    the mirrored plan: every block its outputs' weights (and the 1×1's)
+    once."""
+    p = dense_plan(cout, cin, c0, s11, B, H, W, nsm)
+    gx, ng = dense_groups(cin, c0)
+    return p.blocks * (dense_w_bytes(ng, p.nb) + (gx * DENSE_GCH * p.nb * 2 if s11 else 0))
+
+
+@functools.lru_cache(maxsize=4096)
+def dense_c_plan(cout: int, cin: int, c0: int, s11: bool, B: int, H: int, W: int,
+                 index: int) -> tuple:
+    """The plan the bf16 dense kernel launches with on CUDA device ``index``
+    (``esr_dense_plan``): :data:`DensePlan`'s fields, then the weight bytes
+    the launch stages into shared memory."""
+    out = (ctypes.c_int * 7)()
+    code = build.load("rdb_ct").esr_dense_plan(cout, cin, c0, ACT_1X1 if s11 else ACT, B, H, W,
+                                               sm_count(index), out)
+    build.check(code, "esr_dense_plan")
+    return tuple(out)
+
+
+def dense_weight_reads(t: int, c: int, rows: int, cin: int, cout: int, *, taps: int = 9,
+                       by_target=None):
+    """The weight elements the bf16 dense kernel stages for K rows ``c ..
+    c+rows`` of tap ``t`` (``csrc/dense_conv.cuh`` ``stage_weights``; the
+    layouts of ``csrc/wlayout.cuh``) → (K row, output channel, flat index,
+    -1 for a zero row past ``cin``) as flat tensors: HWIO ``[taps, cin,
+    cout]``, or with ``by_target=(nf, gc)`` rdb_t's ``[cout, taps·cin]``
+    with K ordered source, tap, channel."""
     r, n = torch.meshgrid(torch.arange(rows), torch.arange(cout), indexing="ij")
     ci = c + r
     if by_target is None:

@@ -37,11 +37,11 @@ differ by one rounding per element.
 
 The forward kernel has two designs, picked by the dtype
 (:func:`~esrganplus_tpu_torch.kernels.launch.design`): bf16 runs every
-dense stage as an implicit GEMM on the tensor cores (``"mma"``:
-``mma.sync`` bf16 with fp32 accumulators over the haloed tile of both
-sources), fp32 on the CUDA cores (``"fma"``). Both end in one epilogue, so
-they round at the same points; ``launches_by_design`` counts the calls by
-design. The backward's data- and weight-gradient kernels have the same two
+dense stage as an implicit GEMM on the tensor cores (``"mma"``: ``wgmma``
+bf16 with fp32 accumulators, weight-stationary persistent blocks fed haloed
+tiles of both sources by TMA), fp32 on the CUDA cores (``"fma"``). Both end
+in one epilogue, so they round at the same points; ``launches_by_design``
+counts the calls by design. The backward's data- and weight-gradient kernels have the same two
 designs (bf16 ``mma.sync`` implicit GEMMs, fp32 FMA), counted in the
 backward wrappers' ``launches_by_design``.
 
@@ -52,6 +52,7 @@ kernel or raises.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -269,6 +270,14 @@ def rdb_ct_steps(x, w, res=None, noise=None, *, seed=None, b0=0, rrdb_scale=None
     return steps, (out, cat, lsv)
 
 
+@functools.lru_cache(maxsize=1024)
+def _rdb_staged_bytes(nf: int, gc: int, s11: bool, B: int, H: int, W: int, index: int) -> int:
+    """Weight bytes rdb_ct's five bf16 launches stage into shared memory, by
+    the plans they launch with (:func:`launch.dense_c_plan`)."""
+    return sum(launch.dense_c_plan(nf if k == 5 else gc, nf + (k - 1) * gc, nf, s11 and k == 2,
+                                   B, H, W, index)[6] for k in range(1, 6))
+
+
 def _rdb_ct_cuda(x, w, res=None, noise=None, *, seed=None, kind=None, **kw):
     """Launch the five dense stages (:func:`rdb_ct_steps`) and count the
     call → (out, cat, lsv)."""
@@ -276,9 +285,14 @@ def _rdb_ct_cuda(x, w, res=None, noise=None, *, seed=None, kind=None, **kw):
     with torch.cuda.device(x.device):
         for step in steps.values():
             step()
-    count(rdb_ct, kind or design(x.dtype))
+    kind = kind or design(x.dtype)
+    count(rdb_ct, kind)
     rdb_ct.device_launches += 5
     rdb_ct.seeded_launches += seed is not None
+    if kind == "mma":
+        B, H, W, nf = x.shape
+        rdb_ct.weight_bytes_staged += _rdb_staged_bytes(nf, w["w1"].shape[3], w["w11"] is not None,
+                                                        B, H, W, x.device.index)
     return result
 
 
@@ -293,7 +307,8 @@ def rdb_ct(x: torch.Tensor, w: dict, res: Optional[torch.Tensor] = None, *,
     kernel (training forwards included), ``rdb_ct.launches_by_design`` them
     by design, ``rdb_ct.device_launches`` the kernel launches (5 per call),
     ``rdb_ct.seeded_launches`` the calls that drew the fused mode's noise in
-    the kernel."""
+    the kernel, ``rdb_ct.weight_bytes_staged`` the weight bytes its bf16
+    launches staged into shared memory (by :func:`launch.dense_c_plan`)."""
     if (res is None) != (rrdb_scale is None):
         raise ValueError("rdb_ct: res and rrdb_scale go together")
     if x.device.type == "cpu":
@@ -307,6 +322,7 @@ rdb_ct.launches = 0
 rdb_ct.launches_by_design = dict.fromkeys(DESIGNS, 0)
 rdb_ct.device_launches = 0
 rdb_ct.seeded_launches = 0
+rdb_ct.weight_bytes_staged = 0
 
 
 def conv3x3_ct(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -314,7 +330,9 @@ def conv3x3_ct(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     """SAME 3×3 conv + bias (+ residual ``res``), NHWC ``[B, H, W, Cin]`` →
     ``[B, H, W, Cout]``, one rounding. ``w``/``bias`` from
     :func:`prepare_conv_ct_weights`. ``conv3x3_ct.launches`` counts CUDA
-    launches, ``conv3x3_ct.launches_by_design`` them by design."""
+    launches, ``conv3x3_ct.launches_by_design`` them by design,
+    ``conv3x3_ct.weight_bytes_staged`` the weight bytes its bf16 launches
+    staged into shared memory."""
     if x.device.type == "cpu":
         return conv3x3_ct_plain(x, w, bias, res)
     if x.dim() != 4:
@@ -338,19 +356,25 @@ def conv3x3_ct(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                cout=cout, r1=0 if res is None else res.data_ptr(),
                r1_stride=cout)
     count(conv3x3_ct, kind)
+    if kind == "mma":
+        conv3x3_ct.weight_bytes_staged += launch.dense_c_plan(cout, cin, cin, False, B, H, W,
+                                                              dev.index)[6]
     return out
 
 
 conv3x3_ct.launches = 0
 conv3x3_ct.launches_by_design = dict.fromkeys(DESIGNS, 0)
+conv3x3_ct.weight_bytes_staged = 0
 
 
 def reset_design_counts() -> None:
     """Set ``launches`` and ``launches_by_design`` of :func:`rdb_ct`,
-    :func:`conv3x3_ct`, :func:`rdb_ct_bwd` and :func:`conv3x3_ct_bwd` to 0."""
+    :func:`conv3x3_ct`, :func:`rdb_ct_bwd` and :func:`conv3x3_ct_bwd`, and
+    the first two's ``weight_bytes_staged``, to 0."""
     for fn in (rdb_ct, conv3x3_ct, rdb_ct_bwd, conv3x3_ct_bwd):
         fn.launches = 0
         fn.launches_by_design = dict.fromkeys(DESIGNS, 0)
+    rdb_ct.weight_bytes_staged = conv3x3_ct.weight_bytes_staged = 0
 
 
 # ---------------------------------------------------------------------------

@@ -82,7 +82,8 @@ def test_cuda_kernel_matches_plain_twin(name, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("shape", [(2, 37, 53), (16, 32, 32)], ids=["odd", "train"])
+@pytest.mark.parametrize("shape", [(2, 37, 53), (16, 32, 32), (1, 339, 510), (1, 510, 384)],
+                         ids=["odd", "train", "photo", "photo_t"])
 def test_cuda_rdb_ct_training_forward_matches_plain_twin(shape, dtype):
     """The training mode of rdb_ct (noise epilogue, saved x1..x4 and the
     pre-residual l2|l4 the backward takes its masks from): output and both
@@ -1291,10 +1292,14 @@ def _counted(fn, call, attr="launches_by_design"):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [DENSE_ODD, (1, 339, 510), (1, 510, 384)],
+                         ids=["odd", "photo", "photo_t"])
 @pytest.mark.parametrize("gc", [8, 16, 32, 64])
 @pytest.mark.parametrize("nf", [8, 16, 32, 64])
-def test_cuda_dense_mma_at_every_width(nf, gc):
-    """bf16 on the tensor cores at an odd shape: rdb_ct's training forward
+def test_cuda_dense_mma_at_every_width(nf, gc, shape):
+    """bf16 on the tensor cores at an odd shape and two photo shapes (B = 1,
+    339×510 and 510×384: the tile walk's ragged edges at the benchmark's
+    sizes): rdb_ct's training forward
     (out, x1..x4, l2|l4) with and without the 1×1, with the RRDB fold and
     in both noise modes; conv3x3_ct at nf → nf; rdb_t with and without the
     fold. Every call counted as "mma", a second call bit-equal, every output
@@ -1312,7 +1317,7 @@ def test_cuda_dense_mma_at_every_width(nf, gc):
     from esrganplus_tpu_torch.kernels import rdb_t as R
 
     rs = np.random.RandomState(100 * nf + gc)
-    B, H, W = DENSE_ODD
+    B, H, W = shape
     act = lambda: torch.from_numpy(rs.randn(B, H, W, nf).astype(np.float32)).to(
         "cuda", torch.bfloat16)
     x, res, noise = act(), act(), act()
@@ -1360,15 +1365,15 @@ def test_cuda_dense_mma_at_every_width(nf, gc):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cin,cout", [(3, 64), (64, 64), (448, 64), (200, 16)])
 def test_cuda_conv3x3_ct_mma_takes_any_cin(cin, cout):
-    """bf16 conv3x3_ct on the tensor cores at any cin: 3 (staged a channel at
-    a time), 64, and 448 at 64 outputs, whose haloed tile is staged in slices
-    of 192 channels (launch.dense_kt); counted as "mma", bit-equal on a second
-    call, at the bf16 bar."""
+    """bf16 conv3x3_ct on the tensor cores at any cin: 3 (pixel rows of 6
+    bytes, which a tensor map cannot take: the producer warp's loads stage
+    them), 64, and 200 and 448, whose tiles come in slices of 192 channels
+    (launch.dense_joins; at 448 a block owns a quarter of the outputs);
+    counted as "mma", bit-equal on a second call, at the bf16 bar."""
     _need_card()
     from esrganplus_tpu_torch.kernels import launch
 
-    kp = launch.round16(cin)
-    assert (launch.dense_kt(cout, kp, True) != kp) == (cin == 448)
+    assert (len(launch.dense_joins(cin, cin)) > 9) == (cin > 192)
     rs = np.random.RandomState(cin)
     B, H, W = DENSE_ODD
     x = torch.from_numpy(rs.randn(B, H, W, cin).astype(np.float32)).to("cuda", torch.bfloat16)
@@ -1381,6 +1386,80 @@ def test_cuda_conv3x3_ct_mma_takes_any_cin(cin, cout):
         want = K.conv3x3_ct_plain(x, w, b, res)
     assert ran == {"fma": 0, "mma": 1} and torch.equal(got, again)
     _held_bf16(got, want, "conv3x3_ct")
+
+
+@pytest.mark.cuda
+def test_cuda_dense_plan_matches_the_mirror_and_counts_staged_bytes():
+    """The C plan of a bf16 dense launch (``esr_dense_plan``) is
+    ``launch.dense_plan``'s, and its staged weight bytes
+    ``launch.dense_staged_bytes``', at every width, mode and a spread of
+    input widths and shapes, on this card's SMs; and an rdb_ct call at the
+    photo shape adds its five launches' C-plan bytes to
+    ``rdb_ct.weight_bytes_staged``, under a fifth of what the mma.sync
+    design staged (the stage's weights every 8×16 tile)."""
+    _need_card()
+    import ctypes
+
+    from esrganplus_tpu_torch.kernels import build, launch
+
+    lib = build.load("rdb_ct")
+    nsm = launch.sm_count(0)
+    for cout in (8, 16, 32, 64):
+        for cin in (3, 8, 24, 64, 96, 160, 192, 200, 320, 448):
+            for mode in (launch.ACT, launch.ACT_1X1, launch.RESID):
+                c0 = min(cin, 64) if mode == launch.ACT_1X1 else cin
+                for B, H, W in ((1, 339, 510), (1, 510, 384), (16, 32, 32), (2, 37, 53)):
+                    out = (ctypes.c_int * 7)()
+                    code = lib.esr_dense_plan(cout, cin, c0, mode, B, H, W, nsm, out)
+                    s11 = mode == launch.ACT_1X1
+                    want = launch.dense_plan(cout, cin, c0, s11, B, H, W, nsm)
+                    staged = launch.dense_staged_bytes(cout, cin, c0, s11, B, H, W, nsm)
+                    assert code == 0 and tuple(out) == tuple(want) + (staged,), (
+                        cout, cin, mode, B, H, W)
+    rs = np.random.RandomState(21)
+    B, H, W = 1, 339, 510
+    x = torch.from_numpy(rs.rand(B, H, W, 64).astype(np.float32)).to("cuda", torch.bfloat16)
+    w = K.prepare_rdb_ct_weights(_dense_params(rs, 64, 32, True), torch.bfloat16)
+    before = K.rdb_ct.weight_bytes_staged
+    K.rdb_ct(x, w)
+    got = K.rdb_ct.weight_bytes_staged - before
+    want = old = 0
+    for k in range(1, 6):
+        cin, cout = 64 + (k - 1) * 32, 64 if k == 5 else 32
+        want += launch.dense_c_plan(cout, cin, 64, k == 2, B, H, W, 0)[6]
+        old += B * -(-H // 8) * -(-W // 16) * (9 * cin + (64 if k == 2 else 0)) * cout * 2
+    assert got == want and 5 * got < old
+
+
+@pytest.mark.cuda
+def test_cuda_dense_mma_graph_replay_is_eager():
+    """rdb_ct's training forward at the training shape with the seeded noise
+    captured in a CUDA graph (five wgmma launches, their plans and tensor
+    maps held in the kernel parameters): a replay gives the eager call's
+    bits, and after new seed words are written in place, the eager call's
+    with those."""
+    _need_card()
+    rs = np.random.RandomState(16)
+    B, H, W = DENSE_TRAIN
+    x = torch.from_numpy(rs.randn(B, H, W, 64).astype(np.float32)).to("cuda", torch.bfloat16)
+    w = K.prepare_rdb_ct_weights(_dense_params(rs, 64, 32, True), torch.bfloat16)
+    seed = torch.tensor([7, 9], dtype=torch.int32, device="cuda")
+    call = lambda: K._rdb_ct_cuda(x, w, seed=seed, sigma=0.1, save=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()  # built, loaded and opted in before the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = call()
+    for words in ((7, 9), (3, 5)):
+        seed.copy_(torch.tensor(words, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = call()
+        for name, a, b in zip(("out", "cat", "lsv"), got, want):
+            assert torch.equal(a, b), (words, name)
 
 
 @pytest.mark.cuda
